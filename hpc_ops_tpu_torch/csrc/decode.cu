@@ -1,0 +1,237 @@
+// Paged GQA decode attention over a bf16 KV cache, with MTP draft rows.
+//
+// Replaces: hpc_ops_tpu/ops/attention/decode.py:_decode_kernel (reached
+// through _decode_pallas).
+//
+// Bound on the card: bytes. Each (request, kv head) streams its kv_len K and
+// V rows once (2 * kv_len * D bf16) for only G * sq query rows, so the work
+// is about G * sq FLOPs per byte, far below the ~295 FLOPs per byte at which
+// the H100's tensor cores, not its memory, would be the limit.
+//
+// Design: one block per (request, kv head). The block stages its G * sq
+// query rows in shared memory (float32, pre-scaled) and walks the request's
+// KV positions in tiles of kTile = 128 tokens through the page table:
+//   1. one thread per token of the tile reads the token's K row with 16-byte
+//      vector loads (all 128 rows of the tile in flight at once) and forms
+//      the scores of all rows against it; the block copies the tile's V rows
+//      (bf16) into shared memory at the same time;
+//   2. one warp per query row updates the online softmax (running max m,
+//      running sum l) and turns the scores into probabilities;
+//   3. every thread owns output columns and adds p * v for all rows.
+// Positions at or past kv_len are never read: their scores are -inf before
+// the exponential and their V rows are zeros in shared memory, and a
+// probability of 0 never multiplies a V value, so a page that holds NaN past
+// kv_len cannot leak. Page ids below 0 are read as page 0. Row r of the
+// block is (g = r / sq, s = r % sq) and sees keys up to kv_len - sq + s.
+// Page, slot and head strides are arguments, so the same kernel reads the
+// head-major HND cache and the NHD cache in place; K/V rows must be 16-byte
+// aligned.
+//
+// Known limit: B * Hkv blocks (64 at B = 8, Hkv = 8) cannot fill 132 SMs,
+// and a long request's tiles run in order; splitting KV across blocks is
+// later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 128;
+constexpr int kThreads = 128;  // one thread per token of a tile
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+    const __nv_bfloat16* __restrict__ q,  // [B * sq, hq, d]
+    const __nv_bfloat16* __restrict__ kc, const __nv_bfloat16* __restrict__ vc,
+    int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
+    int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
+    const int32_t* __restrict__ block_ids,  // [B, max_blocks]
+    const int32_t* __restrict__ kv_lens,    // [B]
+    __nv_bfloat16* __restrict__ out,        // [B * sq, hq, dv]
+    int max_blocks, int page_size, int sq, int hq, int hkv, int d, int dv,
+    float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int g_per = hq / hkv;
+  const int rows = g_per * sq;
+  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kTile, dv]
+  float* q_s = reinterpret_cast<float*>(v_s + kTile * dv);          // [rows, d]
+  float* p_s = q_s + rows * d;                                       // [rows, kTile]
+  float* acc = p_s + rows * kTile;                                   // [rows, dv]
+  float* m_s = acc + rows * dv;                                      // [rows]
+  float* l_s = m_s + rows;                                           // [rows]
+  float* alpha_s = l_s + rows;                                       // [rows]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int kv_len = kv_lens[b];
+  const int32_t* tbl = block_ids + static_cast<int64_t>(b) * max_blocks;
+
+  for (int i = tid; i < rows * d; i += kThreads) {
+    const int r = i / d, c = i % d;
+    const int g = r / sq, s = r % sq;
+    const int64_t src = (static_cast<int64_t>(b * sq + s) * hq + h * g_per + g) * d + c;
+    q_s[i] = __bfloat162float(q[src]) * scale;
+  }
+  for (int i = tid; i < rows * dv; i += kThreads) acc[i] = 0.f;
+  for (int r = tid; r < rows; r += kThreads) {
+    m_s[r] = -INFINITY;
+    l_s[r] = 0.f;
+  }
+  __syncthreads();
+
+  const int n_valid = min(kv_len, max_blocks * page_size);
+  for (int t0 = 0; t0 < n_valid; t0 += kTile) {
+    // 1a. V rows of the tile -> shared memory as bf16 (zeros past kv_len)
+    const int vchunks = dv / 8;
+    for (int i = tid; i < kTile * vchunks; i += kThreads) {
+      const int t = i / vchunks, c0 = (i % vchunks) * 8;
+      const int kpos = t0 + t;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (kpos < n_valid) {
+        const int page = max(tbl[kpos / page_size], 0);
+        val = *reinterpret_cast<const uint4*>(vc + h * v_head_stride + page * v_page_stride +
+                                              (kpos % page_size) * v_slot_stride + c0);
+      }
+      *reinterpret_cast<uint4*>(v_s + t * dv + c0) = val;
+    }
+    // 1b. scores: one thread per token, all rows, four rows per pass
+    {
+      const int t = tid;
+      const int kpos = t0 + t;
+      if (kpos < n_valid) {
+        const int page = max(tbl[kpos / page_size], 0);
+        const __nv_bfloat16* krow =
+            kc + h * k_head_stride + page * k_page_stride + (kpos % page_size) * k_slot_stride;
+        for (int r0 = 0; r0 < rows; r0 += 4) {
+          float sc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+          for (int c = 0; c < d; c += 8) {
+            const uint4 u = *reinterpret_cast<const uint4*>(krow + c);
+            const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+            float kf[8];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float2 f = __bfloat1622float2(k2[j]);
+              kf[2 * j] = f.x;
+              kf[2 * j + 1] = f.y;
+            }
+#pragma unroll
+            for (int rr = 0; rr < 4; ++rr) {
+              if (r0 + rr < rows) {
+                const float4 qa = *reinterpret_cast<const float4*>(q_s + (r0 + rr) * d + c);
+                const float4 qb = *reinterpret_cast<const float4*>(q_s + (r0 + rr) * d + c + 4);
+                sc[rr] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
+                          qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
+              }
+            }
+          }
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr) {
+            const int r = r0 + rr;
+            if (r < rows) {
+              const int limit = kv_len - sq + (r % sq);  // causal w.r.t. draft row
+              p_s[r * kTile + t] = kpos <= limit ? sc[rr] : -INFINITY;
+            }
+          }
+        }
+      } else {
+        for (int r = 0; r < rows; ++r) p_s[r * kTile + t] = -INFINITY;
+      }
+    }
+    __syncthreads();
+    // 2. online softmax: one warp per row
+    for (int r = warp; r < rows; r += kWarps) {
+      float* pr = p_s + r * kTile;
+      float mx = -INFINITY;
+      for (int t = lane; t < kTile; t += 32) mx = fmaxf(mx, pr[t]);
+      mx = warp_max(mx);
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int t = lane; t < kTile; t += 32) {
+        const float e = m_new == -INFINITY || pr[t] == -INFINITY ? 0.f : __expf(pr[t] - m_new);
+        pr[t] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = m_prev == -INFINITY ? 0.f : __expf(m_prev - m_new);
+        alpha_s[r] = alpha;
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+    // 3. acc = acc * alpha + p @ v
+    const int n_here = min(kTile, n_valid - t0);
+    for (int i = tid; i < rows * dv; i += kThreads) {
+      const int r = i / dv, c = i % dv;
+      const float* pr = p_s + r * kTile;
+      float a = 0.f;
+      for (int t = 0; t < n_here; ++t) {
+        const float pv = pr[t];
+        if (pv != 0.f) a += pv * __bfloat162float(v_s[t * dv + c]);
+      }
+      acc[i] = acc[i] * alpha_s[r] + a;
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < rows * dv; i += kThreads) {
+    const int r = i / dv, c = i % dv;
+    const int g = r / sq, s = r % sq;
+    const float l = l_s[r];
+    const float o = l == 0.f ? 0.f : acc[i] / l;
+    out[(static_cast<int64_t>(b * sq + s) * hq + h * g_per + g) * dv + c] = __float2bfloat16(o);
+  }
+}
+
+}  // namespace
+
+extern "C" int hpc_paged_decode_bf16(
+    const void* q, const void* kcache, const void* vcache,
+    int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
+    int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
+    const void* block_ids, const void* kv_lens, void* out, int batch,
+    int max_blocks, int page_size, int sq, int hq, int hkv, int d, int dv,
+    float scale, void* stream) {
+  if (batch == 0) return 0;
+  if (d % 8 != 0 || dv % 8 != 0 || hq % hkv != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows = (hq / hkv) * sq;
+  const size_t smem = sizeof(__nv_bfloat16) * static_cast<size_t>(kTile) * dv +
+                      sizeof(float) * (static_cast<size_t>(rows) * (d + kTile + dv) + 3 * rows);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  dim3 grid(batch, hkv);
+  paged_decode_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(kcache),
+      static_cast<const __nv_bfloat16*>(vcache), k_head_stride, k_page_stride,
+      k_slot_stride, v_head_stride, v_page_stride, v_slot_stride,
+      static_cast<const int32_t*>(block_ids), static_cast<const int32_t*>(kv_lens),
+      static_cast<__nv_bfloat16*>(out), max_blocks, page_size, sq, hq, hkv, d,
+      dv, scale);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,284 @@
+// Varlen causal prefill attention over a paged bf16 KV cache.
+//
+// Replaces: hpc_ops_tpu/ops/attention/prefill.py:_prefill_kernel (reached
+// through _prefill_pallas, dense bf16 path).
+//
+// Bound on the card: operations. A q tile of Q tokens reads each K/V row of
+// its causal prefix once for G * Q query rows, so long prompts do
+// O(q_len * kv_len * D) FLOPs against O(kv_len * D) bytes per tile.
+//
+// Design: one block per (request, kv head, q tile). The tile holds
+// kRows = 64 query rows: Q = 64 / G tokens times the G query heads of the
+// kv head's group (row m is token m / G, head m % G), so every K/V row
+// brought into shared memory serves the whole GQA group. q is read from, and
+// o written to, the packed [total_q, Hq * D] rows directly through
+// cu_seqlens. The block walks KV tiles of kCols = 64 positions up to its
+// causal limit through the page table (page ids below 0 read page 0):
+//   * K (transposed) and V tiles are staged in shared memory as float32;
+//   * each thread computes a 4 x 4 block of scores from float4 reads and
+//     keeps it in registers; the causal mask kpos <= (kv_len - q_len) + qpos
+//     is applied before the exponential;
+//   * the online softmax reduces each row across the 16 threads that hold
+//     it with warp shuffles, rescales the thread's 4 x (D/16) output
+//     accumulator in registers, and writes the probabilities back to shared
+//     memory for the p @ v product.
+// Everything is float32 (no bf16 exponent tricks). Rows of the output past
+// cu_seqlens[B] belong to no request; the wrapper zero-fills them.
+//
+// Known limit: the products run on the CUDA cores in float32, not on the
+// tensor cores (wgmma); that is later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kRows = 64;
+constexpr int kCols = 64;
+constexpr int kThreads = 256;  // 16 x 16
+
+__device__ __forceinline__ float group16_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float group16_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ void bf16x8_to_f32(const uint4& u, float* f) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(p[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
+    const __nv_bfloat16* __restrict__ q,  // [rows, hq * D]
+    const __nv_bfloat16* __restrict__ kc, const __nv_bfloat16* __restrict__ vc,
+    int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
+    int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
+    const int32_t* __restrict__ cu, const int32_t* __restrict__ kv_lens,
+    const int32_t* __restrict__ block_ids, __nv_bfloat16* __restrict__ out,
+    int max_blocks, int page_size, int hq, int hkv, int q_tile, float scale) {
+  constexpr int kColGroups = D / 64;  // output columns c = k*64 + tx*4 + e
+  extern __shared__ float smem[];
+  float* qt_s = smem;              // [D][kRows], pre-scaled
+  float* kt_s = qt_s + D * kRows;  // [D][kCols]
+  float* v_s = kt_s + D * kCols;   // [kCols][D]
+  float* pt_s = v_s + kCols * D;   // [kCols][kRows]
+
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int g_per = hq / hkv;
+  const int q_start = cu[b];
+  const int q_len = cu[b + 1] - q_start;
+  const int i0 = blockIdx.z * q_tile;
+  if (i0 >= q_len) return;
+  const int n_tok = min(q_tile, q_len - i0);
+  const int rows_used = n_tok * g_per;
+  const int kv_len = kv_lens[b];
+  const int kv_off = kv_len - q_len;
+  const int kv_end = min(min(kv_len, kv_off + i0 + n_tok), max_blocks * page_size);
+  const int32_t* tbl = block_ids + static_cast<int64_t>(b) * max_blocks;
+  const int64_t row_stride = static_cast<int64_t>(hq) * D;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+
+  for (int idx = tid; idx < kRows * D; idx += kThreads) {
+    const int m = idx / D, c = idx % D;
+    float val = 0.f;
+    if (m < rows_used) {
+      const int64_t src = (q_start + i0 + m / g_per) * row_stride + (h * g_per + m % g_per) * D + c;
+      val = __bfloat162float(q[src]) * scale;
+    }
+    qt_s[c * kRows + m] = val;
+  }
+
+  float o[4][4 * kColGroups];
+  float m_i[4], l_i[4];
+  int limit[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    limit[i] = r < rows_used ? kv_off + i0 + r / g_per : -1;
+    m_i[i] = -INFINITY;
+    l_i[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * kColGroups; ++c) o[i][c] = 0.f;
+  }
+
+  for (int t0 = 0; t0 < kv_end; t0 += kCols) {
+    __syncthreads();  // previous tile's readers are done
+    // K tile, transposed: two threads per 16 columns of a row
+    for (int idx = tid; idx < kCols * D / 8; idx += kThreads) {
+      const int pair = idx & 1;
+      const int n = (idx >> 1) % kCols;
+      const int d0 = ((idx >> 1) / kCols) * 16 + pair * 8;
+      const int kpos = t0 + n;
+      float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (kpos < kv_end) {
+        const int page = max(tbl[kpos / page_size], 0);
+        const uint4 u = *reinterpret_cast<const uint4*>(
+            kc + h * k_head_stride + page * k_page_stride + (kpos % page_size) * k_slot_stride + d0);
+        bf16x8_to_f32(u, f);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) kt_s[(d0 + j) * kCols + n] = f[j];
+    }
+    // V tile, row-major
+    for (int idx = tid; idx < kCols * D / 8; idx += kThreads) {
+      const int n = idx / (D / 8);
+      const int c0 = (idx % (D / 8)) * 8;
+      const int kpos = t0 + n;
+      float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (kpos < kv_end) {
+        const int page = max(tbl[kpos / page_size], 0);
+        const uint4 u = *reinterpret_cast<const uint4*>(
+            vc + h * v_head_stride + page * v_page_stride + (kpos % page_size) * v_slot_stride + c0);
+        bf16x8_to_f32(u, f);
+      }
+      float4* dst = reinterpret_cast<float4*>(v_s + n * D + c0);
+      dst[0] = make_float4(f[0], f[1], f[2], f[3]);
+      dst[1] = make_float4(f[4], f[5], f[6], f[7]);
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      const float4 a = *reinterpret_cast<const float4*>(qt_s + d * kRows + ty * 4);
+      const float4 k4 = *reinterpret_cast<const float4*>(kt_s + d * kCols + tx * 4);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float kv[4] = {k4.x, k4.y, k4.z, k4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] += av[i] * kv[j];
+    }
+
+    float p[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = t0 + tx * 4 + j;
+        if (!(kpos <= limit[i] && kpos < kv_end)) s[i][j] = -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = group16_max(mx);
+      const float m_new = fmaxf(m_i[i], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p[i][j] = s[i][j] == -INFINITY ? 0.f : __expf(s[i][j] - m_new);
+        sum += p[i][j];
+      }
+      sum = group16_sum(sum);
+      const float alpha = m_i[i] == -INFINITY ? 0.f : __expf(m_i[i] - m_new);
+      l_i[i] = l_i[i] * alpha + sum;
+      m_i[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4 * kColGroups; ++c) o[i][c] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      *reinterpret_cast<float4*>(pt_s + (tx * 4 + j) * kRows + ty * 4) =
+          make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
+    }
+    __syncthreads();
+
+    const int n_here = min(kCols, kv_end - t0);
+    for (int n = 0; n < n_here; ++n) {
+      const float4 pv = *reinterpret_cast<const float4*>(pt_s + n * kRows + ty * 4);
+      const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int k = 0; k < kColGroups; ++k) {
+        const float4 v4 = *reinterpret_cast<const float4*>(v_s + n * D + k * 64 + tx * 4);
+        const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (pr[i] == 0.f) continue;  // a masked position never touches V
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[i][k * 4 + e] += pr[i] * vv[e];
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    if (r >= rows_used) continue;
+    const float inv = l_i[i] == 0.f ? 0.f : 1.f / l_i[i];
+    __nv_bfloat16* dst = out + (q_start + i0 + r / g_per) * row_stride + (h * g_per + r % g_per) * D;
+#pragma unroll
+    for (int k = 0; k < kColGroups; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[k * 64 + tx * 4 + e] = __float2bfloat16(o[i][k * 4 + e] * inv);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* kc, const void* vc, const int64_t* st,
+           const void* cu, const void* kv_lens, const void* block_ids, void* out,
+           int batch, int max_blocks, int page_size, int hq, int hkv,
+           int n_q_tiles, int q_tile, float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (static_cast<size_t>(D) * (kRows + kCols) +
+                                       static_cast<size_t>(kCols) * (D + kRows));
+  cudaError_t e = cudaFuncSetAttribute(paged_prefill_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(batch, hkv, n_q_tiles);
+  paged_prefill_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
+      static_cast<const __nv_bfloat16*>(vc), st[0], st[1], st[2], st[3], st[4], st[5],
+      static_cast<const int32_t*>(cu), static_cast<const int32_t*>(kv_lens),
+      static_cast<const int32_t*>(block_ids), static_cast<__nv_bfloat16*>(out),
+      max_blocks, page_size, hq, hkv, q_tile, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launches one block per (request, kv head, q tile of 64 / G tokens) and
+// returns a cudaError_t code. d (the head dim of q, K and V) is 64 or 128.
+extern "C" int hpc_paged_prefill_bf16(
+    const void* q, const void* kcache, const void* vcache,
+    int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
+    int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
+    const void* cu, const void* kv_lens, const void* block_ids, void* out,
+    int batch, int max_blocks, int page_size, int hq, int hkv, int d,
+    int max_seqlens_q, float scale, void* stream) {
+  if (hq % hkv != 0 || hq / hkv > kRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || max_seqlens_q == 0) return 0;
+  const int q_tile = kRows / (hq / hkv);
+  const int n_q_tiles = (max_seqlens_q + q_tile - 1) / q_tile;
+  const int64_t st[6] = {k_head_stride, k_page_stride, k_slot_stride,
+                         v_head_stride, v_page_stride, v_slot_stride};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return launch<64>(q, kcache, vcache, st, cu, kv_lens, block_ids, out, batch,
+                        max_blocks, page_size, hq, hkv, n_q_tiles, q_tile, scale, s);
+    case 128:
+      return launch<128>(q, kcache, vcache, st, cu, kv_lens, block_ids, out, batch,
+                         max_blocks, page_size, hq, hkv, n_q_tiles, q_tile, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

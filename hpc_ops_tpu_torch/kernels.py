@@ -1,0 +1,149 @@
+"""Build and bind the port's CUDA kernels.
+
+The sources in ``csrc/*.cu`` each export a plain C launcher. At first use
+they are compiled by ``nvcc`` for ``sm_90a`` (one process per source, all
+started together) and linked into one shared library under
+``<checkout>/build/kernels/``, named by a hash of the sources and flags so a
+changed source is rebuilt and an unchanged one is loaded as it is. The
+library is bound with ``ctypes``; nothing here includes PyTorch's headers.
+
+Each launcher takes raw device pointers, sizes, strides and the CUDA stream
+as Python ints and returns the ``cudaError_t`` of its launch; the wrappers in
+the op modules raise when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+SOURCES = ("rope_store.cu", "decode.cu", "prefill.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_SIGNATURES = {
+    "hpc_rope_store_bf16": [_P] * 10 + [_I] * 8 + [_I64] * 5 + [_I, _P],
+    "hpc_paged_decode_bf16": [_P] * 3 + [_I64] * 6 + [_P] * 3 + [_I] * 8 + [_F, _P],
+    "hpc_paged_prefill_bf16": [_P] * 3 + [_I64] * 6 + [_P] * 4 + [_I] * 7 + [_F, _P],
+}
+
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+
+
+def find_nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libhpc_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile and link the kernels unless the library for these sources
+    exists. Returns the library path."""
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for name in SOURCES:
+            obj = os.path.join(tmp, name.replace(".cu", ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, name), "-o", obj]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        errors = []
+        for name, _, p in procs:
+            log, _ = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"{name}:\n{log}")
+        if errors:
+            raise RuntimeError("nvcc failed\n" + "\n".join(errors))
+        tmp_so = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_so, *(o for _, o, _ in procs)],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed\n" + link.stdout + link.stderr)
+        os.replace(tmp_so, so)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The bound kernel library, built on first use."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            handle = ctypes.CDLL(build())
+            for fn, argtypes in _SIGNATURES.items():
+                getattr(handle, fn).argtypes = argtypes
+                getattr(handle, fn).restype = ctypes.c_int
+            _LIB = handle
+    return _LIB
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def wrappers() -> dict:
+    """The kernel wrappers by name; each carries a plain-int ``launches``."""
+    from hpc_ops_tpu_torch.ops.attention.decode import paged_decode_attention
+    from hpc_ops_tpu_torch.ops.attention.prefill import paged_prefill_attention
+    from hpc_ops_tpu_torch.ops.rope_kernel import rope_store_rows
+
+    return {
+        "rope_store": rope_store_rows,
+        "paged_decode": paged_decode_attention,
+        "paged_prefill": paged_prefill_attention,
+    }
+
+
+def reset_launch_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+__all__ = [
+    "BUILD_DIR",
+    "SOURCES",
+    "build",
+    "lib",
+    "check",
+    "stream_ptr",
+    "wrappers",
+    "reset_launch_counts",
+    "launch_counts",
+]

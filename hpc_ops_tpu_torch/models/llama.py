@@ -1,0 +1,329 @@
+"""Dense Llama-class decoder on the port's operator stack (port of
+``models/llama.py``, dense single-device bf16-KV path).
+
+Weights are a plain dict of tensors with the JAX package's layout:
+``{"embed", "final_norm", "lm_head", "cos_sin", "layers": [{"attn_norm",
+"wqkv", "wo", "mlp_norm", "w_gate_up", "w_down"}, ...]}``; projections are
+``x @ w`` with ``w`` of shape [in, out]. Caches are a list of per-layer
+``{"k", "v"}`` HND ``[Hkv, num_blocks, block_size, D]`` bf16 tensors, updated
+IN PLACE by :func:`forward_step` (the JAX version returns new caches; this
+one returns the same list).
+
+Each layer: RMSNorm, the QKV projection, RoPE fused with the paged KV store
+(the CUDA kernel on decode steps), paged attention (prefill or decode
+kernel), the o-projection with residual add, RMSNorm and the gated-SiLU MLP.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from hpc_ops_tpu_torch.ops.attention.decode import attention_decode
+from hpc_ops_tpu_torch.ops.attention.prefill import attention_with_kvcache_prefill
+from hpc_ops_tpu_torch.ops.normalization import rmsnorm_ref
+from hpc_ops_tpu_torch.ops.rope import make_cos_sin_cache, rope_norm_store_kv
+from hpc_ops_tpu_torch.ops.sampler import (
+    fused_sampler_temperature_sample,
+    gumbel_from_uniform,
+)
+
+
+class MoEConfig(NamedTuple):
+    """MoE geometry (kept as a type; MoE serving is a later slice)."""
+
+    num_experts: int = 8
+    topk: int = 2
+    expert_intermediate: int = 1024
+    scheme: str = "pertensor_fp8"
+    act_clip: float = 8.0
+
+
+class ModelConfig(NamedTuple):
+    vocab: int = 32000
+    hidden: int = 4096
+    layers: int = 32
+    q_heads: int = 32
+    kv_heads: int = 8
+    head_dim: int = 128
+    intermediate: int = 14336
+    rope_base: float = 500000.0
+    norm_eps: float = 1e-5
+    fp8_kv: bool = False
+    int8_kv: bool = False
+    kv_scale: float = 0.05
+    qkv_bias: bool = False
+    dense_int8: bool = False
+    moe: Optional[MoEConfig] = None
+    max_position: int = 8192
+    # residual-branch gain; 1/sqrt(2*layers) keeps the residual stream
+    # dominant as in trained networks
+    residual_alpha: float = 1.0
+
+    @property
+    def qkv_out(self) -> int:
+        return (self.q_heads + 2 * self.kv_heads) * self.head_dim
+
+
+def llama3_8b(**kw) -> ModelConfig:
+    return ModelConfig(
+        vocab=128256, hidden=4096, layers=32, q_heads=32, kv_heads=8,
+        head_dim=128, intermediate=14336, **kw,
+    )
+
+
+def tiny_config(moe: bool = False, **kw) -> ModelConfig:
+    """Small config for tests / dry runs."""
+    return ModelConfig(
+        vocab=512, hidden=256, layers=2, q_heads=8, kv_heads=4, head_dim=128,
+        intermediate=512, max_position=512,
+        moe=MoEConfig(num_experts=8, topk=2, expert_intermediate=256) if moe else None,
+        **kw,
+    )
+
+
+def check_supported(cfg: ModelConfig, axis_name=None) -> None:
+    """Raise NotImplementedError for configurations of later slices."""
+    later = {
+        "fp8_kv": ("ROADMAP queue 1 item 2 (quantized KV)", cfg.fp8_kv),
+        "int8_kv": ("ROADMAP queue 1 item 2 (quantized KV)", cfg.int8_kv),
+        "dense_int8": ("ROADMAP queue 1 item 2 (quantized KV and W8A8)", cfg.dense_int8),
+        "moe": ("ROADMAP queue 1 item 3 (MoE)", cfg.moe is not None),
+        "qkv_bias": ("ROADMAP queue 1 item 7 (checkpoint conversion)", cfg.qkv_bias),
+        "axis_name": ("ROADMAP queue 1 item 8 (multi-GPU)", axis_name is not None),
+    }
+    for name, (item, on) in later.items():
+        if on:
+            raise NotImplementedError(f"{name} is not ported yet: {item}")
+
+
+def init_weights(
+    cfg: ModelConfig,
+    generator: Optional[torch.Generator] = None,
+    device="cuda",
+    dtype=torch.bfloat16,
+    seed: int = 0,
+) -> dict:
+    """Random weights with the JAX package's layout and distributions
+    (normal / sqrt(fan_in), norms at 1). Draws from ``generator`` (a
+    ``torch.Generator`` on ``device``; seeded from ``seed`` when None). The
+    numbers differ from JAX's; :func:`weights_from_numpy` carries JAX's over.
+    """
+    check_supported(cfg)
+    device = torch.device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(seed)
+    h, d = cfg.hidden, cfg.head_dim
+
+    def lin(fan_in, shape):
+        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return w.div_(math.sqrt(fan_in)).to(dtype)
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.float32, device=device)
+
+    layers = []
+    for _ in range(cfg.layers):
+        layers.append({
+            "attn_norm": ones(h),
+            "wqkv": lin(h, (h, cfg.qkv_out)),
+            "wo": lin(cfg.q_heads * d, (cfg.q_heads * d, h)),
+            "mlp_norm": ones(h),
+            "w_gate_up": lin(h, (h, 2 * cfg.intermediate)),
+            "w_down": lin(cfg.intermediate, (cfg.intermediate, h)),
+        })
+    return {
+        "embed": lin(1, (cfg.vocab, h)),
+        "final_norm": ones(h),
+        "lm_head": lin(h, (h, cfg.vocab)),
+        "layers": layers,
+        "cos_sin": make_cos_sin_cache(cfg.max_position, d, cfg.rope_base, device=device),
+    }
+
+
+def _to_torch(a: np.ndarray, device) -> torch.Tensor:
+    a = np.array(a, order="C")  # a writable copy: torch may not share read-only memory
+    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: carry the bits over
+        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def weights_from_numpy(tree, device="cuda"):
+    """JAX weight pytree already converted to numpy -> the port's weights.
+
+    bfloat16 arrays (numpy's ml_dtypes type) are carried over bit-exactly
+    through an int16 view, so both packages compute the same function.
+    """
+    if isinstance(tree, dict):
+        return {k: weights_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [weights_from_numpy(v, device) for v in tree]
+    return _to_torch(np.asarray(tree), device)
+
+
+def init_cache(cfg: ModelConfig, num_blocks: int, block_size: int, tp: int = 1, device="cuda"):
+    """Per-layer HND caches ``{"k", "v"}`` of [Hkv/tp, blocks, bs, D] bf16 zeros."""
+    check_supported(cfg)
+    hkv = cfg.kv_heads // tp
+    shape = (hkv, num_blocks, block_size, cfg.head_dim)
+    return [
+        {
+            "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        }
+        for _ in range(cfg.layers)
+    ]
+
+
+def _mlp_dense(h_normed, layer):
+    gu = h_normed @ layer["w_gate_up"]
+    i = gu.shape[-1] // 2
+    gate = gu[..., :i].float()
+    act = (gate * torch.sigmoid(gate)).to(torch.bfloat16) * gu[..., i:]
+    return act @ layer["w_down"]
+
+
+def forward_step(
+    weights,
+    caches,
+    cfg: ModelConfig,
+    token_ids: torch.Tensor,  # [rows] new tokens, packed
+    seq_lens: torch.Tensor,  # [B] total tokens incl. new
+    q_index: torch.Tensor,  # [B+1] prefix sums of new tokens per request
+    block_ids: torch.Tensor,  # [B, max_blocks]
+    is_prefill: bool,
+    mtp: int = 0,
+    axis_name: Optional[str] = None,
+    rank_ep: int = 0,
+    max_seqlens_q: int = 1,
+    temperature: float = 0.0,
+    sample_seed: int = 0,
+    return_all_logits: bool = False,
+    generator: Optional[torch.Generator] = None,
+):
+    """One forward step (prefill or decode) over the paged caches.
+
+    Returns ``(out, caches)``: sampled token ids [B, 1] when temperature > 0,
+    else the bf16 logits of each request's last row [B, vocab] (of every row
+    with ``return_all_logits``). The caches are written in place.
+    """
+    del rank_ep
+    check_supported(cfg, axis_name)
+    rows = token_ids.shape[0]
+    x = weights["embed"][token_ids.long()]
+    h_normed = rmsnorm_ref(x, weights["layers"][0]["attn_norm"], cfg.norm_eps).to(torch.bfloat16)
+    x_res = x.to(torch.bfloat16)
+    for li, layer in enumerate(weights["layers"]):
+        qkv = h_normed @ layer["wqkv"]
+        q, k_cache, v_cache = rope_norm_store_kv(
+            caches[li]["k"], caches[li]["v"], qkv, weights["cos_sin"], seq_lens,
+            q_index, block_ids, is_prefill, cache_layout="HND", zero_tails=False,
+            # decode rows are all real (or parked on the dummy page), the
+            # fused kernel's contract; prefill rows may be padded
+            impl="xla" if is_prefill else "pallas",
+        )
+        if is_prefill:
+            attn = attention_with_kvcache_prefill(
+                q, k_cache, v_cache, q_index, block_ids, seq_lens, max_seqlens_q,
+                cache_layout="HND",
+            )
+        else:
+            attn = attention_decode(
+                q, k_cache, v_cache, block_ids, seq_lens, mtp=mtp,
+                new_kv_included=True, cache_layout="HND",
+            )
+        attn_out = attn.reshape(rows, -1) @ layer["wo"]
+        if cfg.residual_alpha != 1.0:
+            attn_out = attn_out * cfg.residual_alpha
+        x_res = (x_res.float() + attn_out.float()).to(torch.bfloat16)
+        h_normed = rmsnorm_ref(x_res, layer["mlp_norm"], cfg.norm_eps).to(torch.bfloat16)
+        mlp_out = _mlp_dense(h_normed, layer)
+        if cfg.residual_alpha != 1.0:
+            mlp_out = mlp_out * cfg.residual_alpha
+        next_norm = (
+            weights["layers"][li + 1]["attn_norm"] if li + 1 < cfg.layers else weights["final_norm"]
+        )
+        x_res = (x_res.float() + mlp_out.float()).to(torch.bfloat16)
+        h_normed = rmsnorm_ref(x_res, next_norm, cfg.norm_eps).to(torch.bfloat16)
+
+    if return_all_logits:
+        return h_normed @ weights["lm_head"], caches
+    last_rows = (q_index[1:] - 1).long()
+    logits = h_normed[last_rows] @ weights["lm_head"]
+    if temperature > 0:
+        tokens = fused_sampler_temperature_sample(
+            logits.float(), temperature, seed=sample_seed, generator=generator
+        )
+        return tokens, caches
+    return logits, caches
+
+
+def decode_multi(
+    weights,
+    caches,
+    cfg: ModelConfig,
+    last_tokens: torch.Tensor,  # [B] last sampled token per slot
+    seq_lens: torch.Tensor,  # [B] total tokens incl. the input token
+    block_ids: torch.Tensor,  # [B, max_blocks] (pre-extended for num_steps)
+    num_steps: int,
+    temperature: float = 0.0,
+    sample_seed: int = 0,
+    axis_name: Optional[str] = None,
+    rank_ep: int = 0,
+    return_logprobs: bool = False,
+):
+    """``num_steps`` decode steps in a loop: forward, sample, append to the
+    cache, feed the token back (the JAX version is one ``lax.scan``).
+
+    The caller pre-extends each page table to cover ``seq_lens + num_steps -
+    1`` slots. Greedy matches single-step decode token for token;
+    temperature > 0 draws each step's Gumbel noise from a ``torch.Generator``
+    seeded with ``sample_seed`` (other numbers than JAX's).
+
+    Returns ``(tokens [num_steps, B] int32, caches)``, or with
+    ``return_logprobs`` ``((tokens, logprobs [num_steps, B] f32), caches)``.
+    """
+    b = seq_lens.shape[0]
+    dev = last_tokens.device
+    q_index = torch.arange(b + 1, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(int(sample_seed)) if temperature > 0 else None
+    toks = last_tokens.to(torch.int32)
+    lens = seq_lens.to(torch.int32)
+    out, lps = [], []
+    for _ in range(num_steps):
+        logits, caches = forward_step(
+            weights, caches, cfg, toks, lens, q_index, block_ids, is_prefill=False,
+            axis_name=axis_name, rank_ep=rank_ep, max_seqlens_q=1,
+        )
+        if temperature > 0:
+            u = torch.rand(logits.shape, generator=gen, device=dev).clamp_(min=1e-20)
+            nxt = fused_sampler_temperature_sample(
+                logits.float(), temperature, gumbel_noise=gumbel_from_uniform(u)
+            ).reshape(-1)
+        else:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if return_logprobs:
+            lsm = torch.log_softmax(logits.float(), dim=-1)
+            lps.append(lsm.gather(1, nxt.long()[:, None])[:, 0])
+        out.append(nxt)
+        toks, lens = nxt, lens + 1
+    tokens = torch.stack(out)
+    if return_logprobs:
+        return (tokens, torch.stack(lps)), caches
+    return tokens, caches
+
+
+__all__ = [
+    "ModelConfig",
+    "MoEConfig",
+    "llama3_8b",
+    "tiny_config",
+    "init_weights",
+    "weights_from_numpy",
+    "init_cache",
+    "forward_step",
+    "decode_multi",
+]

@@ -1,0 +1,202 @@
+"""RoPE + optional QK-RMSNorm + paged KV store, bf16 (port of ``ops/rope.py``).
+
+Two formulations, chosen by ``impl`` as in the JAX package:
+  * "auto" / "xla": plain PyTorch gather + elementwise + masked store; it
+    tolerates padded rows (rows past ``q_index[-1]`` are dropped);
+  * "pallas": the fused store kernel (``ops/rope_kernel.py``, CUDA on the
+    card). The caller promises that every qkv row is a real token.
+
+The name "pallas" is kept so one call serves both packages. Caches are
+updated IN PLACE and returned (the JAX versions return new caches).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from hpc_ops_tpu_torch.config import QKNormPolicy
+from hpc_ops_tpu_torch.ops.kv_cache import (
+    PagedKVCache,
+    flat_slot_ids,
+    store_kv,
+    zero_block_tails,
+)
+from hpc_ops_tpu_torch.ops.rope_kernel import (
+    _head_rmsnorm,
+    _rotate_neox,
+    _row_mapping,
+    rope_store_rows,
+)
+
+
+def can_use_rope_kernel(cache_dtype, qkv_dtype, cache_layout: str, store_to_cache: bool) -> bool:
+    """True when the fused store kernel applies: bf16 qkv and cache, NHD or
+    HND, storing to the cache. Unlike the TPU kernel there is no condition on
+    the row count, and HND is served directly."""
+    return (
+        store_to_cache
+        and cache_layout in ("NHD", "HND")
+        and cache_dtype == torch.bfloat16
+        and qkv_dtype == torch.bfloat16
+    )
+
+
+def make_cos_sin_cache(
+    max_position: int,
+    head_dim: int,
+    base: float = 10000.0,
+    rope_scaling: dict | None = None,
+    device="cpu",
+):
+    """[max_position, head_dim] float32 table: first half cos(t*f), second half sin.
+
+    ``rope_scaling`` supports ``{"rope_type": "linear", "factor": f}`` and
+    Llama-3.1's ``{"rope_type": "llama3", "factor", "low_freq_factor",
+    "high_freq_factor", "original_max_position_embeddings"}``.
+    """
+    inv_freq = 1.0 / (
+        base ** (torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim)
+    )
+    if rope_scaling is not None:
+        kind = rope_scaling.get("rope_type") or rope_scaling.get("type")
+        factor = float(rope_scaling["factor"])
+        if kind == "linear":
+            inv_freq = inv_freq / factor
+        elif kind == "llama3":
+            lo_f = float(rope_scaling["low_freq_factor"])
+            hi_f = float(rope_scaling["high_freq_factor"])
+            orig = float(rope_scaling["original_max_position_embeddings"])
+            wavelen = 2.0 * math.pi / inv_freq
+            smooth = ((orig / wavelen - lo_f) / (hi_f - lo_f)).clamp(0.0, 1.0)
+            scaled = (1.0 - smooth) * inv_freq / factor + smooth * inv_freq
+            inv_freq = torch.where(
+                wavelen < orig / hi_f,  # high-frequency band: unscaled
+                inv_freq,
+                torch.where(wavelen > orig / lo_f, inv_freq / factor, scaled),
+            )
+        else:
+            raise ValueError(f"unsupported rope_scaling type: {kind!r}")
+    t = torch.arange(max_position, dtype=torch.float32)
+    freqs = torch.outer(t, inv_freq)
+    return torch.cat([torch.cos(freqs), torch.sin(freqs)], dim=-1).to(device)
+
+
+def _split_qkv(qkv, num_q_heads, num_kv_heads, qk_dim, v_dim):
+    rows = qkv.shape[0]
+    q_end = num_q_heads * qk_dim
+    k_end = q_end + num_kv_heads * qk_dim
+    q = qkv[:, :q_end].reshape(rows, num_q_heads, qk_dim)
+    k = qkv[:, q_end:k_end].reshape(rows, num_kv_heads, qk_dim)
+    v = qkv[:, k_end:].reshape(rows, num_kv_heads, v_dim)
+    return q, k, v
+
+
+def _rope_norm_core(
+    qkv, cos_sin, num_seqlen_per_req, q_index, q_norm_weight, k_norm_weight,
+    qk_norm_policy, num_kv_heads, qk_dim, v_dim,
+):
+    """Split, (norm), rope, (norm). Returns f32 q, k, the raw v and the mapping."""
+    rows, hidden = qkv.shape
+    num_q_heads = (hidden - num_kv_heads * (qk_dim + v_dim)) // qk_dim
+    q, k, v = _split_qkv(qkv, num_q_heads, num_kv_heads, qk_dim, v_dim)
+    m = _row_mapping(rows, num_seqlen_per_req, q_index)
+    cs = cos_sin[m.positions.clamp(0, cos_sin.shape[0] - 1)].float()
+    q, k = q.float(), k.float()
+    policy = QKNormPolicy(qk_norm_policy)
+    if policy == QKNormPolicy.NORM_THEN_ROPE:
+        q, k = _head_rmsnorm(q, q_norm_weight), _head_rmsnorm(k, k_norm_weight)
+    q, k = _rotate_neox(q, cs), _rotate_neox(k, cs)
+    if policy == QKNormPolicy.ROPE_THEN_NORM:
+        q, k = _head_rmsnorm(q, q_norm_weight), _head_rmsnorm(k, k_norm_weight)
+    return q, k, v, m
+
+
+def rope_norm_store_kv(
+    key_cache: torch.Tensor,
+    value_cache: torch.Tensor,
+    qkv: torch.Tensor,
+    cos_sin: torch.Tensor,
+    num_seqlen_per_req: torch.Tensor,
+    q_index: torch.Tensor,
+    kvcache_indices: torch.Tensor,
+    is_prefill: bool,
+    q_norm_weight: Optional[torch.Tensor] = None,
+    k_norm_weight: Optional[torch.Tensor] = None,
+    qk_norm_policy: int = 0,
+    store_to_cache: bool = True,
+    cache_layout: str = "NHD",
+    zero_tails: bool = True,
+    impl: str = "auto",
+):
+    """RoPE + optional QK RMSNorm + paged-KV store (bf16).
+
+    Returns ``(q_rotated [rows, Hq, Dqk] bf16, key_cache, value_cache)`` with
+    the caches written in place, or with ``store_to_cache=False`` the
+    buffers ``(q, k_out, v_out)`` instead.
+    """
+    del is_prefill  # one path: positions come from the scalar tables
+    if cache_layout == "HND":
+        num_kv_heads, qk_dim = key_cache.shape[0], key_cache.shape[3]
+    else:
+        num_kv_heads, qk_dim = key_cache.shape[2], key_cache.shape[3]
+    v_dim = value_cache.shape[3]
+    if impl == "pallas" and can_use_rope_kernel(
+        key_cache.dtype, qkv.dtype, cache_layout, store_to_cache
+    ):
+        return _rope_store_kernel_path(
+            key_cache, value_cache, qkv, cos_sin, num_seqlen_per_req, q_index,
+            kvcache_indices, q_norm_weight, k_norm_weight, qk_norm_policy,
+            num_kv_heads, qk_dim, v_dim, cache_layout, zero_tails,
+        )
+    q, k, v, m = _rope_norm_core(
+        qkv, cos_sin, num_seqlen_per_req, q_index, q_norm_weight, k_norm_weight,
+        qk_norm_policy, num_kv_heads, qk_dim, v_dim,
+    )
+    keep = m.valid[:, None, None]
+    q_out = torch.where(keep, q, 0.0).to(torch.bfloat16)
+    if not store_to_cache:
+        k_out = torch.where(keep, k, 0.0).to(torch.bfloat16)
+        v_out = torch.where(keep, v.float(), 0.0).to(torch.bfloat16)
+        return q_out, k_out, v_out
+    cache = PagedKVCache(key_cache, value_cache)
+    blk = key_cache.shape[2] if cache_layout == "HND" else key_cache.shape[1]
+    slots = flat_slot_ids(m.positions, m.req_ids, kvcache_indices, blk, m.valid)
+    store_kv(cache, k, v, slots, layout=cache_layout)
+    if zero_tails:
+        zero_block_tails(cache, num_seqlen_per_req, kvcache_indices, layout=cache_layout)
+    return q_out, key_cache, value_cache
+
+
+def _rope_store_kernel_path(
+    key_cache, value_cache, qkv, cos_sin, num_seqlen_per_req, q_index,
+    kvcache_indices, q_norm_weight, k_norm_weight, qk_norm_policy,
+    num_kv_heads, qk_dim, v_dim, cache_layout, zero_tails,
+):
+    """Fused-kernel store path. Every qkv row must be a real token."""
+    rows, hidden = qkv.shape
+    num_q_heads = (hidden - num_kv_heads * (qk_dim + v_dim)) // qk_dim
+    if cache_layout == "HND":
+        h, nb, bs, _ = key_cache.shape
+        kflat = key_cache.view(h, nb * bs, qk_dim)
+        vflat = value_cache.view(h, nb * bs, v_dim)
+    else:
+        nb, bs, h, _ = key_cache.shape
+        kflat = key_cache.view(nb * bs, h, qk_dim)
+        vflat = value_cache.view(nb * bs, h, v_dim)
+    q_out, _, _ = rope_store_rows(
+        qkv, cos_sin, num_seqlen_per_req, q_index, kvcache_indices, q_norm_weight,
+        k_norm_weight, kflat, vflat, hq=num_q_heads, hkv=num_kv_heads, d=qk_dim, dv=v_dim,
+        block_size=bs, qk_norm_policy=qk_norm_policy, head_major=cache_layout == "HND",
+    )
+    if zero_tails:
+        zero_block_tails(
+            PagedKVCache(key_cache, value_cache), num_seqlen_per_req,
+            kvcache_indices, layout=cache_layout,
+        )
+    return q_out.view(rows, num_q_heads, qk_dim), key_cache, value_cache
+
+
+__all__ = ["can_use_rope_kernel", "make_cos_sin_cache", "rope_norm_store_kv"]

@@ -1,0 +1,157 @@
+"""Each CUDA kernel of the port against its plain PyTorch version.
+
+The tests marked ``cuda`` need a card and skip without one; run them there
+with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
+(tests/conftest.py imports JAX; this file does not). The unmarked tests check
+on the CPU that each wrapper takes its plain version for CPU tensors and
+counts no launch.
+
+Tolerances: attention within 1e-2 abs/rel in bf16 output; RoPE within one
+bf16 ulp; untouched cache slots bit-identical.
+"""
+
+import pytest
+import torch
+
+from hpc_ops_tpu_torch.ops.attention.decode import _decode_ref, paged_decode_attention
+from hpc_ops_tpu_torch.ops.attention.prefill import _prefill_ref, paged_prefill_attention
+from hpc_ops_tpu_torch.ops.rope import make_cos_sin_cache
+from hpc_ops_tpu_torch.ops.rope_kernel import rope_store_rows, rope_store_rows_ref, row_slots
+from hpc_ops_tpu_torch.utils.testing import assert_allclose, max_bf16_ulp_err
+
+torch.set_num_threads(1)
+
+BS = 16
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def randn(gen, *shape):
+    return torch.randn(shape, generator=gen).to(torch.bfloat16)
+
+
+def paged(gen, lens, hq, hkv, d, sq=1, layout="HND", q_rows=None):
+    """q, caches and a shuffled -1 padded page table covering ``lens``."""
+    max_blocks = max(lens) // BS + 2
+    nb = len(lens) * max_blocks + 2
+    perm = torch.randperm(nb, generator=gen)
+    tbl = torch.full((len(lens), max_blocks), -1, dtype=torch.int32)
+    off = 0
+    for i, n in enumerate(lens):
+        k = -(-n // BS)
+        tbl[i, :k] = perm[off : off + k]
+        off += k
+    shape = (hkv, nb, BS, d) if layout == "HND" else (nb, BS, hkv, d)
+    rows = len(lens) * sq if q_rows is None else q_rows
+    return randn(gen, rows, hq, d), randn(gen, *shape), randn(gen, *shape), tbl, torch.tensor(lens, dtype=torch.int32)
+
+
+def rope_case(gen, layout, rows=8, hq=32, hkv=8, d=128, num_blocks=256):
+    """A decode batch: one new row per request at a random length, each on
+    its own pages of a shuffled -1 padded table."""
+    qkv = randn(gen, rows, (hq + 2 * hkv) * d)
+    cos_sin = make_cos_sin_cache(8192, d, 500000.0)
+    seq_lens = torch.randint(1, 16 * (num_blocks // rows), (rows,), generator=gen, dtype=torch.int32)
+    q_index = torch.arange(rows + 1, dtype=torch.int32)
+    perm = torch.randperm(num_blocks, generator=gen).to(torch.int32)
+    per = num_blocks // rows
+    tbl = torch.cat([perm.view(rows, per), torch.full((rows, 2), -1, dtype=torch.int32)], 1)
+    slots_total = num_blocks * BS
+    shape = (hkv, slots_total, d) if layout == "HND" else (slots_total, hkv, d)
+    w = torch.rand(d, generator=gen) + 0.5
+    return (qkv, cos_sin, seq_lens, q_index, tbl, w, w), randn(gen, *shape), randn(gen, *shape), dict(
+        hq=hq, hkv=hkv, d=d, dv=d, block_size=BS, head_major=layout == "HND")
+
+
+def test_wrappers_take_the_plain_version_on_cpu():
+    gen = torch.Generator().manual_seed(0)
+    counts = (rope_store_rows.launches, paged_decode_attention.launches,
+              paged_prefill_attention.launches)
+    args, k0, v0, kw = rope_case(gen, "HND", hq=4, hkv=2, num_blocks=16)
+    a = rope_store_rows(*args, k0.clone(), v0.clone(), qk_norm_policy=1, **kw)
+    b = rope_store_rows_ref(*args, k0.clone(), v0.clone(), qk_norm_policy=1, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    q, k, v, tbl, lens = paged(gen, [5, 20], 4, 2, 64)
+    assert torch.equal(paged_decode_attention(q, k, v, tbl, lens, 1, 0.1, "HND"),
+                       _decode_ref(q, k, v, tbl, lens, 1, 0.1, "HND"))
+    cu = torch.tensor([0, 2, 9], dtype=torch.int32)
+    q = randn(gen, 11, 4, 64)
+    assert torch.equal(paged_prefill_attention(q, k, v, cu, tbl, lens, 7, 0.1, "HND"),
+                       _prefill_ref(q, k, v, cu, tbl, lens, 7, 0.1, "HND"))
+    assert counts == (rope_store_rows.launches, paged_decode_attention.launches,
+                      paged_prefill_attention.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [0, 1, 2])
+@pytest.mark.parametrize("layout", ["HND", "NHD"])
+def test_rope_kernel_matches_plain(cuda, layout, policy):
+    gen = torch.Generator().manual_seed(1)
+    args, k0, v0, kw = rope_case(gen, layout)
+    dargs = [a.to(cuda) for a in args]
+    kq, kk, kv = rope_store_rows(*dargs, k0.clone().to(cuda), v0.clone().to(cuda),
+                                 qk_norm_policy=policy, **kw)
+    pq, pk, pv = rope_store_rows_ref(*args, k0.clone(), v0.clone(), qk_norm_policy=policy, **kw)
+    torch.cuda.synchronize()
+    assert max_bf16_ulp_err(kq, pq) <= 1.0
+    kk, kv = kk.cpu(), kv.cpu()
+    _, slots = row_slots(8, args[2], args[3], args[4], BS, k0.shape[1 if layout == "HND" else 0])
+    written = torch.zeros(k0.shape, dtype=torch.bool)
+    if layout == "HND":
+        written[:, slots] = True
+    else:
+        written[slots] = True
+    assert torch.equal(kk[~written], k0[~written]) and torch.equal(kv[~written], v0[~written])
+    assert torch.equal(kv, pv)
+    assert max_bf16_ulp_err(kk[written], pk[written]) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 3])
+@pytest.mark.parametrize("layout", ["HND", "NHD"])
+def test_decode_kernel_matches_plain(cuda, layout, sq):
+    gen = torch.Generator().manual_seed(2)
+    lens = [1, 16, 17, 300, 1024, 4095, 3, 64]
+    q, k, v, tbl, kv_lens = paged(gen, lens, 32, 8, 128, sq=sq, layout=layout)
+    want = _decode_ref(q, k, v, tbl, kv_lens, sq, 128**-0.5, layout)
+    got = paged_decode_attention(q.to(cuda), k.to(cuda), v.to(cuda), tbl.to(cuda),
+                                 kv_lens.to(cuda), sq, 128**-0.5, layout)
+    torch.cuda.synchronize()
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="decode")
+
+
+@pytest.mark.cuda
+def test_decode_kernel_ignores_nan_past_kv_len(cuda):
+    """Positions at or past kv_len add nothing, even when the page holds NaN."""
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, tbl, kv_lens = paged(gen, [3, 20], 8, 2, 128)
+    want = _decode_ref(q, k, v, tbl, kv_lens, 1, 128**-0.5, "HND")
+    for i, n in enumerate(kv_lens.tolist()):
+        page = int(tbl[i, n // BS])
+        k[:, page, n % BS :] = float("nan")
+        v[:, page, n % BS :] = float("nan")
+    got = paged_decode_attention(q.to(cuda), k.to(cuda), v.to(cuda), tbl.to(cuda),
+                                 kv_lens.to(cuda), 1, 128**-0.5, "HND")
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="nan tail")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "layout,q_lens,kv_lens,pad",
+    [("HND", [13, 7, 250], [13, 100, 300], 11), ("NHD", [13, 7, 250], [13, 100, 300], 0),
+     ("HND", [1024], [1024], 0)],
+)
+def test_prefill_kernel_matches_plain(cuda, layout, q_lens, kv_lens, pad):
+    gen = torch.Generator().manual_seed(4)
+    q, k, v, tbl, kv = paged(gen, kv_lens, 32, 8, 128, layout=layout, q_rows=sum(q_lens) + pad)
+    cu = torch.tensor([0] + torch.tensor(q_lens).cumsum(0).tolist(), dtype=torch.int32)
+    want = _prefill_ref(q, k, v, cu, tbl, kv, max(q_lens), 128**-0.5, layout)
+    got = paged_prefill_attention(q.to(cuda), k.to(cuda), v.to(cuda), cu.to(cuda), tbl.to(cuda),
+                                  kv.to(cuda), max(q_lens), 128**-0.5, layout)
+    torch.cuda.synchronize()
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="prefill")

@@ -1,0 +1,147 @@
+"""Parity of the port's dense Llama model against the JAX package.
+
+The JAX weights (``init_weights(PRNGKey(0), tiny_config())``) are carried
+over bit-exactly with ``weights_from_numpy``, so both packages compute the
+same function. Logits must agree within 0.15 abs / 0.1 rel, the tolerance of
+tests/test_model.py; greedy tokens must be identical, except that a flip at
+a bf16 near-tie (JAX's top-2 margin below that tolerance) ends the
+comparison at that step.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hpc_ops_tpu.models import llama as J
+from hpc_ops_tpu.ops.normalization import rmsnorm_ref as jax_rmsnorm
+from hpc_ops_tpu_torch.models import llama as T
+from hpc_ops_tpu_torch.ops.normalization import rmsnorm_ref
+from hpc_ops_tpu_torch.utils.testing import assert_allclose, assert_greedy_match, top2_margin
+
+torch.set_num_threads(1)
+
+ATOL, RTOL = 0.15, 0.1
+
+
+@pytest.fixture(scope="module")
+def model():
+    cfg = J.tiny_config()
+    jw = J.init_weights(jax.random.PRNGKey(0), cfg)
+    tw = T.weights_from_numpy(jax.tree_util.tree_map(np.asarray, jw), device="cpu")
+    return cfg, jw, T.tiny_config(), tw
+
+
+def i32(x):
+    return np.asarray(x, np.int32)
+
+
+def both(fn_j, fn_t, *arrays, **kw):
+    """Call the JAX and the port function on the same int arrays."""
+    return (fn_j(*(jnp.asarray(a) for a in arrays), **kw),
+            fn_t(*(torch.from_numpy(a) for a in arrays), **kw))
+
+
+def test_weights_from_numpy_is_bit_exact(model):
+    _, jw, _, tw = model
+    a = np.asarray(jw["layers"][1]["wqkv"]).view(np.uint16)
+    b = tw["layers"][1]["wqkv"].view(torch.int16).numpy().view(np.uint16)
+    np.testing.assert_array_equal(a, b)
+    assert tw["cos_sin"].dtype == torch.float32
+
+
+def test_init_weights_layout_matches_jax(model):
+    cfg, jw, tcfg, _ = model
+    tw = T.init_weights(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    flat_j = jax.tree_util.tree_leaves_with_path(jw)
+    assert len(flat_j) == 3 + 1 + 6 * cfg.layers
+    for name in ("embed", "lm_head", "cos_sin", "final_norm"):
+        assert tuple(tw[name].shape) == jw[name].shape
+    for lj, lt in zip(jw["layers"], tw["layers"]):
+        assert set(lj) == set(lt)
+        for k in lj:
+            assert tuple(lt[k].shape) == lj[k].shape
+            assert str(lt[k].dtype).split(".")[-1] == str(lj[k].dtype)
+    std = tw["layers"][0]["wqkv"].float().std().item()
+    assert abs(std * cfg.hidden**0.5 - 1.0) < 0.05
+    again = T.init_weights(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    assert torch.equal(again["lm_head"], tw["lm_head"])
+
+
+def test_rmsnorm_matches_jax():
+    rng = np.random.RandomState(0)
+    x = rng.randn(5, 64).astype(np.float32)
+    w = rng.rand(64).astype(np.float32)
+    want = np.asarray(jax_rmsnorm(jnp.asarray(x), jnp.asarray(w), 1e-5))
+    assert_allclose(rmsnorm_ref(torch.from_numpy(x), torch.from_numpy(w), 1e-5), want,
+                    atol=1e-5, rtol=1e-5, name="rmsnorm")
+
+
+def run_prefill_then_decode(pkg, cfg, weights, to):
+    """Prefill 7 and 5 tokens for 2 requests, then decode 1 token each."""
+    caches = pkg.init_cache(cfg, num_blocks=8, block_size=16, **({} if pkg is J else {"device": "cpu"}))
+    tbl = to(i32([[0, 1, -1], [2, 3, -1]]))
+    lp, caches = pkg.forward_step(weights, caches, cfg, to(i32(np.arange(12) % cfg.vocab)),
+                                  to(i32([7, 5])), to(i32([0, 7, 12])), tbl,
+                                  is_prefill=True, max_seqlens_q=8)
+    ld, caches = pkg.forward_step(weights, caches, cfg, to(i32([3, 5])), to(i32([8, 6])),
+                                  to(i32([0, 1, 2])), tbl, is_prefill=False, max_seqlens_q=1)
+    return lp, ld
+
+
+def test_forward_step_matches_jax(model):
+    cfg, jw, tcfg, tw = model
+    jp, jd = run_prefill_then_decode(J, cfg, jw, jnp.asarray)
+    tp, td = run_prefill_then_decode(T, tcfg, tw, torch.from_numpy)
+    assert tp.shape == (2, cfg.vocab) and tp.dtype == torch.bfloat16
+    assert_allclose(tp.float(), np.asarray(jp, np.float32), atol=ATOL, rtol=RTOL, name="prefill logits")
+    assert_allclose(td.float(), np.asarray(jd, np.float32), atol=ATOL, rtol=RTOL, name="decode logits")
+
+
+def jax_next_logits(cfg, jw, tokens):
+    """JAX logits after one prefill of the whole sequence (fresh cache)."""
+    n = len(tokens)
+    caches = J.init_cache(cfg, num_blocks=8, block_size=16)
+    logits, _ = J.forward_step(jw, caches, cfg, jnp.asarray(i32(tokens)), jnp.asarray(i32([n])),
+                               jnp.asarray(i32([0, n])), jnp.asarray(i32([list(range(8))])),
+                               is_prefill=True, max_seqlens_q=n)
+    return np.asarray(logits, np.float32)[0]
+
+
+def test_decode_multi_matches_jax(model):
+    cfg, jw, tcfg, tw = model
+    prompts = [[1, 2, 3], [5, 6, 7, 8]]
+    tables = i32([[0, 1], [2, 3]])
+    outs = {}
+    for pkg, c, w, to, kw in ((J, cfg, jw, jnp.asarray, {}), (T, tcfg, tw, torch.from_numpy, {"device": "cpu"})):
+        caches = pkg.init_cache(c, num_blocks=8, block_size=16, **kw)
+        last = []
+        for i, p in enumerate(prompts):
+            logits, caches = pkg.forward_step(w, caches, c, to(i32(p)), to(i32([len(p)])),
+                                              to(i32([0, len(p)])), to(tables[i : i + 1]),
+                                              is_prefill=True, max_seqlens_q=len(p))
+            last.append(int(np.argmax(np.asarray(logits.float() if pkg is T else logits, np.float32))))
+        toks, _ = pkg.decode_multi(w, caches, c, to(i32(last)), to(i32([4, 5])), to(tables), 4)
+        outs[pkg.__name__] = [[last[b]] + [int(t) for t in np.asarray(toks)[:, b]] for b in range(2)]
+    want, got = outs[J.__name__], outs[T.__name__]
+    for p, w, g in zip(prompts, want, got):
+        assert_greedy_match(w, g, lambda j, p=p, w=w: top2_margin(jax_next_logits(cfg, jw, p + w[:j])), ATOL)
+
+
+def test_decode_multi_sampling_and_logprobs(model):
+    _, _, tcfg, tw = model
+    caches = T.init_cache(tcfg, num_blocks=8, block_size=16, device="cpu")
+    args = (torch.tensor([1, 2], dtype=torch.int32), torch.tensor([1, 1], dtype=torch.int32),
+            torch.tensor([[0], [1]], dtype=torch.int32), 3)
+    (toks, lps), _ = T.decode_multi(tw, caches, tcfg, *args, temperature=0.7, sample_seed=5,
+                                    return_logprobs=True)
+    assert toks.shape == (3, 2) and lps.shape == (3, 2)
+    assert ((toks >= 0) & (toks < tcfg.vocab)).all() and (lps <= 0).all()
+
+
+@pytest.mark.parametrize("field", ["fp8_kv", "int8_kv", "dense_int8", "qkv_bias", "moe"])
+def test_later_slices_raise(field):
+    cfg = T.tiny_config(moe=True) if field == "moe" else T.tiny_config(**{field: True})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.init_cache(cfg, 4, 16, device="cpu")

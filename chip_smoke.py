@@ -7,20 +7,26 @@ any failure, without a card, or when the package is not beside it.
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi), torch's view;
-  2. build: nvcc builds the three kernels and g++ the block allocator;
-  3. kernels: each kernel against its plain PyTorch version on the same
-     inputs at the llama3_8b serving shapes (Hq 32, Hkv 8, D 128, pages of
-     16), timed with CUDA events beside its plain version, a PyTorch library
-     call for the same function where one exists, and its bound;
-  4. slice_tiny: Engine on tiny_config on the card and on the CPU with the
-     same weights: logits of the first prefill and decode steps within
-     0.15 abs / 0.1 rel, greedy tokens identical wherever the CPU path's
-     top-2 margin exceeds that tolerance;
-  5. slice_full: Engine(llama3_8b) at full width and depth with random
-     weights serving 8 prompts x 32 new tokens; logits finite, tokens in the
-     vocab, each kernel's launch count as expected; decode_profile: three of
-     its decode steps under torch.profiler (device time by kernel class and
-     the device's idle share), left out of its step times;
+  2. build: nvcc builds the kernel sources and g++ the block allocator;
+  3. kernels: each of the six kernels against its plain PyTorch version on
+     the same inputs at the llama3_8b serving shapes (Hq 32, Hkv 8, D 128,
+     pages of 16), timed with CUDA events beside its plain version, a
+     PyTorch library call for the same function where one exists, and its
+     bound: the bf16 RoPE store, paged decode and paged prefill, and the
+     int8 quantising RoPE store, NHD_FUSED decode and NHD_FUSED prefill;
+  4. slice_tiny and slice_tiny_int8: Engine on tiny_config (bf16 KV, then
+     int8_kv) on the card and on the CPU with the same weights: logits of
+     the first prefill and decode steps within 0.15 abs / 0.1 rel, greedy
+     tokens identical wherever the CPU path's top-2 margin exceeds that
+     tolerance;
+  5. slice_full and slice_full_int8: Engine(llama3_8b) at full width and
+     depth, bf16 KV then int8_kv, on one set of random weights, serving 8
+     prompts x 32 new tokens; logits finite, tokens in the vocab, each
+     kernel's launch count as expected (the other path's kernels never
+     launch), int8 prefill logits within cosine 0.98 of bf16's, the share of
+     saturated int8 codes; decode_profile and decode_profile_int8: three
+     decode steps of each under torch.profiler (device time by kernel class
+     and the device's idle share), left out of the step times;
 then the kernels line, the nvidia-smi line and the result line.
 """
 
@@ -256,6 +262,185 @@ def check_prefill(dev, gen):
                 plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib)
 
 
+def check_rope_int8(dev, gen):
+    import torch
+
+    from hpc_ops_tpu_torch.ops.rope import make_cos_sin_cache
+    from hpc_ops_tpu_torch.ops.rope_kernel import (
+        rope_store_rows_int8,
+        rope_store_rows_int8_ref,
+        row_slots,
+    )
+    from hpc_ops_tpu_torch.utils.testing import max_bf16_ulp_err
+
+    # a decode batch of 8 rows into a 2048-page int8 NHD_FUSED slab
+    rows = 8
+    cos_sin = make_cos_sin_cache(8192, D, 500000.0, device=dev)
+    qkv = torch.randn((rows, (HQ + 2 * HKV) * D), generator=gen).to(torch.bfloat16).to(dev)
+    seq_lens = torch.randint(1, 4097, (rows,), generator=gen, dtype=torch.int32)
+    tbl = random_table(gen, [int(n) for n in seq_lens], 4096 // BS + 4, NUM_BLOCKS, dev)
+    seq_lens = seq_lens.to(dev)
+    q_index = torch.arange(rows + 1, dtype=torch.int32, device=dev)
+    _, slots = row_slots(rows, seq_lens, q_index, tbl, BS, NUM_BLOCKS * 2 * BS, fused=True)
+    written = torch.zeros(NUM_BLOCKS * 2 * BS, dtype=torch.bool, device=dev)
+    written[slots] = True
+    written[slots + BS] = True
+    written = written.view(NUM_BLOCKS, 2 * BS, 1).expand(NUM_BLOCKS, 2 * BS, HKV * D)
+    w = (torch.rand(D, generator=gen) + 0.5).to(dev)
+    scales = (torch.tensor([0.05], device=dev), torch.tensor([0.05], device=dev))
+    slab0 = torch.randint(-127, 128, (NUM_BLOCKS, 2 * BS, HKV * D), generator=gen,
+                          dtype=torch.int8).to(dev)
+    worst_q, code_diff, diff_share = 0.0, 0, 0.0
+    kw = dict(hq=HQ, hkv=HKV, d=D, block_size=BS)
+    for policy in (0, 1, 2):
+        args = (qkv, cos_sin, seq_lens, q_index, tbl, w, w)
+        kq, ks = rope_store_rows_int8(*args, slab0.clone(), *scales, qk_norm_policy=policy, **kw)
+        pq, ps = rope_store_rows_int8_ref(*args, slab0.clone(), *scales, qk_norm_policy=policy, **kw)
+        torch.cuda.synchronize()
+        worst_q = max(worst_q, max_bf16_ulp_err(kq, pq))
+        if not torch.equal(ks[~written], slab0[~written]):
+            raise AssertionError(f"rope int8 policy {policy}: untouched slab bytes changed")
+        diff = (ks[written].int() - ps[written].int()).abs()
+        code_diff = max(code_diff, int(diff.max()))
+        diff_share = max(diff_share, float((diff > 0).float().mean()))
+    if worst_q > 1.0 or code_diff > 1 or diff_share > 1e-3:
+        raise AssertionError(f"rope int8: q {worst_q} ulp (limit 1), codes {code_diff} apart on "
+                             f"{diff_share:.4%} (limits 1 and 0.1%)")
+    # timing at the decode main path: policy 0
+    args = (qkv, cos_sin, seq_lens, q_index, tbl, None, None, slab0.clone(), *scales)
+    kw["qk_norm_policy"] = 0
+    diff = float((rope_store_rows_int8(*args, **kw)[0].float()
+                  - rope_store_rows_int8_ref(*args, **kw)[0].float()).abs().max())
+    ms = time_ms(lambda: rope_store_rows_int8(*args, **kw), 200)
+    plain = time_ms(lambda: rope_store_rows_int8_ref(*args, **kw), 50)
+    # qkv and cos|sin rows in, q and the int8 K/V rows out, 3 table entries per row
+    nbytes = rows * ((HQ + 2 * HKV) * D * 2 + D * 4 + 12 + HQ * D * 2 + 2 * HKV * D)
+    flops = rows * (HQ + HKV) * D * 3 + rows * 2 * HKV * D * 2
+    b, by = bound(nbytes, flops)
+    emit("kernel", name="rope_store_int8", max_ulp=worst_q, max_abs_err=diff,
+         code_max_diff=code_diff, code_diff_share=diff_share, ms=ms, plain_ms=plain,
+         bound_ms=b, bound_by=by, library_ms=None, rows=rows)
+    return dict(name="rope_store_int8", source="hpc_ops_tpu_torch/csrc/rope_store.cu",
+                replaces="hpc_ops_tpu/ops/rope_kernel.py:43", max_abs_err=diff, max_ulp=worst_q,
+                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+
+
+def gathered_dequant(slab, tbl, kv_len_max, scale):
+    """K and V of each request gathered from an NHD_FUSED slab into
+    [B, Hq, L, D] bf16 (repeated over the GQA group), dequantised: the
+    inputs of the library yardstick."""
+    import torch
+
+    b = tbl.shape[0]
+    pages = tbl[:, : -(-kv_len_max // BS)].clamp(min=0).long()
+    g = slab[pages]  # [B, n, 2*BS, HKV*D]
+    out = []
+    for rows in (slice(0, BS), slice(BS, 2 * BS)):
+        x = g[:, :, rows].reshape(b, -1, HKV, D)[:, :kv_len_max].float() * scale
+        out.append(x.permute(0, 2, 1, 3).repeat_interleave(HQ // HKV, dim=1)
+                   .to(torch.bfloat16).contiguous())
+    return out
+
+
+def check_decode_nhd_fused(dev, gen):
+    import torch
+    import torch.nn.functional as F
+
+    from hpc_ops_tpu_torch.ops.attention.decode import _decode_nhd_fused_ref, paged_decode_nhd_fused
+
+    b = 8
+    lens_l = [1, 2048, 4096, 2963, 1346, 3412, 2436, 1735]
+    max_blocks = 4096 // BS + 4  # -1 padded past each request's pages
+    tbl = random_table(gen, lens_l, max_blocks, NUM_BLOCKS + 8, dev)
+    kv_lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    scale = D**-0.5
+    sc = torch.tensor([0.05], device=dev)
+    shape = (NUM_BLOCKS + 8, 2 * BS, HKV * D)
+    slabs = {
+        "int8": torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev),
+        "bf16": torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev),
+    }
+    err = 0.0
+    for name, sq in (("int8", 1), ("bf16", 1), ("int8", 3)):  # the last: mtp = 2
+        slab = slabs[name]
+        scs = (sc, sc) if name == "int8" else (None, None)
+        q = torch.randn((b * sq, HQ, D), generator=gen).to(torch.bfloat16).to(dev)
+        lens_sq = kv_lens.clamp(min=sq)  # every draft row sees at least one key
+        got = paged_decode_nhd_fused(q, slab, tbl, lens_sq, sq, scale, *scs)
+        want = _decode_nhd_fused_ref(q, slab, tbl, lens_sq, sq, scale, *scs)
+        torch.cuda.synchronize()
+        if not torch.allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2):
+            raise AssertionError(f"decode nhd_fused {name} sq={sq}: kernel disagrees with the plain version")
+        err = max(err, float((got.float() - want.float()).abs().max()))
+    q = torch.randn((b, HQ, D), generator=gen).to(torch.bfloat16).to(dev)
+    slab = slabs["int8"]
+    ms = time_ms(lambda: paged_decode_nhd_fused(q, slab, tbl, kv_lens, 1, scale, sc, sc), 50)
+    ms_bf16 = time_ms(lambda: paged_decode_nhd_fused(q, slabs["bf16"], tbl, kv_lens, 1, scale), 50)
+    plain = time_ms(lambda: _decode_nhd_fused_ref(q, slab, tbl, kv_lens, 1, scale, sc, sc), 5)
+    # library yardstick: SDPA over dequantised K/V gathered contiguous (gather not timed)
+    L = max(lens_l)
+    kg, vg = gathered_dequant(slab, tbl, L, 0.05)
+    mask = (torch.arange(L, device=dev)[None, :] < kv_lens[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask), 20)
+    sum_kv = sum(lens_l)
+    nbytes = 2 * b * HQ * D * 2 + 2 * sum_kv * HKV * D + tbl.numel() * 4 + b * 4 + 8
+    flops = 4 * sum_kv * HQ * D
+    bd, by = bound(nbytes, flops)
+    bd16, _ = bound(nbytes + 2 * sum_kv * HKV * D, flops)
+    emit("kernel", name="paged_decode_nhd_fused", max_abs_err=err, ms=ms, plain_ms=plain,
+         library_ms=lib, bound_ms=bd, bound_by=by, ms_bf16_slab=ms_bf16, bound_ms_bf16_slab=bd16,
+         kv_lens=lens_l)
+    return dict(name="paged_decode_nhd_fused", source="hpc_ops_tpu_torch/csrc/decode.cu",
+                replaces="hpc_ops_tpu/ops/attention/decode.py:449", max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib)
+
+
+def check_prefill_nhd_fused(dev, gen):
+    import torch
+    import torch.nn.functional as F
+
+    from hpc_ops_tpu_torch.ops.attention.prefill import (
+        _prefill_nhd_fused_ref,
+        paged_prefill_nhd_fused,
+    )
+
+    scale = D**-0.5
+    nb = NUM_BLOCKS + 8
+    slab = torch.randint(-127, 128, (nb, 2 * BS, HKV * D), generator=gen, dtype=torch.int8).to(dev)
+    sc = torch.tensor([0.05], device=dev)
+    err = 0.0
+    cases = {"one_2048": ([2048], [2048]), "chunk_512_on_2048": ([512], [2048])}
+    for name, (ql, kl) in cases.items():
+        cu = torch.tensor([0] + list(torch.tensor(ql).cumsum(0)), dtype=torch.int32, device=dev)
+        tbl = random_table(gen, kl, max(kl) // BS + 2, nb, dev)
+        q = torch.randn((sum(ql), HQ, D), generator=gen).to(torch.bfloat16).to(dev)
+        kv = torch.tensor(kl, dtype=torch.int32, device=dev)
+        got = paged_prefill_nhd_fused(q, slab, cu, tbl, kv, max(ql), scale, sc, sc)
+        want = _prefill_nhd_fused_ref(q, slab, cu, tbl, kv, max(ql), scale, sc, sc)
+        torch.cuda.synchronize()
+        if not torch.allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2):
+            raise AssertionError(f"prefill nhd_fused {name}: kernel disagrees with the plain version")
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        if name == "one_2048":
+            timed = (q, cu, tbl, kv)
+    q, cu, tbl, kv = timed
+    ms = time_ms(lambda: paged_prefill_nhd_fused(q, slab, cu, tbl, kv, 2048, scale, sc, sc), 10)
+    plain = time_ms(lambda: _prefill_nhd_fused_ref(q, slab, cu, tbl, kv, 2048, scale, sc, sc), 3)
+    kg, vg = gathered_dequant(slab, tbl[:1], 2048, 0.05)
+    q4 = q.permute(1, 0, 2)[None].contiguous()
+    lib = time_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, is_causal=True), 10)
+    pairs = 2048 * 2049 // 2  # causal (q, k) pairs of this input
+    nbytes = 2 * 2048 * HQ * D * 2 + 2 * 2048 * HKV * D + tbl.numel() * 4 + 8
+    flops = 4 * pairs * HQ * D
+    bd, by = bound(nbytes, flops)
+    emit("kernel", name="paged_prefill_nhd_fused", max_abs_err=err, ms=ms, plain_ms=plain,
+         library_ms=lib, bound_ms=bd, bound_by=by)
+    return dict(name="paged_prefill_nhd_fused", source="hpc_ops_tpu_torch/csrc/prefill.cu",
+                replaces="hpc_ops_tpu/ops/attention/prefill.py:1070", max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib)
+
+
 # -------------------------------------------------------------------- slice
 def first_steps(llama, cfg, w, dev):
     """Prefill 7 and 5 tokens for two requests, then decode one token each."""
@@ -271,14 +456,14 @@ def first_steps(llama, cfg, w, dev):
     return lp.float().cpu(), ld.float().cpu()
 
 
-def slice_tiny(dev):
+def slice_tiny(dev, phase="slice_tiny", **cfg_kw):
     import torch
 
     from hpc_ops_tpu_torch.models import llama
     from hpc_ops_tpu_torch.runtime.engine import Engine
     from hpc_ops_tpu_torch.utils.testing import assert_greedy_match, top2_margin
 
-    cfg = llama.tiny_config()
+    cfg = llama.tiny_config(**cfg_kw)
     w_cpu = llama.init_weights(cfg, torch.Generator().manual_seed(0), device="cpu")
     w_gpu = {**{k: v.to(dev) for k, v in w_cpu.items() if k != "layers"},
              "layers": [{k: v.to(dev) for k, v in layer.items()} for layer in w_cpu["layers"]]}
@@ -287,7 +472,7 @@ def slice_tiny(dev):
     gpu_steps = first_steps(llama, cfg, w_gpu, dev)
     for name, c, g in zip(("prefill", "decode"), cpu_steps, gpu_steps):
         if not torch.isfinite(g).all() or not torch.allclose(g, c, atol=ATOL_LOGITS, rtol=RTOL_LOGITS):
-            raise AssertionError(f"tiny {name} logits: card vs CPU beyond 0.15/0.1")
+            raise AssertionError(f"{phase} {name} logits: card vs CPU beyond 0.15/0.1")
         diffs[name] = float((g - c).abs().max())
     prompts = [[1, 2, 3, 4, 5], [7, 8], [9, 10, 11], list(range(20, 61))]
     outs = {}
@@ -309,7 +494,7 @@ def slice_tiny(dev):
         j = assert_greedy_match(want, got, lambda j, p=p, want=want: margin(p + want[:j]), ATOL_LOGITS)
         if j is not None:
             flips.append({"prompt": p, "step": j, "cpu_margin": margin(p + want[:j])})
-    emit("slice_tiny", max_logits_diff=diffs, tokens_card=outs[str(dev)], tokens_cpu=outs["cpu"],
+    emit(phase, max_logits_diff=diffs, tokens_card=outs[str(dev)], tokens_cpu=outs["cpu"],
          near_tie_flips=flips)
 
 
@@ -320,10 +505,11 @@ class DecodeProfile:
     """torch.profiler over a few decode steps: device time per step by kernel
     class and the device's idle share of the window's wall time."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, classes):
         from torch.profiler import ProfilerActivity, profile
 
         self.torch = torch
+        self.classes = classes  # kernel-name substring -> class name
         self.steps = 0
         self.active = True
         self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -338,17 +524,16 @@ class DecodeProfile:
 
     def summary(self) -> dict:
         cuda = self.torch.autograd.DeviceType.CUDA
-        classes = {"rope_store": 0.0, "paged_decode": 0.0, "paged_prefill": 0.0, "gemm": 0.0,
-                   "other": 0.0}
+        classes = {**{c: 0.0 for c in self.classes.values()}, "gemm": 0.0, "other": 0.0}
         other = {}
         for e in self.prof.key_averages():
             if e.device_type != cuda:
                 continue
             us = e.self_device_time_total
             name = e.key
-            for k in ("rope_store", "paged_decode", "paged_prefill"):
+            for k, c in self.classes.items():
                 if k in name:
-                    classes[k] += us
+                    classes[c] += us
                     break
             else:
                 if any(m in name.lower() for m in ("gemm", "nvjet", "xmma", "cutlass")):
@@ -370,30 +555,38 @@ class DecodeProfile:
         }
 
 
-def slice_full(dev):
+BF16_KERNELS = ("rope_store", "paged_decode", "paged_prefill")
+INT8_KERNELS = ("rope_store_int8", "paged_decode_nhd_fused", "paged_prefill_nhd_fused")
+
+
+def full_prompts(vocab):
     import numpy as np
+
+    rng = np.random.RandomState(0)
+    lens = [16, 2000] + [int(x) for x in rng.randint(16, 2001, 6)]
+    return lens, [[int(t) for t in rng.randint(0, vocab, n)] for n in lens]
+
+
+def serve_full(dev, cfg, w, phase, kernels_used):
+    """Engine(cfg) at full width and depth on weights ``w``: 8 prompts x 32
+    new tokens, with every sampled-from logits tensor checked finite, the
+    launch counts of ``kernels_used`` as the step counts say and every other
+    kernel at 0, and three decode steps profiled. Returns (launch counts,
+    last-token logits of each prefill call, the engine)."""
     import torch
 
     from hpc_ops_tpu_torch import kernels
-    from hpc_ops_tpu_torch.models import llama
     from hpc_ops_tpu_torch.runtime import engine as engine_mod
 
-    cfg = llama.llama3_8b(residual_alpha=1.0 / 8)
-    t0 = time.perf_counter()
-    w = llama.init_weights(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    rng = np.random.RandomState(0)
-    lens = [16, 2000] + [int(x) for x in rng.randint(16, 2001, 6)]
-    prompts = [[int(t) for t in rng.randint(0, cfg.vocab, n)] for n in lens]
-
-    # every logits tensor the engine samples from is checked for finiteness
-    finite = []
+    lens, prompts = full_prompts(cfg.vocab)
+    finite, prefill_logits = [], []
     base_forward = engine_mod.forward_step
 
     def checked_forward(*a, **kw):
         out, caches = base_forward(*a, **kw)
         finite.append(torch.isfinite(out).all())
+        if kw.get("is_prefill"):
+            prefill_logits.append(out.float().reshape(-1))
         return out, caches
 
     engine_mod.forward_step = checked_forward
@@ -405,6 +598,7 @@ def slice_full(dev):
         torch.cuda.reset_peak_memory_stats()
         eng = engine_mod.Engine(cfg, w, num_blocks=NUM_BLOCKS, block_size=BS, max_batch=8, device=dev)
         rids = [eng.add_request(p, max_new=32) for p in prompts]
+        prefill_logits.clear()
         kernels.reset_launch_counts()
         prefill_s, decode_s, decode_tokens = [], [], 0
         profiled = None
@@ -413,7 +607,8 @@ def slice_full(dev):
             decode_next = st["pending"] == 0
             n_dec = st["decode_dispatches"]
             if decode_next and n_dec == PROFILE_FROM:
-                profiled = DecodeProfile(torch)
+                profiled = DecodeProfile(torch, dict(zip(("rope_store", "paged_decode", "paged_prefill"),
+                                                         kernels_used)))
             torch.cuda.synchronize()
             t = time.perf_counter()
             if not eng.step():
@@ -434,25 +629,64 @@ def slice_full(dev):
         engine_mod.forward_step = base_forward
     outs = [eng.requests[r].out for r in rids]
     if not all(bool(f) for f in finite):
-        raise AssertionError("llama3_8b: non-finite logits")
+        raise AssertionError(f"{phase}: non-finite logits")
     if not all(len(o) == 32 and all(0 <= x < cfg.vocab for x in o) for o in outs):
-        raise AssertionError("llama3_8b: missing tokens or tokens outside the vocab")
+        raise AssertionError(f"{phase}: missing tokens or tokens outside the vocab")
     st = eng.stats
     n_pre, n_dec = st["prefill_dispatches"], st["decode_dispatches"]
-    expect = {"rope_store": n_dec * cfg.layers, "paged_decode": n_dec * cfg.layers,
-              "paged_prefill": n_pre * cfg.layers}
-    if counts != expect or min(counts.values()) == 0:
-        raise AssertionError(f"launch counts {counts} != expected {expect}")
-    emit("slice_full", config="llama3_8b", residual_alpha=1.0 / 8, layers=cfg.layers,
-         prompt_lens=lens, new_tokens=32, init_weights_s=init_s,
-         prefill_calls=n_pre, prefill_s_total=sum(prefill_s), prefill_s_each=prefill_s,
-         prefill_tokens_per_s=sum(lens) / sum(prefill_s),
-         decode_steps=n_dec, decode_steps_timed=len(decode_s),
-         decode_ms_per_step=1e3 * sum(decode_s) / len(decode_s),
-         decode_tokens_per_s=decode_tokens / sum(decode_s),
-         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-         launches=counts, first_tokens=[o[:4] for o in outs])
+    per_step = dict(zip(kernels_used, (n_dec, n_dec, n_pre)))
+    expect = {k: per_step.get(k, 0) * cfg.layers for k in counts}
+    if counts != expect or min(counts[k] for k in kernels_used) == 0:
+        raise AssertionError(f"{phase}: launch counts {counts} != expected {expect}")
+    stats = dict(config="llama3_8b", int8_kv=cfg.int8_kv, kv_scale=cfg.kv_scale,
+                 residual_alpha=cfg.residual_alpha, layers=cfg.layers, prompt_lens=lens,
+                 new_tokens=32, prefill_calls=n_pre, prefill_s_total=sum(prefill_s),
+                 prefill_s_each=prefill_s, prefill_tokens_per_s=sum(lens) / sum(prefill_s),
+                 decode_steps=n_dec, decode_steps_timed=len(decode_s),
+                 decode_ms_per_step=1e3 * sum(decode_s) / len(decode_s),
+                 decode_tokens_per_s=decode_tokens / sum(decode_s),
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                 launches=counts, first_tokens=[o[:4] for o in outs])
+    return stats, counts, prefill_logits, eng, profiled
+
+
+def slice_full(dev, w):
+    import torch
+
+    from hpc_ops_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(residual_alpha=1.0 / 8)
+    stats, counts, prefill_logits, eng, profiled = serve_full(dev, cfg, w, "slice_full", BF16_KERNELS)
+    del eng
+    torch.cuda.empty_cache()
+    emit("slice_full", **stats)
     emit("decode_profile", **profiled.summary())
+    return counts, prefill_logits
+
+
+def slice_full_int8(dev, w, bf16_prefill_logits):
+    import torch
+
+    from hpc_ops_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(int8_kv=True, residual_alpha=1.0 / 8)
+    stats, counts, prefill_logits, eng, profiled = serve_full(
+        dev, cfg, w, "slice_full_int8", INT8_KERNELS)
+    cos = [float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+           for a, b in zip(prefill_logits, bf16_prefill_logits)]
+    if len(cos) != len(bf16_prefill_logits) or cos[0] < 0.98:
+        raise AssertionError(f"slice_full_int8: first prefill logits at cosine {cos[0]} of bf16's "
+                             "(limit 0.98)")
+    # saturation: codes at +-127 among the codes the run wrote (nonzero)
+    sat = nonzero = 0
+    for c in eng.caches:
+        sat += int((c["kv"].abs() == 127).sum())
+        nonzero += int((c["kv"] != 0).sum())
+    del eng
+    torch.cuda.empty_cache()
+    emit("slice_full_int8", prefill_cosine_vs_bf16=cos, prefill_cosine_min=min(cos),
+         saturated_codes=sat, nonzero_codes=nonzero, saturated_share=sat / max(nonzero, 1), **stats)
+    emit("decode_profile_int8", **profiled.summary())
     return counts
 
 
@@ -482,12 +716,25 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(1234)
-    rows = [check_rope(dev, gen), check_decode(dev, gen), check_prefill(dev, gen)]
+    rows = [check_rope(dev, gen), check_decode(dev, gen), check_prefill(dev, gen),
+            check_rope_int8(dev, gen), check_decode_nhd_fused(dev, gen),
+            check_prefill_nhd_fused(dev, gen)]
     slice_tiny(dev)
-    counts = slice_full(dev)
+    slice_tiny(dev, "slice_tiny_int8", int8_kv=True, kv_scale=0.02)
+
+    from hpc_ops_tpu_torch.models import llama
+
+    # one set of seeded weights (16 GB) serves both paths: int8_kv changes no weight
+    t0 = time.perf_counter()
+    w = llama.init_weights(llama.llama3_8b(), torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    emit("init_weights", config="llama3_8b", seconds=time.perf_counter() - t0)
+    counts, bf16_prefill_logits = slice_full(dev, w)
+    counts_int8 = slice_full_int8(dev, w, bf16_prefill_logits)
     for r in rows:
         r["route"] = "cuda"
-        r["launches"] = counts[r["name"]]
+        # each kernel's launches on its own path's run
+        r["launches"] = counts_int8[r["name"]] if r["name"] in INT8_KERNELS else counts[r["name"]]
         r["kernel_ms"] = r["ms"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -1,31 +1,43 @@
-// Paged GQA decode attention over a bf16 KV cache, with MTP draft rows.
+// Paged GQA decode attention with MTP draft rows, over a bf16 KV cache or
+// over the NHD_FUSED K|V slab (bf16 or int8 with per-tensor scales).
 //
 // Replaces: hpc_ops_tpu/ops/attention/decode.py:_decode_kernel (reached
-// through _decode_pallas).
+// through _decode_pallas; launcher hpc_paged_decode_bf16) and
+// hpc_ops_tpu/ops/attention/decode.py:_decode_nhd_fused_kernel (reached
+// through _decode_nhd_fused_pallas; launcher hpc_paged_decode_nhd_fused).
 //
 // Bound on the card: bytes. Each (request, kv head) streams its kv_len K and
-// V rows once (2 * kv_len * D bf16) for only G * sq query rows, so the work
-// is about G * sq FLOPs per byte, far below the ~295 FLOPs per byte at which
-// the H100's tensor cores, not its memory, would be the limit.
+// V rows once (2 * kv_len * D elements, 2 bytes each in bf16, 1 in int8) for
+// only G * sq query rows, so the work is about G * sq FLOPs per byte, far
+// below the ~295 FLOPs per byte at which the H100's tensor cores, not its
+// memory, would be the limit. int8 halves the bytes.
 //
 // Design: one block per (request, kv head). The block stages its G * sq
-// query rows in shared memory (float32, pre-scaled) and walks the request's
-// KV positions in tiles of kTile = 128 tokens through the page table:
+// query rows in shared memory (float32, pre-scaled by sm_scale * kscale) and
+// walks the request's KV positions in tiles of kTile = 128 tokens through
+// the page table:
 //   1. one thread per token of the tile reads the token's K row with 16-byte
-//      vector loads (all 128 rows of the tile in flight at once) and forms
-//      the scores of all rows against it; the block copies the tile's V rows
-//      (bf16) into shared memory at the same time;
+//      vector loads (8 bf16 or 16 int8 codes per load, converted to float in
+//      registers; all 128 rows of the tile in flight at once) and forms the
+//      scores of all rows against it; the block copies the tile's V rows
+//      (as stored, bf16 or int8) into shared memory at the same time;
 //   2. one warp per query row updates the online softmax (running max m,
 //      running sum l) and turns the scores into probabilities;
 //   3. every thread owns output columns and adds p * v for all rows.
-// Positions at or past kv_len are never read: their scores are -inf before
-// the exponential and their V rows are zeros in shared memory, and a
-// probability of 0 never multiplies a V value, so a page that holds NaN past
-// kv_len cannot leak. Page ids below 0 are read as page 0. Row r of the
-// block is (g = r / sq, s = r % sq) and sees keys up to kv_len - sq + s.
-// Page, slot and head strides are arguments, so the same kernel reads the
-// head-major HND cache and the NHD cache in place; K/V rows must be 16-byte
-// aligned.
+// The output is acc / l * vscale. Positions at or past kv_len are never
+// read: their scores are -inf before the exponential and their V rows are
+// zeros in shared memory, and a probability of 0 never multiplies a V value,
+// so a page that holds NaN past kv_len cannot leak. Page ids below 0 are
+// read as page 0. Row r of the block is (g = r / sq, s = r % sq) and sees
+// keys up to kv_len - sq + s. Page, slot and head strides are arguments, so
+// the same kernel reads the head-major HND cache, the NHD cache and the
+// NHD_FUSED slab ([nb, 2*bs, Hkv*D]: K of head h, page p, slot s at
+// p*2*bs*Hkv*D + s*Hkv*D + h*D, V at the same address + bs*Hkv*D) in place;
+// K/V rows must be 16-byte aligned.
+//
+// Int8 codes convert to float exactly. The TPU kernel's grid of one program
+// per request (all kv heads, to save DMA descriptors) is not copied: it
+// would launch B blocks on 132 SMs.
 //
 // Known limit: B * Hkv blocks (64 at B = 8, Hkv = 8) cannot fill 132 SMs,
 // and a long request's tiles run in order; splitting KV across blocks is
@@ -41,6 +53,36 @@ constexpr int kTile = 128;
 constexpr int kThreads = 128;  // one thread per token of a tile
 constexpr int kWarps = kThreads / 32;
 
+// 16 bytes of cache elements -> floats.
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void to_f32(const uint4& u, float* f) {
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 t = __bfloat1622float2(p[j]);
+      f[2 * j] = t.x;
+      f[2 * j + 1] = t.y;
+    }
+  }
+  static __device__ __forceinline__ float one(__nv_bfloat16 x) { return __bfloat162float(x); }
+};
+
+template <>
+struct Vec<int8_t> {
+  static constexpr int N = 16;
+  static __device__ __forceinline__ void to_f32(const uint4& u, float* f) {
+    const int8_t* p = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) f[j] = static_cast<float>(p[j]);
+  }
+  static __device__ __forceinline__ float one(int8_t x) { return static_cast<float>(x); }
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -53,40 +95,45 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const __nv_bfloat16* __restrict__ q,  // [B * sq, hq, d]
-    const __nv_bfloat16* __restrict__ kc, const __nv_bfloat16* __restrict__ vc,
+    const T* __restrict__ kc, const T* __restrict__ vc,
     int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
     int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
     const int32_t* __restrict__ block_ids,  // [B, max_blocks]
     const int32_t* __restrict__ kv_lens,    // [B]
+    const float* __restrict__ kscale,       // [1] or null
+    const float* __restrict__ vscale,       // [1] or null
     __nv_bfloat16* __restrict__ out,        // [B * sq, hq, dv]
     int max_blocks, int page_size, int sq, int hq, int hkv, int d, int dv,
     float scale) {
+  constexpr int kVec = Vec<T>::N;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int g_per = hq / hkv;
   const int rows = g_per * sq;
-  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kTile, dv]
-  float* q_s = reinterpret_cast<float*>(v_s + kTile * dv);          // [rows, d]
-  float* p_s = q_s + rows * d;                                       // [rows, kTile]
-  float* acc = p_s + rows * kTile;                                   // [rows, dv]
-  float* m_s = acc + rows * dv;                                      // [rows]
-  float* l_s = m_s + rows;                                           // [rows]
-  float* alpha_s = l_s + rows;                                       // [rows]
+  T* v_s = reinterpret_cast<T*>(smem_raw);                   // [kTile, dv]
+  float* q_s = reinterpret_cast<float*>(v_s + kTile * dv);  // [rows, d]
+  float* p_s = q_s + rows * d;                              // [rows, kTile]
+  float* acc = p_s + rows * kTile;                          // [rows, dv]
+  float* m_s = acc + rows * dv;                             // [rows]
+  float* l_s = m_s + rows;                                  // [rows]
+  float* alpha_s = l_s + rows;                              // [rows]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int kv_len = kv_lens[b];
   const int32_t* tbl = block_ids + static_cast<int64_t>(b) * max_blocks;
+  const float qscale = scale * (kscale ? *kscale : 1.f);
 
   for (int i = tid; i < rows * d; i += kThreads) {
     const int r = i / d, c = i % d;
     const int g = r / sq, s = r % sq;
     const int64_t src = (static_cast<int64_t>(b * sq + s) * hq + h * g_per + g) * d + c;
-    q_s[i] = __bfloat162float(q[src]) * scale;
+    q_s[i] = __bfloat162float(q[src]) * qscale;
   }
   for (int i = tid; i < rows * dv; i += kThreads) acc[i] = 0.f;
   for (int r = tid; r < rows; r += kThreads) {
@@ -97,10 +144,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 
   const int n_valid = min(kv_len, max_blocks * page_size);
   for (int t0 = 0; t0 < n_valid; t0 += kTile) {
-    // 1a. V rows of the tile -> shared memory as bf16 (zeros past kv_len)
-    const int vchunks = dv / 8;
+    // 1a. V rows of the tile -> shared memory as stored (zeros past kv_len)
+    const int vchunks = dv / kVec;
     for (int i = tid; i < kTile * vchunks; i += kThreads) {
-      const int t = i / vchunks, c0 = (i % vchunks) * 8;
+      const int t = i / vchunks, c0 = (i % vchunks) * kVec;
       const int kpos = t0 + t;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (kpos < n_valid) {
@@ -116,28 +163,26 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
       const int kpos = t0 + t;
       if (kpos < n_valid) {
         const int page = max(tbl[kpos / page_size], 0);
-        const __nv_bfloat16* krow =
+        const T* krow =
             kc + h * k_head_stride + page * k_page_stride + (kpos % page_size) * k_slot_stride;
         for (int r0 = 0; r0 < rows; r0 += 4) {
           float sc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-          for (int c = 0; c < d; c += 8) {
+#pragma unroll (32 / kVec)
+          for (int c = 0; c < d; c += kVec) {
             const uint4 u = *reinterpret_cast<const uint4*>(krow + c);
-            const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-            float kf[8];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const float2 f = __bfloat1622float2(k2[j]);
-              kf[2 * j] = f.x;
-              kf[2 * j + 1] = f.y;
-            }
+            float kf[kVec];
+            Vec<T>::to_f32(u, kf);
 #pragma unroll
             for (int rr = 0; rr < 4; ++rr) {
               if (r0 + rr < rows) {
-                const float4 qa = *reinterpret_cast<const float4*>(q_s + (r0 + rr) * d + c);
-                const float4 qb = *reinterpret_cast<const float4*>(q_s + (r0 + rr) * d + c + 4);
-                sc[rr] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
-                          qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
+                const float* qr = q_s + (r0 + rr) * d + c;
+                float acc4 = 0.f;
+#pragma unroll
+                for (int j = 0; j < kVec; j += 4) {
+                  const float4 qa = *reinterpret_cast<const float4*>(qr + j);
+                  acc4 += qa.x * kf[j] + qa.y * kf[j + 1] + qa.z * kf[j + 2] + qa.w * kf[j + 3];
+                }
+                sc[rr] += acc4;
               }
             }
           }
@@ -186,24 +231,55 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
       float a = 0.f;
       for (int t = 0; t < n_here; ++t) {
         const float pv = pr[t];
-        if (pv != 0.f) a += pv * __bfloat162float(v_s[t * dv + c]);
+        if (pv != 0.f) a += pv * Vec<T>::one(v_s[t * dv + c]);
       }
       acc[i] = acc[i] * alpha_s[r] + a;
     }
     __syncthreads();
   }
 
+  const float oscale = vscale ? *vscale : 1.f;
   for (int i = tid; i < rows * dv; i += kThreads) {
     const int r = i / dv, c = i % dv;
     const int g = r / sq, s = r % sq;
     const float l = l_s[r];
-    const float o = l == 0.f ? 0.f : acc[i] / l;
+    const float o = l == 0.f ? 0.f : acc[i] / l * oscale;
     out[(static_cast<int64_t>(b * sq + s) * hq + h * g_per + g) * dv + c] = __float2bfloat16(o);
   }
 }
 
+template <typename T>
+int launch(const void* q, const void* kcache, const void* vcache, const int64_t* st,
+           const void* block_ids, const void* kv_lens, const void* kscale, const void* vscale,
+           void* out, int batch, int max_blocks, int page_size, int sq, int hq, int hkv, int d,
+           int dv, float scale, cudaStream_t stream) {
+  constexpr int kVec = Vec<T>::N;
+  if (batch == 0) return 0;
+  if (d % kVec != 0 || dv % kVec != 0 || hq % hkv != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows = (hq / hkv) * sq;
+  const size_t smem = sizeof(T) * static_cast<size_t>(kTile) * dv +
+                      sizeof(float) * (static_cast<size_t>(rows) * (d + kTile + dv) + 3 * rows);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  dim3 grid(batch, hkv);
+  paged_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kcache),
+      static_cast<const T*>(vcache), st[0], st[1], st[2], st[3], st[4], st[5],
+      static_cast<const int32_t*>(block_ids), static_cast<const int32_t*>(kv_lens),
+      static_cast<const float*>(kscale), static_cast<const float*>(vscale),
+      static_cast<__nv_bfloat16*>(out), max_blocks, page_size, sq, hq, hkv, d, dv, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// bf16 K and V caches; (head, page, slot) strides in elements.
 extern "C" int hpc_paged_decode_bf16(
     const void* q, const void* kcache, const void* vcache,
     int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
@@ -211,27 +287,31 @@ extern "C" int hpc_paged_decode_bf16(
     const void* block_ids, const void* kv_lens, void* out, int batch,
     int max_blocks, int page_size, int sq, int hq, int hkv, int d, int dv,
     float scale, void* stream) {
-  if (batch == 0) return 0;
-  if (d % 8 != 0 || dv % 8 != 0 || hq % hkv != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t st[6] = {k_head_stride, k_page_stride, k_slot_stride,
+                         v_head_stride, v_page_stride, v_slot_stride};
+  return launch<__nv_bfloat16>(q, kcache, vcache, st, block_ids, kv_lens, nullptr, nullptr,
+                               out, batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// The NHD_FUSED slab [num_pages, 2*page_size, hkv*d]; kv_int8 selects int8
+// codes (else bf16). kscale and vscale are [1] float32 device scalars or
+// null (a scale of 1).
+extern "C" int hpc_paged_decode_nhd_fused(
+    const void* q, const void* kv_slab, int kv_int8, const void* kscale, const void* vscale,
+    const void* block_ids, const void* kv_lens, void* out, int batch, int max_blocks,
+    int page_size, int sq, int hq, int hkv, int d, float scale, void* stream) {
+  const int64_t slot = static_cast<int64_t>(hkv) * d;
+  const int64_t page = 2 * page_size * slot;
+  const int64_t st[6] = {d, page, slot, d, page, slot};
+  const int64_t v_off = page_size * slot;  // elements from a page's K rows to its V rows
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kv_int8) {
+    const int8_t* kv = static_cast<const int8_t*>(kv_slab);
+    return launch<int8_t>(q, kv, kv + v_off, st, block_ids, kv_lens, kscale, vscale, out, batch,
+                          max_blocks, page_size, sq, hq, hkv, d, d, scale, s);
   }
-  const int rows = (hq / hkv) * sq;
-  const size_t smem = sizeof(__nv_bfloat16) * static_cast<size_t>(kTile) * dv +
-                      sizeof(float) * (static_cast<size_t>(rows) * (d + kTile + dv) + 3 * rows);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  dim3 grid(batch, hkv);
-  paged_decode_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(kcache),
-      static_cast<const __nv_bfloat16*>(vcache), k_head_stride, k_page_stride,
-      k_slot_stride, v_head_stride, v_page_stride, v_slot_stride,
-      static_cast<const int32_t*>(block_ids), static_cast<const int32_t*>(kv_lens),
-      static_cast<__nv_bfloat16*>(out), max_blocks, page_size, sq, hq, hkv, d,
-      dv, scale);
-  return static_cast<int>(cudaGetLastError());
+  const __nv_bfloat16* kv = static_cast<const __nv_bfloat16*>(kv_slab);
+  return launch<__nv_bfloat16>(q, kv, kv + v_off, st, block_ids, kv_lens, kscale, vscale, out,
+                               batch, max_blocks, page_size, sq, hq, hkv, d, d, scale, s);
 }

@@ -1,7 +1,11 @@
-// Varlen causal prefill attention over a paged bf16 KV cache.
+// Varlen causal prefill attention over a paged bf16 KV cache, or over the
+// NHD_FUSED K|V slab (bf16 or int8 with per-tensor scales).
 //
 // Replaces: hpc_ops_tpu/ops/attention/prefill.py:_prefill_kernel (reached
-// through _prefill_pallas, dense bf16 path).
+// through _prefill_pallas, dense bf16 path; launcher hpc_paged_prefill_bf16)
+// and hpc_ops_tpu/ops/attention/prefill.py:_prefill_nhd_fused_kernel
+// (reached through _prefill_nhd_fused_pallas; launcher
+// hpc_paged_prefill_nhd_fused).
 //
 // Bound on the card: operations. A q tile of Q tokens reads each K/V row of
 // its causal prefix once for G * Q query rows, so long prompts do
@@ -14,7 +18,8 @@
 // o written to, the packed [total_q, Hq * D] rows directly through
 // cu_seqlens. The block walks KV tiles of kCols = 64 positions up to its
 // causal limit through the page table (page ids below 0 read page 0):
-//   * K (transposed) and V tiles are staged in shared memory as float32;
+//   * K (transposed) and V tiles are staged in shared memory as float32
+//     (8 elements per thread and load: 16 bytes of bf16, 8 of int8 codes);
 //   * each thread computes a 4 x 4 block of scores from float4 reads and
 //     keeps it in registers; the causal mask kpos <= (kv_len - q_len) + qpos
 //     is applied before the exponential;
@@ -22,8 +27,12 @@
 //     it with warp shuffles, rescales the thread's 4 x (D/16) output
 //     accumulator in registers, and writes the probabilities back to shared
 //     memory for the p @ v product.
-// Everything is float32 (no bf16 exponent tricks). Rows of the output past
-// cu_seqlens[B] belong to no request; the wrapper zero-fills them.
+// Everything is float32 (no bf16 exponent tricks). The logit scale is
+// sm_scale * kscale (folded into q), the output acc / l * vscale. Page,
+// slot and head strides are arguments, so HND, NHD and the NHD_FUSED slab
+// ([nb, 2*bs, Hkv*D], V rows bs slots after the page's K rows) are read in
+// place. Rows of the output past cu_seqlens[B] belong to no request; the
+// wrapper zero-fills them.
 //
 // Known limit: the products run on the CUDA cores in float32, not on the
 // tensor cores (wgmma); that is later work.
@@ -50,24 +59,34 @@ __device__ __forceinline__ float group16_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ void bf16x8_to_f32(const uint4& u, float* f) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+// 8 cache elements at p (16-byte aligned for bf16, 8-byte for int8) -> floats.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(p[i]);
+    const float2 t = __bfloat1622float2(h[i]);
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }
 }
 
-template <int D>
+__device__ __forceinline__ void load8(const int8_t* p, float* f) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = static_cast<float>(c[i]);
+}
+
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q,  // [rows, hq * D]
-    const __nv_bfloat16* __restrict__ kc, const __nv_bfloat16* __restrict__ vc,
+    const T* __restrict__ kc, const T* __restrict__ vc,
     int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
     int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
     const int32_t* __restrict__ cu, const int32_t* __restrict__ kv_lens,
-    const int32_t* __restrict__ block_ids, __nv_bfloat16* __restrict__ out,
+    const int32_t* __restrict__ block_ids, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, __nv_bfloat16* __restrict__ out,
     int max_blocks, int page_size, int hq, int hkv, int q_tile, float scale) {
   constexpr int kColGroups = D / 64;  // output columns c = k*64 + tx*4 + e
   extern __shared__ float smem[];
@@ -92,13 +111,14 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
+  const float qscale = scale * (kscale ? *kscale : 1.f);
 
   for (int idx = tid; idx < kRows * D; idx += kThreads) {
     const int m = idx / D, c = idx % D;
     float val = 0.f;
     if (m < rows_used) {
       const int64_t src = (q_start + i0 + m / g_per) * row_stride + (h * g_per + m % g_per) * D + c;
-      val = __bfloat162float(q[src]) * scale;
+      val = __bfloat162float(q[src]) * qscale;
     }
     qt_s[c * kRows + m] = val;
   }
@@ -127,9 +147,8 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
       float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (kpos < kv_end) {
         const int page = max(tbl[kpos / page_size], 0);
-        const uint4 u = *reinterpret_cast<const uint4*>(
-            kc + h * k_head_stride + page * k_page_stride + (kpos % page_size) * k_slot_stride + d0);
-        bf16x8_to_f32(u, f);
+        load8(kc + h * k_head_stride + page * k_page_stride + (kpos % page_size) * k_slot_stride + d0,
+              f);
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j) kt_s[(d0 + j) * kCols + n] = f[j];
@@ -142,9 +161,8 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
       float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (kpos < kv_end) {
         const int page = max(tbl[kpos / page_size], 0);
-        const uint4 u = *reinterpret_cast<const uint4*>(
-            vc + h * v_head_stride + page * v_page_stride + (kpos % page_size) * v_slot_stride + c0);
-        bf16x8_to_f32(u, f);
+        load8(vc + h * v_head_stride + page * v_page_stride + (kpos % page_size) * v_slot_stride + c0,
+              f);
       }
       float4* dst = reinterpret_cast<float4*>(v_s + n * D + c0);
       dst[0] = make_float4(f[0], f[1], f[2], f[3]);
@@ -219,11 +237,12 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     }
   }
 
+  const float oscale = vscale ? *vscale : 1.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     if (r >= rows_used) continue;
-    const float inv = l_i[i] == 0.f ? 0.f : 1.f / l_i[i];
+    const float inv = l_i[i] == 0.f ? 0.f : oscale / l_i[i];
     __nv_bfloat16* dst = out + (q_start + i0 + r / g_per) * row_stride + (h * g_per + r % g_per) * D;
 #pragma unroll
     for (int k = 0; k < kColGroups; ++k)
@@ -232,31 +251,54 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   }
 }
 
-template <int D>
+template <int D, typename T>
 int launch(const void* q, const void* kc, const void* vc, const int64_t* st,
-           const void* cu, const void* kv_lens, const void* block_ids, void* out,
-           int batch, int max_blocks, int page_size, int hq, int hkv,
-           int n_q_tiles, int q_tile, float scale, cudaStream_t stream) {
+           const void* cu, const void* kv_lens, const void* block_ids, const void* kscale,
+           const void* vscale, void* out, int batch, int max_blocks, int page_size, int hq,
+           int hkv, int n_q_tiles, int q_tile, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (static_cast<size_t>(D) * (kRows + kCols) +
                                        static_cast<size_t>(kCols) * (D + kRows));
-  cudaError_t e = cudaFuncSetAttribute(paged_prefill_kernel<D>,
+  cudaError_t e = cudaFuncSetAttribute(paged_prefill_kernel<D, T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(batch, hkv, n_q_tiles);
-  paged_prefill_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc), st[0], st[1], st[2], st[3], st[4], st[5],
+  paged_prefill_kernel<D, T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kc),
+      static_cast<const T*>(vc), st[0], st[1], st[2], st[3], st[4], st[5],
       static_cast<const int32_t*>(cu), static_cast<const int32_t*>(kv_lens),
-      static_cast<const int32_t*>(block_ids), static_cast<__nv_bfloat16*>(out),
+      static_cast<const int32_t*>(block_ids), static_cast<const float*>(kscale),
+      static_cast<const float*>(vscale), static_cast<__nv_bfloat16*>(out),
       max_blocks, page_size, hq, hkv, q_tile, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_d(const void* q, const void* kc, const void* vc, const int64_t* st,
+             const void* cu, const void* kv_lens, const void* block_ids, const void* kscale,
+             const void* vscale, void* out, int batch, int max_blocks, int page_size, int hq,
+             int hkv, int d, int max_seqlens_q, float scale, cudaStream_t stream) {
+  if (hq % hkv != 0 || hq / hkv > kRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || max_seqlens_q == 0) return 0;
+  const int q_tile = kRows / (hq / hkv);
+  const int n_q_tiles = (max_seqlens_q + q_tile - 1) / q_tile;
+  switch (d) {
+    case 64:
+      return launch<64, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, out, batch,
+                           max_blocks, page_size, hq, hkv, n_q_tiles, q_tile, scale, stream);
+    case 128:
+      return launch<128, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, out, batch,
+                            max_blocks, page_size, hq, hkv, n_q_tiles, q_tile, scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// Launches one block per (request, kv head, q tile of 64 / G tokens) and
-// returns a cudaError_t code. d (the head dim of q, K and V) is 64 or 128.
+// bf16 K and V caches; (head, page, slot) strides in elements. Launches one
+// block per (request, kv head, q tile of 64 / G tokens) and returns a
+// cudaError_t code. d (the head dim of q, K and V) is 64 or 128.
 extern "C" int hpc_paged_prefill_bf16(
     const void* q, const void* kcache, const void* vcache,
     int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
@@ -264,21 +306,33 @@ extern "C" int hpc_paged_prefill_bf16(
     const void* cu, const void* kv_lens, const void* block_ids, void* out,
     int batch, int max_blocks, int page_size, int hq, int hkv, int d,
     int max_seqlens_q, float scale, void* stream) {
-  if (hq % hkv != 0 || hq / hkv > kRows) return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0 || max_seqlens_q == 0) return 0;
-  const int q_tile = kRows / (hq / hkv);
-  const int n_q_tiles = (max_seqlens_q + q_tile - 1) / q_tile;
   const int64_t st[6] = {k_head_stride, k_page_stride, k_slot_stride,
                          v_head_stride, v_page_stride, v_slot_stride};
+  return launch_d<__nv_bfloat16>(q, kcache, vcache, st, cu, kv_lens, block_ids, nullptr,
+                                 nullptr, out, batch, max_blocks, page_size, hq, hkv, d,
+                                 max_seqlens_q, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The NHD_FUSED slab [num_pages, 2*page_size, hkv*d]; kv_int8 selects int8
+// codes (else bf16). kscale and vscale are [1] float32 device scalars or
+// null (a scale of 1).
+extern "C" int hpc_paged_prefill_nhd_fused(
+    const void* q, const void* kv_slab, int kv_int8, const void* kscale, const void* vscale,
+    const void* cu, const void* kv_lens, const void* block_ids, void* out, int batch,
+    int max_blocks, int page_size, int hq, int hkv, int d, int max_seqlens_q, float scale,
+    void* stream) {
+  const int64_t slot = static_cast<int64_t>(hkv) * d;
+  const int64_t page = 2 * page_size * slot;
+  const int64_t st[6] = {d, page, slot, d, page, slot};
+  const int64_t v_off = page_size * slot;  // elements from a page's K rows to its V rows
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return launch<64>(q, kcache, vcache, st, cu, kv_lens, block_ids, out, batch,
-                        max_blocks, page_size, hq, hkv, n_q_tiles, q_tile, scale, s);
-    case 128:
-      return launch<128>(q, kcache, vcache, st, cu, kv_lens, block_ids, out, batch,
-                         max_blocks, page_size, hq, hkv, n_q_tiles, q_tile, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (kv_int8) {
+    const int8_t* kv = static_cast<const int8_t*>(kv_slab);
+    return launch_d<int8_t>(q, kv, kv + v_off, st, cu, kv_lens, block_ids, kscale, vscale, out,
+                            batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q, scale, s);
   }
+  const __nv_bfloat16* kv = static_cast<const __nv_bfloat16*>(kv_slab);
+  return launch_d<__nv_bfloat16>(q, kv, kv + v_off, st, cu, kv_lens, block_ids, kscale, vscale,
+                                 out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
+                                 scale, s);
 }

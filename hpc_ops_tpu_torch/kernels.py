@@ -34,8 +34,11 @@ NVCC_FLAGS = (
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "hpc_rope_store_bf16": [_P] * 10 + [_I] * 8 + [_I64] * 5 + [_I, _P],
+    "hpc_rope_store_int8": [_P] * 11 + [_I] * 8 + [_I64, _I, _P],
     "hpc_paged_decode_bf16": [_P] * 3 + [_I64] * 6 + [_P] * 3 + [_I] * 8 + [_F, _P],
+    "hpc_paged_decode_nhd_fused": [_P, _P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P],
     "hpc_paged_prefill_bf16": [_P] * 3 + [_I64] * 6 + [_P] * 4 + [_I] * 7 + [_F, _P],
+    "hpc_paged_prefill_nhd_fused": [_P, _P, _I] + [_P] * 6 + [_I] * 7 + [_F, _P],
 }
 
 _LOCK = threading.Lock()
@@ -116,14 +119,23 @@ def stream_ptr(t) -> int:
 
 def wrappers() -> dict:
     """The kernel wrappers by name; each carries a plain-int ``launches``."""
-    from hpc_ops_tpu_torch.ops.attention.decode import paged_decode_attention
-    from hpc_ops_tpu_torch.ops.attention.prefill import paged_prefill_attention
-    from hpc_ops_tpu_torch.ops.rope_kernel import rope_store_rows
+    from hpc_ops_tpu_torch.ops.attention.decode import (
+        paged_decode_attention,
+        paged_decode_nhd_fused,
+    )
+    from hpc_ops_tpu_torch.ops.attention.prefill import (
+        paged_prefill_attention,
+        paged_prefill_nhd_fused,
+    )
+    from hpc_ops_tpu_torch.ops.rope_kernel import rope_store_rows, rope_store_rows_int8
 
     return {
         "rope_store": rope_store_rows,
         "paged_decode": paged_decode_attention,
         "paged_prefill": paged_prefill_attention,
+        "rope_store_int8": rope_store_rows_int8,
+        "paged_decode_nhd_fused": paged_decode_nhd_fused,
+        "paged_prefill_nhd_fused": paged_prefill_nhd_fused,
     }
 
 

@@ -1,17 +1,21 @@
 """Dense Llama-class decoder on the port's operator stack (port of
-``models/llama.py``, dense single-device bf16-KV path).
+``models/llama.py``, dense single-device path, bf16 or int8 KV).
 
 Weights are a plain dict of tensors with the JAX package's layout:
 ``{"embed", "final_norm", "lm_head", "cos_sin", "layers": [{"attn_norm",
 "wqkv", "wo", "mlp_norm", "w_gate_up", "w_down"}, ...]}``; projections are
 ``x @ w`` with ``w`` of shape [in, out]. Caches are a list of per-layer
-``{"k", "v"}`` HND ``[Hkv, num_blocks, block_size, D]`` bf16 tensors, updated
-IN PLACE by :func:`forward_step` (the JAX version returns new caches; this
-one returns the same list).
+``{"k", "v"}`` HND ``[Hkv, num_blocks, block_size, D]`` bf16 tensors or,
+with ``int8_kv``, ``{"kv"}`` int8 NHD_FUSED slabs
+``[num_blocks, 2*block_size, Hkv*D]`` holding ``round(x / kv_scale)`` codes;
+:func:`forward_step` updates them IN PLACE (the JAX version returns new
+caches; this one returns the same list).
 
 Each layer: RMSNorm, the QKV projection, RoPE fused with the paged KV store
-(the CUDA kernel on decode steps), paged attention (prefill or decode
-kernel), the o-projection with residual add, RMSNorm and the gated-SiLU MLP.
+(the CUDA kernel on decode steps; quantising into the slab with
+``int8_kv``), paged attention (prefill or decode kernel, reading the cache
+in place), the o-projection with residual add, RMSNorm and the gated-SiLU
+MLP.
 """
 
 from __future__ import annotations
@@ -25,7 +29,11 @@ import torch
 from hpc_ops_tpu_torch.ops.attention.decode import attention_decode
 from hpc_ops_tpu_torch.ops.attention.prefill import attention_with_kvcache_prefill
 from hpc_ops_tpu_torch.ops.normalization import rmsnorm_ref
-from hpc_ops_tpu_torch.ops.rope import make_cos_sin_cache, rope_norm_store_kv
+from hpc_ops_tpu_torch.ops.rope import (
+    make_cos_sin_cache,
+    rope_norm_store_kv,
+    rope_norm_store_kv_int8,
+)
 from hpc_ops_tpu_torch.ops.sampler import (
     fused_sampler_temperature_sample,
     gumbel_from_uniform,
@@ -89,7 +97,6 @@ def check_supported(cfg: ModelConfig, axis_name=None) -> None:
     """Raise NotImplementedError for configurations of later slices."""
     later = {
         "fp8_kv": ("ROADMAP queue 1 item 2 (quantized KV)", cfg.fp8_kv),
-        "int8_kv": ("ROADMAP queue 1 item 2 (quantized KV)", cfg.int8_kv),
         "dense_int8": ("ROADMAP queue 1 item 2 (quantized KV and W8A8)", cfg.dense_int8),
         "moe": ("ROADMAP queue 1 item 3 (MoE)", cfg.moe is not None),
         "qkv_bias": ("ROADMAP queue 1 item 7 (checkpoint conversion)", cfg.qkv_bias),
@@ -165,9 +172,15 @@ def weights_from_numpy(tree, device="cuda"):
 
 
 def init_cache(cfg: ModelConfig, num_blocks: int, block_size: int, tp: int = 1, device="cuda"):
-    """Per-layer HND caches ``{"k", "v"}`` of [Hkv/tp, blocks, bs, D] bf16 zeros."""
+    """Per-layer HND caches ``{"k", "v"}`` of [Hkv/tp, blocks, bs, D] bf16
+    zeros, or with ``cfg.int8_kv`` one int8 NHD_FUSED slab ``{"kv"}`` of
+    [blocks, 2*bs, (Hkv/tp)*D] zeros."""
     check_supported(cfg)
     hkv = cfg.kv_heads // tp
+    if cfg.int8_kv:
+        shape = (num_blocks, 2 * block_size, hkv * cfg.head_dim)
+        return [{"kv": torch.zeros(shape, dtype=torch.int8, device=device)}
+                for _ in range(cfg.layers)]
     shape = (hkv, num_blocks, block_size, cfg.head_dim)
     return [
         {
@@ -216,24 +229,38 @@ def forward_step(
     x = weights["embed"][token_ids.long()]
     h_normed = rmsnorm_ref(x, weights["layers"][0]["attn_norm"], cfg.norm_eps).to(torch.bfloat16)
     x_res = x.to(torch.bfloat16)
+    # decode rows are all real (or parked on the dummy page), the fused store
+    # kernel's contract; prefill rows may be padded
+    store_impl = "xla" if is_prefill else "pallas"
+    if cfg.int8_kv:
+        kv_sc = torch.full((1,), cfg.kv_scale, dtype=torch.float32, device=x.device)
+        attn_kw = {"cache_layout": "NHD_FUSED", "kscale": kv_sc, "vscale": kv_sc}
+    else:
+        attn_kw = {"cache_layout": "HND"}
     for li, layer in enumerate(weights["layers"]):
         qkv = h_normed @ layer["wqkv"]
-        q, k_cache, v_cache = rope_norm_store_kv(
-            caches[li]["k"], caches[li]["v"], qkv, weights["cos_sin"], seq_lens,
-            q_index, block_ids, is_prefill, cache_layout="HND", zero_tails=False,
-            # decode rows are all real (or parked on the dummy page), the
-            # fused kernel's contract; prefill rows may be padded
-            impl="xla" if is_prefill else "pallas",
-        )
+        if cfg.int8_kv:
+            # one int8 NHD_FUSED slab per layer, read in place by attention
+            k_cache, v_cache = caches[li]["kv"], None
+            q, _ = rope_norm_store_kv_int8(
+                k_cache, qkv, weights["cos_sin"], seq_lens, q_index, block_ids, is_prefill,
+                kv_sc, kv_sc, impl=store_impl, cache_layout="NHD_FUSED",
+                num_kv_heads=k_cache.shape[2] // cfg.head_dim,
+            )
+        else:
+            q, k_cache, v_cache = rope_norm_store_kv(
+                caches[li]["k"], caches[li]["v"], qkv, weights["cos_sin"], seq_lens,
+                q_index, block_ids, is_prefill, cache_layout="HND", zero_tails=False,
+                impl=store_impl,
+            )
         if is_prefill:
             attn = attention_with_kvcache_prefill(
-                q, k_cache, v_cache, q_index, block_ids, seq_lens, max_seqlens_q,
-                cache_layout="HND",
+                q, k_cache, v_cache, q_index, block_ids, seq_lens, max_seqlens_q, **attn_kw
             )
         else:
             attn = attention_decode(
-                q, k_cache, v_cache, block_ids, seq_lens, mtp=mtp,
-                new_kv_included=True, cache_layout="HND",
+                q, k_cache, v_cache, block_ids, seq_lens, mtp=mtp, new_kv_included=True,
+                **attn_kw,
             )
         attn_out = attn.reshape(rows, -1) @ layer["wo"]
         if cfg.residual_alpha != 1.0:

@@ -1,14 +1,17 @@
-"""Paged GQA decode attention, bf16 (port of ``ops/attention/decode.py``).
+"""Paged GQA decode attention (port of ``ops/attention/decode.py``).
 
 ``attention_decode`` keeps the JAX package's arguments: q ``[B*Sq, Hq, D]``
 with Sq = mtp + 1, caches NHD ``[num_blocks, block_size, Hkv, D]`` (default)
-or HND ``[Hkv, num_blocks, block_size, D]``. The kernel
-(``csrc/decode.cu``) takes the cache strides, so both layouts are read in
-place with no transpose and no padding of the query rows.
+or HND ``[Hkv, num_blocks, block_size, D]``, or one slot-leading K|V slab
+NHD_FUSED ``[num_blocks, 2*block_size, Hkv*D]`` (``vcache`` unused). The
+kernels (``csrc/decode.cu``) take the cache strides, so every layout is read
+in place with no transpose and no padding of the query rows.
 
-Ported here: the bf16 cache, HND and NHD, mtp 0..4, ``new_kv_included``,
-``sm_scale`` and ``impl="ref"``. The fp8 scales, the FUSED layouts and the
-task-map mode are later slices and raise ``NotImplementedError``.
+Ported here: bf16 HND and NHD caches, and bf16 or int8 NHD_FUSED slabs with
+per-tensor ``kscale``/``vscale`` (logits scaled by ``sm_scale * kscale``, the
+output by ``vscale``); mtp 0..4, ``new_kv_included``, ``sm_scale`` and
+``impl="ref"``. fp8 caches, the head-major FUSED layout, per-token scales
+and the task-map mode are later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 
 from hpc_ops_tpu_torch import kernels
 from hpc_ops_tpu_torch.config import QuantType
-from hpc_ops_tpu_torch.ops.attention.paging import hnd_to_nhd
+from hpc_ops_tpu_torch.ops.attention.paging import hnd_to_nhd, nhd_fused_views
 from hpc_ops_tpu_torch.ops.attention.reference import attention_decode_ref
 
 
@@ -37,8 +40,29 @@ def _page_strides(cache, cache_layout):
 def _check_rows_aligned(name, *caches_and_strides):
     """The kernels move K/V rows as 16-byte vectors."""
     for cache, strides in caches_and_strides:
-        if cache.data_ptr() % 16 or cache.shape[-1] % 8 or any(s % 8 for s in strides):
+        per16 = 16 // cache.element_size()  # elements per 16 bytes
+        if cache.data_ptr() % 16 or cache.shape[-1] % per16 or any(s % per16 for s in strides):
             raise ValueError(f"{name}: cache rows must be 16-byte aligned")
+
+
+def _check_slab(name, kv, num_kv_heads, d):
+    """An NHD_FUSED slab the kernels read: contiguous, bf16 or int8, 16-byte rows."""
+    if kv.dtype not in (torch.bfloat16, torch.int8):
+        raise NotImplementedError(
+            f"{name}: {kv.dtype} slabs (fp8) arrive with ROADMAP queue 1 item 2 (quantized KV)"
+        )
+    if kv.dim() != 3 or kv.shape[1] % 2 or kv.shape[2] != num_kv_heads * d:
+        raise ValueError(f"{name}: the slab must be [nb, 2*bs, {num_kv_heads * d}]")
+    if not kv.is_contiguous():
+        raise ValueError(f"{name}: the slab must be contiguous")
+    _check_rows_aligned(name, (kv, (d,)))
+
+
+def _scale_tensor(scale, device):
+    """A per-tensor scale as a [1] float32 tensor on ``device`` (None stays None)."""
+    if scale is None:
+        return None
+    return torch.as_tensor(scale, dtype=torch.float32, device=device).reshape(1).contiguous()
 
 
 def _decode_ref(q, kcache, vcache, block_ids, kv_lens, sq, scale, cache_layout):
@@ -102,6 +126,65 @@ def paged_decode_attention(
 paged_decode_attention.launches = 0
 
 
+def _decode_nhd_fused_ref(q, kv, block_ids, kv_lens, sq, scale, kscale, vscale):
+    """Plain PyTorch version of :func:`paged_decode_nhd_fused` (float32): the
+    reference over NHD views of the slab, dequantised by ``_dequant_kv``."""
+    k, v = nhd_fused_views(kv, kv.shape[2] // q.shape[2])
+    return attention_decode_ref(
+        q, k, v, block_ids, kv_lens, mtp=sq - 1, new_kv_included=True, kscale=kscale,
+        vscale=vscale, sm_scale=scale,
+    )
+
+
+def paged_decode_nhd_fused(
+    q: torch.Tensor,  # [B*sq, Hq, D] bf16
+    kv: torch.Tensor,  # [num_blocks, 2*block_size, Hkv*D] bf16 or int8
+    block_ids: torch.Tensor,  # [B, max_blocks], -1 padded
+    kv_lens: torch.Tensor,  # [B] effective KV length (new tokens included)
+    sq: int,
+    scale: float,
+    kscale=None,  # [1] f32 per-tensor K scale (None: 1)
+    vscale=None,  # [1] f32 per-tensor V scale (None: 1)
+) -> torch.Tensor:
+    """Decode attention over an NHD_FUSED slab; returns [B*sq, Hq, D] bf16.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.
+    """
+    if q.device.type == "cpu":
+        return _decode_nhd_fused_ref(q, kv, block_ids, kv_lens, sq, scale, kscale, vscale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_nhd_fused: unsupported device {q.device}")
+    b = kv_lens.shape[0]
+    bsq, hq, d = q.shape
+    if q.dtype != torch.bfloat16 or bsq != b * sq or not q.is_contiguous():
+        raise ValueError(f"paged_decode_nhd_fused: q must be contiguous bf16 [{b * sq}, Hq, D]")
+    hkv = kv.shape[2] // d
+    if hkv == 0 or hq % hkv:
+        raise ValueError("paged_decode_nhd_fused: unsupported head geometry")
+    _check_slab("paged_decode_nhd_fused", kv, hkv, d)
+    ks, vs = _scale_tensor(kscale, q.device), _scale_tensor(vscale, q.device)
+    for t in (kv, block_ids, kv_lens):
+        if t.device != q.device:
+            raise ValueError("paged_decode_nhd_fused: all tensors must be on one device")
+    tbl = block_ids.to(torch.int32).contiguous()
+    lens = kv_lens.to(torch.int32).contiguous()
+    out = torch.empty((bsq, hq, d), dtype=torch.bfloat16, device=q.device)
+    rc = kernels.lib().hpc_paged_decode_nhd_fused(
+        q.data_ptr(), kv.data_ptr(), int(kv.dtype == torch.int8),
+        None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
+        tbl.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        b, tbl.shape[1], kv.shape[1] // 2, sq, hq, hkv, d, float(scale),
+        kernels.stream_ptr(q),
+    )
+    kernels.check(rc, "hpc_paged_decode_nhd_fused")
+    paged_decode_nhd_fused.launches += 1
+    return out
+
+
+paged_decode_nhd_fused.launches = 0
+
+
 def attention_decode(
     q,
     kcache,
@@ -123,27 +206,44 @@ def attention_decode(
     cache_layout: str = "NHD",
     impl: str = "auto",
 ):
-    """Paged GQA decode attention over a bf16 cache. Returns [B*Sq, Hq, Dv] bf16.
+    """Paged GQA decode attention. Returns [B*Sq, Hq, Dv] bf16.
 
-    ``splitk``, ``pages_per_compute_block`` and ``task_tile`` are TPU tuning
-    knobs, accepted for call compatibility and unused.
+    bf16 caches in NHD or HND, or an NHD_FUSED slab (bf16, or int8 codes
+    with per-tensor ``kscale``/``vscale``). ``splitk``,
+    ``pages_per_compute_block`` and ``task_tile`` are TPU tuning knobs,
+    accepted for call compatibility and unused.
     """
     del splitk, pages_per_compute_block, task_tile
     if task_map is not None:
         raise NotImplementedError("task-map decode arrives with ROADMAP queue 1 item 5")
-    if cache_layout not in ("NHD", "HND"):
+    if cache_layout not in ("NHD", "HND", "NHD_FUSED"):
         raise NotImplementedError(
-            f"cache_layout={cache_layout!r} arrives with ROADMAP queue 1 item 2 (quantized KV)"
+            f"cache_layout={cache_layout!r} arrives with ROADMAP queue 1 item 5 (FUSED decode)"
         )
-    if kcache.dtype != torch.bfloat16 or qscale is not None or kscale is not None:
+    if QuantType(quant_type) not in (
+        QuantType.QPERTOKEN_PERHEAD_KPERTENSOR_VPERTENSOR,
+        QuantType.QPERTENSOR_KPERTENSOR_VPERTENSOR,
+    ):
+        raise NotImplementedError("per-token K scales arrive with ROADMAP queue 1 item 5")
+    fused = cache_layout == "NHD_FUSED"
+    if qscale is not None or (not fused and (kcache.dtype != torch.bfloat16 or kscale is not None)):
         raise NotImplementedError("fp8 decode arrives with ROADMAP queue 1 item 2 (quantized KV)")
-    del vscale, quant_type
     sq = mtp + 1
     d = q.shape[2]
     scale = (1.0 / d**0.5) if sm_scale is None else sm_scale
     kv_lens = num_seq_kvcache.to(torch.int32)
     if not new_kv_included:
         kv_lens = kv_lens + sq
+    if fused:
+        # as in the JAX package, a bf16 slab ignores the scales
+        if kcache.dtype == torch.bfloat16:
+            kscale = vscale = None
+        if impl == "ref":
+            return _decode_nhd_fused_ref(q, kcache, block_ids, kv_lens, sq, scale, kscale, vscale)
+        return paged_decode_nhd_fused(
+            q.to(torch.bfloat16).contiguous(), kcache, block_ids, kv_lens, sq, scale, kscale,
+            vscale,
+        )
     if impl == "ref":
         return _decode_ref(q, kcache, vcache, block_ids, kv_lens, sq, scale, cache_layout)
     return paged_decode_attention(
@@ -171,4 +271,9 @@ def attention_decode_bf16(
     )
 
 
-__all__ = ["attention_decode", "attention_decode_bf16", "paged_decode_attention"]
+__all__ = [
+    "attention_decode",
+    "attention_decode_bf16",
+    "paged_decode_attention",
+    "paged_decode_nhd_fused",
+]

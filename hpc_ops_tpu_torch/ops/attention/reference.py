@@ -17,13 +17,25 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def _dequant_kv(kcache, vcache, kscale, vscale, quant_type: QuantType):
-    """Caches -> float32. Only the bf16 cache is ported; fp8 scales arrive
-    with the quantized-KV slice."""
-    if kcache.dtype != torch.bfloat16:
+    """Caches -> float32. A bf16 cache is read as it is; an int8 or fp8 cache
+    with per-tensor scales (QuantType 1, 2) is ``k * kscale``,
+    ``v * vscale`` (a scale of None multiplies by 1). The per-token K scales
+    of QuantType 0 arrive with ROADMAP queue 1 item 5."""
+    k, v = kcache.float(), vcache.float()
+    if kcache.dtype == torch.bfloat16:
+        return k, v
+    if QuantType(quant_type) not in (
+        QuantType.QPERTOKEN_PERHEAD_KPERTENSOR_VPERTENSOR,
+        QuantType.QPERTENSOR_KPERTENSOR_VPERTENSOR,
+    ):
         raise NotImplementedError(
-            "fp8/int8 KV caches arrive with ROADMAP queue 1 item 2 (quantized KV)"
+            "per-token K scales (QuantType 0) arrive with ROADMAP queue 1 item 5"
         )
-    return kcache.float(), vcache.float()
+    if kscale is not None:
+        k = k * torch.as_tensor(kscale, dtype=torch.float32, device=k.device).reshape(())
+    if vscale is not None:
+        v = v * torch.as_tensor(vscale, dtype=torch.float32, device=v.device).reshape(())
+    return k, v
 
 
 def _gather_pages(cache, block_ids, max_len):

@@ -1,4 +1,6 @@
-"""RoPE + optional QK-RMSNorm + paged KV store, bf16 (port of ``ops/rope.py``).
+"""RoPE + optional QK-RMSNorm + paged KV store (port of ``ops/rope.py``):
+bf16 caches (:func:`rope_norm_store_kv`) and the int8 fused K|V slabs
+(:func:`rope_norm_store_kv_int8`).
 
 Two formulations, chosen by ``impl`` as in the JAX package:
   * "auto" / "xla": plain PyTorch gather + elementwise + masked store; it
@@ -19,6 +21,7 @@ import torch
 
 from hpc_ops_tpu_torch.config import QKNormPolicy
 from hpc_ops_tpu_torch.ops.kv_cache import (
+    OOB_SLOT,
     PagedKVCache,
     flat_slot_ids,
     store_kv,
@@ -28,7 +31,9 @@ from hpc_ops_tpu_torch.ops.rope_kernel import (
     _head_rmsnorm,
     _rotate_neox,
     _row_mapping,
+    quantize_int8,
     rope_store_rows,
+    rope_store_rows_int8,
 )
 
 
@@ -199,4 +204,89 @@ def _rope_store_kernel_path(
     return q_out.view(rows, num_q_heads, qk_dim), key_cache, value_cache
 
 
-__all__ = ["can_use_rope_kernel", "make_cos_sin_cache", "rope_norm_store_kv"]
+def rope_norm_store_kv_int8(
+    kv_cache: torch.Tensor,
+    qkv: torch.Tensor,
+    cos_sin: torch.Tensor,
+    num_seqlen_per_req: torch.Tensor,
+    q_index: torch.Tensor,
+    kvcache_indices: torch.Tensor,
+    is_prefill: bool,
+    k_scale,
+    v_scale,
+    q_norm_weight: Optional[torch.Tensor] = None,
+    k_norm_weight: Optional[torch.Tensor] = None,
+    qk_norm_policy: int = 0,
+    impl: str = "auto",
+    cache_layout: str = "FUSED",
+    num_kv_heads: int | None = None,
+):
+    """RoPE + optional QK-norm + symmetric int8 quantisation + fused-page KV store.
+
+    Writes ``clip(round(x / scale), +-127)`` codes of K (after rope/norm) and
+    of V into each token's (page, slot) rows of an int8 fused cache: the
+    head-major "FUSED" ``[Hkv, nb, 2*bs, D]`` or, with ``num_kv_heads``, the
+    slot-leading "NHD_FUSED" ``[nb, 2*bs, Hkv*D]``; a page's V rows sit bs
+    rows after its K rows. ``k_scale``/``v_scale`` are [1] float32 scales;
+    the codes multiply by their float32 inverses.
+
+    ``impl="pallas"`` with NHD_FUSED takes the fused store
+    (:func:`~hpc_ops_tpu_torch.ops.rope_kernel.rope_store_rows_int8`, the
+    CUDA kernel on the card) under the all-rows-real contract: an invalid
+    row is written to the slab's last page rows and its q row is computed
+    like any other. Otherwise the plain scatter runs: invalid rows are
+    dropped and their q rows are zeros, as in the JAX package.
+
+    Returns ``(q_rot [rows, Hq, D] bf16, kv_cache)``, the cache written in place.
+    """
+    del is_prefill  # one path: positions come from the scalar tables
+    if cache_layout == "NHD_FUSED":
+        if num_kv_heads is None:
+            raise ValueError("rope_norm_store_kv_int8: NHD_FUSED needs num_kv_heads")
+        nb, bs2, hd = kv_cache.shape
+        h = num_kv_heads
+        d = hd // h
+    elif cache_layout == "FUSED":
+        h, nb, bs2, d = kv_cache.shape
+    else:
+        raise ValueError(f"rope_norm_store_kv_int8: unknown cache_layout {cache_layout!r}")
+    bs = bs2 // 2
+    rows, hidden = qkv.shape
+    num_q_heads = (hidden - 2 * h * d) // d
+    k_scale = torch.as_tensor(k_scale, dtype=torch.float32, device=qkv.device).reshape(1)
+    v_scale = torch.as_tensor(v_scale, dtype=torch.float32, device=qkv.device).reshape(1)
+    if impl == "pallas" and cache_layout == "NHD_FUSED":
+        q_out, _ = rope_store_rows_int8(
+            qkv, cos_sin, num_seqlen_per_req, q_index, kvcache_indices, q_norm_weight,
+            k_norm_weight, kv_cache, k_scale, v_scale, hq=num_q_heads, hkv=h, d=d, block_size=bs,
+            qk_norm_policy=qk_norm_policy,
+        )
+        return q_out.view(rows, num_q_heads, d), kv_cache
+    q, k, v, m = _rope_norm_core(
+        qkv, cos_sin, num_seqlen_per_req, q_index, q_norm_weight, k_norm_weight,
+        qk_norm_policy, h, d, d,
+    )
+    k_q = quantize_int8(k, 1.0 / k_scale.reshape(()))
+    v_q = quantize_int8(v.float(), 1.0 / v_scale.reshape(()))
+    slots = flat_slot_ids(m.positions, m.req_ids, kvcache_indices, bs, m.valid)
+    good = slots != OOB_SLOT
+    sk = slots[good]
+    sk = sk + sk // bs * bs  # page * bs + off -> page * 2 * bs + off
+    if cache_layout == "NHD_FUSED":
+        kvflat = kv_cache.view(nb * bs2, h * d)
+        kvflat[sk] = k_q[good].reshape(-1, h * d)
+        kvflat[sk + bs] = v_q[good].reshape(-1, h * d)
+    else:
+        kvflat = kv_cache.view(h, nb * bs2, d)
+        kvflat[:, sk] = k_q[good].transpose(0, 1)
+        kvflat[:, sk + bs] = v_q[good].transpose(0, 1)
+    q_out = torch.where(m.valid[:, None, None], q, 0.0).to(torch.bfloat16)
+    return q_out, kv_cache
+
+
+__all__ = [
+    "can_use_rope_kernel",
+    "make_cos_sin_cache",
+    "rope_norm_store_kv",
+    "rope_norm_store_kv_int8",
+]

@@ -1,6 +1,8 @@
 """Fused RoPE + QK-RMSNorm + paged KV store: the CUDA kernel and its plain version.
 
-Port of ``ops/rope_kernel.py`` (kernel source: ``csrc/rope_store.cu``).
+Port of ``ops/rope_kernel.py`` (kernel source: ``csrc/rope_store.cu``):
+:func:`rope_store_rows` stores into bf16 caches, :func:`rope_store_rows_int8`
+quantises into the int8 NHD_FUSED slab (the int8 branch of the TPU kernel).
 One difference at this function: the JAX wrapper computes each row's
 position and slot and gathers its cos|sin row before the kernel; this one
 passes the step's tables (``seq_lens``, ``q_index``, the page table) and the
@@ -20,7 +22,7 @@ from typing import NamedTuple
 
 from hpc_ops_tpu_torch import kernels
 from hpc_ops_tpu_torch.config import QKNormPolicy
-from hpc_ops_tpu_torch.ops.kv_cache import flat_slot_ids
+from hpc_ops_tpu_torch.ops.kv_cache import OOB_SLOT, flat_slot_ids
 
 _NORM_EPS = 1e-6
 
@@ -48,11 +50,21 @@ def _row_mapping(num_rows: int, num_seqlen_per_req, q_index) -> _Varlen:
     return _Varlen(req_c, pos, pos_in_q, valid)
 
 
-def row_slots(rows, seq_lens, q_index, block_ids, block_size, num_slots):
+def row_slots(rows, seq_lens, q_index, block_ids, block_size, num_slots, fused=False):
     """(positions, flat slots) of each row, slots clipped into the cache: what
-    the kernel computes for itself."""
+    the kernel computes for itself.
+
+    ``fused``: the flat slots of an NHD_FUSED slab (``num_slots`` =
+    nb * 2 * block_size), where a page spans 2 * block_size slots. The slot
+    returned is the K row's; V is block_size slots later, so the clip target
+    of an invalid row is ``num_slots - 1 - block_size``.
+    """
     m = _row_mapping(rows, seq_lens, q_index)
     slots = flat_slot_ids(m.positions, m.req_ids, block_ids, block_size, m.valid)
+    if fused:
+        num_slots -= block_size
+        # page * bs + off -> page * 2 * bs + off
+        slots = torch.where(slots == OOB_SLOT, slots, slots + slots // block_size * block_size)
     return m.positions, slots.clamp(0, num_slots - 1)
 
 
@@ -69,14 +81,10 @@ def _head_rmsnorm(x, w, eps: float = _NORM_EPS):
     return x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps) * w.float()
 
 
-def rope_store_rows_ref(
-    qkv, cos_sin, seq_lens, q_index, block_ids, q_norm_weight, k_norm_weight, kflat, vflat,
-    *, hq, hkv, d, dv, block_size, qk_norm_policy, head_major,
-):
-    """Plain PyTorch version of :func:`rope_store_rows` (float32 math)."""
+def _rope_rows_f32(qkv, cos_sin, positions, q_norm_weight, k_norm_weight, hq, hkv, d, dv,
+                   qk_norm_policy):
+    """Split each row, then (norm), rope, (norm): float32 q, k and v."""
     rows = qkv.shape[0]
-    num_slots = kflat.shape[1] if head_major else kflat.shape[0]
-    positions, slots = row_slots(rows, seq_lens, q_index, block_ids, block_size, num_slots)
     x = qkv.float()
     q = x[:, : hq * d].reshape(rows, hq, d)
     k = x[:, hq * d : (hq + hkv) * d].reshape(rows, hkv, d)
@@ -88,6 +96,24 @@ def rope_store_rows_ref(
     q, k = _rotate_neox(q, cs), _rotate_neox(k, cs)
     if policy == QKNormPolicy.ROPE_THEN_NORM:
         q, k = _head_rmsnorm(q, q_norm_weight), _head_rmsnorm(k, k_norm_weight)
+    return q, k, v
+
+
+def quantize_int8(x, inv):
+    """int8 codes clip(round(x * inv), +-127); round is half to even."""
+    return torch.round(x * inv).clamp(-127, 127).to(torch.int8)
+
+
+def rope_store_rows_ref(
+    qkv, cos_sin, seq_lens, q_index, block_ids, q_norm_weight, k_norm_weight, kflat, vflat,
+    *, hq, hkv, d, dv, block_size, qk_norm_policy, head_major,
+):
+    """Plain PyTorch version of :func:`rope_store_rows` (float32 math)."""
+    rows = qkv.shape[0]
+    num_slots = kflat.shape[1] if head_major else kflat.shape[0]
+    positions, slots = row_slots(rows, seq_lens, q_index, block_ids, block_size, num_slots)
+    q, k, v = _rope_rows_f32(qkv, cos_sin, positions, q_norm_weight, k_norm_weight, hq, hkv, d,
+                             dv, qk_norm_policy)
     s = slots.long()
     if head_major:
         kflat[:, s] = k.transpose(0, 1).to(kflat.dtype)
@@ -135,8 +161,9 @@ def rope_store_rows(
         raise ValueError(f"rope_store_rows: unsupported device {qkv.device}")
     if qkv.dtype != torch.bfloat16 or kflat.dtype != torch.bfloat16 or vflat.dtype != torch.bfloat16:
         raise NotImplementedError(
-            "rope_store_rows: the CUDA kernel stores bf16 caches only; int8 caches "
-            "arrive with ROADMAP queue 1 item 2 (quantized KV)"
+            "rope_store_rows: the CUDA kernel stores bf16 caches only (the int8 "
+            "NHD_FUSED slab takes rope_store_rows_int8); fp8 caches arrive with "
+            "ROADMAP queue 1 item 2 (quantized KV)"
         )
     if dv != d:
         raise ValueError("rope_store_rows: the CUDA kernel needs dv == d")
@@ -147,11 +174,7 @@ def rope_store_rows(
     cos_sin = cos_sin.float().contiguous()
     if cos_sin.shape[1] != d:
         raise ValueError("rope_store_rows: cos_sin must be [max_position, d]")
-    seq_lens = seq_lens.to(torch.int32).contiguous()
-    q_index = q_index.to(torch.int32).contiguous()
-    block_ids = block_ids.to(torch.int32).contiguous()
-    if q_index.shape[0] != seq_lens.shape[0] + 1 or block_ids.shape[0] != seq_lens.shape[0]:
-        raise ValueError("rope_store_rows: seq_lens, q_index and block_ids disagree on requests")
+    seq_lens, q_index, block_ids = _check_tables("rope_store_rows", seq_lens, q_index, block_ids)
     if policy != 0:
         q_norm_weight = q_norm_weight.float().contiguous()
         k_norm_weight = k_norm_weight.float().contiguous()
@@ -180,4 +203,116 @@ def rope_store_rows(
 
 rope_store_rows.launches = 0
 
-__all__ = ["rope_store_rows", "rope_store_rows_ref", "row_slots"]
+
+def _check_tables(name, seq_lens, q_index, block_ids):
+    seq_lens = seq_lens.to(torch.int32).contiguous()
+    q_index = q_index.to(torch.int32).contiguous()
+    block_ids = block_ids.to(torch.int32).contiguous()
+    if q_index.shape[0] != seq_lens.shape[0] + 1 or block_ids.shape[0] != seq_lens.shape[0]:
+        raise ValueError(f"{name}: seq_lens, q_index and block_ids disagree on requests")
+    return seq_lens, q_index, block_ids
+
+
+def rope_store_rows_int8_ref(
+    qkv, cos_sin, seq_lens, q_index, block_ids, q_norm_weight, k_norm_weight, kv_slab,
+    k_scale, v_scale, *, hq, hkv, d, block_size, qk_norm_policy,
+):
+    """Plain PyTorch version of :func:`rope_store_rows_int8` (float32 math)."""
+    rows = qkv.shape[0]
+    kvflat = kv_slab.view(-1, hkv, d)
+    positions, slots = row_slots(rows, seq_lens, q_index, block_ids, block_size,
+                                 kvflat.shape[0], fused=True)
+    q, k, v = _rope_rows_f32(qkv, cos_sin, positions, q_norm_weight, k_norm_weight, hq, hkv, d,
+                             d, qk_norm_policy)
+    s = slots.long()
+    kvflat[s] = quantize_int8(k, 1.0 / k_scale.reshape(()).float())
+    kvflat[s + block_size] = quantize_int8(v, 1.0 / v_scale.reshape(()).float())
+    return q.reshape(rows, hq * d).to(torch.bfloat16), kv_slab
+
+
+def rope_store_rows_int8(
+    qkv: torch.Tensor,  # [rows, (hq + 2*hkv) * d] bf16, every row a real token
+    cos_sin: torch.Tensor,  # [max_position, d] f32 table (cos | sin)
+    seq_lens: torch.Tensor,  # [num_req] tokens per request incl. the new rows
+    q_index: torch.Tensor,  # [num_req + 1] prefix sums of new rows per request
+    block_ids: torch.Tensor,  # [num_req, max_blocks] page table, -1 padded
+    q_norm_weight: torch.Tensor | None,
+    k_norm_weight: torch.Tensor | None,
+    kv_slab: torch.Tensor,  # [nb, 2*block_size, hkv*d] int8 NHD_FUSED
+    k_scale: torch.Tensor,  # [1] f32
+    v_scale: torch.Tensor,  # [1] f32
+    *,
+    hq: int,
+    hkv: int,
+    d: int,
+    block_size: int,
+    qk_norm_policy: int,
+):
+    """Rotate/normalise q and k and store each row's int8 K and V codes,
+    ``clip(round(x * (1 / scale)), +-127)``, at its slots of the NHD_FUSED slab.
+
+    Returns ``(q_out [rows, hq*d] bf16, kv_slab)``; the slab is written in
+    place, and only the addressed rows. CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise.
+    """
+    if qkv.device.type == "cpu":
+        return rope_store_rows_int8_ref(
+            qkv, cos_sin, seq_lens, q_index, block_ids, q_norm_weight, k_norm_weight, kv_slab,
+            k_scale, v_scale, hq=hq, hkv=hkv, d=d, block_size=block_size,
+            qk_norm_policy=qk_norm_policy,
+        )
+    if qkv.device.type != "cuda":
+        raise ValueError(f"rope_store_rows_int8: unsupported device {qkv.device}")
+    policy = int(QKNormPolicy(qk_norm_policy))
+    if qkv.dtype != torch.bfloat16 or kv_slab.dtype != torch.int8:
+        raise ValueError("rope_store_rows_int8: needs bf16 qkv and an int8 slab")
+    if qkv.shape[1] != (hq + 2 * hkv) * d or not qkv.is_contiguous():
+        raise ValueError(
+            f"rope_store_rows_int8: qkv must be contiguous [rows, {(hq + 2 * hkv) * d}]"
+        )
+    nb = kv_slab.shape[0]
+    if kv_slab.shape != (nb, 2 * block_size, hkv * d) or not kv_slab.is_contiguous():
+        raise ValueError(
+            f"rope_store_rows_int8: the slab must be contiguous [nb, {2 * block_size}, {hkv * d}]"
+        )
+    cos_sin = cos_sin.float().contiguous()
+    if cos_sin.shape[1] != d:
+        raise ValueError("rope_store_rows_int8: cos_sin must be [max_position, d]")
+    seq_lens, q_index, block_ids = _check_tables(
+        "rope_store_rows_int8", seq_lens, q_index, block_ids
+    )
+    if policy != 0:
+        q_norm_weight = q_norm_weight.float().contiguous()
+        k_norm_weight = k_norm_weight.float().contiguous()
+    for t in (k_scale, v_scale):
+        if t.dtype != torch.float32 or t.numel() != 1:
+            raise ValueError("rope_store_rows_int8: scales must be [1] float32")
+    for t in (cos_sin, seq_lens, q_index, block_ids, kv_slab, k_scale, v_scale):
+        if t.device != qkv.device:
+            raise ValueError("rope_store_rows_int8: all tensors must be on one device")
+    rows = qkv.shape[0]
+    q_out = torch.empty((rows, hq * d), dtype=torch.bfloat16, device=qkv.device)
+    rc = kernels.lib().hpc_rope_store_int8(
+        qkv.data_ptr(), cos_sin.data_ptr(), seq_lens.data_ptr(), q_index.data_ptr(),
+        block_ids.data_ptr(),
+        q_norm_weight.data_ptr() if policy else None,
+        k_norm_weight.data_ptr() if policy else None,
+        k_scale.data_ptr(), v_scale.data_ptr(), q_out.data_ptr(), kv_slab.data_ptr(),
+        rows, hq, hkv, d, cos_sin.shape[0], seq_lens.shape[0], block_ids.shape[1],
+        block_size, nb, policy, kernels.stream_ptr(qkv),
+    )
+    kernels.check(rc, "hpc_rope_store_int8")
+    rope_store_rows_int8.launches += 1
+    return q_out, kv_slab
+
+
+rope_store_rows_int8.launches = 0
+
+__all__ = [
+    "quantize_int8",
+    "rope_store_rows",
+    "rope_store_rows_int8",
+    "rope_store_rows_int8_ref",
+    "rope_store_rows_ref",
+    "row_slots",
+]

@@ -1,6 +1,10 @@
-"""Shared shape helpers."""
+"""Shared helpers: shape math and the saturating fp8 cast."""
 
 from __future__ import annotations
+
+import torch
+
+from hpc_ops_tpu_torch.config import FP8_DTYPE, FP8_MAX
 
 
 def cdiv(a: int, b: int) -> int:
@@ -11,4 +15,9 @@ def round_up(x: int, m: int) -> int:
     return cdiv(x, m) * m
 
 
-__all__ = ["cdiv", "round_up"]
+def fp8_saturate_cast(x: torch.Tensor, upper_max: float = FP8_MAX) -> torch.Tensor:
+    """Clamp to +-upper_max, then cast to float8_e4m3fn (round to nearest even)."""
+    return x.float().clamp(-upper_max, upper_max).to(FP8_DTYPE)
+
+
+__all__ = ["cdiv", "round_up", "fp8_saturate_cast"]

@@ -6,17 +6,36 @@ with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 on the CPU that each wrapper takes its plain version for CPU tensors and
 counts no launch.
 
-Tolerances: attention within 1e-2 abs/rel in bf16 output; RoPE within one
-bf16 ulp; untouched cache slots bit-identical.
+Tolerances: attention within 1e-2 abs/rel in bf16 output (int8 slabs too:
+kernel and plain version read the same codes); RoPE within one bf16 ulp;
+int8 codes equal, or one apart on at most 0.1% of them (a rounding tie);
+untouched cache bytes bit-identical.
 """
 
 import pytest
 import torch
 
-from hpc_ops_tpu_torch.ops.attention.decode import _decode_ref, paged_decode_attention
-from hpc_ops_tpu_torch.ops.attention.prefill import _prefill_ref, paged_prefill_attention
+from hpc_ops_tpu_torch.ops.attention.decode import (
+    _decode_nhd_fused_ref,
+    _decode_ref,
+    paged_decode_attention,
+    paged_decode_nhd_fused,
+)
+from hpc_ops_tpu_torch.ops.attention.paging import pack_kv_fused_nhd
+from hpc_ops_tpu_torch.ops.attention.prefill import (
+    _prefill_nhd_fused_ref,
+    _prefill_ref,
+    paged_prefill_attention,
+    paged_prefill_nhd_fused,
+)
 from hpc_ops_tpu_torch.ops.rope import make_cos_sin_cache
-from hpc_ops_tpu_torch.ops.rope_kernel import rope_store_rows, rope_store_rows_ref, row_slots
+from hpc_ops_tpu_torch.ops.rope_kernel import (
+    rope_store_rows,
+    rope_store_rows_int8,
+    rope_store_rows_int8_ref,
+    rope_store_rows_ref,
+    row_slots,
+)
 from hpc_ops_tpu_torch.utils.testing import assert_allclose, max_bf16_ulp_err
 
 torch.set_num_threads(1)
@@ -155,3 +174,170 @@ def test_prefill_kernel_matches_plain(cuda, layout, q_lens, kv_lens, pad):
                                   kv.to(cuda), max(q_lens), 128**-0.5, layout)
     torch.cuda.synchronize()
     assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="prefill")
+
+
+# ------------------------------------------------------- int8 NHD_FUSED slabs
+SC = torch.tensor([0.05])
+
+
+def slab_case(gen, lens, hq, hkv, d, sq=1, int8=True, q_rows=None):
+    """q, an NHD_FUSED slab (int8 codes or bf16), the page table and lengths."""
+    q, k, v, tbl, kv_lens = paged(gen, lens, hq, hkv, d, sq=sq, q_rows=q_rows)
+    slab = pack_kv_fused_nhd(k, v)
+    if int8:
+        slab = torch.randint(-127, 128, tuple(slab.shape), generator=gen, dtype=torch.int8)
+    return q, slab, tbl, kv_lens
+
+
+def int8_rope_case(gen, rows=8, pad=0, hq=32, hkv=8, d=128, num_blocks=256):
+    """A decode batch into an int8 slab; ``pad`` rows past q_index[-1]."""
+    args, _, _, _ = rope_case(gen, "NHD", rows=rows + pad, hq=hq, hkv=hkv, d=d,
+                              num_blocks=num_blocks)
+    qkv, cos_sin, seq_lens, q_index, tbl, w, _ = args
+    seq_lens, q_index, tbl = seq_lens[:rows], q_index[: rows + 1], tbl[:rows]
+    slab = torch.randint(-127, 128, (num_blocks, 2 * BS, hkv * d), generator=gen, dtype=torch.int8)
+    scales = (torch.tensor([0.031]), torch.tensor([0.047]))
+    return (qkv, cos_sin, seq_lens, q_index, tbl, w, w), slab, scales, dict(hq=hq, hkv=hkv, d=d,
+                                                                            block_size=BS)
+
+
+def test_int8_wrappers_take_the_plain_version_on_cpu():
+    gen = torch.Generator().manual_seed(10)
+    counts = (rope_store_rows_int8.launches, paged_decode_nhd_fused.launches,
+              paged_prefill_nhd_fused.launches)
+    args, slab, scales, kw = int8_rope_case(gen, hq=4, hkv=2, num_blocks=16)
+    a = rope_store_rows_int8(*args, slab.clone(), *scales, qk_norm_policy=1, **kw)
+    b = rope_store_rows_int8_ref(*args, slab.clone(), *scales, qk_norm_policy=1, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    q, slab, tbl, lens = slab_case(gen, [5, 20], 4, 2, 64)
+    assert torch.equal(paged_decode_nhd_fused(q, slab, tbl, lens, 1, 0.1, SC, SC),
+                       _decode_nhd_fused_ref(q, slab, tbl, lens, 1, 0.1, SC, SC))
+    cu = torch.tensor([0, 2, 9], dtype=torch.int32)
+    q = randn(gen, 11, 4, 64)
+    assert torch.equal(paged_prefill_nhd_fused(q, slab, cu, tbl, lens, 7, 0.1, SC, SC),
+                       _prefill_nhd_fused_ref(q, slab, cu, tbl, lens, 7, 0.1, SC, SC))
+    assert counts == (rope_store_rows_int8.launches, paged_decode_nhd_fused.launches,
+                      paged_prefill_nhd_fused.launches)
+
+
+def check_int8_store(got, want, before, written):
+    """Untouched bytes equal; written codes equal or one apart on <= 0.1%."""
+    assert torch.equal(got[~written], before[~written])
+    diff = (got[written].int() - want[written].int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [0, 1, 2])
+def test_rope_int8_kernel_matches_plain(cuda, policy):
+    gen = torch.Generator().manual_seed(11)
+    args, slab, scales, kw = int8_rope_case(gen)
+    dargs = [a.to(cuda) for a in args]
+    kq, ks = rope_store_rows_int8(*dargs, slab.clone().to(cuda), *(x.to(cuda) for x in scales),
+                                  qk_norm_policy=policy, **kw)
+    pq, ps = rope_store_rows_int8_ref(*args, slab.clone(), *scales, qk_norm_policy=policy, **kw)
+    torch.cuda.synchronize()
+    assert max_bf16_ulp_err(kq, pq) <= 1.0
+    _, slots = row_slots(8, args[2], args[3], args[4], BS, slab.shape[0] * 2 * BS, fused=True)
+    written = torch.zeros(slab.shape[0] * 2 * BS, dtype=torch.bool)
+    written[slots] = written[slots + BS] = True
+    written = written.view(slab.shape[0], 2 * BS, 1).expand(slab.shape)
+    check_int8_store(ks.cpu(), ps, slab, written)
+
+
+@pytest.mark.cuda
+def test_rope_int8_kernel_invalid_rows_clip_to_the_last_page_rows(cuda):
+    """A row past q_index[-1] goes to K slot nb*2*bs - 1 - bs and V to the
+    slab's last slot, as the plain version says; nothing else moves."""
+    gen = torch.Generator().manual_seed(12)
+    args, slab, scales, kw = int8_rope_case(gen, rows=7, pad=1)
+    nb = slab.shape[0]
+    _, slots = row_slots(8, args[2], args[3], args[4], BS, nb * 2 * BS, fused=True)
+    assert int(slots[7]) == nb * 2 * BS - 1 - BS
+    kq, ks = rope_store_rows_int8(*[a.to(cuda) for a in args], slab.clone().to(cuda),
+                                  *(x.to(cuda) for x in scales), qk_norm_policy=0, **kw)
+    pq, ps = rope_store_rows_int8_ref(*args, slab.clone(), *scales, qk_norm_policy=0, **kw)
+    torch.cuda.synchronize()
+    written = torch.zeros(nb * 2 * BS, dtype=torch.bool)
+    written[slots] = written[slots + BS] = True
+    written = written.view(nb, 2 * BS, 1).expand(slab.shape)
+    ks = ks.cpu()
+    check_int8_store(ks, ps, slab, written)
+    assert not torch.equal(ks[-1, -1], slab[-1, -1])  # the V row of a pad row landed there
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8,sq", [(True, 1), (True, 3), (False, 1), (False, 2)])
+def test_decode_nhd_fused_kernel_matches_plain(cuda, int8, sq):
+    gen = torch.Generator().manual_seed(13)
+    # kv_len >= sq: every draft row sees at least one key
+    lens = [max(n, sq) for n in (1, 16, 17, 300, 1024, 4095, 3, 64)]
+    q, slab, tbl, kv_lens = slab_case(gen, lens, 32, 8, 128, sq=sq, int8=int8)
+    sc = SC if int8 else None
+    want = _decode_nhd_fused_ref(q, slab, tbl, kv_lens, sq, 128**-0.5, sc, sc)
+    got = paged_decode_nhd_fused(q.to(cuda), slab.to(cuda), tbl.to(cuda), kv_lens.to(cuda), sq,
+                                 128**-0.5, sc, sc)
+    torch.cuda.synchronize()
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="decode nhd_fused")
+
+
+def nan_past_kv_len(slab, tbl, kv_lens):
+    """Fill every K and V row at or past each request's kv_len with NaN."""
+    bs = slab.shape[1] // 2
+    for i, n in enumerate(kv_lens.tolist()):
+        for blk in range(n // bs, tbl.shape[1]):
+            page = int(tbl[i, blk])
+            if page >= 0:
+                start = n % bs if blk == n // bs else 0
+                slab[page, start:bs] = float("nan")
+                slab[page, bs + start :] = float("nan")
+
+
+@pytest.mark.cuda
+def test_nhd_fused_kernels_ignore_nan_past_kv_len(cuda):
+    """bf16 slab with NaN past kv_len: neither kernel lets it through."""
+    gen = torch.Generator().manual_seed(14)
+    q, slab, tbl, kv_lens = slab_case(gen, [3, 20, 33], 8, 2, 128, int8=False)
+    want = _decode_nhd_fused_ref(q, slab, tbl, kv_lens, 1, 128**-0.5, None, None)
+    cu = torch.tensor([0, 3, 10, 40], dtype=torch.int32)  # chunked: 7 of 20, 30 of 33
+    qp = randn(gen, 40, 8, 128)
+    want_p = _prefill_nhd_fused_ref(qp, slab, cu, tbl, kv_lens, 30, 128**-0.5, None, None)
+    nan_past_kv_len(slab, tbl, kv_lens)
+    d = dict(device=cuda)
+    got = paged_decode_nhd_fused(q.to(**d), slab.to(**d), tbl.to(**d), kv_lens.to(**d), 1,
+                                 128**-0.5)
+    got_p = paged_prefill_nhd_fused(qp.to(**d), slab.to(**d), cu.to(**d), tbl.to(**d),
+                                    kv_lens.to(**d), 30, 128**-0.5)
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="decode nan tail")
+    assert_allclose(got_p.float(), want_p.float(), atol=1e-2, rtol=1e-2, name="prefill nan tail")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "q_lens,kv_lens,pad",
+    [([13, 7, 250], [13, 100, 300], 11), ([512], [2048], 0), ([1024], [1024], 0)],
+)
+def test_prefill_nhd_fused_kernel_matches_plain(cuda, q_lens, kv_lens, pad):
+    gen = torch.Generator().manual_seed(15)
+    q, slab, tbl, kv = slab_case(gen, kv_lens, 32, 8, 128, q_rows=sum(q_lens) + pad)
+    cu = torch.tensor([0] + torch.tensor(q_lens).cumsum(0).tolist(), dtype=torch.int32)
+    want = _prefill_nhd_fused_ref(q, slab, cu, tbl, kv, max(q_lens), 128**-0.5, SC, SC)
+    got = paged_prefill_nhd_fused(q.to(cuda), slab.to(cuda), cu.to(cuda), tbl.to(cuda),
+                                  kv.to(cuda), max(q_lens), 128**-0.5, SC, SC)
+    torch.cuda.synchronize()
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="prefill nhd_fused")
+
+
+@pytest.mark.cuda
+def test_nhd_fused_kernels_reject_a_misaligned_slab(cuda):
+    gen = torch.Generator().manual_seed(16)
+    q, slab, tbl, kv_lens = slab_case(gen, [20], 8, 2, 128)
+    flat = torch.zeros(slab.numel() + 1, dtype=torch.int8, device=cuda)
+    bad = flat[1:].view(slab.shape)  # one byte off 16-byte alignment
+    d = dict(device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        paged_decode_nhd_fused(q.to(**d), bad, tbl.to(**d), kv_lens.to(**d), 1, 0.1)
+    cu = torch.tensor([0, 20], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        paged_prefill_nhd_fused(randn(gen, 20, 8, 128).to(**d), bad, cu, tbl.to(**d),
+                                kv_lens.to(**d), 20, 0.1)

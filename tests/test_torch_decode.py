@@ -1,9 +1,10 @@
 """Parity of the port's paged decode attention against the JAX package.
 
 Inputs are made with numpy from a seed; the JAX decode runs its Pallas kernel
-in interpret mode on the CPU. Tolerance 3e-2 atol/rtol, as
+in interpret mode on the CPU. Tolerance 3e-2 atol/rtol for HND and NHD, as
 tests/test_attention_decode.py uses (the JAX kernel rounds the scaled q and
-the probabilities to bf16; the port stays in float32).
+the probabilities to bf16; the port stays in float32); for the NHD_FUSED
+slab 2e-2 in bf16 and 8e-2 in int8, the JAX package's tolerances there.
 """
 
 import jax.numpy as jnp
@@ -13,6 +14,7 @@ import torch
 
 from hpc_ops_tpu.ops.attention import attention_decode as jax_decode
 from hpc_ops_tpu_torch.ops.attention.decode import attention_decode, attention_decode_bf16
+from hpc_ops_tpu_torch.ops.attention.paging import pack_kv_fused_nhd
 from hpc_ops_tpu_torch.utils.testing import assert_allclose
 
 torch.set_num_threads(1)
@@ -79,3 +81,60 @@ def test_decode_later_slices_raise():
     with pytest.raises(NotImplementedError):
         attention_decode(q, k, v, tbl, nseq, cache_layout="FUSED")
 
+
+
+def fused_case(seed, kv_lens, sq=1, int8=False, hq=8, hkv=2, d=128):
+    """q and an NHD_FUSED slab [nb, 2*BS, Hkv*D] (bf16, or int8 codes)."""
+    q, k, v, tbl, kv_lens_t = make_case(seed, kv_lens, hq=hq, hkv=hkv, d=d, sq=sq)
+    slab = pack_kv_fused_nhd(k, v)
+    if int8:
+        rng = np.random.RandomState(seed + 100)
+        slab = torch.from_numpy(rng.randint(-127, 128, tuple(slab.shape)).astype(np.int8))
+    return q, slab, tbl, kv_lens_t
+
+
+def jax_slab(slab):
+    return jnp.asarray(slab.numpy()) if slab.dtype == torch.int8 else jax_of(slab)
+
+
+# (kv_lens, mtp): the JAX package's NHD_FUSED cases, tests/test_attention_decode.py
+FUSED_CASES = [([33], 0), ([128, 17, 255, 64], 0), ([40, 300], 2), ([1100, 40], 0)]
+
+
+@pytest.mark.parametrize("kv_lens,mtp", FUSED_CASES)
+def test_decode_nhd_fused_bf16_matches_jax(kv_lens, mtp):
+    """bf16 slab at 2e-2, the JAX package's tolerance for this layout."""
+    sq = mtp + 1
+    q, slab, tbl, lens = fused_case(23, kv_lens, sq=sq)
+    want = jax_decode(jax_of(q), jax_slab(slab), None, jax_of(tbl), jax_of(lens), mtp=mtp,
+                      new_kv_included=True, cache_layout="NHD_FUSED")
+    got = attention_decode(q, slab, None, tbl, lens, mtp=mtp, new_kv_included=True,
+                           cache_layout="NHD_FUSED")
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert_allclose(got.float(), np.asarray(want, np.float32), atol=2e-2, rtol=2e-2, name="nhd_fused")
+
+
+@pytest.mark.parametrize("kv_lens,mtp,impl", [([100, 37, 260], 0, "auto"), ([40, 300], 2, "auto"),
+                                              ([100, 37, 260], 0, "ref")])
+def test_decode_nhd_fused_int8_matches_jax(kv_lens, mtp, impl):
+    """int8 codes with per-tensor scales at 8e-2, the JAX package's int8
+    tolerance: logits scaled by sm_scale * kscale, the output by vscale."""
+    sq = mtp + 1
+    q, slab, tbl, lens = fused_case(7, kv_lens, sq=sq, int8=True)
+    ks, vs = np.array([0.021], np.float32), np.array([0.013], np.float32)
+    want = jax_decode(jax_of(q), jax_slab(slab), None, jax_of(tbl), jax_of(lens), mtp=mtp,
+                      new_kv_included=True, cache_layout="NHD_FUSED", kscale=jnp.asarray(ks),
+                      vscale=jnp.asarray(vs))
+    got = attention_decode(q, slab, None, tbl, lens, mtp=mtp, new_kv_included=True,
+                           cache_layout="NHD_FUSED", kscale=torch.from_numpy(ks),
+                           vscale=torch.from_numpy(vs), impl=impl)
+    assert_allclose(got.float(), np.asarray(want, np.float32), atol=8e-2, rtol=8e-2, name="int8")
+
+
+def test_decode_nhd_fused_later_slices_raise():
+    q, slab, tbl, lens = fused_case(9, [5])
+    with pytest.raises(NotImplementedError, match="item 2"):
+        attention_decode(q, slab, None, tbl, lens, cache_layout="NHD_FUSED", qscale=torch.ones(1))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        attention_decode(q, slab, None, tbl, lens, cache_layout="NHD_FUSED", quant_type=0,
+                         kscale=torch.ones(1))

@@ -24,12 +24,22 @@ torch.set_num_threads(1)
 PROMPTS = [[1, 2, 3, 4, 5], [7, 8], [9, 10, 11]]
 
 
+INT8 = dict(int8_kv=True, kv_scale=0.02)
+
+
 @pytest.fixture(scope="module")
 def model():
     cfg = J.tiny_config()
     jw = J.init_weights(jax.random.PRNGKey(0), cfg)
     tw = T.weights_from_numpy(jax.tree_util.tree_map(np.asarray, jw), device="cpu")
     return cfg, jw, T.tiny_config(), tw
+
+
+@pytest.fixture(scope="module")
+def model_int8(model):
+    """The same weights in the int8_kv serving mode (it changes no weight)."""
+    _, jw, _, tw = model
+    return J.tiny_config(**INT8), jw, T.tiny_config(**INT8), tw
 
 
 def engine(model, **kw):
@@ -57,6 +67,26 @@ def test_engine_matches_jax_engine(model, chunk):
     got = engine(model, prefill_chunk=chunk).run(PROMPTS, max_new=4)
     for p, w, g in zip(PROMPTS, want, got):
         assert_greedy_match(w, g, lambda j, p=p, w=w: jax_margin(cfg, jw, p + w[:j]), 0.15)
+
+
+def test_engine_int8_matches_jax_engine(model_int8):
+    """int8_kv serving: greedy tokens equal to the JAX engine's on the same weights."""
+    cfg, jw, _, _ = model_int8
+    want = JaxEngine(cfg, jw, num_blocks=64, block_size=16, max_batch=4).run(PROMPTS, max_new=4)
+    got = engine(model_int8).run(PROMPTS, max_new=4)
+    for p, w, g in zip(PROMPTS, want, got):
+        assert_greedy_match(w, g, lambda j, p=p, w=w: jax_margin(cfg, jw, p + w[:j]), 0.15)
+
+
+def test_engine_int8_kv_serving(model_int8):
+    """The port of tests/test_engine.py's int8 test: the engine drives the
+    int8 slabs unchanged, and a batch decodes exactly as each request alone."""
+    batch_out = engine(model_int8).run(PROMPTS, max_new=4)
+    solo_out = [engine(model_int8, max_batch=1).run([p], max_new=4)[0] for p in PROMPTS]
+    assert batch_out == solo_out
+    for out in batch_out:
+        assert len(out) == 4 and all(0 <= t < 512 for t in out)
+    assert [set(c) for c in engine(model_int8).caches] == [{"kv"}] * 2
 
 
 def test_engine_batch_matches_solo(model):

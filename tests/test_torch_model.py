@@ -17,6 +17,7 @@ import torch
 from hpc_ops_tpu.models import llama as J
 from hpc_ops_tpu.ops.normalization import rmsnorm_ref as jax_rmsnorm
 from hpc_ops_tpu_torch.models import llama as T
+from hpc_ops_tpu_torch.ops.attention.decode import attention_decode
 from hpc_ops_tpu_torch.ops.normalization import rmsnorm_ref
 from hpc_ops_tpu_torch.utils.testing import assert_allclose, assert_greedy_match, top2_margin
 
@@ -140,8 +141,60 @@ def test_decode_multi_sampling_and_logprobs(model):
     assert ((toks >= 0) & (toks < tcfg.vocab)).all() and (lps <= 0).all()
 
 
+INT8 = dict(int8_kv=True, kv_scale=0.02)
+
+
+def test_forward_step_int8_kv_matches_jax(model):
+    """int8_kv: one int8 NHD_FUSED slab per layer, prefill then decode, with
+    the same weights as the bf16 model (int8_kv changes no weight)."""
+    _, jw, _, tw = model
+    cfg, tcfg = J.tiny_config(**INT8), T.tiny_config(**INT8)
+    jp, jd = run_prefill_then_decode(J, cfg, jw, jnp.asarray)
+    tp, td = run_prefill_then_decode(T, tcfg, tw, torch.from_numpy)
+    assert_allclose(tp.float(), np.asarray(jp, np.float32), atol=ATOL, rtol=RTOL, name="prefill logits")
+    assert_allclose(td.float(), np.asarray(jd, np.float32), atol=ATOL, rtol=RTOL, name="decode logits")
+    caches = T.init_cache(tcfg, num_blocks=5, block_size=16, device="cpu")
+    assert [set(c) for c in caches] == [{"kv"}] * tcfg.layers
+    assert caches[0]["kv"].dtype == torch.int8 and tuple(caches[0]["kv"].shape) == (5, 32, 4 * 128)
+
+
+def test_forward_step_int8_kv_close_to_bf16():
+    """The port of tests/test_model.py's int8_kv check: 8 requests, prefill
+    then decode; each row of logits within cosine 0.98 of the bf16-cache
+    model's with identical weights (JAX's PRNGKey(2) weights)."""
+    cfg_bf, cfg_i8 = T.tiny_config(), T.tiny_config(**INT8)
+    jw = J.init_weights(jax.random.PRNGKey(2), J.tiny_config())
+    w = T.weights_from_numpy(jax.tree_util.tree_map(np.asarray, jw), device="cpu")
+    q_lens = [7, 5, 3, 8, 2, 6, 4, 1]
+    b, rows = len(q_lens), sum(q_lens)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.int32))  # noqa: E731
+    seq = t(q_lens)
+    q_index = t(np.concatenate([[0], np.cumsum(q_lens)]))
+    tbl = t(np.arange(b * 2).reshape(b, 2))
+    outs = {}
+    for name, cfg in (("i8", cfg_i8), ("bf", cfg_bf)):
+        caches = T.init_cache(cfg, num_blocks=b * 2 + 1, block_size=16, device="cpu")
+        lp, caches = T.forward_step(w, caches, cfg, t(np.arange(rows) % cfg.vocab), seq, q_index,
+                                    tbl, is_prefill=True, max_seqlens_q=8)
+        ld, _ = T.forward_step(w, caches, cfg, t(np.arange(b) % cfg.vocab), seq + 1,
+                               t(np.arange(b + 1)), tbl, is_prefill=False, max_seqlens_q=1)
+        outs[name] = (lp.float(), ld.float())
+    for phase, (a, ref) in enumerate(zip(outs["i8"], outs["bf"])):
+        assert torch.isfinite(a).all()
+        cos = torch.nn.functional.cosine_similarity(a, ref, dim=-1)
+        assert cos.min() > 0.98, f"phase {phase}: min cosine {cos.min()}"
+
+
 @pytest.mark.parametrize("field", ["fp8_kv", "int8_kv", "dense_int8", "qkv_bias", "moe"])
 def test_later_slices_raise(field):
+    if field == "int8_kv":
+        # int8_kv serves now; the int8 head-major FUSED decode is a later slice
+        q = torch.zeros((1, 8, 128), dtype=torch.bfloat16)
+        kv = torch.zeros((4, 2, 32, 128), dtype=torch.int8)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            attention_decode(q, kv, None, torch.zeros((1, 1), dtype=torch.int32),
+                             torch.ones(1, dtype=torch.int32), cache_layout="FUSED")
+        return
     cfg = T.tiny_config(moe=True) if field == "moe" else T.tiny_config(**{field: True})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.init_cache(cfg, 4, 16, device="cpu")

@@ -4,7 +4,8 @@ Inputs are made with numpy from a seed; the JAX prefill runs its Pallas
 kernel in interpret mode on the CPU. Tolerance 4e-2 atol/rtol on the rows
 that belong to a request, as tests/test_attention_prefill.py uses (the JAX
 kernel's bf16 exp2 argument is a deliberate deviation the port does not
-copy). Rows past cu_seqlens_q[-1] are zeros in the port.
+copy). Rows past cu_seqlens_q[-1] are zeros in the port. For the NHD_FUSED
+slab, 2e-2 in bf16 and 8e-2 in int8, the JAX package's tolerances there.
 """
 
 import jax.numpy as jnp
@@ -19,6 +20,7 @@ from hpc_ops_tpu_torch.ops.attention.prefill import (
     attention_prefill_bf16,
     attention_with_kvcache_prefill,
 )
+from hpc_ops_tpu_torch.ops.attention.paging import pack_kv_fused_nhd
 from hpc_ops_tpu_torch.ops.attention.reference import mha_varlen_prefill_ref
 from hpc_ops_tpu_torch.utils.testing import assert_allclose
 
@@ -106,3 +108,55 @@ def test_prefill_aligned_seq_starts_is_checked():
         attention_with_kvcache_prefill(q, k, v, cu, tbl, kv, 5, cache_layout="HND",
                                        block_mask=torch.ones(1))
 
+
+
+def fused_slab(k, v, int8_seed=None):
+    """HND caches -> an NHD_FUSED slab; with int8_seed, random int8 codes instead."""
+    slab = pack_kv_fused_nhd(k, v)
+    if int8_seed is not None:
+        rng = np.random.RandomState(int8_seed)
+        slab = torch.from_numpy(rng.randint(-127, 128, tuple(slab.shape)).astype(np.int8))
+    return slab
+
+
+def jax_slab(slab):
+    return jnp.asarray(slab.numpy()) if slab.dtype == torch.int8 else jax_of(slab)
+
+
+@pytest.mark.parametrize(
+    "q_lens,kv_extra",
+    [([64], [0]), ([33, 129, 7], [0, 0, 0]),
+     ([16, 40], [70, 9])],  # chunked prefill: kv history before q
+)
+def test_prefill_nhd_fused_bf16_matches_jax(q_lens, kv_extra):
+    """The JAX package's NHD_FUSED cases at its 2e-2 tolerance."""
+    kv_lens = [q + e for q, e in zip(q_lens, kv_extra)]
+    q, k, v, cu, tbl, kv = make_case(43, q_lens, kv_lens)
+    slab = fused_slab(k, v)
+    want = np.asarray(jax_prefill(jax_of(q), jax_slab(slab), None, jax_of(cu), jax_of(tbl),
+                                  jax_of(kv), max(q_lens), cache_layout="NHD_FUSED", tq=64),
+                      np.float32)
+    got = attention_with_kvcache_prefill(q, slab, None, cu, tbl, kv, max(q_lens),
+                                         cache_layout="NHD_FUSED")
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert_allclose(got.float(), want, atol=2e-2, rtol=2e-2, name="nhd_fused_prefill")
+
+
+@pytest.mark.parametrize("impl", ["auto", "ref"])
+def test_prefill_nhd_fused_int8_matches_jax(impl):
+    """int8 codes with per-tensor scales, chunked (history before q), padded
+    rows past cu[-1] zero; 8e-2, the JAX package's int8 tolerance."""
+    q_lens, kv_lens = [16, 40], [86, 49]
+    q, k, v, cu, tbl, kv = make_case(44, q_lens, kv_lens, pad_rows=3)
+    slab = fused_slab(k, v, int8_seed=44)
+    ks, vs = np.array([0.019], np.float32), np.array([0.011], np.float32)
+    want = np.asarray(jax_prefill(jax_of(q), jax_slab(slab), None, jax_of(cu), jax_of(tbl),
+                                  jax_of(kv), max(q_lens), kscale=jnp.asarray(ks),
+                                  vscale=jnp.asarray(vs), cache_layout="NHD_FUSED", tq=64),
+                      np.float32)
+    got = attention_with_kvcache_prefill(q, slab, None, cu, tbl, kv, max(q_lens),
+                                         kscale=torch.from_numpy(ks), vscale=torch.from_numpy(vs),
+                                         cache_layout="NHD_FUSED", impl=impl)
+    n = int(cu[-1])
+    assert_allclose(got[:n].float(), want[:n], atol=8e-2, rtol=8e-2, name="nhd_fused_int8")
+    assert not got[n:].float().any()

@@ -8,17 +8,26 @@ any failure, without a card, or when the package is not beside it.
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi), torch's view;
   2. build: nvcc builds the kernel sources and g++ the block allocator;
-  3. kernels: each of the six kernels against its plain PyTorch version on
-     the same inputs at the llama3_8b serving shapes (Hq 32, Hkv 8, D 128,
-     pages of 16), timed with CUDA events beside its plain version, a
+  3. kernels: each of the nine kernels against its plain PyTorch version on
+     the same inputs, timed with CUDA events beside its plain version, a
      PyTorch library call for the same function where one exists, and its
-     bound: the bf16 RoPE store, paged decode and paged prefill, and the
-     int8 quantising RoPE store, NHD_FUSED decode and NHD_FUSED prefill;
-  4. slice_tiny and slice_tiny_int8: Engine on tiny_config (bf16 KV, then
-     int8_kv) on the card and on the CPU with the same weights: logits of
-     the first prefill and decode steps within 0.15 abs / 0.1 rel, greedy
-     tokens identical wherever the CPU path's top-2 margin exceeds that
-     tolerance;
+     bound. At the llama3_8b serving shapes (Hq 32, Hkv 8, D 128, pages of
+     16): the bf16 RoPE store, paged decode and paged prefill, and the int8
+     quantising RoPE store, NHD_FUSED decode and NHD_FUSED prefill. At
+     Mixtral-8x7B width (hidden 4096, expert intermediate 14336, 8 experts,
+     top-2), for a decode batch of 8 tokens and prefills of 200, 512 and
+     2048 (m-tiles of 32, 64, 160 and 512 slots: every instance of the
+     grouped GEMM that the serving run launches, and the throughput shape):
+     the scatter grouped GEMM (gate-up and down), the activation + e4m3
+     quantisation and the top-k reduce; then moe_pipeline: the three chained
+     with every garbage row filled with NaN, and the whole MoE under
+     torch's sync debug mode (which raises on the device-to-host copies it
+     detects; decode_profile_moe counts them);
+  4. slice_tiny, slice_tiny_int8 and slice_tiny_moe: Engine on tiny_config
+     (bf16 KV, int8_kv, fp8 MoE) on the card and on the CPU with the same
+     weights: logits of the first prefill and decode steps within 0.15 abs /
+     0.1 rel, greedy tokens identical wherever the CPU path's top-2 margin
+     exceeds that tolerance;
   5. slice_full and slice_full_int8: Engine(llama3_8b) at full width and
      depth, bf16 KV then int8_kv, on one set of random weights, serving 8
      prompts x 32 new tokens; logits finite, tokens in the vocab, each
@@ -27,6 +36,12 @@ Phases, each printing one JSON line:
      saturated int8 codes; decode_profile and decode_profile_int8: three
      decode steps of each under torch.profiler (device time by kernel class
      and the device's idle share), left out of the step times;
+  6. slice_full_moe: the llama3_8b weights are freed, then Engine serves the
+     published Mixtral-8x7B-v0.1 widths at full depth (32 layers, 8 fp8
+     experts of 14336, top-2; 45 GB of seeded expert weights built layer by
+     layer on the card): 8 prompts of 16..512 tokens x 32 new tokens, logits
+     finite, launch counts exact (two grouped GEMMs, one activation and one
+     reduce per layer and call), and decode_profile_moe;
 then the kernels line, the nvidia-smi line and the result line.
 """
 
@@ -42,7 +57,8 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 and fp16
+FP8_FLOPS_PER_S = 1979e12  # H100 SXM dense e4m3
 HQ, HKV, D, BS = 32, 8, 128, 16
 NUM_BLOCKS = 2048
 ATOL_LOGITS, RTOL_LOGITS = 0.15, 0.1
@@ -76,9 +92,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
+    """Least time in ms for this work: ``flops_per_s`` is the card's peak for
+    the type of the function's operands, whatever type a kernel multiplies in."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / BF16_FLOPS_PER_S * 1e3
+    tf = flops / flops_per_s * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -426,6 +444,9 @@ def check_prefill_nhd_fused(dev, gen):
             timed = (q, cu, tbl, kv)
     q, cu, tbl, kv = timed
     ms = time_ms(lambda: paged_prefill_nhd_fused(q, slab, cu, tbl, kv, 2048, scale, sc, sc), 10)
+    slab16 = torch.randn((nb, 2 * BS, HKV * D), generator=gen).to(torch.bfloat16).to(dev)
+    ms_bf16 = time_ms(lambda: paged_prefill_nhd_fused(q, slab16, cu, tbl, kv, 2048, scale), 10)
+    del slab16
     plain = time_ms(lambda: _prefill_nhd_fused_ref(q, slab, cu, tbl, kv, 2048, scale, sc, sc), 3)
     kg, vg = gathered_dequant(slab, tbl[:1], 2048, 0.05)
     q4 = q.permute(1, 0, 2)[None].contiguous()
@@ -434,11 +455,250 @@ def check_prefill_nhd_fused(dev, gen):
     nbytes = 2 * 2048 * HQ * D * 2 + 2 * 2048 * HKV * D + tbl.numel() * 4 + 8
     flops = 4 * pairs * HQ * D
     bd, by = bound(nbytes, flops)
+    bd16, _ = bound(nbytes + 2 * 2048 * HKV * D, flops)
     emit("kernel", name="paged_prefill_nhd_fused", max_abs_err=err, ms=ms, plain_ms=plain,
-         library_ms=lib, bound_ms=bd, bound_by=by)
+         library_ms=lib, bound_ms=bd, bound_by=by, ms_bf16_slab=ms_bf16, bound_ms_bf16_slab=bd16)
     return dict(name="paged_prefill_nhd_fused", source="hpc_ops_tpu_torch/csrc/prefill.cu",
                 replaces="hpc_ops_tpu/ops/attention/prefill.py:1070", max_abs_err=err, ms=ms,
                 plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib)
+
+
+# ---------------------------------------------------------------- MoE kernels
+MOE_H, MOE_I, MOE_E, MOE_K = 4096, 14336, 8, 2  # Mixtral-8x7B: hidden, expert width, experts, top-k
+# Tokens of a call. The serving run prefills one prompt of 16 to 512 tokens a
+# call, so its m-tiles run from 32 to 160 slots: 8, 200 and 512 tokens give tm
+# 32, 64 and 160, one for each instance of the grouped GEMM (32-, 64- and
+# 128-row blocks, the last with a ragged second block). 2048 tokens (tm 512)
+# is the throughput shape, which this run's short prompts never reach.
+MOE_SHAPES = {"decode": 8, "prefill_200": 200, "prefill_512": 512, "prefill_2048": 2048}
+FP8_STD = 80.0  # standard deviation of the seeded e4m3 test tensors
+GEMM_RTOL = 2.0**-7  # one bf16 step; plus 1e-3 of the largest output for the summation order
+
+
+def moe_check_inputs(dev, gen):
+    """Seeded expert weights at Mixtral width and, per shape, tokens, routing
+    and the tile-aligned layout the MoE gives its kernels."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.group_gemm import _pick_tm
+    from hpc_ops_tpu_torch.ops.moe import _route_aligned
+
+    from hpc_ops_tpu_torch.utils.common import fp8_saturate_cast
+
+    dgen = torch.Generator(device=dev).manual_seed(int(torch.randint(0, 2**31, (1,), generator=gen)))
+
+    def rand_fp8(shape):
+        # a per-tensor-scaled tensor: its largest entries sit at the e4m3 bound of 448
+        return fp8_saturate_cast(torch.randn(shape, generator=dgen, device=dev).mul_(FP8_STD))
+
+    # scales that bring gate, up and the MoE output near 1
+    inp = {"gw": rand_fp8((MOE_E, 2 * MOE_I, MOE_H)), "dw": rand_fp8((MOE_E, MOE_H, MOE_I)),
+           "gs": (torch.rand(MOE_E, generator=dgen, device=dev) + 1.0) / (FP8_STD**2 * MOE_H**0.5),
+           "ds": (torch.rand(MOE_E, generator=dgen, device=dev) + 1.0) / (FP8_STD**2 * MOE_I**0.5),
+           "act": torch.full((1,), FP8_STD, device=dev)}
+    for name, s in MOE_SHAPES.items():
+        logits = torch.randn((s, MOE_E), generator=dgen, device=dev)
+        scale, ids = torch.topk(logits, MOE_K, dim=-1)
+        tm = _pick_tm(max(s * MOE_K // MOE_E, 1), MOE_H)
+        row_idx, topk_pos, seqlens, _, _, cu_tiles, grp = _route_aligned(ids.to(torch.int32), MOE_E, 0, tm)
+        inp[name] = dict(
+            s=s, tm=tm, x=rand_fp8((s, MOE_H)), ids=ids.to(torch.int32),
+            ts=torch.softmax(scale, dim=-1), row_idx=row_idx, topk_pos=topk_pos, grp=grp,
+            nvt=cu_tiles[-1:], seqlens=[int(n) for n in seqlens.cpu()],
+            ident=torch.arange(row_idx.shape[0], dtype=torch.int32, device=dev),
+        )
+    return inp
+
+
+def gemm_close(got, want, valid, what):
+    import torch
+
+    got, want = got[valid].float(), want[valid].float()
+    tol = 1e-3 * float(want.abs().max()) + GEMM_RTOL * want.abs()
+    err = (got - want).abs()
+    if not torch.isfinite(got).all() or bool((err > tol).any()):
+        raise AssertionError(f"{what}: kernel disagrees with the plain version "
+                             f"(max abs err {float(err.max())}, outputs up to {float(want.abs().max())})")
+    return float(err.max())
+
+
+def check_gg_scatter(dev, inp):
+    import torch
+
+    from hpc_ops_tpu_torch.ops.group_gemm import gg_scatter, gg_scatter_ref
+    from hpc_ops_tpu_torch.utils.common import fp8_saturate_cast
+
+    detail, err = {}, 0.0
+    for shape in MOE_SHAPES:
+        c = inp[shape]
+        pairs, tm = c["s"] * MOE_K, c["tm"]
+        experts_hit = sum(1 for n in c["seqlens"] if n)
+        valid = c["row_idx"] >= 0
+        # the down GEMM's input: e4m3 activations in the aligned layout
+        act = fp8_saturate_cast(torch.randn((c["row_idx"].shape[0], MOE_I), device=dev) * FP8_STD)
+        for gemm, x, w, sc, rows, (n, k) in (
+            ("gate_up", c["x"], inp["gw"], inp["gs"], c["row_idx"], (2 * MOE_I, MOE_H)),
+            ("down", act, inp["dw"], inp["ds"], c["ident"], (MOE_H, MOE_I)),
+        ):
+            args = (x, w, sc, rows, c["grp"], tm, c["nvt"])
+            got = gg_scatter(*args)
+            want = gg_scatter_ref(*args)
+            torch.cuda.synchronize()
+            e = gemm_close(got, want, valid, f"gg_scatter {shape} {gemm}")
+            del got, want
+            ms = time_ms(lambda: gg_scatter(*args), 20 if shape == "decode" else 5)
+            plain = time_ms(lambda: gg_scatter_ref(*args), 2, 1)
+            # "library": one torch.matmul per expert on operands decoded to bf16
+            # beforehand (a loop of E calls; the port never calls it)
+            w16 = w.to(torch.bfloat16)
+            xs = [torch.randn((max(m, 1), k), device=dev).to(torch.bfloat16) for m in c["seqlens"]]
+            lib = time_ms(lambda: [xe @ w16[i].T for i, xe in enumerate(xs) if c["seqlens"][i]], 5)
+            del w16, xs
+            # each token row and each hit expert's weight read once, each real output row written once
+            nbytes = c["s"] * k + experts_hit * n * k + pairs * n * 2 + rows.numel() * 4 + c["grp"].numel() * 4
+            # both operands are e4m3: the card's fp8 rate, though the kernel multiplies in fp16
+            bd, by = bound(nbytes, 2.0 * pairs * n * k, FP8_FLOPS_PER_S)
+            detail[f"{shape}_{gemm}"] = dict(ms=ms, plain_ms=plain, library_loop_ms=lib, bound_ms=bd,
+                                             bound_by=by, max_abs_err=e, tm=tm, n=n, k=k, pairs=pairs,
+                                             experts_hit=experts_hit, tflops=2e-9 * pairs * n * k / ms,
+                                             gbytes_per_s=nbytes / ms * 1e-6)
+            err = max(err, e)
+        del act
+    torch.cuda.empty_cache()
+    main = detail["decode_gate_up"]  # the call the serving path makes most often
+    emit("kernel", name="gg_scatter", max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+         library_ms=main["library_loop_ms"], library_is="a loop of one torch.matmul per expert",
+         bound_ms=main["bound_ms"], bound_by=main["bound_by"], shapes=detail)
+    return dict(name="gg_scatter", source="hpc_ops_tpu_torch/csrc/group_gemm.cu",
+                replaces="hpc_ops_tpu/ops/group_gemm.py:891", max_abs_err=err, ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_loop_ms"])
+
+
+def e4m3_ordinals(codes):
+    import torch
+
+    b = codes.view(torch.uint8).int()
+    return torch.where(b >= 128, -(b & 0x7F), b & 0x7F)
+
+
+def check_act_quant(dev, inp):
+    import torch
+
+    from hpc_ops_tpu_torch.ops.activation import act_quant, act_quant_ref
+
+    fp8 = torch.float8_e4m3fn
+    detail, worst, share = {}, 0, 0.0
+    for shape in MOE_SHAPES:
+        c = inp[shape]
+        rows = c["row_idx"].shape[0]
+        gate_up = (torch.randn((rows, 2 * MOE_I), device=dev) * 2).to(torch.bfloat16)
+        nv = c["nvt"] * c["tm"]
+        got = act_quant(gate_up, inp["act"], True, fp8, nv)
+        want = act_quant_ref(gate_up, inp["act"], True, fp8, nv)
+        torch.cuda.synchronize()
+        n_valid = int(nv)
+        d = (e4m3_ordinals(got[:n_valid]) - e4m3_ordinals(want[:n_valid])).abs()
+        worst, share = max(worst, int(d.max())), max(share, float((d > 0).float().mean()))
+        value_err = float((got[:n_valid].float() - want[:n_valid].float()).abs().max())
+        del got, want, d
+        ms = time_ms(lambda: act_quant(gate_up, inp["act"], True, fp8, nv), 50)
+        plain = time_ms(lambda: act_quant_ref(gate_up, inp["act"], True, fp8, nv), 3, 1)
+        bd, by = bound(n_valid * (2 * MOE_I * 2 + MOE_I) + 8, n_valid * MOE_I * 12.0)
+        detail[shape] = dict(ms=ms, plain_ms=plain, bound_ms=bd, bound_by=by, rows=rows,
+                             valid_rows=n_valid, max_abs_err=value_err)
+        del gate_up
+    if worst > 1 or share > 1e-3:
+        raise AssertionError(f"act_quant: codes {worst} apart on {share:.4%} (limits 1 and 0.1%)")
+    torch.cuda.empty_cache()
+    main = detail["decode"]
+    err = max(v["max_abs_err"] for v in detail.values())
+    emit("kernel", name="act_quant", code_max_diff=worst, code_diff_share=share, max_abs_err=err,
+         ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None, bound_ms=main["bound_ms"],
+         bound_by=main["bound_by"], shapes=detail)
+    return dict(name="act_quant", source="hpc_ops_tpu_torch/csrc/activation.cu",
+                replaces="hpc_ops_tpu/ops/activation.py:86", max_abs_err=err, ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=None)
+
+
+def check_moe_reduce(dev, inp):
+    import torch
+
+    from hpc_ops_tpu_torch.ops.moe import moe_reduce, moe_reduce_ref
+
+    detail, err = {}, 0.0
+    for shape in MOE_SHAPES:
+        c = inp[shape]
+        x = torch.randn((c["row_idx"].shape[0], MOE_H), device=dev).to(torch.bfloat16)
+        x[c["row_idx"] < 0] = float("nan")  # garbage rows: no valid slot points at them
+        shared = torch.randn((c["s"], MOE_H), device=dev).to(torch.bfloat16)
+        for sh in (None, shared):
+            got = moe_reduce(x, c["topk_pos"], c["ts"], sh)
+            want = moe_reduce_ref(x, c["topk_pos"], c["ts"], sh)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"moe_reduce {shape}: NaN of a garbage row reached the output")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+        ms = time_ms(lambda: moe_reduce(x, c["topk_pos"], c["ts"]), 50)
+        plain = time_ms(lambda: moe_reduce_ref(x, c["topk_pos"], c["ts"]), 5)
+        pairs = c["s"] * MOE_K
+        bd, by = bound(pairs * MOE_H * 2 + c["s"] * MOE_H * 2 + pairs * 8, 2.0 * pairs * MOE_H)
+        detail[shape] = dict(ms=ms, plain_ms=plain, bound_ms=bd, bound_by=by, tokens=c["s"])
+    if err != 0.0:
+        raise AssertionError(f"moe_reduce: {err} from the plain version (limit 0: the same "
+                             "float32 operations in the same order)")
+    main = detail["decode"]
+    emit("kernel", name="moe_reduce", max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+         library_ms=None, bound_ms=main["bound_ms"], bound_by=main["bound_by"], shapes=detail)
+    return dict(name="moe_reduce", source="hpc_ops_tpu_torch/csrc/moe.cu",
+                replaces="hpc_ops_tpu/ops/moe.py:212", max_abs_err=err, ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=None)
+
+
+def check_moe_pipeline(dev, inp):
+    """The three kernels chained as the MoE chains them, at the decode shape,
+    with every garbage row (empty slot, tile past the valid count) filled
+    with NaN after each GEMM; then the whole MoE under sync debug mode."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.activation import act_quant, act_quant_ref
+    from hpc_ops_tpu_torch.ops.group_gemm import gg_scatter, gg_scatter_ref
+    from hpc_ops_tpu_torch.ops.moe import fuse_moe_pertensor_fp8, moe_reduce, moe_reduce_ref
+
+    c = inp["decode"]
+    garbage = (c["row_idx"] < 0)[:, None]
+    nan = float("nan")
+    outs = {}
+    for name, gemm, act, red in (("kernel", gg_scatter, act_quant, moe_reduce),
+                                 ("plain", gg_scatter_ref, act_quant_ref, moe_reduce_ref)):
+        gate_up = gemm(c["x"], inp["gw"], inp["gs"], c["row_idx"], c["grp"], c["tm"], c["nvt"])
+        gate_up = torch.where(garbage, nan, gate_up.float()).to(torch.bfloat16)
+        down_in = act(gate_up, inp["act"], True, torch.float8_e4m3fn, c["nvt"] * c["tm"])
+        down = gemm(down_in, inp["dw"], inp["ds"], c["ident"], c["grp"], c["tm"], c["nvt"])
+        down = torch.where(garbage, nan, down.float()).to(torch.bfloat16)
+        outs[name] = red(down, c["topk_pos"], c["ts"]).float()
+    torch.cuda.synchronize()
+    k, p = outs["kernel"], outs["plain"]
+    tol = 2e-2 * float(p.abs().max())
+    if not torch.isfinite(k).all() or not torch.allclose(k, p, atol=tol, rtol=2e-2):
+        raise AssertionError("moe_pipeline: NaN garbage rows leaked, or kernels and plain versions "
+                             f"disagree (max err {float((k - p).abs().max())}, limit {tol} + 2%)")
+    args = (c["x"], inp["gw"], inp["dw"], inp["gs"], inp["ds"], inp["act"], c["ids"], c["ts"], 0, MOE_E)
+    whole = fuse_moe_pertensor_fp8(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a device-to-host copy of a count would raise
+    try:
+        again = fuse_moe_pertensor_fp8(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not torch.equal(whole, again) or not torch.allclose(whole.float(), p, atol=tol, rtol=2e-2):
+        raise AssertionError("moe_pipeline: fuse_moe_pertensor_fp8 disagrees with the chained stages")
+    ms = time_ms(lambda: fuse_moe_pertensor_fp8(*args), 20)
+    emit("moe_pipeline", shape="decode", garbage_rows=int(garbage.sum()), output_max=float(p.abs().max()),
+         max_abs_err=float((k - p).abs().max()), sync_debug_mode_raised=False, fuse_moe_ms=ms)
 
 
 # -------------------------------------------------------------------- slice
@@ -526,11 +786,16 @@ class DecodeProfile:
         cuda = self.torch.autograd.DeviceType.CUDA
         classes = {**{c: 0.0 for c in self.classes.values()}, "gemm": 0.0, "other": 0.0}
         other = {}
+        dtoh = launches = 0
         for e in self.prof.key_averages():
             if e.device_type != cuda:
                 continue
             us = e.self_device_time_total
             name = e.key
+            if "Memcpy DtoH" in name:
+                dtoh += e.count
+            elif "Memcpy" not in name and "Memset" not in name:
+                launches += e.count
             for k, c in self.classes.items():
                 if k in name:
                     classes[c] += us
@@ -550,35 +815,39 @@ class DecodeProfile:
             "device_busy_ms_per_step": busy_ms,
             "wall_ms_per_step": wall_ms,
             "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+            "kernel_launches_per_step": launches / n,
+            "device_to_host_copies_per_step": dtoh / n,
             "top_other_ms_per_step": {k: v / 1e3 / n for k, v in
                                       sorted(other.items(), key=lambda kv: -kv[1])[:6]},
         }
 
 
+MOE_KERNELS = ("gg_scatter", "act_quant", "moe_reduce")
 BF16_KERNELS = ("rope_store", "paged_decode", "paged_prefill")
 INT8_KERNELS = ("rope_store_int8", "paged_decode_nhd_fused", "paged_prefill_nhd_fused")
 
 
-def full_prompts(vocab):
+def full_prompts(vocab, longest=2000):
     import numpy as np
 
     rng = np.random.RandomState(0)
-    lens = [16, 2000] + [int(x) for x in rng.randint(16, 2001, 6)]
+    lens = [16, longest] + [int(x) for x in rng.randint(16, longest + 1, 6)]
     return lens, [[int(t) for t in rng.randint(0, vocab, n)] for n in lens]
 
 
-def serve_full(dev, cfg, w, phase, kernels_used):
-    """Engine(cfg) at full width and depth on weights ``w``: 8 prompts x 32
-    new tokens, with every sampled-from logits tensor checked finite, the
-    launch counts of ``kernels_used`` as the step counts say and every other
-    kernel at 0, and three decode steps profiled. Returns (launch counts,
-    last-token logits of each prefill call, the engine)."""
+def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=2000):
+    """Engine(cfg) at full width and depth on weights ``w``: 8 prompts (of 16
+    to ``longest`` tokens) x 32 new tokens, with every sampled-from logits
+    tensor checked finite, the launch counts of ``kernels_used`` (and, with
+    ``cfg.moe``, of the MoE kernels) as the step counts say and every other
+    kernel at 0, and three decode steps profiled. Returns (stats, launch
+    counts, last-token logits of each prefill call, the engine, the profile)."""
     import torch
 
     from hpc_ops_tpu_torch import kernels
     from hpc_ops_tpu_torch.runtime import engine as engine_mod
 
-    lens, prompts = full_prompts(cfg.vocab)
+    lens, prompts = full_prompts(cfg.vocab, longest)
     finite, prefill_logits = [], []
     base_forward = engine_mod.forward_step
 
@@ -607,8 +876,9 @@ def serve_full(dev, cfg, w, phase, kernels_used):
             decode_next = st["pending"] == 0
             n_dec = st["decode_dispatches"]
             if decode_next and n_dec == PROFILE_FROM:
-                profiled = DecodeProfile(torch, dict(zip(("rope_store", "paged_decode", "paged_prefill"),
-                                                         kernels_used)))
+                profiled = DecodeProfile(torch, {
+                    **dict(zip(("rope_store", "paged_decode", "paged_prefill"), kernels_used)),
+                    **{k: k for k in MOE_KERNELS}})
             torch.cuda.synchronize()
             t = time.perf_counter()
             if not eng.step():
@@ -635,10 +905,13 @@ def serve_full(dev, cfg, w, phase, kernels_used):
     st = eng.stats
     n_pre, n_dec = st["prefill_dispatches"], st["decode_dispatches"]
     per_step = dict(zip(kernels_used, (n_dec, n_dec, n_pre)))
+    if cfg.moe is not None:  # every call: two grouped GEMMs, one activation, one reduce a layer
+        per_step.update(gg_scatter=2 * (n_dec + n_pre), act_quant=n_dec + n_pre,
+                        moe_reduce=n_dec + n_pre)
     expect = {k: per_step.get(k, 0) * cfg.layers for k in counts}
-    if counts != expect or min(counts[k] for k in kernels_used) == 0:
+    if counts != expect or min(counts[k] for k in per_step) == 0:
         raise AssertionError(f"{phase}: launch counts {counts} != expected {expect}")
-    stats = dict(config="llama3_8b", int8_kv=cfg.int8_kv, kv_scale=cfg.kv_scale,
+    stats = dict(config=config, int8_kv=cfg.int8_kv, kv_scale=cfg.kv_scale,
                  residual_alpha=cfg.residual_alpha, layers=cfg.layers, prompt_lens=lens,
                  new_tokens=32, prefill_calls=n_pre, prefill_s_total=sum(prefill_s),
                  prefill_s_each=prefill_s, prefill_tokens_per_s=sum(lens) / sum(prefill_s),
@@ -690,6 +963,37 @@ def slice_full_int8(dev, w, bf16_prefill_logits):
     return counts
 
 
+def mixtral_8x7b():
+    """The published Mixtral-8x7B-v0.1 widths, experts as per-tensor fp8."""
+    from hpc_ops_tpu_torch.models import llama
+
+    return llama.ModelConfig(
+        vocab=32000, hidden=4096, layers=32, q_heads=32, kv_heads=8, head_dim=128,
+        intermediate=14336, rope_base=1e6, residual_alpha=1.0 / 8,
+        moe=llama.MoEConfig(num_experts=8, topk=2, expert_intermediate=14336),
+    )
+
+
+def slice_full_moe(dev):
+    import torch
+
+    from hpc_ops_tpu_torch.models import llama
+
+    cfg = mixtral_8x7b()
+    t0 = time.perf_counter()
+    w = llama.init_weights(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    emit("init_weights", config="mixtral_8x7b", seconds=time.perf_counter() - t0,
+         memory_allocated_bytes=torch.cuda.memory_allocated())
+    stats, counts, _, eng, profiled = serve_full(dev, cfg, w, "slice_full_moe", BF16_KERNELS,
+                                                 config="mixtral_8x7b", longest=512)
+    del eng, w
+    torch.cuda.empty_cache()
+    emit("slice_full_moe", moe=cfg.moe._asdict(), **stats)
+    emit("decode_profile_moe", **profiled.summary())
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "hpc_ops_tpu_torch")):
         print("chip_smoke.py: the hpc_ops_tpu_torch package is not beside this script", file=sys.stderr)
@@ -715,12 +1019,20 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, library=os.path.relpath(kernels.library_path(), ROOT))
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(1234)
     gen = torch.Generator().manual_seed(1234)
     rows = [check_rope(dev, gen), check_decode(dev, gen), check_prefill(dev, gen),
             check_rope_int8(dev, gen), check_decode_nhd_fused(dev, gen),
             check_prefill_nhd_fused(dev, gen)]
+    moe_inp = moe_check_inputs(dev, gen)
+    rows += [check_gg_scatter(dev, moe_inp), check_act_quant(dev, moe_inp),
+             check_moe_reduce(dev, moe_inp)]
+    check_moe_pipeline(dev, moe_inp)
+    del moe_inp
+    torch.cuda.empty_cache()
     slice_tiny(dev)
     slice_tiny(dev, "slice_tiny_int8", int8_kv=True, kv_scale=0.02)
+    slice_tiny(dev, "slice_tiny_moe", moe=True)
 
     from hpc_ops_tpu_torch.models import llama
 
@@ -731,10 +1043,16 @@ def main() -> int:
     emit("init_weights", config="llama3_8b", seconds=time.perf_counter() - t0)
     counts, bf16_prefill_logits = slice_full(dev, w)
     counts_int8 = slice_full_int8(dev, w, bf16_prefill_logits)
+    # the fp8 experts of the MoE model (45 GB) need the room of the llama3_8b weights
+    del w, bf16_prefill_logits
+    torch.cuda.empty_cache()
+    counts_moe = slice_full_moe(dev)
     for r in rows:
         r["route"] = "cuda"
         # each kernel's launches on its own path's run
-        r["launches"] = counts_int8[r["name"]] if r["name"] in INT8_KERNELS else counts[r["name"]]
+        by_path = counts_int8 if r["name"] in INT8_KERNELS else (
+            counts_moe if r["name"] in MOE_KERNELS else counts)
+        r["launches"] = by_path[r["name"]]
         r["kernel_ms"] = r["ms"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

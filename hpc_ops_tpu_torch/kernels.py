@@ -25,7 +25,7 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("rope_store.cu", "decode.cu", "prefill.cu")
+SOURCES = ("rope_store.cu", "decode.cu", "prefill.cu", "group_gemm.cu", "activation.cu", "moe.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -39,6 +39,9 @@ _SIGNATURES = {
     "hpc_paged_decode_nhd_fused": [_P, _P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P],
     "hpc_paged_prefill_bf16": [_P] * 3 + [_I64] * 6 + [_P] * 4 + [_I] * 7 + [_F, _P],
     "hpc_paged_prefill_nhd_fused": [_P, _P, _I] + [_P] * 6 + [_I] * 7 + [_F, _P],
+    "hpc_gg_scatter_e4m3": [_P] * 7 + [_I] * 4 + [_P],
+    "hpc_act_mul_quant": [_P] * 4 + [_I] * 4 + [_P],
+    "hpc_moe_reduce": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 _LOCK = threading.Lock()
@@ -127,6 +130,9 @@ def wrappers() -> dict:
         paged_prefill_attention,
         paged_prefill_nhd_fused,
     )
+    from hpc_ops_tpu_torch.ops.activation import act_quant
+    from hpc_ops_tpu_torch.ops.group_gemm import gg_scatter
+    from hpc_ops_tpu_torch.ops.moe import moe_reduce
     from hpc_ops_tpu_torch.ops.rope_kernel import rope_store_rows, rope_store_rows_int8
 
     return {
@@ -136,6 +142,9 @@ def wrappers() -> dict:
         "rope_store_int8": rope_store_rows_int8,
         "paged_decode_nhd_fused": paged_decode_nhd_fused,
         "paged_prefill_nhd_fused": paged_prefill_nhd_fused,
+        "gg_scatter": gg_scatter,
+        "act_quant": act_quant,
+        "moe_reduce": moe_reduce,
     }
 
 

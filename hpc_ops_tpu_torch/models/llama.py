@@ -1,12 +1,17 @@
-"""Dense Llama-class decoder on the port's operator stack (port of
-``models/llama.py``, dense single-device path, bf16 or int8 KV).
+"""Llama-class decoder on the port's operator stack (port of
+``models/llama.py``, single-device path, bf16 or int8 KV, dense or fp8-MoE
+MLP).
 
 Weights are a plain dict of tensors with the JAX package's layout:
 ``{"embed", "final_norm", "lm_head", "cos_sin", "layers": [{"attn_norm",
 "wqkv", "wo", "mlp_norm", "w_gate_up", "w_down"}, ...]}``; projections are
-``x @ w`` with ``w`` of shape [in, out]. Caches are a list of per-layer
-``{"k", "v"}`` HND ``[Hkv, num_blocks, block_size, D]`` bf16 tensors or,
-with ``int8_kv``, ``{"kv"}`` int8 NHD_FUSED slabs
+``x @ w`` with ``w`` of shape [in, out]. With ``cfg.moe`` a layer holds
+``"router"`` [H, E] and the experts ``"moe_gate_up"`` [E, 2I, H] and
+``"moe_down"`` [E, H, I] as float8_e4m3fn with one float32 scale per expert
+(``"moe_gate_up_scale"``, ``"moe_down_scale"``) in place of the dense MLP.
+Caches are a list of per-layer ``{"k", "v"}`` HND
+``[Hkv, num_blocks, block_size, D]`` bf16 tensors or, with ``int8_kv``,
+``{"kv"}`` int8 NHD_FUSED slabs
 ``[num_blocks, 2*block_size, Hkv*D]`` holding ``round(x / kv_scale)`` codes;
 :func:`forward_step` updates them IN PLACE (the JAX version returns new
 caches; this one returns the same list).
@@ -15,7 +20,9 @@ Each layer: RMSNorm, the QKV projection, RoPE fused with the paged KV store
 (the CUDA kernel on decode steps; quantising into the slab with
 ``int8_kv``), paged attention (prefill or decode kernel, reading the cache
 in place), the o-projection with residual add, RMSNorm and the gated-SiLU
-MLP.
+MLP: dense, or routed to the top-k experts through the fused fp8 MoE
+(``ops/moe.py``: scatter grouped GEMM, activation + quantisation, top-k
+reduce kernels).
 """
 
 from __future__ import annotations
@@ -26,8 +33,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from hpc_ops_tpu_torch.config import FP8_DTYPE, FP8_MAX
 from hpc_ops_tpu_torch.ops.attention.decode import attention_decode
 from hpc_ops_tpu_torch.ops.attention.prefill import attention_with_kvcache_prefill
+from hpc_ops_tpu_torch.ops.moe import fuse_moe_pertensor_fp8
 from hpc_ops_tpu_torch.ops.normalization import rmsnorm_ref
 from hpc_ops_tpu_torch.ops.rope import (
     make_cos_sin_cache,
@@ -41,13 +50,15 @@ from hpc_ops_tpu_torch.ops.sampler import (
 
 
 class MoEConfig(NamedTuple):
-    """MoE geometry (kept as a type; MoE serving is a later slice)."""
+    """MoE geometry. ``scheme``: "pertensor_fp8" (one scale per expert weight,
+    fp8 codes; served) or the JAX package's "blockwise_int8" and
+    "pertensor_int8" (later slices)."""
 
     num_experts: int = 8
     topk: int = 2
     expert_intermediate: int = 1024
     scheme: str = "pertensor_fp8"
-    act_clip: float = 8.0
+    act_clip: float = 8.0  # pertensor_int8 only
 
 
 class ModelConfig(NamedTuple):
@@ -95,10 +106,12 @@ def tiny_config(moe: bool = False, **kw) -> ModelConfig:
 
 def check_supported(cfg: ModelConfig, axis_name=None) -> None:
     """Raise NotImplementedError for configurations of later slices."""
+    moe_scheme = None if cfg.moe is None else cfg.moe.scheme
     later = {
         "fp8_kv": ("ROADMAP queue 1 item 2 (quantized KV)", cfg.fp8_kv),
         "dense_int8": ("ROADMAP queue 1 item 2 (quantized KV and W8A8)", cfg.dense_int8),
-        "moe": ("ROADMAP queue 1 item 3 (MoE)", cfg.moe is not None),
+        f"moe scheme {moe_scheme!r}": (
+            "ROADMAP queue 1 item 3 (MoE)", moe_scheme not in (None, "pertensor_fp8")),
         "qkv_bias": ("ROADMAP queue 1 item 7 (checkpoint conversion)", cfg.qkv_bias),
         "axis_name": ("ROADMAP queue 1 item 8 (multi-GPU)", axis_name is not None),
     }
@@ -132,16 +145,34 @@ def init_weights(
     def ones(n):
         return torch.ones((n,), dtype=torch.float32, device=device)
 
+    def experts(fan_in, shape):
+        """Per-tensor fp8 expert weights [E, N, K] and their [E] scales. The
+        float32 master of one tensor is the only transient."""
+        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        w.div_(math.sqrt(fan_in))
+        scale = w.abs().max() / FP8_MAX
+        w.div_(scale)
+        return w.to(FP8_DTYPE), scale.expand(shape[0]).contiguous()
+
     layers = []
     for _ in range(cfg.layers):
-        layers.append({
+        layer = {
             "attn_norm": ones(h),
             "wqkv": lin(h, (h, cfg.qkv_out)),
             "wo": lin(cfg.q_heads * d, (cfg.q_heads * d, h)),
             "mlp_norm": ones(h),
-            "w_gate_up": lin(h, (h, 2 * cfg.intermediate)),
-            "w_down": lin(cfg.intermediate, (cfg.intermediate, h)),
-        })
+        }
+        if cfg.moe is None:
+            layer["w_gate_up"] = lin(h, (h, 2 * cfg.intermediate))
+            layer["w_down"] = lin(cfg.intermediate, (cfg.intermediate, h))
+        else:
+            m = cfg.moe
+            layer["router"] = lin(h, (h, m.num_experts))
+            layer["moe_gate_up"], layer["moe_gate_up_scale"] = experts(
+                h, (m.num_experts, 2 * m.expert_intermediate, h))
+            layer["moe_down"], layer["moe_down_scale"] = experts(
+                m.expert_intermediate, (m.num_experts, h, m.expert_intermediate))
+        layers.append(layer)
     return {
         "embed": lin(1, (cfg.vocab, h)),
         "final_norm": ones(h),
@@ -155,14 +186,17 @@ def _to_torch(a: np.ndarray, device) -> torch.Tensor:
     a = np.array(a, order="C")  # a writable copy: torch may not share read-only memory
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: carry the bits over
         return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(torch.bfloat16).to(device)
+    if a.dtype.name == "float8_e4m3fn":  # ml_dtypes fp8: the same, byte by byte
+        return torch.from_numpy(a.view(np.uint8)).view(FP8_DTYPE).to(device)
     return torch.from_numpy(a).to(device)
 
 
 def weights_from_numpy(tree, device="cuda"):
     """JAX weight pytree already converted to numpy -> the port's weights.
 
-    bfloat16 arrays (numpy's ml_dtypes type) are carried over bit-exactly
-    through an int16 view, so both packages compute the same function.
+    bfloat16 and float8_e4m3fn arrays (numpy's ml_dtypes types) are carried
+    over bit-exactly through integer views, so both packages compute the same
+    function.
     """
     if isinstance(tree, dict):
         return {k: weights_from_numpy(v, device) for k, v in tree.items()}
@@ -199,6 +233,34 @@ def _mlp_dense(h_normed, layer):
     return act @ layer["w_down"]
 
 
+def _mlp_moe(h_normed, layer, cfg: ModelConfig, rank_ep: int, act_scale=None):
+    """Top-k routed experts through the fused per-tensor fp8 MoE. ``act_scale``
+    is the [1] float32 activation scale of 1 (a step builds it once for all
+    its layers)."""
+    m = cfg.moe
+    if act_scale is None:
+        act_scale = torch.ones((1,), dtype=torch.float32, device=h_normed.device)
+    xf = h_normed.float()
+    router_logits = xf @ layer["router"].float()
+    topk_scale, topk_ids = torch.topk(router_logits, m.topk, dim=-1)
+    topk_scale = torch.softmax(topk_scale, dim=-1)
+    # quantize activations per-tensor for the fp8 MoE
+    x_scale = xf.abs().max().clamp(min=1e-6) / FP8_MAX
+    x8 = (xf / x_scale).to(FP8_DTYPE)
+    return fuse_moe_pertensor_fp8(
+        x8,
+        layer["moe_gate_up"],
+        layer["moe_down"],
+        layer["moe_gate_up_scale"] * x_scale,  # fold activation scale
+        layer["moe_down_scale"],
+        act_scale,
+        topk_ids.to(torch.int32),
+        topk_scale,
+        rank_ep,
+        m.num_experts,
+    )  # partial over ep ranks (off-rank experts dropped)
+
+
 def forward_step(
     weights,
     caches,
@@ -223,7 +285,6 @@ def forward_step(
     else the bf16 logits of each request's last row [B, vocab] (of every row
     with ``return_all_logits``). The caches are written in place.
     """
-    del rank_ep
     check_supported(cfg, axis_name)
     rows = token_ids.shape[0]
     x = weights["embed"][token_ids.long()]
@@ -237,6 +298,8 @@ def forward_step(
         attn_kw = {"cache_layout": "NHD_FUSED", "kscale": kv_sc, "vscale": kv_sc}
     else:
         attn_kw = {"cache_layout": "HND"}
+    if cfg.moe is not None:
+        moe_act_scale = torch.ones((1,), dtype=torch.float32, device=x.device)
     for li, layer in enumerate(weights["layers"]):
         qkv = h_normed @ layer["wqkv"]
         if cfg.int8_kv:
@@ -267,7 +330,10 @@ def forward_step(
             attn_out = attn_out * cfg.residual_alpha
         x_res = (x_res.float() + attn_out.float()).to(torch.bfloat16)
         h_normed = rmsnorm_ref(x_res, layer["mlp_norm"], cfg.norm_eps).to(torch.bfloat16)
-        mlp_out = _mlp_dense(h_normed, layer)
+        if cfg.moe is None:
+            mlp_out = _mlp_dense(h_normed, layer)
+        else:
+            mlp_out = _mlp_moe(h_normed, layer, cfg, rank_ep, moe_act_scale)
         if cfg.residual_alpha != 1.0:
             mlp_out = mlp_out * cfg.residual_alpha
         next_norm = (

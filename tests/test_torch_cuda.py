@@ -9,12 +9,16 @@ counts no launch.
 Tolerances: attention within 1e-2 abs/rel in bf16 output (int8 slabs too:
 kernel and plain version read the same codes); RoPE within one bf16 ulp;
 int8 codes equal, or one apart on at most 0.1% of them (a rounding tie);
-untouched cache bytes bit-identical.
+untouched cache bytes bit-identical. MoE: the grouped GEMM within one bf16
+step (2^-7 relative) plus 1e-3 of the largest output (both sum exact e4m3
+products in float32, in another order); activation codes equal, or one apart
+on at most 0.1% (expf against torch.sigmoid); the top-k reduce bit-equal.
 """
 
 import pytest
 import torch
 
+from hpc_ops_tpu_torch.ops.activation import act_quant, act_quant_ref
 from hpc_ops_tpu_torch.ops.attention.decode import (
     _decode_nhd_fused_ref,
     _decode_ref,
@@ -27,6 +31,13 @@ from hpc_ops_tpu_torch.ops.attention.prefill import (
     _prefill_ref,
     paged_prefill_attention,
     paged_prefill_nhd_fused,
+)
+from hpc_ops_tpu_torch.ops.group_gemm import gg_scatter, gg_scatter_ref
+from hpc_ops_tpu_torch.ops.moe import (
+    _route_aligned,
+    fuse_moe_pertensor_fp8,
+    moe_reduce,
+    moe_reduce_ref,
 )
 from hpc_ops_tpu_torch.ops.rope import make_cos_sin_cache
 from hpc_ops_tpu_torch.ops.rope_kernel import (
@@ -341,3 +352,190 @@ def test_nhd_fused_kernels_reject_a_misaligned_slab(cuda):
     with pytest.raises(ValueError, match="aligned"):
         paged_prefill_nhd_fused(randn(gen, 20, 8, 128).to(**d), bad, cu, tbl.to(**d),
                                 kv_lens.to(**d), 20, 0.1)
+
+
+# ------------------------------------------------------------------ fp8 MoE
+FP8 = torch.float8_e4m3fn
+
+
+def fp8(gen, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen) * scale).to(FP8)
+
+
+def gg_case(gen, tm, fill, k, n, groups=3, tokens=50):
+    """x, weight, scales and a ragged routing: tile t holds fill[t] real rows."""
+    x, w = fp8(gen, tokens, k, scale=0.25), fp8(gen, groups, n, k, scale=0.25)
+    y_scale = torch.rand(groups, generator=gen) + 0.5
+    grp = torch.randint(0, groups, (len(fill),), generator=gen, dtype=torch.int32)
+    row_idx = torch.full((len(fill) * tm,), -1, dtype=torch.int32)
+    for t, f in enumerate(fill):
+        row_idx[t * tm : t * tm + f] = torch.randint(0, tokens, (f,), generator=gen, dtype=torch.int32)
+    return x, w, y_scale, row_idx, grp
+
+
+def assert_gemm_close(got, want, name):
+    want = want.float()
+    assert_allclose(got.float().cpu(), want, atol=1e-3 * float(want.abs().max()), rtol=2**-7,
+                    name=name)
+
+
+def ordinals(codes):
+    """Signed ordinals of e4m3 or int8 codes (adjacent codes differ by 1)."""
+    if codes.dtype == torch.int8:
+        return codes.int()
+    b = codes.view(torch.uint8).int()
+    return torch.where(b >= 128, -(b & 0x7F), b & 0x7F)
+
+
+def test_moe_wrappers_take_the_plain_version_on_cpu():
+    gen = torch.Generator().manual_seed(20)
+    counts = (gg_scatter.launches, act_quant.launches, moe_reduce.launches)
+    x, w, y_scale, row_idx, grp = gg_case(gen, 32, [3, 32], 64, 48)
+    assert torch.equal(gg_scatter(x, w, y_scale, row_idx, grp, 32),
+                       gg_scatter_ref(x, w, y_scale, row_idx, grp, 32))
+    gu, sc = randn(gen, 40, 128), torch.tensor([1.3])
+    nv = torch.tensor([33], dtype=torch.int32)
+    assert torch.equal(act_quant(gu, sc, True, FP8, nv).view(torch.uint8),
+                       act_quant_ref(gu, sc, True, FP8, nv).view(torch.uint8))
+    pos = torch.tensor([[0, -1], [5, 2]], dtype=torch.int32)
+    ts = torch.rand((2, 2), generator=gen)
+    assert torch.equal(moe_reduce(gu, pos, ts), moe_reduce_ref(gu, pos, ts))
+    assert counts == (gg_scatter.launches, act_quant.launches, moe_reduce.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "tm,fill,k,n",
+    [(32, [5, 32, 7, 1, 0], 256, 384),  # the 32-row block; an empty tile
+     (32, [2, 2, 1], 4096, 1024),  # decode-like: two rows a tile, long K
+     (64, [64, 33, 1], 512, 256),  # the 64-row block
+     (160, [160, 129, 17], 256, 384),  # the 128-row block with a 32-row rest
+     (512, [512, 300], 1024, 256),  # four 128-row blocks a tile
+     (32, [9, 32], 208, 200)],  # K and N that end inside a stage and a block
+)
+def test_gg_scatter_kernel_matches_plain(cuda, tm, fill, k, n):
+    gen = torch.Generator().manual_seed(21)
+    x, w, y_scale, row_idx, grp = gg_case(gen, tm, fill, k, n)
+    want = gg_scatter_ref(x, w, y_scale, row_idx, grp, tm)
+    n0 = gg_scatter.launches
+    got = gg_scatter(*(t.to(cuda) for t in (x, w, y_scale, row_idx, grp)), tm)
+    torch.cuda.synchronize()
+    assert gg_scatter.launches == n0 + 1
+    valid = row_idx >= 0
+    assert_gemm_close(got[valid.to(cuda)], want[valid], "gg_scatter")
+
+
+@pytest.mark.cuda
+def test_gg_scatter_kernel_stops_at_num_valid_tiles(cuda):
+    """Tiles at or past num_valid_tiles are not computed: their rows point
+    far outside x, which a block that ran would fault on; the tiles before
+    are as without the count."""
+    gen = torch.Generator().manual_seed(22)
+    x, w, y_scale, row_idx, grp = gg_case(gen, 32, [5, 32, 7, 1], 256, 384)
+    want = gg_scatter_ref(x, w, y_scale, row_idx, grp, 32)
+    row_idx[64:] = 2**30
+    nvt = torch.tensor([2], dtype=torch.int32, device=cuda)
+    got = gg_scatter(*(t.to(cuda) for t in (x, w, y_scale, row_idx, grp)), 32, nvt)
+    torch.cuda.synchronize()
+    valid = (row_idx >= 0)[:64]
+    assert_gemm_close(got[:64][valid.to(cuda)], want[:64][valid], "gg_scatter nvt")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [FP8, torch.int8])
+@pytest.mark.parametrize("use_bf16_mul", [True, False])
+def test_act_quant_kernel_matches_plain(cuda, out_dtype, use_bf16_mul):
+    gen = torch.Generator().manual_seed(23)
+    gu = randn(gen, 70, 2 * 1536) * 2
+    sc = torch.tensor([1.7 if out_dtype == FP8 else 20.0])
+    for nv in (None, torch.tensor([41], dtype=torch.int32)):
+        want = act_quant_ref(gu, sc, use_bf16_mul, out_dtype, nv)
+        got = act_quant(gu.to(cuda), sc.to(cuda), use_bf16_mul, out_dtype,
+                        None if nv is None else nv.to(cuda))
+        torch.cuda.synchronize()
+        rows = slice(0, None if nv is None else int(nv))
+        d = (ordinals(got.cpu()[rows]) - ordinals(want[rows])).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_shared", [False, True])
+def test_moe_reduce_kernel_matches_plain_and_drops_nan_rows(cuda, has_shared):
+    gen = torch.Generator().manual_seed(24)
+    rows, s, k, h = 512, 100, 8, 4096
+    x = randn(gen, rows, h)
+    pos = torch.randint(1, rows, (s, k), generator=gen, dtype=torch.int32)
+    pos[pos == 37] = 11
+    pos[torch.rand((s, k), generator=gen) < 0.3] = -1
+    pos[0] = -1  # a token with every slot dropped
+    x[37] = x[0] = float("nan")  # rows that only dropped slots can point at
+    ts = torch.rand((s, k), generator=gen)
+    shared = randn(gen, s, h) if has_shared else None
+    want = moe_reduce_ref(x, pos, ts, shared)
+    got = moe_reduce(x.to(cuda), pos.to(cuda), ts.to(cuda),
+                     None if shared is None else shared.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got.cpu(), want)
+
+
+def moe_inputs(gen, s, k, h, interm, e_local, e_total):
+    return dict(
+        x=fp8(gen, s, h, scale=0.2), gw=fp8(gen, e_local, 2 * interm, h), dw=fp8(gen, e_local, h, interm),
+        gs=torch.rand(e_local, generator=gen) * 0.4 + 0.2,
+        ds=(torch.rand(e_local, generator=gen) * 0.1 + 0.05) / 16, act=torch.tensor([16.0]),
+        ids=torch.randint(0, e_total, (s, k), generator=gen, dtype=torch.int32),
+        ts=torch.rand((s, k), generator=gen) / k,
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank_ep,size_ep", [(0, 1), (1, 4)])
+def test_fuse_moe_on_the_card_syncs_nothing_and_matches_cpu(cuda, rank_ep, size_ep):
+    """The whole pipeline on the card under sync debug mode "error": any copy
+    of a count to the host would raise. Against the CPU run (plain versions)
+    within 2e-2 abs + 2e-2 rel on outputs up to 4: summation order, one bf16
+    rounding per GEMM and rare activation code steps."""
+    gen = torch.Generator().manual_seed(25)
+    e_total = 16
+    t = moe_inputs(gen, 32, 4, 256, 256, e_total // size_ep, e_total)
+    args = [t[n] for n in ("x", "gw", "dw", "gs", "ds", "act", "ids", "ts")]
+    want = fuse_moe_pertensor_fp8(*args, rank_ep, e_total)
+    dargs = [a.to(cuda) for a in args]
+    fuse_moe_pertensor_fp8(*dargs, rank_ep, e_total)  # builds the library, warms the allocator
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fuse_moe_pertensor_fp8(*dargs, rank_ep, e_total)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert_allclose(got.float().cpu(), want.float(), atol=2e-2, rtol=2e-2, name="fuse_moe card")
+
+
+@pytest.mark.cuda
+def test_moe_garbage_rows_do_not_reach_the_output(cuda):
+    """Empty slots and tiles past the valid count hold anything: fill them
+    with NaN after each GEMM, as tests/test_moe.py does for the JAX kernel,
+    and the reduced output stays finite and equal to the plain pipeline's."""
+    gen = torch.Generator().manual_seed(26)
+    e_local, e_total, tm = 4, 16, 32
+    t = {n: v.to(cuda) for n, v in moe_inputs(gen, 40, 4, 256, 256, e_local, e_total).items()}
+    row_idx, topk_pos, _, _, _, cu_tiles, grp = _route_aligned(t["ids"], e_local, 1, tm)
+    nvt = cu_tiles[-1:]
+    garbage = (row_idx < 0)[:, None]
+    ident = torch.arange(row_idx.shape[0], dtype=torch.int32, device=cuda)
+    outs = {}
+    for name, gemm, act, red in (("kernel", gg_scatter, act_quant, moe_reduce),
+                                 ("plain", gg_scatter_ref, act_quant_ref, moe_reduce_ref)):
+        gate_up = gemm(t["x"], t["gw"], t["gs"], row_idx, grp, tm, nvt)
+        gate_up = torch.where(garbage, float("nan"), gate_up.float()).to(torch.bfloat16)
+        down_in = act(gate_up, t["act"], True, FP8, nvt * tm)
+        down = gemm(down_in, t["dw"], t["ds"], ident, grp, tm, nvt)
+        down = torch.where(garbage, float("nan"), down.float()).to(torch.bfloat16)
+        outs[name] = red(down, topk_pos, t["ts"])
+    torch.cuda.synchronize()
+    assert int((row_idx < 0).sum()) > tm and int((topk_pos < 0).sum()) > 0
+    assert torch.isfinite(outs["kernel"].float()).all()
+    assert_allclose(outs["kernel"].float().cpu(), outs["plain"].float().cpu(), atol=2e-2, rtol=2e-2,
+                    name="moe with NaN garbage rows")

@@ -42,6 +42,15 @@ def model_int8(model):
     return J.tiny_config(**INT8), jw, T.tiny_config(**INT8), tw
 
 
+@pytest.fixture(scope="module")
+def model_moe():
+    """tiny_config(moe=True): per-tensor fp8 experts, JAX's weights carried over."""
+    cfg = J.tiny_config(moe=True)
+    jw = J.init_weights(jax.random.PRNGKey(0), cfg)
+    tw = T.weights_from_numpy(jax.tree_util.tree_map(np.asarray, jw), device="cpu")
+    return cfg, jw, T.tiny_config(moe=True), tw
+
+
 def engine(model, **kw):
     _, _, tcfg, tw = model
     kw = {"num_blocks": 64, "block_size": 16, "max_batch": 4, **kw}
@@ -76,6 +85,17 @@ def test_engine_int8_matches_jax_engine(model_int8):
     got = engine(model_int8).run(PROMPTS, max_new=4)
     for p, w, g in zip(PROMPTS, want, got):
         assert_greedy_match(w, g, lambda j, p=p, w=w: jax_margin(cfg, jw, p + w[:j]), 0.15)
+
+
+def test_engine_moe_matches_jax_engine(model_moe):
+    """fp8 MoE serving: the engine drives the MoE model unchanged, and its
+    greedy tokens equal the JAX engine's on the same weights."""
+    cfg, jw, _, _ = model_moe
+    want = JaxEngine(cfg, jw, num_blocks=64, block_size=16, max_batch=4).run(PROMPTS, max_new=3)
+    got = engine(model_moe).run(PROMPTS, max_new=3)
+    for p, w, g in zip(PROMPTS, want, got):
+        assert_greedy_match(w, g, lambda j, p=p, w=w: jax_margin(cfg, jw, p + w[:j]), 0.15)
+    assert all(len(g) == 3 for g in got)
 
 
 def test_engine_int8_kv_serving(model_int8):

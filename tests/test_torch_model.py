@@ -1,4 +1,4 @@
-"""Parity of the port's dense Llama model against the JAX package.
+"""Parity of the port's Llama model (dense and fp8 MoE) against the JAX package.
 
 The JAX weights (``init_weights(PRNGKey(0), tiny_config())``) are carried
 over bit-exactly with ``weights_from_numpy``, so both packages compute the
@@ -185,7 +185,82 @@ def test_forward_step_int8_kv_close_to_bf16():
         assert cos.min() > 0.98, f"phase {phase}: min cosine {cos.min()}"
 
 
-@pytest.mark.parametrize("field", ["fp8_kv", "int8_kv", "dense_int8", "qkv_bias", "moe"])
+@pytest.fixture(scope="module")
+def model_moe():
+    """tiny_config(moe=True) with JAX's PRNGKey(0) weights carried over."""
+    cfg = J.tiny_config(moe=True)
+    jw = J.init_weights(jax.random.PRNGKey(0), cfg)
+    tw = T.weights_from_numpy(jax.tree_util.tree_map(np.asarray, jw), device="cpu")
+    return cfg, jw, T.tiny_config(moe=True), tw
+
+
+def test_moe_weights_carry_over_and_init_layout(model_moe):
+    cfg, jw, tcfg, tw = model_moe
+    assert tcfg == T.ModelConfig(**{**cfg._asdict(), "moe": T.MoEConfig(**cfg.moe._asdict())})
+    lj, lt = jw["layers"][1], tw["layers"][1]
+    assert lt["moe_gate_up"].dtype == torch.float8_e4m3fn
+    for name in ("moe_gate_up", "moe_down"):  # fp8 codes arrive bit for bit
+        np.testing.assert_array_equal(lt[name].view(torch.uint8).numpy(),
+                                      np.asarray(lj[name]).view(np.uint8))
+    own = T.init_weights(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    for lo, lj in zip(own["layers"], jw["layers"]):
+        assert set(lo) == set(lj)
+        for k in lj:
+            assert tuple(lo[k].shape) == lj[k].shape
+            assert str(lo[k].dtype).split(".")[-1] == str(lj[k].dtype)
+    first = own["layers"][0]
+    assert float(first["moe_gate_up"].float().abs().max()) == 448.0  # amax maps to the fp8 bound
+    assert torch.equal(first["moe_down_scale"], first["moe_down_scale"][:1].expand(8))
+    w = first["moe_gate_up"].float() * first["moe_gate_up_scale"][:, None, None]
+    assert abs(w.std().item() * cfg.hidden**0.5 - 1.0) < 0.05
+
+
+def test_forward_step_moe_matches_jax(model_moe, monkeypatch):
+    """fp8 MoE, prefill then decode: the routing ids of every layer are equal
+    (a near-tie in the router would flip an expert and move the logits by far
+    more than any tolerance), then the logits agree within 0.15 abs / 0.1 rel
+    like the dense model's."""
+    cfg, jw, tcfg, tw = model_moe
+    routed = {"J": [], "T": []}
+
+    def recording(name, fn):
+        def wrapped(x, gw, dw, gs, ds, act, topk_ids, *a, **kw):
+            routed[name].append(np.asarray(topk_ids))
+            return fn(x, gw, dw, gs, ds, act, topk_ids, *a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(J, "fuse_moe_pertensor_fp8", recording("J", J.fuse_moe_pertensor_fp8))
+    monkeypatch.setattr(T, "fuse_moe_pertensor_fp8", recording("T", T.fuse_moe_pertensor_fp8))
+    jp, jd = run_prefill_then_decode(J, cfg, jw, jnp.asarray)
+    tp, td = run_prefill_then_decode(T, tcfg, tw, torch.from_numpy)
+    assert len(routed["J"]) == len(routed["T"]) == 2 * cfg.layers
+    for a, b in zip(routed["T"], routed["J"]):
+        np.testing.assert_array_equal(a, b)
+    assert_allclose(tp.float(), np.asarray(jp, np.float32), atol=ATOL, rtol=RTOL, name="prefill logits")
+    assert_allclose(td.float(), np.asarray(jd, np.float32), atol=ATOL, rtol=RTOL, name="decode logits")
+
+
+def test_forward_step_moe_expert_parallel_ranks_sum(model_moe):
+    """rank_ep: two ranks, each holding half of the experts, give partial MoE
+    outputs (off-rank experts dropped) that add up to the single-rank output
+    within two bf16 roundings."""
+    _, _, tcfg, tw = model_moe
+    layer = tw["layers"][0]
+    h = torch.randn((6, tcfg.hidden), generator=torch.Generator().manual_seed(3)).to(torch.bfloat16)
+    whole = T._mlp_moe(h, layer, tcfg, 0).float()
+    half = tcfg.moe.num_experts // 2
+    parts = []
+    for rank in (0, 1):
+        sl = slice(rank * half, (rank + 1) * half)
+        local = {**layer, **{k: layer[k][sl] for k in ("moe_gate_up", "moe_down", "moe_gate_up_scale",
+                                                       "moe_down_scale")}}
+        parts.append(T._mlp_moe(h, local, tcfg, rank).float())
+    assert_allclose(parts[0] + parts[1], whole.numpy(), atol=2 * 2**-8 * float(whole.abs().max()),
+                    rtol=0, name="ep partial sums")
+
+
+@pytest.mark.parametrize("field", ["fp8_kv", "int8_kv", "dense_int8", "qkv_bias", "moe",
+                                   "moe_pertensor_int8"])
 def test_later_slices_raise(field):
     if field == "int8_kv":
         # int8_kv serves now; the int8 head-major FUSED decode is a later slice
@@ -195,6 +270,14 @@ def test_later_slices_raise(field):
             attention_decode(q, kv, None, torch.zeros((1, 1), dtype=torch.int32),
                              torch.ones(1, dtype=torch.int32), cache_layout="FUSED")
         return
-    cfg = T.tiny_config(moe=True) if field == "moe" else T.tiny_config(**{field: True})
+    if field.startswith("moe"):
+        # the per-tensor fp8 MoE serves now; the two int8 schemes are later slices
+        scheme = "blockwise_int8" if field == "moe" else "pertensor_int8"
+        cfg = T.tiny_config(moe=True)
+        cfg = cfg._replace(moe=cfg.moe._replace(scheme=scheme))
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
+            T.init_weights(cfg, device="cpu")
+    else:
+        cfg = T.tiny_config(**{field: True})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.init_cache(cfg, 4, 16, device="cpu")

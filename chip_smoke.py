@@ -8,7 +8,7 @@ any failure, without a card, or when the package is not beside it.
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi), torch's view;
   2. build: nvcc builds the kernel sources and g++ the block allocator;
-  3. kernels: each of the nine kernels against its plain PyTorch version on
+  3. kernels: each kernel against its plain PyTorch version on
      the same inputs, timed with CUDA events beside its plain version, a
      PyTorch library call for the same function where one exists, and its
      bound. At the llama3_8b serving shapes (Hq 32, Hkv 8, D 128, pages of
@@ -22,10 +22,17 @@ Phases, each printing one JSON line:
      quantisation and the top-k reduce; then moe_pipeline: the three chained
      with every garbage row filled with NaN, and the whole MoE under
      torch's sync debug mode (which raises on the device-to-host copies it
-     detects; decode_profile_moe counts them);
-  4. slice_tiny, slice_tiny_int8 and slice_tiny_moe: Engine on tiny_config
-     (bf16 KV, int8_kv, fp8 MoE) on the card and on the CPU with the same
-     weights: logits of the first prefill and decode steps within 0.15 abs /
+     detects; decode_profile_moe counts them). At the llama3_8b shapes again,
+     over e4m3 caches: decode and prefill over HND caches, over the NHD_FUSED
+     slab, the QuantType-0 decode (one K scale per token and kv head, a V
+     scale per head) and the prefill with per-token K scales; then ops_fp8:
+     attention_decode_fp8 and attention_with_kvcache_prefill_fp8 driven in
+     every form (per-tensor with a q scale per token and head, NHD_FUSED,
+     QuantType 0 with paged and with tail-row scales), each held against its
+     impl="ref" with the launch counts read around each call;
+  4. slice_tiny, slice_tiny_int8, slice_tiny_moe and slice_tiny_fp8: Engine on
+     tiny_config (bf16 KV, int8_kv, fp8 MoE, fp8_kv) on the card and on the
+     CPU with the same weights: logits of the first prefill and decode steps within 0.15 abs /
      0.1 rel, greedy tokens identical wherever the CPU path's top-2 margin
      exceeds that tolerance;
   5. slice_full and slice_full_int8: Engine(llama3_8b) at full width and
@@ -36,6 +43,12 @@ Phases, each printing one JSON line:
      saturated int8 codes; decode_profile and decode_profile_int8: three
      decode steps of each under torch.profiler (device time by kernel class
      and the device's idle share), left out of the step times;
+     slice_full_fp8: the same with fp8_kv (e4m3 HND caches, e4m3 q): the
+     e4m3 decode and prefill kernels once per layer and call and every other
+     kernel at 0, prefill logits within cosine 0.98 of bf16's, the share of
+     saturated e4m3 codes, one device-to-host copy per profiled decode step;
+     slice_full_w8a8: dense_int8 over the same weights quantised layer by
+     layer on the card, cosine as above, the int8 products' device time;
   6. slice_full_moe: the llama3_8b weights are freed, then Engine serves the
      published Mixtral-8x7B-v0.1 widths at full depth (32 layers, 8 fp8
      experts of 14336, top-2; 45 GB of seeded expert weights built layer by
@@ -100,15 +113,15 @@ def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S) ->
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def random_table(gen, lens, max_blocks, num_blocks, device):
-    """A shuffled page table covering each length, padded with -1."""
+def random_table(gen, lens, max_blocks, num_blocks, device, bs=BS):
+    """A shuffled page table of ``bs``-slot pages covering each length, padded with -1."""
     import torch
 
     perm = torch.randperm(num_blocks, generator=gen)
     tbl = torch.full((len(lens), max_blocks), -1, dtype=torch.int32)
     off = 0
     for i, n in enumerate(lens):
-        k = -(-n // BS)
+        k = -(-n // bs)
         tbl[i, :k] = perm[off : off + k]
         off += k
     return tbl.to(device)
@@ -463,6 +476,281 @@ def check_prefill_nhd_fused(dev, gen):
                 plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib)
 
 
+# ------------------------------------------------------- e4m3 attention kernels
+DECODE_LENS = [1, 2048, 4096, 2963, 1346, 3412, 2436, 1735]  # check_decode's kv_lens
+KSCALE, VSCALE = 0.75, 1.25  # per-tensor scales of the e4m3 checks
+PREFILL_ROWS = 2048  # the timed prefill: one request of this many rows
+
+
+def kernel_row(name, source, replaces, err, ms, plain, lib, nbytes, flops, **more):
+    bd, by = bound(nbytes, flops)
+    emit("kernel", name=name, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bd,
+         bound_by=by, **more)
+    return dict(name=name, source=source, replaces=replaces, max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib)
+
+
+def close(got, want, what):
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2):
+        raise AssertionError(f"{what}: kernel disagrees with the plain version")
+    return float((got.float() - want.float()).abs().max())
+
+
+def e4m3_caches(dev, gen, nb):
+    """Seeded e4m3 K and V (HND), their NHD_FUSED slab, per-token K scales
+    paged like the cache and per-head V scales."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.attention.paging import pack_kv_fused_nhd
+
+    fp8 = torch.float8_e4m3fn
+    k = torch.randn((HKV, nb, BS, D), generator=gen).to(fp8).to(dev)
+    v = torch.randn((HKV, nb, BS, D), generator=gen).to(fp8).to(dev)
+    slab = pack_kv_fused_nhd(k.view(torch.uint8), v.view(torch.uint8)).view(fp8)
+    ktok = (torch.rand((nb, BS, HKV, 1), generator=gen) + 0.5).to(dev)
+    vhead = (torch.rand(HKV, generator=gen) + 0.5).to(dev)
+    return k, v, slab, ktok, vhead
+
+
+def gathered_hnd(k, v, tbl, kv_len_max, ktok, vscale):
+    """K and V of each request gathered from HND e4m3 caches into [B, Hq, L, D]
+    bf16 (repeated over the GQA group) and dequantised (``ktok``: a [1] scale
+    or the paged per-token scales; ``vscale``: [1] or [Hkv]): the inputs of
+    the library yardstick."""
+    import torch
+
+    b = tbl.shape[0]
+    pages = tbl[:, : -(-kv_len_max // BS)].clamp(min=0).long()
+    kg = k[:, pages].float()  # [HKV, B, n, BS, D]
+    if ktok.numel() > 1:
+        kg = kg * ktok[pages].permute(3, 0, 1, 2, 4)  # [B, n, BS, HKV, 1] -> [HKV, B, n, BS, 1]
+    else:
+        kg = kg * ktok
+    vg = v[:, pages].float() * vscale.reshape(-1, 1, 1, 1, 1)
+    out = []
+    for x in (kg, vg):
+        x = x.permute(1, 0, 2, 3, 4).reshape(b, HKV, -1, D)[:, :, :kv_len_max]
+        out.append(x.repeat_interleave(HQ // HKV, dim=1).to(torch.bfloat16).contiguous())
+    return out
+
+
+def check_decode_fp8(dev, gen):
+    """The decode kernels over e4m3 caches at the serving shape: HND caches
+    with per-tensor scales (the fp8_kv model path), the NHD_FUSED slab, and
+    QuantType 0."""
+    import torch
+    import torch.nn.functional as F
+
+    from hpc_ops_tpu_torch.ops.attention.decode import (
+        _decode_nhd_fused_ref,
+        _decode_qt0_ref,
+        _decode_ref,
+        paged_decode_attention,
+        paged_decode_nhd_fused,
+        paged_decode_qt0,
+    )
+
+    b, lens_l = 8, DECODE_LENS
+    nb = NUM_BLOCKS + 8
+    tbl = random_table(gen, lens_l, max(lens_l) // BS + 4, nb, dev)
+    kv_lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    scale = D**-0.5
+    k, v, slab, ktok, vhead = e4m3_caches(dev, gen, nb)
+    ks, vs = torch.tensor([KSCALE], device=dev), torch.tensor([VSCALE], device=dev)
+    variants = {
+        "paged_decode_e4m3": (
+            lambda q, lens, sq, layout="HND": paged_decode_attention(
+                q, *(hnd if layout == "HND" else nhd), tbl, lens, sq, scale, layout, ks, vs),
+            lambda q, lens, sq, layout="HND": _decode_ref(
+                q, *(hnd if layout == "HND" else nhd), tbl, lens, sq, scale, layout, ks, vs),
+            "hpc_ops_tpu/ops/attention/decode.py:74", ks, vs, 8),
+        "paged_decode_nhd_fused_e4m3": (
+            lambda q, lens, sq: paged_decode_nhd_fused(q, slab, tbl, lens, sq, scale, ks, vs),
+            lambda q, lens, sq: _decode_nhd_fused_ref(q, slab, tbl, lens, sq, scale, ks, vs),
+            "hpc_ops_tpu/ops/attention/decode.py:449", ks, vs, 8),
+        "paged_decode_qt0": (
+            lambda q, lens, sq: paged_decode_qt0(q, k, v, ktok, vhead, tbl, lens, sq, scale, "HND"),
+            lambda q, lens, sq: _decode_qt0_ref(q, k, v, ktok, vhead, tbl, lens, sq, scale, "HND"),
+            "hpc_ops_tpu/ops/attention/decode.py:881", ktok, vhead,
+            4 * sum(lens_l) * HKV + 4 * HKV),  # 4 bytes of scale per token and kv head
+    }
+    hnd = (k, v)
+    nhd = (k.permute(1, 2, 0, 3).contiguous(), v.permute(1, 2, 0, 3).contiguous())
+    L = max(lens_l)
+    mask = (torch.arange(L, device=dev)[None, :] < kv_lens[:, None])[:, None, None, :]
+    sum_kv = sum(lens_l)
+    rows = []
+    for name, (kern, plain_fn, replaces, kscale, vscale, scale_bytes) in variants.items():
+        err = 0.0
+        for sq in (1, 3):  # the second: mtp = 2
+            q = torch.randn((b * sq, HQ, D), generator=gen).to(torch.bfloat16).to(dev)
+            lens_sq = kv_lens.clamp(min=sq)
+            err = max(err, close(kern(q, lens_sq, sq), plain_fn(q, lens_sq, sq), f"{name} sq={sq}"))
+        if name == "paged_decode_e4m3":
+            err = max(err, close(kern(q, lens_sq, 3, "NHD"), plain_fn(q, lens_sq, 3, "NHD"),
+                                 f"{name} NHD"))
+        q = torch.randn((b, HQ, D), generator=gen).to(torch.bfloat16).to(dev)
+        ms = time_ms(lambda: kern(q, kv_lens, 1), 50)
+        plain = time_ms(lambda: plain_fn(q, kv_lens, 1), 5)
+        kg, vg = gathered_hnd(k, v, tbl, L, kscale, vscale)
+        q4 = q[:, :, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask), 20)
+        del kg, vg
+        nbytes = 2 * b * HQ * D * 2 + 2 * sum_kv * HKV * D + tbl.numel() * 4 + b * 4 + scale_bytes
+        rows.append(kernel_row(name, "hpc_ops_tpu_torch/csrc/decode.cu", replaces, err, ms, plain,
+                               lib, nbytes, 4 * sum_kv * HQ * D, kv_lens=lens_l))
+    return rows
+
+
+def check_prefill_fp8(dev, gen):
+    """The prefill kernel over e4m3 caches: HND caches with per-tensor scales
+    (the fp8_kv model path), the NHD_FUSED slab, and per-token K scales with
+    a V scale per head (``pertoken_ks``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hpc_ops_tpu_torch.ops.attention.prefill import (
+        _prefill_nhd_fused_ref,
+        _prefill_ref,
+        paged_prefill_attention,
+        paged_prefill_nhd_fused,
+    )
+
+    scale = D**-0.5
+    nb = NUM_BLOCKS + 8
+    k, v, slab, ktok, vhead = e4m3_caches(dev, gen, nb)
+    ks, vs = torch.tensor([KSCALE], device=dev), torch.tensor([VSCALE], device=dev)
+    variants = {
+        "paged_prefill_e4m3": (
+            lambda *a: paged_prefill_attention(a[0], k, v, *a[1:], scale, "HND", ks, vs),
+            lambda *a: _prefill_ref(a[0], k, v, *a[1:], scale, "HND", ks, vs),
+            "hpc_ops_tpu/ops/attention/prefill.py:48", ks, vs, 8),
+        "paged_prefill_nhd_fused_e4m3": (
+            lambda *a: paged_prefill_nhd_fused(a[0], slab, *a[1:], scale, ks, vs),
+            lambda *a: _prefill_nhd_fused_ref(a[0], slab, *a[1:], scale, ks, vs),
+            "hpc_ops_tpu/ops/attention/prefill.py:1070", ks, vs, 8),
+        "paged_prefill_pertoken_ks": (
+            lambda *a: paged_prefill_attention(a[0], k, v, *a[1:], scale, "HND", None, vhead, ktok),
+            lambda *a: _prefill_ref(a[0], k, v, *a[1:], scale, "HND", None, vhead, ktok),
+            "hpc_ops_tpu/ops/attention/prefill.py:48", ktok, vhead,
+            4 * PREFILL_ROWS * HKV + 4 * HKV),
+    }
+    cases = {
+        "one": ([PREFILL_ROWS], [PREFILL_ROWS], 0),
+        "three_with_prefix": ([13, 200, 77], [113, 237, 577], 5),  # unaligned cu, padded rows
+    }
+    inputs = {}
+    for cname, (ql, kl, pad) in cases.items():
+        cu = torch.tensor([0] + list(torch.tensor(ql).cumsum(0)), dtype=torch.int32, device=dev)
+        tbl = random_table(gen, kl, max(kl) // BS + 2, nb, dev)
+        q = torch.randn((sum(ql) + pad, HQ, D), generator=gen).to(torch.bfloat16).to(dev)
+        inputs[cname] = (q, cu, tbl, torch.tensor(kl, dtype=torch.int32, device=dev), max(ql))
+    pairs = PREFILL_ROWS * (PREFILL_ROWS + 1) // 2  # causal (q, k) pairs of the timed input
+    rows = []
+    for name, (kern, plain_fn, replaces, kscale, vscale, scale_bytes) in variants.items():
+        err = max(close(kern(*a), plain_fn(*a), f"{name} {c}") for c, a in inputs.items())
+        timed = inputs["one"]
+        ms = time_ms(lambda: kern(*timed), 10)
+        plain = time_ms(lambda: plain_fn(*timed), 3)
+        kg, vg = gathered_hnd(k, v, timed[2][:1], PREFILL_ROWS, kscale, vscale)
+        q4 = timed[0].permute(1, 0, 2)[None].contiguous()
+        lib = time_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, is_causal=True), 10)
+        del kg, vg
+        nbytes = (2 * PREFILL_ROWS * HQ * D * 2 + 2 * PREFILL_ROWS * HKV * D + timed[2].numel() * 4
+                  + scale_bytes)
+        rows.append(kernel_row(name, "hpc_ops_tpu_torch/csrc/prefill.cu", replaces, err, ms, plain,
+                               lib, nbytes, 4 * pairs * HQ * D))
+    return rows
+
+
+def ops_fp8(dev, gen):
+    """The fp8 operator entry points, each form once at the serving head
+    geometry, against its own impl="ref" (1e-2 abs + 1%: the kernel path
+    rounds q * qscale to bf16 first), with the launch counts set to 0 before
+    each call and read after it. Returns {kernels-line name: launches}."""
+    import torch
+
+    from hpc_ops_tpu_torch import kernels
+    from hpc_ops_tpu_torch.config import QuantType
+    from hpc_ops_tpu_torch.ops.attention import (
+        attention_decode_fp8,
+        attention_with_kvcache_prefill_fp8,
+    )
+
+    fp8 = torch.float8_e4m3fn
+    qt0 = QuantType.QPERTOKEN_PERHEAD_KPERTOKEN_PERHEAD_VPERHEAD
+    b, lens_l, nb = 8, DECODE_LENS, NUM_BLOCKS + 8
+    tbl = random_table(gen, lens_l, max(lens_l) // BS + 4, nb, dev)
+    kv_lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    k, v, slab, ktok, vhead = e4m3_caches(dev, gen, nb)
+    ks, vs = torch.tensor([KSCALE], device=dev), torch.tensor([VSCALE], device=dev)
+    knhd, vnhd = k.permute(1, 2, 0, 3).contiguous(), v.permute(1, 2, 0, 3).contiguous()
+    # the tail-row serving layout: 32-slot NHD pages whose last row holds the
+    # 32 tokens' float32 K scales as bytes ([nb, H, bs] f32 -> [nb, 1, H, D] bytes)
+    nb32, bs32 = nb // 2, 2 * BS
+    tok32 = ktok.view(nb32, bs32, HKV)
+    tail = tok32.permute(0, 2, 1).contiguous().view(torch.uint8).view(nb32, HKV, 1, D).permute(0, 2, 1, 3)
+    k_tail = torch.cat([knhd.view(nb32, bs32, HKV, D).view(torch.uint8), tail], dim=1).view(fp8)
+    v_tail = torch.cat([vnhd.view(nb32, bs32, HKV, D).view(torch.uint8), torch.zeros_like(tail)],
+                       dim=1).view(fp8)
+    tbl32 = random_table(gen, lens_l, max(lens_l) // bs32 + 2, nb32, dev, bs=bs32)
+    q = torch.randn((b, HQ, D), generator=gen)
+    qscale = (q.abs().amax(-1) / 448.0).to(dev)
+    q8 = (q / (q.abs().amax(-1, keepdim=True) / 448.0)).to(fp8).to(dev)
+    qb = torch.randn((b, HQ, D), generator=gen).to(torch.bfloat16).to(dev)
+    ql, kl = [13, 200, 77], [113, 237, 577]
+    cu = torch.tensor([0, 13, 213, 290], dtype=torch.int32, device=dev)
+    ptbl = random_table(gen, kl, max(kl) // BS + 2, nb, dev)
+    plens = torch.tensor(kl, dtype=torch.int32, device=dev)
+    qp = torch.randn((290, HQ, D), generator=gen)
+    row_scale = qp.abs().amax(-1) / 448.0  # [rows, Hq]
+    qp8 = (qp / row_scale[..., None]).to(fp8).to(dev)
+    pscale = torch.zeros((3, HQ, 256))
+    for r, (s, n) in enumerate(zip((0, 13, 213), ql)):
+        pscale[r, :, :n] = row_scale[s : s + n].T
+    pscale = pscale.to(dev)
+    qpb = qp.to(torch.bfloat16).to(dev)
+    dec = dict(new_kv_included=True)
+    pre = (cu, ptbl, plens, max(ql))
+    forms = {  # kernels-line name (or a second form of it): (wrapper, call)
+        "paged_decode_e4m3": ("paged_decode", lambda **kw: attention_decode_fp8(
+            q8, k, v, tbl, kv_lens, qscale, ks, vs, cache_layout="HND", **dec, **kw)),
+        "paged_decode_nhd_fused_e4m3": ("paged_decode_nhd_fused", lambda **kw: attention_decode_fp8(
+            q8, slab, None, tbl, kv_lens, qscale, ks, vs, cache_layout="NHD_FUSED", **dec, **kw)),
+        "paged_decode_qt0": ("paged_decode_qt0", lambda **kw: attention_decode_fp8(
+            qb, knhd, vnhd, tbl, kv_lens, None, ktok, vhead, quant_type=qt0, **dec, **kw)),
+        "paged_decode_qt0 (tail-row scales)": ("paged_decode_qt0", lambda **kw: attention_decode_fp8(
+            qb, k_tail, v_tail, tbl32, kv_lens, None, k_tail[:, bs32:], vhead, quant_type=qt0,
+            **dec, **kw)),
+        "paged_prefill_e4m3": ("paged_prefill", lambda **kw: attention_with_kvcache_prefill_fp8(
+            qp8, k, v, pscale, ks, vs, *pre, cache_layout="HND", **kw)),
+        "paged_prefill_nhd_fused_e4m3": (
+            "paged_prefill_nhd_fused", lambda **kw: attention_with_kvcache_prefill_fp8(
+                qp8, slab, None, pscale, ks, vs, *pre, cache_layout="NHD_FUSED", **kw)),
+        "paged_prefill_pertoken_ks": ("paged_prefill", lambda **kw: attention_with_kvcache_prefill_fp8(
+            qpb, knhd, vnhd, None, ktok, vhead, *pre, quant_type=qt0, **kw)),
+    }
+    launches, errs = {}, {}
+    for name, (wrapper, call) in forms.items():
+        want = call(impl="ref")
+        kernels.reset_launch_counts()
+        got = call()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        if counts != {**{n: 0 for n in counts}, wrapper: 1}:
+            raise AssertionError(f"ops_fp8 {name}: launch counts {counts}, expected one of {wrapper}")
+        if not torch.allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2):
+            raise AssertionError(f"ops_fp8 {name}: the entry point disagrees with its impl='ref'")
+        errs[name] = float((got.float() - want.float()).abs().max())
+        kernel = name.split(" (")[0]  # a second form counts for the same kernel
+        launches[kernel] = launches.get(kernel, 0) + 1
+    emit("ops_fp8", launches=launches, max_abs_err=errs)
+    return launches
+
+
 # ---------------------------------------------------------------- MoE kernels
 MOE_H, MOE_I, MOE_E, MOE_K = 4096, 14336, 8, 2  # Mixtral-8x7B: hidden, expert width, experts, top-k
 # Tokens of a call. The serving run prefills one prompt of 16 to 512 tokens a
@@ -801,7 +1089,7 @@ class DecodeProfile:
                     classes[c] += us
                     break
             else:
-                if any(m in name.lower() for m in ("gemm", "nvjet", "xmma", "cutlass")):
+                if any(m in name.lower() for m in ("gemm", "nvjet", "xmma", "cutlass", "imma")):
                     classes["gemm"] += us
                 else:
                     classes["other"] += us
@@ -823,8 +1111,10 @@ class DecodeProfile:
 
 
 MOE_KERNELS = ("gg_scatter", "act_quant", "moe_reduce")
+# (RoPE store, decode, prefill) wrappers of each KV path
 BF16_KERNELS = ("rope_store", "paged_decode", "paged_prefill")
 INT8_KERNELS = ("rope_store_int8", "paged_decode_nhd_fused", "paged_prefill_nhd_fused")
+FP8_KERNELS = (None, "paged_decode", "paged_prefill")  # the fp8 store is plain PyTorch
 
 
 def full_prompts(vocab, longest=2000):
@@ -877,7 +1167,8 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
             n_dec = st["decode_dispatches"]
             if decode_next and n_dec == PROFILE_FROM:
                 profiled = DecodeProfile(torch, {
-                    **dict(zip(("rope_store", "paged_decode", "paged_prefill"), kernels_used)),
+                    **{sub: k for sub, k in zip(("rope_store", "paged_decode", "paged_prefill"),
+                                                kernels_used) if k},
                     **{k: k for k in MOE_KERNELS}})
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -904,14 +1195,15 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
         raise AssertionError(f"{phase}: missing tokens or tokens outside the vocab")
     st = eng.stats
     n_pre, n_dec = st["prefill_dispatches"], st["decode_dispatches"]
-    per_step = dict(zip(kernels_used, (n_dec, n_dec, n_pre)))
+    per_step = {k: n for k, n in zip(kernels_used, (n_dec, n_dec, n_pre)) if k}
     if cfg.moe is not None:  # every call: two grouped GEMMs, one activation, one reduce a layer
         per_step.update(gg_scatter=2 * (n_dec + n_pre), act_quant=n_dec + n_pre,
                         moe_reduce=n_dec + n_pre)
     expect = {k: per_step.get(k, 0) * cfg.layers for k in counts}
     if counts != expect or min(counts[k] for k in per_step) == 0:
         raise AssertionError(f"{phase}: launch counts {counts} != expected {expect}")
-    stats = dict(config=config, int8_kv=cfg.int8_kv, kv_scale=cfg.kv_scale,
+    stats = dict(config=config, int8_kv=cfg.int8_kv, fp8_kv=cfg.fp8_kv, dense_int8=cfg.dense_int8,
+                 kv_scale=cfg.kv_scale,
                  residual_alpha=cfg.residual_alpha, layers=cfg.layers, prompt_lens=lens,
                  new_tokens=32, prefill_calls=n_pre, prefill_s_total=sum(prefill_s),
                  prefill_s_each=prefill_s, prefill_tokens_per_s=sum(lens) / sum(prefill_s),
@@ -960,6 +1252,89 @@ def slice_full_int8(dev, w, bf16_prefill_logits):
     emit("slice_full_int8", prefill_cosine_vs_bf16=cos, prefill_cosine_min=min(cos),
          saturated_codes=sat, nonzero_codes=nonzero, saturated_share=sat / max(nonzero, 1), **stats)
     emit("decode_profile_int8", **profiled.summary())
+    return counts
+
+
+def prefill_cosines(phase, prefill_logits, bf16_prefill_logits):
+    """Cosine of each prefill call's last-token logits against the bf16 run's."""
+    import torch
+
+    cos = [float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+           for a, b in zip(prefill_logits, bf16_prefill_logits)]
+    if len(cos) != len(bf16_prefill_logits) or min(cos) < 0.98:
+        raise AssertionError(f"{phase}: prefill logits at cosines {cos} of bf16's (limit 0.98)")
+    return cos
+
+
+def slice_full_fp8(dev, w, bf16_prefill_logits):
+    import torch
+
+    from hpc_ops_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(fp8_kv=True, residual_alpha=1.0 / 8)
+    stats, counts, prefill_logits, eng, profiled = serve_full(
+        dev, cfg, w, "slice_full_fp8", FP8_KERNELS)
+    cos = prefill_cosines("slice_full_fp8", prefill_logits, bf16_prefill_logits)
+    if any(c[n].dtype != torch.float8_e4m3fn for c in eng.caches for n in ("k", "v")):
+        raise AssertionError("slice_full_fp8: the caches are not float8_e4m3fn")
+    # saturation: codes at +-448 (0x7e) among the codes the run wrote (nonzero)
+    sat = nonzero = 0
+    for c in eng.caches:
+        for n in ("k", "v"):
+            mag = c[n].view(torch.uint8) & 0x7F
+            sat += int((mag == 0x7E).sum())
+            nonzero += int((mag != 0).sum())
+    del eng
+    torch.cuda.empty_cache()
+    emit("slice_full_fp8", prefill_cosine_vs_bf16=cos, prefill_cosine_min=min(cos),
+         saturated_codes=sat, nonzero_codes=nonzero, saturated_share=sat / max(nonzero, 1), **stats)
+    profile = profiled.summary()
+    emit("decode_profile_fp8", **profile)
+    if profile["device_to_host_copies_per_step"] != 1:
+        raise AssertionError("slice_full_fp8: a decode step copies to the host "
+                             f"{profile['device_to_host_copies_per_step']} times (expected 1)")
+    return counts
+
+
+def slice_full_w8a8(dev, w, bf16_prefill_logits):
+    import torch
+
+    from hpc_ops_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(dense_int8=True, residual_alpha=1.0 / 8)
+    names = ("wqkv", "wo", "w_gate_up", "w_down")
+    t0 = time.perf_counter()
+    layers = []
+    for layer in w["layers"]:  # int8 copies (7 GB) beside the bf16 weights, one layer at a time
+        q = dict(layer)
+        for name in names:
+            q[name], q[name + "_scale"] = llama.quantize_w8(layer[name])
+        layers.append(q)
+    w8 = {**w, "layers": layers}
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    # the library's int8 product on one weight (gate-up, 4096 x 28672) at the
+    # decode step's 32 padded rows: the column-major codes quantize_w8 makes,
+    # the same codes row-major, and the bf16 product of the step's 8 rows
+    g8 = layers[0]["w_gate_up"]
+    x8 = torch.randint(-127, 128, (32, g8.shape[0]), dtype=torch.int8, device=dev)
+    xb = torch.randn((8, g8.shape[0]), device=dev).to(torch.bfloat16)
+    g8_rows = g8.contiguous()
+    product_ms = {
+        "int8_column_major": time_ms(lambda: torch._int_mm(x8, g8), 50),
+        "int8_row_major": time_ms(lambda: torch._int_mm(x8, g8_rows), 50),
+        "bf16": time_ms(lambda: xb @ w["layers"][0]["w_gate_up"], 50),
+        "int8_bytes_bound": g8.numel() / HBM_BYTES_PER_S * 1e3,
+    }
+    del g8_rows
+    stats, counts, prefill_logits, eng, profiled = serve_full(
+        dev, cfg, w8, "slice_full_w8a8", BF16_KERNELS)
+    cos = prefill_cosines("slice_full_w8a8", prefill_logits, bf16_prefill_logits)
+    del eng, w8, layers
+    torch.cuda.empty_cache()
+    emit("slice_full_w8a8", prefill_cosine_vs_bf16=cos, prefill_cosine_min=min(cos),
+         quantize_seconds=quantize_s, gate_up_product_ms=product_ms, **stats)
+    emit("decode_profile_w8a8", **profiled.summary())
     return counts
 
 
@@ -1030,30 +1405,50 @@ def main() -> int:
     check_moe_pipeline(dev, moe_inp)
     del moe_inp
     torch.cuda.empty_cache()
+    fp8_rows = check_decode_fp8(dev, gen) + check_prefill_fp8(dev, gen)
+    launches_ops = ops_fp8(dev, gen)
+    torch.cuda.empty_cache()
     slice_tiny(dev)
     slice_tiny(dev, "slice_tiny_int8", int8_kv=True, kv_scale=0.02)
     slice_tiny(dev, "slice_tiny_moe", moe=True)
+    slice_tiny(dev, "slice_tiny_fp8", fp8_kv=True)
 
     from hpc_ops_tpu_torch.models import llama
 
-    # one set of seeded weights (16 GB) serves both paths: int8_kv changes no weight
+    # one set of seeded weights (16 GB) serves four paths: int8_kv and fp8_kv
+    # change no weight, dense_int8 quantises copies of them
     t0 = time.perf_counter()
     w = llama.init_weights(llama.llama3_8b(), torch.Generator(device=dev).manual_seed(0), device=dev)
     torch.cuda.synchronize()
     emit("init_weights", config="llama3_8b", seconds=time.perf_counter() - t0)
     counts, bf16_prefill_logits = slice_full(dev, w)
     counts_int8 = slice_full_int8(dev, w, bf16_prefill_logits)
+    counts_fp8 = slice_full_fp8(dev, w, bf16_prefill_logits)
+    counts_w8a8 = slice_full_w8a8(dev, w, bf16_prefill_logits)
     # the fp8 experts of the MoE model (45 GB) need the room of the llama3_8b weights
     del w, bf16_prefill_logits
     torch.cuda.empty_cache()
     counts_moe = slice_full_moe(dev)
     for r in rows:
-        r["route"] = "cuda"
         # each kernel's launches on its own path's run
         by_path = counts_int8 if r["name"] in INT8_KERNELS else (
             counts_moe if r["name"] in MOE_KERNELS else counts)
         r["launches"] = by_path[r["name"]]
+    # the e4m3 variants: the fp8_kv serving run launched the HND decode and
+    # prefill; the other forms are reached by the operator entry points only
+    # (ops_fp8, counts read around each call)
+    for r in fp8_rows:
+        served = {"paged_decode_e4m3": "paged_decode", "paged_prefill_e4m3": "paged_prefill"}
+        r["launches"] = (counts_fp8[served[r["name"]]] if r["name"] in served
+                         else launches_ops[r["name"]])
+    rows += fp8_rows
+    for r in rows:
+        r["route"] = "cuda"
         r["kernel_ms"] = r["ms"]
+        if r["launches"] < 1:
+            raise AssertionError(f"kernel {r['name']} was never launched on its path")
+    emit("launches", bf16=counts, int8_kv=counts_int8, fp8_kv=counts_fp8, w8a8=counts_w8a8,
+         moe=counts_moe, ops_fp8=launches_ops)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

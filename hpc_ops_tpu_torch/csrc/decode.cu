@@ -1,30 +1,38 @@
-// Paged GQA decode attention with MTP draft rows, over a bf16 KV cache or
-// over the NHD_FUSED K|V slab (bf16 or int8 with per-tensor scales).
+// Paged GQA decode attention with MTP draft rows, over a KV cache of bf16,
+// int8 codes or e4m3 (per-tensor scales, or one K scale per token and kv
+// head), split K and V caches or the NHD_FUSED K|V slab.
 //
 // Replaces: hpc_ops_tpu/ops/attention/decode.py:_decode_kernel (reached
-// through _decode_pallas; launcher hpc_paged_decode_bf16) and
+// through _decode_pallas; launcher hpc_paged_decode),
 // hpc_ops_tpu/ops/attention/decode.py:_decode_nhd_fused_kernel (reached
-// through _decode_nhd_fused_pallas; launcher hpc_paged_decode_nhd_fused).
+// through _decode_nhd_fused_pallas; launcher hpc_paged_decode_nhd_fused) and
+// hpc_ops_tpu/ops/attention/decode.py:_decode_qt0_kernel (reached through
+// _decode_qt0_pallas; launcher hpc_paged_decode_qt0).
 //
 // Bound on the card: bytes. Each (request, kv head) streams its kv_len K and
-// V rows once (2 * kv_len * D elements, 2 bytes each in bf16, 1 in int8) for
-// only G * sq query rows, so the work is about G * sq FLOPs per byte, far
-// below the ~295 FLOPs per byte at which the H100's tensor cores, not its
-// memory, would be the limit. int8 halves the bytes.
+// V rows once (2 * kv_len * D elements, 2 bytes each in bf16, 1 in int8 and
+// e4m3) for only G * sq query rows, so the work is about G * sq FLOPs per
+// byte, far below the ~295 FLOPs per byte at which the H100's tensor cores,
+// not its memory, would be the limit. One-byte elements halve the bytes; the
+// per-token K scales add 4 bytes a token.
 //
 // Design: one block per (request, kv head). The block stages its G * sq
 // query rows in shared memory (float32, pre-scaled by sm_scale * kscale) and
 // walks the request's KV positions in tiles of kTile = 128 tokens through
 // the page table:
 //   1. one thread per token of the tile reads the token's K row with 16-byte
-//      vector loads (8 bf16 or 16 int8 codes per load, converted to float in
-//      registers; all 128 rows of the tile in flight at once) and forms the
-//      scores of all rows against it; the block copies the tile's V rows
-//      (as stored, bf16 or int8) into shared memory at the same time;
+//      vector loads (8 bf16, or 16 int8 or e4m3 codes per load, converted to
+//      float in registers; all 128 rows of the tile in flight at once) and
+//      forms the scores of all rows against it; with per-token K scales
+//      (kTokenScale) the token's scale multiplies its scores after the dot,
+//      which is exact because the scale is constant along D, and is read
+//      through the page table like the row; the block copies the tile's V
+//      rows (as stored) into shared memory at the same time;
 //   2. one warp per query row updates the online softmax (running max m,
 //      running sum l) and turns the scores into probabilities;
 //   3. every thread owns output columns and adds p * v for all rows.
-// The output is acc / l * vscale. Positions at or past kv_len are never
+// The output is acc / l * vscale (one scale, or with kTokenScale one per kv
+// head). Positions at or past kv_len are never
 // read: their scores are -inf before the exponential and their V rows are
 // zeros in shared memory, and a probability of 0 never multiplies a V value,
 // so a page that holds NaN past kv_len cannot leak. Page ids below 0 are
@@ -35,19 +43,34 @@
 // p*2*bs*Hkv*D + s*Hkv*D + h*D, V at the same address + bs*Hkv*D) in place;
 // K/V rows must be 16-byte aligned.
 //
-// Int8 codes convert to float exactly. The TPU kernel's grid of one program
-// per request (all kv heads, to save DMA descriptors) is not copied: it
-// would launch B blocks on 132 SMs.
+// Int8 codes convert to float exactly, and so does every e4m3 code,
+// subnormals included (cvt.rn.f16x2.e4m3x2 to fp16, then to float; the NaN
+// codes 0x7f and 0xff never come out of a saturating store). The TPU
+// kernels' grid of one program per request (all kv heads, to save DMA
+// descriptors) and the dense, gathered scale rows of _decode_qt0_kernel are
+// not copied: a block here reads its own pages and scales.
 //
 // Known limit: B * Hkv blocks (64 at B = 8, Hkv = 8) cannot fill 132 SMs,
 // and a long request's tiles run in order; splitting KV across blocks is
 // later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+struct e4m3_t {
+  uint8_t bits;
+};
+
+// Two e4m3 bytes -> two floats (exact).
+__device__ __forceinline__ float2 e4m3x2_to_float2(uint16_t two_bytes) {
+  uint32_t h2;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(h2) : "h"(two_bytes));
+  return __half22float2(*reinterpret_cast<const __half2*>(&h2));
+}
 
 constexpr int kTile = 128;
 constexpr int kThreads = 128;  // one thread per token of a tile
@@ -83,6 +106,23 @@ struct Vec<int8_t> {
   static __device__ __forceinline__ float one(int8_t x) { return static_cast<float>(x); }
 };
 
+template <>
+struct Vec<e4m3_t> {
+  static constexpr int N = 16;
+  static __device__ __forceinline__ void to_f32(const uint4& u, float* f) {
+    const uint16_t* p = reinterpret_cast<const uint16_t*>(&u);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 t = e4m3x2_to_float2(p[j]);
+      f[2 * j] = t.x;
+      f[2 * j + 1] = t.y;
+    }
+  }
+  static __device__ __forceinline__ float one(e4m3_t x) {
+    return e4m3x2_to_float2(static_cast<uint16_t>(x.bits)).x;
+  }
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -95,7 +135,7 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <typename T>
+template <typename T, bool kTokenScale>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const __nv_bfloat16* __restrict__ q,  // [B * sq, hq, d]
     const T* __restrict__ kc, const T* __restrict__ vc,
@@ -103,8 +143,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
     const int32_t* __restrict__ block_ids,  // [B, max_blocks]
     const int32_t* __restrict__ kv_lens,    // [B]
-    const float* __restrict__ kscale,       // [1] or null
-    const float* __restrict__ vscale,       // [1] or null
+    // kTokenScale: kscale [num_pages, page_size, hkv] per token and kv head,
+    // vscale [hkv]; else [1] each. Null is a scale of 1.
+    const float* __restrict__ kscale, const float* __restrict__ vscale,
     __nv_bfloat16* __restrict__ out,        // [B * sq, hq, dv]
     int max_blocks, int page_size, int sq, int hq, int hkv, int d, int dv,
     float scale) {
@@ -127,7 +168,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int warp = tid >> 5;
   const int kv_len = kv_lens[b];
   const int32_t* tbl = block_ids + static_cast<int64_t>(b) * max_blocks;
-  const float qscale = scale * (kscale ? *kscale : 1.f);
+  const float qscale = scale * (!kTokenScale && kscale ? *kscale : 1.f);
 
   for (int i = tid; i < rows * d; i += kThreads) {
     const int r = i / d, c = i % d;
@@ -165,6 +206,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
         const int page = max(tbl[kpos / page_size], 0);
         const T* krow =
             kc + h * k_head_stride + page * k_page_stride + (kpos % page_size) * k_slot_stride;
+        const float ks =
+            kTokenScale
+                ? kscale[(static_cast<int64_t>(page) * page_size + kpos % page_size) * hkv + h]
+                : 1.f;
         for (int r0 = 0; r0 < rows; r0 += 4) {
           float sc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll (32 / kVec)
@@ -191,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
             const int r = r0 + rr;
             if (r < rows) {
               const int limit = kv_len - sq + (r % sq);  // causal w.r.t. draft row
-              p_s[r * kTile + t] = kpos <= limit ? sc[rr] : -INFINITY;
+              p_s[r * kTile + t] = kpos <= limit ? (kTokenScale ? sc[rr] * ks : sc[rr]) : -INFINITY;
             }
           }
         }
@@ -238,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     __syncthreads();
   }
 
-  const float oscale = vscale ? *vscale : 1.f;
+  const float oscale = vscale ? vscale[kTokenScale ? h : 0] : 1.f;
   for (int i = tid; i < rows * dv; i += kThreads) {
     const int r = i / dv, c = i % dv;
     const int g = r / sq, s = r % sq;
@@ -248,7 +293,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool kTokenScale = false>
 int launch(const void* q, const void* kcache, const void* vcache, const int64_t* st,
            const void* block_ids, const void* kv_lens, const void* kscale, const void* vscale,
            void* out, int batch, int max_blocks, int page_size, int sq, int hq, int hkv, int d,
@@ -263,12 +308,12 @@ int launch(const void* q, const void* kcache, const void* vcache, const int64_t*
                       sizeof(float) * (static_cast<size_t>(rows) * (d + kTile + dv) + 3 * rows);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_decode_kernel<T, kTokenScale>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   dim3 grid(batch, hkv);
-  paged_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
+  paged_decode_kernel<T, kTokenScale><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kcache),
       static_cast<const T*>(vcache), st[0], st[1], st[2], st[3], st[4], st[5],
       static_cast<const int32_t*>(block_ids), static_cast<const int32_t*>(kv_lens),
@@ -277,41 +322,81 @@ int launch(const void* q, const void* kcache, const void* vcache, const int64_t*
   return static_cast<int>(cudaGetLastError());
 }
 
+// Cache element types of the launchers' kv_type argument.
+enum KvType { kBf16 = 0, kInt8 = 1, kE4m3 = 2 };
+
+int launch_typed(int kv_type, const void* q, const void* kcache, const void* vcache,
+                 int64_t v_off, const int64_t* st, const void* block_ids, const void* kv_lens,
+                 const void* kscale, const void* vscale, void* out, int batch, int max_blocks,
+                 int page_size, int sq, int hq, int hkv, int d, int dv, float scale,
+                 cudaStream_t stream) {
+  // v_off: elements from vcache to the first V row (the slab's K|V offset)
+  switch (kv_type) {
+    case kBf16:
+      return launch<__nv_bfloat16>(
+          q, kcache, static_cast<const __nv_bfloat16*>(vcache) + v_off, st, block_ids, kv_lens,
+          kscale, vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale, stream);
+    case kInt8:
+      return launch<int8_t>(
+          q, kcache, static_cast<const int8_t*>(vcache) + v_off, st, block_ids, kv_lens, kscale,
+          vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale, stream);
+    case kE4m3:
+      return launch<e4m3_t>(
+          q, kcache, static_cast<const e4m3_t*>(vcache) + v_off, st, block_ids, kv_lens, kscale,
+          vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// bf16 K and V caches; (head, page, slot) strides in elements.
-extern "C" int hpc_paged_decode_bf16(
-    const void* q, const void* kcache, const void* vcache,
+// Split K and V caches of kv_type (0 bf16, 1 int8, 2 e4m3); (head, page,
+// slot) strides in elements. kscale and vscale are [1] float32 device
+// scalars or null (a scale of 1).
+extern "C" int hpc_paged_decode(
+    const void* q, const void* kcache, const void* vcache, int kv_type,
     int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
     int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
-    const void* block_ids, const void* kv_lens, void* out, int batch,
-    int max_blocks, int page_size, int sq, int hq, int hkv, int d, int dv,
+    const void* kscale, const void* vscale, const void* block_ids, const void* kv_lens,
+    void* out, int batch, int max_blocks, int page_size, int sq, int hq, int hkv, int d, int dv,
     float scale, void* stream) {
   const int64_t st[6] = {k_head_stride, k_page_stride, k_slot_stride,
                          v_head_stride, v_page_stride, v_slot_stride};
-  return launch<__nv_bfloat16>(q, kcache, vcache, st, block_ids, kv_lens, nullptr, nullptr,
-                               out, batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale,
-                               static_cast<cudaStream_t>(stream));
+  return launch_typed(kv_type, q, kcache, vcache, 0, st, block_ids, kv_lens, kscale, vscale, out,
+                      batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale,
+                      static_cast<cudaStream_t>(stream));
 }
 
-// The NHD_FUSED slab [num_pages, 2*page_size, hkv*d]; kv_int8 selects int8
-// codes (else bf16). kscale and vscale are [1] float32 device scalars or
-// null (a scale of 1).
+// QuantType 0: e4m3 K and V caches, kscale [num_pages, page_size, hkv]
+// float32 (one scale per token and kv head, paged like the cache), vscale
+// [hkv] float32 or null.
+extern "C" int hpc_paged_decode_qt0(
+    const void* q, const void* kcache, const void* vcache,
+    int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
+    int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
+    const void* kscale, const void* vscale, const void* block_ids, const void* kv_lens,
+    void* out, int batch, int max_blocks, int page_size, int sq, int hq, int hkv, int d, int dv,
+    float scale, void* stream) {
+  if (kscale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t st[6] = {k_head_stride, k_page_stride, k_slot_stride,
+                         v_head_stride, v_page_stride, v_slot_stride};
+  return launch<e4m3_t, true>(q, kcache, vcache, st, block_ids, kv_lens, kscale, vscale, out,
+                              batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The NHD_FUSED slab [num_pages, 2*page_size, hkv*d] of kv_type. kscale and
+// vscale are [1] float32 device scalars or null (a scale of 1).
 extern "C" int hpc_paged_decode_nhd_fused(
-    const void* q, const void* kv_slab, int kv_int8, const void* kscale, const void* vscale,
+    const void* q, const void* kv_slab, int kv_type, const void* kscale, const void* vscale,
     const void* block_ids, const void* kv_lens, void* out, int batch, int max_blocks,
     int page_size, int sq, int hq, int hkv, int d, float scale, void* stream) {
   const int64_t slot = static_cast<int64_t>(hkv) * d;
   const int64_t page = 2 * page_size * slot;
   const int64_t st[6] = {d, page, slot, d, page, slot};
-  const int64_t v_off = page_size * slot;  // elements from a page's K rows to its V rows
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_int8) {
-    const int8_t* kv = static_cast<const int8_t*>(kv_slab);
-    return launch<int8_t>(q, kv, kv + v_off, st, block_ids, kv_lens, kscale, vscale, out, batch,
-                          max_blocks, page_size, sq, hq, hkv, d, d, scale, s);
-  }
-  const __nv_bfloat16* kv = static_cast<const __nv_bfloat16*>(kv_slab);
-  return launch<__nv_bfloat16>(q, kv, kv + v_off, st, block_ids, kv_lens, kscale, vscale, out,
-                               batch, max_blocks, page_size, sq, hq, hkv, d, d, scale, s);
+  // a page's V rows follow its page_size K rows
+  return launch_typed(kv_type, q, kv_slab, kv_slab, page_size * slot, st, block_ids, kv_lens,
+                      kscale, vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, d, scale,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,10 @@
-// Varlen causal prefill attention over a paged bf16 KV cache, or over the
-// NHD_FUSED K|V slab (bf16 or int8 with per-tensor scales).
+// Varlen causal prefill attention over a paged KV cache of bf16, int8 codes
+// or e4m3 (per-tensor scales, or one K scale per token and kv head), split K
+// and V caches or the NHD_FUSED K|V slab.
 //
 // Replaces: hpc_ops_tpu/ops/attention/prefill.py:_prefill_kernel (reached
-// through _prefill_pallas, dense bf16 path; launcher hpc_paged_prefill_bf16)
-// and hpc_ops_tpu/ops/attention/prefill.py:_prefill_nhd_fused_kernel
+// through _prefill_pallas, dense path with its pertoken_ks option; launcher
+// hpc_paged_prefill) and hpc_ops_tpu/ops/attention/prefill.py:_prefill_nhd_fused_kernel
 // (reached through _prefill_nhd_fused_pallas; launcher
 // hpc_paged_prefill_nhd_fused).
 //
@@ -19,16 +20,22 @@
 // cu_seqlens. The block walks KV tiles of kCols = 64 positions up to its
 // causal limit through the page table (page ids below 0 read page 0):
 //   * K (transposed) and V tiles are staged in shared memory as float32
-//     (8 elements per thread and load: 16 bytes of bf16, 8 of int8 codes);
+//     (8 elements per thread and load: 16 bytes of bf16, 8 of int8 or e4m3
+//     codes; every e4m3 code, subnormals included, converts exactly through
+//     cvt.rn.f16x2.e4m3x2);
 //   * each thread computes a 4 x 4 block of scores from float4 reads and
-//     keeps it in registers; the causal mask kpos <= (kv_len - q_len) + qpos
-//     is applied before the exponential;
+//     keeps it in registers; with per-token K scales (ktok, [num_pages,
+//     page_size, hkv] float32, read through the page table beside the K
+//     tile) column j is multiplied by the scale of its token after the dot,
+//     exact because the scale is constant along D; the causal mask
+//     kpos <= (kv_len - q_len) + qpos is applied before the exponential;
 //   * the online softmax reduces each row across the 16 threads that hold
 //     it with warp shuffles, rescales the thread's 4 x (D/16) output
 //     accumulator in registers, and writes the probabilities back to shared
 //     memory for the p @ v product.
 // Everything is float32 (no bf16 exponent tricks). The logit scale is
-// sm_scale * kscale (folded into q), the output acc / l * vscale. Page,
+// sm_scale * kscale (folded into q), the output acc / l * vscale (one scale,
+// or one per kv head: vscale_per_head). Page,
 // slot and head strides are arguments, so HND, NHD and the NHD_FUSED slab
 // ([nb, 2*bs, Hkv*D], V rows bs slots after the page's K rows) are read in
 // place. Rows of the output past cu_seqlens[B] belong to no request; the
@@ -38,10 +45,15 @@
 // tensor cores (wgmma); that is later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+struct e4m3_t {
+  uint8_t bits;
+};
 
 constexpr int kRows = 64;
 constexpr int kCols = 64;
@@ -78,6 +90,19 @@ __device__ __forceinline__ void load8(const int8_t* p, float* f) {
   for (int i = 0; i < 8; ++i) f[i] = static_cast<float>(c[i]);
 }
 
+__device__ __forceinline__ void load8(const e4m3_t* p, float* f) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const uint16_t* c = reinterpret_cast<const uint16_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t h2;
+    asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(h2) : "h"(c[i]));
+    const float2 t = __half22float2(*reinterpret_cast<const __half2*>(&h2));
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q,  // [rows, hq * D]
@@ -86,14 +111,16 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
     const int32_t* __restrict__ cu, const int32_t* __restrict__ kv_lens,
     const int32_t* __restrict__ block_ids, const float* __restrict__ kscale,
-    const float* __restrict__ vscale, __nv_bfloat16* __restrict__ out,
-    int max_blocks, int page_size, int hq, int hkv, int q_tile, float scale) {
+    const float* __restrict__ vscale, const float* __restrict__ ktok,
+    __nv_bfloat16* __restrict__ out, int max_blocks, int page_size, int hq, int hkv, int q_tile,
+    int vscale_per_head, float scale) {
   constexpr int kColGroups = D / 64;  // output columns c = k*64 + tx*4 + e
   extern __shared__ float smem[];
   float* qt_s = smem;              // [D][kRows], pre-scaled
   float* kt_s = qt_s + D * kRows;  // [D][kCols]
   float* v_s = kt_s + D * kCols;   // [kCols][D]
   float* pt_s = v_s + kCols * D;   // [kCols][kRows]
+  __shared__ float ktok_s[kCols];  // the tile's per-token K scales
 
   const int b = blockIdx.x, h = blockIdx.y;
   const int g_per = hq / hkv;
@@ -153,6 +180,15 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
 #pragma unroll
       for (int j = 0; j < 8; ++j) kt_s[(d0 + j) * kCols + n] = f[j];
     }
+    if (ktok != nullptr && tid < kCols) {
+      const int kpos = t0 + tid;
+      float ks = 0.f;
+      if (kpos < kv_end) {
+        const int64_t page = max(tbl[kpos / page_size], 0);
+        ks = ktok[(page * page_size + kpos % page_size) * hkv + h];
+      }
+      ktok_s[tid] = ks;
+    }
     // V tile, row-major
     for (int idx = tid; idx < kCols * D / 8; idx += kThreads) {
       const int n = idx / (D / 8);
@@ -185,6 +221,15 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] += av[i] * kv[j];
+    }
+
+    if (ktok != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float ks = ktok_s[tx * 4 + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[i][j] *= ks;
+      }
     }
 
     float p[4][4];
@@ -237,7 +282,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     }
   }
 
-  const float oscale = vscale ? *vscale : 1.f;
+  const float oscale = vscale ? vscale[vscale_per_head ? h : 0] : 1.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
@@ -254,8 +299,9 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
 template <int D, typename T>
 int launch(const void* q, const void* kc, const void* vc, const int64_t* st,
            const void* cu, const void* kv_lens, const void* block_ids, const void* kscale,
-           const void* vscale, void* out, int batch, int max_blocks, int page_size, int hq,
-           int hkv, int n_q_tiles, int q_tile, float scale, cudaStream_t stream) {
+           const void* vscale, const void* ktok, void* out, int batch, int max_blocks,
+           int page_size, int hq, int hkv, int n_q_tiles, int q_tile, int vscale_per_head,
+           float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (static_cast<size_t>(D) * (kRows + kCols) +
                                        static_cast<size_t>(kCols) * (D + kRows));
   cudaError_t e = cudaFuncSetAttribute(paged_prefill_kernel<D, T>,
@@ -268,27 +314,61 @@ int launch(const void* q, const void* kc, const void* vc, const int64_t* st,
       static_cast<const T*>(vc), st[0], st[1], st[2], st[3], st[4], st[5],
       static_cast<const int32_t*>(cu), static_cast<const int32_t*>(kv_lens),
       static_cast<const int32_t*>(block_ids), static_cast<const float*>(kscale),
-      static_cast<const float*>(vscale), static_cast<__nv_bfloat16*>(out),
-      max_blocks, page_size, hq, hkv, q_tile, scale);
+      static_cast<const float*>(vscale), static_cast<const float*>(ktok),
+      static_cast<__nv_bfloat16*>(out), max_blocks, page_size, hq, hkv, q_tile, vscale_per_head,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_d(const void* q, const void* kc, const void* vc, const int64_t* st,
              const void* cu, const void* kv_lens, const void* block_ids, const void* kscale,
-             const void* vscale, void* out, int batch, int max_blocks, int page_size, int hq,
-             int hkv, int d, int max_seqlens_q, float scale, cudaStream_t stream) {
+             const void* vscale, const void* ktok, void* out, int batch, int max_blocks,
+             int page_size, int hq, int hkv, int d, int max_seqlens_q, int vscale_per_head,
+             float scale, cudaStream_t stream) {
   if (hq % hkv != 0 || hq / hkv > kRows) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || max_seqlens_q == 0) return 0;
   const int q_tile = kRows / (hq / hkv);
   const int n_q_tiles = (max_seqlens_q + q_tile - 1) / q_tile;
   switch (d) {
     case 64:
-      return launch<64, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, out, batch,
-                           max_blocks, page_size, hq, hkv, n_q_tiles, q_tile, scale, stream);
+      return launch<64, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok, out,
+                           batch, max_blocks, page_size, hq, hkv, n_q_tiles, q_tile,
+                           vscale_per_head, scale, stream);
     case 128:
-      return launch<128, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, out, batch,
-                            max_blocks, page_size, hq, hkv, n_q_tiles, q_tile, scale, stream);
+      return launch<128, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok, out,
+                            batch, max_blocks, page_size, hq, hkv, n_q_tiles, q_tile,
+                            vscale_per_head, scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Cache element types of the launchers' kv_type argument.
+enum KvType { kBf16 = 0, kInt8 = 1, kE4m3 = 2 };
+
+int launch_typed(int kv_type, const void* q, const void* kc, const void* vc, int64_t v_off,
+                 const int64_t* st, const void* cu, const void* kv_lens, const void* block_ids,
+                 const void* kscale, const void* vscale, const void* ktok, void* out, int batch,
+                 int max_blocks, int page_size, int hq, int hkv, int d, int max_seqlens_q,
+                 int vscale_per_head, float scale, cudaStream_t stream) {
+  // v_off: elements from vc to the first V row (the slab's K|V offset)
+  switch (kv_type) {
+    case kBf16:
+      return launch_d<__nv_bfloat16>(
+          q, kc, static_cast<const __nv_bfloat16*>(vc) + v_off, st, cu, kv_lens, block_ids, kscale,
+          vscale, ktok, out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
+          vscale_per_head, scale, stream);
+    case kInt8:
+      return launch_d<int8_t>(
+          q, kc, static_cast<const int8_t*>(vc) + v_off, st, cu, kv_lens, block_ids, kscale,
+          vscale, ktok, out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
+          vscale_per_head, scale, stream);
+    case kE4m3:
+      return launch_d<e4m3_t>(
+          q, kc, static_cast<const e4m3_t*>(vc) + v_off, st, cu, kv_lens, block_ids, kscale,
+          vscale, ktok, out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
+          vscale_per_head, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -296,43 +376,39 @@ int launch_d(const void* q, const void* kc, const void* vc, const int64_t* st,
 
 }  // namespace
 
-// bf16 K and V caches; (head, page, slot) strides in elements. Launches one
-// block per (request, kv head, q tile of 64 / G tokens) and returns a
-// cudaError_t code. d (the head dim of q, K and V) is 64 or 128.
-extern "C" int hpc_paged_prefill_bf16(
-    const void* q, const void* kcache, const void* vcache,
+// Split K and V caches of kv_type (0 bf16, 1 int8, 2 e4m3); (head, page,
+// slot) strides in elements. Launches one block per (request, kv head, q
+// tile of 64 / G tokens) and returns a cudaError_t code. d (the head dim of
+// q, K and V) is 64 or 128. kscale is a [1] float32 device scalar; vscale is
+// [1], or [hkv] with vscale_per_head; ktok is [num_pages, page_size, hkv]
+// float32, one K scale per token and kv head. Each may be null (a scale of 1).
+extern "C" int hpc_paged_prefill(
+    const void* q, const void* kcache, const void* vcache, int kv_type,
     int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
     int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
+    const void* kscale, const void* vscale, const void* ktok,
     const void* cu, const void* kv_lens, const void* block_ids, void* out,
     int batch, int max_blocks, int page_size, int hq, int hkv, int d,
-    int max_seqlens_q, float scale, void* stream) {
+    int max_seqlens_q, int vscale_per_head, float scale, void* stream) {
   const int64_t st[6] = {k_head_stride, k_page_stride, k_slot_stride,
                          v_head_stride, v_page_stride, v_slot_stride};
-  return launch_d<__nv_bfloat16>(q, kcache, vcache, st, cu, kv_lens, block_ids, nullptr,
-                                 nullptr, out, batch, max_blocks, page_size, hq, hkv, d,
-                                 max_seqlens_q, scale, static_cast<cudaStream_t>(stream));
+  return launch_typed(kv_type, q, kcache, vcache, 0, st, cu, kv_lens, block_ids, kscale, vscale,
+                      ktok, out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
+                      vscale_per_head, scale, static_cast<cudaStream_t>(stream));
 }
 
-// The NHD_FUSED slab [num_pages, 2*page_size, hkv*d]; kv_int8 selects int8
-// codes (else bf16). kscale and vscale are [1] float32 device scalars or
-// null (a scale of 1).
+// The NHD_FUSED slab [num_pages, 2*page_size, hkv*d] of kv_type. kscale and
+// vscale are [1] float32 device scalars or null (a scale of 1).
 extern "C" int hpc_paged_prefill_nhd_fused(
-    const void* q, const void* kv_slab, int kv_int8, const void* kscale, const void* vscale,
+    const void* q, const void* kv_slab, int kv_type, const void* kscale, const void* vscale,
     const void* cu, const void* kv_lens, const void* block_ids, void* out, int batch,
     int max_blocks, int page_size, int hq, int hkv, int d, int max_seqlens_q, float scale,
     void* stream) {
   const int64_t slot = static_cast<int64_t>(hkv) * d;
   const int64_t page = 2 * page_size * slot;
   const int64_t st[6] = {d, page, slot, d, page, slot};
-  const int64_t v_off = page_size * slot;  // elements from a page's K rows to its V rows
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_int8) {
-    const int8_t* kv = static_cast<const int8_t*>(kv_slab);
-    return launch_d<int8_t>(q, kv, kv + v_off, st, cu, kv_lens, block_ids, kscale, vscale, out,
-                            batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q, scale, s);
-  }
-  const __nv_bfloat16* kv = static_cast<const __nv_bfloat16*>(kv_slab);
-  return launch_d<__nv_bfloat16>(q, kv, kv + v_off, st, cu, kv_lens, block_ids, kscale, vscale,
-                                 out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
-                                 scale, s);
+  // a page's V rows follow its page_size K rows
+  return launch_typed(kv_type, q, kv_slab, kv_slab, page_size * slot, st, cu, kv_lens, block_ids,
+                      kscale, vscale, nullptr, out, batch, max_blocks, page_size, hq, hkv, d,
+                      max_seqlens_q, 0, scale, static_cast<cudaStream_t>(stream));
 }

@@ -35,9 +35,10 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "hpc_rope_store_bf16": [_P] * 10 + [_I] * 8 + [_I64] * 5 + [_I, _P],
     "hpc_rope_store_int8": [_P] * 11 + [_I] * 8 + [_I64, _I, _P],
-    "hpc_paged_decode_bf16": [_P] * 3 + [_I64] * 6 + [_P] * 3 + [_I] * 8 + [_F, _P],
+    "hpc_paged_decode": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 5 + [_I] * 8 + [_F, _P],
+    "hpc_paged_decode_qt0": [_P] * 3 + [_I64] * 6 + [_P] * 5 + [_I] * 8 + [_F, _P],
     "hpc_paged_decode_nhd_fused": [_P, _P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P],
-    "hpc_paged_prefill_bf16": [_P] * 3 + [_I64] * 6 + [_P] * 4 + [_I] * 7 + [_F, _P],
+    "hpc_paged_prefill": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 7 + [_I] * 8 + [_F, _P],
     "hpc_paged_prefill_nhd_fused": [_P, _P, _I] + [_P] * 6 + [_I] * 7 + [_F, _P],
     "hpc_gg_scatter_e4m3": [_P] * 7 + [_I] * 4 + [_P],
     "hpc_act_mul_quant": [_P] * 4 + [_I] * 4 + [_P],
@@ -125,6 +126,7 @@ def wrappers() -> dict:
     from hpc_ops_tpu_torch.ops.attention.decode import (
         paged_decode_attention,
         paged_decode_nhd_fused,
+        paged_decode_qt0,
     )
     from hpc_ops_tpu_torch.ops.attention.prefill import (
         paged_prefill_attention,
@@ -145,6 +147,7 @@ def wrappers() -> dict:
         "gg_scatter": gg_scatter,
         "act_quant": act_quant,
         "moe_reduce": moe_reduce,
+        "paged_decode_qt0": paged_decode_qt0,
     }
 
 

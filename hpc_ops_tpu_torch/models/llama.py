@@ -1,6 +1,6 @@
 """Llama-class decoder on the port's operator stack (port of
-``models/llama.py``, single-device path, bf16 or int8 KV, dense or fp8-MoE
-MLP).
+``models/llama.py``, single-device path; bf16, int8 or fp8 KV; dense bf16 or
+W8A8 projections; dense or fp8-MoE MLP).
 
 Weights are a plain dict of tensors with the JAX package's layout:
 ``{"embed", "final_norm", "lm_head", "cos_sin", "layers": [{"attn_norm",
@@ -9,16 +9,20 @@ Weights are a plain dict of tensors with the JAX package's layout:
 ``"router"`` [H, E] and the experts ``"moe_gate_up"`` [E, 2I, H] and
 ``"moe_down"`` [E, H, I] as float8_e4m3fn with one float32 scale per expert
 (``"moe_gate_up_scale"``, ``"moe_down_scale"``) in place of the dense MLP.
+With ``dense_int8`` the dense projections (``wqkv``, ``wo``, ``w_gate_up``,
+``w_down``) are int8 codes with one float32 scale per output column
+(``<name>_scale``) and run as W8A8 products (:func:`_mm_w8a8`).
 Caches are a list of per-layer ``{"k", "v"}`` HND
-``[Hkv, num_blocks, block_size, D]`` bf16 tensors or, with ``int8_kv``,
-``{"kv"}`` int8 NHD_FUSED slabs
-``[num_blocks, 2*block_size, Hkv*D]`` holding ``round(x / kv_scale)`` codes;
-:func:`forward_step` updates them IN PLACE (the JAX version returns new
-caches; this one returns the same list).
+``[Hkv, num_blocks, block_size, D]`` tensors, bf16 or with ``fp8_kv``
+float8_e4m3fn at a static scale of 1, or, with ``int8_kv``, ``{"kv"}`` int8
+NHD_FUSED slabs ``[num_blocks, 2*block_size, Hkv*D]`` holding
+``round(x / kv_scale)`` codes; :func:`forward_step` updates them IN PLACE
+(the JAX version returns new caches; this one returns the same list).
 
 Each layer: RMSNorm, the QKV projection, RoPE fused with the paged KV store
 (the CUDA kernel on decode steps; quantising into the slab with
-``int8_kv``), paged attention (prefill or decode kernel, reading the cache
+``int8_kv``; with ``fp8_kv`` a plain-PyTorch store that also quantises q
+per token and head), paged attention (prefill or decode kernel, reading the cache
 in place), the o-projection with residual add, RMSNorm and the gated-SiLU
 MLP: dense, or routed to the top-k experts through the fused fp8 MoE
 (``ops/moe.py``: scatter grouped GEMM, activation + quantisation, top-k
@@ -33,7 +37,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from hpc_ops_tpu_torch.config import FP8_DTYPE, FP8_MAX
+from hpc_ops_tpu_torch.config import FP8_DTYPE, FP8_MAX, QuantPolicy
 from hpc_ops_tpu_torch.ops.attention.decode import attention_decode
 from hpc_ops_tpu_torch.ops.attention.prefill import attention_with_kvcache_prefill
 from hpc_ops_tpu_torch.ops.moe import fuse_moe_pertensor_fp8
@@ -41,6 +45,7 @@ from hpc_ops_tpu_torch.ops.normalization import rmsnorm_ref
 from hpc_ops_tpu_torch.ops.rope import (
     make_cos_sin_cache,
     rope_norm_store_kv,
+    rope_norm_store_kv_fp8,
     rope_norm_store_kv_int8,
 )
 from hpc_ops_tpu_torch.ops.sampler import (
@@ -105,11 +110,12 @@ def tiny_config(moe: bool = False, **kw) -> ModelConfig:
 
 
 def check_supported(cfg: ModelConfig, axis_name=None) -> None:
-    """Raise NotImplementedError for configurations of later slices."""
+    """Raise NotImplementedError for configurations of later slices, and
+    ValueError for ``fp8_kv`` with ``int8_kv`` (one cache, one type)."""
+    if cfg.fp8_kv and cfg.int8_kv:
+        raise ValueError("fp8_kv and int8_kv are mutually exclusive")
     moe_scheme = None if cfg.moe is None else cfg.moe.scheme
     later = {
-        "fp8_kv": ("ROADMAP queue 1 item 2 (quantized KV)", cfg.fp8_kv),
-        "dense_int8": ("ROADMAP queue 1 item 2 (quantized KV and W8A8)", cfg.dense_int8),
         f"moe scheme {moe_scheme!r}": (
             "ROADMAP queue 1 item 3 (MoE)", moe_scheme not in (None, "pertensor_fp8")),
         "qkv_bias": ("ROADMAP queue 1 item 7 (checkpoint conversion)", cfg.qkv_bias),
@@ -172,6 +178,9 @@ def init_weights(
                 h, (m.num_experts, 2 * m.expert_intermediate, h))
             layer["moe_down"], layer["moe_down_scale"] = experts(
                 m.expert_intermediate, (m.num_experts, h, m.expert_intermediate))
+        if cfg.dense_int8:
+            for name in ("wqkv", "wo") + (("w_gate_up", "w_down") if cfg.moe is None else ()):
+                layer[name], layer[name + "_scale"] = quantize_w8(layer[name])
         layers.append(layer)
     return {
         "embed": lin(1, (cfg.vocab, h)),
@@ -180,6 +189,56 @@ def init_weights(
         "layers": layers,
         "cos_sin": make_cos_sin_cache(cfg.max_position, d, cfg.rope_base, device=device),
     }
+
+
+def quantize_w8(w: torch.Tensor):
+    """Per-output-column symmetric int8 weight quantisation:
+    ``w[:, c] ~= w8[:, c] * scale[c]``. Returns (int8 codes, f32 scales); the
+    codes are laid out column-major (:func:`_column_major`)."""
+    wf = w.float()
+    scale = wf.abs().amax(dim=0) / 127.0 + 1e-9
+    w8 = torch.round(wf / scale[None, :]).clamp(-127, 127).to(torch.int8)
+    return _column_major(w8), scale
+
+
+def _column_major(w8: torch.Tensor) -> torch.Tensor:
+    """The same [in, out] int8 matrix with strides (1, in): each output
+    column's codes contiguous, the layout in which the library's int8 product
+    streams a weight (on an H100 it is 4.6 times slower on a row-major
+    4096 x 28672 weight: ``chip_smoke.py``, slice_full_w8a8)."""
+    return w8.t().contiguous().t()
+
+
+def _int8_matmul(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """[M, K] int8 @ [K, N] int8 -> exact int32 sums. On the card the
+    library's int8 product, which takes more than 16 rows (a decode batch has
+    fewer: its rows are padded here and the result cut) and K and N in
+    multiples of 8; on the CPU an int32 product."""
+    if x8.device.type != "cuda":
+        return x8.to(torch.int32) @ w8.to(torch.int32)
+    m = x8.shape[0]
+    if m <= 16:
+        x8 = torch.nn.functional.pad(x8, (0, 0, 0, 32 - m))
+    return torch._int_mm(x8, w8)[:m]
+
+
+def _mm_w8a8(x, w8, w_scale):
+    """W8A8 product: per-token dynamic activation scales, an int8 product
+    with int32 sums, float32 rescale -> bf16. The sums are exact, so the only
+    error is the two quantisation roundings."""
+    xf = x.float()
+    xs = xf.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-9
+    x8 = torch.round(xf / xs).clamp(-127, 127).to(torch.int8)
+    acc = _int8_matmul(x8, w8)
+    return (acc.float() * xs * w_scale[None, :]).to(torch.bfloat16)
+
+
+def _mm(x, layer, name):
+    """Dense projection: bf16 product, or W8A8 when the weight is int8."""
+    w = layer[name]
+    if w.dtype == torch.int8:
+        return _mm_w8a8(x, w, layer[name + "_scale"])
+    return x @ w
 
 
 def _to_torch(a: np.ndarray, device) -> torch.Tensor:
@@ -196,19 +255,22 @@ def weights_from_numpy(tree, device="cuda"):
 
     bfloat16 and float8_e4m3fn arrays (numpy's ml_dtypes types) are carried
     over bit-exactly through integer views, so both packages compute the same
-    function.
+    function. int8 weight matrices (``dense_int8``) keep their values and
+    shape and become column-major in memory.
     """
     if isinstance(tree, dict):
         return {k: weights_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [weights_from_numpy(v, device) for v in tree]
-    return _to_torch(np.asarray(tree), device)
+    t = _to_torch(np.asarray(tree), device)
+    # int8 matrices are dense_int8 weights: the layout quantize_w8 gives them
+    return _column_major(t) if t.dtype == torch.int8 and t.dim() == 2 else t
 
 
 def init_cache(cfg: ModelConfig, num_blocks: int, block_size: int, tp: int = 1, device="cuda"):
-    """Per-layer HND caches ``{"k", "v"}`` of [Hkv/tp, blocks, bs, D] bf16
-    zeros, or with ``cfg.int8_kv`` one int8 NHD_FUSED slab ``{"kv"}`` of
-    [blocks, 2*bs, (Hkv/tp)*D] zeros."""
+    """Per-layer HND caches ``{"k", "v"}`` of [Hkv/tp, blocks, bs, D] zeros
+    (bf16, or float8_e4m3fn with ``cfg.fp8_kv``), or with ``cfg.int8_kv`` one
+    int8 NHD_FUSED slab ``{"kv"}`` of [blocks, 2*bs, (Hkv/tp)*D] zeros."""
     check_supported(cfg)
     hkv = cfg.kv_heads // tp
     if cfg.int8_kv:
@@ -216,21 +278,22 @@ def init_cache(cfg: ModelConfig, num_blocks: int, block_size: int, tp: int = 1, 
         return [{"kv": torch.zeros(shape, dtype=torch.int8, device=device)}
                 for _ in range(cfg.layers)]
     shape = (hkv, num_blocks, block_size, cfg.head_dim)
+    dt = FP8_DTYPE if cfg.fp8_kv else torch.bfloat16
     return [
         {
-            "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
         }
         for _ in range(cfg.layers)
     ]
 
 
 def _mlp_dense(h_normed, layer):
-    gu = h_normed @ layer["w_gate_up"]
+    gu = _mm(h_normed, layer, "w_gate_up")
     i = gu.shape[-1] // 2
     gate = gu[..., :i].float()
     act = (gate * torch.sigmoid(gate)).to(torch.bfloat16) * gu[..., i:]
-    return act @ layer["w_down"]
+    return _mm(act, layer, "w_down")
 
 
 def _mlp_moe(h_normed, layer, cfg: ModelConfig, rank_ep: int, act_scale=None):
@@ -296,12 +359,16 @@ def forward_step(
     if cfg.int8_kv:
         kv_sc = torch.full((1,), cfg.kv_scale, dtype=torch.float32, device=x.device)
         attn_kw = {"cache_layout": "NHD_FUSED", "kscale": kv_sc, "vscale": kv_sc}
+    elif cfg.fp8_kv:
+        kv_sc = torch.ones((1,), dtype=torch.float32, device=x.device)  # static scale 1
+        attn_kw = {"cache_layout": "HND", "kscale": kv_sc, "vscale": kv_sc}
     else:
         attn_kw = {"cache_layout": "HND"}
+    q_scale = None
     if cfg.moe is not None:
         moe_act_scale = torch.ones((1,), dtype=torch.float32, device=x.device)
     for li, layer in enumerate(weights["layers"]):
-        qkv = h_normed @ layer["wqkv"]
+        qkv = _mm(h_normed, layer, "wqkv")
         if cfg.int8_kv:
             # one int8 NHD_FUSED slab per layer, read in place by attention
             k_cache, v_cache = caches[li]["kv"], None
@@ -309,6 +376,13 @@ def forward_step(
                 k_cache, qkv, weights["cos_sin"], seq_lens, q_index, block_ids, is_prefill,
                 kv_sc, kv_sc, impl=store_impl, cache_layout="NHD_FUSED",
                 num_kv_heads=k_cache.shape[2] // cfg.head_dim,
+            )
+        elif cfg.fp8_kv:
+            # e4m3 q with a scale per token and head, e4m3 K/V into HND caches
+            q, q_scale, _, k_cache, v_cache = rope_norm_store_kv_fp8(
+                caches[li]["k"], caches[li]["v"], qkv, weights["cos_sin"], seq_lens, q_index,
+                block_ids, is_prefill, kv_sc, kv_sc, int(QuantPolicy.DYNAMIC_Q_STATIC_KV),
+                max_seqlens=max_seqlens_q, cache_layout="HND", zero_tails=False,
             )
         else:
             q, k_cache, v_cache = rope_norm_store_kv(
@@ -318,14 +392,15 @@ def forward_step(
             )
         if is_prefill:
             attn = attention_with_kvcache_prefill(
-                q, k_cache, v_cache, q_index, block_ids, seq_lens, max_seqlens_q, **attn_kw
+                q, k_cache, v_cache, q_index, block_ids, seq_lens, max_seqlens_q,
+                qscale=q_scale, **attn_kw,
             )
         else:
             attn = attention_decode(
                 q, k_cache, v_cache, block_ids, seq_lens, mtp=mtp, new_kv_included=True,
-                **attn_kw,
+                qscale=q_scale, **attn_kw,
             )
-        attn_out = attn.reshape(rows, -1) @ layer["wo"]
+        attn_out = _mm(attn.reshape(rows, -1), layer, "wo")
         if cfg.residual_alpha != 1.0:
             attn_out = attn_out * cfg.residual_alpha
         x_res = (x_res.float() + attn_out.float()).to(torch.bfloat16)
@@ -415,6 +490,7 @@ __all__ = [
     "llama3_8b",
     "tiny_config",
     "init_weights",
+    "quantize_w8",
     "weights_from_numpy",
     "init_cache",
     "forward_step",

@@ -1,4 +1,4 @@
-"""Varlen causal prefill attention over a paged bf16 cache (port of
+"""Varlen causal prefill attention over a paged cache (port of
 ``ops/attention/prefill.py``, dense path).
 
 q is read from, and the output written to, packed ``[total_q, Hq*D]`` rows
@@ -8,12 +8,17 @@ through ``cu_seqlens_q``; query i of request b sits at position
 request and come back as zeros. The kernel is ``csrc/prefill.cu``; it needs
 no alignment of ``cu_seqlens_q``.
 
-Ported here: bf16 caches in HND and NHD, and the NHD_FUSED slab
-``[num_blocks, 2*block_size, Hkv*D]`` (``vcache`` unused) in bf16 or as
-int8 codes with per-tensor ``kscale``/``vscale`` (logits scaled by
-``sm_scale * kscale``, the output by ``vscale``); ``sm_scale`` and
-``impl="ref"``. fp8 caches and block-sparse masks are later slices and raise
-``NotImplementedError``.
+Caches are bf16, int8 codes or e4m3 (``torch.float8_e4m3fn``) in HND, NHD or
+the NHD_FUSED slab ``[num_blocks, 2*block_size, Hkv*D]`` (``vcache``
+unused). With per-tensor ``kscale``/``vscale`` the logits are scaled by
+``sm_scale * kscale`` and the output by ``vscale`` (one scale, or one per kv
+head); a per-token-per-head ``qscale`` ``[B, Hq, pad]`` is gathered onto the
+packed rows and folded into q, rounded to bf16, before the kernel. With
+QuantTypes 0 and 3 and one K scale per (token, kv head), paged
+``[num_blocks, block_size, Hkv, 1]``, the kernel multiplies each logit
+column by its token's scale; scales grouped along D take the plain
+reference, as in the JAX package. Also ``sm_scale`` and ``impl="ref"``.
+Block-sparse masks are a later slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,10 +28,13 @@ import torch
 from hpc_ops_tpu_torch import kernels
 from hpc_ops_tpu_torch.config import QuantType
 from hpc_ops_tpu_torch.ops.attention.decode import (
+    _PERTOKEN_K,
     _check_rows_aligned,
     _check_slab,
+    _kv_type,
     _nhd,
     _page_strides,
+    _ptr,
     _scale_tensor,
 )
 from hpc_ops_tpu_torch.ops.attention.paging import nhd_fused_views
@@ -34,11 +42,16 @@ from hpc_ops_tpu_torch.ops.attention.reference import attention_with_kvcache_pre
 from hpc_ops_tpu_torch.utils.common import cdiv
 
 
-def _prefill_ref(q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens, max_seqlens_q, scale, cache_layout):
+def _prefill_ref(q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens, max_seqlens_q, scale,
+                 cache_layout, kscale=None, vscale=None, ktok=None):
     """Plain PyTorch version of :func:`paged_prefill_attention` (float32)."""
+    pertoken = ktok is not None
     return attention_with_kvcache_prefill_ref(
         q, _nhd(kcache, cache_layout), _nhd(vcache, cache_layout), cu_seqlens_q,
-        block_ids, kv_lens, max_seqlens_q, sm_scale=scale,
+        block_ids, kv_lens, max_seqlens_q, kscale=ktok if pertoken else kscale, vscale=vscale,
+        quant_type=(QuantType.QPERTOKEN_PERHEAD_KPERTOKEN_PERHEAD_VPERHEAD if pertoken
+                    else QuantType.QPERTOKEN_PERHEAD_KPERTENSOR_VPERTENSOR),
+        sm_scale=scale,
     )
 
 
@@ -52,25 +65,33 @@ def paged_prefill_attention(
     max_seqlens_q: int,
     scale: float,
     cache_layout: str,
+    kscale=None,  # [1] f32 per-tensor K scale (None: 1)
+    vscale=None,  # [1] f32 per-tensor, or [Hkv] per-head, V scale (None: 1)
+    ktok=None,  # [num_blocks, block_size, Hkv, 1] f32 per-token K scales, in place of kscale
 ) -> torch.Tensor:
-    """Causal varlen prefill; returns [total_q, Hq, D] bf16.
+    """Causal varlen prefill over paged K and V caches (HND or NHD; bf16,
+    int8 or e4m3); returns [total_q, Hq, D] bf16.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise.
     """
     if q.device.type == "cpu":
         return _prefill_ref(
-            q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens, max_seqlens_q, scale, cache_layout
+            q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens, max_seqlens_q, scale, cache_layout,
+            kscale, vscale, ktok,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: unsupported device {q.device}")
-    if not (q.dtype == kcache.dtype == vcache.dtype == torch.bfloat16):
-        raise NotImplementedError("paged_prefill_attention: the CUDA kernel reads bf16 only")
+    name = "paged_prefill_attention"
+    kv_type = _kv_type(name, kcache, vcache)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: q must be bf16")
     for t in (kcache, vcache, cu_seqlens_q, block_ids, kv_lens):
         if t.device != q.device:
             raise ValueError("paged_prefill_attention: all tensors must be on one device")
     total_q, hq, d = q.shape
     hkv = kcache.shape[0] if cache_layout == "HND" else kcache.shape[2]
+    nb = kcache.shape[1] if cache_layout == "HND" else kcache.shape[0]
     page_size = kcache.shape[2] if cache_layout == "HND" else kcache.shape[1]
     if d not in (64, 128) or vcache.shape[3] != d or kcache.shape[3] != d:
         raise ValueError("paged_prefill_attention: the CUDA kernel takes head_dim 64 or 128")
@@ -81,17 +102,27 @@ def paged_prefill_attention(
     k_st = _page_strides(kcache, cache_layout)
     v_st = _page_strides(vcache, cache_layout)
     _check_rows_aligned("paged_prefill_attention", (kcache, k_st), (vcache, v_st))
+    if ktok is not None:
+        if kscale is not None:
+            raise ValueError(f"{name}: per-token K scales replace the per-tensor kscale")
+        if ktok.device != q.device or tuple(ktok.shape) != (nb, page_size, hkv, 1):
+            raise ValueError(f"{name}: K scales must be [{nb}, {page_size}, {hkv}, 1] on q's device")
+        ktok = ktok.float().contiguous()
+    ks = _scale_tensor(kscale, q.device)
+    per_head = vscale is not None and hkv > 1 and torch.as_tensor(vscale).numel() == hkv
+    vs = _scale_tensor(vscale, q.device, hkv if per_head else 1)
     cu = cu_seqlens_q.to(torch.int32).contiguous()
     lens = kv_lens.to(torch.int32).contiguous()
     tbl = block_ids.to(torch.int32).contiguous()
     out = torch.zeros((total_q, hq, d), dtype=torch.bfloat16, device=q.device)
-    rc = kernels.lib().hpc_paged_prefill_bf16(
-        q.data_ptr(), kcache.data_ptr(), vcache.data_ptr(), *k_st, *v_st,
+    rc = kernels.lib().hpc_paged_prefill(
+        q.data_ptr(), kcache.data_ptr(), vcache.data_ptr(), kv_type, *k_st, *v_st,
+        _ptr(ks), _ptr(vs), _ptr(ktok),
         cu.data_ptr(), lens.data_ptr(), tbl.data_ptr(), out.data_ptr(),
-        lens.shape[0], tbl.shape[1], page_size, hq, hkv, d, int(max_seqlens_q),
+        lens.shape[0], tbl.shape[1], page_size, hq, hkv, d, int(max_seqlens_q), int(per_head),
         float(scale), kernels.stream_ptr(q),
     )
-    kernels.check(rc, "hpc_paged_prefill_bf16")
+    kernels.check(rc, "hpc_paged_prefill")
     paged_prefill_attention.launches += 1
     return out
 
@@ -112,7 +143,7 @@ def _prefill_nhd_fused_ref(q, kv, cu_seqlens_q, block_ids, kv_lens, max_seqlens_
 
 def paged_prefill_nhd_fused(
     q: torch.Tensor,  # [total_q, Hq, D] bf16 (rows past cu[-1] allowed)
-    kv: torch.Tensor,  # [num_blocks, 2*block_size, Hkv*D] bf16 or int8
+    kv: torch.Tensor,  # [num_blocks, 2*block_size, Hkv*D] bf16, int8 or e4m3
     cu_seqlens_q: torch.Tensor,  # [B+1]
     block_ids: torch.Tensor,  # [B, max_blocks], -1 padded
     kv_lens: torch.Tensor,  # [B]
@@ -140,6 +171,7 @@ def paged_prefill_nhd_fused(
     hkv = kv.shape[2] // d
     if hkv == 0 or hq % hkv or hq // hkv > 64:
         raise ValueError("paged_prefill_nhd_fused: unsupported GQA group")
+    kv_type = _kv_type("paged_prefill_nhd_fused", kv)
     _check_slab("paged_prefill_nhd_fused", kv, hkv, d)
     ks, vs = _scale_tensor(kscale, q.device), _scale_tensor(vscale, q.device)
     for t in (kv, cu_seqlens_q, block_ids, kv_lens):
@@ -150,8 +182,7 @@ def paged_prefill_nhd_fused(
     tbl = block_ids.to(torch.int32).contiguous()
     out = torch.zeros((total_q, hq, d), dtype=torch.bfloat16, device=q.device)
     rc = kernels.lib().hpc_paged_prefill_nhd_fused(
-        q.data_ptr(), kv.data_ptr(), int(kv.dtype == torch.int8),
-        None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
+        q.data_ptr(), kv.data_ptr(), kv_type, _ptr(ks), _ptr(vs),
         cu.data_ptr(), lens.data_ptr(), tbl.data_ptr(), out.data_ptr(),
         lens.shape[0], tbl.shape[1], kv.shape[1] // 2, hq, hkv, d, int(max_seqlens_q),
         float(scale), kernels.stream_ptr(q),
@@ -187,10 +218,13 @@ def attention_with_kvcache_prefill(
     impl: str = "auto",
     aligned_seq_starts: bool = False,
 ):
-    """Paged-cache varlen prefill. Returns bf16 [total_q, Hq, Dv].
+    """Paged-cache varlen prefill over a bf16, int8 or e4m3 cache. Returns
+    bf16 [total_q, Hq, Dv].
 
-    bf16 caches in NHD or HND, or an NHD_FUSED slab (bf16, or int8 codes
-    with per-tensor ``kscale``/``vscale``).
+    ``q`` is bf16, or quantised with ``qscale`` [B, Hq, max_q_pad]. A bf16
+    cache ignores ``kscale``/``vscale``, as in the JAX package. The kernel
+    applies ``sm_scale`` and the scales in float32 (the JAX wrapper folds
+    ``sm_scale`` into q before its rounding to bf16 and scales a bf16 output).
 
     ``aligned_seq_starts=True`` asserts that every ``cu_seqlens_q`` entry is a
     multiple of 8 (the JAX package's packing contract); it is checked here,
@@ -212,37 +246,47 @@ def attention_with_kvcache_prefill(
         raise NotImplementedError(
             f"cache_layout={cache_layout!r} is not a prefill cache layout"
         )
-    fused = cache_layout == "NHD_FUSED"
-    if qscale is not None or (not fused and (kcache.dtype != torch.bfloat16 or kscale is not None)):
-        raise NotImplementedError("fp8 prefill arrives with ROADMAP queue 1 item 2 (quantized KV)")
-    if QuantType(quant_type) not in (
-        QuantType.QPERTOKEN_PERHEAD_KPERTENSOR_VPERTENSOR,
-        QuantType.QPERTENSOR_KPERTENSOR_VPERTENSOR,
-    ):
-        raise NotImplementedError("per-token K scales arrive with ROADMAP queue 1 item 5")
-    d = q.shape[-1]
+    total_q, hq, d = q.shape
     scale = (1.0 / d**0.5) if sm_scale is None else sm_scale
-    if fused:
-        # as in the JAX package, a bf16 slab ignores the scales
-        if kcache.dtype == torch.bfloat16:
-            kscale = vscale = None
-        if impl == "ref":
-            return _prefill_nhd_fused_ref(
-                q, kcache, cu_seqlens_q, block_ids, seqlens_kvcache, max_seqlens_q, scale,
-                kscale, vscale,
-            )
+    quantised = kcache.dtype != torch.bfloat16
+    pertoken_k = quantised and QuantType(quant_type) in _PERTOKEN_K
+    if not quantised:
+        kscale = vscale = None
+    if pertoken_k and kscale is None:
+        raise ValueError("per-token K scales (QuantType 0, 3) need kscale")
+    if cache_layout == "NHD_FUSED" and (pertoken_k or impl == "ref"):
+        kcache, vcache = nhd_fused_views(kcache, kcache.shape[2] // d)
+        cache_layout = "NHD"
+    if impl == "ref" or (pertoken_k and kscale.shape[-1] != 1):
+        # QuantType 0 has a kernel path for one scale per (token, kv head)
+        # only; scales grouped along D take the reference, as in the JAX package
+        return attention_with_kvcache_prefill_ref(
+            q, _nhd(kcache, cache_layout), _nhd(vcache, cache_layout), cu_seqlens_q, block_ids,
+            seqlens_kvcache, max_seqlens_q, qscale=qscale, kscale=kscale, vscale=vscale,
+            quant_type=quant_type, sm_scale=scale,
+        )
+    if qscale is not None:
+        # gather the per-(request, head, position) scale onto the packed rows
+        b = seqlens_kvcache.shape[0]
+        cu = cu_seqlens_q.long()
+        row = torch.arange(total_q, dtype=torch.int64, device=q.device)
+        req = torch.searchsorted(cu[1:].contiguous(), row, right=True).clamp(max=b - 1)
+        pos = (row - cu[req]).clamp(0, qscale.shape[-1] - 1)
+        qb = (q.float() * qscale[req, :, pos][..., None].float()).to(torch.bfloat16)
+    else:
+        qb = q.to(torch.bfloat16).contiguous()
+    if cache_layout == "NHD_FUSED":
         return paged_prefill_nhd_fused(
-            q.to(torch.bfloat16).contiguous(), kcache, cu_seqlens_q, block_ids, seqlens_kvcache,
-            max_seqlens_q, scale, kscale, vscale,
+            qb, kcache, cu_seqlens_q, block_ids, seqlens_kvcache, max_seqlens_q, scale, kscale,
+            vscale,
         )
-    if impl == "ref":
-        return _prefill_ref(
-            q, kcache, vcache, cu_seqlens_q, block_ids, seqlens_kvcache, max_seqlens_q,
-            scale, cache_layout,
-        )
+    if pertoken_k:
+        kscale, ktok = None, kscale
+    else:
+        ktok = None
     return paged_prefill_attention(
-        q.to(torch.bfloat16).contiguous(), kcache, vcache, cu_seqlens_q, block_ids,
-        seqlens_kvcache, max_seqlens_q, scale, cache_layout,
+        qb, kcache, vcache, cu_seqlens_q, block_ids, seqlens_kvcache, max_seqlens_q, scale,
+        cache_layout, kscale, vscale, ktok,
     )
 
 
@@ -252,6 +296,18 @@ def attention_with_kvcache_prefill_bf16(
     """BF16 paged prefill. See :func:`attention_with_kvcache_prefill`."""
     return attention_with_kvcache_prefill(
         q, kcache, vcache, cu_seqlens_q, block_ids, seqlens_kvcache, max_seqlens_q, **kw
+    )
+
+
+def attention_with_kvcache_prefill_fp8(
+    q, kcache, vcache, qscale, kscale, vscale, cu_seqlens_q, block_ids, seqlens_kvcache,
+    max_seqlens_q,
+    quant_type: QuantType = QuantType.QPERTOKEN_PERHEAD_KPERTENSOR_VPERTENSOR, **kw,
+):
+    """FP8 paged prefill (the JAX package's argument order). See :func:`attention_with_kvcache_prefill`."""
+    return attention_with_kvcache_prefill(
+        q, kcache, vcache, cu_seqlens_q, block_ids, seqlens_kvcache, max_seqlens_q,
+        qscale=qscale, kscale=kscale, vscale=vscale, quant_type=quant_type, **kw,
     )
 
 
@@ -292,6 +348,7 @@ __all__ = [
     "attention_prefill_bf16",
     "attention_with_kvcache_prefill",
     "attention_with_kvcache_prefill_bf16",
+    "attention_with_kvcache_prefill_fp8",
     "paged_prefill_attention",
     "paged_prefill_nhd_fused",
 ]

@@ -1,7 +1,8 @@
 """Plain PyTorch reference attention (port of ``ops/attention/reference.py``).
 
 The oracle for the attention kernels: varlen dense prefill, paged-cache
-prefill and paged decode with draft tokens (MTP). All math in float32.
+prefill and paged decode with draft tokens (MTP), over bf16 caches or
+quantised ones with the scale schemes of ``QuantType``. All math in float32.
 Caches passed here are NHD ``[num_blocks, block_size, H_kv, D]``.
 """
 
@@ -17,24 +18,29 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def _dequant_kv(kcache, vcache, kscale, vscale, quant_type: QuantType):
-    """Caches -> float32. A bf16 cache is read as it is; an int8 or fp8 cache
-    with per-tensor scales (QuantType 1, 2) is ``k * kscale``,
-    ``v * vscale`` (a scale of None multiplies by 1). The per-token K scales
-    of QuantType 0 arrive with ROADMAP queue 1 item 5."""
+    """Caches -> float32. A bf16 cache is read as it is. An int8 or fp8 cache
+    with per-tensor scales (QuantType 1, 2) is ``k * kscale``, ``v * vscale``
+    (a scale of None multiplies by 1; ``vscale`` may also be ``[H_kv]``). With per-token K scales (QuantType 0,
+    3) ``kscale`` is paged like the cache, ``[num_blocks, bs, H_kv, S]`` with
+    S = 1 (one scale per token and head) or S groups along D, and ``vscale``
+    is ``[H_kv]``."""
     k, v = kcache.float(), vcache.float()
     if kcache.dtype == torch.bfloat16:
         return k, v
-    if QuantType(quant_type) not in (
+    if QuantType(quant_type) in (
         QuantType.QPERTOKEN_PERHEAD_KPERTENSOR_VPERTENSOR,
         QuantType.QPERTENSOR_KPERTENSOR_VPERTENSOR,
     ):
-        raise NotImplementedError(
-            "per-token K scales (QuantType 0) arrive with ROADMAP queue 1 item 5"
-        )
-    if kscale is not None:
-        k = k * torch.as_tensor(kscale, dtype=torch.float32, device=k.device).reshape(())
+        if kscale is not None:
+            k = k * torch.as_tensor(kscale, dtype=torch.float32, device=k.device).reshape(())
+        if vscale is not None:  # [1], or one per kv head
+            vs = torch.as_tensor(vscale, dtype=torch.float32, device=v.device)
+            v = v * vs.reshape(-1)[None, None, :, None]
+        return k, v
+    ks = kscale.float()
+    k = k * ks.repeat_interleave(k.shape[-1] // ks.shape[-1], dim=-1)
     if vscale is not None:
-        v = v * torch.as_tensor(vscale, dtype=torch.float32, device=v.device).reshape(())
+        v = v * vscale.float()[None, None, :, None]
     return k, v
 
 
@@ -56,6 +62,7 @@ def mha_varlen_prefill_ref(
     seqlens_q,  # [B]
     cu_seqlens_q,  # [B+1]
     seqlens_kv,  # [B] total kv length (>= seqlens_q; causal offset = kv - q)
+    q_scale=None,  # [B, Hq, max_q_pad] per-token-per-head scale of q, or None
     sm_scale: Optional[float] = None,
     causal: bool = True,
 ):
@@ -76,6 +83,8 @@ def mha_varlen_prefill_ref(
         if q_len == 0:
             continue
         qi = qf[q_start : q_start + q_len]
+        if q_scale is not None:
+            qi = qi * q_scale[bi, :, :q_len].float().T[:, :, None]
         ki = k[bi, :kv_len].float().repeat_interleave(g, dim=1)  # [kv, Hq, D]
         vi = v[bi, :kv_len].float().repeat_interleave(g, dim=1)
         s = torch.einsum("qhd,khd->hqk", qi, ki) * scale
@@ -113,19 +122,21 @@ def attention_with_kvcache_prefill_ref(
     block_ids,
     seqlens_kvcache,
     max_seqlens_q,
+    qscale=None,
     kscale=None,
     vscale=None,
     quant_type: QuantType = QuantType.QPERTOKEN_PERHEAD_KPERTENSOR_VPERTENSOR,
     sm_scale: Optional[float] = None,
 ):
-    """Paged-cache varlen prefill over an NHD cache. Returns bf16."""
+    """Paged-cache varlen prefill over an NHD cache, bf16 or quantised
+    (``qscale`` [B, Hq, max_q_pad] dequantises q). Returns bf16."""
     seqlens_q = cu_seqlens_q[1:] - cu_seqlens_q[:-1]
     max_kv = int(seqlens_kvcache.max())
     kf, vf = _dequant_kv(kcache, vcache, kscale, vscale, quant_type)
     kb = _gather_pages(kf, block_ids, max_kv)
     vb = _gather_pages(vf, block_ids, max_kv)
     out = mha_varlen_prefill_ref(
-        q, kb, vb, seqlens_q, cu_seqlens_q, seqlens_kvcache, sm_scale=sm_scale
+        q, kb, vb, seqlens_q, cu_seqlens_q, seqlens_kvcache, q_scale=qscale, sm_scale=sm_scale
     )
     return out.to(torch.bfloat16)
 
@@ -138,6 +149,7 @@ def attention_decode_ref(
     num_seq_kvcache,
     mtp: int = 0,
     new_kv_included: bool = True,
+    qscale=None,  # [B*Sq, Hq] per-token-per-head scale of q (fp8 path)
     kscale=None,
     vscale=None,
     quant_type: QuantType = QuantType.QPERTOKEN_PERHEAD_KPERTENSOR_VPERTENSOR,
@@ -158,6 +170,8 @@ def attention_decode_ref(
     vb = _gather_pages(vf, block_ids, max_kv)
     g = hq // kb.shape[2]
     qf = q.float().reshape(b, sq, hq, d)
+    if qscale is not None:
+        qf = qf * qscale.float().reshape(b, sq, hq)[..., None]
     scale = (1.0 / d**0.5) if sm_scale is None else sm_scale
     kbg = kb.repeat_interleave(g, dim=2)
     vbg = vb.repeat_interleave(g, dim=2)

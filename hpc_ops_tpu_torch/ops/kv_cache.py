@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from hpc_ops_tpu_torch.config import FP8_DTYPE
 from hpc_ops_tpu_torch.utils.common import cdiv
 
 OOB_SLOT = 2**31 - 1
@@ -86,6 +87,19 @@ def _keep(slots: torch.Tensor, num_slots: int) -> torch.Tensor:
     return (slots >= 0) & (slots < num_slots)
 
 
+def _kept_rows(slots: torch.Tensor, num_slots: int):
+    """Row and slot indices that make an indexed store drop the rows with a
+    slot outside the cache, with no mask whose size the host would have to
+    read: a dropped row repeats the first kept row (writing one slot twice
+    with the same values is harmless). Returns ``(rows, slots, any_kept)``;
+    with no kept row at all every row aims at slot 0 and the caller writes
+    back what is there."""
+    keep = _keep(slots, num_slots)
+    first = torch.argmax(keep.to(torch.uint8))
+    rows = torch.where(keep, torch.arange(slots.shape[0], device=slots.device), first)
+    return rows, slots[rows].clamp(0, num_slots - 1), keep.any()
+
+
 def store_kv(
     cache: PagedKVCache,
     k_new: torch.Tensor,  # [rows, H_kv, D_qk]
@@ -93,23 +107,26 @@ def store_kv(
     slots: torch.Tensor,  # [rows] flat slot ids (from flat_slot_ids)
     layout: str = "NHD",
 ) -> PagedKVCache:
-    """Write new K/V rows into the paged cache in place (OOB slots dropped)."""
+    """Write new K/V rows into the paged cache in place (OOB slots dropped).
+    Nothing is read on the host, so a decode step stays free of device-to-host
+    copies."""
+    if slots.shape[0] == 0:
+        return cache
     if layout == "HND":
         h, nb, bs, dk = cache.k.shape
-        dv = cache.v.shape[-1]
-        keep = _keep(slots, nb * bs)
-        s = slots[keep]
-        k_flat = cache.k.view(h, nb * bs, dk)
-        v_flat = cache.v.view(h, nb * bs, dv)
-        k_flat[:, s] = k_new[keep].to(cache.k.dtype).transpose(0, 1)
-        v_flat[:, s] = v_new[keep].to(cache.v.dtype).transpose(0, 1)
-        return cache
-    nb, bs, h, dk = cache.k.shape
-    dv = cache.v.shape[-1]
-    keep = _keep(slots, nb * bs)
-    s = slots[keep]
-    cache.k.view(nb * bs, h, dk)[s] = k_new[keep].to(cache.k.dtype)
-    cache.v.view(nb * bs, h, dv)[s] = v_new[keep].to(cache.v.dtype)
+        flats = (cache.k.view(h, nb * bs, dk), cache.v.view(h, nb * bs, cache.v.shape[-1]))
+    else:
+        nb, bs, h, dk = cache.k.shape
+        flats = (cache.k.view(nb * bs, h, dk), cache.v.view(nb * bs, h, cache.v.shape[-1]))
+    rows, s, any_kept = _kept_rows(slots, nb * bs)
+    for flat, new in zip(flats, (k_new, v_new)):
+        new = new[rows].to(flat.dtype)
+        if flat.dtype == FP8_DTYPE:  # indexed stores move fp8 as bytes
+            flat, new = flat.view(torch.uint8), new.view(torch.uint8)
+        if layout == "HND":
+            flat[:, s] = torch.where(any_kept, new.transpose(0, 1), flat[:, s])
+        else:
+            flat[s] = torch.where(any_kept, new, flat[s])
     return cache
 
 
@@ -131,18 +148,20 @@ def zero_block_tails(
     ok = (seq_lens > 0)[:, None] & (phys >= 0)[:, None] & (offs > last_off[:, None])
     slots = torch.where(ok, phys[:, None] * bs + offs, torch.full_like(offs, OOB_SLOT))
     slots = slots.reshape(-1)
+    # zero bytes are zeros in every cache type; fp8 is indexed as bytes
+    kc, vc = (t.view(torch.uint8) if t.dtype == FP8_DTYPE else t for t in cache)
     if layout == "HND":
-        h, nb, _, dk = cache.k.shape
+        h, nb, _, dk = kc.shape
         keep = _keep(slots, nb * bs)
         s = slots[keep]
-        cache.k.view(h, nb * bs, dk)[:, s] = 0
-        cache.v.view(h, nb * bs, cache.v.shape[-1])[:, s] = 0
+        kc.view(h, nb * bs, dk)[:, s] = 0
+        vc.view(h, nb * bs, vc.shape[-1])[:, s] = 0
         return cache
-    nb, _, h, dk = cache.k.shape
+    nb, _, h, dk = kc.shape
     keep = _keep(slots, nb * bs)
     s = slots[keep]
-    cache.k.view(nb * bs, h, dk)[s] = 0
-    cache.v.view(nb * bs, h, cache.v.shape[-1])[s] = 0
+    kc.view(nb * bs, h, dk)[s] = 0
+    vc.view(nb * bs, h, vc.shape[-1])[s] = 0
     return cache
 
 

@@ -1,6 +1,7 @@
 """RoPE + optional QK-RMSNorm + paged KV store (port of ``ops/rope.py``):
-bf16 caches (:func:`rope_norm_store_kv`) and the int8 fused K|V slabs
-(:func:`rope_norm_store_kv_int8`).
+bf16 caches (:func:`rope_norm_store_kv`), the int8 fused K|V slabs
+(:func:`rope_norm_store_kv_int8`) and e4m3 caches with an e4m3 q
+(:func:`rope_norm_store_kv_fp8`, plain PyTorch as in the JAX package).
 
 Two formulations, chosen by ``impl`` as in the JAX package:
   * "auto" / "xla": plain PyTorch gather + elementwise + masked store; it
@@ -19,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from hpc_ops_tpu_torch.config import QKNormPolicy
+from hpc_ops_tpu_torch.config import FP8_MAX, QKNormPolicy, QuantPolicy
 from hpc_ops_tpu_torch.ops.kv_cache import (
     OOB_SLOT,
     PagedKVCache,
@@ -35,6 +36,7 @@ from hpc_ops_tpu_torch.ops.rope_kernel import (
     rope_store_rows,
     rope_store_rows_int8,
 )
+from hpc_ops_tpu_torch.utils.common import fp8_saturate_cast, round_up
 
 
 def can_use_rope_kernel(cache_dtype, qkv_dtype, cache_layout: str, store_to_cache: bool) -> bool:
@@ -284,9 +286,94 @@ def rope_norm_store_kv_int8(
     return q_out, kv_cache
 
 
+def rope_norm_store_kv_fp8(
+    key_cache: torch.Tensor,
+    value_cache: torch.Tensor,
+    qkv: torch.Tensor,
+    cos_sin: torch.Tensor,
+    num_seqlen_per_req: torch.Tensor,
+    q_index: torch.Tensor,
+    kvcache_indices: torch.Tensor,
+    is_prefill: bool,
+    k_scale,
+    v_scale,
+    quant_policy: int,
+    max_seqlens: int = 0,
+    upper_max: Optional[float] = None,
+    q_scale_inv=None,
+    q_norm_weight: Optional[torch.Tensor] = None,
+    k_norm_weight: Optional[torch.Tensor] = None,
+    qk_norm_policy: int = 0,
+    cache_layout: str = "NHD",
+    zero_tails: bool = True,
+):
+    """FP8 variant: quantises q (dynamic per token and head, or static) and
+    stores K/V into e4m3 caches with static per-tensor scales. Dequantisation
+    is ``x = x_fp8 * scale`` throughout.
+
+    Plain PyTorch that reads no tensor on the host (with ``zero_tails=False``),
+    so a decode step adds no device-to-host copy. Rows past ``q_index[-1]``
+    are dropped and their q rows and scales are zeros.
+
+    Returns ``(q_fp8 [rows, Hq, Dqk], q_scale, split_k_flag [num_req, Hkv]
+    zeros, key_cache, value_cache)``, the caches written in place. ``q_scale``
+    is [num_req, Hq, round_up(max_seqlens, 128)] on prefill (a transposed
+    view), [rows, Hq] on decode, or None with ``quant_policy`` STATIC.
+    """
+    upper = FP8_MAX if upper_max is None else float(upper_max)
+    if cache_layout == "HND":
+        num_kv_heads, qk_dim = key_cache.shape[0], key_cache.shape[3]
+    else:
+        num_kv_heads, qk_dim = key_cache.shape[2], key_cache.shape[3]
+    v_dim = value_cache.shape[3]
+    num_req = num_seqlen_per_req.shape[0]
+    dev = qkv.device
+    q, k, v, m = _rope_norm_core(
+        qkv, cos_sin, num_seqlen_per_req, q_index, q_norm_weight, k_norm_weight,
+        qk_norm_policy, num_kv_heads, qk_dim, v_dim,
+    )
+    num_q_heads = q.shape[1]
+
+    def scalar(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
+
+    if QuantPolicy(quant_policy) == QuantPolicy.DYNAMIC_Q_STATIC_KV:
+        scale_rowhead = (q.abs().amax(dim=-1) / upper).clamp(min=1e-12)  # [rows, Hq]
+        q_fp8 = fp8_saturate_cast(q / scale_rowhead[..., None], upper)
+        if is_prefill:
+            pad = round_up(max(int(max_seqlens), 1), 128)
+            ok = m.valid & (m.pos_in_q < pad)
+            # scatter [rows, Hq] scales to [num_req, pad, Hq]; rows that do not
+            # count aim at a spare last row, which is cut off
+            flat = torch.zeros((num_req * pad + 1, num_q_heads), dtype=torch.float32, device=dev)
+            flat[torch.where(ok, m.req_ids * pad + m.pos_in_q, num_req * pad)] = scale_rowhead
+            q_scale = flat[:-1].view(num_req, pad, num_q_heads).transpose(1, 2)
+        else:
+            q_scale = torch.where(m.valid[:, None], scale_rowhead, 0.0)
+    else:
+        if q_scale_inv is None:
+            raise ValueError("quant_policy=2 requires q_scale_inv")
+        q_fp8 = fp8_saturate_cast(q * scalar(q_scale_inv), upper)
+        q_scale = None
+    # zero the rows of no request (bytes: zero is code 0)
+    q_fp8 = (q_fp8.view(torch.uint8) * m.valid[:, None, None]).view(q_fp8.dtype)
+
+    k_q = fp8_saturate_cast(k / scalar(k_scale), upper)
+    v_q = fp8_saturate_cast(v.float() / scalar(v_scale), upper)
+    cache = PagedKVCache(key_cache, value_cache)
+    blk = key_cache.shape[2] if cache_layout == "HND" else key_cache.shape[1]
+    slots = flat_slot_ids(m.positions, m.req_ids, kvcache_indices, blk, m.valid)
+    store_kv(cache, k_q, v_q, slots, layout=cache_layout)
+    if zero_tails:
+        zero_block_tails(cache, num_seqlen_per_req, kvcache_indices, layout=cache_layout)
+    split_k_flag = torch.zeros((num_req, num_kv_heads), dtype=torch.int32, device=dev)
+    return q_fp8, q_scale, split_k_flag, key_cache, value_cache
+
+
 __all__ = [
     "can_use_rope_kernel",
     "make_cos_sin_cache",
     "rope_norm_store_kv",
+    "rope_norm_store_kv_fp8",
     "rope_norm_store_kv_int8",
 ]

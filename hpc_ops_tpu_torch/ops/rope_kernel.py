@@ -160,10 +160,10 @@ def rope_store_rows(
     if qkv.device.type != "cuda":
         raise ValueError(f"rope_store_rows: unsupported device {qkv.device}")
     if qkv.dtype != torch.bfloat16 or kflat.dtype != torch.bfloat16 or vflat.dtype != torch.bfloat16:
-        raise NotImplementedError(
+        raise ValueError(
             "rope_store_rows: the CUDA kernel stores bf16 caches only (the int8 "
-            "NHD_FUSED slab takes rope_store_rows_int8); fp8 caches arrive with "
-            "ROADMAP queue 1 item 2 (quantized KV)"
+            "NHD_FUSED slab takes rope_store_rows_int8, e4m3 caches the plain "
+            "rope_norm_store_kv_fp8)"
         )
     if dv != d:
         raise ValueError("rope_store_rows: the CUDA kernel needs dv == d")

@@ -9,7 +9,11 @@ counts no launch.
 Tolerances: attention within 1e-2 abs/rel in bf16 output (int8 slabs too:
 kernel and plain version read the same codes); RoPE within one bf16 ulp;
 int8 codes equal, or one apart on at most 0.1% of them (a rounding tie);
-untouched cache bytes bit-identical. MoE: the grouped GEMM within one bf16
+untouched cache bytes bit-identical. e4m3 caches: attention within the same
+1e-2 (kernel and plain version decode the same codes exactly, subnormals
+included, which one test checks at 4e-3 on subnormal K codes and another
+exactly on every V code); the fp8 store's codes on the card equal to the
+CPU's, or one step apart on at most 0.1%. MoE: the grouped GEMM within one bf16
 step (2^-7 relative) plus 1e-3 of the largest output (both sum exact e4m3
 products in float32, in another order); activation codes equal, or one apart
 on at most 0.1% (expf against torch.sigmoid); the top-k reduce bit-equal.
@@ -21,9 +25,11 @@ import torch
 from hpc_ops_tpu_torch.ops.activation import act_quant, act_quant_ref
 from hpc_ops_tpu_torch.ops.attention.decode import (
     _decode_nhd_fused_ref,
+    _decode_qt0_ref,
     _decode_ref,
     paged_decode_attention,
     paged_decode_nhd_fused,
+    paged_decode_qt0,
 )
 from hpc_ops_tpu_torch.ops.attention.paging import pack_kv_fused_nhd
 from hpc_ops_tpu_torch.ops.attention.prefill import (
@@ -539,3 +545,332 @@ def test_moe_garbage_rows_do_not_reach_the_output(cuda):
     assert torch.isfinite(outs["kernel"].float()).all()
     assert_allclose(outs["kernel"].float().cpu(), outs["plain"].float().cpu(), atol=2e-2, rtol=2e-2,
                     name="moe with NaN garbage rows")
+
+
+# ------------------------------------------------------------- e4m3 KV caches
+def fp8_paged(gen, lens, hq, hkv, d, sq=1, layout="HND", q_rows=None, std=0.05):
+    """As ``paged`` with e4m3 caches. ``std`` 0.05 puts about a quarter of the
+    codes below 2^-6, the subnormal range."""
+    q, k, v, tbl, kv_lens = paged(gen, lens, hq, hkv, d, sq=sq, layout=layout, q_rows=q_rows)
+    return q, (k.float() * std).to(FP8), (v.float() * std).to(FP8), tbl, kv_lens
+
+
+def token_scales(gen, k, layout):
+    """[nb, bs, Hkv, 1] float32 K scales for a cache in ``layout``, and [Hkv] V scales."""
+    hkv, nb = (k.shape[0], k.shape[1]) if layout == "HND" else (k.shape[2], k.shape[0])
+    return (torch.rand((nb, BS, hkv, 1), generator=gen) * 30 + 5,
+            torch.rand(hkv, generator=gen) * 20 + 10)
+
+
+KS, VS = torch.tensor([17.0]), torch.tensor([23.0])
+
+
+def test_fp8_wrappers_take_the_plain_version_on_cpu():
+    gen = torch.Generator().manual_seed(30)
+    counts = (paged_decode_attention.launches, paged_decode_qt0.launches,
+              paged_prefill_attention.launches)
+    q, k, v, tbl, lens = fp8_paged(gen, [5, 20], 4, 2, 64)
+    ktok, vhead = token_scales(gen, k, "HND")
+    assert torch.equal(paged_decode_attention(q, k, v, tbl, lens, 1, 0.1, "HND", KS, VS),
+                       _decode_ref(q, k, v, tbl, lens, 1, 0.1, "HND", KS, VS))
+    assert torch.equal(paged_decode_qt0(q, k, v, ktok, vhead, tbl, lens, 1, 0.1, "HND"),
+                       _decode_qt0_ref(q, k, v, ktok, vhead, tbl, lens, 1, 0.1, "HND"))
+    cu = torch.tensor([0, 2, 9], dtype=torch.int32)
+    q = randn(gen, 11, 4, 64)
+    assert torch.equal(
+        paged_prefill_attention(q, k, v, cu, tbl, lens, 7, 0.1, "HND", None, vhead, ktok),
+        _prefill_ref(q, k, v, cu, tbl, lens, 7, 0.1, "HND", None, vhead, ktok))
+    assert counts == (paged_decode_attention.launches, paged_decode_qt0.launches,
+                      paged_prefill_attention.launches)
+
+
+# kv_len 1, a page boundary, a length inside a page, long ones; -1 pads the table
+FP8_LENS = (1, 16, 17, 300, 1024, 4095, 3, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (4, 1)])
+@pytest.mark.parametrize("layout,sq", [("HND", 1), ("HND", 3), ("NHD", 1), ("NHD", 3)])
+def test_decode_e4m3_kernel_matches_plain(cuda, layout, sq, hq, hkv):
+    gen = torch.Generator().manual_seed(31)
+    lens = [max(n, sq) for n in FP8_LENS]
+    q, k, v, tbl, kv_lens = fp8_paged(gen, lens, hq, hkv, 128, sq=sq, layout=layout)
+    want = _decode_ref(q, k, v, tbl, kv_lens, sq, 128**-0.5, layout, KS, VS)
+    n0 = paged_decode_attention.launches
+    got = paged_decode_attention(q.to(cuda), k.to(cuda), v.to(cuda), tbl.to(cuda),
+                                 kv_lens.to(cuda), sq, 128**-0.5, layout, KS, VS)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == n0 + 1
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="decode e4m3")
+
+
+@pytest.mark.cuda
+def test_decode_int8_split_caches_match_plain(cuda):
+    """The split-cache launcher takes int8 codes too (the slab's element types)."""
+    gen = torch.Generator().manual_seed(32)
+    q, k, v, tbl, kv_lens = paged(gen, [1, 17, 300, 64], 32, 8, 128)
+    k, v = (torch.randint(-127, 128, tuple(t.shape), generator=gen, dtype=torch.int8) for t in (k, v))
+    want = _decode_ref(q, k, v, tbl, kv_lens, 1, 128**-0.5, "HND", SC, SC)
+    got = paged_decode_attention(q.to(cuda), k.to(cuda), v.to(cuda), tbl.to(cuda),
+                                 kv_lens.to(cuda), 1, 128**-0.5, "HND", SC, SC)
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="decode int8 HND")
+
+
+@pytest.mark.cuda
+def test_e4m3_kernels_decode_every_v_code_exactly(cuda):
+    """One key per request: the output is its V row. The rows hold all 254
+    finite e4m3 codes (subnormals included), which bf16 represents exactly, so
+    decode, QuantType-0 decode and prefill must return them bit for bit."""
+    codes = torch.arange(256, dtype=torch.uint8)
+    codes[codes % 128 == 127] = 0  # the two NaN codes
+    v = torch.zeros((1, 2, BS, 128), dtype=torch.uint8)
+    v[0, :, 0] = codes.view(2, 128)
+    v = v.view(FP8)
+    k = torch.ones((1, 2, BS, 128)).to(FP8)
+    q = torch.ones((2, 1, 128), dtype=torch.bfloat16)
+    tbl = torch.tensor([[0], [1]], dtype=torch.int32)
+    lens = torch.tensor([1, 1], dtype=torch.int32)
+    cu = torch.tensor([0, 1, 2], dtype=torch.int32)
+    ktok = torch.ones((2, BS, 1, 1))
+    want = codes.view(FP8).float().view(2, 1, 128)
+    d = [t.to(cuda) for t in (q, k, v, tbl, lens)]
+    outs = {
+        "decode": paged_decode_attention(*d, 1, 0.1, "HND"),
+        "qt0": paged_decode_qt0(*d[:3], ktok.to(cuda), None, *d[3:], 1, 0.1, "HND"),
+        "prefill": paged_prefill_attention(*d[:3], cu.to(cuda), *d[3:], 1, 0.1, "HND"),
+    }
+    for name, got in outs.items():
+        assert torch.equal(got.float().cpu(), want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["decode", "qt0", "prefill"])
+def test_e4m3_kernels_decode_subnormal_k_codes(cuda, kernel):
+    """Request r sees two keys: one whose K holds code r in one dim (codes 0
+    to 15: zero, the 7 subnormal steps of 2^-9, then the first normal values)
+    with V = 1, and a zero key with V = 0, so its output is sigmoid(scale *
+    k_r). At a logit scale of 64 one subnormal step moves the output by 0.03
+    and the limit is 4e-3: a decode that flushed subnormals to zero fails."""
+    n = 16
+    k = torch.zeros((1, n, BS, 128), dtype=torch.uint8)
+    k[0, :, 0, 5] = torch.arange(n, dtype=torch.uint8)  # page r, slot 0: code r
+    k = k.view(FP8)
+    v = torch.zeros((1, n, BS, 128))
+    v[0, :, 0] = 1.0  # slot 0: ones; slot 1 (the zero key): zeros
+    v = v.to(FP8)
+    q = torch.zeros((n, 1, 128), dtype=torch.bfloat16)
+    q[:, 0, 5] = 1.0
+    tbl = torch.arange(n, dtype=torch.int32)[:, None]
+    lens = torch.full((n,), 2, dtype=torch.int32)
+    cu = torch.arange(n + 1, dtype=torch.int32)  # prefill: one query row at position 1
+    ktok = torch.ones((n, BS, 1, 1))
+    want = torch.sigmoid(64.0 * torch.arange(n, dtype=torch.uint8).view(FP8).float())
+    assert float(want[1] - want[0]) > 0.03
+    for dev in ("cpu", cuda):
+        dq, dk, dv, dtbl, dlens = (t.to(dev) for t in (q, k, v, tbl, lens))
+        if kernel == "decode":
+            o = paged_decode_attention(dq, dk, dv, dtbl, dlens, 1, 64.0, "HND")
+        elif kernel == "qt0":
+            o = paged_decode_qt0(dq, dk, dv, ktok.to(dev), None, dtbl, dlens, 1, 64.0, "HND")
+        else:
+            o = paged_prefill_attention(dq, dk, dv, cu.to(dev), dtbl, dlens, 1, 64.0, "HND")
+        assert_allclose(o[:, 0, 0].float(), want, atol=4e-3, rtol=0, name=f"{kernel} on {dev}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 3])
+def test_decode_nhd_fused_e4m3_kernel_matches_plain(cuda, sq):
+    gen = torch.Generator().manual_seed(33)
+    lens = [max(n, sq) for n in FP8_LENS]
+    q, k, v, tbl, kv_lens = fp8_paged(gen, lens, 32, 8, 128, sq=sq)
+    slab = pack_kv_fused_nhd(k.view(torch.uint8), v.view(torch.uint8)).view(FP8)
+    want = _decode_nhd_fused_ref(q, slab, tbl, kv_lens, sq, 128**-0.5, KS, VS)
+    got = paged_decode_nhd_fused(q.to(cuda), slab.to(cuda), tbl.to(cuda), kv_lens.to(cuda), sq,
+                                 128**-0.5, KS, VS)
+    torch.cuda.synchronize()
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="decode nhd_fused e4m3")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (4, 1)])
+@pytest.mark.parametrize("layout,sq", [("HND", 1), ("NHD", 3)])
+def test_decode_qt0_kernel_matches_plain(cuda, layout, sq, hq, hkv):
+    gen = torch.Generator().manual_seed(34)
+    lens = [max(n, sq) for n in FP8_LENS]
+    q, k, v, tbl, kv_lens = fp8_paged(gen, lens, hq, hkv, 128, sq=sq, layout=layout)
+    ktok, vhead = token_scales(gen, k, layout)
+    want = _decode_qt0_ref(q, k, v, ktok, vhead, tbl, kv_lens, sq, 128**-0.5, layout)
+    n0 = paged_decode_qt0.launches
+    got = paged_decode_qt0(q.to(cuda), k.to(cuda), v.to(cuda), ktok.to(cuda), vhead.to(cuda),
+                           tbl.to(cuda), kv_lens.to(cuda), sq, 128**-0.5, layout)
+    torch.cuda.synchronize()
+    assert paged_decode_qt0.launches == n0 + 1
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="decode qt0")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pertoken", [False, True])
+@pytest.mark.parametrize(
+    "layout,hq,hkv,q_lens,kv_lens,pad",
+    [("HND", 32, 8, [13, 7, 250], [13, 100, 300], 11), ("NHD", 32, 8, [13, 7, 250], [13, 100, 300], 0),
+     ("HND", 4, 1, [1, 40], [1, 57], 0), ("HND", 32, 8, [1024], [1024], 0)],
+)
+def test_prefill_e4m3_kernel_matches_plain(cuda, layout, hq, hkv, q_lens, kv_lens, pad, pertoken):
+    """Per-tensor scales, or per-token K scales with a V scale per kv head."""
+    gen = torch.Generator().manual_seed(35)
+    q, k, v, tbl, kv = fp8_paged(gen, kv_lens, hq, hkv, 128, layout=layout,
+                                 q_rows=sum(q_lens) + pad)
+    cu = torch.tensor([0] + torch.tensor(q_lens).cumsum(0).tolist(), dtype=torch.int32)
+    ktok, vhead = token_scales(gen, k, layout)
+    scales = (None, vhead, ktok) if pertoken else (KS, VS, None)
+    want = _prefill_ref(q, k, v, cu, tbl, kv, max(q_lens), 128**-0.5, layout, *scales)
+    got = paged_prefill_attention(
+        q.to(cuda), k.to(cuda), v.to(cuda), cu.to(cuda), tbl.to(cuda), kv.to(cuda), max(q_lens),
+        128**-0.5, layout, *(None if t is None else t.to(cuda) for t in scales))
+    torch.cuda.synchronize()
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="prefill e4m3")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_lens,kv_lens,pad", [([13, 7, 250], [13, 100, 300], 11), ([512], [2048], 0)])
+def test_prefill_nhd_fused_e4m3_kernel_matches_plain(cuda, q_lens, kv_lens, pad):
+    gen = torch.Generator().manual_seed(36)
+    q, k, v, tbl, kv = fp8_paged(gen, kv_lens, 32, 8, 128, q_rows=sum(q_lens) + pad)
+    slab = pack_kv_fused_nhd(k.view(torch.uint8), v.view(torch.uint8)).view(FP8)
+    cu = torch.tensor([0] + torch.tensor(q_lens).cumsum(0).tolist(), dtype=torch.int32)
+    want = _prefill_nhd_fused_ref(q, slab, cu, tbl, kv, max(q_lens), 128**-0.5, KS, VS)
+    got = paged_prefill_nhd_fused(q.to(cuda), slab.to(cuda), cu.to(cuda), tbl.to(cuda),
+                                  kv.to(cuda), max(q_lens), 128**-0.5, KS, VS)
+    torch.cuda.synchronize()
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="prefill nhd_fused e4m3")
+
+
+@pytest.mark.cuda
+def test_fp8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator().manual_seed(37)
+    q, k, v, tbl, kv_lens = fp8_paged(gen, [20], 8, 2, 128)
+    ktok, vhead = token_scales(gen, k, "HND")
+    d = dict(device=cuda)
+    dq, dk, dv, dtbl, dlens = (t.to(**d) for t in (q, k, v, tbl, kv_lens))
+    cu = torch.tensor([0, 20], dtype=torch.int32, device=cuda)
+    qp = randn(gen, 20, 8, 128).to(**d)
+    # rows one byte off 16-byte alignment
+    bad = torch.zeros(k.numel() + 1, dtype=torch.uint8, device=cuda)[1:].view(FP8).view(k.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        paged_decode_attention(dq, bad, dv, dtbl, dlens, 1, 0.1, "HND")
+    with pytest.raises(ValueError, match="aligned"):
+        paged_decode_qt0(dq, bad, dv, ktok.to(**d), None, dtbl, dlens, 1, 0.1, "HND")
+    with pytest.raises(ValueError, match="aligned"):
+        paged_prefill_attention(qp, dk, bad, cu, dtbl, dlens, 20, 0.1, "HND")
+    # a head_dim of 72 makes 16-byte rows in bf16 but not in one-byte elements
+    q72, k72, v72, tbl72, lens72 = fp8_paged(gen, [20], 8, 2, 72)
+    with pytest.raises(ValueError, match="aligned"):
+        paged_decode_attention(q72.to(**d), k72.to(**d), v72.to(**d), tbl72.to(**d),
+                               lens72.to(**d), 1, 0.1, "HND")
+    # mixed devices and mixed or unknown cache types
+    with pytest.raises(ValueError, match="one device"):
+        paged_decode_attention(dq, dk, dv, tbl, dlens, 1, 0.1, "HND")
+    with pytest.raises(ValueError, match="one device"):
+        paged_decode_qt0(dq, dk, v, ktok.to(**d), None, dtbl, dlens, 1, 0.1, "HND")
+    with pytest.raises(ValueError, match="share one of"):
+        paged_decode_attention(dq, dk, dv.float().to(torch.bfloat16), dtbl, dlens, 1, 0.1, "HND")
+    with pytest.raises(ValueError, match="share one of"):
+        paged_prefill_attention(qp, dk.float(), dv.float(), cu, dtbl, dlens, 20, 0.1, "HND")
+    # QuantType 0 takes e4m3 caches and scales paged like them
+    with pytest.raises(ValueError, match="float8_e4m3fn"):
+        paged_decode_qt0(dq, dk.float().to(torch.bfloat16), dv.float().to(torch.bfloat16),
+                         ktok.to(**d), None, dtbl, dlens, 1, 0.1, "HND")
+    with pytest.raises(ValueError, match="K scales must be"):
+        paged_decode_qt0(dq, dk, dv, ktok[:-1].to(**d), None, dtbl, dlens, 1, 0.1, "HND")
+    with pytest.raises(ValueError, match="K scales must be"):
+        paged_prefill_attention(qp, dk, dv, cu, dtbl, dlens, 20, 0.1, "HND", None, None, ktok)
+    with pytest.raises(ValueError, match="replace the per-tensor"):
+        paged_prefill_attention(qp, dk, dv, cu, dtbl, dlens, 20, 0.1, "HND", KS, None, ktok.to(**d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["HND", "NHD"])
+def test_rope_fp8_store_on_the_card_matches_cpu(cuda, layout):
+    """The fp8 store is plain PyTorch: on the card it must write the CPU's
+    codes (both divide and round in IEEE float32), with a decode step under
+    sync debug mode "error" (it reads nothing on the host)."""
+    from hpc_ops_tpu_torch.ops.rope import rope_norm_store_kv_fp8
+
+    gen = torch.Generator().manual_seed(38)
+    args, k0, v0, kw = rope_case(gen, layout, hq=8, hkv=2, num_blocks=64)
+    shape = (2, 64, BS, 128) if layout == "HND" else (64, BS, 2, 128)
+    one = torch.ones(1)
+
+    def run(dev, sync_error=False):
+        k = (k0.float() * 0.05).to(FP8).view(shape).to(dev)
+        v = (v0.float() * 0.05).to(FP8).view(shape).to(dev)
+        a = [t.to(dev) for t in args]
+        sc = one.to(dev)
+        call = lambda: rope_norm_store_kv_fp8(  # noqa: E731
+            k, v, *a[:5], False, sc, sc, 1, q_norm_weight=a[5],
+            k_norm_weight=a[6], qk_norm_policy=1, cache_layout=layout, zero_tails=False)
+        if sync_error:
+            call()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            q, qs, _, k, v = call()
+        finally:
+            if sync_error:
+                torch.cuda.set_sync_debug_mode("default")
+        return [t.cpu() for t in (q, qs, k, v)]
+
+    want, got = run("cpu"), run(cuda, sync_error=True)
+    assert_allclose(got[1], want[1], rtol=1e-6, atol=0, name="q_scale")
+    for name, g, w in zip(("q", "", "K", "V"), got, want):
+        if name:
+            dlt = (ordinals(g) - ordinals(w)).abs()
+            assert int(dlt.max()) <= 1 and float((dlt > 0).float().mean()) <= 1e-3, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 16, 17, 40])
+def test_int8_matmul_on_the_card_is_exact(cuda, rows):
+    """Fewer than 17 rows are padded for the library's int8 product and cut again."""
+    from hpc_ops_tpu_torch.models.llama import _int8_matmul
+
+    gen = torch.Generator().manual_seed(39)
+    x8 = torch.randint(-127, 128, (rows, 512), generator=gen, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (512, 264), generator=gen, dtype=torch.int8)
+    got = _int8_matmul(x8.to(cuda), w8.to(cuda))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (rows, 264)
+    assert torch.equal(got.cpu(), _int8_matmul(x8, w8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fp8_kv", "dense_int8"])
+def test_forward_step_on_the_card_syncs_nothing_and_matches_cpu(cuda, mode):
+    """forward_step on the card, a prefill then a decode step, the decode
+    step under sync debug mode "error" (the engine's one copy a step is its
+    own, of the sampled tokens); logits within 0.15 abs / 0.1 rel of the CPU
+    run's (the tolerance of the model tests)."""
+    from hpc_ops_tpu_torch.models import llama as T
+
+    cfg = T.tiny_config(**{mode: True})
+    w = T.init_weights(cfg, torch.Generator().manual_seed(0), device="cpu")
+    outs = {}
+    for dev in ("cpu", cuda):
+        t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+        wd = {**{k: v.to(dev) for k, v in w.items() if k != "layers"},
+              "layers": [{k: v.to(dev) for k, v in layer.items()} for layer in w["layers"]]}
+        caches = T.init_cache(cfg, num_blocks=8, block_size=BS, device=dev)
+        tbl = t([[0, 1, -1], [2, 3, -1]])
+        lp, caches = T.forward_step(wd, caches, cfg, t(list(range(12))), t([7, 5]), t([0, 7, 12]),
+                                    tbl, is_prefill=True, max_seqlens_q=7)
+        step = (t([3, 5]), t([8, 6]), t([0, 1, 2]), tbl)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ld, _ = T.forward_step(wd, caches, cfg, *step, is_prefill=False, max_seqlens_q=1)
+        finally:
+            if dev != "cpu":
+                torch.cuda.set_sync_debug_mode("default")
+        outs[str(dev)] = (lp.float().cpu(), ld.float().cpu())
+    for name, c, g in zip(("prefill", "decode"), outs["cpu"], outs[str(cuda)]):
+        assert_allclose(g, c, atol=0.15, rtol=0.1, name=f"{mode} {name} logits")

@@ -76,9 +76,9 @@ def test_decode_ref_impl_and_bf16_alias_match_jax():
 
 def test_decode_later_slices_raise():
     q, k, v, tbl, nseq = make_case(9, [5])
-    with pytest.raises(NotImplementedError):
-        attention_decode(q, k.to(torch.float8_e4m3fn), v, tbl, nseq, cache_layout="HND")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 5"):
+        attention_decode(q, k, v, tbl, nseq, cache_layout="HND", task_map=object())
+    with pytest.raises(NotImplementedError, match="item 5"):
         attention_decode(q, k, v, tbl, nseq, cache_layout="FUSED")
 
 
@@ -133,8 +133,9 @@ def test_decode_nhd_fused_int8_matches_jax(kv_lens, mtp, impl):
 
 def test_decode_nhd_fused_later_slices_raise():
     q, slab, tbl, lens = fused_case(9, [5])
-    with pytest.raises(NotImplementedError, match="item 2"):
-        attention_decode(q, slab, None, tbl, lens, cache_layout="NHD_FUSED", qscale=torch.ones(1))
     with pytest.raises(NotImplementedError, match="item 5"):
-        attention_decode(q, slab, None, tbl, lens, cache_layout="NHD_FUSED", quant_type=0,
-                         kscale=torch.ones(1))
+        attention_decode(q, slab, None, tbl, lens, cache_layout="NHD_FUSED", task_map=object())
+    # a quantised slab under QuantType 0 must bring its per-token K scales
+    with pytest.raises(ValueError, match="need kscale"):
+        attention_decode(q, slab.to(torch.int8), None, tbl, lens, cache_layout="NHD_FUSED",
+                         quant_type=0)

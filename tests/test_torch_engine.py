@@ -51,6 +51,13 @@ def model_moe():
     return cfg, jw, T.tiny_config(moe=True), tw
 
 
+@pytest.fixture(scope="module")
+def model_fp8(model):
+    """The same weights in the fp8_kv serving mode (it changes no weight)."""
+    _, jw, _, tw = model
+    return J.tiny_config(fp8_kv=True), jw, T.tiny_config(fp8_kv=True), tw
+
+
 def engine(model, **kw):
     _, _, tcfg, tw = model
     kw = {"num_blocks": 64, "block_size": 16, "max_batch": 4, **kw}
@@ -85,6 +92,31 @@ def test_engine_int8_matches_jax_engine(model_int8):
     got = engine(model_int8).run(PROMPTS, max_new=4)
     for p, w, g in zip(PROMPTS, want, got):
         assert_greedy_match(w, g, lambda j, p=p, w=w: jax_margin(cfg, jw, p + w[:j]), 0.15)
+
+
+def test_engine_fp8_matches_jax_engine(model_fp8):
+    """fp8_kv serving: the engine drives the e4m3 caches unchanged; greedy
+    tokens equal the JAX engine's on the same weights (a flip only at a
+    near-tie of the JAX fp8 model's logits), and a batch decodes as each
+    request alone."""
+    cfg, jw, _, _ = model_fp8
+    want = JaxEngine(cfg, jw, num_blocks=64, block_size=16, max_batch=4).run(PROMPTS, max_new=4)
+    eng = engine(model_fp8)
+    got = eng.run(PROMPTS, max_new=4)
+    for p, w, g in zip(PROMPTS, want, got):
+        assert_greedy_match(w, g, lambda j, p=p, w=w: jax_margin(cfg, jw, p + w[:j]), 0.15)
+    assert all(c["k"].dtype == torch.float8_e4m3fn for c in eng.caches)
+    assert got == [engine(model_fp8, max_batch=1).run([p], max_new=4)[0] for p in PROMPTS]
+
+
+def test_engine_dense_int8_serving():
+    """dense_int8 serving on the port's own quantised weights: a batch
+    decodes exactly as each request alone (activation scales are per token)."""
+    tcfg = T.tiny_config(dense_int8=True)
+    m = (None, None, tcfg, T.init_weights(tcfg, torch.Generator().manual_seed(0), device="cpu"))
+    batch_out = engine(m).run(PROMPTS, max_new=4)
+    assert batch_out == [engine(m, max_batch=1).run([p], max_new=4)[0] for p in PROMPTS]
+    assert all(len(o) == 4 and all(0 <= t < 512 for t in o) for o in batch_out)
 
 
 def test_engine_moe_matches_jax_engine(model_moe):

@@ -1,4 +1,5 @@
-"""Parity of the port's Llama model (dense and fp8 MoE) against the JAX package.
+"""Parity of the port's Llama model (dense and fp8 MoE; bf16, int8 and fp8 KV;
+W8A8 projections) against the JAX package.
 
 The JAX weights (``init_weights(PRNGKey(0), tiny_config())``) are carried
 over bit-exactly with ``weights_from_numpy``, so both packages compute the
@@ -18,6 +19,7 @@ from hpc_ops_tpu.models import llama as J
 from hpc_ops_tpu.ops.normalization import rmsnorm_ref as jax_rmsnorm
 from hpc_ops_tpu_torch.models import llama as T
 from hpc_ops_tpu_torch.ops.attention.decode import attention_decode
+from hpc_ops_tpu_torch.ops.attention.prefill import attention_with_kvcache_prefill
 from hpc_ops_tpu_torch.ops.normalization import rmsnorm_ref
 from hpc_ops_tpu_torch.utils.testing import assert_allclose, assert_greedy_match, top2_margin
 
@@ -185,6 +187,71 @@ def test_forward_step_int8_kv_close_to_bf16():
         assert cos.min() > 0.98, f"phase {phase}: min cosine {cos.min()}"
 
 
+def test_forward_step_fp8_kv_matches_jax(model):
+    """fp8_kv: e4m3 HND caches at a static scale of 1 and an e4m3 q with a
+    scale per token and head, prefill then decode, on the bf16 model's
+    weights. The port's attention (its kernels' plain versions here) decodes
+    every e4m3 code exactly; the JAX kernels in interpret mode flush the
+    subnormal ones, which the logits tolerance covers."""
+    _, jw, _, tw = model
+    cfg, tcfg = J.tiny_config(fp8_kv=True), T.tiny_config(fp8_kv=True)
+    jp, jd = run_prefill_then_decode(J, cfg, jw, jnp.asarray)
+    tp, td = run_prefill_then_decode(T, tcfg, tw, torch.from_numpy)
+    assert_allclose(tp.float(), np.asarray(jp, np.float32), atol=ATOL, rtol=RTOL, name="prefill logits")
+    assert_allclose(td.float(), np.asarray(jd, np.float32), atol=ATOL, rtol=RTOL, name="decode logits")
+    caches = T.init_cache(tcfg, num_blocks=5, block_size=16, device="cpu")
+    assert [set(c) for c in caches] == [{"k", "v"}] * tcfg.layers
+    assert caches[0]["k"].dtype == torch.float8_e4m3fn and tuple(caches[0]["v"].shape) == (4, 5, 16, 128)
+
+
+def test_forward_step_fp8_kv_close_to_bf16_and_decode_multi(model):
+    """The fp8 cache keeps each row of logits within cosine 0.98 of the bf16
+    cache's (the bar of tests/test_model.py), and decode_multi over fp8
+    caches gives the tokens of single steps."""
+    _, _, _, tw = model
+    outs = {}
+    for name, cfg in (("fp8", T.tiny_config(fp8_kv=True)), ("bf16", T.tiny_config())):
+        outs[name] = run_prefill_then_decode(T, cfg, tw, torch.from_numpy)
+    for a, ref in zip(outs["fp8"], outs["bf16"]):
+        cos = torch.nn.functional.cosine_similarity(a.float(), ref.float(), dim=-1)
+        assert cos.min() > 0.98, f"min cosine {cos.min()}"
+    cfg = T.tiny_config(fp8_kv=True)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.int32))  # noqa: E731
+    tbl = t([[0, 1], [2, 3]])
+    runs = []
+    for multi in (True, False):
+        caches = T.init_cache(cfg, num_blocks=8, block_size=16, device="cpu")
+        _, caches = T.forward_step(tw, caches, cfg, t([1, 2, 3, 5, 6]), t([3, 2]), t([0, 3, 5]), tbl,
+                                   is_prefill=True, max_seqlens_q=3)
+        if multi:
+            toks, _ = T.decode_multi(tw, caches, cfg, t([9, 4]), t([4, 3]), tbl, 3)
+            runs.append(toks.tolist())
+        else:
+            last, lens, steps = t([9, 4]), t([4, 3]), []
+            for _ in range(3):
+                logits, caches = T.forward_step(tw, caches, cfg, last, lens, t([0, 1, 2]), tbl,
+                                                is_prefill=False)
+                last, lens = logits.argmax(-1).to(torch.int32), lens + 1
+                steps.append(last.tolist())
+            runs.append(steps)
+    assert runs[0] == runs[1]
+
+
+def test_forward_step_dense_int8_matches_jax():
+    """dense_int8: W8A8 projections on JAX's quantised weights carried over
+    (codes and per-column scales), prefill then decode. The int8 products are
+    exact in both packages, so the logits tolerance has the same causes as
+    the bf16 model's."""
+    cfg, tcfg = J.tiny_config(dense_int8=True), T.tiny_config(dense_int8=True)
+    jw = J.init_weights(jax.random.PRNGKey(0), cfg)
+    tw = T.weights_from_numpy(jax.tree_util.tree_map(np.asarray, jw), device="cpu")
+    assert tw["layers"][0]["wqkv"].dtype == torch.int8
+    jp, jd = run_prefill_then_decode(J, cfg, jw, jnp.asarray)
+    tp, td = run_prefill_then_decode(T, tcfg, tw, torch.from_numpy)
+    assert_allclose(tp.float(), np.asarray(jp, np.float32), atol=ATOL, rtol=RTOL, name="prefill logits")
+    assert_allclose(td.float(), np.asarray(jd, np.float32), atol=ATOL, rtol=RTOL, name="decode logits")
+
+
 @pytest.fixture(scope="module")
 def model_moe():
     """tiny_config(moe=True) with JAX's PRNGKey(0) weights carried over."""
@@ -262,13 +329,32 @@ def test_forward_step_moe_expert_parallel_ranks_sum(model_moe):
 @pytest.mark.parametrize("field", ["fp8_kv", "int8_kv", "dense_int8", "qkv_bias", "moe",
                                    "moe_pertensor_int8"])
 def test_later_slices_raise(field):
+    q = torch.zeros((1, 8, 128), dtype=torch.bfloat16)
+    one = torch.ones(1, dtype=torch.int32)
+    if field == "fp8_kv":
+        # fp8_kv serves now, but not beside int8_kv; over fp8 caches the
+        # task-map decode and the head-major FUSED layout are later slices
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            T.init_cache(T.tiny_config(fp8_kv=True, int8_kv=True), 4, 16, device="cpu")
+        kv = torch.zeros((2, 4, 16, 128), dtype=torch.float8_e4m3fn)
+        for kw in ({"cache_layout": "HND", "task_map": object()}, {"cache_layout": "FUSED"}):
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+                attention_decode(q, kv, kv, torch.zeros((1, 1), dtype=torch.int32), one, **kw)
+        return
     if field == "int8_kv":
         # int8_kv serves now; the int8 head-major FUSED decode is a later slice
-        q = torch.zeros((1, 8, 128), dtype=torch.bfloat16)
         kv = torch.zeros((4, 2, 32, 128), dtype=torch.int8)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            attention_decode(q, kv, None, torch.zeros((1, 1), dtype=torch.int32),
-                             torch.ones(1, dtype=torch.int32), cache_layout="FUSED")
+            attention_decode(q, kv, None, torch.zeros((1, 1), dtype=torch.int32), one,
+                             cache_layout="FUSED")
+        return
+    if field == "dense_int8":
+        # dense_int8 serves now; block-sparse prefill is a later slice
+        kv = torch.zeros((2, 4, 16, 128), dtype=torch.bfloat16)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+            attention_with_kvcache_prefill(q, kv, kv, torch.tensor([0, 1]),
+                                           torch.zeros((1, 1), dtype=torch.int32), one, 1,
+                                           cache_layout="HND", block_mask=torch.ones(1))
         return
     if field.startswith("moe"):
         # the per-tensor fp8 MoE serves now; the two int8 schemes are later slices

@@ -22,7 +22,15 @@ Phases, each printing one JSON line:
      quantisation and the top-k reduce; then moe_pipeline: the three chained
      with every garbage row filled with NaN, and the whole MoE under
      torch's sync debug mode (which raises on the device-to-host copies it
-     detects; decode_profile_moe counts them). At the llama3_8b shapes again,
+     detects; decode_profile_moe counts them). The int8 MoE at the same
+     widths and token counts: the scatter grouped GEMM over int8 operands
+     (gg_scatter_i8), its fused activation epilogue over the interleaved
+     gate-up weight (gg_scatter_i8_act, timed beside the unfused GEMM and
+     activation pair) and the aligned grouped GEMM, int8 and e4m3
+     (gg_pertensor, gg_pertensor_e4m3); moe_pipeline_int8: fused, unfused
+     and impl="ref" on expert-parallel rank 1 of 2, the fused one under sync
+     debug mode; ops_moe: impl="gather" and the packed group_gemm_* entry
+     points once each, the launch counts read around each call. At the llama3_8b shapes again,
      over e4m3 caches: decode and prefill over HND caches, over the NHD_FUSED
      slab, the QuantType-0 decode (one K scale per token and kv head, a V
      scale per head) and the prefill with per-token K scales; then ops_fp8:
@@ -30,8 +38,9 @@ Phases, each printing one JSON line:
      every form (per-tensor with a q scale per token and head, NHD_FUSED,
      QuantType 0 with paged and with tail-row scales), each held against its
      impl="ref" with the launch counts read around each call;
-  4. slice_tiny, slice_tiny_int8, slice_tiny_moe and slice_tiny_fp8: Engine on
-     tiny_config (bf16 KV, int8_kv, fp8 MoE, fp8_kv) on the card and on the
+  4. slice_tiny, slice_tiny_int8, slice_tiny_moe, slice_tiny_fp8 and
+     slice_tiny_moe_int8: Engine on tiny_config (bf16 KV, int8_kv, fp8 MoE,
+     fp8_kv, int8 MoE) on the card and on the
      CPU with the same weights: logits of the first prefill and decode steps within 0.15 abs /
      0.1 rel, greedy tokens identical wherever the CPU path's top-2 margin
      exceeds that tolerance;
@@ -54,7 +63,13 @@ Phases, each printing one JSON line:
      experts of 14336, top-2; 45 GB of seeded expert weights built layer by
      layer on the card): 8 prompts of 16..512 tokens x 32 new tokens, logits
      finite, launch counts exact (two grouped GEMMs, one activation and one
-     reduce per layer and call), and decode_profile_moe;
+     reduce per layer and call), and decode_profile_moe; slice_full_moe_int8:
+     the fp8 experts are freed and the same widths served with int8 experts
+     from the same seed (MoEConfig(scheme="pertensor_int8"): the fused
+     gate-up GEMM, the aligned down GEMM and the reduce once per layer and
+     call, no activation kernel), prefill logits within cosine 0.97 of the
+     fp8 run's, the share of saturated activation codes, one device-to-host
+     copy per decode step, and decode_profile_moe_int8;
 then the kernels line, the nvidia-smi line and the result line.
 """
 
@@ -760,6 +775,9 @@ MOE_H, MOE_I, MOE_E, MOE_K = 4096, 14336, 8, 2  # Mixtral-8x7B: hidden, expert w
 # is the throughput shape, which this run's short prompts never reach.
 MOE_SHAPES = {"decode": 8, "prefill_200": 200, "prefill_512": 512, "prefill_2048": 2048}
 FP8_STD = 80.0  # standard deviation of the seeded e4m3 test tensors
+I8_STD = 30.0  # standard deviation of the seeded int8 test codes
+I8_ACT_SCALE = 127.0 / 8.0  # int8 activation scale of MoEConfig's act_clip 8
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8
 GEMM_RTOL = 2.0**-7  # one bf16 step; plus 1e-3 of the largest output for the summation order
 
 
@@ -769,7 +787,7 @@ def moe_check_inputs(dev, gen):
     import torch
 
     from hpc_ops_tpu_torch.ops.group_gemm import _pick_tm
-    from hpc_ops_tpu_torch.ops.moe import _route_aligned
+    from hpc_ops_tpu_torch.ops.moe import _route_aligned, interleave_gate_up
 
     from hpc_ops_tpu_torch.utils.common import fp8_saturate_cast
 
@@ -779,20 +797,34 @@ def moe_check_inputs(dev, gen):
         # a per-tensor-scaled tensor: its largest entries sit at the e4m3 bound of 448
         return fp8_saturate_cast(torch.randn(shape, generator=dgen, device=dev).mul_(FP8_STD))
 
+    def rand_i8(shape):
+        # int8 codes of a Gaussian, the tails clipped at the int8 bound
+        return torch.randn(shape, generator=dgen, device=dev).mul_(I8_STD).round_().clamp_(
+            -127, 127).to(torch.int8)
+
     # scales that bring gate, up and the MoE output near 1
     inp = {"gw": rand_fp8((MOE_E, 2 * MOE_I, MOE_H)), "dw": rand_fp8((MOE_E, MOE_H, MOE_I)),
            "gs": (torch.rand(MOE_E, generator=dgen, device=dev) + 1.0) / (FP8_STD**2 * MOE_H**0.5),
            "ds": (torch.rand(MOE_E, generator=dgen, device=dev) + 1.0) / (FP8_STD**2 * MOE_I**0.5),
-           "act": torch.full((1,), FP8_STD, device=dev)}
+           "act": torch.full((1,), FP8_STD, device=dev),
+           # int8 experts; the down scale undoes the activation's int8 scale
+           "gw8": rand_i8((MOE_E, 2 * MOE_I, MOE_H)), "dw8": rand_i8((MOE_E, MOE_H, MOE_I)),
+           "gs8": (torch.rand(MOE_E, generator=dgen, device=dev) + 1.0) / (I8_STD**2 * MOE_H**0.5),
+           "ds8": (torch.rand(MOE_E, generator=dgen, device=dev) + 1.0)
+           / (I8_STD * I8_ACT_SCALE * MOE_I**0.5),
+           "act8": torch.full((1,), I8_ACT_SCALE, device=dev)}
+    inp["gw8_il"] = interleave_gate_up(inp["gw8"])
     for name, s in MOE_SHAPES.items():
         logits = torch.randn((s, MOE_E), generator=dgen, device=dev)
         scale, ids = torch.topk(logits, MOE_K, dim=-1)
         tm = _pick_tm(max(s * MOE_K // MOE_E, 1), MOE_H)
         row_idx, topk_pos, seqlens, _, _, cu_tiles, grp = _route_aligned(ids.to(torch.int32), MOE_E, 0, tm)
         inp[name] = dict(
-            s=s, tm=tm, x=rand_fp8((s, MOE_H)), ids=ids.to(torch.int32),
+            s=s, tm=tm, x=rand_fp8((s, MOE_H)), x8=rand_i8((s, MOE_H)), ids=ids.to(torch.int32),
             ts=torch.softmax(scale, dim=-1), row_idx=row_idx, topk_pos=topk_pos, grp=grp,
             nvt=cu_tiles[-1:], seqlens=[int(n) for n in seqlens.cpu()],
+            row_blk=torch.where(torch.arange(grp.shape[0], device=dev) < cu_tiles[-1], torch.arange(
+                grp.shape[0], device=dev), grp.shape[0]).to(torch.int32),
             ident=torch.arange(row_idx.shape[0], dtype=torch.int32, device=dev),
         )
     return inp
@@ -989,6 +1021,309 @@ def check_moe_pipeline(dev, inp):
          max_abs_err=float((k - p).abs().max()), sync_debug_mode_raised=False, fuse_moe_ms=ms)
 
 
+# ----------------------------------------------------------- int8 MoE kernels
+def int_mm_loop(x8_rows, w8, seqlens, dev):
+    """The library yardstick of an int8 grouped GEMM: one ``torch._int_mm`` per
+    hit expert on the column-major view of its weight (the layout the library
+    streams), rows padded past 16 as ``_int8_matmul`` pads them. Returns the
+    call list; the port never calls it."""
+    import torch
+
+    xs = [torch.randint(-127, 128, (max(-(-m // 8) * 8, 32), x8_rows), device=dev, dtype=torch.int8)
+          for m in seqlens]
+    return lambda: [torch._int_mm(xe, w8[i].t()) for i, xe in enumerate(xs) if seqlens[i]]
+
+
+def gemm_bytes(c, n, k, out_bytes):
+    """Bytes a scatter grouped GEMM of this shape must move: each token row and
+    each hit expert's weight read once, each real output row written once,
+    the index vectors."""
+    experts_hit = sum(1 for m in c["seqlens"] if m)
+    return (c["s"] * k + experts_hit * n * k + c["s"] * MOE_K * n * out_bytes
+            + c["row_idx"].numel() * 4 + c["grp"].numel() * 4)
+
+
+def check_gg_scatter_i8(dev, inp):
+    """Row 15 over int8 operands: gate-up and down at every MoE shape, bit-equal
+    to the plain version on every real slot (both sum int8 products exactly)."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.group_gemm import gg_scatter, gg_scatter_ref
+
+    detail = {}
+    for shape in MOE_SHAPES:
+        c = inp[shape]
+        pairs, tm = c["s"] * MOE_K, c["tm"]
+        valid = c["row_idx"] >= 0
+        act = torch.randn((c["row_idx"].shape[0], MOE_I), device=dev).mul_(I8_STD).round_().clamp_(
+            -127, 127).to(torch.int8)
+        for gemm, x, w, sc, rows, (n, k) in (
+            ("gate_up", c["x8"], inp["gw8"], inp["gs8"], c["row_idx"], (2 * MOE_I, MOE_H)),
+            ("down", act, inp["dw8"], inp["ds8"], c["ident"], (MOE_H, MOE_I)),
+        ):
+            args = (x, w, sc, rows, c["grp"], tm, c["nvt"])
+            got, want = gg_scatter(*args), gg_scatter_ref(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got[valid], want[valid]):
+                raise AssertionError(f"gg_scatter_i8 {shape} {gemm}: kernel differs from the plain "
+                                     "version (limit: bit-equal)")
+            del got, want
+            ms = time_ms(lambda: gg_scatter(*args), 20 if shape == "decode" else 5)
+            plain = time_ms(lambda: gg_scatter_ref(*args), 2, 1)
+            lib = time_ms(int_mm_loop(k, w, c["seqlens"], dev), 5)
+            nbytes = gemm_bytes(c, n, k, 2)
+            bd, by = bound(nbytes, 2.0 * pairs * n * k, INT8_OPS_PER_S)
+            detail[f"{shape}_{gemm}"] = dict(ms=ms, plain_ms=plain, library_loop_ms=lib, bound_ms=bd,
+                                             bound_by=by, tm=tm, n=n, k=k, pairs=pairs,
+                                             tops=2e-9 * pairs * n * k / ms,
+                                             gbytes_per_s=nbytes / ms * 1e-6)
+        del act
+    torch.cuda.empty_cache()
+    main = detail["decode_gate_up"]
+    emit("kernel", name="gg_scatter_i8", max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+         library_ms=main["library_loop_ms"], library_is="a loop of one torch._int_mm per expert",
+         bound_ms=main["bound_ms"], bound_by=main["bound_by"], shapes=detail)
+    return dict(name="gg_scatter_i8", source="hpc_ops_tpu_torch/csrc/group_gemm.cu",
+                replaces="hpc_ops_tpu/ops/group_gemm.py:891", max_abs_err=0.0, ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_loop_ms"])
+
+
+def check_gg_scatter_i8_act(dev, inp):
+    """Row 15's act_fuse epilogue: the gate-up GEMM over the interleaved int8
+    weight writing the activation's int8 codes, every code of a real slot
+    equal to the plain version's; timed beside the unfused pair it replaces
+    (the int8 gate-up GEMM, then the activation kernel)."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.activation import act_quant
+    from hpc_ops_tpu_torch.ops.group_gemm import gg_scatter, gg_scatter_ref
+
+    detail, sat, codes_n = {}, 0, 0
+    n, k = 2 * MOE_I, MOE_H
+    for shape in MOE_SHAPES:
+        c = inp[shape]
+        pairs, tm, nt = c["s"] * MOE_K, c["tm"], c["grp"].shape[0]
+        valid = c["row_idx"] >= 0
+        args = (c["x8"], inp["gw8_il"], inp["gs8"], c["row_idx"], c["grp"], tm, c["nvt"])
+        kw = dict(act_fuse=True, act_scale=inp["act8"])
+        got, want = gg_scatter(*args, **kw), gg_scatter_ref(*args, **kw)
+        torch.cuda.synchronize()
+        g, wnt = got[: nt * tm][valid], want[: nt * tm][valid]
+        if not torch.equal(g, wnt):
+            d = (g.int() - wnt.int()).abs()
+            raise AssertionError(f"gg_scatter_i8_act {shape}: codes differ from the plain version on "
+                                 f"{float((d > 0).float().mean()):.4%}, by up to {int(d.max())} "
+                                 "(limit: equal)")
+        sat += int((wnt.abs() == 127).sum())
+        codes_n += wnt.numel()
+        del got, want, g, wnt
+        ms = time_ms(lambda: gg_scatter(*args, **kw), 20 if shape == "decode" else 5)
+        plain_args = (c["x8"], inp["gw8"], inp["gs8"], c["row_idx"], c["grp"], tm, c["nvt"])
+        unfused = time_ms(lambda: act_quant(gg_scatter(*plain_args), inp["act8"], True, torch.int8,
+                                            c["nvt"] * tm), 20 if shape == "decode" else 5)
+        plain = time_ms(lambda: gg_scatter_ref(*args, **kw), 2, 1)
+        lib = time_ms(int_mm_loop(k, inp["gw8"], c["seqlens"], dev), 5)
+        nbytes = gemm_bytes(c, n, k, 0.5) + 4  # an int8 code per pair of accumulators
+        bd, by = bound(nbytes, 2.0 * pairs * n * k, INT8_OPS_PER_S)
+        detail[shape] = dict(ms=ms, unfused_pair_ms=unfused, plain_ms=plain, library_loop_ms=lib,
+                             bound_ms=bd, bound_by=by, tm=tm, pairs=pairs,
+                             tops=2e-9 * pairs * n * k / ms)
+    torch.cuda.empty_cache()
+    main = detail["decode"]
+    emit("kernel", name="gg_scatter_i8_act", max_abs_err=0.0, code_max_diff=0,
+         saturated_share=sat / max(codes_n, 1), ms=main["ms"], unfused_pair_ms=main["unfused_pair_ms"],
+         plain_ms=main["plain_ms"], library_ms=main["library_loop_ms"],
+         library_is="a loop of one torch._int_mm per expert (the GEMM alone)",
+         bound_ms=main["bound_ms"], bound_by=main["bound_by"], shapes=detail)
+    return dict(name="gg_scatter_i8_act", source="hpc_ops_tpu_torch/csrc/group_gemm.cu",
+                replaces="hpc_ops_tpu/ops/group_gemm.py:891", max_abs_err=0.0, ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_loop_ms"])
+
+
+def check_gg_pertensor(dev, inp):
+    """Row 11, int8 and e4m3: gate-up over the tokens copied into the aligned
+    layout, down over aligned activation codes, at every MoE shape; every row
+    of a valid tile against the plain version (int8 bit-equal, e4m3 within
+    the grouped GEMM's tolerance). Rows: int8 (the down GEMM of the int8
+    serving path) and e4m3 (both GEMMs of impl="gather")."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.group_gemm import gg_pertensor, gg_pertensor_ref
+    from hpc_ops_tpu_torch.ops.moe import _gather_aligned
+    from hpc_ops_tpu_torch.utils.common import fp8_saturate_cast
+
+    rows_out = []
+    for dtype in ("int8", "e4m3"):
+        i8 = dtype == "int8"
+        gw, dw = (inp["gw8"], inp["dw8"]) if i8 else (inp["gw"], inp["dw"])
+        gs, ds = (inp["gs8"], inp["ds8"]) if i8 else (inp["gs"], inp["ds"])
+        detail, err = {}, 0.0
+        for shape in MOE_SHAPES:
+            c = inp[shape]
+            pairs, tm = c["s"] * MOE_K, c["tm"]
+            ga = _gather_aligned(c["x8"] if i8 else c["x"], c["ids"], MOE_E, 0, tm)
+            rows = ga.x_gathered.shape[0]
+            act = torch.randn((rows, MOE_I), device=dev) * (I8_STD if i8 else FP8_STD)
+            act = act.round_().clamp_(-127, 127).to(torch.int8) if i8 else fp8_saturate_cast(act)
+            n_valid = int(c["nvt"]) * tm
+            for gemm, x_al, w, sc, (n, k) in (("gate_up", ga.x_gathered, gw, gs, (2 * MOE_I, MOE_H)),
+                                             ("down", act, dw, ds, (MOE_H, MOE_I))):
+                args = (x_al, w, sc, ga.grp, ga.row_blk, tm, c["nvt"])
+                got, want = gg_pertensor(*args)[:n_valid], gg_pertensor_ref(*args)[:n_valid]
+                torch.cuda.synchronize()
+                if i8:
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"gg_pertensor int8 {shape} {gemm}: kernel differs from "
+                                             "the plain version (limit: bit-equal)")
+                else:
+                    err = max(err, gemm_close(got, want, slice(None), f"gg_pertensor e4m3 {shape} {gemm}"))
+                del got, want
+                ms = time_ms(lambda: gg_pertensor(*args), 20 if shape == "decode" else 5)
+                plain = time_ms(lambda: gg_pertensor_ref(*args), 2, 1)
+                if i8:
+                    lib = time_ms(int_mm_loop(k, w, c["seqlens"], dev), 5)
+                else:
+                    w16 = w.to(torch.bfloat16)
+                    xs = [torch.randn((max(m, 1), k), device=dev).to(torch.bfloat16) for m in c["seqlens"]]
+                    lib = time_ms(lambda: [xe @ w16[i].T for i, xe in enumerate(xs) if c["seqlens"][i]], 5)
+                    del w16, xs
+                # every row of a valid tile read and written, each hit expert's
+                # weight read once, the tile vectors
+                hit = sum(1 for m in c["seqlens"] if m)
+                nbytes = n_valid * k + hit * n * k + n_valid * n * 2 + ga.grp.numel() * 8 + 4
+                bd, by = bound(nbytes, 2.0 * n_valid * n * k, INT8_OPS_PER_S if i8 else FP8_FLOPS_PER_S)
+                detail[f"{shape}_{gemm}"] = dict(ms=ms, plain_ms=plain, library_loop_ms=lib,
+                                                 bound_ms=bd, bound_by=by, tm=tm, rows=n_valid,
+                                                 pairs=pairs, tops=2e-9 * n_valid * n * k / ms)
+            del ga, act
+        torch.cuda.empty_cache()
+        name = "gg_pertensor" if i8 else "gg_pertensor_e4m3"
+        main = detail["decode_down" if i8 else "decode_gate_up"]  # what each path launches most
+        emit("kernel", name=name, max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+             library_ms=main["library_loop_ms"],
+             library_is="a loop of one torch._int_mm (int8) or torch.matmul on bf16 (e4m3) per expert",
+             bound_ms=main["bound_ms"], bound_by=main["bound_by"], shapes=detail)
+        rows_out.append(dict(name=name, source="hpc_ops_tpu_torch/csrc/group_gemm.cu",
+                             replaces="hpc_ops_tpu/ops/group_gemm.py:148", max_abs_err=err,
+                             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                             bound_by=main["bound_by"], library_ms=main["library_loop_ms"]))
+    return rows_out
+
+
+def moe_int8_args(inp, shape, rank_ep=0, size_ep=1, interleaved=True):
+    """fuse_moe_pertensor_int8's arguments at ``shape`` for the local experts
+    of one expert-parallel rank."""
+    c = inp[shape]
+    local = slice(rank_ep * MOE_E // size_ep, (rank_ep + 1) * MOE_E // size_ep)
+    gw = inp["gw8_il" if interleaved else "gw8"][local]
+    return (c["x8"], gw, inp["dw8"][local], inp["gs8"][local], inp["ds8"][local], inp["act8"],
+            c["ids"], c["ts"], rank_ep, MOE_E)
+
+
+def check_moe_pipeline_int8(dev, inp):
+    """The int8 MoE on expert-parallel rank 1 of 2 at the decode shape: fused
+    (activation in the gate-up GEMM, aligned down GEMM), unfused (int8 scatter
+    GEMMs around the activation kernel) and impl="ref" (plain, the interleave
+    undone), the fused one under sync debug mode."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.moe import fuse_moe_pertensor_int8
+
+    fused_args = moe_int8_args(inp, "decode", 1, 2)
+    plain_args = moe_int8_args(inp, "decode", 1, 2, interleaved=False)
+    fused = fuse_moe_pertensor_int8(*fused_args, gate_up_interleaved=True)
+    unfused = fuse_moe_pertensor_int8(*plain_args)
+    ref = fuse_moe_pertensor_int8(*fused_args, gate_up_interleaved=True, impl="ref").float()
+    torch.cuda.synchronize()
+    tol = 2e-2 * float(ref.abs().max())
+    for name, got in (("fused", fused), ("unfused", unfused)):
+        if not torch.isfinite(got.float()).all() or not torch.allclose(got.float(), ref, atol=tol, rtol=2e-2):
+            raise AssertionError(f"moe_pipeline_int8: {name} disagrees with impl='ref' (max err "
+                                 f"{float((got.float() - ref).abs().max())}, limit {tol} + 2%)")
+    torch.cuda.set_sync_debug_mode("error")  # a device-to-host copy of a count would raise
+    try:
+        again = fuse_moe_pertensor_int8(*fused_args, gate_up_interleaved=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not torch.equal(again, fused):
+        raise AssertionError("moe_pipeline_int8: two fused calls differ")
+    times = {}
+    for shape in ("decode", "prefill_512"):
+        fa, pa = moe_int8_args(inp, shape, 1, 2), moe_int8_args(inp, shape, 1, 2, interleaved=False)
+        times[shape] = dict(
+            fused_ms=time_ms(lambda: fuse_moe_pertensor_int8(*fa, gate_up_interleaved=True), 10),
+            unfused_ms=time_ms(lambda: fuse_moe_pertensor_int8(*pa), 10))
+    emit("moe_pipeline_int8", shape="decode", rank_ep="1 of 2", output_max=float(ref.abs().max()),
+         fused_max_abs_err=float((fused.float() - ref).abs().max()),
+         unfused_max_abs_err=float((unfused.float() - ref).abs().max()),
+         fused_equals_unfused=bool(torch.equal(fused, unfused)), sync_debug_mode_raised=False,
+         ms=times)
+
+
+def ops_moe(dev, inp):
+    """The MoE entry points that the serving runs do not reach, each once at
+    Mixtral width with the launch counts set to 0 before the call and read
+    after it, against its impl="ref": fuse_moe_pertensor_fp8(impl="gather")
+    (row 11 over e4m3), the unfused fuse_moe_pertensor_int8 (row 15 over
+    int8 operands), and the packed group_gemm_pertensor_fp8 / group_gemm_fp8
+    / group_gemm_pertensor_int8. Returns {kernels-line name: launches}."""
+    import torch
+
+    from hpc_ops_tpu_torch import kernels
+    from hpc_ops_tpu_torch.ops import group_gemm as gg
+    from hpc_ops_tpu_torch.ops.moe import fuse_moe_pertensor_fp8, fuse_moe_pertensor_int8
+
+    c = inp["prefill_200"]
+    fp8_args = (c["x"], inp["gw"], inp["dw"], inp["gs"], inp["ds"], inp["act"], c["ids"], c["ts"], 0, MOE_E)
+    int8_args = moe_int8_args(inp, "prefill_200", interleaved=False)
+    seqlens = torch.tensor(c["seqlens"], dtype=torch.int32, device=dev)
+    cu = torch.zeros(MOE_E + 1, dtype=torch.int32, device=dev)
+    cu[1:] = torch.cumsum(seqlens, 0)
+    total = int(cu[-1])
+    xp = {"fp8": torch.randn((total, MOE_H), device=dev).mul_(FP8_STD).to(torch.float8_e4m3fn),
+          "int8": torch.randn((total, MOE_H), device=dev).mul_(I8_STD).round_().clamp_(-127, 127)
+          .to(torch.int8)}
+
+    def packed(fn, key, w, sc):
+        return lambda **kw: fn(xp[key], w, seqlens, cu, sc, **kw)
+
+    forms = {  # name: (kernels-line name, expected launches, call taking impl=)
+        "fuse_moe_pertensor_fp8(impl='gather')": (
+            "gg_pertensor_e4m3", {"gg_pertensor": 2, "act_quant": 1, "moe_reduce": 1},
+            lambda impl: fuse_moe_pertensor_fp8(*fp8_args, impl="gather" if impl == "auto" else impl)),
+        "fuse_moe_pertensor_int8 (unfused)": (
+            "gg_scatter_i8", {"gg_scatter_i8": 2, "act_quant": 1, "moe_reduce": 1},
+            lambda impl: fuse_moe_pertensor_int8(*int8_args, impl=impl)),
+        "group_gemm_pertensor_fp8": ("gg_scatter", {"gg_scatter": 1}, lambda impl: packed(
+            gg.group_gemm_pertensor_fp8, "fp8", inp["gw"], inp["gs"])(impl=impl)),
+        "group_gemm_fp8": ("gg_scatter", {"gg_scatter": 1}, lambda impl: packed(
+            gg.group_gemm_fp8, "fp8", inp["gw"], inp["gs"])(impl=impl)),
+        "group_gemm_pertensor_int8": ("gg_scatter_i8", {"gg_scatter_i8": 1}, lambda impl: packed(
+            gg.group_gemm_pertensor_int8, "int8", inp["gw8"], inp["gs8"])(impl=impl)),
+    }
+    launches, errs = {}, {}
+    for name, (row, expect, call) in forms.items():
+        want = call("ref").float()
+        kernels.reset_launch_counts()
+        got = call("auto").float()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        if counts != {**{n: 0 for n in counts}, **expect}:
+            raise AssertionError(f"ops_moe {name}: launch counts {counts}, expected {expect}")
+        tol = 2e-2 * float(want.abs().max())
+        if not torch.isfinite(got).all() or not torch.allclose(got, want, atol=tol, rtol=2e-2):
+            raise AssertionError(f"ops_moe {name}: the entry point disagrees with its impl='ref' "
+                                 f"(max err {float((got - want).abs().max())}, limit {tol} + 2%)")
+        errs[name] = float((got - want).abs().max())
+        counted = {"gg_pertensor_e4m3": "gg_pertensor"}.get(row, row)
+        launches[row] = launches.get(row, 0) + counts[counted]
+    emit("ops_moe", launches=launches, max_abs_err=errs)
+    return launches
+
+
 # -------------------------------------------------------------------- slice
 def first_steps(llama, cfg, w, dev):
     """Prefill 7 and 5 tokens for two requests, then decode one token each."""
@@ -1004,7 +1339,7 @@ def first_steps(llama, cfg, w, dev):
     return lp.float().cpu(), ld.float().cpu()
 
 
-def slice_tiny(dev, phase="slice_tiny", **cfg_kw):
+def slice_tiny(dev, phase="slice_tiny", moe_scheme=None, **cfg_kw):
     import torch
 
     from hpc_ops_tpu_torch.models import llama
@@ -1012,6 +1347,8 @@ def slice_tiny(dev, phase="slice_tiny", **cfg_kw):
     from hpc_ops_tpu_torch.utils.testing import assert_greedy_match, top2_margin
 
     cfg = llama.tiny_config(**cfg_kw)
+    if moe_scheme is not None:
+        cfg = cfg._replace(moe=cfg.moe._replace(scheme=moe_scheme))
     w_cpu = llama.init_weights(cfg, torch.Generator().manual_seed(0), device="cpu")
     w_gpu = {**{k: v.to(dev) for k, v in w_cpu.items() if k != "layers"},
              "layers": [{k: v.to(dev) for k, v in layer.items()} for layer in w_cpu["layers"]]}
@@ -1110,7 +1447,16 @@ class DecodeProfile:
         }
 
 
-MOE_KERNELS = ("gg_scatter", "act_quant", "moe_reduce")
+# launches of each MoE kernel in one forward call, per layer, by scheme
+MOE_PER_CALL = {
+    "pertensor_fp8": {"gg_scatter": 2, "act_quant": 1, "moe_reduce": 1},
+    "pertensor_int8": {"gg_scatter_i8_act": 1, "gg_pertensor": 1, "moe_reduce": 1},
+}
+# profile classes of the MoE kernels, the longer names first (a kernel takes
+# the first class whose name it contains)
+MOE_CLASSES = ("gg_scatter_i8_act", "gg_scatter_i8", "gg_scatter", "gg_pertensor", "act_quant",
+               "moe_reduce")
+MOE_KERNELS = tuple(MOE_PER_CALL["pertensor_fp8"])
 # (RoPE store, decode, prefill) wrappers of each KV path
 BF16_KERNELS = ("rope_store", "paged_decode", "paged_prefill")
 INT8_KERNELS = ("rope_store_int8", "paged_decode_nhd_fused", "paged_prefill_nhd_fused")
@@ -1169,7 +1515,7 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
                 profiled = DecodeProfile(torch, {
                     **{sub: k for sub, k in zip(("rope_store", "paged_decode", "paged_prefill"),
                                                 kernels_used) if k},
-                    **{k: k for k in MOE_KERNELS}})
+                    **{k: k for k in MOE_CLASSES}})
             torch.cuda.synchronize()
             t = time.perf_counter()
             if not eng.step():
@@ -1196,9 +1542,8 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
     st = eng.stats
     n_pre, n_dec = st["prefill_dispatches"], st["decode_dispatches"]
     per_step = {k: n for k, n in zip(kernels_used, (n_dec, n_dec, n_pre)) if k}
-    if cfg.moe is not None:  # every call: two grouped GEMMs, one activation, one reduce a layer
-        per_step.update(gg_scatter=2 * (n_dec + n_pre), act_quant=n_dec + n_pre,
-                        moe_reduce=n_dec + n_pre)
+    if cfg.moe is not None:  # every call, the scheme's MoE kernels in every layer
+        per_step.update({k: v * (n_dec + n_pre) for k, v in MOE_PER_CALL[cfg.moe.scheme].items()})
     expect = {k: per_step.get(k, 0) * cfg.layers for k in counts}
     if counts != expect or min(counts[k] for k in per_step) == 0:
         raise AssertionError(f"{phase}: launch counts {counts} != expected {expect}")
@@ -1338,14 +1683,14 @@ def slice_full_w8a8(dev, w, bf16_prefill_logits):
     return counts
 
 
-def mixtral_8x7b():
-    """The published Mixtral-8x7B-v0.1 widths, experts as per-tensor fp8."""
+def mixtral_8x7b(scheme="pertensor_fp8"):
+    """The published Mixtral-8x7B-v0.1 widths, experts as per-tensor fp8 (or int8)."""
     from hpc_ops_tpu_torch.models import llama
 
     return llama.ModelConfig(
         vocab=32000, hidden=4096, layers=32, q_heads=32, kv_heads=8, head_dim=128,
         intermediate=14336, rope_base=1e6, residual_alpha=1.0 / 8,
-        moe=llama.MoEConfig(num_experts=8, topk=2, expert_intermediate=14336),
+        moe=llama.MoEConfig(num_experts=8, topk=2, expert_intermediate=14336, scheme=scheme),
     )
 
 
@@ -1360,12 +1705,73 @@ def slice_full_moe(dev):
     torch.cuda.synchronize()
     emit("init_weights", config="mixtral_8x7b", seconds=time.perf_counter() - t0,
          memory_allocated_bytes=torch.cuda.memory_allocated())
-    stats, counts, _, eng, profiled = serve_full(dev, cfg, w, "slice_full_moe", BF16_KERNELS,
-                                                 config="mixtral_8x7b", longest=512)
+    stats, counts, prefill_logits, eng, profiled = serve_full(
+        dev, cfg, w, "slice_full_moe", BF16_KERNELS, config="mixtral_8x7b", longest=512)
     del eng, w
     torch.cuda.empty_cache()
     emit("slice_full_moe", moe=cfg.moe._asdict(), **stats)
     emit("decode_profile_moe", **profiled.summary())
+    return counts, prefill_logits
+
+
+def slice_full_moe_int8(dev, fp8_prefill_logits):
+    """The same Mixtral widths with int8 experts (MoEConfig(scheme="pertensor_int8")),
+    drawn from the same seed as the fp8 run's (the same float32 masters), after
+    the fp8 experts are freed: launch counts exact (the fused gate-up GEMM,
+    the aligned down GEMM and the reduce once per layer and call, no
+    activation kernel), each prefill's last-token logits within cosine 0.97
+    of the fp8 run's (the bar of tests/test_model.py's int8 MoE test), one
+    device-to-host copy per profiled decode step, and the share of
+    activation codes at +-127 over a prefill of the prompts."""
+    import torch
+
+    from hpc_ops_tpu_torch.models import llama
+    from hpc_ops_tpu_torch.ops import moe
+    from hpc_ops_tpu_torch.runtime.engine import Engine
+
+    cfg = mixtral_8x7b("pertensor_int8")
+    t0 = time.perf_counter()
+    w = llama.init_weights(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    emit("init_weights", config="mixtral_8x7b int8", seconds=time.perf_counter() - t0,
+         memory_allocated_bytes=torch.cuda.memory_allocated())
+    stats, counts, prefill_logits, eng, profiled = serve_full(
+        dev, cfg, w, "slice_full_moe_int8", BF16_KERNELS, config="mixtral_8x7b", longest=512)
+    cos = [float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+           for a, b in zip(prefill_logits, fp8_prefill_logits)]
+    if len(cos) != len(fp8_prefill_logits) or min(cos) < 0.97:
+        raise AssertionError(f"slice_full_moe_int8: prefill logits at cosines {cos} of the fp8 "
+                             "MoE run's (limit 0.97)")
+    del eng
+    # saturation: activation codes at +-127 among the codes of real slots,
+    # over one prefill of the prompts (counted outside the timed run)
+    real, sat = moe.gg_scatter, torch.zeros(2, dtype=torch.int64, device=dev)
+
+    def counting(x, weight, y_scale, row_idx, grp, tm, *a, **kw):
+        out = real(x, weight, y_scale, row_idx, grp, tm, *a, **kw)
+        if kw.get("act_fuse"):
+            codes = out[: row_idx.shape[0]][row_idx >= 0]
+            sat[0] += (codes.abs() == 127).sum()
+            sat[1] += codes.numel()
+        return out
+
+    moe.gg_scatter = counting  # the MoE's own reference to the wrapper
+    try:
+        Engine(cfg, w, num_blocks=NUM_BLOCKS, block_size=BS, max_batch=8, device=dev).run(
+            full_prompts(cfg.vocab, 512)[1], max_new=1)
+    finally:
+        moe.gg_scatter = real
+    n_sat, n_codes = (int(v) for v in sat.cpu())
+    del w
+    torch.cuda.empty_cache()
+    emit("slice_full_moe_int8", moe=cfg.moe._asdict(), prefill_cosine_vs_fp8=cos,
+         prefill_cosine_min=min(cos), saturated_act_codes=n_sat, act_codes=n_codes,
+         saturated_share=n_sat / max(n_codes, 1), **stats)
+    profile = profiled.summary()
+    emit("decode_profile_moe_int8", **profile)
+    if profile["device_to_host_copies_per_step"] != 1:
+        raise AssertionError("slice_full_moe_int8: a decode step copies to the host "
+                             f"{profile['device_to_host_copies_per_step']} times (expected 1)")
     return counts
 
 
@@ -1403,6 +1809,10 @@ def main() -> int:
     rows += [check_gg_scatter(dev, moe_inp), check_act_quant(dev, moe_inp),
              check_moe_reduce(dev, moe_inp)]
     check_moe_pipeline(dev, moe_inp)
+    int8_rows = [check_gg_scatter_i8(dev, moe_inp), check_gg_scatter_i8_act(dev, moe_inp),
+                 *check_gg_pertensor(dev, moe_inp)]
+    check_moe_pipeline_int8(dev, moe_inp)
+    launches_moe_ops = ops_moe(dev, moe_inp)
     del moe_inp
     torch.cuda.empty_cache()
     fp8_rows = check_decode_fp8(dev, gen) + check_prefill_fp8(dev, gen)
@@ -1412,6 +1822,7 @@ def main() -> int:
     slice_tiny(dev, "slice_tiny_int8", int8_kv=True, kv_scale=0.02)
     slice_tiny(dev, "slice_tiny_moe", moe=True)
     slice_tiny(dev, "slice_tiny_fp8", fp8_kv=True)
+    slice_tiny(dev, "slice_tiny_moe_int8", moe_scheme="pertensor_int8", moe=True)
 
     from hpc_ops_tpu_torch.models import llama
 
@@ -1428,7 +1839,8 @@ def main() -> int:
     # the fp8 experts of the MoE model (45 GB) need the room of the llama3_8b weights
     del w, bf16_prefill_logits
     torch.cuda.empty_cache()
-    counts_moe = slice_full_moe(dev)
+    counts_moe, fp8_moe_prefill_logits = slice_full_moe(dev)
+    counts_moe_int8 = slice_full_moe_int8(dev, fp8_moe_prefill_logits)
     for r in rows:
         # each kernel's launches on its own path's run
         by_path = counts_int8 if r["name"] in INT8_KERNELS else (
@@ -1442,13 +1854,20 @@ def main() -> int:
         r["launches"] = (counts_fp8[served[r["name"]]] if r["name"] in served
                          else launches_ops[r["name"]])
     rows += fp8_rows
+    # the int8 MoE forms: the int8 serving run launched the fused gate-up GEMM
+    # and the int8 aligned GEMM; ops_moe reached the unfused int8 GEMM and the
+    # e4m3 aligned GEMM
+    for r in int8_rows:
+        r["launches"] = (counts_moe_int8[r["name"]] if r["name"] in MOE_PER_CALL["pertensor_int8"]
+                         else launches_moe_ops[r["name"]])
+    rows += int8_rows
     for r in rows:
         r["route"] = "cuda"
         r["kernel_ms"] = r["ms"]
         if r["launches"] < 1:
             raise AssertionError(f"kernel {r['name']} was never launched on its path")
     emit("launches", bf16=counts, int8_kv=counts_int8, fp8_kv=counts_fp8, w8a8=counts_w8a8,
-         moe=counts_moe, ops_fp8=launches_ops)
+         moe=counts_moe, moe_int8=counts_moe_int8, ops_fp8=launches_ops, ops_moe=launches_moe_ops)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

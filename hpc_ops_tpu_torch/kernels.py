@@ -41,6 +41,9 @@ _SIGNATURES = {
     "hpc_paged_prefill": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 7 + [_I] * 8 + [_F, _P],
     "hpc_paged_prefill_nhd_fused": [_P, _P, _I] + [_P] * 6 + [_I] * 7 + [_F, _P],
     "hpc_gg_scatter_e4m3": [_P] * 7 + [_I] * 4 + [_P],
+    "hpc_gg_scatter_i8": [_P] * 7 + [_I] * 4 + [_P],
+    "hpc_gg_scatter_i8_act": [_P] * 8 + [_I] * 6 + [_P],
+    "hpc_gg_pertensor": [_P] * 7 + [_I] * 5 + [_P],
     "hpc_act_mul_quant": [_P] * 4 + [_I] * 4 + [_P],
     "hpc_moe_reduce": [_P] * 5 + [_I] * 3 + [_P],
 }
@@ -133,7 +136,12 @@ def wrappers() -> dict:
         paged_prefill_nhd_fused,
     )
     from hpc_ops_tpu_torch.ops.activation import act_quant
-    from hpc_ops_tpu_torch.ops.group_gemm import gg_scatter
+    from hpc_ops_tpu_torch.ops.group_gemm import (
+        gg_pertensor,
+        gg_scatter,
+        gg_scatter_i8,
+        gg_scatter_i8_act,
+    )
     from hpc_ops_tpu_torch.ops.moe import moe_reduce
     from hpc_ops_tpu_torch.ops.rope_kernel import rope_store_rows, rope_store_rows_int8
 
@@ -148,6 +156,9 @@ def wrappers() -> dict:
         "act_quant": act_quant,
         "moe_reduce": moe_reduce,
         "paged_decode_qt0": paged_decode_qt0,
+        "gg_scatter_i8": gg_scatter_i8,
+        "gg_scatter_i8_act": gg_scatter_i8_act,
+        "gg_pertensor": gg_pertensor,
     }
 
 

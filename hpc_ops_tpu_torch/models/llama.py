@@ -1,14 +1,18 @@
 """Llama-class decoder on the port's operator stack (port of
 ``models/llama.py``, single-device path; bf16, int8 or fp8 KV; dense bf16 or
-W8A8 projections; dense or fp8-MoE MLP).
+W8A8 projections; dense, fp8-MoE or int8-MoE MLP).
 
 Weights are a plain dict of tensors with the JAX package's layout:
 ``{"embed", "final_norm", "lm_head", "cos_sin", "layers": [{"attn_norm",
 "wqkv", "wo", "mlp_norm", "w_gate_up", "w_down"}, ...]}``; projections are
 ``x @ w`` with ``w`` of shape [in, out]. With ``cfg.moe`` a layer holds
 ``"router"`` [H, E] and the experts ``"moe_gate_up"`` [E, 2I, H] and
-``"moe_down"`` [E, H, I] as float8_e4m3fn with one float32 scale per expert
-(``"moe_gate_up_scale"``, ``"moe_down_scale"``) in place of the dense MLP.
+``"moe_down"`` [E, H, I] with one float32 scale per expert
+(``"moe_gate_up_scale"``, ``"moe_down_scale"``) in place of the dense MLP:
+float8_e4m3fn codes, or with ``MoEConfig(scheme="pertensor_int8")`` int8
+codes, the gate-up rows interleaved (``interleave_gate_up``) and the
+activation's int8 scale ``"moe_act_scale"`` [1] folded out of the down
+scales.
 With ``dense_int8`` the dense projections (``wqkv``, ``wo``, ``w_gate_up``,
 ``w_down``) are int8 codes with one float32 scale per output column
 (``<name>_scale``) and run as W8A8 products (:func:`_mm_w8a8`).
@@ -24,9 +28,10 @@ Each layer: RMSNorm, the QKV projection, RoPE fused with the paged KV store
 ``int8_kv``; with ``fp8_kv`` a plain-PyTorch store that also quantises q
 per token and head), paged attention (prefill or decode kernel, reading the cache
 in place), the o-projection with residual add, RMSNorm and the gated-SiLU
-MLP: dense, or routed to the top-k experts through the fused fp8 MoE
-(``ops/moe.py``: scatter grouped GEMM, activation + quantisation, top-k
-reduce kernels).
+MLP: dense, or routed to the top-k experts through the fused MoE
+(``ops/moe.py``): fp8, the scatter grouped GEMM, activation + quantisation
+and top-k reduce kernels; int8, the gate-up GEMM with the activation in its
+epilogue, the aligned down GEMM and the reduce kernel.
 """
 
 from __future__ import annotations
@@ -40,7 +45,11 @@ import torch
 from hpc_ops_tpu_torch.config import FP8_DTYPE, FP8_MAX, QuantPolicy
 from hpc_ops_tpu_torch.ops.attention.decode import attention_decode
 from hpc_ops_tpu_torch.ops.attention.prefill import attention_with_kvcache_prefill
-from hpc_ops_tpu_torch.ops.moe import fuse_moe_pertensor_fp8
+from hpc_ops_tpu_torch.ops.moe import (
+    fuse_moe_pertensor_fp8,
+    fuse_moe_pertensor_int8,
+    interleave_gate_up,
+)
 from hpc_ops_tpu_torch.ops.normalization import rmsnorm_ref
 from hpc_ops_tpu_torch.ops.rope import (
     make_cos_sin_cache,
@@ -55,9 +64,12 @@ from hpc_ops_tpu_torch.ops.sampler import (
 
 
 class MoEConfig(NamedTuple):
-    """MoE geometry. ``scheme``: "pertensor_fp8" (one scale per expert weight,
-    fp8 codes; served) or the JAX package's "blockwise_int8" and
-    "pertensor_int8" (later slices)."""
+    """MoE geometry. ``scheme``: "pertensor_fp8" (one scale for all expert
+    weights, fp8 codes), "pertensor_int8" (one scale per expert, int8 codes,
+    the gate-up weight interleaved so that the gate-up GEMM applies the
+    activation in its epilogue; ``act_clip`` is the |silu(gate) * up| range
+    mapped onto the int8 codes) or the JAX package's "blockwise_int8" (a
+    later slice)."""
 
     num_experts: int = 8
     topk: int = 2
@@ -117,7 +129,8 @@ def check_supported(cfg: ModelConfig, axis_name=None) -> None:
     moe_scheme = None if cfg.moe is None else cfg.moe.scheme
     later = {
         f"moe scheme {moe_scheme!r}": (
-            "ROADMAP queue 1 item 3 (MoE)", moe_scheme not in (None, "pertensor_fp8")),
+            "ROADMAP queue 1 item 3 (MoE)",
+            moe_scheme not in (None, "pertensor_fp8", "pertensor_int8")),
         "qkv_bias": ("ROADMAP queue 1 item 7 (checkpoint conversion)", cfg.qkv_bias),
         "axis_name": ("ROADMAP queue 1 item 8 (multi-GPU)", axis_name is not None),
     }
@@ -152,10 +165,16 @@ def init_weights(
         return torch.ones((n,), dtype=torch.float32, device=device)
 
     def experts(fan_in, shape):
-        """Per-tensor fp8 expert weights [E, N, K] and their [E] scales. The
-        float32 master of one tensor is the only transient."""
+        """Expert weights [E, N, K] and their [E] scales: fp8 codes at one
+        scale for the tensor, or (pertensor_int8) int8 codes at one scale per
+        expert, ``max|w_e| / 127 + 1e-12``. Both schemes draw the same float32
+        master, the only transient."""
         w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         w.div_(math.sqrt(fan_in))
+        if cfg.moe.scheme == "pertensor_int8":
+            scale = w.abs().amax(dim=(1, 2)) / 127.0 + 1e-12
+            w8 = w.div_(scale[:, None, None]).round_().clamp_(-127, 127).to(torch.int8)
+            return w8, scale
         scale = w.abs().max() / FP8_MAX
         w.div_(scale)
         return w.to(FP8_DTYPE), scale.expand(shape[0]).contiguous()
@@ -178,6 +197,13 @@ def init_weights(
                 h, (m.num_experts, 2 * m.expert_intermediate, h))
             layer["moe_down"], layer["moe_down_scale"] = experts(
                 m.expert_intermediate, (m.num_experts, h, m.expert_intermediate))
+            if m.scheme == "pertensor_int8":
+                act_scale = torch.full((1,), 127.0 / m.act_clip, dtype=torch.float32,
+                                       device=device)
+                layer["moe_gate_up"] = interleave_gate_up(layer["moe_gate_up"])
+                # the activation's int8 scale is undone in the down GEMM's
+                layer["moe_down_scale"] = layer["moe_down_scale"] / act_scale[0]
+                layer["moe_act_scale"] = act_scale
         if cfg.dense_int8:
             for name in ("wqkv", "wo") + (("w_gate_up", "w_down") if cfg.moe is None else ()):
                 layer[name], layer[name + "_scale"] = quantize_w8(layer[name])
@@ -256,7 +282,8 @@ def weights_from_numpy(tree, device="cuda"):
     bfloat16 and float8_e4m3fn arrays (numpy's ml_dtypes types) are carried
     over bit-exactly through integer views, so both packages compute the same
     function. int8 weight matrices (``dense_int8``) keep their values and
-    shape and become column-major in memory.
+    shape and become column-major in memory; the 3-D int8 expert tensors of
+    ``pertensor_int8`` stay row-major, as the grouped GEMMs read them.
     """
     if isinstance(tree, dict):
         return {k: weights_from_numpy(v, device) for k, v in tree.items()}
@@ -297,16 +324,34 @@ def _mlp_dense(h_normed, layer):
 
 
 def _mlp_moe(h_normed, layer, cfg: ModelConfig, rank_ep: int, act_scale=None):
-    """Top-k routed experts through the fused per-tensor fp8 MoE. ``act_scale``
-    is the [1] float32 activation scale of 1 (a step builds it once for all
-    its layers)."""
+    """Top-k routed experts through the fused per-tensor MoE: fp8, where
+    ``act_scale`` is the [1] float32 activation scale of 1 (a step builds it
+    once for all its layers), or int8 (``pertensor_int8``: the layer's own
+    ``moe_act_scale``, the fused-activation path)."""
     m = cfg.moe
-    if act_scale is None:
-        act_scale = torch.ones((1,), dtype=torch.float32, device=h_normed.device)
     xf = h_normed.float()
     router_logits = xf @ layer["router"].float()
     topk_scale, topk_ids = torch.topk(router_logits, m.topk, dim=-1)
     topk_scale = torch.softmax(topk_scale, dim=-1)
+    if m.scheme == "pertensor_int8":
+        # per-tensor int8 activations, the scale never leaves the device
+        x_scale = xf.abs().max().clamp(min=1e-6) / 127.0
+        x8 = torch.round(xf / x_scale).clamp(-127, 127).to(torch.int8)
+        return fuse_moe_pertensor_int8(
+            x8,
+            layer["moe_gate_up"],
+            layer["moe_down"],
+            layer["moe_gate_up_scale"] * x_scale,
+            layer["moe_down_scale"],
+            layer["moe_act_scale"],
+            topk_ids.to(torch.int32),
+            topk_scale,
+            rank_ep,
+            m.num_experts,
+            gate_up_interleaved=True,
+        )
+    if act_scale is None:
+        act_scale = torch.ones((1,), dtype=torch.float32, device=h_normed.device)
     # quantize activations per-tensor for the fp8 MoE
     x_scale = xf.abs().max().clamp(min=1e-6) / FP8_MAX
     x8 = (xf / x_scale).to(FP8_DTYPE)

@@ -1,18 +1,22 @@
 """Grouped GEMM over varlen token groups (port of ``ops/group_gemm.py``).
 
-Ported: the scatter grouped GEMM with one scale per group
-(``group_gemm_fp8_scatter`` over :func:`gg_scatter`, the CUDA kernel of
-``csrc/group_gemm.cu``), the flat m-tile bookkeeping it shares with the MoE
-routing (``_flat_tiles``, ``_pick_tm``, ``cdiv_dyn``) and the float32 oracle
-``group_gemm_ref``. Every group's rows are padded to the m-tile ``tm`` so that
-group regions tile the row space exactly: ``grp[t]`` names the group of flat
-tile ``t`` and ``row_idx[slot]`` the source row of each aligned slot (-1:
-empty, its output row holds anything).
+Ported: the scatter grouped GEMM with one scale per group (:func:`gg_scatter`,
+e4m3 or int8 operands, and over int8 the MoE gate-up epilogue ``act_fuse``),
+the aligned grouped GEMM over pre-packed row blocks (:func:`gg_pertensor`),
+both CUDA kernels of ``csrc/group_gemm.cu``; the entry points over them
+(``group_gemm_fp8_scatter``, the packed ``group_gemm_pertensor_fp8`` /
+``group_gemm_fp8`` / ``group_gemm_pertensor_int8``); the flat m-tile
+bookkeeping they share with the MoE routing (``_flat_tiles``, ``_pick_tm``,
+``cdiv_dyn``) and the float32 oracle ``group_gemm_ref``. Every group's rows
+are padded to the m-tile ``tm`` so that group regions tile the row space
+exactly: ``grp[t]`` names the group of flat tile ``t`` and ``row_idx[slot]``
+the source row of each aligned slot (-1: empty, its output row holds
+anything).
 
-fp8 is ``torch.float8_e4m3fn``, decoded exactly; the products accumulate in
-float32 and the result is bf16. The packed-rows entry points and the
-blockwise-scale GEMMs are ROADMAP queue 1 item 3 and raise
-``NotImplementedError``.
+fp8 is ``torch.float8_e4m3fn``, decoded exactly, its products accumulated in
+float32; int8 products are summed exactly as integers and converted to
+float32 once. The result is bf16. The blockwise-scale GEMMs are ROADMAP
+queue 1 item 3 and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ import torch
 
 from hpc_ops_tpu_torch import kernels
 from hpc_ops_tpu_torch.config import FP8_DTYPE
-from hpc_ops_tpu_torch.utils.common import round_up
+from hpc_ops_tpu_torch.ops.activation import act_quant_ref
+from hpc_ops_tpu_torch.utils.common import cdiv, round_up
 
 _LATER = "is not ported yet: ROADMAP queue 1 item 3 (MoE)"
 
@@ -38,6 +43,19 @@ def _cu(counts: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((counts.shape[0] + 1,), dtype=torch.int32, device=counts.device)
     torch.cumsum(counts, 0, dtype=torch.int32, out=out[1:])
     return out
+
+
+def _operand(t: torch.Tensor) -> torch.Tensor:
+    """A GEMM operand for the plain versions: int8 codes in float64, whose
+    sums of int8 products stay exact integers (the card has no int32 matrix
+    product), anything else in float32."""
+    return t.double() if t.dtype == torch.int8 else t.float()
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [M, K] @ w [N, K]^T as float32: exact integer sums rounded once for
+    int8, float32 sums of exactly decoded values otherwise."""
+    return (_operand(x) @ _operand(w).T).float()
 
 
 # --------------------------------------------------------------------- refs
@@ -108,79 +126,260 @@ def _pick_tm(num_seq_per_group_avg: int, k: int | None = None) -> int:
 # ---------------------------------------------------------------- kernel path
 
 
-def gg_scatter_ref(x, weight, y_scale, row_idx, grp, tm, num_valid_tiles=None):
-    """Plain PyTorch version of :func:`gg_scatter` (float32 products, one
-    matmul per m-tile). Empty slots give 0 here and every tile is computed:
-    both are unspecified in the kernel's output."""
+def act_pair(n: int, pair: int | None = None) -> int:
+    """Rows of gate (and of up) in one interleaved block of an ``act_fuse``
+    gate-up weight with ``n`` rows: ``min(512, n) / 2`` unless given, the
+    ``h2`` of :func:`hpc_ops_tpu_torch.ops.moe.interleave_gate_up`."""
+    pair = min(512, n) // 2 if pair is None else pair
+    if pair < 1 or n % (2 * pair):
+        raise ValueError(f"act_fuse: {n} weight rows are not whole blocks of 2 * {pair}")
+    return pair
+
+
+def deinterleave_columns(y: torch.Tensor, pair: int):
+    """Columns of a GEMM over an interleaved gate-up weight -> (gate, up),
+    each [rows, n / 2] in the natural order of the intermediate columns."""
+    rows, n = y.shape
+    blocks = y.reshape(rows, n // (2 * pair), 2, pair)
+    return blocks[:, :, 0].reshape(rows, n // 2), blocks[:, :, 1].reshape(rows, n // 2)
+
+
+def gg_scatter_ref(x, weight, y_scale, row_idx, grp, tm, num_valid_tiles=None, *,
+                   act_fuse=False, act_scale=None, use_bf16_mul=True, pair=None):
+    """Plain PyTorch version of :func:`gg_scatter` (one product per m-tile:
+    float32 over decoded e4m3, exact integer sums over int8). Empty slots
+    give 0 here and every tile is computed (and with ``act_fuse`` the trash
+    tile is 0): all three are unspecified in the kernel's output."""
     del num_valid_tiles
     idx = row_idx.long()
-    xg = torch.where((idx >= 0)[:, None], _take(x, idx.clamp(min=0)).float(), 0.0)
+    xg = torch.where((idx >= 0)[:, None], _operand(_take(x, idx.clamp(min=0))), 0.0)
     n = weight.shape[1]
-    out = torch.empty((row_idx.shape[0], n), dtype=torch.bfloat16, device=x.device)
+    num_tiles = grp.shape[0]
+    if act_fuse:
+        pair = act_pair(n, pair)
+        out = torch.zeros(((num_tiles + 1) * tm, n // 2), dtype=torch.int8, device=x.device)
+    else:
+        out = torch.empty((num_tiles * tm, n), dtype=torch.bfloat16, device=x.device)
     g = grp.long()
-    for t in range(grp.shape[0]):
+    for t in range(num_tiles):
         rows = slice(t * tm, (t + 1) * tm)
-        w_t = _take(weight, g[t : t + 1])[0].float()
-        out[rows] = ((xg[rows] @ w_t.T) * y_scale.float()[g[t : t + 1]]).to(torch.bfloat16)
+        w_t = _operand(_take(weight, g[t : t + 1])[0])
+        y = ((xg[rows] @ w_t.T).float() * y_scale.float()[g[t : t + 1]]).to(torch.bfloat16)
+        if act_fuse:
+            gate, up = deinterleave_columns(y, pair)
+            y = act_quant_ref(torch.cat([gate, up], 1), act_scale, use_bf16_mul, torch.int8)
+        out[rows] = y
     return out
 
 
+def _check_operands(name, x, weight, y_scale, index_tensors):
+    """Device, type, shape and contiguity checks shared by the launchers.
+    Returns the element type code of the operands (0 int8, 1 e4m3)."""
+    if x.dtype != weight.dtype or x.dtype not in (torch.int8, FP8_DTYPE):
+        raise ValueError(f"{name}: x and weight must both be int8 or both float8_e4m3fn, "
+                         f"not {x.dtype} and {weight.dtype}")
+    g, n, k = weight.shape
+    if x.dim() != 2 or x.shape[1] != k:
+        raise ValueError(f"{name}: x must be [rows, K] for a weight of [G, N, K]")
+    if k % 16 or n % 2:
+        raise ValueError(f"{name}: the kernel takes K % 16 == 0 and even N")
+    if not (x.is_contiguous() and weight.is_contiguous()):
+        raise ValueError(f"{name}: x and weight must be contiguous")
+    for t in (weight, y_scale, *index_tensors):
+        if t.device != x.device:
+            raise ValueError(f"{name}: all tensors must be on one device")
+    if y_scale.shape[0] != g:
+        raise ValueError(f"{name}: one y_scale per group")
+    return 0 if x.dtype == torch.int8 else 1
+
+
+def _int32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def _valid_tiles(num_valid_tiles, num_tiles: int, dev) -> torch.Tensor:
+    if num_valid_tiles is None:
+        return torch.full((1,), num_tiles, dtype=torch.int32, device=dev)
+    # stays on the device: the kernel reads the count through the pointer
+    return torch.as_tensor(num_valid_tiles, device=dev).reshape(1).to(torch.int32).contiguous()
+
+
 def gg_scatter(
-    x: torch.Tensor,  # [rows, K] e4m3 (original, un-gathered rows)
-    weight: torch.Tensor,  # [G, N, K] e4m3
+    x: torch.Tensor,  # [rows, K] e4m3 or int8 (original, un-gathered rows)
+    weight: torch.Tensor,  # [G, N, K], x's type
     y_scale: torch.Tensor,  # [G] f32
     row_idx: torch.Tensor,  # [num_tiles * tm] int32 source row per slot, -1 empty
     grp: torch.Tensor,  # [num_tiles] int32 group of each m-tile
     tm: int,
     num_valid_tiles=None,  # [1] int32 on the device: tiles at or past it are skipped
+    *,
+    act_fuse: bool = False,
+    act_scale=None,  # [1] f32, with act_fuse
+    use_bf16_mul: bool = True,
+    pair: int | None = None,
 ) -> torch.Tensor:
     """``out[slot] = x[row_idx[slot]] @ weight[grp[slot // tm]]^T * y_scale[grp]``,
     [num_tiles * tm, N] bf16.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise. Empty slots and skipped tiles hold anything on the card.
+    ``act_fuse`` (int8 operands, a gate-up weight laid out by
+    ``interleave_gate_up``): the MoE's gate-up epilogue. Each slot's gate and
+    up values (rounded to bf16 as the GEMM would write them) become
+    ``clip(round(silu(gate) * up * act_scale[0]), +-127)`` int8 codes
+    (``use_bf16_mul`` as in ``act_mul_and_quant``) in natural column order:
+    [(num_tiles + 1) * tm, N / 2] int8, a trash tile included so that the
+    result feeds :func:`gg_pertensor` directly. ``pair`` is the interleave
+    block's half, ``min(512, N) / 2`` by default.
+
+    CPU tensors take the plain version; CUDA tensors launch a kernel (e4m3:
+    this wrapper's, int8: :func:`gg_scatter_i8` or :func:`gg_scatter_i8_act`)
+    or raise. Empty slots, skipped tiles and the trash tile hold anything on
+    the card.
     """
+    if act_fuse:
+        pair = act_pair(weight.shape[1], pair)
+        if act_scale is None:
+            raise ValueError("gg_scatter: act_fuse needs act_scale")
+        if weight.dtype != torch.int8:
+            raise ValueError("gg_scatter: the act_fuse epilogue takes int8 operands")
+    kw = dict(act_fuse=act_fuse, act_scale=act_scale, use_bf16_mul=use_bf16_mul, pair=pair)
     if x.device.type == "cpu":
-        return gg_scatter_ref(x, weight, y_scale, row_idx, grp, tm, num_valid_tiles)
+        return gg_scatter_ref(x, weight, y_scale, row_idx, grp, tm, num_valid_tiles, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"gg_scatter: unsupported device {x.device}")
-    if x.dtype != FP8_DTYPE or weight.dtype != FP8_DTYPE:
-        raise NotImplementedError(
-            f"gg_scatter: {x.dtype} x {weight.dtype} operands (int8, bf16) {_LATER}"
-        )
-    num_tiles = grp.shape[0]
-    g, n, k = weight.shape
-    if x.dim() != 2 or x.shape[1] != k or row_idx.shape[0] != num_tiles * tm:
-        raise ValueError("gg_scatter: x must be [rows, K] and row_idx [num_tiles * tm]")
-    if k % 16 or n % 2:
-        raise ValueError("gg_scatter: the kernel takes K % 16 == 0 and even N")
-    if not (x.is_contiguous() and weight.is_contiguous()):
-        raise ValueError("gg_scatter: x and weight must be contiguous")
-    dev = x.device
-    for t in (weight, y_scale, row_idx, grp):
-        if t.device != dev:
-            raise ValueError("gg_scatter: all tensors must be on one device")
-    if y_scale.shape[0] != g:
-        raise ValueError("gg_scatter: one y_scale per group")
-    sc = y_scale.to(torch.float32).contiguous()
-    rows = row_idx.to(torch.int32).contiguous()
-    groups = grp.to(torch.int32).contiguous()
-    if num_valid_tiles is None:
-        nvt = torch.full((1,), num_tiles, dtype=torch.int32, device=dev)
-    else:
-        # stays on the device: the kernel reads the count through the pointer
-        nvt = torch.as_tensor(num_valid_tiles, device=dev).reshape(1).to(torch.int32).contiguous()
-    out = torch.empty((num_tiles * tm, n), dtype=torch.bfloat16, device=dev)
-    rc = kernels.lib().hpc_gg_scatter_e4m3(
-        x.data_ptr(), weight.data_ptr(), sc.data_ptr(), rows.data_ptr(), groups.data_ptr(),
-        nvt.data_ptr(), out.data_ptr(), num_tiles, tm, n, k, kernels.stream_ptr(x),
-    )
+    if act_fuse:
+        return gg_scatter_i8_act(x, weight, y_scale, act_scale, row_idx, grp, tm, num_valid_tiles,
+                                 use_bf16_mul, pair)
+    if weight.dtype == torch.int8:
+        return gg_scatter_i8(x, weight, y_scale, row_idx, grp, tm, num_valid_tiles)
+    out, rc = _launch_scatter("hpc_gg_scatter_e4m3", x, weight, y_scale, row_idx, grp, tm,
+                              num_valid_tiles, FP8_DTYPE)
     kernels.check(rc, "hpc_gg_scatter_e4m3")
     gg_scatter.launches += 1
     return out
 
 
+def _launch_scatter(fn, x, weight, y_scale, row_idx, grp, tm, num_valid_tiles, dtype, act=None):
+    name = fn.removeprefix("hpc_")
+    _check_operands(name, x, weight, y_scale, (row_idx, grp))
+    if x.dtype != dtype:
+        raise ValueError(f"{name}: takes {dtype} operands, not {x.dtype}")
+    num_tiles = grp.shape[0]
+    if row_idx.shape[0] != num_tiles * tm:
+        raise ValueError(f"{name}: row_idx must be [num_tiles * tm]")
+    dev = x.device
+    sc = y_scale.to(torch.float32).contiguous()
+    nvt = _valid_tiles(num_valid_tiles, num_tiles, dev)
+    n, k = weight.shape[1], weight.shape[2]
+    # the converted index vectors stay referenced until the launch is queued
+    rows, groups = _int32(row_idx), _int32(grp)
+    common = (rows.data_ptr(), groups.data_ptr(), nvt.data_ptr())
+    if act is None:
+        out = torch.empty((num_tiles * tm, n), dtype=torch.bfloat16, device=dev)
+        rc = getattr(kernels.lib(), fn)(x.data_ptr(), weight.data_ptr(), sc.data_ptr(), *common,
+                                        out.data_ptr(), num_tiles, tm, n, k, kernels.stream_ptr(x))
+        return out, rc
+    act_scale, use_bf16_mul, pair = act
+    if pair % 64:
+        raise ValueError(f"{name}: the kernel takes interleave blocks of a multiple of 64 rows")
+    am = act_scale.reshape(1).to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.empty(((num_tiles + 1) * tm, n // 2), dtype=torch.int8, device=dev)
+    rc = getattr(kernels.lib(), fn)(
+        x.data_ptr(), weight.data_ptr(), sc.data_ptr(), am.data_ptr(), *common, out.data_ptr(),
+        num_tiles, tm, n, k, pair, int(bool(use_bf16_mul)), kernels.stream_ptr(x))
+    return out, rc
+
+
+def gg_scatter_i8(x, weight, y_scale, row_idx, grp, tm, num_valid_tiles=None):
+    """:func:`gg_scatter` over int8 operands on the card (exact int32 sums,
+    converted to float32, times ``y_scale[grp]``, rounded to bf16); CPU
+    tensors take the plain version."""
+    if x.device.type == "cpu":
+        return gg_scatter_ref(x, weight, y_scale, row_idx, grp, tm, num_valid_tiles)
+    out, rc = _launch_scatter("hpc_gg_scatter_i8", x, weight, y_scale, row_idx, grp, tm,
+                              num_valid_tiles, torch.int8)
+    kernels.check(rc, "hpc_gg_scatter_i8")
+    gg_scatter_i8.launches += 1
+    return out
+
+
+def gg_scatter_i8_act(x, weight, y_scale, act_scale, row_idx, grp, tm, num_valid_tiles=None,
+                      use_bf16_mul=True, pair=None):
+    """:func:`gg_scatter` with ``act_fuse`` on the card: the int8 gate-up GEMM
+    whose epilogue writes the activation's int8 codes; CPU tensors take the
+    plain version."""
+    pair = act_pair(weight.shape[1], pair)
+    if x.device.type == "cpu":
+        return gg_scatter_ref(x, weight, y_scale, row_idx, grp, tm, num_valid_tiles, act_fuse=True,
+                              act_scale=act_scale, use_bf16_mul=use_bf16_mul, pair=pair)
+    out, rc = _launch_scatter("hpc_gg_scatter_i8_act", x, weight, y_scale, row_idx, grp, tm,
+                              num_valid_tiles, torch.int8, (act_scale, use_bf16_mul, pair))
+    kernels.check(rc, "hpc_gg_scatter_i8_act")
+    gg_scatter_i8_act.launches += 1
+    return out
+
+
 gg_scatter.launches = 0
+gg_scatter_i8.launches = 0
+gg_scatter_i8_act.launches = 0
+
+
+def gg_pertensor_ref(x_al, weight, y_scale, grp, row_blk, tm, num_valid_tiles=None):
+    """Plain PyTorch version of :func:`gg_pertensor`. Rows that no valid tile
+    writes are 0 here and unspecified in the kernel's output."""
+    n = weight.shape[1]
+    out = torch.zeros((x_al.shape[0], n), dtype=torch.bfloat16, device=x_al.device)
+    nvt = grp.shape[0]
+    if num_valid_tiles is not None:
+        nvt = min(nvt, int(torch.as_tensor(num_valid_tiles).reshape(-1)[0]))
+    sc = y_scale.float()
+    for t in range(nvt):
+        r0, g = int(row_blk[t]) * tm, int(grp[t])
+        out[r0 : r0 + tm] = (_dot(x_al[r0 : r0 + tm], weight[g]) * sc[g]).to(torch.bfloat16)
+    return out
+
+
+def gg_pertensor(
+    x_al: torch.Tensor,  # [rows, K] e4m3 or int8, group rows in tm-aligned blocks
+    weight: torch.Tensor,  # [G, N, K], x_al's type
+    y_scale: torch.Tensor,  # [G] f32
+    grp: torch.Tensor,  # [num_tiles] int32 group of each m-tile
+    row_blk: torch.Tensor,  # [num_tiles] int32 row block of each m-tile
+    tm: int,
+    num_valid_tiles=None,  # [1] int32 on the device: tiles at or past it are skipped
+) -> torch.Tensor:
+    """Aligned grouped GEMM (``_gg_pertensor_pallas``): for each tile
+    ``t < num_valid_tiles``, rows ``row_blk[t]*tm .. +tm`` of the [rows, N]
+    bf16 output are ``x_al[same rows] @ weight[grp[t]]^T * y_scale[grp[t]]``.
+    No row index: a tile reads and writes whole row blocks. Rows no valid
+    tile covers hold anything on the card.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.
+    """
+    if x_al.device.type == "cpu":
+        return gg_pertensor_ref(x_al, weight, y_scale, grp, row_blk, tm, num_valid_tiles)
+    if x_al.device.type != "cuda":
+        raise ValueError(f"gg_pertensor: unsupported device {x_al.device}")
+    elem = _check_operands("gg_pertensor", x_al, weight, y_scale, (grp, row_blk))
+    num_tiles = grp.shape[0]
+    if row_blk.shape[0] != num_tiles or x_al.shape[0] % tm:
+        raise ValueError("gg_pertensor: one row block per tile, x_al in whole row blocks")
+    dev = x_al.device
+    n, k = weight.shape[1], weight.shape[2]
+    sc = y_scale.to(torch.float32).contiguous()
+    nvt = _valid_tiles(num_valid_tiles, num_tiles, dev)
+    groups, blocks = _int32(grp), _int32(row_blk)
+    out = torch.empty((x_al.shape[0], n), dtype=torch.bfloat16, device=dev)
+    rc = kernels.lib().hpc_gg_pertensor(
+        x_al.data_ptr(), weight.data_ptr(), sc.data_ptr(), groups.data_ptr(), blocks.data_ptr(),
+        nvt.data_ptr(), out.data_ptr(), num_tiles, tm, n, k, elem, kernels.stream_ptr(x_al),
+    )
+    kernels.check(rc, "hpc_gg_pertensor")
+    gg_pertensor.launches += 1
+    return out
+
+
+gg_pertensor.launches = 0
 
 
 # --------------------------------------------------------------- public API
@@ -215,6 +414,81 @@ def group_gemm_fp8_scatter(
     return gg_scatter(x, weight, y_scale, row_indices, grp, tm)
 
 
+def group_gemm_pertensor_fp8(
+    x,
+    weight,
+    seqlens,
+    cu_seqlens,
+    y_scale,
+    num_seq_per_group_avg: int | None = None,
+    *,
+    tn: int = 256,
+    tk: int = 512,
+    impl: str = "auto",
+):
+    """Per-group-scale grouped GEMM over packed rows: rows of group g ->
+    ``x_g @ W_g^T * y_scale[g]``.
+
+    x: [total_seq, K] e4m3 (or int8 with an int8 weight) packed by group;
+    weight: [G, N, K]; seqlens/cu_seqlens: [G]/[G+1] int32; y_scale: [G] f32.
+    Returns [total_seq, N] bf16. The slot -> row map of the tm-aligned
+    layout is vector math on the device (no host read), then
+    :func:`gg_scatter` fetches the rows by index and the result is gathered
+    back to packed rows. ``tn`` and ``tk`` are the TPU kernel's tile hints:
+    accepted and ignored. ``impl="ref"``: the float32 oracle.
+    """
+    del tn, tk
+    if impl == "ref":
+        return group_gemm_ref(x, weight, seqlens, cu_seqlens, y_scale)
+    total, k = x.shape
+    g = seqlens.shape[0]
+    if num_seq_per_group_avg is None:
+        # the m-tile follows the average group population; undersized tiles
+        # multiply the weight traffic
+        num_seq_per_group_avg = max(total // max(g, 1), 1)
+    tm = _pick_tm(num_seq_per_group_avg, k)
+    total_tiles_max = cdiv(total, tm) + g
+    seqlens = seqlens.to(device=x.device, dtype=torch.int32)
+    cu = cu_seqlens.to(device=x.device, dtype=torch.int32)
+    cu_tiles = _cu(cdiv_dyn(seqlens, tm))
+    total_tiles = cu_tiles[g:]
+    grp, _ = _tile_groups(cu_tiles, total_tiles_max)
+    slot = torch.arange(total_tiles_max * tm, dtype=torch.int32, device=x.device)
+    tile = slot // tm
+    g_of = grp.long()[tile.long()]
+    row_in_group = (tile - cu_tiles[g_of]) * tm + slot % tm
+    valid = (tile < total_tiles) & (row_in_group < seqlens[g_of])
+    row_idx = torch.where(valid, cu[g_of] + row_in_group, -1).to(torch.int32)
+    out_al = gg_scatter(x, weight, y_scale, row_idx, grp, tm, total_tiles)
+    # compact back: packed row -> its aligned slot
+    row = torch.arange(total, dtype=torch.int32, device=x.device)
+    req = torch.searchsorted(cu[1:].contiguous(), row, right=True).clamp(max=g - 1)
+    new_row = cu_tiles[req] * tm + (row - cu[req])
+    return out_al[new_row.long()]
+
+
+def group_gemm_fp8(x, weight, seqlens, cu_seqlens, y_scale, num_seq_per_group_avg=32, **kw):
+    """Alias of :func:`group_gemm_pertensor_fp8` (the JAX package keeps both names)."""
+    return group_gemm_pertensor_fp8(
+        x, weight, seqlens, cu_seqlens, y_scale, num_seq_per_group_avg, **kw
+    )
+
+
+def group_gemm_pertensor_int8(
+    x, weight, seqlens, cu_seqlens, y_scale, num_seq_per_group_avg=None, **kw
+):
+    """Per-group-scale INT8 grouped GEMM: :func:`group_gemm_pertensor_fp8`
+    with int8 x and weight (exact int32 sums on the card's int8 tensor-core
+    path). ``y_scale[g]`` folds both operand scales (x_scale * w_scale[g]);
+    quantise with :func:`hpc_ops_tpu_torch.ops.quant.scaled_int8_quant`."""
+    if x.dtype != torch.int8 or weight.dtype != torch.int8:
+        raise ValueError(f"group_gemm_pertensor_int8 takes int8 x and weight, not "
+                         f"{x.dtype} and {weight.dtype}")
+    return group_gemm_pertensor_fp8(
+        x, weight, seqlens, cu_seqlens, y_scale, num_seq_per_group_avg, **kw
+    )
+
+
 def _later(name):
     def raiser(*args, **kw):
         raise NotImplementedError(f"{name} {_LATER}")
@@ -224,9 +498,6 @@ def _later(name):
     return raiser
 
 
-group_gemm_pertensor_fp8 = _later("group_gemm_pertensor_fp8")
-group_gemm_fp8 = _later("group_gemm_fp8")
-group_gemm_pertensor_int8 = _later("group_gemm_pertensor_int8")
 group_gemm_blockwise_fp8 = _later("group_gemm_blockwise_fp8")
 group_gemm_blockwise_int8 = _later("group_gemm_blockwise_int8")
 group_gemm_blockwise_ref = _later("group_gemm_blockwise_ref")
@@ -244,5 +515,9 @@ __all__ = [
     "group_gemm_blockwise_ref",
     "reformat_x_scale",
     "gg_scatter",
+    "gg_scatter_i8",
+    "gg_scatter_i8_act",
     "gg_scatter_ref",
+    "gg_pertensor",
+    "gg_pertensor_ref",
 ]

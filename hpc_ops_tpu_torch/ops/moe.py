@@ -1,5 +1,5 @@
-"""Fused FP8 MoE: routing + grouped GEMMs + act-quant + top-k reduce (port of
-``ops/moe.py``, the per-tensor fp8 pipeline).
+"""Fused MoE: routing + grouped GEMMs + act-quant + top-k reduce (port of
+``ops/moe.py``, the per-tensor fp8 and int8 pipelines).
 
 EP semantics: routing ids are global; local experts are
 [rank_ep*E_local, (rank_ep+1)*E_local); off-rank tokens are dropped locally
@@ -11,13 +11,19 @@ slots, building only an index vector; both grouped GEMMs fetch their rows by
 index inside the kernel (``ops/group_gemm.py:gg_scatter``), so no
 expert-grouped copy of the tokens exists in memory; ``act_quant`` sits
 between them and :func:`reduce` gathers each token's k expert rows (a gather,
-not a scatter-add: no atomics). The routing is plain tensor code, as it is
-plain jnp in the JAX package, and never brings a count to the host: the
-number of tiles that hold real rows reaches the kernels as a device scalar.
+not a scatter-add: no atomics). With int8 weights and
+``gate_up_interleaved=True`` (the int8 serving path) the gate-up GEMM writes
+the activation's int8 codes from its own accumulators (``act_fuse``) into the
+tile-aligned layout, and the down GEMM reads them by whole row blocks
+(``gg_pertensor``): no bf16 intermediate, no activation launch, no row
+gather. The routing is plain tensor code, as it is plain jnp in the JAX
+package, and never brings a count to the host: the number of tiles that hold
+real rows reaches the kernels as a device scalar.
 
-``impl="gather"``, ``gate_up_interleaved``, ``fuse_moe_pertensor_int8`` and
-the blockwise entry points are ROADMAP queue 1 item 3 and raise
-``NotImplementedError``.
+``impl="gather"`` copies the tokens into the expert-grouped aligned layout
+and runs both GEMMs as ``gg_pertensor``; ``impl="ref"`` is the plain float32
+pipeline over that copy. The blockwise entry points are ROADMAP queue 1
+item 3 and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,14 +36,16 @@ from hpc_ops_tpu_torch import kernels
 from hpc_ops_tpu_torch.config import FP8_DTYPE
 from hpc_ops_tpu_torch.ops.activation import act_mul_and_quant
 from hpc_ops_tpu_torch.ops.group_gemm import (
-    _LATER,
     _cu,
+    _dot,
     _flat_tiles,
     _later,
     _pick_tm,
     _take,
     _tile_groups,
+    act_pair,
     cdiv_dyn,
+    gg_pertensor,
     gg_scatter,
 )
 from hpc_ops_tpu_torch.utils.common import cdiv
@@ -221,13 +229,40 @@ def reduce(x, topk_pos, topk_scale, shared_output=None, impl: str = "auto"):
 def _naive_group_gemm(xg, w, g: GatherResult, scale, tm):
     """Plain oracle over the aligned layout (for impl='ref')."""
     out = torch.zeros((xg.shape[0], w.shape[1]), dtype=torch.float32, device=xg.device)
-    xf = xg.float()
     for ei in range(w.shape[0]):
         s, length = int(g.cu_tiles[ei]) * tm, int(g.seqlens[ei])
         if length == 0:
             continue
-        out[s : s + length] = (xf[s : s + length] @ w[ei].float().T) * scale[ei]
+        out[s : s + length] = _dot(xg[s : s + length], w[ei]) * scale[ei]
     return out.to(torch.bfloat16)
+
+
+def interleave_gate_up(w, tn: int = 512):
+    """Pre-shuffle [E, 2I, K] gate-up weights for the fused-activation GEMM.
+
+    Output block j (of ``h2 = min(tn, 2I) / 2`` rows twice) holds gate rows
+    [j*h2, (j+1)*h2) followed by the matching up rows, so the GEMM epilogue
+    can apply silu(gate)*up on its own accumulator tile. A one-time
+    transform at weight load, bit for bit the JAX package's.
+    """
+    e, n2, k = w.shape
+    i = n2 // 2
+    h2 = min(tn, n2) // 2
+    if i % h2:
+        raise ValueError(f"interleave_gate_up: intermediate {i} is not a multiple of {h2}")
+    wb = w.view(torch.uint8) if w.dtype == FP8_DTYPE else w
+    out = torch.stack([wb[:, :i].reshape(e, i // h2, h2, k), wb[:, i:].reshape(e, i // h2, h2, k)],
+                      dim=2).reshape(e, n2, k)
+    return out.view(FP8_DTYPE) if w.dtype == FP8_DTYPE else out
+
+
+def _deinterleave_gate_up(w):
+    """Inverse of :func:`interleave_gate_up` at its default block: [gate; up]."""
+    e, n2, k = w.shape
+    h2 = act_pair(n2)
+    blocks = w.reshape(e, n2 // (2 * h2), 2, h2, k)
+    return torch.cat([blocks[:, :, 0].reshape(e, n2 // 2, k),
+                      blocks[:, :, 1].reshape(e, n2 // 2, k)], dim=1)
 
 
 def fuse_moe_pertensor_fp8(
@@ -248,18 +283,29 @@ def fuse_moe_pertensor_fp8(
     impl: str = "auto",
     gate_up_interleaved: bool = False,
 ):
-    """Per-tensor-scale FP8 fused MoE forward.
+    """Per-tensor-scale fused MoE forward over e4m3 (or, through
+    :func:`fuse_moe_pertensor_int8`, int8) operands.
 
-    x: [S, H] fp8; gate_up_weight: [E_local, 2I, H] fp8; down_weight:
-    [E_local, H, I] fp8; gate_up_scale/down_scale: [E_local] f32;
-    act_and_mul_scale: [1] f32; topk_ids/topk_scale: [S, K].
-    Returns [S, H] bf16. ``impl``: "auto"/"scatter" (the kernels) or "ref"
-    (plain float32 over an expert-grouped copy).
+    x: [S, H]; gate_up_weight: [E_local, 2I, H]; down_weight: [E_local, H, I];
+    gate_up_scale/down_scale: [E_local] f32; act_and_mul_scale: [1] f32;
+    topk_ids/topk_scale: [S, K]. Returns [S, H] bf16.
+
+    ``impl``: "auto"/"scatter" (the scatter kernels), "gather" (an
+    expert-grouped copy of the tokens and the aligned GEMM) or "ref" (plain
+    float32 over that copy). ``gate_up_interleaved`` (int8 weights only):
+    gate_up_weight was shuffled by :func:`interleave_gate_up`; the scatter
+    path then fuses the activation into the gate-up GEMM and runs the down
+    GEMM over aligned row blocks, ``impl="ref"`` undoes the shuffle first
+    (the JAX package's ``ref`` and ``gather`` read the shuffled rows as
+    [gate; up]), and ``impl="gather"`` refuses it.
     """
-    if gate_up_interleaved:
-        raise NotImplementedError(f"gate_up_interleaved (the fused-activation GEMM) {_LATER}")
-    if impl not in ("auto", "scatter", "ref"):
-        raise NotImplementedError(f"fuse_moe_pertensor_fp8(impl={impl!r}) {_LATER}")
+    if impl not in ("auto", "scatter", "gather", "ref"):
+        raise ValueError(f"fuse_moe_pertensor_fp8: unknown impl {impl!r}")
+    int8 = down_weight.dtype == torch.int8
+    if gate_up_interleaved and not int8:
+        raise ValueError("gate_up_interleaved (the fused activation epilogue) takes int8 weights")
+    if gate_up_interleaved and impl == "gather":
+        raise ValueError("impl='gather' takes a [gate; up] weight, not an interleaved one")
     e_local = gate_up_weight.shape[0]
     if num_seq_per_group_avg is None:
         s_, k_ = topk_ids.shape
@@ -267,23 +313,40 @@ def fuse_moe_pertensor_fp8(
         # divide by the GLOBAL expert count
         num_seq_per_group_avg = max(s_ * k_ // max(num_expert_total, 1), 1)
     tm = _pick_tm(num_seq_per_group_avg, x.shape[1])
-    if down_weight.dtype != FP8_DTYPE:
-        raise NotImplementedError(f"fuse_moe_pertensor_fp8 on {down_weight.dtype} weights {_LATER}")
+    act_dtype = torch.int8 if int8 else FP8_DTYPE
 
-    if impl == "ref":
+    if impl in ("ref", "gather"):
         g = _gather_aligned(x, topk_ids, e_local, rank_ep, tm)
-        gate_up = _naive_group_gemm(g.x_gathered, gate_up_weight, g, gate_up_scale, tm)
-        down_in = act_mul_and_quant(
-            gate_up, act_and_mul_scale, use_bf16_mul, out_dtype=FP8_DTYPE, impl="ref"
-        )
-        down = _naive_group_gemm(down_in, down_weight, g, down_scale, tm)
+        if impl == "ref":
+            gw = _deinterleave_gate_up(gate_up_weight) if gate_up_interleaved else gate_up_weight
+            gate_up = _naive_group_gemm(g.x_gathered, gw, g, gate_up_scale, tm)
+            down_in = act_mul_and_quant(
+                gate_up, act_and_mul_scale, use_bf16_mul, out_dtype=act_dtype, impl="ref"
+            )
+            down = _naive_group_gemm(down_in, down_weight, g, down_scale, tm)
+        else:
+            nvt = g.cu_tiles[-1:]
+            gate_up = gg_pertensor(g.x_gathered, gate_up_weight, gate_up_scale, g.grp, g.row_blk,
+                                   tm, nvt)
+            down_in = act_mul_and_quant(gate_up, act_and_mul_scale, use_bf16_mul,
+                                        out_dtype=act_dtype, num_valid=nvt * tm)
+            down = gg_pertensor(down_in, down_weight, down_scale, g.grp, g.row_blk, tm, nvt)
         return reduce(down, g.topk_pos, topk_scale, shared_output)
 
     row_idx, topk_pos, _, _, _, cu_tiles, grp = _route_aligned(topk_ids, e_local, rank_ep, tm)
     nvt = cu_tiles[-1:]  # tiles holding real rows, on the device; the rest are skipped
+    if gate_up_interleaved:
+        # [(nt + 1) * tm, I] int8 codes, the trash tile appended
+        down_in = gg_scatter(x, gate_up_weight, gate_up_scale, row_idx, grp, tm, nvt,
+                             act_fuse=True, act_scale=act_and_mul_scale, use_bf16_mul=use_bf16_mul)
+        nt = grp.shape[0]
+        t = torch.arange(nt, dtype=torch.int32, device=grp.device)
+        row_blk = torch.where(t < nvt, t, nt)  # skipped tiles point at the trash tile
+        down = gg_pertensor(down_in, down_weight, down_scale, grp, row_blk, tm, nvt)
+        return reduce(down, topk_pos, topk_scale, shared_output)
     gate_up = gg_scatter(x, gate_up_weight, gate_up_scale, row_idx, grp, tm, nvt)
     down_in = act_mul_and_quant(
-        gate_up, act_and_mul_scale, use_bf16_mul, out_dtype=FP8_DTYPE,
+        gate_up, act_and_mul_scale, use_bf16_mul, out_dtype=act_dtype,
         num_valid=nvt * tm,  # skip alignment-padding rows
     )
     # identity rows: every slot of a valid tile is multiplied and written, as in
@@ -327,11 +390,39 @@ def count_and_build_indices(topk_ids, num_expert: int, rank_ep: int,
     return _route_aligned(topk_ids, num_expert, rank_ep, _pick_tm(num_seq_per_group_avg))
 
 
-fuse_moe_pertensor_int8 = _later("fuse_moe_pertensor_int8")
+def fuse_moe_pertensor_int8(
+    x,
+    gate_up_weight,
+    down_weight,
+    gate_up_scale,
+    down_scale,
+    act_and_mul_scale,
+    topk_ids,
+    topk_scale,
+    rank_ep: int,
+    num_expert_total: int,
+    use_bf16_mul: bool = True,
+    shared_output=None,
+    **kw,
+):
+    """Per-tensor int8 fused MoE: :func:`fuse_moe_pertensor_fp8` with int8 x
+    and weights (exact int32 sums on the card's int8 tensor cores). The
+    activation stage re-quantises to int8 (``act_and_mul_scale`` maps the
+    activation range onto [-127, 127]); gate_up_scale/down_scale fold the
+    operand scales as in the fp8 variant. ``gate_up_interleaved=True`` is the
+    serving path (see :func:`fuse_moe_pertensor_fp8`)."""
+    if x.dtype != torch.int8 or gate_up_weight.dtype != torch.int8 or down_weight.dtype != torch.int8:
+        raise ValueError("fuse_moe_pertensor_int8 takes int8 x and weights, not "
+                         f"{x.dtype}, {gate_up_weight.dtype}, {down_weight.dtype}")
+    return fuse_moe_pertensor_fp8(
+        x, gate_up_weight, down_weight, gate_up_scale, down_scale, act_and_mul_scale, topk_ids,
+        topk_scale, rank_ep, num_expert_total, use_bf16_mul, shared_output, **kw,
+    )
+
+
 fuse_moe_blockwise_fp8 = _later("fuse_moe_blockwise_fp8")
 fuse_moe_blockwise_int8 = _later("fuse_moe_blockwise_int8")
 fuse_moe_blockwise = _later("fuse_moe_blockwise")
-interleave_gate_up = _later("interleave_gate_up")
 
 
 __all__ = [

@@ -56,9 +56,10 @@ def make_cos_sin_cache(
     head_dim: int,
     base: float = 10000.0,
     rope_scaling: dict | None = None,
-    device="cpu",
+    device="cuda",
 ):
-    """[max_position, head_dim] float32 table: first half cos(t*f), second half sin.
+    """[max_position, head_dim] float32 table: first half cos(t*f), second half sin,
+    on ``device`` (the card unless the caller asks for the CPU).
 
     ``rope_scaling`` supports ``{"rope_type": "linear", "factor": f}`` and
     Llama-3.1's ``{"rope_type": "llama3", "factor", "low_freq_factor",

@@ -17,6 +17,10 @@ CPU's, or one step apart on at most 0.1%. MoE: the grouped GEMM within one bf16
 step (2^-7 relative) plus 1e-3 of the largest output (both sum exact e4m3
 products in float32, in another order); activation codes equal, or one apart
 on at most 0.1% (expf against torch.sigmoid); the top-k reduce bit-equal.
+int8 MoE: both grouped GEMMs bit-equal (exact integer sums, one conversion,
+one scaling, one bf16 rounding on both sides); the fused activation codes
+equal (the epilogue computes as the activation kernel and the plain version
+do, on the card's expf).
 """
 
 import pytest
@@ -38,10 +42,19 @@ from hpc_ops_tpu_torch.ops.attention.prefill import (
     paged_prefill_attention,
     paged_prefill_nhd_fused,
 )
-from hpc_ops_tpu_torch.ops.group_gemm import gg_scatter, gg_scatter_ref
+from hpc_ops_tpu_torch.ops.group_gemm import (
+    gg_pertensor,
+    gg_pertensor_ref,
+    gg_scatter,
+    gg_scatter_i8,
+    gg_scatter_i8_act,
+    gg_scatter_ref,
+)
 from hpc_ops_tpu_torch.ops.moe import (
     _route_aligned,
     fuse_moe_pertensor_fp8,
+    fuse_moe_pertensor_int8,
+    interleave_gate_up,
     moe_reduce,
     moe_reduce_ref,
 )
@@ -91,7 +104,7 @@ def rope_case(gen, layout, rows=8, hq=32, hkv=8, d=128, num_blocks=256):
     """A decode batch: one new row per request at a random length, each on
     its own pages of a shuffled -1 padded table."""
     qkv = randn(gen, rows, (hq + 2 * hkv) * d)
-    cos_sin = make_cos_sin_cache(8192, d, 500000.0)
+    cos_sin = make_cos_sin_cache(8192, d, 500000.0, device="cpu")
     seq_lens = torch.randint(1, 16 * (num_blocks // rows), (rows,), generator=gen, dtype=torch.int32)
     q_index = torch.arange(rows + 1, dtype=torch.int32)
     perm = torch.randperm(num_blocks, generator=gen).to(torch.int32)
@@ -547,6 +560,216 @@ def test_moe_garbage_rows_do_not_reach_the_output(cuda):
                     name="moe with NaN garbage rows")
 
 
+# ------------------------------------------------------------------ int8 MoE
+def i8(gen, *shape):
+    return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+
+
+def i8_case(gen, tm, fill, k, n, groups=3, tokens=50):
+    """gg_case over int8 codes (standard deviation about 73), with scales that
+    bring the outputs near 1."""
+    x, w, _, row_idx, grp = gg_case(gen, tm, fill, k, n, groups, tokens)
+    y_scale = (torch.rand(groups, generator=gen) + 0.5) / (5400.0 * k**0.5)
+    return i8(gen, tokens, k), i8(gen, groups, n, k), y_scale, row_idx, grp
+
+
+def test_int8_moe_wrappers_take_the_plain_version_on_cpu():
+    gen = torch.Generator().manual_seed(40)
+    counts = (gg_scatter_i8.launches, gg_scatter_i8_act.launches, gg_pertensor.launches)
+    x, w, y_scale, row_idx, grp = i8_case(gen, 32, [3, 32], 64, 256)
+    args = (x, w, y_scale, row_idx, grp, 32)
+    assert torch.equal(gg_scatter(*args), gg_scatter_ref(*args))
+    act = dict(act_fuse=True, act_scale=torch.tensor([20.0]))
+    assert torch.equal(gg_scatter(*args, **act), gg_scatter_ref(*args, **act))
+    x_al, blk = i8(gen, 96, 64), torch.tensor([2, 0], dtype=torch.int32)
+    assert torch.equal(gg_pertensor(x_al, w, y_scale, grp, blk, 32),
+                       gg_pertensor_ref(x_al, w, y_scale, grp, blk, 32))
+    assert counts == (gg_scatter_i8.launches, gg_scatter_i8_act.launches, gg_pertensor.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "tm,fill,k,n",
+    [(32, [5, 32, 7, 1, 0], 256, 384),  # the 32-row block; an empty tile
+     (32, [2, 2, 1], 4096, 1024),  # decode-like: two rows a tile, long K
+     (64, [64, 33, 1], 512, 256),  # the 64-row block
+     (160, [160, 129, 17], 256, 384),  # the 128-row block with a 32-row rest
+     (512, [512, 300], 1024, 256),  # four 128-row blocks a tile
+     (32, [9, 32], 208, 200)],  # K and N that end inside a stage and a block
+)
+def test_gg_scatter_i8_kernel_matches_plain(cuda, tm, fill, k, n):
+    gen = torch.Generator().manual_seed(41)
+    x, w, y_scale, row_idx, grp = i8_case(gen, tm, fill, k, n)
+    want = gg_scatter_ref(x, w, y_scale, row_idx, grp, tm)
+    n0 = gg_scatter_i8.launches
+    got = gg_scatter(*(t.to(cuda) for t in (x, w, y_scale, row_idx, grp)), tm)
+    torch.cuda.synchronize()
+    assert gg_scatter_i8.launches == n0 + 1
+    valid = row_idx >= 0
+    assert float(want[valid].float().abs().max()) > 1.0
+    assert torch.equal(got.cpu()[valid], want[valid])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "tm,fill,k,n,pair",
+    [(32, [5, 32, 7, 1, 0], 256, 512, 256),  # tiny_config's expert: pair 256
+     (32, [2, 2, 1], 4096, 1024, 512),  # decode-like, the widest pair
+     (64, [64, 33, 1], 512, 512, 128),
+     (160, [160, 129, 17], 256, 256, 64),  # the 128-row block, the narrowest pair
+     (512, [512, 300], 1024, 1024, 256)],
+)
+@pytest.mark.parametrize("use_bf16_mul", [True, False])
+def test_gg_scatter_i8_act_kernel_matches_plain(cuda, tm, fill, k, n, pair, use_bf16_mul):
+    gen = torch.Generator().manual_seed(42)
+    x, w, y_scale, row_idx, grp = i8_case(gen, tm, fill, k, n)
+    kw = dict(act_fuse=True, act_scale=torch.tensor([40.0]), use_bf16_mul=use_bf16_mul, pair=pair)
+    want = gg_scatter_ref(x, w, y_scale, row_idx, grp, tm, **kw)
+    n0 = gg_scatter_i8_act.launches
+    kw["act_scale"] = kw["act_scale"].to(cuda)
+    got = gg_scatter(*(t.to(cuda) for t in (x, w, y_scale, row_idx, grp)), tm, **kw)
+    torch.cuda.synchronize()
+    assert gg_scatter_i8_act.launches == n0 + 1
+    assert got.dtype == torch.int8 and tuple(got.shape) == ((len(fill) + 1) * tm, n // 2)
+    valid = row_idx >= 0
+    codes = want[: len(fill) * tm][valid]
+    assert int(codes.abs().max()) > 60 and float((codes.abs() == 127).float().mean()) < 0.05
+    assert torch.equal(got.cpu()[: len(fill) * tm][valid], codes)
+
+
+@pytest.mark.cuda
+def test_gg_scatter_i8_act_kernel_stops_at_num_valid_tiles(cuda):
+    """As test_gg_scatter_kernel_stops_at_num_valid_tiles, for the fused
+    epilogue: rows of skipped tiles point far outside x."""
+    gen = torch.Generator().manual_seed(43)
+    x, w, y_scale, row_idx, grp = i8_case(gen, 32, [5, 32, 7, 1], 256, 512)
+    kw = dict(act_fuse=True, act_scale=torch.tensor([40.0]))
+    want = gg_scatter_ref(x, w, y_scale, row_idx, grp, 32, **kw)
+    row_idx[64:] = 2**30
+    nvt = torch.tensor([2], dtype=torch.int32, device=cuda)
+    kw["act_scale"] = kw["act_scale"].to(cuda)
+    got = gg_scatter(*(t.to(cuda) for t in (x, w, y_scale, row_idx, grp)), 32, nvt, **kw)
+    torch.cuda.synchronize()
+    valid = (row_idx >= 0)[:64]
+    assert torch.equal(got.cpu()[:64][valid], want[:64][valid])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tm,k,n", [(32, 4096, 1024), (64, 512, 256), (160, 256, 384),
+                                    (512, 1024, 256), (32, 208, 200)])
+@pytest.mark.parametrize("dtype", ["int8", "e4m3"])
+def test_gg_pertensor_kernel_matches_plain(cuda, dtype, tm, k, n):
+    """Tiles write row blocks in another order than theirs, the last valid
+    one the trash block; tiles past num_valid_tiles point at a block they
+    must not write."""
+    gen = torch.Generator().manual_seed(44)
+    num_tiles, nvt = 4, 3
+    rows = (num_tiles + 1) * tm
+    if dtype == "int8":
+        x, w = i8(gen, rows, k), i8(gen, 3, n, k)
+        y_scale = (torch.rand(3, generator=gen) + 0.5) / (5400.0 * k**0.5)
+    else:
+        x, w = fp8(gen, rows, k, scale=0.25), fp8(gen, 3, n, k, scale=0.25)
+        y_scale = torch.rand(3, generator=gen) + 0.5
+    grp = torch.tensor([2, 0, 1, 1], dtype=torch.int32)
+    blk = torch.tensor([1, 0, 4, 2], dtype=torch.int32)
+    nv = torch.tensor([nvt], dtype=torch.int32)
+    want = gg_pertensor_ref(x, w, y_scale, grp, blk, tm, nv)
+    n0 = gg_pertensor.launches
+    got = gg_pertensor(*(t.to(cuda) for t in (x, w, y_scale, grp, blk)), tm, nv.to(cuda))
+    torch.cuda.synchronize()
+    assert gg_pertensor.launches == n0 + 1
+    written = torch.zeros(rows, dtype=torch.bool)
+    for t in range(nvt):
+        written[int(blk[t]) * tm : (int(blk[t]) + 1) * tm] = True
+    got = got.cpu()
+    assert float(want[written].float().abs().max()) > 0.5
+    if dtype == "int8":
+        assert torch.equal(got[written], want[written])
+    else:
+        assert_gemm_close(got[written], want[written], "gg_pertensor e4m3")
+
+
+def int8_moe_inputs(gen, s, k, h, interm, e_local, e_total):
+    """moe_inputs over int8 codes: gate and up near 1, activation codes near
+    the int8 range at act_scale 40 (a few saturate), outputs near 1."""
+    return dict(
+        x=i8(gen, s, h), gw=i8(gen, e_local, 2 * interm, h), dw=i8(gen, e_local, h, interm),
+        gs=(torch.rand(e_local, generator=gen) + 0.5) / (5400.0 * h**0.5),
+        ds=(torch.rand(e_local, generator=gen) + 0.5) / (73.0 * interm**0.5 * 40.0 * 0.5),
+        act=torch.tensor([40.0]),
+        ids=torch.randint(0, e_total, (s, k), generator=gen, dtype=torch.int32),
+        ts=torch.rand((s, k), generator=gen) / k,
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("rank_ep,size_ep", [(0, 1), (1, 2)])
+def test_fuse_moe_int8_on_the_card_syncs_nothing_and_matches_cpu(cuda, rank_ep, size_ep, fused):
+    """The int8 pipeline (fused: activation in the gate-up GEMM, aligned down
+    GEMM) on the card under sync debug mode "error", against the CPU run of
+    the plain versions within 2e-2 abs + 2e-2 rel: the GEMMs are exact on
+    both, and the CPU's expf may move an activation code by one step."""
+    gen = torch.Generator().manual_seed(45)
+    e_total = 8
+    t = int8_moe_inputs(gen, 40, 2, 256, 256, e_total // size_ep, e_total)
+    if fused:
+        t["gw"] = interleave_gate_up(t["gw"])
+    args = [t[n] for n in ("x", "gw", "dw", "gs", "ds", "act", "ids", "ts")]
+    kw = dict(gate_up_interleaved=fused)
+    want = fuse_moe_pertensor_int8(*args, rank_ep, e_total, **kw)
+    dargs = [a.to(cuda) for a in args]
+    fuse_moe_pertensor_int8(*dargs, rank_ep, e_total, **kw)  # builds the library, warms the allocator
+    torch.cuda.synchronize()
+    counts = (gg_scatter_i8.launches, gg_scatter_i8_act.launches, gg_pertensor.launches,
+              act_quant.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fuse_moe_pertensor_int8(*dargs, rank_ep, e_total, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launched = tuple(b - a for a, b in zip(counts, (
+        gg_scatter_i8.launches, gg_scatter_i8_act.launches, gg_pertensor.launches,
+        act_quant.launches)))
+    assert launched == ((0, 1, 1, 0) if fused else (2, 0, 0, 1))
+    assert float(want.float().abs().max()) > 0.2
+    assert_allclose(got.float().cpu(), want.float(), atol=2e-2, rtol=2e-2, name="int8 moe card")
+
+
+@pytest.mark.cuda
+def test_moe_int8_fused_garbage_rows_do_not_reach_the_output(cuda):
+    """test_moe_garbage_rows_do_not_reach_the_output for the fused int8 path:
+    the codes of empty slots and of the trash tile are set to -127 after the
+    gate-up GEMM, and the down GEMM's rows of empty slots, skipped tiles and
+    the trash tile to NaN; the reduced output stays finite and equal to the
+    plain chain's."""
+    gen = torch.Generator().manual_seed(46)
+    e_local, e_total, tm = 4, 16, 32
+    t = {n: v.to(cuda) for n, v in int8_moe_inputs(gen, 40, 4, 256, 256, e_local, e_total).items()}
+    gw = interleave_gate_up(t["gw"])
+    row_idx, topk_pos, _, _, _, cu_tiles, grp = _route_aligned(t["ids"], e_local, 1, tm)
+    nvt = cu_tiles[-1:]
+    nt = grp.shape[0]
+    ar = torch.arange(nt, dtype=torch.int32, device=cuda)
+    row_blk = torch.where(ar < nvt, ar, nt)
+    garbage = torch.cat([row_idx < 0, torch.ones(tm, dtype=torch.bool, device=cuda)])[:, None]
+    outs = {}
+    for name, gemm, aligned, red in (("kernel", gg_scatter, gg_pertensor, moe_reduce),
+                                     ("plain", gg_scatter_ref, gg_pertensor_ref, moe_reduce_ref)):
+        codes = gemm(t["x"], gw, t["gs"], row_idx, grp, tm, nvt, act_fuse=True, act_scale=t["act"])
+        codes = torch.where(garbage, torch.full_like(codes, -127), codes)
+        down = aligned(codes, t["dw"], t["ds"], grp, row_blk, tm, nvt)
+        down = torch.where(garbage, float("nan"), down.float()).to(torch.bfloat16)
+        outs[name] = red(down, topk_pos, t["ts"])
+    torch.cuda.synchronize()
+    assert int((row_idx < 0).sum()) > tm and int((topk_pos < 0).sum()) > 0
+    assert int(nvt) < nt  # skipped tiles exist
+    assert torch.isfinite(outs["kernel"].float()).all()
+    assert torch.equal(outs["kernel"].cpu(), outs["plain"].cpu())
+
+
 # ------------------------------------------------------------- e4m3 KV caches
 def fp8_paged(gen, lens, hq, hkv, d, sq=1, layout="HND", q_rows=None, std=0.05):
     """As ``paged`` with e4m3 caches. ``std`` 0.05 puts about a quarter of the
@@ -843,7 +1066,7 @@ def test_int8_matmul_on_the_card_is_exact(cuda, rows):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["fp8_kv", "dense_int8"])
+@pytest.mark.parametrize("mode", ["fp8_kv", "dense_int8", "moe_pertensor_int8"])
 def test_forward_step_on_the_card_syncs_nothing_and_matches_cpu(cuda, mode):
     """forward_step on the card, a prefill then a decode step, the decode
     step under sync debug mode "error" (the engine's one copy a step is its
@@ -851,7 +1074,11 @@ def test_forward_step_on_the_card_syncs_nothing_and_matches_cpu(cuda, mode):
     run's (the tolerance of the model tests)."""
     from hpc_ops_tpu_torch.models import llama as T
 
-    cfg = T.tiny_config(**{mode: True})
+    if mode == "moe_pertensor_int8":
+        cfg = T.tiny_config(moe=True)
+        cfg = cfg._replace(moe=cfg.moe._replace(scheme="pertensor_int8"))
+    else:
+        cfg = T.tiny_config(**{mode: True})
     w = T.init_weights(cfg, torch.Generator().manual_seed(0), device="cpu")
     outs = {}
     for dev in ("cpu", cuda):

@@ -326,8 +326,7 @@ def test_forward_step_moe_expert_parallel_ranks_sum(model_moe):
                     rtol=0, name="ep partial sums")
 
 
-@pytest.mark.parametrize("field", ["fp8_kv", "int8_kv", "dense_int8", "qkv_bias", "moe",
-                                   "moe_pertensor_int8"])
+@pytest.mark.parametrize("field", ["fp8_kv", "int8_kv", "dense_int8", "qkv_bias", "moe"])
 def test_later_slices_raise(field):
     q = torch.zeros((1, 8, 128), dtype=torch.bfloat16)
     one = torch.ones(1, dtype=torch.int32)
@@ -356,11 +355,10 @@ def test_later_slices_raise(field):
                                            torch.zeros((1, 1), dtype=torch.int32), one, 1,
                                            cache_layout="HND", block_mask=torch.ones(1))
         return
-    if field.startswith("moe"):
-        # the per-tensor fp8 MoE serves now; the two int8 schemes are later slices
-        scheme = "blockwise_int8" if field == "moe" else "pertensor_int8"
+    if field == "moe":
+        # the per-tensor fp8 and int8 MoE serve now; the blockwise scheme is a later slice
         cfg = T.tiny_config(moe=True)
-        cfg = cfg._replace(moe=cfg.moe._replace(scheme=scheme))
+        cfg = cfg._replace(moe=cfg.moe._replace(scheme="blockwise_int8"))
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
             T.init_weights(cfg, device="cpu")
     else:

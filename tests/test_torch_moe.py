@@ -216,17 +216,11 @@ def test_counts_reach_the_kernels_as_device_tensors(monkeypatch):
     assert int(seen["num_valid"]) == int(seen["nvt"][0]) * tm
 
 
-@pytest.mark.parametrize("call", ["impl_gather", "interleaved", "fuse_moe_pertensor_int8",
-                                  "fuse_moe_blockwise_fp8", "fuse_moe_blockwise_int8",
-                                  "fuse_moe_blockwise", "interleave_gate_up"])
+@pytest.mark.parametrize("call", ["fuse_moe_blockwise_fp8", "fuse_moe_blockwise_int8",
+                                  "fuse_moe_blockwise"])
 def test_later_moe_paths_raise(call):
     arrays, _, e_total = moe_case(0, 1, False)
     args = (*torch_args(arrays, None)[0], 0, e_total)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        if call == "impl_gather":
-            T.fuse_moe_pertensor_fp8(*args, impl="gather")
-        elif call == "interleaved":
-            T.fuse_moe_pertensor_fp8(*args, gate_up_interleaved=True)
-        else:
-            assert call in J.__all__
-            getattr(T, call)(*args)
+        assert call in J.__all__
+        getattr(T, call)(*args)

@@ -30,7 +30,19 @@ Phases, each printing one JSON line:
      (gg_pertensor, gg_pertensor_e4m3); moe_pipeline_int8: fused, unfused
      and impl="ref" on expert-parallel rank 1 of 2, the fused one under sync
      debug mode; ops_moe: impl="gather" and the packed group_gemm_* entry
-     points once each, the launch counts read around each call. At the llama3_8b shapes again,
+     points once each, the launch counts read around each call. The
+     blockwise MoE at the same widths and token counts, with seeded scales
+     per (token, 128-group) and per 128 x 128 weight block: the blockwise
+     scatter grouped GEMM (gg_bw_scatter_{i8,e4m3}) and the blockwise
+     aligned grouped GEMM (gg_bw_aligned_{i8,e4m3}), gate-up and down, int8
+     bit-equal to the plain version, each timed beside the library's
+     unscaled per-expert loop; moe_pipeline_bw: fuse_moe_blockwise_int8
+     with scheme "scatter" and "int8" on rank 1 of 2 against the chain of
+     plain GEMMs with every garbage row filled with NaN, the scatter one under
+     sync debug mode; ops_moe_bw: group_gemm_blockwise_fp8 / _int8 in both
+     x-scale layouts and every scheme against impl="ref", and
+     fuse_moe_blockwise_fp8 ("scatter", "prescale") against the plain chain,
+     the launch counts read around each call. At the llama3_8b shapes again,
      over e4m3 caches: decode and prefill over HND caches, over the NHD_FUSED
      slab, the QuantType-0 decode (one K scale per token and kv head, a V
      scale per head) and the prefill with per-token K scales; then ops_fp8:
@@ -38,9 +50,10 @@ Phases, each printing one JSON line:
      every form (per-tensor with a q scale per token and head, NHD_FUSED,
      QuantType 0 with paged and with tail-row scales), each held against its
      impl="ref" with the launch counts read around each call;
-  4. slice_tiny, slice_tiny_int8, slice_tiny_moe, slice_tiny_fp8 and
-     slice_tiny_moe_int8: Engine on tiny_config (bf16 KV, int8_kv, fp8 MoE,
-     fp8_kv, int8 MoE) on the card and on the
+  4. slice_tiny, slice_tiny_int8, slice_tiny_moe, slice_tiny_fp8,
+     slice_tiny_moe_int8 and slice_tiny_moe_bw: Engine on tiny_config (bf16
+     KV, int8_kv, fp8 MoE, fp8_kv, int8 MoE, blockwise int8 MoE) on the card
+     and on the
      CPU with the same weights: logits of the first prefill and decode steps within 0.15 abs /
      0.1 rel, greedy tokens identical wherever the CPU path's top-2 margin
      exceeds that tolerance;
@@ -69,8 +82,15 @@ Phases, each printing one JSON line:
      gate-up GEMM, the aligned down GEMM and the reduce once per layer and
      call, no activation kernel), prefill logits within cosine 0.97 of the
      fp8 run's, the share of saturated activation codes, one device-to-host
-     copy per decode step, and decode_profile_moe_int8;
-then the kernels line, the nvidia-smi line and the result line.
+     copy per decode step, and decode_profile_moe_int8; slice_full_moe_bw:
+     the int8 experts are freed and the same widths served with blockwise
+     int8 experts from the same seed (MoEConfig(scheme="blockwise_int8"):
+     the blockwise scatter gate-up GEMM, the blockwise aligned down GEMM and
+     the reduce once per layer and call), prefill logits within cosine 0.97
+     of the fp8 run's, the share of the down GEMM's input codes at +-127, one
+     device-to-host copy per decode step, and decode_profile_moe_bw;
+then the kernels line, the nvidia-smi line and the result line. Each phase
+also prints its seconds (phase_seconds).
 """
 
 from __future__ import annotations
@@ -1324,6 +1344,301 @@ def ops_moe(dev, inp):
     return launches
 
 
+# ------------------------------------------------------- blockwise MoE kernels
+BW_STD = {"i8": I8_STD, "e4m3": FP8_STD}  # standard deviation of the seeded codes
+
+
+def bw_check_inputs(dev, inp):
+    """Blockwise scales for moe_check_inputs' codes: a scale per (token,
+    128-group) and per 128 x 128 weight block, drawn from a seed, that bring
+    gate, up and the outputs near 1. Adds them to ``inp`` in place."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.group_gemm import _take_rows
+    from hpc_ops_tpu_torch.utils.common import fp8_saturate_cast
+
+    g = torch.Generator(device=dev).manual_seed(77)
+
+    def scales(*shape, den):
+        return (torch.rand(shape, generator=g, device=dev) + 0.5) / den
+
+    for form, std in BW_STD.items():
+        inp[f"bw_gsw_{form}"] = scales(MOE_E, 2 * MOE_I // 128, MOE_H // 128, den=std * MOE_H**0.5)
+        inp[f"bw_dsw_{form}"] = scales(MOE_E, MOE_H // 128, MOE_I // 128, den=std * MOE_I**0.5)
+        for shape in MOE_SHAPES:
+            c = inp[shape]
+            c[f"sx_{form}"] = scales(c["s"], MOE_H // 128, den=std)
+            # the down GEMM's input: codes and their scales in the aligned layout
+            rows = c["row_idx"].shape[0]
+            act = torch.randn((rows, MOE_I), generator=g, device=dev).mul_(std)
+            c[f"act_{form}"] = (act.round_().clamp_(-127, 127).to(torch.int8) if form == "i8"
+                                else fp8_saturate_cast(act))
+            c[f"act_sx_{form}"] = scales(rows, MOE_I // 128, den=std)
+            x = c["x8"] if form == "i8" else c["x"]
+            c[f"x_al_{form}"] = _take_rows(x, c["row_idx"])
+            c[f"sx_al_{form}"] = _take_rows(c[f"sx_{form}"], c["row_idx"])
+
+
+def bw_gemm_args(inp, shape, form, gemm, aligned):
+    """(args of gg_bw_scatter or gg_bw_aligned, (n, k), rows to compare)."""
+    c = inp[shape]
+    i8 = form == "i8"
+    tm, nvt = c["tm"], c["nvt"]
+    if gemm == "gate_up":
+        w, sw, nk = inp["gw8" if i8 else "gw"], inp[f"bw_gsw_{form}"], (2 * MOE_I, MOE_H)
+        if aligned:
+            args = (c[f"x_al_{form}"], w, c[f"sx_al_{form}"], sw, c["grp"], c["row_blk"], tm, nvt)
+        else:
+            args = (c["x8" if i8 else "x"], w, c[f"sx_{form}"], sw, c["row_idx"], c["grp"], tm, nvt)
+    else:
+        w, sw, nk = inp["dw8" if i8 else "dw"], inp[f"bw_dsw_{form}"], (MOE_H, MOE_I)
+        if aligned:
+            args = (c[f"act_{form}"], w, c[f"act_sx_{form}"], sw, c["grp"], c["row_blk"], tm, nvt)
+        else:
+            args = (c[f"act_{form}"], w, c[f"act_sx_{form}"], sw, c["ident"], c["grp"], tm, nvt)
+    if aligned:  # every row of a valid tile
+        rows = c["ident"] < int(nvt) * tm
+    else:  # the real slots (gate-up) or every slot of a valid tile (down, identity rows)
+        rows = (c["row_idx"] >= 0) if gemm == "gate_up" else (c["ident"] < int(nvt) * tm)
+    return args, nk, rows
+
+
+def check_gg_bw(dev, inp, aligned):
+    """Rows 12-14: the blockwise scatter (row 14) or aligned (rows 12 and 13)
+    grouped GEMM over int8 and e4m3, gate-up and down at every MoE shape,
+    against its plain version: int8 bit-equal, e4m3 within one bf16 step plus
+    1e-3 of the largest output (the order of the float32 sums). The serving
+    run's blockwise MoE uses m-tiles of 64 (the JAX package's default
+    num_seq_per_group_avg of 32); these shapes also reach the 32-row block.
+    Timed beside the plain version and the library's unscaled loop (one
+    torch._int_mm (int8) or torch.matmul on bf16 (e4m3) per expert, no
+    scales: no single PyTorch call applies blockwise scales)."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops import group_gemm as gg
+
+    kernel = gg.gg_bw_aligned if aligned else gg.gg_bw_scatter
+    plain_fn = gg.gg_bw_aligned_ref if aligned else gg.gg_bw_scatter_ref
+    base = "gg_bw_aligned" if aligned else "gg_bw_scatter"
+    rows_out = []
+    for form in ("i8", "e4m3"):
+        i8 = form == "i8"
+        detail, err = {}, 0.0
+        for shape in MOE_SHAPES:
+            c = inp[shape]
+            for gemm in ("gate_up", "down"):
+                args, (n, k), rows = bw_gemm_args(inp, shape, form, gemm, aligned)
+                got, want = kernel(*args), plain_fn(*args)
+                torch.cuda.synchronize()
+                if i8:
+                    if not torch.equal(got[rows], want[rows]):
+                        d = (got[rows].float() - want[rows].float()).abs()
+                        raise AssertionError(f"{base}_{form} {shape} {gemm}: kernel differs from the "
+                                             f"plain version by up to {float(d.max())} (limit: bit-equal)")
+                else:
+                    err = max(err, gemm_close(got, want, rows, f"{base}_{form} {shape} {gemm}"))
+                del got, want
+                ms = time_ms(lambda: kernel(*args), 20 if shape == "decode" else 5)
+                plain = time_ms(lambda: plain_fn(*args), 2, 1)
+                if i8:
+                    lib = time_ms(int_mm_loop(k, args[1], c["seqlens"], dev), 5)
+                else:
+                    w16 = args[1].to(torch.bfloat16)
+                    xs = [torch.randn((max(m, 1), k), device=dev).to(torch.bfloat16) for m in c["seqlens"]]
+                    lib = time_ms(lambda: [xe @ w16[i].T for i, xe in enumerate(xs) if c["seqlens"][i]], 5)
+                    del w16, xs
+                hit = sum(1 for m in c["seqlens"] if m)
+                nrows = int(rows.sum())
+                kb = k // 128
+                # rows of x and their scales read once (the aligned form reads
+                # every row of a valid tile), each hit expert's weight and block
+                # scales once, each compared output row written once, the index vectors
+                in_rows = nrows if aligned or gemm == "down" else c["s"]
+                nbytes = (in_rows * (k + 4 * kb) + hit * (n * k + (n // 128) * kb * 4) + nrows * n * 2
+                          + args[4].numel() * 4 + args[5].numel() * 4 + 4)
+                ops = 2.0 * nrows * n * k
+                bd, by = bound(nbytes, ops, INT8_OPS_PER_S if i8 else FP8_FLOPS_PER_S)
+                detail[f"{shape}_{gemm}"] = dict(ms=ms, plain_ms=plain, library_loop_ms=lib,
+                                                 bound_ms=bd, bound_by=by, tm=c["tm"], rows=nrows,
+                                                 n=n, k=k, tops=1e-9 * ops / ms,
+                                                 gbytes_per_s=nbytes / ms * 1e-6)
+        torch.cuda.empty_cache()
+        name = f"{base}_{form}"
+        # what serving launches most: the scatter gate-up, the aligned down
+        main = detail["decode_down" if aligned else "decode_gate_up"]
+        emit("kernel", name=name, max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+             library_ms=main["library_loop_ms"],
+             library_is="unscaled: a loop of one torch._int_mm (int8) or torch.matmul on bf16 (e4m3) "
+                        "per expert",
+             bound_ms=main["bound_ms"], bound_by=main["bound_by"], shapes=detail)
+        replaces = ("hpc_ops_tpu/ops/group_gemm.py:193" if i8 else "hpc_ops_tpu/ops/group_gemm.py:348"
+                    ) if aligned else "hpc_ops_tpu/ops/group_gemm.py:666"
+        row = dict(name=name, source="hpc_ops_tpu_torch/csrc/group_gemm.cu", replaces=replaces,
+                   max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                   bound_by=main["bound_by"], library_ms=main["library_loop_ms"])
+        if aligned:  # one kernel for both aligned-row TPU kernels, each scheme over both types
+            row["also_replaces"] = ("hpc_ops_tpu/ops/group_gemm.py:348" if i8
+                                    else "hpc_ops_tpu/ops/group_gemm.py:193")
+        rows_out.append(row)
+    return rows_out
+
+
+def bw_moe_args(inp, shape, form, rank_ep=0, size_ep=1):
+    """fuse_moe_blockwise_*'s arguments at ``shape`` for the local experts of
+    one expert-parallel rank: token codes and their scales, block-scaled
+    experts (inp's codes with bw_check_inputs' scales)."""
+    c = inp[shape]
+    i8 = form == "i8"
+    local = slice(rank_ep * MOE_E // size_ep, (rank_ep + 1) * MOE_E // size_ep)
+    return (c["x8" if i8 else "x"], c[f"sx_{form}"], inp["gw8" if i8 else "gw"][local],
+            inp[f"bw_gsw_{form}"][local], inp["dw8" if i8 else "dw"][local],
+            inp[f"bw_dsw_{form}"][local], c["ids"], c["ts"], rank_ep, MOE_E)
+
+
+def bw_moe_plain(args, nan_garbage=False):
+    """The scatter pipeline of fuse_moe_blockwise_* over the plain GEMMs (the
+    card's routing, re-quantisation and plain reduce), with every garbage row
+    filled with NaN after each GEMM when asked."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops import group_gemm as gg
+    from hpc_ops_tpu_torch.ops import moe
+    from hpc_ops_tpu_torch.ops.quant import blockwise_fp8_quant, blockwise_int8_quant
+
+    x, sx, gw, gsw, dw, dsw, ids, ts, rank_ep, _ = args
+    quant = blockwise_int8_quant if x.dtype == torch.int8 else blockwise_fp8_quant
+    tm = gg._pick_tm(32, x.shape[1])
+    row_idx, topk_pos, _, _, _, cu_tiles, grp = moe._route_aligned(ids, gw.shape[0], rank_ep, tm)
+    nvt = cu_tiles[-1:]
+    garbage = (row_idx < 0)[:, None]
+    gate_up = gg.gg_bw_scatter_ref(x, gw, sx, gsw, row_idx, grp, tm, nvt)
+    if nan_garbage:
+        gate_up = torch.where(garbage, float("nan"), gate_up.float()).to(torch.bfloat16)
+    d_in, d_sx = moe._act_requant(gate_up, quant)
+    row_blk = torch.arange(grp.shape[0], dtype=torch.int32, device=x.device)
+    down = gg.gg_bw_aligned_ref(d_in, dw, d_sx, dsw, grp, row_blk, tm, nvt)
+    if nan_garbage:
+        down = torch.where(garbage, float("nan"), down.float()).to(torch.bfloat16)
+    return moe.moe_reduce_ref(down, topk_pos, ts).float()
+
+
+def check_moe_pipeline_bw(dev, inp):
+    """The blockwise int8 MoE on expert-parallel rank 1 of 2 at the decode
+    shape: fuse_moe_blockwise_int8 with scheme "scatter" (the serving path)
+    and "int8" (the aligned-row copy) against the pipeline over the plain
+    GEMMs with every garbage row filled with NaN after each GEMM, the
+    scatter one under sync debug mode."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.moe import fuse_moe_blockwise_int8
+
+    args = bw_moe_args(inp, "decode", "i8", 1, 2)
+    plain = bw_moe_plain(args, nan_garbage=True)
+    outs = {s: fuse_moe_blockwise_int8(*args, scheme=s).float() for s in ("scatter", "int8")}
+    torch.cuda.synchronize()
+    tol = 2e-2 * float(plain.abs().max())
+    for s, got in outs.items():
+        if not torch.isfinite(got).all() or not torch.allclose(got, plain, atol=tol, rtol=2e-2):
+            raise AssertionError(f"moe_pipeline_bw: scheme {s!r} disagrees with the plain pipeline "
+                                 f"(max err {float((got - plain).abs().max())}, limit {tol} + 2%)")
+    if not torch.isfinite(plain).all():
+        raise AssertionError("moe_pipeline_bw: a NaN garbage row reached the plain pipeline's output")
+    torch.cuda.set_sync_debug_mode("error")  # a device-to-host copy of a count would raise
+    try:
+        again = fuse_moe_blockwise_int8(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not torch.equal(again.float(), outs["scatter"]):
+        raise AssertionError("moe_pipeline_bw: two scatter calls differ")
+    times = {}
+    for shape in ("decode", "prefill_512"):
+        a = bw_moe_args(inp, shape, "i8", 1, 2)
+        times[shape] = {s: time_ms(lambda s=s: fuse_moe_blockwise_int8(*a, scheme=s), 10)
+                        for s in ("scatter", "int8")}
+    emit("moe_pipeline_bw", shape="decode", rank_ep="1 of 2", output_max=float(plain.abs().max()),
+         max_abs_err={s: float((g - plain).abs().max()) for s, g in outs.items()},
+         equal_to_plain={s: bool(torch.equal(g, plain)) for s, g in outs.items()},
+         sync_debug_mode_raised=False, ms=times)
+
+
+def ops_moe_bw(dev, inp):
+    """The blockwise entry points that serving does not reach, each once at
+    Mixtral width (the prefill_200 shape) with the launch counts set to 0
+    before the call and read after it: group_gemm_blockwise_fp8 and _int8 in
+    both x-scale layouts and every scheme against their impl="ref" (one bf16
+    step plus 1e-3 of the largest output), fuse_moe_blockwise_fp8 with
+    "scatter" and "prescale" against the pipeline over the plain GEMMs (2% of
+    the largest output + 2%: e4m3 sums in another order can move a
+    re-quantised code). Returns {kernels-line name: launches}."""
+    import torch
+
+    from hpc_ops_tpu_torch import kernels
+    from hpc_ops_tpu_torch.ops import group_gemm as gg
+    from hpc_ops_tpu_torch.ops.moe import fuse_moe_blockwise_fp8
+    from hpc_ops_tpu_torch.utils.common import fp8_saturate_cast
+
+    c = inp["prefill_200"]
+    seqlens = torch.tensor(c["seqlens"], dtype=torch.int32, device=dev)
+    cu = torch.zeros(MOE_E + 1, dtype=torch.int32, device=dev)
+    cu[1:] = torch.cumsum(seqlens, 0)
+    total = int(cu[-1])
+    avg = max(total // MOE_E, 1)
+    g = torch.Generator(device=dev).manual_seed(78)
+    packed = {}
+    for form in BW_STD:
+        x = torch.randn((total, MOE_H), generator=g, device=dev).mul_(BW_STD[form])
+        x = x.round_().clamp_(-127, 127).to(torch.int8) if form == "i8" else fp8_saturate_cast(x)
+        sx = (torch.rand((total, MOE_H // 128), generator=g, device=dev) + 0.5) / BW_STD[form]
+        packed[form] = (x, sx, gg.reformat_x_scale(sx, seqlens, cu, avg))
+    forms = {}
+    for form, entry in (("i8", gg.group_gemm_blockwise_int8), ("e4m3", gg.group_gemm_blockwise_fp8)):
+        x, sx, sx_t = packed[form]
+        w, sw = inp["gw8" if form == "i8" else "gw"], inp[f"bw_gsw_{form}"]
+        for layout, scales in (("natural", sx), ("transposed", sx_t)):
+            for scheme in gg.BLOCKWISE_SCHEMES:
+                if scheme == "int8" and form != "i8":
+                    continue
+                kernel = "gg_bw_scatter" if scheme == "scatter" else "gg_bw_aligned"
+                forms[f"{entry.__name__}({layout}, {scheme})"] = (
+                    f"{kernel}_{form}", {kernel: 1},
+                    lambda impl, entry=entry, x=x, w=w, scales=scales, sw=sw, layout=layout,
+                    scheme=scheme: entry(x, w, seqlens, cu, scales, sw, avg, x_scale_layout=layout,
+                                         scheme=scheme, impl=impl))
+    moe_args = bw_moe_args(inp, "prefill_200", "e4m3")
+    for scheme, expect in (("scatter", {"gg_bw_scatter": 1, "gg_bw_aligned": 1, "moe_reduce": 1}),
+                           ("prescale", {"gg_bw_aligned": 2, "moe_reduce": 1})):
+        forms[f"fuse_moe_blockwise_fp8({scheme})"] = (
+            None, expect, lambda impl, scheme=scheme: (
+                bw_moe_plain(moe_args) if impl == "ref" else fuse_moe_blockwise_fp8(*moe_args, scheme=scheme)))
+    launches, errs = {}, {}
+    for name, (row, expect, call) in forms.items():
+        want = call("ref").float()
+        kernels.reset_launch_counts()
+        got = call("auto").float()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        if counts != {**{n: 0 for n in counts}, **expect}:
+            raise AssertionError(f"ops_moe_bw {name}: launch counts {counts}, expected {expect}")
+        if row is None:  # a whole MoE
+            tol = 2e-2 * float(want.abs().max())
+            ok = torch.isfinite(got).all() and torch.allclose(got, want, atol=tol, rtol=2e-2)
+        else:
+            tol = 1e-3 * float(want.abs().max())
+            ok = torch.isfinite(got).all() and torch.allclose(got, want, atol=tol, rtol=GEMM_RTOL)
+        if not ok:
+            raise AssertionError(f"ops_moe_bw {name}: the entry point disagrees with its reference "
+                                 f"(max err {float((got - want).abs().max())}, outputs up to "
+                                 f"{float(want.abs().max())})")
+        errs[name] = float((got - want).abs().max())
+        for kernel, n in expect.items():
+            if kernel != "moe_reduce":
+                key = f"{kernel}_e4m3" if row is None else row
+                launches[key] = launches.get(key, 0) + n
+    emit("ops_moe_bw", launches=launches, max_abs_err=errs)
+    return launches
+
+
 # -------------------------------------------------------------------- slice
 def first_steps(llama, cfg, w, dev):
     """Prefill 7 and 5 tokens for two requests, then decode one token each."""
@@ -1451,11 +1766,12 @@ class DecodeProfile:
 MOE_PER_CALL = {
     "pertensor_fp8": {"gg_scatter": 2, "act_quant": 1, "moe_reduce": 1},
     "pertensor_int8": {"gg_scatter_i8_act": 1, "gg_pertensor": 1, "moe_reduce": 1},
+    "blockwise_int8": {"gg_bw_scatter": 1, "gg_bw_aligned": 1, "moe_reduce": 1},
 }
 # profile classes of the MoE kernels, the longer names first (a kernel takes
 # the first class whose name it contains)
-MOE_CLASSES = ("gg_scatter_i8_act", "gg_scatter_i8", "gg_scatter", "gg_pertensor", "act_quant",
-               "moe_reduce")
+MOE_CLASSES = ("gg_bw_scatter", "gg_bw_aligned", "gg_scatter_i8_act", "gg_scatter_i8", "gg_scatter",
+               "gg_pertensor", "act_quant", "moe_reduce")
 MOE_KERNELS = tuple(MOE_PER_CALL["pertensor_fp8"])
 # (RoPE store, decode, prefill) wrappers of each KV path
 BF16_KERNELS = ("rope_store", "paged_decode", "paged_prefill")
@@ -1775,6 +2091,82 @@ def slice_full_moe_int8(dev, fp8_prefill_logits):
     return counts
 
 
+def slice_full_moe_bw(dev, fp8_prefill_logits):
+    """The same Mixtral widths with blockwise int8 experts
+    (MoEConfig(scheme="blockwise_int8"): a scale per 128 x 128 block, drawn
+    from the fp8 run's seed, the same float32 masters), after the int8
+    experts are freed: launch counts exact (the blockwise scatter gate-up
+    GEMM, the blockwise aligned down GEMM and the reduce once per layer and
+    call, every other MoE kernel at 0), each prefill's last-token logits
+    within cosine 0.97 of the fp8 run's (tests/test_model.py's bar for this
+    scheme), one device-to-host copy per profiled decode step, and the share
+    of the down GEMM's input codes at +-127 over a prefill of the prompts
+    (each 128-group's largest code is +-127 by construction)."""
+    import torch
+
+    from hpc_ops_tpu_torch.models import llama
+    from hpc_ops_tpu_torch.ops import moe
+    from hpc_ops_tpu_torch.runtime.engine import Engine
+
+    cfg = mixtral_8x7b("blockwise_int8")
+    t0 = time.perf_counter()
+    w = llama.init_weights(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    emit("init_weights", config="mixtral_8x7b blockwise int8", seconds=time.perf_counter() - t0,
+         memory_allocated_bytes=torch.cuda.memory_allocated())
+    stats, counts, prefill_logits, eng, profiled = serve_full(
+        dev, cfg, w, "slice_full_moe_bw", BF16_KERNELS, config="mixtral_8x7b", longest=512)
+    cos = [float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+           for a, b in zip(prefill_logits, fp8_prefill_logits)]
+    if len(cos) != len(fp8_prefill_logits) or min(cos) < 0.97:
+        raise AssertionError(f"slice_full_moe_bw: prefill logits at cosines {cos} of the fp8 "
+                             "MoE run's (limit 0.97)")
+    del eng
+    # saturation: the down GEMM's input codes at +-127 among those of real
+    # slots, over one prefill of the prompts (counted outside the timed run)
+    real_gemm, real_requant = moe.gg_bw_scatter, moe._act_requant
+    sat = torch.zeros(2, dtype=torch.int64, device=dev)
+    slots = []
+
+    def remember(x, weight, sx, sw, row_idx, *a, **kw):
+        slots.append(row_idx >= 0)
+        return real_gemm(x, weight, sx, sw, row_idx, *a, **kw)
+
+    def counting(gate_up, quant):
+        codes, scales = real_requant(gate_up, quant)
+        real = codes[slots.pop()]
+        sat[0] += (real.abs() == 127).sum()
+        sat[1] += real.numel()
+        return codes, scales
+
+    moe.gg_bw_scatter, moe._act_requant = remember, counting  # the MoE's own references
+    try:
+        Engine(cfg, w, num_blocks=NUM_BLOCKS, block_size=BS, max_batch=8, device=dev).run(
+            full_prompts(cfg.vocab, 512)[1], max_new=1)
+    finally:
+        moe.gg_bw_scatter, moe._act_requant = real_gemm, real_requant
+    n_sat, n_codes = (int(v) for v in sat.cpu())
+    del w
+    torch.cuda.empty_cache()
+    emit("slice_full_moe_bw", moe=cfg.moe._asdict(), prefill_cosine_vs_fp8=cos,
+         prefill_cosine_min=min(cos), saturated_down_codes=n_sat, down_codes=n_codes,
+         saturated_share=n_sat / max(n_codes, 1), **stats)
+    profile = profiled.summary()
+    emit("decode_profile_moe_bw", **profile)
+    if profile["device_to_host_copies_per_step"] != 1:
+        raise AssertionError("slice_full_moe_bw: a decode step copies to the host "
+                             f"{profile['device_to_host_copies_per_step']} times (expected 1)")
+    return counts
+
+
+def phase(name, fn, *args, **kw):
+    """Run one phase and print its seconds on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    emit("phase_seconds", name=name, seconds=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "hpc_ops_tpu_torch")):
         print("chip_smoke.py: the hpc_ops_tpu_torch package is not beside this script", file=sys.stderr)
@@ -1802,27 +2194,40 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.manual_seed(1234)
     gen = torch.Generator().manual_seed(1234)
-    rows = [check_rope(dev, gen), check_decode(dev, gen), check_prefill(dev, gen),
-            check_rope_int8(dev, gen), check_decode_nhd_fused(dev, gen),
-            check_prefill_nhd_fused(dev, gen)]
-    moe_inp = moe_check_inputs(dev, gen)
-    rows += [check_gg_scatter(dev, moe_inp), check_act_quant(dev, moe_inp),
-             check_moe_reduce(dev, moe_inp)]
-    check_moe_pipeline(dev, moe_inp)
-    int8_rows = [check_gg_scatter_i8(dev, moe_inp), check_gg_scatter_i8_act(dev, moe_inp),
-                 *check_gg_pertensor(dev, moe_inp)]
-    check_moe_pipeline_int8(dev, moe_inp)
-    launches_moe_ops = ops_moe(dev, moe_inp)
+    rows = [phase("check_rope", check_rope, dev, gen), phase("check_decode", check_decode, dev, gen),
+            phase("check_prefill", check_prefill, dev, gen),
+            phase("check_rope_int8", check_rope_int8, dev, gen),
+            phase("check_decode_nhd_fused", check_decode_nhd_fused, dev, gen),
+            phase("check_prefill_nhd_fused", check_prefill_nhd_fused, dev, gen)]
+    moe_inp = phase("moe_check_inputs", moe_check_inputs, dev, gen)
+    rows += [phase("check_gg_scatter", check_gg_scatter, dev, moe_inp),
+             phase("check_act_quant", check_act_quant, dev, moe_inp),
+             phase("check_moe_reduce", check_moe_reduce, dev, moe_inp)]
+    phase("moe_pipeline", check_moe_pipeline, dev, moe_inp)
+    int8_rows = [phase("check_gg_scatter_i8", check_gg_scatter_i8, dev, moe_inp),
+                 phase("check_gg_scatter_i8_act", check_gg_scatter_i8_act, dev, moe_inp),
+                 *phase("check_gg_pertensor", check_gg_pertensor, dev, moe_inp)]
+    phase("moe_pipeline_int8", check_moe_pipeline_int8, dev, moe_inp)
+    launches_moe_ops = phase("ops_moe", ops_moe, dev, moe_inp)
+    phase("bw_check_inputs", bw_check_inputs, dev, moe_inp)
+    bw_rows = [*phase("check_gg_bw_scatter", check_gg_bw, dev, moe_inp, False),
+               *phase("check_gg_bw_aligned", check_gg_bw, dev, moe_inp, True)]
+    phase("moe_pipeline_bw", check_moe_pipeline_bw, dev, moe_inp)
+    launches_moe_bw_ops = phase("ops_moe_bw", ops_moe_bw, dev, moe_inp)
     del moe_inp
     torch.cuda.empty_cache()
-    fp8_rows = check_decode_fp8(dev, gen) + check_prefill_fp8(dev, gen)
-    launches_ops = ops_fp8(dev, gen)
+    fp8_rows = (phase("check_decode_fp8", check_decode_fp8, dev, gen)
+                + phase("check_prefill_fp8", check_prefill_fp8, dev, gen))
+    launches_ops = phase("ops_fp8", ops_fp8, dev, gen)
     torch.cuda.empty_cache()
-    slice_tiny(dev)
-    slice_tiny(dev, "slice_tiny_int8", int8_kv=True, kv_scale=0.02)
-    slice_tiny(dev, "slice_tiny_moe", moe=True)
-    slice_tiny(dev, "slice_tiny_fp8", fp8_kv=True)
-    slice_tiny(dev, "slice_tiny_moe_int8", moe_scheme="pertensor_int8", moe=True)
+    phase("slice_tiny", slice_tiny, dev)
+    phase("slice_tiny_int8", slice_tiny, dev, "slice_tiny_int8", int8_kv=True, kv_scale=0.02)
+    phase("slice_tiny_moe", slice_tiny, dev, "slice_tiny_moe", moe=True)
+    phase("slice_tiny_fp8", slice_tiny, dev, "slice_tiny_fp8", fp8_kv=True)
+    phase("slice_tiny_moe_int8", slice_tiny, dev, "slice_tiny_moe_int8", moe_scheme="pertensor_int8",
+          moe=True)
+    phase("slice_tiny_moe_bw", slice_tiny, dev, "slice_tiny_moe_bw", moe_scheme="blockwise_int8",
+          moe=True)
 
     from hpc_ops_tpu_torch.models import llama
 
@@ -1832,15 +2237,16 @@ def main() -> int:
     w = llama.init_weights(llama.llama3_8b(), torch.Generator(device=dev).manual_seed(0), device=dev)
     torch.cuda.synchronize()
     emit("init_weights", config="llama3_8b", seconds=time.perf_counter() - t0)
-    counts, bf16_prefill_logits = slice_full(dev, w)
-    counts_int8 = slice_full_int8(dev, w, bf16_prefill_logits)
-    counts_fp8 = slice_full_fp8(dev, w, bf16_prefill_logits)
-    counts_w8a8 = slice_full_w8a8(dev, w, bf16_prefill_logits)
+    counts, bf16_prefill_logits = phase("slice_full", slice_full, dev, w)
+    counts_int8 = phase("slice_full_int8", slice_full_int8, dev, w, bf16_prefill_logits)
+    counts_fp8 = phase("slice_full_fp8", slice_full_fp8, dev, w, bf16_prefill_logits)
+    counts_w8a8 = phase("slice_full_w8a8", slice_full_w8a8, dev, w, bf16_prefill_logits)
     # the fp8 experts of the MoE model (45 GB) need the room of the llama3_8b weights
     del w, bf16_prefill_logits
     torch.cuda.empty_cache()
-    counts_moe, fp8_moe_prefill_logits = slice_full_moe(dev)
-    counts_moe_int8 = slice_full_moe_int8(dev, fp8_moe_prefill_logits)
+    counts_moe, fp8_moe_prefill_logits = phase("slice_full_moe", slice_full_moe, dev)
+    counts_moe_int8 = phase("slice_full_moe_int8", slice_full_moe_int8, dev, fp8_moe_prefill_logits)
+    counts_moe_bw = phase("slice_full_moe_bw", slice_full_moe_bw, dev, fp8_moe_prefill_logits)
     for r in rows:
         # each kernel's launches on its own path's run
         by_path = counts_int8 if r["name"] in INT8_KERNELS else (
@@ -1861,13 +2267,21 @@ def main() -> int:
         r["launches"] = (counts_moe_int8[r["name"]] if r["name"] in MOE_PER_CALL["pertensor_int8"]
                          else launches_moe_ops[r["name"]])
     rows += int8_rows
+    # the blockwise forms: the blockwise int8 serving run launched both int8
+    # forms; ops_moe_bw reached the e4m3 ones
+    for r in bw_rows:
+        served = {"gg_bw_scatter_i8": "gg_bw_scatter", "gg_bw_aligned_i8": "gg_bw_aligned"}
+        r["launches"] = (counts_moe_bw[served[r["name"]]] if r["name"] in served
+                         else launches_moe_bw_ops[r["name"]])
+    rows += bw_rows
     for r in rows:
         r["route"] = "cuda"
         r["kernel_ms"] = r["ms"]
         if r["launches"] < 1:
             raise AssertionError(f"kernel {r['name']} was never launched on its path")
     emit("launches", bf16=counts, int8_kv=counts_int8, fp8_kv=counts_fp8, w8a8=counts_w8a8,
-         moe=counts_moe, moe_int8=counts_moe_int8, ops_fp8=launches_ops, ops_moe=launches_moe_ops)
+         moe=counts_moe, moe_int8=counts_moe_int8, moe_bw=counts_moe_bw, ops_fp8=launches_ops,
+         ops_moe=launches_moe_ops, ops_moe_bw=launches_moe_bw_ops)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

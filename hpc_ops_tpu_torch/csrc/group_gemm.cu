@@ -1,6 +1,10 @@
-// Grouped GEMMs with one scale per group (expert), over e4m3 or int8 operands:
+// Grouped GEMMs over e4m3 or int8 operands, with one scale per group (expert):
 //   scatter:  out[slot] = (x[row_idx[slot]] . W[grp[slot / tm]]^T) * y_scale[grp[slot / tm]]
 //   aligned:  out[row_blk[t] * tm + i] = (x[row_blk[t] * tm + i] . W[grp[t]]^T) * y_scale[grp[t]]
+// or with blockwise scales (one per (row, 128-group of K) of x, one per
+// 128 x 128 block of each weight), over the same two row sources:
+//   out[s, n] = sum_kg (x[r, kg] . W[g, n, kg]) * sx[r, kg] * sw[g, n / 128, kg]
+// with r the row behind slot s and kg the k-th 128-wide group of K.
 // e4m3 products accumulate in float32, int8 products in exact int32 sums
 // that are then converted to float32 (round to nearest); the result is bf16.
 // The scatter GEMM over int8 also has the MoE gate-up epilogue ("act"):
@@ -11,9 +15,19 @@
 // Replaces: hpc_ops_tpu/ops/group_gemm.py:_gg_scatter_kernel (the Pallas
 // kernel behind _gg_scatter_pallas: group_gemm_fp8_scatter, the packed
 // group_gemm_pertensor_* entry points and the GEMMs of
-// ops/moe.py:fuse_moe_pertensor_fp8, its act_fuse epilogue included) and
+// ops/moe.py:fuse_moe_pertensor_fp8, its act_fuse epilogue included),
 // hpc_ops_tpu/ops/group_gemm.py:_gg_pertensor_kernel (_gg_pertensor_pallas:
-// the down GEMM of the fused int8 MoE and both GEMMs of impl="gather").
+// the down GEMM of the fused int8 MoE and both GEMMs of impl="gather"), and
+// the blockwise ones: _gg_bw_scatter_kernel (_gg_bw_scatter_pallas, the
+// default scheme of group_gemm_blockwise_* and fuse_moe_blockwise_*) by the
+// blockwise scatter form, _gg_blockwise_kernel and _gg_bw_prescale_kernel
+// (the aligned-row schemes "fp8", "int8" and "prescale") by the blockwise
+// aligned form. The TPU kernels fold both scale sets into bf16 operands
+// (about 2^-9 relative error each) because per-group promotion breaks the
+// v5e MXU's accumulation chain; here each 128-wide K stage is exactly one
+// scale group, so its tensor-core partial is promoted into a float32
+// accumulator exactly (DeepGEMM's structure): acc + (partial * sx) * sw,
+// groups in order, no FMA, the plain version's order.
 //
 // Contract, as there: output rows come in m-tiles of tm slots, each tile
 // owned by one group (expert) grp[tile]. Scatter: row_idx[slot] names the
@@ -24,7 +38,9 @@
 // nothing at all. The act epilogue's weight is interleaved in pairs of
 // 2 * pair rows (pair gate rows, then the pair matching up rows), so output
 // column j * pair + c pairs weight rows j * 2 * pair + c and + pair; its
-// output has n / 2 columns.
+// output has n / 2 columns. The blockwise x scales are read through the same
+// row as x (sx[row_idx[slot]] or sx[row_blk[t] * tm + i]); an empty slot's
+// scales are never read.
 //
 // Bound on the card: bytes at decode shapes (a handful of rows per expert:
 // every expert's whole weight is streamed for almost no arithmetic),
@@ -50,6 +66,13 @@
 //   lane's 16-byte piece holds two k32 steps: words 2s and 2s+1 for step s.
 // Either way k is permuted inside a stage the same way for A and for B,
 // which a dot product does not see.
+// Blockwise forms: a stage also carries its BM x scales and its block's w
+// scale (4-byte cp.asyncs into the same ring slot), the MMA partials of a
+// stage go into a fresh accumulator (int32 sums of a 128-group stay below
+// 128 * 127^2 < 2^24, so the conversion to float32 is exact) and are
+// promoted into a second, float32 accumulator. Two accumulator sets cost
+// registers, so these forms use the 32- and 64-row blocks only (MI = 2),
+// held to two blocks an SM where that spills nothing.
 // The act epilogue: a block's 128 weight rows are 64 gate rows and the 64
 // matching up rows; warp column w takes gate rows 16w..16w+15 as its
 // fragments 0 and 1 and the up rows 64+16w.. as fragments 2 and 3, so a
@@ -60,7 +83,7 @@
 // version's.
 // 16-row groups of a block that hold no real row are skipped, so a decode
 // tile of 32 slots with two real rows pays for 16 (in the scatter gate-up
-// GEMM; the down GEMMs compute every row of a valid tile). Blocks of one
+// GEMMs; the down GEMMs compute every row of a valid tile). Blocks of one
 // m-tile sit side by side in the grid's fast dimension, so the blocks that
 // share a weight panel run together and it is read from device memory about
 // once.
@@ -78,7 +101,17 @@ constexpr int BN = 128;   // weight rows of a block
 constexpr int BK = 128;   // K elements (bytes) of a stage
 constexpr int PLANE = 64; // bytes of a row in one plane of a stage
 
-enum Mode { kScatter = 0, kScatterAct = 1, kAligned = 2 };
+enum Mode { kScatter = 0, kScatterAct = 1, kAligned = 2, kBwScatter = 3, kBwAligned = 4 };
+__host__ __device__ constexpr bool is_bw(int mode) {
+  return mode == kBwScatter || mode == kBwAligned;
+}
+// Bytes of one ring slot: the x rows and weight rows of a stage and, in the
+// blockwise forms, the stage's BM x scales and its block's w scale (padded
+// to 16 bytes).
+template <int MODE, int BM>
+__host__ __device__ constexpr int stage_bytes() {
+  return (BM + BN) * BK + (is_bw(MODE) ? BM * 4 + 16 : 0);
+}
 struct E4m3 {};
 struct I8 {};
 template <typename T> struct AccOf { using type = float; };
@@ -92,6 +125,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = pred ? 4 : 0;  // 0: the 4 bytes are zero-filled
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes)
+               : "memory");
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -211,6 +250,9 @@ struct Params {
   const int32_t* num_valid_tiles;
   void* out;
   int num_tiles, tm, subtiles, n, k, pair, bf16_mul;
+  const float* sx;  // blockwise: [rows of x, sx_stride], column kg is group kg
+  const float* sw;  // blockwise: [groups, n / 128, sw_stride]
+  int sx_stride, sw_stride;
 };
 
 // BM rows by BN weight rows a block, WARPS_M x 4 warps, each (BM / WARPS_M) x 32.
@@ -226,8 +268,10 @@ __device__ __forceinline__ void gg_body(const Params& p) {
   constexpr int MI = WM / 16;
   constexpr int NI = 4;
   constexpr int A_BYTES = BM * BK;
-  constexpr int STAGE_BYTES = A_BYTES + BN * BK;
+  constexpr int STAGE_BYTES = stage_bytes<MODE, BM>();
   constexpr bool ACT = MODE == kScatterAct;
+  constexpr bool ALIGNED = MODE == kAligned || MODE == kBwAligned;
+  constexpr bool BW = is_bw(MODE);
 
   const int tile = blockIdx.x / p.subtiles;
   if (tile >= p.num_valid_tiles[0]) return;
@@ -247,7 +291,7 @@ __device__ __forceinline__ void gg_body(const Params& p) {
   const int g0 = ACT ? (c0 / pair) * 2 * pair + c0 % pair : 0;
   // the first row of x and of out behind row 0 of this block
   const int64_t row0 =
-      static_cast<int64_t>(MODE == kAligned ? rows[tile] : tile) * tm + sub * BM;
+      static_cast<int64_t>(ALIGNED ? rows[tile] : tile) * tm + sub * BM;
 
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int32_t s_src[BM];  // row of x behind each row of the block, -1: none
@@ -257,7 +301,7 @@ __device__ __forceinline__ void gg_body(const Params& p) {
     const int in_tile = sub * BM + r;
     int src = -1;
     if (in_tile < tm) {
-      src = MODE == kAligned ? static_cast<int>(row0 + r)
+      src = ALIGNED ? static_cast<int>(row0 + r)
                              : rows[static_cast<int64_t>(tile) * tm + in_tile];
     }
     s_src[r] = src;
@@ -301,6 +345,19 @@ __device__ __forceinline__ void gg_body(const Params& p) {
       const bool ok = wrow < n && kk < k;
       cp_async16(sb + c * 16, ok ? wg + static_cast<int64_t>(wrow) * k + kk : wg, ok);
     }
+    if constexpr (BW) {  // stage kt is scale group kt: BM x scales, then the w scale
+      float* ss = reinterpret_cast<float*>(sb + BN * BK);
+      for (int r = tid; r < BM; r += THREADS) {
+        const int src = s_src[r];
+        cp_async4(ss + r, src >= 0 ? p.sx + static_cast<int64_t>(src) * p.sx_stride + kt : p.sx,
+                  src >= 0);
+      }
+      if (tid == 0) {
+        cp_async4(ss + BM,
+                  p.sw + (static_cast<int64_t>(group) * (n / BN) + blockIdx.y) * p.sw_stride + kt,
+                  true);
+      }
+    }
   };
 
   // the block's B row of fragment ni of this warp
@@ -310,13 +367,19 @@ __device__ __forceinline__ void gg_body(const Params& p) {
     b_row[ni] = ACT ? (ni >> 1) * (BN / 2) + wn * 16 + (ni & 1) * 8 + gq : wn * 32 + ni * 8 + gq;
   }
 
+  // the MMA accumulators; in the blockwise forms one stage's partials, which
+  // are promoted into bw after each stage
   Acc acc[MI][NI][4];
+  float bw[BW ? MI : 1][BW ? NI : 1][4];
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0;
+      for (int i = 0; i < 4; ++i) {
+        acc[mi][ni][i] = 0;
+        if constexpr (BW) bw[mi][ni][i] = 0.f;
+      }
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -334,6 +397,14 @@ __device__ __forceinline__ void gg_body(const Params& p) {
 
     const uint8_t* sa = smem + (kt % STAGES) * STAGE_BYTES;
     const uint8_t* sb = sa + A_BYTES;
+    if constexpr (BW) {
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0;
+    }
 #pragma unroll
     for (int plane = 0; plane < 2; ++plane) {
       uint4 a_lo[MI], a_hi[MI], b[NI];
@@ -351,10 +422,30 @@ __device__ __forceinline__ void gg_body(const Params& p) {
       }
       plane_mma(T{}, acc, a_lo, a_hi, b, live);
     }
+    if constexpr (BW) {  // bw += (partial * sx[row]) * sw, rounded step by step
+      const float* ss = reinterpret_cast<const float*>(sb + BN * BK);
+      const float swv = ss[BM];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        if (!live[mi]) continue;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float sxv = ss[wm0 + mi * 16 + gq + half * 8];
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& f = bw[mi][ni][half * 2 + e];
+              f = __fadd_rn(f, __fmul_rn(__fmul_rn(to_float(acc[mi][ni][half * 2 + e]), sxv), swv));
+            }
+        }
+      }
+    }
   }
   cp_async_wait<0>();
 
-  const float scale = p.y_scale[group];
+  float scale = 1.f;  // the blockwise forms have applied their scales
+  if constexpr (!BW) scale = p.y_scale[group];
   if constexpr (ACT) {
     const float am = p.act_scale[0];
     const int width = n / 2;
@@ -394,9 +485,15 @@ __device__ __forceinline__ void gg_body(const Params& p) {
         for (int ni = 0; ni < NI; ++ni) {
           const int col = n0 + wn * 32 + ni * 8 + tq * 2;
           if (col < n) {
-            *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
-                __fmul_rn(to_float(acc[mi][ni][half * 2]), scale),
-                __fmul_rn(to_float(acc[mi][ni][half * 2 + 1]), scale));
+            float v0, v1;
+            if constexpr (BW) {
+              v0 = bw[mi][ni][half * 2];
+              v1 = bw[mi][ni][half * 2 + 1];
+            } else {
+              v0 = __fmul_rn(to_float(acc[mi][ni][half * 2]), scale);
+              v1 = __fmul_rn(to_float(acc[mi][ni][half * 2 + 1]), scale);
+            }
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(v0, v1);
           }
         }
       }
@@ -408,7 +505,10 @@ __device__ __forceinline__ void gg_body(const Params& p) {
 // act epilogue's 128-row block is held to two blocks an SM (128 registers a
 // thread, as the plain int8 GEMM uses): unbounded it took 164, one block an
 // SM, and on an H100 ran slower than the plain GEMM and the activation
-// kernel one after the other.
+// kernel one after the other. The blockwise forms are held the same way:
+// unbounded their 64-row block took 160-168 registers, one block an SM, and
+// the serving path's decode GEMMs ran 1.3-1.5x slower (scripts/time_gg_bw.py).
+// The e4m3 aligned form is left unbounded: held to 128 registers it spills.
 #define GG_KERNEL(NAME, T, MODE, MIN_BLOCKS)                                        \
   template <int BM, int WARPS_M, int STAGES>                                       \
   __global__ void __launch_bounds__(WARPS_M * 4 * 32, MIN_BLOCKS) NAME(const Params p) { \
@@ -419,6 +519,10 @@ GG_KERNEL(gg_scatter_i8_kernel, I8, kScatter, 1)
 GG_KERNEL(gg_scatter_i8_act_kernel, I8, kScatterAct, BM == 128 ? 2 : 1)
 GG_KERNEL(gg_pertensor_e4m3_kernel, E4m3, kAligned, 1)
 GG_KERNEL(gg_pertensor_i8_kernel, I8, kAligned, 1)
+GG_KERNEL(gg_bw_scatter_e4m3_kernel, E4m3, kBwScatter, 2)
+GG_KERNEL(gg_bw_scatter_i8_kernel, I8, kBwScatter, 2)
+GG_KERNEL(gg_bw_aligned_e4m3_kernel, E4m3, kBwAligned, 1)  // bounded, it spills
+GG_KERNEL(gg_bw_aligned_i8_kernel, I8, kBwAligned, 2)
 #undef GG_KERNEL
 
 template <typename T, int MODE, int BM, int WARPS_M, int STAGES>
@@ -429,6 +533,12 @@ auto kernel_of() {
   } else if constexpr (MODE == kAligned) {
     if constexpr (I8_OPS) return gg_pertensor_i8_kernel<BM, WARPS_M, STAGES>;
     else return gg_pertensor_e4m3_kernel<BM, WARPS_M, STAGES>;
+  } else if constexpr (MODE == kBwScatter) {
+    if constexpr (I8_OPS) return gg_bw_scatter_i8_kernel<BM, WARPS_M, STAGES>;
+    else return gg_bw_scatter_e4m3_kernel<BM, WARPS_M, STAGES>;
+  } else if constexpr (MODE == kBwAligned) {
+    if constexpr (I8_OPS) return gg_bw_aligned_i8_kernel<BM, WARPS_M, STAGES>;
+    else return gg_bw_aligned_e4m3_kernel<BM, WARPS_M, STAGES>;
   } else {
     if constexpr (I8_OPS) return gg_scatter_i8_kernel<BM, WARPS_M, STAGES>;
     else return gg_scatter_e4m3_kernel<BM, WARPS_M, STAGES>;
@@ -437,7 +547,7 @@ auto kernel_of() {
 
 template <typename T, int MODE, int BM, int WARPS_M, int STAGES>
 int launch(Params p, cudaStream_t stream) {
-  constexpr int SMEM = STAGES * (BM + BN) * BK;
+  constexpr int SMEM = STAGES * stage_bytes<MODE, BM>();
   auto kernel = kernel_of<T, MODE, BM, WARPS_M, STAGES>();
   static bool configured = false;  // more than 48 KB of dynamic shared memory
   if (!configured) {
@@ -456,7 +566,8 @@ int launch(Params p, cudaStream_t stream) {
 }
 
 // The block height follows the m-tile: 128 rows (8 warps, 3 stages) for
-// tiles of 128 slots or more, 64 (8 warps) and 32 (4 warps, 4 stages) below.
+// tiles of 128 slots or more, 64 (8 warps) and 32 (4 warps, 4 stages) below;
+// the blockwise forms stop at 64 rows (two accumulator sets).
 template <typename T, int MODE>
 int dispatch(const Params& a, void* stream) {
   if (a.num_tiles == 0 || a.n == 0) return 0;
@@ -467,8 +578,14 @@ int dispatch(const Params& a, void* stream) {
   if (MODE == kScatterAct && (a.pair < 64 || a.pair % 64 != 0 || a.n % (2 * a.pair) != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (is_bw(MODE) && (a.k % BK != 0 || a.n % BN != 0 || a.sx_stride < a.k / BK ||
+                      a.sw_stride < a.k / BK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.tm >= 128) return launch<T, MODE, 128, 2, 3>(a, s);
+  if constexpr (!is_bw(MODE)) {
+    if (a.tm >= 128) return launch<T, MODE, 128, 2, 3>(a, s);
+  }
   if (a.tm >= 64) return launch<T, MODE, 64, 2, 4>(a, s);
   return launch<T, MODE, 32, 1, 4>(a, s);
 }
@@ -533,3 +650,41 @@ extern "C" int hpc_gg_pertensor(const void* x, const void* w, const void* y_scal
   if (elem == 1) return dispatch<E4m3, kAligned>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// Blockwise scales: x [rows_x, k] and w [groups, n, k], both int8 (_i8)
+// or both e4m3 (_e4m3), sx [rows_x, sx_stride] f32 (column kg: the scale of
+// group kg of that row), sw [groups, n / 128, sw_stride] f32 (one scale per
+// 128 x 128 block), grp [num_tiles] i32, num_valid_tiles [1] i32; k and n
+// multiples of 128, both strides at least k / 128.
+// Scatter: rows = row_idx [num_tiles * tm] i32, out [num_tiles * tm, n] bf16.
+// Aligned: rows = row_blk [num_tiles] i32, out [rows_x, n] bf16; tile t <
+// num_valid_tiles[0] reads and writes rows row_blk[t] * tm .. + tm - 1 of x,
+// sx and out, which must lie in x.
+namespace {
+template <typename T, int MODE>
+int launch_bw(const void* x, const void* w, const void* sx, const void* sw, const void* rows,
+              const void* grp, const void* num_valid_tiles, void* out, int num_tiles, int tm,
+              int n, int k, int sx_stride, int sw_stride, void* stream) {
+  Params a = params(x, w, nullptr, nullptr, rows, grp, num_valid_tiles, out, num_tiles, tm, n, k,
+                    0, 0);
+  a.sx = static_cast<const float*>(sx);
+  a.sw = static_cast<const float*>(sw);
+  a.sx_stride = sx_stride;
+  a.sw_stride = sw_stride;
+  return dispatch<T, MODE>(a, stream);
+}
+}  // namespace
+
+#define GG_BW_LAUNCHER(NAME, T, MODE)                                                            \
+  extern "C" int NAME(const void* x, const void* w, const void* sx, const void* sw,             \
+                      const void* rows, const void* grp, const void* num_valid_tiles, void* out, \
+                      int num_tiles, int tm, int n, int k, int sx_stride, int sw_stride,         \
+                      void* stream) {                                                            \
+    return launch_bw<T, MODE>(x, w, sx, sw, rows, grp, num_valid_tiles, out, num_tiles, tm, n, k, \
+                              sx_stride, sw_stride, stream);                                     \
+  }
+GG_BW_LAUNCHER(hpc_gg_bw_scatter_i8, I8, kBwScatter)
+GG_BW_LAUNCHER(hpc_gg_bw_scatter_e4m3, E4m3, kBwScatter)
+GG_BW_LAUNCHER(hpc_gg_bw_aligned_i8, I8, kBwAligned)
+GG_BW_LAUNCHER(hpc_gg_bw_aligned_e4m3, E4m3, kBwAligned)
+#undef GG_BW_LAUNCHER

@@ -44,6 +44,10 @@ _SIGNATURES = {
     "hpc_gg_scatter_i8": [_P] * 7 + [_I] * 4 + [_P],
     "hpc_gg_scatter_i8_act": [_P] * 8 + [_I] * 6 + [_P],
     "hpc_gg_pertensor": [_P] * 7 + [_I] * 5 + [_P],
+    "hpc_gg_bw_scatter_i8": [_P] * 8 + [_I] * 6 + [_P],
+    "hpc_gg_bw_scatter_e4m3": [_P] * 8 + [_I] * 6 + [_P],
+    "hpc_gg_bw_aligned_i8": [_P] * 8 + [_I] * 6 + [_P],
+    "hpc_gg_bw_aligned_e4m3": [_P] * 8 + [_I] * 6 + [_P],
     "hpc_act_mul_quant": [_P] * 4 + [_I] * 4 + [_P],
     "hpc_moe_reduce": [_P] * 5 + [_I] * 3 + [_P],
 }
@@ -137,6 +141,8 @@ def wrappers() -> dict:
     )
     from hpc_ops_tpu_torch.ops.activation import act_quant
     from hpc_ops_tpu_torch.ops.group_gemm import (
+        gg_bw_aligned,
+        gg_bw_scatter,
         gg_pertensor,
         gg_scatter,
         gg_scatter_i8,
@@ -159,6 +165,8 @@ def wrappers() -> dict:
         "gg_scatter_i8": gg_scatter_i8,
         "gg_scatter_i8_act": gg_scatter_i8_act,
         "gg_pertensor": gg_pertensor,
+        "gg_bw_scatter": gg_bw_scatter,
+        "gg_bw_aligned": gg_bw_aligned,
     }
 
 

@@ -1,6 +1,6 @@
 """Llama-class decoder on the port's operator stack (port of
 ``models/llama.py``, single-device path; bf16, int8 or fp8 KV; dense bf16 or
-W8A8 projections; dense, fp8-MoE or int8-MoE MLP).
+W8A8 projections; dense, fp8-MoE, int8-MoE or blockwise-int8-MoE MLP).
 
 Weights are a plain dict of tensors with the JAX package's layout:
 ``{"embed", "final_norm", "lm_head", "cos_sin", "layers": [{"attn_norm",
@@ -12,7 +12,9 @@ Weights are a plain dict of tensors with the JAX package's layout:
 float8_e4m3fn codes, or with ``MoEConfig(scheme="pertensor_int8")`` int8
 codes, the gate-up rows interleaved (``interleave_gate_up``) and the
 activation's int8 scale ``"moe_act_scale"`` [1] folded out of the down
-scales.
+scales; or with ``MoEConfig(scheme="blockwise_int8")`` int8 codes with one
+float32 scale per 128 x 128 block (``[E, N/128, K/128]``).
+A layer may carry ``"qkv_bias"`` [qkv_out], added to the QKV projection.
 With ``dense_int8`` the dense projections (``wqkv``, ``wo``, ``w_gate_up``,
 ``w_down``) are int8 codes with one float32 scale per output column
 (``<name>_scale``) and run as W8A8 products (:func:`_mm_w8a8`).
@@ -31,7 +33,9 @@ in place), the o-projection with residual add, RMSNorm and the gated-SiLU
 MLP: dense, or routed to the top-k experts through the fused MoE
 (``ops/moe.py``): fp8, the scatter grouped GEMM, activation + quantisation
 and top-k reduce kernels; int8, the gate-up GEMM with the activation in its
-epilogue, the aligned down GEMM and the reduce kernel.
+epilogue, the aligned down GEMM and the reduce kernel; blockwise int8, the
+blockwise scatter gate-up GEMM, a plain-tensor activation and re-quantisation,
+the blockwise aligned down GEMM and the reduce kernel.
 """
 
 from __future__ import annotations
@@ -46,11 +50,13 @@ from hpc_ops_tpu_torch.config import FP8_DTYPE, FP8_MAX, QuantPolicy
 from hpc_ops_tpu_torch.ops.attention.decode import attention_decode
 from hpc_ops_tpu_torch.ops.attention.prefill import attention_with_kvcache_prefill
 from hpc_ops_tpu_torch.ops.moe import (
+    fuse_moe_blockwise_int8,
     fuse_moe_pertensor_fp8,
     fuse_moe_pertensor_int8,
     interleave_gate_up,
 )
 from hpc_ops_tpu_torch.ops.normalization import rmsnorm_ref
+from hpc_ops_tpu_torch.ops.quant import blockwise_int8_quant
 from hpc_ops_tpu_torch.ops.rope import (
     make_cos_sin_cache,
     rope_norm_store_kv,
@@ -68,8 +74,9 @@ class MoEConfig(NamedTuple):
     weights, fp8 codes), "pertensor_int8" (one scale per expert, int8 codes,
     the gate-up weight interleaved so that the gate-up GEMM applies the
     activation in its epilogue; ``act_clip`` is the |silu(gate) * up| range
-    mapped onto the int8 codes) or the JAX package's "blockwise_int8" (a
-    later slice)."""
+    mapped onto the int8 codes) or "blockwise_int8" (int8 codes with one
+    scale per 128 x 128 weight block, activations quantised per (token,
+    128-group))."""
 
     num_experts: int = 8
     topk: int = 2
@@ -121,22 +128,19 @@ def tiny_config(moe: bool = False, **kw) -> ModelConfig:
     )
 
 
+MOE_SCHEMES = ("pertensor_fp8", "pertensor_int8", "blockwise_int8")
+
+
 def check_supported(cfg: ModelConfig, axis_name=None) -> None:
-    """Raise NotImplementedError for configurations of later slices, and
-    ValueError for ``fp8_kv`` with ``int8_kv`` (one cache, one type)."""
+    """Raise NotImplementedError for configurations of later slices
+    (``axis_name``), and ValueError for ``fp8_kv`` with ``int8_kv`` (one
+    cache, one type) or an unknown MoE scheme."""
     if cfg.fp8_kv and cfg.int8_kv:
         raise ValueError("fp8_kv and int8_kv are mutually exclusive")
-    moe_scheme = None if cfg.moe is None else cfg.moe.scheme
-    later = {
-        f"moe scheme {moe_scheme!r}": (
-            "ROADMAP queue 1 item 3 (MoE)",
-            moe_scheme not in (None, "pertensor_fp8", "pertensor_int8")),
-        "qkv_bias": ("ROADMAP queue 1 item 7 (checkpoint conversion)", cfg.qkv_bias),
-        "axis_name": ("ROADMAP queue 1 item 8 (multi-GPU)", axis_name is not None),
-    }
-    for name, (item, on) in later.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet: {item}")
+    if cfg.moe is not None and cfg.moe.scheme not in MOE_SCHEMES:
+        raise ValueError(f"unknown MoE scheme {cfg.moe.scheme!r}")
+    if axis_name is not None:
+        raise NotImplementedError("axis_name is not ported yet: ROADMAP queue 1 item 8 (multi-GPU)")
 
 
 def init_weights(
@@ -165,12 +169,20 @@ def init_weights(
         return torch.ones((n,), dtype=torch.float32, device=device)
 
     def experts(fan_in, shape):
-        """Expert weights [E, N, K] and their [E] scales: fp8 codes at one
-        scale for the tensor, or (pertensor_int8) int8 codes at one scale per
-        expert, ``max|w_e| / 127 + 1e-12``. Both schemes draw the same float32
+        """Expert weights [E, N, K] and their scales: fp8 codes at one scale
+        for the tensor ([E] copies of it), (pertensor_int8) int8 codes at one
+        scale per expert, ``max|w_e| / 127 + 1e-12``, or (blockwise_int8)
+        int8 codes at one scale per 128 x 128 block, ``max|block| / 127 +
+        1e-8``, [E, N/128, K/128]. Every scheme draws the same float32
         master, the only transient."""
         w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         w.div_(math.sqrt(fan_in))
+        if cfg.moe.scheme == "blockwise_int8":
+            e, n, k = shape
+            blocks = w.view(e, n // 128, 128, k // 128, 128)
+            scale = blocks.abs().amax(dim=(2, 4)) / 127.0 + 1e-8
+            blocks.div_(scale[:, :, None, :, None]).round_().clamp_(-127, 127)
+            return w.to(torch.int8), scale
         if cfg.moe.scheme == "pertensor_int8":
             scale = w.abs().amax(dim=(1, 2)) / 127.0 + 1e-12
             w8 = w.div_(scale[:, None, None]).round_().clamp_(-127, 127).to(torch.int8)
@@ -283,7 +295,8 @@ def weights_from_numpy(tree, device="cuda"):
     over bit-exactly through integer views, so both packages compute the same
     function. int8 weight matrices (``dense_int8``) keep their values and
     shape and become column-major in memory; the 3-D int8 expert tensors of
-    ``pertensor_int8`` stay row-major, as the grouped GEMMs read them.
+    ``pertensor_int8`` and ``blockwise_int8`` stay row-major, as the grouped
+    GEMMs read them, and so do their float32 scales.
     """
     if isinstance(tree, dict):
         return {k: weights_from_numpy(v, device) for k, v in tree.items()}
@@ -324,15 +337,31 @@ def _mlp_dense(h_normed, layer):
 
 
 def _mlp_moe(h_normed, layer, cfg: ModelConfig, rank_ep: int, act_scale=None):
-    """Top-k routed experts through the fused per-tensor MoE: fp8, where
+    """Top-k routed experts through the fused MoE: per-tensor fp8, where
     ``act_scale`` is the [1] float32 activation scale of 1 (a step builds it
-    once for all its layers), or int8 (``pertensor_int8``: the layer's own
-    ``moe_act_scale``, the fused-activation path)."""
+    once for all its layers); per-tensor int8 (``pertensor_int8``: the
+    layer's own ``moe_act_scale``, the fused-activation path); or blockwise
+    int8 (``blockwise_int8``)."""
     m = cfg.moe
     xf = h_normed.float()
     router_logits = xf @ layer["router"].float()
     topk_scale, topk_ids = torch.topk(router_logits, m.topk, dim=-1)
     topk_scale = torch.softmax(topk_scale, dim=-1)
+    if m.scheme == "blockwise_int8":
+        # int8 activations with a scale per (token, 128-group), on the device
+        x8, sx = blockwise_int8_quant(xf)
+        return fuse_moe_blockwise_int8(
+            x8,
+            sx,
+            layer["moe_gate_up"],
+            layer["moe_gate_up_scale"],
+            layer["moe_down"],
+            layer["moe_down_scale"],
+            topk_ids.to(torch.int32),
+            topk_scale,
+            rank_ep,
+            m.num_experts,
+        )
     if m.scheme == "pertensor_int8":
         # per-tensor int8 activations, the scale never leaves the device
         x_scale = xf.abs().max().clamp(min=1e-6) / 127.0
@@ -414,6 +443,8 @@ def forward_step(
         moe_act_scale = torch.ones((1,), dtype=torch.float32, device=x.device)
     for li, layer in enumerate(weights["layers"]):
         qkv = _mm(h_normed, layer, "wqkv")
+        if "qkv_bias" in layer:  # Qwen2-style attention bias
+            qkv = qkv + layer["qkv_bias"].to(qkv.dtype)
         if cfg.int8_kv:
             # one int8 NHD_FUSED slab per layer, read in place by attention
             k_cache, v_cache = caches[li]["kv"], None

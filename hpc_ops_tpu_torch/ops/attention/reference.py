@@ -55,6 +55,11 @@ def _gather_pages(cache, block_ids, max_len):
     return out.reshape(b, nblk * bs, *cache.shape[2:])[:, :max_len]
 
 
+def _no_block_mask(block_mask) -> None:
+    if block_mask is not None:
+        raise NotImplementedError("block-sparse prefill arrives with ROADMAP queue 1 item 6")
+
+
 def mha_varlen_prefill_ref(
     q,  # [total_q, Hq, D]
     k,  # [B, max_kv, Hkv, D] float32 (already gathered)
@@ -63,11 +68,18 @@ def mha_varlen_prefill_ref(
     cu_seqlens_q,  # [B+1]
     seqlens_kv,  # [B] total kv length (>= seqlens_q; causal offset = kv - q)
     q_scale=None,  # [B, Hq, max_q_pad] per-token-per-head scale of q, or None
+    block_mask=None,
+    mask_tile_q: int = 128,
+    mask_tile_kv: int = 128,
     sm_scale: Optional[float] = None,
     causal: bool = True,
 ):
     """Varlen causal attention over per-request KV; returns [total_q, Hq, Dv]
-    float32. Query i of request b sits at position ``kv_len - q_len + i``."""
+    float32. Query i of request b sits at position ``kv_len - q_len + i``.
+    ``block_mask`` (block-sparse attention) and its tiles are ROADMAP queue 1
+    item 6: a mask raises ``NotImplementedError``."""
+    _no_block_mask(block_mask)
+    del mask_tile_q, mask_tile_kv
     total_q, hq, d = q.shape
     b, _, hkv, _ = k.shape
     dv = v.shape[-1]
@@ -126,10 +138,16 @@ def attention_with_kvcache_prefill_ref(
     kscale=None,
     vscale=None,
     quant_type: QuantType = QuantType.QPERTOKEN_PERHEAD_KPERTENSOR_VPERTENSOR,
+    block_mask=None,
+    mask_tile_q: int = 128,
+    mask_tile_kv: int = 128,
     sm_scale: Optional[float] = None,
 ):
     """Paged-cache varlen prefill over an NHD cache, bf16 or quantised
-    (``qscale`` [B, Hq, max_q_pad] dequantises q). Returns bf16."""
+    (``qscale`` [B, Hq, max_q_pad] dequantises q). Returns bf16. A
+    ``block_mask`` raises ``NotImplementedError`` (ROADMAP queue 1 item 6)."""
+    _no_block_mask(block_mask)
+    del mask_tile_q, mask_tile_kv
     seqlens_q = cu_seqlens_q[1:] - cu_seqlens_q[:-1]
     max_kv = int(seqlens_kvcache.max())
     kf, vf = _dequant_kv(kcache, vcache, kscale, vscale, quant_type)

@@ -22,8 +22,17 @@ real rows reaches the kernels as a device scalar.
 
 ``impl="gather"`` copies the tokens into the expert-grouped aligned layout
 and runs both GEMMs as ``gg_pertensor``; ``impl="ref"`` is the plain float32
-pipeline over that copy. The blockwise entry points are ROADMAP queue 1
-item 3 and raise ``NotImplementedError``.
+pipeline over that copy.
+
+The blockwise pipelines (``fuse_moe_blockwise_fp8`` / ``_int8``: x scales per
+(token, 128-group), weight scales per 128 x 128 block) route the same way.
+``scheme="scatter"`` (the default) runs the gate-up GEMM as
+``gg_bw_scatter`` over the routed token rows and the down GEMM as
+``gg_bw_aligned`` over the gate-up output's own slots; the other schemes copy
+the tokens and their scales into the aligned layout and run both GEMMs as
+``gg_bw_aligned``. Between the GEMMs sits plain tensor code, as in the JAX
+package: silu(gate) * up in float32, then a per-(row, 128-group)
+re-quantisation.
 """
 
 from __future__ import annotations
@@ -36,18 +45,21 @@ from hpc_ops_tpu_torch import kernels
 from hpc_ops_tpu_torch.config import FP8_DTYPE
 from hpc_ops_tpu_torch.ops.activation import act_mul_and_quant
 from hpc_ops_tpu_torch.ops.group_gemm import (
+    BLOCKWISE_SCHEMES,
     _cu,
     _dot,
     _flat_tiles,
-    _later,
     _pick_tm,
     _take,
     _tile_groups,
     act_pair,
     cdiv_dyn,
+    gg_bw_aligned,
+    gg_bw_scatter,
     gg_pertensor,
     gg_scatter,
 )
+from hpc_ops_tpu_torch.ops.quant import blockwise_fp8_quant, blockwise_int8_quant
 from hpc_ops_tpu_torch.utils.common import cdiv
 
 
@@ -420,9 +432,141 @@ def fuse_moe_pertensor_int8(
     )
 
 
-fuse_moe_blockwise_fp8 = _later("fuse_moe_blockwise_fp8")
-fuse_moe_blockwise_int8 = _later("fuse_moe_blockwise_int8")
-fuse_moe_blockwise = _later("fuse_moe_blockwise")
+def _gather_scale_aligned(x_scale, g: GatherResult):
+    """The per-token blockwise scales in the aligned layout of ``g``: row
+    ``g.topk_pos[s, j]`` gets ``x_scale[s]``; every other row 0."""
+    s, k = g.topk_pos.shape
+    rows_pad = g.x_gathered.shape[0]
+    pos = g.topk_pos.reshape(-1).long()
+    kept = pos >= 0
+    tokens = torch.arange(s * k, device=pos.device) // k
+    out = torch.zeros((rows_pad, x_scale.shape[1]), dtype=torch.float32, device=x_scale.device)
+    # dropped pairs all write zeros into the trash tile's last row
+    out[torch.where(kept, pos, rows_pad - 1)] = torch.where(kept[:, None], x_scale[tokens].float(), 0.0)
+    return out
+
+
+def _act_requant(gate_up, quant):
+    """The stage between the blockwise GEMMs, plain tensor code as in the JAX
+    package: silu(gate) * up in float32 from the bf16 gate-up output ([gate;
+    up] columns), re-quantised per (row, 128-group). Returns the down GEMM's
+    codes and scales (+ 1e-8, as the JAX package passes them)."""
+    interm = gate_up.shape[1] // 2
+    gate = gate_up[:, :interm].float()
+    up = gate_up[:, interm:].float()
+    down_in, down_in_scale = quant(gate * torch.sigmoid(gate) * up)
+    return down_in, down_in_scale + 1e-8
+
+
+def _fuse_moe_blockwise(x, x_scale, gate_up_weight, gate_up_weight_scale, down_weight,
+                        down_weight_scale, topk_ids, topk_scale, rank_ep, shared_output,
+                        num_seq_per_group_avg, scheme, quant):
+    if scheme not in BLOCKWISE_SCHEMES:
+        raise ValueError(f"fuse_moe_blockwise: unknown scheme {scheme!r}")
+    e_local = gate_up_weight.shape[0]
+    if scheme == "scatter":
+        # routing builds an index vector only: the gate-up GEMM fetches the
+        # token rows and their scales by index, the down GEMM reads the
+        # gate-up output's slots as whole row blocks (the JAX package feeds
+        # its scatter kernel identity indices there: the same rows)
+        tm = _pick_tm(num_seq_per_group_avg, x.shape[1])
+        row_idx, topk_pos, _, _, _, cu_tiles, grp = _route_aligned(topk_ids, e_local, rank_ep, tm)
+        nvt = cu_tiles[-1:]  # tiles holding real rows, on the device
+        gate_up = gg_bw_scatter(x, gate_up_weight, x_scale, gate_up_weight_scale, row_idx, grp,
+                                tm, nvt)
+        down_in, down_in_scale = _act_requant(gate_up, quant)
+        row_blk = torch.arange(grp.shape[0], dtype=torch.int32, device=grp.device)
+        down = gg_bw_aligned(down_in, down_weight, down_in_scale, down_weight_scale, grp, row_blk,
+                             tm, nvt)
+        return reduce(down, topk_pos, topk_scale, shared_output)
+    tm = _pick_tm(num_seq_per_group_avg)
+    g = _gather_aligned(x, topk_ids, e_local, rank_ep, tm)
+    sx_g = _gather_scale_aligned(x_scale, g)
+    nvt = g.cu_tiles[-1:]
+    gate_up = gg_bw_aligned(g.x_gathered, gate_up_weight, sx_g, gate_up_weight_scale, g.grp,
+                            g.row_blk, tm, nvt)
+    down_in, down_in_scale = _act_requant(gate_up, quant)
+    down = gg_bw_aligned(down_in, down_weight, down_in_scale, down_weight_scale, g.grp, g.row_blk,
+                         tm, nvt)
+    return reduce(down, g.topk_pos, topk_scale, shared_output)
+
+
+def fuse_moe_blockwise_fp8(
+    x,
+    x_scale,
+    gate_up_weight,
+    gate_up_weight_scale,
+    down_weight,
+    down_weight_scale,
+    topk_ids,
+    topk_scale,
+    rank_ep: int,
+    num_expert_total: int,
+    shared_output=None,
+    *,
+    num_seq_per_group_avg: int = 32,
+    scheme: str = "scatter",
+):
+    """Blockwise-scale fp8 fused MoE forward.
+
+    x: [S, H] e4m3 with x_scale [S, H//128] f32 (natural layout);
+    gate_up_weight: [E_local, 2I, H] e4m3 ([gate; up] rows) with
+    gate_up_weight_scale [E_local, 2I//128, >= H//128];
+    down_weight: [E_local, H, I] e4m3 with down_weight_scale
+    [E_local, H//128, >= I//128]; topk_ids/topk_scale: [S, K].
+    Returns [S, H] bf16. The intermediate is re-quantised to e4m3 with one
+    scale per (row, 128-group).
+
+    ``scheme``: "scatter" (the default, see the module docstring), "prescale"
+    or "fp8" (the aligned-row copy; all three compute the same function on
+    the card: see :func:`hpc_ops_tpu_torch.ops.group_gemm.group_gemm_blockwise_fp8`).
+    """
+    del num_expert_total  # the routing counts local experts only
+    if not (x.dtype == gate_up_weight.dtype == down_weight.dtype == FP8_DTYPE):
+        raise ValueError("fuse_moe_blockwise_fp8 takes float8_e4m3fn x and weights, not "
+                         f"{x.dtype}, {gate_up_weight.dtype}, {down_weight.dtype}")
+    if scheme == "int8":
+        raise ValueError("fuse_moe_blockwise_fp8: scheme 'int8' takes int8 operands")
+    return _fuse_moe_blockwise(x, x_scale, gate_up_weight, gate_up_weight_scale, down_weight,
+                               down_weight_scale, topk_ids, topk_scale, rank_ep, shared_output,
+                               num_seq_per_group_avg, scheme, blockwise_fp8_quant)
+
+
+def fuse_moe_blockwise(x, x_scale, *args, **kw):
+    """Alias of :func:`fuse_moe_blockwise_fp8`."""
+    return fuse_moe_blockwise_fp8(x, x_scale, *args, **kw)
+
+
+def fuse_moe_blockwise_int8(
+    x,
+    x_scale,
+    gate_up_weight,
+    gate_up_weight_scale,
+    down_weight,
+    down_weight_scale,
+    topk_ids,
+    topk_scale,
+    rank_ep: int,
+    num_expert_total: int,
+    shared_output=None,
+    *,
+    num_seq_per_group_avg: int = 32,
+    scheme: str = "scatter",
+):
+    """Blockwise-scale int8 fused MoE forward: :func:`fuse_moe_blockwise_fp8`
+    over int8 codes (quantise with
+    :func:`hpc_ops_tpu_torch.ops.quant.blockwise_int8_quant`), the
+    intermediate re-quantised to int8 per (row, 128-group). ``scheme``:
+    "scatter" (the default, as in the JAX package's code), "prescale", "fp8"
+    or "int8"; on the card all four sum each 128-group's int8 products
+    exactly and promote them into float32."""
+    del num_expert_total
+    if not (x.dtype == gate_up_weight.dtype == down_weight.dtype == torch.int8):
+        raise ValueError("fuse_moe_blockwise_int8 takes int8 x and weights, not "
+                         f"{x.dtype}, {gate_up_weight.dtype}, {down_weight.dtype}")
+    return _fuse_moe_blockwise(x, x_scale, gate_up_weight, gate_up_weight_scale, down_weight,
+                               down_weight_scale, topk_ids, topk_scale, rank_ep, shared_output,
+                               num_seq_per_group_avg, scheme, blockwise_int8_quant)
 
 
 __all__ = [

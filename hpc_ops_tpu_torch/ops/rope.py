@@ -138,14 +138,16 @@ def rope_norm_store_kv(
     cache_layout: str = "NHD",
     zero_tails: bool = True,
     impl: str = "auto",
+    interpret: bool | None = None,
 ):
     """RoPE + optional QK RMSNorm + paged-KV store (bf16).
 
     Returns ``(q_rotated [rows, Hq, Dqk] bf16, key_cache, value_cache)`` with
     the caches written in place, or with ``store_to_cache=False`` the
-    buffers ``(q, k_out, v_out)`` instead.
+    buffers ``(q, k_out, v_out)`` instead. ``interpret`` is the TPU kernel's
+    interpret-mode switch: accepted and ignored.
     """
-    del is_prefill  # one path: positions come from the scalar tables
+    del is_prefill, interpret  # one path: positions come from the scalar tables
     if cache_layout == "HND":
         num_kv_heads, qk_dim = key_cache.shape[0], key_cache.shape[3]
     else:
@@ -221,6 +223,7 @@ def rope_norm_store_kv_int8(
     k_norm_weight: Optional[torch.Tensor] = None,
     qk_norm_policy: int = 0,
     impl: str = "auto",
+    interpret: bool | None = None,
     cache_layout: str = "FUSED",
     num_kv_heads: int | None = None,
 ):
@@ -241,8 +244,10 @@ def rope_norm_store_kv_int8(
     dropped and their q rows are zeros, as in the JAX package.
 
     Returns ``(q_rot [rows, Hq, D] bf16, kv_cache)``, the cache written in place.
+    ``interpret`` is the TPU kernel's interpret-mode switch: accepted and
+    ignored.
     """
-    del is_prefill  # one path: positions come from the scalar tables
+    del is_prefill, interpret  # one path: positions come from the scalar tables
     if cache_layout == "NHD_FUSED":
         if num_kv_heads is None:
             raise ValueError("rope_norm_store_kv_int8: NHD_FUSED needs num_kv_heads")

@@ -20,7 +20,13 @@ on at most 0.1% (expf against torch.sigmoid); the top-k reduce bit-equal.
 int8 MoE: both grouped GEMMs bit-equal (exact integer sums, one conversion,
 one scaling, one bf16 rounding on both sides); the fused activation codes
 equal (the epilogue computes as the activation kernel and the plain version
-do, on the card's expf).
+do, on the card's expf). Blockwise grouped GEMMs: int8 bit-equal (exact
+int32 sums per 128-group, then the same float32 promotions in the same
+order), e4m3 as the e4m3 grouped GEMM; a blockwise MoE on the card against
+the CPU run within 3e-2 abs + 5e-2 rel over int8 and 5e-2 + 8e-2 over e4m3
+(the tolerances of tests/test_moe.py: the activation is re-quantised
+between the GEMMs, so a gate-up value one rounding apart can move a
+group's codes).
 """
 
 import pytest
@@ -43,6 +49,10 @@ from hpc_ops_tpu_torch.ops.attention.prefill import (
     paged_prefill_nhd_fused,
 )
 from hpc_ops_tpu_torch.ops.group_gemm import (
+    gg_bw_aligned,
+    gg_bw_aligned_ref,
+    gg_bw_scatter,
+    gg_bw_scatter_ref,
     gg_pertensor,
     gg_pertensor_ref,
     gg_scatter,
@@ -51,7 +61,10 @@ from hpc_ops_tpu_torch.ops.group_gemm import (
     gg_scatter_ref,
 )
 from hpc_ops_tpu_torch.ops.moe import (
+    _act_requant,
     _route_aligned,
+    fuse_moe_blockwise_fp8,
+    fuse_moe_blockwise_int8,
     fuse_moe_pertensor_fp8,
     fuse_moe_pertensor_int8,
     interleave_gate_up,
@@ -770,6 +783,211 @@ def test_moe_int8_fused_garbage_rows_do_not_reach_the_output(cuda):
     assert torch.equal(outs["kernel"].cpu(), outs["plain"].cpu())
 
 
+# ------------------------------------------------------------ blockwise MoE
+def bw_scales(gen, rows, k, groups, n, pad=0):
+    """Per-(row, 128-group) x scales and per-block w scales near 1/73 (int8
+    codes) or 1 (e4m3), with ``pad`` unread columns."""
+    sx = (torch.rand(rows, k // 128 + pad, generator=gen) + 0.5) / 73.0
+    sw = (torch.rand(groups, n // 128, k // 128 + pad, generator=gen) + 0.5) / (k**0.5)
+    return sx, sw
+
+
+def bw_case(gen, dtype, tm, fill, k, n, groups=3, tokens=50, pad=0):
+    """gg_case with blockwise scales: int8 codes or e4m3 values, outputs near 1."""
+    _, _, _, row_idx, grp = gg_case(gen, tm, fill, 128, 128, groups, tokens)
+    if dtype == "int8":
+        x, w = i8(gen, tokens, k), i8(gen, groups, n, k)
+    else:
+        x, w = fp8(gen, tokens, k, scale=8.0), fp8(gen, groups, n, k, scale=8.0)
+    sx, sw = bw_scales(gen, tokens, k, groups, n, pad)
+    if dtype != "int8":
+        sx, sw = sx * 73.0 / 8.0, sw / 8.0
+    return x, w, sx, sw, row_idx, grp
+
+
+def assert_bw_equal(got, want, dtype, name):
+    if dtype == "int8":
+        assert torch.equal(got.cpu(), want), name
+    else:
+        assert_gemm_close(got, want, name)
+
+
+def test_blockwise_wrappers_take_the_plain_version_on_cpu():
+    gen = torch.Generator().manual_seed(60)
+    counts = (gg_bw_scatter.launches, gg_bw_aligned.launches)
+    x, w, sx, sw, row_idx, grp = bw_case(gen, "int8", 32, [3, 32], 256, 128)
+    assert torch.equal(gg_bw_scatter(x, w, sx, sw, row_idx, grp, 32),
+                       gg_bw_scatter_ref(x, w, sx, sw, row_idx, grp, 32))
+    x_al, blk = i8(gen, 96, 256), torch.tensor([2, 0], dtype=torch.int32)
+    sx_al = bw_scales(gen, 96, 256, 3, 128)[0]
+    assert torch.equal(gg_bw_aligned(x_al, w, sx_al, sw, grp, blk, 32),
+                       gg_bw_aligned_ref(x_al, w, sx_al, sw, grp, blk, 32))
+    assert counts == (gg_bw_scatter.launches, gg_bw_aligned.launches)
+
+
+BW_SHAPES = [
+    (32, [5, 32, 7, 1, 0], 256, 384, 0),  # the 32-row block; an empty tile
+    (32, [2, 2, 1], 4096, 1024, 0),  # decode-like: two rows a tile, long K
+    (64, [64, 33, 1], 512, 256, 3),  # the 64-row block; padded scale columns
+    (160, [160, 129, 17], 256, 384, 0),  # three 64-row blocks a tile, the last ragged
+    (512, [512, 300], 1024, 256, 1),  # eight 64-row blocks a tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tm,fill,k,n,pad", BW_SHAPES)
+@pytest.mark.parametrize("dtype", ["int8", "e4m3"])
+def test_gg_bw_scatter_kernel_matches_plain(cuda, dtype, tm, fill, k, n, pad):
+    gen = torch.Generator().manual_seed(61)
+    x, w, sx, sw, row_idx, grp = bw_case(gen, dtype, tm, fill, k, n, pad=pad)
+    want = gg_bw_scatter_ref(x, w, sx, sw, row_idx, grp, tm)
+    n0 = gg_bw_scatter.launches
+    got = gg_bw_scatter(*(t.to(cuda) for t in (x, w, sx, sw, row_idx, grp)), tm)
+    torch.cuda.synchronize()
+    assert gg_bw_scatter.launches == n0 + 1
+    valid = row_idx >= 0
+    assert float(want[valid].float().abs().max()) > 1.0
+    assert_bw_equal(got[valid.to(cuda)], want[valid], dtype, f"gg_bw_scatter {dtype}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tm,k,n", [(32, 4096, 1024), (64, 512, 256), (160, 256, 384), (512, 1024, 256)])
+@pytest.mark.parametrize("dtype", ["int8", "e4m3"])
+def test_gg_bw_aligned_kernel_matches_plain(cuda, dtype, tm, k, n):
+    """As test_gg_pertensor_kernel_matches_plain: tiles write row blocks out
+    of order, the last valid one the trash block; tiles past
+    num_valid_tiles point at a block they must not write."""
+    gen = torch.Generator().manual_seed(62)
+    num_tiles, nvt = 4, 3
+    rows = (num_tiles + 1) * tm
+    x, w, _, sw, _, _ = bw_case(gen, dtype, tm, [1], k, n, tokens=rows)
+    sx_al = bw_scales(gen, rows, k, 3, n)[0] * (1.0 if dtype == "int8" else 73.0 / 8.0)
+    grp = torch.tensor([2, 0, 1, 1], dtype=torch.int32)
+    blk = torch.tensor([1, 0, 4, 2], dtype=torch.int32)
+    nv = torch.tensor([nvt], dtype=torch.int32)
+    want = gg_bw_aligned_ref(x, w, sx_al, sw, grp, blk, tm, nv)
+    n0 = gg_bw_aligned.launches
+    got = gg_bw_aligned(*(t.to(cuda) for t in (x, w, sx_al, sw, grp, blk)), tm, nv.to(cuda))
+    torch.cuda.synchronize()
+    assert gg_bw_aligned.launches == n0 + 1
+    written = torch.zeros(rows, dtype=torch.bool)
+    for t in range(nvt):
+        written[int(blk[t]) * tm : (int(blk[t]) + 1) * tm] = True
+    assert float(want[written].float().abs().max()) > 0.5
+    assert_bw_equal(got.cpu()[written], want[written], dtype, f"gg_bw_aligned {dtype}")
+
+
+@pytest.mark.cuda
+def test_gg_bw_scatter_kernel_stops_at_num_valid_tiles(cuda):
+    """Rows of skipped tiles point far outside x and its scales."""
+    gen = torch.Generator().manual_seed(63)
+    x, w, sx, sw, row_idx, grp = bw_case(gen, "int8", 32, [5, 32, 7, 1], 256, 384)
+    want = gg_bw_scatter_ref(x, w, sx, sw, row_idx, grp, 32)
+    row_idx[64:] = 2**30
+    nvt = torch.tensor([2], dtype=torch.int32, device=cuda)
+    got = gg_bw_scatter(*(t.to(cuda) for t in (x, w, sx, sw, row_idx, grp)), 32, nvt)
+    torch.cuda.synchronize()
+    valid = (row_idx >= 0)[:64]
+    assert torch.equal(got.cpu()[:64][valid], want[:64][valid])
+
+
+def bw_moe_inputs(gen, dtype, s, k, h, interm, e_local, e_total):
+    """Blockwise MoE operands: x and experts quantised per group and block
+    from Gaussians, outputs near 0.1-1."""
+    from hpc_ops_tpu_torch.ops.quant import blockwise_fp8_quant, blockwise_int8_quant
+
+    quant = blockwise_int8_quant if dtype == "int8" else blockwise_fp8_quant
+    top = 127.0 if dtype == "int8" else 448.0
+
+    def experts(n, kk):
+        wf = torch.randn((e_local, n, kk), generator=gen) / kk**0.5
+        blocks = wf.view(e_local, n // 128, 128, kk // 128, 128)
+        sw = blocks.abs().amax(dim=(2, 4)) / top + 1e-8
+        q = blocks / sw[:, :, None, :, None]
+        q = q.round().clamp(-127, 127).to(torch.int8) if dtype == "int8" else q.to(FP8)
+        return q.view(e_local, n, kk), sw
+
+    x8, sx = quant(torch.randn((s, h), generator=gen))
+    gw, gsw = experts(2 * interm, h)
+    dw, dsw = experts(h, interm)
+    return dict(x=x8, sx=sx, gw=gw, gsw=gsw, dw=dw, dsw=dsw,
+                ids=torch.randint(0, e_total, (s, k), generator=gen, dtype=torch.int32),
+                ts=torch.rand((s, k), generator=gen) / k)
+
+
+BW_NAMES = ("x", "sx", "gw", "gsw", "dw", "dsw", "ids", "ts")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["scatter", "prescale"])
+@pytest.mark.parametrize("rank_ep,size_ep", [(0, 1), (1, 2)])
+@pytest.mark.parametrize("dtype", ["int8", "e4m3"])
+def test_fuse_moe_blockwise_on_the_card_syncs_nothing_and_matches_cpu(cuda, dtype, rank_ep, size_ep,
+                                                                       scheme):
+    """The blockwise pipeline on the card under sync debug mode "error":
+    one scatter and one aligned GEMM (scatter) or two aligned GEMMs, and one
+    reduce; against the CPU run of the plain versions (module docstring)."""
+    gen = torch.Generator().manual_seed(64)
+    e_total = 8
+    t = bw_moe_inputs(gen, dtype, 40, 2, 256, 256, e_total // size_ep, e_total)
+    fn = fuse_moe_blockwise_int8 if dtype == "int8" else fuse_moe_blockwise_fp8
+    args = [t[n] for n in BW_NAMES]
+    want = fn(*args, rank_ep, e_total, scheme=scheme)
+    dargs = [a.to(cuda) for a in args]
+    fn(*dargs, rank_ep, e_total, scheme=scheme)  # builds the library, warms the allocator
+    torch.cuda.synchronize()
+    counts = (gg_bw_scatter.launches, gg_bw_aligned.launches, moe_reduce.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fn(*dargs, rank_ep, e_total, scheme=scheme)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launched = tuple(b - a for a, b in zip(counts, (gg_bw_scatter.launches, gg_bw_aligned.launches,
+                                                     moe_reduce.launches)))
+    assert launched == ((1, 1, 1) if scheme == "scatter" else (0, 2, 1))
+    assert float(want.float().abs().max()) > 0.1
+    atol, rtol = (3e-2, 5e-2) if dtype == "int8" else (5e-2, 8e-2)
+    assert_allclose(got.float().cpu(), want.float(), atol=atol, rtol=rtol, name=f"{dtype} bw moe card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "e4m3"])
+def test_moe_blockwise_garbage_rows_do_not_reach_the_output(cuda, dtype):
+    """The scatter pipeline's stages chained by hand, with the gate-up rows of
+    empty slots and skipped tiles and then the down rows set to NaN: the
+    reduced output stays finite and equal to the plain chain's (int8) or
+    within the e4m3 tolerance."""
+    from hpc_ops_tpu_torch.ops.quant import blockwise_fp8_quant, blockwise_int8_quant
+
+    gen = torch.Generator().manual_seed(65)
+    e_local, e_total, tm = 4, 16, 32
+    t = {n: v.to(cuda) for n, v in bw_moe_inputs(gen, dtype, 40, 4, 256, 256, e_local, e_total).items()}
+    quant = blockwise_int8_quant if dtype == "int8" else blockwise_fp8_quant
+    row_idx, topk_pos, _, _, _, cu_tiles, grp = _route_aligned(t["ids"], e_local, 1, tm)
+    nvt = cu_tiles[-1:]
+    ar = torch.arange(grp.shape[0], dtype=torch.int32, device=cuda)
+    garbage = (row_idx < 0)[:, None]
+    outs = {}
+    for name, scat, al, red in (("kernel", gg_bw_scatter, gg_bw_aligned, moe_reduce),
+                                ("plain", gg_bw_scatter_ref, gg_bw_aligned_ref, moe_reduce_ref)):
+        gu = scat(t["x"], t["gw"], t["sx"], t["gsw"], row_idx, grp, tm, nvt)
+        gu = torch.where(garbage, float("nan"), gu.float()).to(torch.bfloat16)
+        d_in, d_sx = _act_requant(gu, quant)
+        down = al(d_in, t["dw"], d_sx, t["dsw"], grp, ar, tm, nvt)
+        down = torch.where(garbage, float("nan"), down.float()).to(torch.bfloat16)
+        outs[name] = red(down, topk_pos, t["ts"])
+    torch.cuda.synchronize()
+    assert int((row_idx < 0).sum()) > tm and int((topk_pos < 0).sum()) > 0
+    assert int(nvt) < grp.shape[0]  # skipped tiles exist
+    assert torch.isfinite(outs["kernel"].float()).all()
+    if dtype == "int8":
+        assert torch.equal(outs["kernel"].cpu(), outs["plain"].cpu())
+    else:
+        assert_allclose(outs["kernel"].float().cpu(), outs["plain"].float().cpu(), atol=5e-2,
+                        rtol=8e-2, name="e4m3 bw moe garbage")
+
+
 # ------------------------------------------------------------- e4m3 KV caches
 def fp8_paged(gen, lens, hq, hkv, d, sq=1, layout="HND", q_rows=None, std=0.05):
     """As ``paged`` with e4m3 caches. ``std`` 0.05 puts about a quarter of the
@@ -1066,7 +1284,7 @@ def test_int8_matmul_on_the_card_is_exact(cuda, rows):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["fp8_kv", "dense_int8", "moe_pertensor_int8"])
+@pytest.mark.parametrize("mode", ["fp8_kv", "dense_int8", "moe_pertensor_int8", "moe_blockwise_int8"])
 def test_forward_step_on_the_card_syncs_nothing_and_matches_cpu(cuda, mode):
     """forward_step on the card, a prefill then a decode step, the decode
     step under sync debug mode "error" (the engine's one copy a step is its
@@ -1074,9 +1292,9 @@ def test_forward_step_on_the_card_syncs_nothing_and_matches_cpu(cuda, mode):
     run's (the tolerance of the model tests)."""
     from hpc_ops_tpu_torch.models import llama as T
 
-    if mode == "moe_pertensor_int8":
+    if mode.startswith("moe_"):
         cfg = T.tiny_config(moe=True)
-        cfg = cfg._replace(moe=cfg.moe._replace(scheme="pertensor_int8"))
+        cfg = cfg._replace(moe=cfg.moe._replace(scheme=mode[len("moe_"):]))
     else:
         cfg = T.tiny_config(**{mode: True})
     w = T.init_weights(cfg, torch.Generator().manual_seed(0), device="cpu")

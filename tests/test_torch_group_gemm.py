@@ -142,11 +142,3 @@ def test_group_gemm_ref_matches_jax():
     got = T.group_gemm_ref(to_t(x), to_t(w), torch.from_numpy(seqlens), torch.from_numpy(cu),
                            torch.from_numpy(ys))
     assert_allclose(got.float().numpy(), want, atol=ATOL, rtol=RTOL, name="group_gemm_ref")
-
-
-@pytest.mark.parametrize("name", ["group_gemm_blockwise_fp8", "group_gemm_blockwise_int8",
-                                  "reformat_x_scale"])
-def test_later_group_gemms_raise(name):
-    assert name in T.__all__ and name in J.__all__
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        getattr(T, name)(None, None, None, None, None)

@@ -1,6 +1,7 @@
 """The port and chip_smoke.py import neither JAX nor the JAX package."""
 
 import ast
+import json
 import os
 
 import pytest
@@ -39,3 +40,62 @@ def test_no_jax_imports(path):
 def test_checker_catches_jax():
     assert _forbidden("jax.numpy") and _forbidden("jaxlib") and _forbidden("hpc_ops_tpu.ops")
     assert not _forbidden("hpc_ops_tpu_torch.ops") and not _forbidden("torch")
+
+
+def _shared_names():
+    """(JAX top-level name, its JAX object, the port's object of the same
+    module path and name) for every public name the port has ported."""
+    import importlib
+
+    import hpc_ops_tpu as J
+
+    out = []
+    for name in J.__all__:
+        obj = getattr(J, name)
+        mod = getattr(obj, "__module__", None) or ""
+        if not mod.startswith("hpc_ops_tpu."):
+            continue  # constants, re-exported dtypes
+        try:
+            port_mod = importlib.import_module("hpc_ops_tpu_torch" + mod[len("hpc_ops_tpu"):])
+        except ModuleNotFoundError:
+            continue  # a module of a later slice
+        if hasattr(port_mod, name):
+            out.append((name, obj, getattr(port_mod, name)))
+    return out
+
+
+def test_top_level_has_every_ported_jax_name():
+    """``import hpc_ops_tpu_torch as hpc; hpc.<op>`` works for every public
+    name of the JAX package's top level that the port has, as the JAX
+    package's own top level re-exports its op modules."""
+    import hpc_ops_tpu_torch as T
+
+    shared = _shared_names()
+    assert len(shared) > 60
+    missing = [n for n, _, _ in shared if n not in T.__all__ or not hasattr(T, n)]
+    assert not missing, f"ported but not on hpc_ops_tpu_torch: {missing}"
+    for n, _, port_obj in shared:
+        assert getattr(T, n) is port_obj, n
+    built = json.loads(T.built_json())
+    assert set(built) >= {"version", "torch", "cuda"} and built["version"] == T.__version__
+
+
+def test_ported_functions_take_the_jax_keywords():
+    """A call written for the JAX package runs on the port: every ported
+    function accepts each of its JAX counterpart's parameters by name (TPU
+    hints such as ``tn`` or ``interpret`` are accepted and ignored)."""
+    import inspect
+
+    bad = {}
+    for name, jax_obj, port_obj in _shared_names():
+        if not inspect.isfunction(jax_obj):
+            continue
+        want = [p for p, v in inspect.signature(jax_obj).parameters.items()
+                if v.kind not in (v.VAR_POSITIONAL, v.VAR_KEYWORD)]
+        have = inspect.signature(port_obj).parameters
+        if any(v.kind == v.VAR_KEYWORD for v in have.values()):
+            continue
+        lacking = [p for p in want if p not in have]
+        if lacking:
+            bad[name] = lacking
+    assert not bad, f"ported functions without the JAX keywords: {bad}"

@@ -20,6 +20,7 @@ from hpc_ops_tpu.ops.normalization import rmsnorm_ref as jax_rmsnorm
 from hpc_ops_tpu_torch.models import llama as T
 from hpc_ops_tpu_torch.ops.attention.decode import attention_decode
 from hpc_ops_tpu_torch.ops.attention.prefill import attention_with_kvcache_prefill
+from hpc_ops_tpu_torch.ops.attention.reference import attention_with_kvcache_prefill_ref
 from hpc_ops_tpu_torch.ops.normalization import rmsnorm_ref
 from hpc_ops_tpu_torch.utils.testing import assert_allclose, assert_greedy_match, top2_margin
 
@@ -100,6 +101,23 @@ def test_forward_step_matches_jax(model):
     assert tp.shape == (2, cfg.vocab) and tp.dtype == torch.bfloat16
     assert_allclose(tp.float(), np.asarray(jp, np.float32), atol=ATOL, rtol=RTOL, name="prefill logits")
     assert_allclose(td.float(), np.asarray(jd, np.float32), atol=ATOL, rtol=RTOL, name="decode logits")
+
+
+def test_forward_step_qkv_bias_matches_jax(model):
+    """A Qwen2-style attention bias of 0.5 on every layer, carried over with
+    the weights: the port adds it as the JAX model does, so prefill and
+    decode logits agree within 0.15 abs / 0.1 rel, and the bias moves them
+    well beyond that."""
+    cfg, jw, tcfg, tw = model
+    jb = {**jw, "layers": [{**layer, "qkv_bias": jnp.full((cfg.qkv_out,), 0.5, jnp.float32)}
+                           for layer in jw["layers"]]}
+    tb = T.weights_from_numpy(jax.tree_util.tree_map(np.asarray, jb), device="cpu")
+    jp, jd = run_prefill_then_decode(J, cfg, jb, jnp.asarray)
+    tp, td = run_prefill_then_decode(T, tcfg._replace(qkv_bias=True), tb, torch.from_numpy)
+    assert_allclose(tp.float(), np.asarray(jp, np.float32), atol=ATOL, rtol=RTOL, name="prefill logits")
+    assert_allclose(td.float(), np.asarray(jd, np.float32), atol=ATOL, rtol=RTOL, name="decode logits")
+    plain, _ = run_prefill_then_decode(T, tcfg, tw, torch.from_numpy)
+    assert float((plain.float() - tp.float()).abs().max()) > 10 * ATOL
 
 
 def jax_next_logits(cfg, jw, tokens):
@@ -356,12 +374,21 @@ def test_later_slices_raise(field):
                                            cache_layout="HND", block_mask=torch.ones(1))
         return
     if field == "moe":
-        # the per-tensor fp8 and int8 MoE serve now; the blockwise scheme is a later slice
+        # every MoE scheme serves now, blockwise_int8 included; the reference's
+        # block-sparse prefill is a later slice
         cfg = T.tiny_config(moe=True)
-        cfg = cfg._replace(moe=cfg.moe._replace(scheme="blockwise_int8"))
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-            T.init_weights(cfg, device="cpu")
-    else:
-        cfg = T.tiny_config(**{field: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_cache(cfg, 4, 16, device="cpu")
+        T.init_cache(cfg._replace(moe=cfg.moe._replace(scheme="blockwise_int8")), 4, 16, device="cpu")
+        kv = torch.zeros((4, 16, 2, 128), dtype=torch.bfloat16)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+            attention_with_kvcache_prefill_ref(q, kv, kv, torch.tensor([0, 1]),
+                                               torch.zeros((1, 1), dtype=torch.int32), one, 1,
+                                               block_mask=torch.ones(1))
+        return
+    # qkv_bias serves now (forward_step adds a layer's "qkv_bias"); tensor
+    # parallelism over axis_name is a later slice
+    cfg = T.tiny_config(qkv_bias=True)
+    T.init_cache(cfg, 4, 16, device="cpu")
+    tok = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        T.forward_step(None, None, cfg, tok, one, torch.tensor([0, 1]), tok[:, None], True,
+                       axis_name="tp")

@@ -214,13 +214,3 @@ def test_counts_reach_the_kernels_as_device_tensors(monkeypatch):
         assert isinstance(v, torch.Tensor) and tuple(v.shape) == (1,)
     tm = T._pick_tm(max(32 * 4 // e_total, 1), 256)
     assert int(seen["num_valid"]) == int(seen["nvt"][0]) * tm
-
-
-@pytest.mark.parametrize("call", ["fuse_moe_blockwise_fp8", "fuse_moe_blockwise_int8",
-                                  "fuse_moe_blockwise"])
-def test_later_moe_paths_raise(call):
-    arrays, _, e_total = moe_case(0, 1, False)
-    args = (*torch_args(arrays, None)[0], 0, e_total)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        assert call in J.__all__
-        getattr(T, call)(*args)

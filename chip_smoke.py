@@ -49,7 +49,17 @@ Phases, each printing one JSON line:
      attention_decode_fp8 and attention_with_kvcache_prefill_fp8 driven in
      every form (per-tensor with a q scale per token and head, NHD_FUSED,
      QuantType 0 with paged and with tail-row scales), each held against its
-     impl="ref" with the launch counts read around each call;
+     impl="ref" with the launch counts read around each call. The decode
+     operator's other entry: check_decode_fused, the head-major FUSED decode
+     (one kernel for the TPU's FUSED and packed FUSED kernels) over bf16, int8
+     and e4m3 slabs against its plain version, timed at the decode lengths
+     and at KV <= 1024; check_decode_tasks, the task-map (split-KV) decode's
+     task kernel and combine kernel against their plain versions and
+     attention_decode(task_map=...) against impl="ref", over every cache
+     type and layout at mtp 0 and 2; decode_sched, the JAX decode
+     benchmark's scenarios at full width (pages of 64, task tile 2048): grid
+     against task-map time over bf16 and e4m3, the int8 FUSED grid time, the
+     KV-bytes bound, SDPA, the mode select_decode_mode picks, one line each;
   4. slice_tiny, slice_tiny_int8, slice_tiny_moe, slice_tiny_fp8,
      slice_tiny_moe_int8 and slice_tiny_moe_bw: Engine on tiny_config (bf16
      KV, int8_kv, fp8 MoE, fp8_kv, int8 MoE, blockwise int8 MoE) on the card
@@ -534,6 +544,21 @@ def close(got, want, what):
     return float((got.float() - want.float()).abs().max())
 
 
+def close_scaled(got, want, what):
+    """As :func:`close` with the absolute part cut to 1% of the largest
+    |want| where that is below 1e-2: |got - want| <= 1e-2 * |want| +
+    min(1e-2, 1e-2 * max|want|). Attention outputs over many small values
+    are far below 1e-2, where a fixed atol would pass a zero output."""
+    import torch
+
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    atol = min(1e-2, 1e-2 * float(w.abs().max()))
+    if not bool(torch.isfinite(g).all()) or not torch.allclose(g, w, atol=atol, rtol=1e-2):
+        raise AssertionError(f"{what}: kernel disagrees with the plain version")
+    return float((g - w).abs().max())
+
+
 def e4m3_caches(dev, gen, nb):
     """Seeded e4m3 K and V (HND), their NHD_FUSED slab, per-token K scales
     paged like the cache and per-head V scales."""
@@ -784,6 +809,455 @@ def ops_fp8(dev, gen):
         launches[kernel] = launches.get(kernel, 0) + 1
     emit("ops_fp8", launches=launches, max_abs_err=errs)
     return launches
+
+
+# --------------------------------------- FUSED and task-map (split-KV) decode
+SHORT_LENS = [1, 64, 333, 1024, 700, 16, 512, 1000]  # KV <= 1024: the TPU's packed FUSED kernel
+SCHED_BS, SCHED_TILE = 64, 2048  # the decode benchmark's pages and task tile
+# benchmark/attention_decode/bench_attention_decode.py: scenario -> [(count, kv_len)]
+SCENARIOS = {
+    "uniform_512": [(64, 512)],
+    "skewed_mix": [(32, 128), (32, 4096)],
+    "skewed_extreme": [(1, 16384), (15, 64)],
+    "one_64k_7x4k": [(1, 65536), (7, 4096)],
+    "one_128k_31x4k": [(1, 131072), (31, 4096)],
+}
+REF_GATHER_LIMIT = 16 << 30  # bytes of float32 K/V, over every q head, that impl="ref" may gather
+SDPA_GATHER_LIMIT = 24 << 30  # bytes of bf16 K/V gathered for the library yardstick
+ROW_SCENARIO = "one_64k_7x4k"  # the task kernel's and the combine's kernels-line shape
+
+
+def driven(call):
+    """Run ``call`` once with every launch count set to 0 just before and
+    read just after; returns (its output, the counts that moved)."""
+    import torch
+
+    from hpc_ops_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    out = call()
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in kernels.launch_counts().items() if n}
+
+
+def pack_bytes(pack, k, v):
+    """``pack(k, v)`` of caches of any type, 1-byte ones packed as bytes."""
+    import torch
+
+    if k.element_size() != 1:
+        return pack(k, v)
+    return pack(k.view(torch.uint8), v.view(torch.uint8)).view(k.dtype)
+
+
+def fused_slabs(dev, gen, nb, bs=BS):
+    """Seeded K and V (HND bf16) and their head-major FUSED slabs: bf16, int8
+    codes from quantize_kv_fused_int8 (with its per-tensor scales) and e4m3
+    at the scales of the e4m3 checks. Returns {kind: (slab, kscale, vscale)}."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.attention.paging import pack_kv_fused
+    from hpc_ops_tpu_torch.ops.quant import quantize_kv_fused_int8
+
+    k = torch.randn((HKV, nb, bs, D), generator=gen).to(torch.bfloat16).to(dev)
+    v = torch.randn((HKV, nb, bs, D), generator=gen).to(torch.bfloat16).to(dev)
+    kv8, ks, vs = quantize_kv_fused_int8(k, v)
+    fp8 = torch.float8_e4m3fn
+    ks8, vs8 = torch.tensor([KSCALE], device=dev), torch.tensor([VSCALE], device=dev)
+    e4 = pack_bytes(pack_kv_fused, (k.float() / KSCALE).to(fp8), (v.float() / VSCALE).to(fp8))
+    return {"int8": (kv8, ks, vs), "bf16": (pack_kv_fused(k, v), None, None), "e4m3": (e4, ks8, vs8)}
+
+
+def gathered_fused(slab, tbl, kv_len_max, ks, vs, bs=BS):
+    """K and V of each request gathered from a FUSED slab into [B, Hq, L, D]
+    bf16 (repeated over the GQA group), dequantised: the library yardstick's
+    inputs."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.attention.paging import unpack_kv_fused
+
+    k, v = unpack_kv_fused(slab)
+    one = torch.ones(1, device=slab.device)
+    return gathered_hnd(k, v, tbl, kv_len_max, one if ks is None else ks, one if vs is None else vs)
+
+
+def check_decode_fused(dev, gen):
+    """The head-major FUSED decode (one kernel for the TPU's rows 6 and 7:
+    the decode kernel over strided views of the slab, V at K + bs*D) over
+    bf16, int8 and e4m3 slabs at the shapes of the other decode checks, mtp
+    0 and 2, against its plain version; timed at the decode lengths and at
+    lengths of at most 1024 (the TPU's packed regime); then
+    attention_decode(cache_layout="FUSED") once per kind against its
+    impl="ref", the launch counts read around each call."""
+    import torch
+    import torch.nn.functional as F
+
+    from hpc_ops_tpu_torch.ops.attention.decode import (
+        _decode_ref,
+        _hnd_views,
+        attention_decode,
+        paged_decode_attention,
+    )
+
+    nb = NUM_BLOCKS + 8
+    slabs = fused_slabs(dev, gen, nb)
+    scale = D**-0.5
+    lens_sets = {"long": DECODE_LENS, "short": SHORT_LENS}
+    tbls = {n: random_table(gen, ls, max(ls) // BS + 4, nb, dev) for n, ls in lens_sets.items()}
+    b = len(DECODE_LENS)
+    errs = {kind: 0.0 for kind in slabs}
+    for kind, (slab, ks, vs) in slabs.items():
+        kh, vh = _hnd_views(slab, None, "FUSED", D)
+        for name, ls in lens_sets.items():
+            for sq in (1, 3):
+                q = torch.randn((b * sq, HQ, D), generator=gen).to(torch.bfloat16).to(dev)
+                lens = torch.tensor([max(n, sq) for n in ls], dtype=torch.int32, device=dev)
+                args = (q, kh, vh, tbls[name], lens, sq, scale, "HND", ks, vs)
+                errs[kind] = max(errs[kind], close_scaled(
+                    paged_decode_attention(*args), _decode_ref(*args), f"decode fused {kind} {name} sq={sq}"))
+    rows, launches = [], {}
+    q = torch.randn((b, HQ, D), generator=gen).to(torch.bfloat16).to(dev)
+    for kind, (slab, ks, vs) in slabs.items():
+        kh, vh = _hnd_views(slab, None, "FUSED", D)
+        kw = dict(new_kv_included=True, cache_layout="FUSED", kscale=ks, vscale=vs)
+        lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+        want = attention_decode(q, slab, None, tbls["long"], lens, impl="ref", **kw)
+        got, counts = driven(lambda: attention_decode(q, slab, None, tbls["long"], lens, **kw))
+        if counts != {"paged_decode": 1}:
+            raise AssertionError(f"decode fused {kind}: launch counts {counts}")
+        errs[kind] = max(errs[kind], close_scaled(got, want, f"attention_decode FUSED {kind}"))
+        launches[kind] = 1
+        elem = 1 if kind != "bf16" else 2
+        timed = [("long", DECODE_LENS)] + ([("short", SHORT_LENS)] if kind == "int8" else [])
+        for name, ls in timed:
+            lens = torch.tensor(ls, dtype=torch.int32, device=dev)
+            args = (q, kh, vh, tbls[name], lens, 1, scale, "HND", ks, vs)
+            ms = time_ms(lambda: paged_decode_attention(*args), 50)
+            plain = time_ms(lambda: _decode_ref(*args), 5)
+            L = max(ls)
+            kg, vg = gathered_fused(slab, tbls[name], L, ks, vs)
+            mask = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+            lib = time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kg, vg, attn_mask=mask), 20)
+            del kg, vg
+            sum_kv = sum(ls)
+            nbytes = (2 * b * HQ * D * 2 + 2 * sum_kv * HKV * D * elem + tbls[name].numel() * 4 + b * 4
+                      + (8 if ks is not None else 0))
+            row_name = {"bf16": "paged_decode_fused_bf16", "e4m3": "paged_decode_fused_e4m3"}.get(
+                kind, "paged_decode_fused" if name == "long" else "paged_decode_fused_packed")
+            replaces = ("hpc_ops_tpu/ops/attention/decode.py:671" if name == "short"
+                        else "hpc_ops_tpu/ops/attention/decode.py:245")
+            rows.append(kernel_row(row_name, "hpc_ops_tpu_torch/csrc/decode.cu", replaces, errs[kind],
+                                   ms, plain, lib, nbytes, 4 * sum_kv * HQ * D, kv_lens=ls))
+    return rows, launches
+
+
+def task_map_inputs(dev, gen, lens, layout, kind, sq, bs=BS):
+    """Seeded q, caches of ``kind`` in ``layout`` over a shuffled page
+    table, and the attention_decode keywords of the kind's scales."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.attention.paging import hnd_to_nhd, pack_kv_fused, pack_kv_fused_nhd
+
+    nb = sum(-(-n // bs) for n in lens) + 8
+    tbl = random_table(gen, lens, max(lens) // bs + 2, nb, dev, bs=bs)
+    k = torch.randn((HKV, nb, bs, D), generator=gen).to(dev)
+    v = torch.randn((HKV, nb, bs, D), generator=gen).to(dev)
+    ks = vs = None
+    if kind == "int8":
+        k, v = (torch.randint(-127, 128, tuple(t.shape), generator=gen, dtype=torch.int8).to(dev)
+                for t in (k, v))
+        ks = vs = torch.tensor([0.05], device=dev)
+    elif kind == "e4m3":
+        k, v = (t.to(torch.float8_e4m3fn) for t in (k, v))
+        ks, vs = torch.tensor([KSCALE], device=dev), torch.tensor([VSCALE], device=dev)
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    caches = {"HND": (k, v), "NHD": (hnd_to_nhd(k).contiguous(), hnd_to_nhd(v).contiguous()),
+              "FUSED": (pack_bytes(pack_kv_fused, k, v), None),
+              "NHD_FUSED": (pack_bytes(pack_kv_fused_nhd, k, v), None)}[layout]
+    q = torch.randn((len(lens) * sq, HQ, D), generator=gen).to(torch.bfloat16).to(dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, caches, tbl, lens_t, dict(mtp=sq - 1, new_kv_included=True, cache_layout=layout,
+                                        kscale=ks, vscale=vs)
+
+
+def partials_err(got, want, what):
+    """The task kernel's partials against the plain version's: 1e-3 abs/rel
+    on rows that saw a key (float32 sums in another order, the card's
+    __expf), exactly m = -inf, l = 0, o = 0 on the others."""
+    import torch
+
+    (go, gm, gl), (wo, wm, wl) = got, want
+    seen = torch.isfinite(wm)
+    if not torch.equal(torch.isfinite(gm), seen):
+        raise AssertionError(f"{what}: the rows that saw a key differ")
+    if not (torch.all(gl[~seen] == 0) and torch.all(go[~seen] == 0)):
+        raise AssertionError(f"{what}: rows that saw no key are not neutral")
+    err = 0.0
+    for g, w in ((gm[seen], wm[seen]), (gl[seen], wl[seen]), (go[seen], wo[seen])):
+        if not torch.allclose(g, w, atol=1e-3, rtol=1e-3):
+            raise AssertionError(f"{what}: partials disagree with the plain version")
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def check_decode_tasks(dev, gen):
+    """The task kernel's partials against its plain version, and the combined
+    output of attention_decode(task_map=...) against impl="ref" (close_scaled),
+    over bf16, int8 and e4m3 caches in the four layouts at mtp 0 and 2: page
+    tables of 16-slot pages, a 4097-token request split into 9 tasks, a map
+    of capacity 256 (sentinel tasks) whose last tasks hold a position that a
+    draft row may not see; then the combine kernel against its plain version
+    over partials with rows at m = -inf and the map's tasks shuffled (no
+    segment contiguous). Returns the largest errors by kind."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.attention.decode import (
+        _decode_combine_ref,
+        _decode_tasks_ref,
+        _hnd_views,
+        attention_decode,
+        decode_combine,
+        paged_decode_tasks,
+    )
+    from hpc_ops_tpu_torch.ops.attention.scheduler import assign_attention_decode_task
+
+    lens = [1, 300, 1025, 4097, 64, 2000, 17, 513]
+    errs = {}
+    for kind in ("bf16", "int8", "e4m3"):
+        for layout in ("HND", "NHD", "FUSED", "NHD_FUSED"):
+            for sq in (1, 3):
+                ls = [max(n, sq) for n in lens]
+                q, (kc, vc), tbl, lens_t, kw = task_map_inputs(dev, gen, ls, layout, kind, sq)
+                tm = assign_attention_decode_task(lens_t, HKV, tile=256, min_process_len=512,
+                                                  capacity=256, impl="np")
+                if not (int(tm.num_tasks) < 256 and int((tm.batch == 3).sum()) == 9 * HKV):
+                    raise AssertionError("check_decode_tasks: the map has no sentinel or split task")
+                k, v = _hnd_views(kc, vc, layout, D)
+                what = f"tasks {kind} {layout} sq={sq}"
+                args = (q, k, v, tbl, lens_t, tm, sq, D**-0.5, kw["kscale"])
+                err = partials_err(paged_decode_tasks(*args), _decode_tasks_ref(*args), what)
+                want = attention_decode(q, kc, vc, tbl, lens_t, impl="ref", **kw)
+                got, counts = driven(lambda: attention_decode(q, kc, vc, tbl, lens_t, task_map=tm, **kw))
+                if counts != {"paged_decode_tasks": 1, "decode_combine": 1}:
+                    raise AssertionError(f"{what}: launch counts {counts}")
+                errs[kind] = max(errs.get(kind, 0.0), err, close_scaled(got, want, f"{what} combined"))
+    # the combine alone, the last case's partials with the map's tasks shuffled
+    perm = torch.randperm(tm.capacity, generator=gen).to(dev)
+    shuffled = tm._replace(**{f: getattr(tm, f)[perm].contiguous()
+                              for f in ("batch", "head", "tile_start", "num_tiles", "seg")})
+    o, m, l = paged_decode_tasks(q, k, v, tbl, lens_t, shuffled, 3, D**-0.5, kw["kscale"])
+    if bool(torch.isfinite(m).all()):
+        raise AssertionError("check_decode_tasks: no partial row at m = -inf")
+    errs["combine"] = close_scaled(decode_combine(o, m, l, shuffled, 3, HQ, kw["vscale"]),
+                                   _decode_combine_ref(o, m, l, shuffled, 3, HQ, kw["vscale"]), "combine")
+    emit("check_decode_tasks", max_abs_err=errs)
+    return errs
+
+
+def scenario_caches(dev, kv_lens, kind, seed):
+    """The decode benchmark's inputs on the card: q [B, Hq, D] bf16, HND K
+    and V of N(0, 1/8) over contiguous 64-slot pages (the table padded with
+    page 0), as bf16, e4m3 of 16x (scales 1/16) or the int8 FUSED slab of
+    quantize_kv_fused_int8; returns (q, k, v, table, lengths, keywords)."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.quant import quantize_kv_fused_int8
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = len(kv_lens)
+    nb_per = [max(n // SCHED_BS, 1) for n in kv_lens]
+    nb = sum(nb_per)
+    tbl = torch.zeros((b, max(kv_lens) // SCHED_BS), dtype=torch.int32)
+    start = 0
+    for i, n in enumerate(nb_per):
+        tbl[i, :n] = torch.arange(start, start + n)
+        start += n
+    q = torch.randn((b, HQ, D), generator=g, device=dev).to(torch.bfloat16)
+    k = (torch.randn((HKV, nb, SCHED_BS, D), generator=g, device=dev) / 8).to(torch.bfloat16)
+    v = (torch.randn((HKV, nb, SCHED_BS, D), generator=g, device=dev) / 8).to(torch.bfloat16)
+    kw = dict(new_kv_included=True, cache_layout="HND")
+    if kind == "e4m3":
+        k, v = ((x.float() * 16).to(torch.float8_e4m3fn) for x in (k, v))
+        kw.update(kscale=torch.tensor([1 / 16], device=dev), vscale=torch.tensor([1 / 16], device=dev))
+    elif kind == "int8":
+        kv, ks, vs = quantize_kv_fused_int8(k, v)
+        k, v = kv, None
+        kw.update(cache_layout="FUSED", kscale=ks, vscale=vs)
+    return q, k, v, tbl.to(dev), torch.tensor(kv_lens, dtype=torch.int32, device=dev), kw
+
+
+def sdpa_ms(q, k, v, tbl, kv_lens, kw):
+    """One SDPA call over K/V gathered contiguous and dequantised to bf16
+    (queries of a kv head as its G rows; gather not timed), or None when the
+    padded gather exceeds SDPA_GATHER_LIMIT."""
+    import torch
+    import torch.nn.functional as F
+
+    from hpc_ops_tpu_torch.ops.attention.paging import unpack_kv_fused
+
+    b, L = kv_lens.shape[0], int(kv_lens.max())
+    if 2 * b * HKV * L * D * 2 > SDPA_GATHER_LIMIT:
+        return None
+    if kw["cache_layout"] == "FUSED":
+        k, v = unpack_kv_fused(k)
+    pages = tbl[:, : -(-L // SCHED_BS)].clamp(min=0).long()
+    out = []
+    for x, s in ((k, kw.get("kscale")), (v, kw.get("vscale"))):
+        x = x[:, pages].permute(1, 0, 2, 3, 4).reshape(b, HKV, -1, D)[:, :, :L]
+        out.append((x.float() * s if s is not None else x).to(torch.bfloat16).contiguous())
+    mask = (torch.arange(L, device=q.device)[None, :] < kv_lens[:, None])[:, None, None, :]
+    q4 = q.view(b, HKV, HQ // HKV, D)
+    return time_ms(lambda: F.scaled_dot_product_attention(q4, out[0], out[1], attn_mask=mask), 5, 1)
+
+
+def tasks_ref_chunked(q, k, v, tbl, lens, tm, kscale, chunk=128):
+    """The task kernel's plain version over ``chunk`` tasks at a time (its
+    float32 gather of a task's span would not fit for every task at once at
+    128K keys); the partials concatenated."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.attention.decode import _decode_tasks_ref
+
+    fields = ("batch", "head", "tile_start", "num_tiles", "seg")
+    parts = [_decode_tasks_ref(q, k, v, tbl, lens, tm._replace(**{f: getattr(tm, f)[i:i + chunk]
+                                                                for f in fields}), 1, D**-0.5, kscale)
+             for i in range(0, tm.capacity, chunk)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def decode_sched(dev):
+    """The JAX decode benchmark's scenarios at full width (Hkv 8, GQA 4, D
+    128, pages of 64, task tile 2048): for bf16 and e4m3 HND caches the grid
+    decode and the task-map decode (a "tight" map built by the numpy
+    scheduler outside the timed window, equal to the native and torch
+    schedulers' maps; the task kernel and the combine), the KV-bytes bound,
+    SDPA over the gathered K/V, the mode select_decode_mode picks and the
+    task count; for the int8 FUSED slab the grid decode. Every output, grid
+    and task map, is held against impl="ref" where its padded float32
+    gather fits REF_GATHER_LIMIT, else against the plain task-map pipeline
+    (the task kernel's and the combine's plain versions, the tasks gathered
+    in chunks), within close_scaled; the task kernel's partials are held
+    against their plain version in every scenario. Each mode is driven once
+    with the launch counts set to 0 before and read after; the kernels-line
+    rows of the task kernel and the combine are timed at ROW_SCENARIO.
+    Returns (rows, launches by kernels-line name)."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.attention.decode import (
+        _decode_combine_ref,
+        _hnd_views,
+        attention_decode,
+        paged_decode_tasks,
+    )
+    from hpc_ops_tpu_torch.ops.attention.scheduler import (
+        assign_attention_decode_task,
+        select_decode_mode,
+    )
+
+    launches, rows = {}, []
+
+    def tally(label, counts, row_of):
+        """Counts of one drive: each kernel of ``row_of`` once, under its row."""
+        if counts != {k: 1 for k in row_of}:
+            raise AssertionError(f"decode_sched {label}: launch counts {counts}")
+        for k, row in row_of.items():
+            launches[row] = launches.get(row, 0) + 1
+
+    for si, (case, spec) in enumerate(SCENARIOS.items()):
+        kv_lens = [n for count, n in spec for _ in range(count)]
+        b, sum_kv = len(kv_lens), sum(kv_lens)
+        mode = select_decode_mode(kv_lens, HKV)
+        for kind in ("bf16", "e4m3", "int8"):
+            q, k, v, tbl, lens, kw = scenario_caches(dev, kv_lens, kind, 100 + si)
+            tm = assign_attention_decode_task(lens, HKV, tile=SCHED_TILE, capacity="tight", impl="np")
+            kh, vh = _hnd_views(k, v, kw["cache_layout"], D)
+            fits = 2 * b * max(kv_lens) * HQ * D * 4 <= REF_GATHER_LIMIT
+            parts_plain = (None if kind == "int8" and fits
+                           else tasks_ref_chunked(q, kh, vh, tbl, lens, tm, kw.get("kscale")))
+            if fits:
+                want, against = attention_decode(q, k, v, tbl, lens, impl="ref", **kw), "ref"
+            else:
+                want = _decode_combine_ref(*parts_plain, tm, 1, HQ, kw.get("vscale"))
+                against = "plain task map"
+            elem = 2 if kind == "bf16" else 1
+            kv_bytes = 2 * sum_kv * HKV * D * elem
+            line = dict(case=case, kind=kind, batch=b, kv_bytes=kv_bytes,
+                        bound_ms=kv_bytes / HBM_BYTES_PER_S * 1e3, selected_mode=mode,
+                        checked_against=against)
+            grid, counts = driven(lambda: attention_decode(q, k, v, tbl, lens, **kw))
+            fused_row = "paged_decode_fused" + ("_packed" if max(kv_lens) <= 1024 else "")
+            tally(f"{case} {kind} grid", counts,
+                  {"paged_decode": fused_row if kind == "int8" else "paged_decode"})
+            line["grid_max_abs_err"] = close_scaled(grid, want, f"decode_sched {case} {kind} grid vs {against}")
+            line["grid_ms"] = time_ms(lambda: attention_decode(q, k, v, tbl, lens, **kw), 5, 1)
+            if kind != "int8":  # the benchmark runs no task map over the fused slab
+                for impl in ("native", "torch"):
+                    other = assign_attention_decode_task(
+                        lens, HKV, tile=SCHED_TILE, impl=impl,
+                        capacity="tight" if impl == "native" else tm.capacity)
+                    if not all(torch.equal(getattr(tm, f), getattr(other, f)) for f in
+                               ("batch", "head", "tile_start", "num_tiles", "seg", "num_tasks")):
+                        raise AssertionError(f"decode_sched {case}: the {impl} map differs from np's")
+                task_row = "paged_decode_tasks" + ("_e4m3" if kind == "e4m3" else "")
+                got, counts = driven(lambda: attention_decode(q, k, v, tbl, lens, task_map=tm, **kw))
+                tally(f"{case} {kind} taskmap", counts,
+                      {"paged_decode_tasks": task_row, "decode_combine": "decode_combine"})
+                perr = partials_err(paged_decode_tasks(q, kh, vh, tbl, lens, tm, 1, D**-0.5, kw.get("kscale")),
+                                    parts_plain, f"decode_sched {case} {kind} partials")
+                line.update(num_tasks=int(tm.num_tasks), capacity=tm.capacity, partials_max_abs_err=perr,
+                            max_abs_err=close_scaled(got, want, f"decode_sched {case} {kind} vs {against}"),
+                            taskmap_ms=time_ms(lambda: attention_decode(q, k, v, tbl, lens, task_map=tm,
+                                                                        **kw), 5, 1))
+                line["faster"] = "taskmap" if line["taskmap_ms"] < line["grid_ms"] else "grid"
+                line["picked_faster"] = mode == line["faster"]
+                if case == ROW_SCENARIO:
+                    rows += task_rows(q, kh, vh, tbl, lens, tm, kw, kind, sum_kv, elem, line, perr,
+                                      parts_plain)
+            line["sdpa_ms"] = sdpa_ms(q, k, v, tbl, lens, kw)
+            emit("decode_sched", **line)
+            del q, k, v, kh, vh, want, grid, parts_plain
+            torch.cuda.empty_cache()
+    return rows, launches
+
+
+def task_rows(q, kh, vh, tbl, lens, tm, kw, kind, sum_kv, elem, line, err, parts_plain):
+    """Kernels-line rows of the task kernel (its partials' error ``err``
+    against ``parts_plain``, their plain version) and (bf16 only) the
+    combine at this scenario: each alone, beside its plain version; the
+    task kernel's library column is the scenario's SDPA."""
+    from hpc_ops_tpu_torch.ops.attention.decode import (
+        _decode_combine_ref as combine_ref,
+        _decode_tasks_ref as tasks_ref,
+        decode_combine as combine_fn,
+        paged_decode_tasks as tasks_fn,
+    )
+
+    args = (q, kh, vh, tbl, lens, tm, 1, D**-0.5, kw.get("kscale"))
+    ms = time_ms(lambda: tasks_fn(*args), 10, 2)
+    plain = time_ms(lambda: tasks_ref(*args), 2, 1)
+    b = lens.shape[0]
+    rows_per = HQ // HKV
+    part_bytes = tm.capacity * rows_per * (D + 2) * 4
+    nbytes = (2 * sum_kv * HKV * D * elem + b * HQ * D * 2 + tbl.numel() * 4 + b * 4
+              + 4 * 4 * tm.capacity + part_bytes)
+    suffix = "_e4m3" if kind == "e4m3" else ""
+    out = [kernel_row("paged_decode_tasks" + suffix, "hpc_ops_tpu_torch/csrc/decode.cu",
+                      "hpc_ops_tpu/ops/attention/decode.py:1097", err, ms, plain,
+                      sdpa_ms(q, kh, vh, tbl, lens, dict(kw, cache_layout="HND")), nbytes,
+                      4 * sum_kv * HQ * D, scenario=line["case"], num_tasks=int(tm.num_tasks),
+                      capacity=tm.capacity)]
+    if kind == "bf16":
+        o, m, l = parts_plain
+        vs = kw.get("vscale")
+        cerr = close_scaled(combine_fn(o, m, l, tm, 1, HQ, vs), combine_ref(o, m, l, tm, 1, HQ, vs),
+                            "decode_sched combine")
+        cms = time_ms(lambda: combine_fn(o, m, l, tm, 1, HQ, vs), 20, 2)
+        cplain = time_ms(lambda: combine_ref(o, m, l, tm, 1, HQ, vs), 5, 1)
+        cbytes = part_bytes + 2 * 4 * tm.capacity + b * HQ * D * 2
+        out.append(kernel_row("decode_combine", "hpc_ops_tpu_torch/csrc/decode.cu",
+                              "hpc_ops_tpu/ops/attention/decode.py:1325", cerr, cms, cplain, None,
+                              cbytes, tm.capacity * rows_per * (3 * D + 4), scenario=line["case"]))
+    return out
 
 
 # ---------------------------------------------------------------- MoE kernels
@@ -2220,6 +2694,10 @@ def main() -> int:
                 + phase("check_prefill_fp8", check_prefill_fp8, dev, gen))
     launches_ops = phase("ops_fp8", ops_fp8, dev, gen)
     torch.cuda.empty_cache()
+    fused_rows, launches_fused = phase("check_decode_fused", check_decode_fused, dev, gen)
+    phase("check_decode_tasks", check_decode_tasks, dev, gen)
+    sched_rows, launches_sched = phase("decode_sched", decode_sched, dev)
+    torch.cuda.empty_cache()
     phase("slice_tiny", slice_tiny, dev)
     phase("slice_tiny_int8", slice_tiny, dev, "slice_tiny_int8", int8_kv=True, kv_scale=0.02)
     phase("slice_tiny_moe", slice_tiny, dev, "slice_tiny_moe", moe=True)
@@ -2274,6 +2752,16 @@ def main() -> int:
         r["launches"] = (counts_moe_bw[served[r["name"]]] if r["name"] in served
                          else launches_moe_bw_ops[r["name"]])
     rows += bw_rows
+    # the FUSED and task-map forms, reached by the decode operator's entry
+    # points only: decode_sched drove the int8 FUSED grid decode (at KV <= 1024
+    # in uniform_512: the packed row) and the task-map decode over bf16 and
+    # e4m3 in every scenario; check_decode_fused drove the bf16 and e4m3 FUSED
+    for r in fused_rows:
+        kind = {"paged_decode_fused_bf16": "bf16", "paged_decode_fused_e4m3": "e4m3"}.get(r["name"])
+        r["launches"] = launches_fused[kind] if kind else launches_sched.get(r["name"], 0)
+    for r in sched_rows:
+        r["launches"] = launches_sched.get(r["name"], 0)
+    rows += fused_rows + sched_rows
     for r in rows:
         r["route"] = "cuda"
         r["kernel_ms"] = r["ms"]
@@ -2281,7 +2769,8 @@ def main() -> int:
             raise AssertionError(f"kernel {r['name']} was never launched on its path")
     emit("launches", bf16=counts, int8_kv=counts_int8, fp8_kv=counts_fp8, w8a8=counts_w8a8,
          moe=counts_moe, moe_int8=counts_moe_int8, moe_bw=counts_moe_bw, ops_fp8=launches_ops,
-         ops_moe=launches_moe_ops, ops_moe_bw=launches_moe_bw_ops)
+         ops_moe=launches_moe_ops, ops_moe_bw=launches_moe_bw_ops, decode_fused=launches_fused,
+         decode_sched=launches_sched)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

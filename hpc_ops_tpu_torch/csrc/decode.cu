@@ -1,13 +1,23 @@
 // Paged GQA decode attention with MTP draft rows, over a KV cache of bf16,
 // int8 codes or e4m3 (per-tensor scales, or one K scale per token and kv
-// head), split K and V caches or the NHD_FUSED K|V slab.
+// head), split K and V caches, the head-major FUSED K|V slab or the
+// NHD_FUSED K|V slab; and its task-map (split-KV) form with the combine.
 //
 // Replaces: hpc_ops_tpu/ops/attention/decode.py:_decode_kernel (reached
 // through _decode_pallas; launcher hpc_paged_decode),
-// hpc_ops_tpu/ops/attention/decode.py:_decode_nhd_fused_kernel (reached
-// through _decode_nhd_fused_pallas; launcher hpc_paged_decode_nhd_fused) and
-// hpc_ops_tpu/ops/attention/decode.py:_decode_qt0_kernel (reached through
-// _decode_qt0_pallas; launcher hpc_paged_decode_qt0).
+// hpc_ops_tpu/ops/attention/decode.py:_decode_fused_kernel and
+// _decode_fused_packed_kernel (reached through _decode_fused_pallas and
+// _decode_fused_packed_pallas; both served by hpc_paged_decode over strided
+// views of the slab: the packed variant runs R (request, head) pairs per
+// TPU program only to save the TPU's per-grid-step overhead at short KV,
+// which a CUDA grid does not pay), hpc_ops_tpu/ops/attention/decode.py:
+// _decode_nhd_fused_kernel (reached through _decode_nhd_fused_pallas;
+// launcher hpc_paged_decode_nhd_fused), hpc_ops_tpu/ops/attention/decode.py:
+// _decode_qt0_kernel (reached through _decode_qt0_pallas; launcher
+// hpc_paged_decode_qt0), hpc_ops_tpu/ops/attention/decode.py:
+// _decode_tasks_kernel (reached through _decode_tasks_pallas; launcher
+// hpc_paged_decode_tasks) and the plain-jnp _segment_combine after it
+// (launcher hpc_decode_combine).
 //
 // Bound on the card: bytes. Each (request, kv head) streams its kv_len K and
 // V rows once (2 * kv_len * D elements, 2 bytes each in bf16, 1 in int8 and
@@ -16,10 +26,12 @@
 // not its memory, would be the limit. One-byte elements halve the bytes; the
 // per-token K scales add 4 bytes a token.
 //
-// Design: one block per (request, kv head). The block stages its G * sq
-// query rows in shared memory (float32, pre-scaled by sm_scale * kscale) and
-// walks the request's KV positions in tiles of kTile = 128 tokens through
-// the page table:
+// Design: one block per (request, kv head), or in the task form one block
+// per task of a task map (a contiguous KV range [tile_start * tile,
+// (tile_start + num_tiles) * tile) of one request and kv head). The block
+// stages its G * sq query rows in shared memory (float32, pre-scaled by
+// sm_scale * kscale) and walks its KV positions in tiles of kTile = 128
+// tokens through the page table:
 //   1. one thread per token of the tile reads the token's K row with 16-byte
 //      vector loads (8 bf16, or 16 int8 or e4m3 codes per load, converted to
 //      float in registers; all 128 rows of the tile in flight at once) and
@@ -32,14 +44,21 @@
 //      running sum l) and turns the scores into probabilities;
 //   3. every thread owns output columns and adds p * v for all rows.
 // The output is acc / l * vscale (one scale, or with kTokenScale one per kv
-// head). Positions at or past kv_len are never
+// head). The task form writes the unnormalised float32 acc and the row's m
+// and l instead (a row that saw no key keeps m = -inf, l = 0, acc = 0; a
+// sentinel task of batch < 0 writes exactly that), and the combine kernel
+// merges a segment's partials: one block per (request, kv head) finds the
+// segment's tasks in task order, weights each partial by exp(m - max m)
+// (0 where m = -inf) and writes sum(w * acc) / sum(w * l) * vscale, rounded
+// once to bf16. Positions at or past kv_len are never
 // read: their scores are -inf before the exponential and their V rows are
 // zeros in shared memory, and a probability of 0 never multiplies a V value,
 // so a page that holds NaN past kv_len cannot leak. Page ids below 0 are
 // read as page 0. Row r of the block is (g = r / sq, s = r % sq) and sees
 // keys up to kv_len - sq + s. Page, slot and head strides are arguments, so
-// the same kernel reads the head-major HND cache, the NHD cache and the
-// NHD_FUSED slab ([nb, 2*bs, Hkv*D]: K of head h, page p, slot s at
+// the same kernel reads the head-major HND cache, the NHD cache, the FUSED
+// slab ([Hkv, nb, 2*bs, D]: V at K's address + bs*D) and the NHD_FUSED
+// slab ([nb, 2*bs, Hkv*D]: K of head h, page p, slot s at
 // p*2*bs*Hkv*D + s*Hkv*D + h*D, V at the same address + bs*Hkv*D) in place;
 // K/V rows must be 16-byte aligned.
 //
@@ -50,14 +69,16 @@
 // descriptors) and the dense, gathered scale rows of _decode_qt0_kernel are
 // not copied: a block here reads its own pages and scales.
 //
-// Known limit: B * Hkv blocks (64 at B = 8, Hkv = 8) cannot fill 132 SMs,
-// and a long request's tiles run in order; splitting KV across blocks is
-// later work.
+// Known limit: in the grid form B * Hkv blocks (64 at B = 8, Hkv = 8) cannot
+// fill 132 SMs, and a long request's tiles run in order in one block; the
+// task form splits them across blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
 
 namespace {
 
@@ -135,7 +156,19 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <typename T, bool kTokenScale>
+// The task form's map and partial outputs (unused by the grid form).
+struct Tasks {
+  const int32_t* batch;       // [cap] request, < 0 for a sentinel task
+  const int32_t* head;        // [cap] kv head
+  const int32_t* tile_start;  // [cap] first work tile
+  const int32_t* num_tiles;   // [cap] work tiles
+  int tile;                   // tokens per work tile
+  float* o;                   // [cap, rows, dv] unnormalised
+  float* m;                   // [cap, rows] running max
+  float* l;                   // [cap, rows] running sum
+};
+
+template <typename T, bool kTokenScale, bool kTasks>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const __nv_bfloat16* __restrict__ q,  // [B * sq, hq, d]
     const T* __restrict__ kc, const T* __restrict__ vc,
@@ -146,15 +179,36 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     // kTokenScale: kscale [num_pages, page_size, hkv] per token and kv head,
     // vscale [hkv]; else [1] each. Null is a scale of 1.
     const float* __restrict__ kscale, const float* __restrict__ vscale,
-    __nv_bfloat16* __restrict__ out,        // [B * sq, hq, dv]
+    __nv_bfloat16* __restrict__ out,        // [B * sq, hq, dv] (grid form)
+    Tasks tasks,                            // (task form)
     int max_blocks, int page_size, int sq, int hq, int hkv, int d, int dv,
     float scale) {
   constexpr int kVec = Vec<T>::N;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
   const int g_per = hq / hkv;
   const int rows = g_per * sq;
+  const int tid = threadIdx.x;
+  // this block's request, kv head and KV positions [lo, hi)
+  int b, h, lo = 0, hi = INT_MAX;
+  if constexpr (kTasks) {
+    const int task = blockIdx.x;
+    b = tasks.batch[task];
+    if (b < 0) {  // sentinel: neutral partials, which the combine skips
+      float* o = tasks.o + static_cast<int64_t>(task) * rows * dv;
+      for (int i = tid; i < rows * dv; i += kThreads) o[i] = 0.f;
+      for (int r = tid; r < rows; r += kThreads) {
+        tasks.m[task * rows + r] = -INFINITY;
+        tasks.l[task * rows + r] = 0.f;
+      }
+      return;
+    }
+    h = tasks.head[task];
+    lo = tasks.tile_start[task] * tasks.tile;
+    hi = lo + tasks.num_tiles[task] * tasks.tile;
+  } else {
+    b = blockIdx.x;
+    h = blockIdx.y;
+  }
   T* v_s = reinterpret_cast<T*>(smem_raw);                   // [kTile, dv]
   float* q_s = reinterpret_cast<float*>(v_s + kTile * dv);  // [rows, d]
   float* p_s = q_s + rows * d;                              // [rows, kTile]
@@ -163,7 +217,6 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   float* l_s = m_s + rows;                                  // [rows]
   float* alpha_s = l_s + rows;                              // [rows]
 
-  const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int kv_len = kv_lens[b];
@@ -183,8 +236,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
   __syncthreads();
 
-  const int n_valid = min(kv_len, max_blocks * page_size);
-  for (int t0 = 0; t0 < n_valid; t0 += kTile) {
+  const int n_valid = min(hi, min(kv_len, max_blocks * page_size));
+  for (int t0 = lo; t0 < n_valid; t0 += kTile) {
     // 1a. V rows of the tile -> shared memory as stored (zeros past kv_len)
     const int vchunks = dv / kVec;
     for (int i = tid; i < kTile * vchunks; i += kThreads) {
@@ -283,6 +336,15 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     __syncthreads();
   }
 
+  if constexpr (kTasks) {
+    const int64_t task = blockIdx.x;
+    for (int i = tid; i < rows * dv; i += kThreads) tasks.o[task * rows * dv + i] = acc[i];
+    for (int r = tid; r < rows; r += kThreads) {
+      tasks.m[task * rows + r] = m_s[r];
+      tasks.l[task * rows + r] = l_s[r];
+    }
+    return;
+  }
   const float oscale = vscale ? vscale[kTokenScale ? h : 0] : 1.f;
   for (int i = tid; i < rows * dv; i += kThreads) {
     const int r = i / dv, c = i % dv;
@@ -293,11 +355,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
+// Grid form: one block per (request, kv head) into `out`; task form (a
+// non-null tasks): one block per task of the map's `batch` (capacity) tasks
+// into the partials.
 template <typename T, bool kTokenScale = false>
 int launch(const void* q, const void* kcache, const void* vcache, const int64_t* st,
            const void* block_ids, const void* kv_lens, const void* kscale, const void* vscale,
            void* out, int batch, int max_blocks, int page_size, int sq, int hq, int hkv, int d,
-           int dv, float scale, cudaStream_t stream) {
+           int dv, float scale, cudaStream_t stream, const Tasks* tasks = nullptr) {
   constexpr int kVec = Vec<T>::N;
   if (batch == 0) return 0;
   if (d % kVec != 0 || dv % kVec != 0 || hq % hkv != 0) {
@@ -306,20 +371,24 @@ int launch(const void* q, const void* kcache, const void* vcache, const int64_t*
   const int rows = (hq / hkv) * sq;
   const size_t smem = sizeof(T) * static_cast<size_t>(kTile) * dv +
                       sizeof(float) * (static_cast<size_t>(rows) * (d + kTile + dv) + 3 * rows);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel<T, kTokenScale>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  auto run = [&](auto kernel, dim3 grid, const Tasks& tk) {
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kcache),
+        static_cast<const T*>(vcache), st[0], st[1], st[2], st[3], st[4], st[5],
+        static_cast<const int32_t*>(block_ids), static_cast<const int32_t*>(kv_lens),
+        static_cast<const float*>(kscale), static_cast<const float*>(vscale),
+        static_cast<__nv_bfloat16*>(out), tk, max_blocks, page_size, sq, hq, hkv, d, dv, scale);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if constexpr (!kTokenScale) {
+    if (tasks != nullptr) return run(paged_decode_kernel<T, false, true>, dim3(batch), *tasks);
   }
-  dim3 grid(batch, hkv);
-  paged_decode_kernel<T, kTokenScale><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kcache),
-      static_cast<const T*>(vcache), st[0], st[1], st[2], st[3], st[4], st[5],
-      static_cast<const int32_t*>(block_ids), static_cast<const int32_t*>(kv_lens),
-      static_cast<const float*>(kscale), static_cast<const float*>(vscale),
-      static_cast<__nv_bfloat16*>(out), max_blocks, page_size, sq, hq, hkv, d, dv, scale);
-  return static_cast<int>(cudaGetLastError());
+  return run(paged_decode_kernel<T, kTokenScale, false>, dim3(batch, hkv), Tasks{});
 }
 
 // Cache element types of the launchers' kv_type argument.
@@ -329,23 +398,73 @@ int launch_typed(int kv_type, const void* q, const void* kcache, const void* vca
                  int64_t v_off, const int64_t* st, const void* block_ids, const void* kv_lens,
                  const void* kscale, const void* vscale, void* out, int batch, int max_blocks,
                  int page_size, int sq, int hq, int hkv, int d, int dv, float scale,
-                 cudaStream_t stream) {
+                 cudaStream_t stream, const Tasks* tasks = nullptr) {
   // v_off: elements from vcache to the first V row (the slab's K|V offset)
   switch (kv_type) {
     case kBf16:
       return launch<__nv_bfloat16>(
           q, kcache, static_cast<const __nv_bfloat16*>(vcache) + v_off, st, block_ids, kv_lens,
-          kscale, vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale, stream);
+          kscale, vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale, stream,
+          tasks);
     case kInt8:
       return launch<int8_t>(
           q, kcache, static_cast<const int8_t*>(vcache) + v_off, st, block_ids, kv_lens, kscale,
-          vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale, stream);
+          vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale, stream, tasks);
     case kE4m3:
       return launch<e4m3_t>(
           q, kcache, static_cast<const e4m3_t*>(vcache) + v_off, st, block_ids, kv_lens, kscale,
-          vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale, stream);
+          vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale, stream, tasks);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// One block per segment (request b, kv head h): merges the segment's task
+// partials into out[b * sq + s, h * g_per + g, :] for row r = g * sq + s.
+__global__ void __launch_bounds__(kThreads) decode_combine_kernel(
+    const float* __restrict__ o,  // [cap, rows, dv]
+    const float* __restrict__ m,  // [cap, rows]
+    const float* __restrict__ l,  // [cap, rows]
+    const int32_t* __restrict__ t_batch, const int32_t* __restrict__ t_seg, int cap,
+    const float* __restrict__ vscale,  // [1] or null (a scale of 1)
+    __nv_bfloat16* __restrict__ out, int sq, int hq, int hkv, int dv) {
+  extern __shared__ int task_s[];  // [cap]: the segment's tasks in task order
+  __shared__ int warp_n[kWarps];
+  const int seg = blockIdx.x;
+  const int b = seg / hkv, h = seg % hkv;
+  const int g_per = hq / hkv;
+  const int rows = g_per * sq;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // ordered compaction: a ballot per warp, warps in order, chunks in order
+  int n = 0;
+  for (int base = 0; base < cap; base += kThreads) {
+    const int t = base + tid;
+    const bool mine = t < cap && t_batch[t] >= 0 && t_seg[t] == seg;
+    const unsigned bal = __ballot_sync(0xffffffffu, mine);
+    if (lane == 0) warp_n[warp] = __popc(bal);
+    __syncthreads();
+    int off = n;
+    for (int w = 0; w < warp; ++w) off += warp_n[w];
+    if (mine) task_s[off + __popc(bal & ((1u << lane) - 1u))] = t;
+    for (int w = 0; w < kWarps; ++w) n += warp_n[w];
+    __syncthreads();
+  }
+  const float vs = vscale ? *vscale : 1.f;
+  for (int i = tid; i < rows * dv; i += kThreads) {
+    const int r = i / dv, c = i % dv;
+    float mx = -INFINITY;
+    for (int k = 0; k < n; ++k) mx = fmaxf(mx, m[task_s[k] * rows + r]);
+    float osum = 0.f, lsum = 0.f;
+    for (int k = 0; k < n; ++k) {
+      const int64_t tr = static_cast<int64_t>(task_s[k]) * rows + r;
+      const float mt = m[tr];
+      const float w = mt == -INFINITY ? 0.f : expf(mt - mx);
+      lsum += w * l[tr];
+      osum += w * o[tr * dv + c];
+    }
+    const int g = r / sq, s = r % sq;
+    const float val = lsum == 0.f ? 0.f : osum / lsum * vs;
+    out[(static_cast<int64_t>(b * sq + s) * hq + h * g_per + g) * dv + c] = __float2bfloat16(val);
   }
 }
 
@@ -399,4 +518,50 @@ extern "C" int hpc_paged_decode_nhd_fused(
   return launch_typed(kv_type, q, kv_slab, kv_slab, page_size * slot, st, block_ids, kv_lens,
                       kscale, vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, d, scale,
                       static_cast<cudaStream_t>(stream));
+}
+
+// Task form: K and V of kv_type read as [hkv, num_pages, page_size, d] with
+// the given (head, page, slot) strides in elements (HND, NHD and both fused
+// slabs in place), one block per task of the map's `cap` entries; writes
+// the float32 partials o [cap, G*sq, dv] (unnormalised), m and l
+// [cap, G*sq]. kscale is a [1] float32 device scalar or null; the V scale
+// is the combine's.
+extern "C" int hpc_paged_decode_tasks(
+    const void* q, const void* kcache, const void* vcache, int kv_type,
+    int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
+    int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
+    const void* kscale, const void* t_batch, const void* t_head, const void* t_tile_start,
+    const void* t_num_tiles, int cap, int tile, const void* block_ids, const void* kv_lens,
+    void* o, void* m, void* l, int max_blocks, int page_size, int sq, int hq, int hkv, int d,
+    int dv, float scale, void* stream) {
+  const int64_t st[6] = {k_head_stride, k_page_stride, k_slot_stride,
+                         v_head_stride, v_page_stride, v_slot_stride};
+  const Tasks tasks{static_cast<const int32_t*>(t_batch), static_cast<const int32_t*>(t_head),
+                    static_cast<const int32_t*>(t_tile_start),
+                    static_cast<const int32_t*>(t_num_tiles), tile, static_cast<float*>(o),
+                    static_cast<float*>(m), static_cast<float*>(l)};
+  return launch_typed(kv_type, q, kcache, vcache, 0, st, block_ids, kv_lens, kscale, nullptr,
+                      nullptr, cap, max_blocks, page_size, sq, hq, hkv, d, dv, scale,
+                      static_cast<cudaStream_t>(stream), &tasks);
+}
+
+// Merges the task partials of hpc_paged_decode_tasks by segment (request *
+// hkv + kv head; tasks with t_batch < 0 skipped) into out [B*sq, hq, dv]
+// bf16, times vscale ([1] float32 or null).
+extern "C" int hpc_decode_combine(
+    const void* o, const void* m, const void* l, const void* t_batch, const void* t_seg, int cap,
+    const void* vscale, void* out, int batch, int sq, int hq, int hkv, int dv, void* stream) {
+  if (batch == 0) return 0;
+  if (hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(int) * static_cast<size_t>(cap);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        decode_combine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  decode_combine_kernel<<<batch * hkv, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(o), static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const int32_t*>(t_batch), static_cast<const int32_t*>(t_seg), cap,
+      static_cast<const float*>(vscale), static_cast<__nv_bfloat16*>(out), sq, hq, hkv, dv);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -38,6 +38,9 @@ _SIGNATURES = {
     "hpc_paged_decode": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 5 + [_I] * 8 + [_F, _P],
     "hpc_paged_decode_qt0": [_P] * 3 + [_I64] * 6 + [_P] * 5 + [_I] * 8 + [_F, _P],
     "hpc_paged_decode_nhd_fused": [_P, _P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P],
+    "hpc_paged_decode_tasks": ([_P] * 3 + [_I] + [_I64] * 6 + [_P] * 5 + [_I] * 2 + [_P] * 5
+                               + [_I] * 7 + [_F, _P]),
+    "hpc_decode_combine": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 5 + [_P],
     "hpc_paged_prefill": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 7 + [_I] * 8 + [_F, _P],
     "hpc_paged_prefill_nhd_fused": [_P, _P, _I] + [_P] * 6 + [_I] * 7 + [_F, _P],
     "hpc_gg_scatter_e4m3": [_P] * 7 + [_I] * 4 + [_P],
@@ -131,9 +134,11 @@ def stream_ptr(t) -> int:
 def wrappers() -> dict:
     """The kernel wrappers by name; each carries a plain-int ``launches``."""
     from hpc_ops_tpu_torch.ops.attention.decode import (
+        decode_combine,
         paged_decode_attention,
         paged_decode_nhd_fused,
         paged_decode_qt0,
+        paged_decode_tasks,
     )
     from hpc_ops_tpu_torch.ops.attention.prefill import (
         paged_prefill_attention,
@@ -167,6 +172,8 @@ def wrappers() -> dict:
         "gg_pertensor": gg_pertensor,
         "gg_bw_scatter": gg_bw_scatter,
         "gg_bw_aligned": gg_bw_aligned,
+        "paged_decode_tasks": paged_decode_tasks,
+        "decode_combine": decode_combine,
     }
 
 

@@ -1,4 +1,5 @@
-"""Paged attention of the PyTorch port: decode, prefill and their references."""
+"""Paged attention of the PyTorch port: decode, prefill, their references and
+the decode task scheduler."""
 
 from hpc_ops_tpu_torch.ops.attention.decode import (
     attention_decode,
@@ -19,6 +20,14 @@ from hpc_ops_tpu_torch.ops.attention.reference import (
     attention_with_kvcache_prefill_ref,
     mha_varlen_prefill_ref,
 )
+from hpc_ops_tpu_torch.ops.attention.scheduler import (
+    TaskMap,
+    assign_attention_decode_task,
+    get_attention_decode_task_workspace,
+    print_attention_decode_task,
+    select_decode_mode,
+    task_capacity,
+)
 
 __all__ = [
     "attention_decode",
@@ -35,4 +44,10 @@ __all__ = [
     "attention_prefill_bf16_ref",
     "attention_with_kvcache_prefill_ref",
     "mha_varlen_prefill_ref",
+    "TaskMap",
+    "task_capacity",
+    "select_decode_mode",
+    "get_attention_decode_task_workspace",
+    "assign_attention_decode_task",
+    "print_attention_decode_task",
 ]

@@ -1,8 +1,10 @@
-"""Native host runtime of the port: the paged-KV block allocator.
+"""Native host runtime of the port: the paged-KV block allocator and the
+decode-task scheduler.
 
-``block_allocator.cc`` (the port's own copy) is compiled with ``g++`` at
-first use into ``<checkout>/build/runtime/``, named by a hash of the source,
-and loaded with ``ctypes``.
+``block_allocator.cc`` and ``scheduler.cc`` (the port's own copies) are
+compiled with ``g++`` at first use into one library under
+``<checkout>/build/runtime/``, named by a hash of both sources, and loaded
+with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import threading
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_DIR, "block_allocator.cc")
+_SOURCES = tuple(os.path.join(_DIR, n) for n in ("block_allocator.cc", "scheduler.cc"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build", "runtime")
 CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-Werror", "-shared")
 
@@ -26,27 +28,29 @@ _LIB: ctypes.CDLL | None = None
 
 
 def build() -> str:
-    """Compile the allocator unless the library for this source exists."""
-    with open(_SRC, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(CXXFLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"libhpc_allocator_{h}.so")
+    """Compile the runtime library unless the one for these sources exists."""
+    h = hashlib.sha256(" ".join(CXXFLAGS).encode())
+    for src in _SOURCES:
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    so = os.path.join(BUILD_DIR, f"libhpc_runtime_{h.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         tmp_so = os.path.join(tmp, "lib.so")
         r = subprocess.run(
-            [os.environ.get("CXX", "g++"), *CXXFLAGS, "-o", tmp_so, _SRC],
+            [os.environ.get("CXX", "g++"), *CXXFLAGS, "-o", tmp_so, *_SOURCES],
             capture_output=True, text=True,
         )
         if r.returncode != 0:
-            raise RuntimeError("building block_allocator.cc failed\n" + r.stderr)
+            raise RuntimeError("building the native runtime failed\n" + r.stderr)
         os.replace(tmp_so, so)
     return so
 
 
 def native_lib() -> ctypes.CDLL:
-    """Load (building if needed) the native allocator library."""
+    """Load (building if needed) the native runtime library."""
     global _LIB
     with _LOCK:
         if _LIB is not None:
@@ -65,6 +69,7 @@ def native_lib() -> ctypes.CDLL:
             "hpc_kv_share_prefix": (i32, [vp, i64, i64, i32]),
             "hpc_kv_cow_last": (i32, [vp, i64, p32]),
             "hpc_kv_free": (i32, [vp, i64]),
+            "hpc_assign_decode_tasks": (ctypes.c_int, [p32, *[ctypes.c_int] * 6, *[p32] * 5]),
         }
         for name, (res, args) in sigs.items():
             fn = getattr(lib, name)

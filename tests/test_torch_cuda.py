@@ -17,6 +17,10 @@ CPU's, or one step apart on at most 0.1%. MoE: the grouped GEMM within one bf16
 step (2^-7 relative) plus 1e-3 of the largest output (both sum exact e4m3
 products in float32, in another order); activation codes equal, or one apart
 on at most 0.1% (expf against torch.sigmoid); the top-k reduce bit-equal.
+Task-map decode: the task kernel's float32 partials within 1e-3 abs/rel of
+the plain version's on rows that saw a key (float32 sums in another order,
+the card's __expf), and exactly m = -inf, l = 0, o = 0 on the others; the
+combine within 1e-2 in bf16 output, as the attention kernels.
 int8 MoE: both grouped GEMMs bit-equal (exact integer sums, one conversion,
 one scaling, one bf16 rounding on both sides); the fused activation codes
 equal (the epilogue computes as the activation kernel and the plain version
@@ -32,16 +36,24 @@ group's codes).
 import pytest
 import torch
 
+from hpc_ops_tpu_torch.config import QuantType
 from hpc_ops_tpu_torch.ops.activation import act_quant, act_quant_ref
 from hpc_ops_tpu_torch.ops.attention.decode import (
+    _decode_combine_ref,
     _decode_nhd_fused_ref,
     _decode_qt0_ref,
     _decode_ref,
+    _decode_tasks_ref,
+    _hnd_views,
+    attention_decode,
+    decode_combine,
     paged_decode_attention,
     paged_decode_nhd_fused,
     paged_decode_qt0,
+    paged_decode_tasks,
 )
-from hpc_ops_tpu_torch.ops.attention.paging import pack_kv_fused_nhd
+from hpc_ops_tpu_torch.ops.attention.paging import hnd_to_nhd, pack_kv_fused, pack_kv_fused_nhd
+from hpc_ops_tpu_torch.ops.attention.scheduler import assign_attention_decode_task
 from hpc_ops_tpu_torch.ops.attention.prefill import (
     _prefill_nhd_fused_ref,
     _prefill_ref,
@@ -1004,6 +1016,7 @@ def token_scales(gen, k, layout):
 
 
 KS, VS = torch.tensor([17.0]), torch.tensor([23.0])
+QT0 = QuantType.QPERTOKEN_PERHEAD_KPERTOKEN_PERHEAD_VPERHEAD
 
 
 def test_fp8_wrappers_take_the_plain_version_on_cpu():
@@ -1319,3 +1332,216 @@ def test_forward_step_on_the_card_syncs_nothing_and_matches_cpu(cuda, mode):
         outs[str(dev)] = (lp.float().cpu(), ld.float().cpu())
     for name, c, g in zip(("prefill", "decode"), outs["cpu"], outs[str(cuda)]):
         assert_allclose(g, c, atol=0.15, rtol=0.1, name=f"{mode} {name} logits")
+
+
+# --------------------------------------------- FUSED and task-map decode
+def fused_caches(gen, lens, kind, sq=1, hq=32, hkv=8, d=128):
+    """q, K and V (HND) of ``kind`` (bf16, int8 codes, e4m3), the page table,
+    lengths and the kind's per-tensor scales."""
+    q, k, v, tbl, kv_lens = paged(gen, lens, hq, hkv, d, sq=sq)
+    if kind == "int8":
+        k, v = (torch.randint(-127, 128, tuple(t.shape), generator=gen, dtype=torch.int8) for t in (k, v))
+        return q, k, v, tbl, kv_lens, SC, SC
+    if kind == "e4m3":
+        return q, (k.float() * 0.05).to(FP8), (v.float() * 0.05).to(FP8), tbl, kv_lens, KS, VS
+    return q, k, v, tbl, kv_lens, None, None
+
+
+def layout_caches(k, v, layout):
+    """HND K and V in ``layout``: (kcache, vcache) for attention_decode."""
+    if layout == "HND":
+        return k, v
+    if layout == "NHD":
+        return hnd_to_nhd(k).contiguous(), hnd_to_nhd(v).contiguous()
+    pack = pack_kv_fused if layout == "FUSED" else pack_kv_fused_nhd
+    if k.element_size() == 1:  # 1-byte caches are packed as bytes
+        return pack(k.view(torch.uint8), v.view(torch.uint8)).view(k.dtype), None
+    return pack(k, v), None
+
+
+def test_task_wrappers_take_the_plain_version_on_cpu():
+    gen = torch.Generator().manual_seed(40)
+    counts = (paged_decode_attention.launches, paged_decode_tasks.launches, decode_combine.launches)
+    q, k, v, tbl, lens, _, _ = fused_caches(gen, [5, 40], "bf16", hq=4, hkv=2, d=64)
+    kv, _ = layout_caches(k, v, "FUSED")
+    kh, vh = _hnd_views(kv, None, "FUSED", 64)
+    assert torch.equal(attention_decode(q, kv, None, tbl, lens, new_kv_included=True, sm_scale=0.1,
+                                        cache_layout="FUSED"),
+                       _decode_ref(q, kh, vh, tbl, lens, 1, 0.1, "HND"))
+    tm = assign_attention_decode_task(lens, 2, tile=16, min_process_len=16, num_tasks_target=4,
+                                      capacity=8, impl="np")
+    parts = paged_decode_tasks(q, k, v, tbl, lens, tm, 1, 0.1)
+    assert all(torch.equal(a, b) for a, b in zip(parts, _decode_tasks_ref(q, k, v, tbl, lens, tm, 1, 0.1)))
+    assert torch.equal(decode_combine(*parts, tm, 1, 4), _decode_combine_ref(*parts, tm, 1, 4))
+    assert counts == (paged_decode_attention.launches, paged_decode_tasks.launches, decode_combine.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 3])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "e4m3"])
+def test_decode_fused_kernel_matches_plain(cuda, kind, sq):
+    """The head-major FUSED slab through attention_decode: the decode kernel
+    over strided views of the slab, short requests (the TPU's packed kernel,
+    KV <= 1024) and long ones in one call."""
+    gen = torch.Generator().manual_seed(41)
+    lens = [max(n, sq) for n in (1, 16, 17, 300, 1024, 4095, 3, 64)]
+    q, k, v, tbl, kv_lens, ks, vs = fused_caches(gen, lens, kind, sq=sq)
+    kv, _ = layout_caches(k, v, "FUSED")
+    kh, vh = _hnd_views(kv, None, "FUSED", 128)
+    want = _decode_ref(q, kh, vh, tbl, kv_lens, sq, 128**-0.5, "HND", ks, vs)
+    n0 = paged_decode_attention.launches
+    got = attention_decode(q.to(cuda), kv.to(cuda), None, tbl.to(cuda), kv_lens.to(cuda), mtp=sq - 1,
+                           new_kv_included=True, kscale=ks, vscale=vs, cache_layout="FUSED")
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == n0 + 1
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name=f"decode fused {kind}")
+
+
+def assert_partials_close(got, want, name):
+    """Task partials: finite rows within 1e-3, rows that saw no key exact."""
+    (go, gm, gl), (wo, wm, wl) = [[t.float().cpu() for t in x] for x in (got, want)]
+    seen = torch.isfinite(wm)
+    assert torch.equal(torch.isfinite(gm), seen), f"{name}: rows that saw a key differ"
+    assert torch.all(gl[~seen] == 0) and torch.all(go[~seen] == 0), f"{name}: unseen rows not neutral"
+    assert_allclose(gm[seen], wm[seen], atol=1e-3, rtol=1e-3, name=f"{name} m")
+    assert_allclose(gl[seen], wl[seen], atol=1e-3, rtol=1e-3, name=f"{name} l")
+    assert_allclose(go[seen], wo[seen], atol=1e-3, rtol=1e-3, name=f"{name} o")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 3])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "e4m3"])
+@pytest.mark.parametrize("layout", ["HND", "NHD", "FUSED", "NHD_FUSED"])
+def test_decode_tasks_kernel_matches_plain(cuda, layout, kind, sq):
+    """The task kernel over every layout in place, with sentinel tasks
+    (capacity above the count), a long request split into several tasks,
+    and draft rows whose last task holds no key they may see."""
+    gen = torch.Generator().manual_seed(42)
+    lens = [max(n, sq) for n in (1, 16, 17, 300, 1025, 4097, 3, 64)]
+    q, k, v, tbl, kv_lens, ks, vs = fused_caches(gen, lens, kind, sq=sq)
+    kc, vc = layout_caches(k, v, layout)
+    tm = assign_attention_decode_task(kv_lens, 8, tile=256, min_process_len=512, capacity=200,
+                                      impl="np")
+    assert int(tm.num_tasks) < 200 and int((tm.batch == 5).sum()) > 8
+    kd, vd = _hnd_views(kc.to(cuda), None if vc is None else vc.to(cuda), layout, 128)
+    kh, vh = _hnd_views(kc, vc, layout, 128)
+    want = _decode_tasks_ref(q, kh, vh, tbl, kv_lens, tm, sq, 128**-0.5, ks)
+    tmd = tm._replace(**{f: getattr(tm, f).to(cuda) for f in ("batch", "head", "tile_start",
+                                                              "num_tiles", "seg", "num_tasks")})
+    n0 = paged_decode_tasks.launches
+    got = paged_decode_tasks(q.to(cuda), kd, vd, tbl.to(cuda), kv_lens.to(cuda), tmd, sq,
+                             128**-0.5, ks)
+    torch.cuda.synchronize()
+    assert paged_decode_tasks.launches == n0 + 1
+    assert_partials_close(got, want, f"tasks {layout} {kind} sq={sq}")
+
+
+@pytest.mark.cuda
+def test_decode_combine_kernel_matches_plain(cuda):
+    """Partials with rows at m = -inf, sentinel tasks and a map whose
+    segments are not contiguous (tasks shuffled)."""
+    gen = torch.Generator().manual_seed(43)
+    lens = [1, 300, 1025, 4097, 64]
+    tm = assign_attention_decode_task(torch.tensor(lens), 8, tile=256, min_process_len=256,
+                                      capacity=240, impl="np")
+    perm = torch.randperm(240, generator=gen)
+    tm = tm._replace(**{f: getattr(tm, f)[perm].contiguous() for f in ("batch", "head", "tile_start",
+                                                                       "num_tiles", "seg")})
+    rows = 4 * 3
+    o = torch.randn((240, rows, 128), generator=gen)
+    m = torch.randn((240, rows), generator=gen) * 4
+    m[torch.rand((240, rows), generator=gen) < 0.2] = float("-inf")
+    l = torch.rand((240, rows), generator=gen) * 50 + 1
+    o[torch.isinf(m)] = 0
+    l[torch.isinf(m)] = 0
+    want = _decode_combine_ref(o, m, l, tm, 3, 32, VS)
+    tmd = tm._replace(batch=tm.batch.to(cuda), seg=tm.seg.to(cuda))
+    n0 = decode_combine.launches
+    got = decode_combine(o.to(cuda), m.to(cuda), l.to(cuda), tmd, 3, 32, VS)
+    torch.cuda.synchronize()
+    assert decode_combine.launches == n0 + 1
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="combine")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,kind,mtp", [("HND", "bf16", 0), ("NHD", "e4m3", 2),
+                                             ("FUSED", "int8", 0), ("NHD_FUSED", "int8", 2)])
+def test_task_map_decode_on_the_card_syncs_nothing_and_matches_ref(cuda, layout, kind, mtp):
+    """attention_decode(task_map=...) on the card: the task kernel and the
+    combine, one launch each, no device-to-host copy, and the reference's
+    output within 1e-2; the torch scheduler builds the map on the card."""
+    gen = torch.Generator().manual_seed(44)
+    sq = mtp + 1
+    lens = [max(n, sq) for n in (1, 300, 4097, 64, 2000)]
+    q, k, v, tbl, kv_lens, ks, vs = fused_caches(gen, lens, kind, sq=sq)
+    kc, vc = layout_caches(k, v, layout)
+    dev = [t.to(cuda) for t in (q, tbl, kv_lens)]
+    kcd, vcd = kc.to(cuda), None if vc is None else vc.to(cuda)
+    kw = dict(mtp=mtp, new_kv_included=True, cache_layout=layout)
+    want = attention_decode(q, kc, vc, tbl, kv_lens, impl="ref", kscale=ks, vscale=vs, **kw)
+    kw.update(kscale=None if ks is None else ks.to(cuda), vscale=None if vs is None else vs.to(cuda))
+    torch.cuda.synchronize()
+    n0 = {f: f.launches for f in (paged_decode_tasks, decode_combine, paged_decode_attention,
+                                  paged_decode_nhd_fused)}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tm = assign_attention_decode_task(dev[2], 8, mtp, True, tile=512, min_process_len=1024,
+                                          impl="torch")
+        got = attention_decode(dev[0], kcd, vcd, dev[1], dev[2], task_map=tm, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launched = {f.__name__: f.launches - c for f, c in n0.items()}
+    assert launched == {"paged_decode_tasks": 1, "decode_combine": 1, "paged_decode_attention": 0,
+                        "paged_decode_nhd_fused": 0}
+    assert tm.capacity > int(tm.num_tasks)
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name=f"task map {layout}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["HND", "NHD_FUSED"])
+def test_qt0_with_a_task_map_launches_the_qt0_kernel(cuda, layout):
+    """QuantType 0 ignores a task map (the JAX package's reference does too)
+    and launches its grid kernel once: no task kernel, no float32 gather."""
+    gen = torch.Generator().manual_seed(46)
+    lens = [1, 300, 4097, 64]
+    q, k, v, tbl, kv_lens = fp8_paged(gen, lens, 32, 8, 128)
+    ktok, vhead = token_scales(gen, k, "HND")
+    want = _decode_qt0_ref(q, k, v, ktok, vhead, tbl, kv_lens, 1, 128**-0.5, "HND")
+    kc, vc = layout_caches(k, v, layout)
+    tm = assign_attention_decode_task(kv_lens.to(cuda), 8, tile=512, min_process_len=1024,
+                                      impl="torch")
+    fns = (paged_decode_qt0, paged_decode_tasks, decode_combine, paged_decode_attention)
+    n0 = [f.launches for f in fns]
+    got = attention_decode(q.to(cuda), kc.to(cuda), None if vc is None else vc.to(cuda),
+                           tbl.to(cuda), kv_lens.to(cuda), new_kv_included=True,
+                           kscale=ktok.to(cuda), vscale=vhead.to(cuda), cache_layout=layout,
+                           quant_type=QT0, task_map=tm)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(fns, n0)] == [1, 0, 0, 0]
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name=f"qt0 task map {layout}")
+
+
+@pytest.mark.cuda
+def test_fused_and_task_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator().manual_seed(45)
+    q, k, v, tbl, kv_lens, _, _ = fused_caches(gen, [20, 40], "bf16", hq=8, hkv=2)
+    d = dict(device=cuda)
+    dq, dk, dv, dtbl, dlens = (t.to(**d) for t in (q, k, v, tbl, kv_lens))
+    kv = pack_kv_fused(dk, dv)
+    bad = torch.zeros(kv.numel() + 8, dtype=torch.bfloat16, **d)[1:kv.numel() + 1].view(kv.shape)
+    fused = dict(new_kv_included=True, cache_layout="FUSED")
+    with pytest.raises(ValueError, match="aligned"):
+        attention_decode(dq, bad, None, dtbl, dlens, **fused)
+    with pytest.raises(ValueError, match="one device"):
+        attention_decode(dq, kv, None, tbl, dlens, **fused)
+    tm = assign_attention_decode_task(kv_lens, 2, tile=16, min_process_len=16, capacity=16, impl="np")
+    with pytest.raises(ValueError, match="task map must be"):
+        paged_decode_tasks(dq, dk, dv, dtbl, dlens, tm, 1, 0.1)
+    tmd = tm._replace(**{f: getattr(tm, f).to(cuda) for f in ("batch", "head", "tile_start",
+                                                              "num_tiles", "seg")})
+    o, m, l = paged_decode_tasks(dq, dk, dv, dtbl, dlens, tmd, 1, 0.1)
+    with pytest.raises(ValueError, match="task map must be"):
+        decode_combine(o, m, l, tm, 1, 8)
+    with pytest.raises(ValueError, match="partials must be"):
+        decode_combine(o[:8], m[:8], l[:8], tmd, 1, 8)

@@ -15,6 +15,7 @@ import torch
 from hpc_ops_tpu.ops.attention import attention_decode as jax_decode
 from hpc_ops_tpu_torch.ops.attention.decode import attention_decode, attention_decode_bf16
 from hpc_ops_tpu_torch.ops.attention.paging import pack_kv_fused_nhd
+from hpc_ops_tpu_torch.ops.attention.scheduler import assign_attention_decode_task
 from hpc_ops_tpu_torch.utils.testing import assert_allclose
 
 torch.set_num_threads(1)
@@ -74,14 +75,6 @@ def test_decode_ref_impl_and_bf16_alias_match_jax():
         assert_allclose(got.float(), np.asarray(want, np.float32), atol=3e-2, rtol=3e-2, name="ref")
 
 
-def test_decode_later_slices_raise():
-    q, k, v, tbl, nseq = make_case(9, [5])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        attention_decode(q, k, v, tbl, nseq, cache_layout="HND", task_map=object())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        attention_decode(q, k, v, tbl, nseq, cache_layout="FUSED")
-
-
 
 def fused_case(seed, kv_lens, sq=1, int8=False, hq=8, hkv=2, d=128):
     """q and an NHD_FUSED slab [nb, 2*BS, Hkv*D] (bf16, or int8 codes)."""
@@ -133,8 +126,10 @@ def test_decode_nhd_fused_int8_matches_jax(kv_lens, mtp, impl):
 
 def test_decode_nhd_fused_later_slices_raise():
     q, slab, tbl, lens = fused_case(9, [5])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        attention_decode(q, slab, None, tbl, lens, cache_layout="NHD_FUSED", task_map=object())
+    # the task-map decode reads the slab in place, over tiles of whole pages
+    tm = assign_attention_decode_task(lens, 2, tile=24, capacity=4, impl="np")
+    with pytest.raises(ValueError, match="multiple of the page size"):
+        attention_decode(q, slab, None, tbl, lens, cache_layout="NHD_FUSED", task_map=tm)
     # a quantised slab under QuantType 0 must bring its per-token K scales
     with pytest.raises(ValueError, match="need kscale"):
         attention_decode(q, slab.to(torch.int8), None, tbl, lens, cache_layout="NHD_FUSED",

@@ -18,7 +18,6 @@ import torch
 from hpc_ops_tpu.models import llama as J
 from hpc_ops_tpu.ops.normalization import rmsnorm_ref as jax_rmsnorm
 from hpc_ops_tpu_torch.models import llama as T
-from hpc_ops_tpu_torch.ops.attention.decode import attention_decode
 from hpc_ops_tpu_torch.ops.attention.prefill import attention_with_kvcache_prefill
 from hpc_ops_tpu_torch.ops.attention.reference import attention_with_kvcache_prefill_ref
 from hpc_ops_tpu_torch.ops.normalization import rmsnorm_ref
@@ -349,21 +348,19 @@ def test_later_slices_raise(field):
     q = torch.zeros((1, 8, 128), dtype=torch.bfloat16)
     one = torch.ones(1, dtype=torch.int32)
     if field == "fp8_kv":
-        # fp8_kv serves now, but not beside int8_kv; over fp8 caches the
-        # task-map decode and the head-major FUSED layout are later slices
+        # fp8_kv serves now, but not beside int8_kv; the task-map decode and
+        # the head-major FUSED layout decode over fp8 caches too
         with pytest.raises(ValueError, match="mutually exclusive"):
             T.init_cache(T.tiny_config(fp8_kv=True, int8_kv=True), 4, 16, device="cpu")
-        kv = torch.zeros((2, 4, 16, 128), dtype=torch.float8_e4m3fn)
-        for kw in ({"cache_layout": "HND", "task_map": object()}, {"cache_layout": "FUSED"}):
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-                attention_decode(q, kv, kv, torch.zeros((1, 1), dtype=torch.int32), one, **kw)
         return
     if field == "int8_kv":
-        # int8_kv serves now; the int8 head-major FUSED decode is a later slice
-        kv = torch.zeros((4, 2, 32, 128), dtype=torch.int8)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            attention_decode(q, kv, None, torch.zeros((1, 1), dtype=torch.int32), one,
-                             cache_layout="FUSED")
+        # int8_kv serves now, and the int8 FUSED slabs decode; block-sparse
+        # prefill over an int8 slab is a later slice
+        kv = torch.zeros((4, 32, 2 * 128), dtype=torch.int8)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+            attention_with_kvcache_prefill(q, kv, None, torch.tensor([0, 1]),
+                                           torch.zeros((1, 1), dtype=torch.int32), one, 1,
+                                           cache_layout="NHD_FUSED", block_mask=torch.ones(1))
         return
     if field == "dense_int8":
         # dense_int8 serves now; block-sparse prefill is a later slice

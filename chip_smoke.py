@@ -59,7 +59,21 @@ Phases, each printing one JSON line:
      type and layout at mtp 0 and 2; decode_sched, the JAX decode
      benchmark's scenarios at full width (pages of 64, task tile 2048): grid
      against task-map time over bf16 and e4m3, the int8 FUSED grid time, the
-     KV-bytes bound, SDPA, the mode select_decode_mode picks, one line each;
+     KV-bytes bound, SDPA, the mode select_decode_mode picks, one line each.
+     The block-sparse prefill: check_prefill_sparse, the sparse form of the
+     prefill kernel against its plain version over HND, NHD and NHD_FUSED,
+     bf16, int8 and e4m3 caches and per-token K scales, kv prefixes longer
+     than q, mask tiles of 64 x 64, 128 x 64 and 128 x 128 and a q tile with
+     no kept key (its rows exactly 0); prefill_sparse, the JAX prefill
+     benchmark's four cases at full width (Hkv 8, GQA 4, D 128, pages of 64,
+     e4m3 caches): the dense e4m3 call, the sparse call under the
+     benchmark's random mask and under Stem's mask (with Stem's own time),
+     SDPA causal and over each mask, the kept tiles' bounds, every output
+     against the plain version (seeded q tiles at 32K and in the mixed case);
+     check_rmsnorm_quant, the RMSNorm + fp8 kernel at 8 and 2048 tokens x
+     hidden 4096 and 5120 with and without the MoE outputs; check_route_gemm,
+     the route GEMM at the JAX route benchmark's shapes beside one cuBLAS
+     float32 product;
   4. slice_tiny, slice_tiny_int8, slice_tiny_moe, slice_tiny_fp8,
      slice_tiny_moe_int8 and slice_tiny_moe_bw: Engine on tiny_config (bf16
      KV, int8_kv, fp8 MoE, fp8_kv, int8 MoE, blockwise int8 MoE) on the card
@@ -1258,6 +1272,522 @@ def task_rows(q, kh, vh, tbl, lens, tm, kw, kind, sum_kv, elem, line, err, parts
                               "hpc_ops_tpu/ops/attention/decode.py:1325", cerr, cms, cplain, None,
                               cbytes, tm.capacity * rows_per * (3 * D + 4), scenario=line["case"]))
     return out
+
+
+# ------------------- block-sparse prefill, Stem masks, RMSNorm + fp8, route GEMM
+SPARSE_BS = 64  # the JAX prefill benchmark's pages
+# benchmark/attention_prefill/bench_attention_prefill.py: case -> prompt lengths (q == kv)
+PREFILL_CASES = {
+    "b8_2k": [2048] * 8,
+    "b2_8k": [8192] * 2,
+    "b1_32k": [32768],
+    "mix_4k_16k": [4096, 4096, 16384],
+}
+FULL_PLAIN_CASES = ("b8_2k", "b2_8k")  # held by a full plain pass; the others by seeded q tiles
+SPARSE_KEEP = 0.2  # the benchmark's random keep ratio (--sparse-keep)
+SPARSE_ROW_CASE = "b8_2k"  # the shape of the sparse kernel's kernels-line rows
+SDPA_MASK_LIMIT = 16 << 30  # bytes of one request's token-expanded bool mask SDPA may take
+# the benchmark's Stem budget (--stem): about 0.2 of the causal tiles at 32K
+STEM_BUDGET = dict(initial_blocks=2, window_size=2, k_block_num_rate_medium=0.12,
+                   k_block_num_bias_medium=6, k_block_num_rate_large=0.08,
+                   k_block_num_bias_large=6, gqa_groups=HQ // HKV)
+# Stem also over a pool of this many pages a cache (1 GiB of e4m3 at Hkv 8,
+# D 128, pages of 64: one layer's share of a serving pool), the case's pages
+# first and the rest never named by the table
+STEM_POOL_PAGES = 16384
+SPARSE_FORMS = {"bf16": "paged_prefill_sparse", "e4m3": "paged_prefill_sparse_e4m3",
+                "pertoken": "paged_prefill_sparse_pertoken"}
+
+
+def run_timed(fn):
+    """One call (its output; the warm-up) and the time of a call: CUDA events
+    over 20 calls, or over 3 when one call takes more than 100 ms."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time_ms(fn, 3 if time.perf_counter() - t0 > 0.1 else 20, 0)
+
+
+def count_drive(launches, counts, want, row, what):
+    """Check one drive's launch counts (``want`` exactly) and add them to ``row``."""
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts}, expected {want}")
+    if want:
+        launches[row] = launches.get(row, 0) + 1
+
+
+def random_tile_mask(gen, q_lens, kv_lens, mtq, mtkv, keep, per_kv_head=False):
+    """A seeded [B, Hq, n_tm, n_tkv] uint8 mask keeping each q tile's causal
+    diagonal tile; ``per_kv_head``: one row per kv head repeated over its
+    group, with the two sink tiles kept (the JAX prefill benchmark's mask)."""
+    import torch
+
+    n_tm, n_tkv = -(-max(q_lens) // mtq), -(-max(kv_lens) // mtkv)
+    heads = HKV if per_kv_head else HQ
+    mask = torch.rand((len(q_lens), heads, n_tm, n_tkv), generator=gen) < keep
+    if per_kv_head:
+        mask = mask.repeat_interleave(HQ // HKV, dim=1)
+    for b, (ql, kl) in enumerate(zip(q_lens, kv_lens)):
+        for t in range(n_tm):
+            mask[b, :, t, min((kl - ql + t * mtq) // mtkv, n_tkv - 1)] = True
+        if per_kv_head:
+            mask[b, :, :, :2] = True
+    return mask.to(torch.uint8)
+
+
+def check_prefill_sparse(dev, gen):
+    """The block-sparse form of the prefill kernel against its plain version
+    at the serving head geometry (Hq 32, Hkv 8, D 128, pages of 16): HND,
+    NHD and the NHD_FUSED slab (as NHD views) over bf16, int8 and e4m3
+    caches, and per-token K scales with a V scale per head; three requests
+    with kv prefixes longer than q (mtp-style chunked prefill), unaligned
+    starts and padded rows; mask tiles of 64 x 64, 128 x 64 and 128 x 128; q
+    head 1 keeps no tile in request 0's first q tile, so its rows must come
+    back exactly 0. Within close_scaled."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.attention.paging import nhd_fused_views, pack_kv_fused_nhd
+    from hpc_ops_tpu_torch.ops.attention.prefill import _prefill_sparse_ref, paged_prefill_sparse
+
+    scale = D**-0.5
+    nb = NUM_BLOCKS + 8
+    q_lens, kv_lens, pad = [13, 200, 77], [113, 237, 577], 5
+    cu = torch.tensor([0] + torch.tensor(q_lens).cumsum(0).tolist(), dtype=torch.int32, device=dev)
+    tbl = random_table(gen, kv_lens, max(kv_lens) // BS + 2, nb, dev)
+    lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    q = torch.randn((sum(q_lens) + pad, HQ, D), generator=gen).to(torch.bfloat16).to(dev)
+    kb = torch.randn((HKV, nb, BS, D), generator=gen).to(dev)
+    vb = torch.randn((HKV, nb, BS, D), generator=gen).to(dev)
+    k8, v8, _, ktok, vhead = e4m3_caches(dev, gen, nb)
+    caches = {
+        "bf16": (kb.to(torch.bfloat16), vb.to(torch.bfloat16), None, None),
+        "int8": ((kb * 40).round().clamp(-127, 127).to(torch.int8),
+                 (vb * 40).round().clamp(-127, 127).to(torch.int8),
+                 torch.tensor([1 / 40], device=dev), torch.tensor([1 / 40], device=dev)),
+        "e4m3": (k8, v8, torch.tensor([KSCALE], device=dev), torch.tensor([VSCALE], device=dev)),
+    }
+    tiles = [(64, 64), (128, 64), (128, 128)]
+    errs, dead_rows = {}, q_lens[0]
+    for i, (kind, layout) in enumerate([(k, l) for k in caches for l in ("HND", "NHD", "NHD_FUSED")]
+                                       + [("pertoken", "HND"), ("pertoken", "NHD_FUSED")]):
+        k, v, ks, vs = caches["e4m3" if kind == "pertoken" else kind]
+        tok = ktok if kind == "pertoken" else None
+        if kind == "pertoken":
+            ks, vs = None, vhead
+        mtq, mtkv = tiles[i % len(tiles)]
+        mask = random_tile_mask(gen, q_lens, kv_lens, mtq, mtkv, 0.4)
+        mask[0, 1, 0] = 0  # q head 1 keeps nothing in request 0's first q tile
+        mask = mask.to(dev)
+        kc, vc, lay = k, v, "HND"
+        if layout == "NHD":
+            kc, vc, lay = k.permute(1, 2, 0, 3).contiguous(), v.permute(1, 2, 0, 3).contiguous(), "NHD"
+        elif layout == "NHD_FUSED":
+            kc, vc = nhd_fused_views(pack_bytes(pack_kv_fused_nhd, k, v), HKV)
+            lay = "NHD"
+        args = (q, kc, vc, cu, tbl, lens, max(q_lens), scale, lay, mask, mtq, mtkv, ks, vs, tok)
+        got = paged_prefill_sparse(*args)
+        want = _prefill_sparse_ref(*args)
+        name = f"{kind} {layout} {mtq}x{mtkv}"
+        errs[name] = close_scaled(got, want, f"check_prefill_sparse {name}")
+        if got[:dead_rows, 1].float().abs().max() != 0:
+            raise AssertionError(f"check_prefill_sparse {name}: a row with no kept key is not 0")
+    emit("check_prefill_sparse", max_abs_err=errs)
+
+
+def kept_work(mask, lens, mtq, mtkv):
+    """What a mask [B, Hq, n_tm, n_tkv] over fresh prompts (q == kv) leaves to
+    compute: the causal (q, k) pairs of its kept tiles summed over q heads,
+    and the kv positions that some q head of a kv head's group needs, summed
+    over kv heads (each read once)."""
+    import torch
+    import torch.nn.functional as F
+
+    pairs = positions = 0
+    g = HQ // HKV
+    for b, L in enumerate(lens):
+        n_tm, n_tk = -(-L // mtq), -(-L // mtkv)
+        start = torch.arange(n_tk, device=mask.device) * mtkv
+        width = (L - start).clamp(max=mtkv)
+        qpos = torch.arange(L, device=mask.device)
+        cnt = torch.minimum((qpos[:, None] + 1 - start[None, :]).clamp(min=0), width[None, :])
+        per_tile = F.pad(cnt, (0, 0, 0, n_tm * mtq - L)).view(n_tm, mtq, n_tk).sum(dim=1)
+        m = mask[b, :, :n_tm, :n_tk].bool()
+        pairs += int((m * per_tile[None]).sum())
+        need = (m & (per_tile > 0)[None]).view(HKV, g, n_tm, n_tk).any(dim=1).any(dim=1)
+        positions += int((need * width[None]).sum())
+    return pairs, positions
+
+
+def sparse_bound(total_q, pairs, positions, mask_bytes, tbl_bytes, elem=1):
+    """Bound of a prefill call: q and out in bf16, each needed K/V row once
+    (``elem`` bytes an element), the mask and the table; 4 D operations a
+    causal pair, at the bf16 rate (q is bf16)."""
+    nbytes = 2 * total_q * HQ * D * 2 + 2 * positions * D * elem + mask_bytes + tbl_bytes
+    return nbytes, 4 * pairs * D
+
+
+def sparse_sdpa_ms(q, kc, vc, tbl, lens, keep=None, mtq=128, mtkv=64):
+    """Causal SDPA request by request over K/V gathered from the NHD caches
+    and dequantised to bf16, each kv head repeated over its group (gather not
+    timed); with ``keep`` the tile mask expanded to tokens beside the causal
+    mask, or None when one request's expanded mask exceeds SDPA_MASK_LIMIT."""
+    import torch
+    import torch.nn.functional as F
+
+    calls, off = [], 0
+    for b, L in enumerate(lens):
+        if keep is not None and HQ * L * L > SDPA_MASK_LIMIT:
+            return None
+        pages = tbl[b, : L // SPARSE_BS].long()
+        kv = [x[pages].reshape(L, HKV, D).permute(1, 0, 2).to(torch.bfloat16)
+              .repeat_interleave(HQ // HKV, dim=0)[None].contiguous() for x in (kc, vc)]
+        q4 = q[off : off + L].permute(1, 0, 2)[None].contiguous()
+        if keep is None:
+            calls.append(lambda q4=q4, kv=kv: F.scaled_dot_product_attention(q4, *kv, is_causal=True))
+        else:
+            pos = torch.arange(L, device=q.device)
+            m = keep[b][:, pos // mtq][:, :, pos // mtkv].bool() & (pos[None, :] <= pos[:, None])[None]
+            calls.append(lambda q4=q4, kv=kv, m=m: F.scaled_dot_product_attention(q4, *kv, attn_mask=m[None]))
+        off += L
+    return run_timed(lambda: [c() for c in calls])[1]
+
+
+def sparse_plain_check(label, got, args, mask, mtq, mtkv, lens, full, gen, extra=()):
+    """Hold ``got`` against the plain version (close_scaled): a full pass, or
+    seeded q tiles of 128 rows of each request (the first, the last and
+    three between), each as a sub-request cut at a mask-row boundary: its
+    rows, the keys up to its last row, the mask rows from its first on."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.attention.prefill import _prefill_sparse_ref
+
+    q, kc, vc, cu, tbl, kv_lens, max_q = args
+    if full:
+        return close_scaled(got, _prefill_sparse_ref(*args, D**-0.5, "NHD", mask, mtq, mtkv, *extra),
+                            label)
+    err, off = 0.0, 0
+    for b, L in enumerate(lens):
+        n_t = L // 128
+        picks = {0, n_t - 1, *torch.randint(0, n_t, (3,), generator=gen).tolist()}
+        for t in sorted(picks):
+            r0 = t * 128
+            sub = (q[off + r0 : off + r0 + 128], kc, vc,
+                   torch.tensor([0, 128], dtype=torch.int32, device=q.device), tbl[b : b + 1],
+                   torch.tensor([r0 + 128], dtype=torch.int32, device=q.device), 128)
+            want = _prefill_sparse_ref(*sub, D**-0.5, "NHD", mask[b : b + 1, :, r0 // mtq :], mtq, mtkv,
+                                       *extra)
+            err = max(err, close_scaled(got[off + r0 : off + r0 + 128], want, f"{label} request {b} q tile {t}"))
+        off += L
+    return err
+
+
+def sparse_case_inputs(dev, lens, seed):
+    """The JAX prefill benchmark's data on the card: q of N(0, 1) as e4m3 (q
+    scale 1), K and V of N(0, 1/8) in contiguous 64-slot NHD pages as e4m3
+    (scales 1), and their bf16 originals."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, total = len(lens), sum(lens)
+    nb_per = [-(-n // SPARSE_BS) for n in lens]
+    tbl = torch.zeros((b, max(nb_per)), dtype=torch.int32)
+    start = 0
+    for i, n in enumerate(nb_per):
+        tbl[i, :n] = torch.arange(start, start + n)
+        start += n
+    q = torch.randn((total, HQ, D), generator=g, device=dev).to(torch.bfloat16)
+    kb = (torch.randn((sum(nb_per), SPARSE_BS, HKV, D), generator=g, device=dev) / 8).to(torch.bfloat16)
+    vb = (torch.randn((sum(nb_per), SPARSE_BS, HKV, D), generator=g, device=dev) / 8).to(torch.bfloat16)
+    fp8 = torch.float8_e4m3fn
+    cu = torch.tensor([0] + torch.tensor(lens).cumsum(0).tolist(), dtype=torch.int32, device=dev)
+    return dict(q8=q.to(fp8), kb=kb, vb=vb, k8=kb.to(fp8), v8=vb.to(fp8), cu=cu, tbl=tbl.to(dev),
+                lens=torch.tensor(lens, dtype=torch.int32, device=dev),
+                qscale=torch.ones((b, HQ, max(lens)), device=dev), one=torch.ones(1, device=dev))
+
+
+def prefill_sparse(dev):
+    """The JAX prefill benchmark's cases at full width, not cut (Hkv 8, GQA
+    4, D 128, pages of 64, e4m3 caches at scale 1, one line each): the dense
+    e4m3 call, the sparse call under the benchmark's random per-kv-head mask
+    (keep 0.2, the diagonal and two sink tiles kept, 128 x 64 tiles), Stem
+    (stem_paged_kv with the benchmark's budget, GQA-pooled; timed again over
+    a pool of STEM_POOL_PAGES pages, with the same mask) and the sparse call
+    under its mask at 128 x 128, causal SDPA and SDPA over each mask
+    expanded to tokens where that fits SDPA_MASK_LIMIT, the bytes and
+    operations bounds of the kept tiles. Every output is held against the
+    plain version (dense: the same function, a mask keeping every tile);
+    each entry point is driven once with the launch counts set to 0 before
+    and read after. At SPARSE_ROW_CASE also the kernels-line rows of the
+    sparse kernel's three forms. Returns (rows, launches by row name)."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.attention import (
+        attention_with_kvcache_blocksparse_prefill_fp8,
+        attention_with_kvcache_prefill_fp8,
+    )
+    from hpc_ops_tpu_torch.ops.stem import stem_paged_kv
+
+    launches, rows = {}, []
+    gen = torch.Generator().manual_seed(41)
+    for ci, (case, lens) in enumerate(PREFILL_CASES.items()):
+        x = sparse_case_inputs(dev, lens, 200 + ci)
+        b, total, max_q = len(lens), sum(lens), max(lens)
+        one = x["one"]
+        pre = (x["cu"], x["tbl"], x["lens"], max_q)
+        full = case in FULL_PLAIN_CASES
+        plain_args = (x["q8"].to(torch.bfloat16), x["k8"], x["v8"], *pre)
+        line = dict(case=case, batch=b, total_q=total)
+
+        def dense():
+            return attention_with_kvcache_prefill_fp8(x["q8"], x["k8"], x["v8"], x["qscale"], one, one, *pre)
+
+        got, counts = driven(dense)
+        count_drive(launches, counts, {"paged_prefill": 1}, "paged_prefill_e4m3", f"prefill_sparse {case} dense")
+        _, line["dense_fp8_ms"] = run_timed(dense)
+        n_tm, n_tk = -(-max_q // 128), x["tbl"].shape[1]
+        ones = torch.ones((b, HQ, n_tm, n_tk), dtype=torch.uint8, device=dev)
+        line["dense_max_abs_err"] = sparse_plain_check(
+            f"prefill_sparse {case} dense", got, plain_args, ones, 128, SPARSE_BS, lens, full, gen, (one, one))
+        pairs_d, pos_d = kept_work(ones, lens, 128, SPARSE_BS)
+        tbl_bytes = x["tbl"].numel() * 4
+        line["dense_bound_ms"] = bound(*sparse_bound(total, pairs_d, pos_d, 0, tbl_bytes))[0]
+        del got, ones
+
+        mask = random_tile_mask(gen, lens, lens, 128, SPARSE_BS, SPARSE_KEEP, per_kv_head=True)
+        mask = mask[:, :, :, :n_tk].contiguous().to(dev)
+
+        def sparse(m=mask, tq=128, tkv=SPARSE_BS):
+            return attention_with_kvcache_blocksparse_prefill_fp8(
+                x["q8"], x["k8"], x["v8"], x["qscale"], one, one, *pre, block_mask=m, mask_tile_q=tq,
+                mask_tile_kv=tkv)
+
+        got, counts = driven(sparse)
+        count_drive(launches, counts, {"paged_prefill_sparse": 1}, "paged_prefill_sparse_e4m3",
+              f"prefill_sparse {case} sparse")
+        _, line["sparse_ms"] = run_timed(sparse)
+        line["sparse_max_abs_err"] = sparse_plain_check(
+            f"prefill_sparse {case} sparse", got, plain_args, mask, 128, SPARSE_BS, lens, full, gen,
+            (one, one))
+        del got
+        pairs, positions = kept_work(mask, lens, 128, SPARSE_BS)
+        nbytes, flops = sparse_bound(total, pairs, positions, mask.numel(), tbl_bytes)
+        line.update(keep_frac=float(mask.float().mean()), speedup_vs_dense_fp8=line["dense_fp8_ms"] / line["sparse_ms"],
+                    kept_pair_frac=pairs / pairs_d, sparse_kv_bytes=2 * positions * D,
+                    sparse_bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                    sparse_bound_ops_ms=flops / BF16_FLOPS_PER_S * 1e3)
+
+        def stem():
+            return stem_paged_kv(x["q8"], x["k8"], x["v8"], x["qscale"], one, one, x["tbl"], x["cu"],
+                                 x["lens"], x["lens"], **STEM_BUDGET)
+
+        stem_mask, counts = driven(stem)
+        count_drive(launches, counts, {}, None, f"prefill_sparse {case} stem")
+        _, line["stem_ms"] = run_timed(stem)
+        pool = [torch.cat([c.view(torch.uint8), torch.zeros((STEM_POOL_PAGES - c.shape[0], *c.shape[1:]),
+                                                           dtype=torch.uint8, device=dev)]).view(c.dtype)
+                for c in (x["k8"], x["v8"])]
+        pool_mask, line["stem_pool_ms"] = run_timed(lambda: stem_paged_kv(
+            x["q8"], *pool, x["qscale"], one, one, x["tbl"], x["cu"], x["lens"], x["lens"], **STEM_BUDGET))
+        if not torch.equal(pool_mask, stem_mask):
+            raise AssertionError(f"prefill_sparse {case} stem: the mask depends on the pool's spare pages")
+        line["stem_pool_pages"] = STEM_POOL_PAGES
+        del pool, pool_mask
+        got, counts = driven(lambda: sparse(stem_mask, 128, 128))
+        count_drive(launches, counts, {"paged_prefill_sparse": 1}, "paged_prefill_sparse_e4m3",
+              f"prefill_sparse {case} stem sparse")
+        _, line["stem_sparse_ms"] = run_timed(lambda: sparse(stem_mask, 128, 128))
+        line["stem_sparse_max_abs_err"] = sparse_plain_check(
+            f"prefill_sparse {case} stem sparse", got, plain_args, stem_mask, 128, 128, lens, full, gen,
+            (one, one))
+        del got
+        mq, mk = stem_mask.shape[2:]
+        tri = (torch.arange(mk, device=dev)[None, :] * 128 <= (torch.arange(mq, device=dev)[:, None] + 1) * 128 - 1)
+        stem_pairs, _ = kept_work(stem_mask, lens, 128, 128)
+        line.update(stem_keep_frac=float(stem_mask.float().sum() / (tri.sum() * b * HQ)),
+                    stem_kept_pair_frac=stem_pairs / pairs_d,
+                    net_speedup=line["dense_fp8_ms"] / (line["stem_ms"] + line["stem_sparse_ms"]))
+        qb = x["q8"].to(torch.bfloat16)
+        line["sdpa_causal_ms"] = sparse_sdpa_ms(qb, x["kb"], x["vb"], x["tbl"], lens)
+        line["sdpa_mask_ms"] = sparse_sdpa_ms(qb, x["kb"], x["vb"], x["tbl"], lens, mask, 128, SPARSE_BS)
+        line["sdpa_stem_mask_ms"] = sparse_sdpa_ms(qb, x["kb"], x["vb"], x["tbl"], lens, stem_mask, 128, 128)
+        if case == SPARSE_ROW_CASE:
+            rows += sparse_rows(dev, x, mask, line, launches)
+        emit("prefill_sparse", **line)
+        del x, mask, stem_mask, qb
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+def sparse_rows(dev, x, mask, line, launches):
+    """Kernels-line rows of the sparse kernel at one case under its random
+    mask: over the e4m3 caches, over their bf16 originals, and over the e4m3
+    codes with seeded K scales per (token, kv head) and a V scale per head;
+    each beside its plain version (a full pass) and SDPA over the mask
+    expanded to tokens. The bf16 and per-token forms are driven once through
+    the entry point (attention_with_kvcache_prefill with the bf16 caches,
+    and with QuantType 0)."""
+    import torch
+
+    from hpc_ops_tpu_torch.config import QuantType
+    from hpc_ops_tpu_torch.ops.attention import attention_with_kvcache_prefill
+    from hpc_ops_tpu_torch.ops.attention.prefill import _prefill_sparse_ref, paged_prefill_sparse
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    ktok = torch.rand((x["k8"].shape[0], SPARSE_BS, HKV, 1), generator=g, device=dev) + 0.5
+    vhead = torch.rand(HKV, generator=g, device=dev) + 0.5
+    qb = x["q8"].to(torch.bfloat16)
+    lens = x["lens"].tolist()
+    pre = (x["cu"], x["tbl"], x["lens"], max(lens), D**-0.5, "NHD", mask, 128, SPARSE_BS)
+    forms = {
+        "bf16": ((qb, x["kb"], x["vb"], *pre), 2, dict()),
+        "e4m3": ((qb, x["k8"], x["v8"], *pre, x["one"], x["one"]), 1, None),
+        "pertoken": ((qb, x["k8"], x["v8"], *pre, None, vhead, ktok), 1,
+                     dict(kscale=ktok, vscale=vhead,
+                          quant_type=QuantType.QPERTOKEN_PERHEAD_KPERTOKEN_PERHEAD_VPERHEAD)),
+    }
+    out = []
+    for form, (args, elem, entry_kw) in forms.items():
+        if entry_kw is not None:
+            kc, vc = args[1], args[2]
+            _, counts = driven(lambda: attention_with_kvcache_prefill(
+                qb, kc, vc, x["cu"], x["tbl"], x["lens"], max(lens), block_mask=mask, mask_tile_q=128,
+                mask_tile_kv=SPARSE_BS, **entry_kw))
+            count_drive(launches, counts, {"paged_prefill_sparse": 1}, SPARSE_FORMS[form],
+                  f"prefill_sparse {form} entry point")
+        got, ms = run_timed(lambda: paged_prefill_sparse(*args))
+        want, plain = run_timed(lambda: _prefill_sparse_ref(*args))
+        err = close_scaled(got, want, f"prefill_sparse row {form}")
+        pairs, positions = kept_work(mask, lens, 128, SPARSE_BS)
+        scale_bytes = 4 * positions if form == "pertoken" else 0
+        nbytes, flops = sparse_bound(sum(lens), pairs, positions, mask.numel(), x["tbl"].numel() * 4, elem)
+        out.append(kernel_row(SPARSE_FORMS[form], "hpc_ops_tpu_torch/csrc/prefill.cu",
+                              "hpc_ops_tpu/ops/attention/prefill.py:543", err, ms, plain,
+                              line["sdpa_mask_ms"], nbytes + scale_bytes, flops, case=line["case"],
+                              keep_frac=line["keep_frac"]))
+        del got, want
+    return out
+
+
+NORM_SHAPES = [(8, 4096), (8, 5120), (2048, 4096), (2048, 5120)]  # tokens x hidden
+NORM_ROW_SHAPE = (2048, 4096)  # the kernels-line rows' shape
+
+
+def check_rmsnorm_quant(dev, gen):
+    """The RMSNorm + fp8 kernel against its plain version on the card at 8
+    and 2048 tokens x hidden 4096 and 5120, with and without the MoE
+    outputs: every float32 norm equal, every e4m3 code equal (a code one
+    step apart is counted and allowed on at most 0.1% of them); the entry point
+    fused_rmsnorm_with_scale driven once per shape and form. Returns (rows,
+    launches by row name)."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.normalization import (
+        _F32_EPS,
+        _rmsnorm_quant_ref,
+        fused_rmsnorm_with_scale,
+        rmsnorm_quant,
+    )
+
+    rows, launches = [], {}
+    for n, h in NORM_SHAPES:
+        x = (torch.randn((n, h), generator=gen) * 2).to(torch.bfloat16).to(dev)
+        w = (torch.rand(h, generator=gen) + 0.5).to(torch.bfloat16).to(dev)
+        for is_moe in (False, True):
+            name = "fused_rmsnorm_moe" if is_moe else "fused_rmsnorm"
+            sc = torch.tensor([0.02, 0.05] if is_moe else [0.02], device=dev)  # some codes saturate
+            _, counts = driven(lambda: fused_rmsnorm_with_scale(x, w, scale=sc, is_moe=is_moe))
+            count_drive(launches, counts, {"rmsnorm_quant": 1}, name, f"{name} {n}x{h}")
+            got, ms = run_timed(lambda: rmsnorm_quant(x, w, sc, _F32_EPS, is_moe))
+            want, plain = run_timed(lambda: _rmsnorm_quant_ref(x, w, sc, _F32_EPS, is_moe))
+            got, want = (got, want) if is_moe else ((got,), (want,))
+            off_codes, err = 0, 0.0
+            for a, b_ in zip(got, want):
+                if a.dtype == torch.float32:
+                    if not torch.equal(a, b_):
+                        raise AssertionError(f"check_rmsnorm_quant {name} {n}x{h}: float32 norms differ")
+                    continue
+                ia, ib = (t.view(torch.uint8).to(torch.int16) for t in (a, b_))
+                diff = (ia - ib).abs()
+                off_codes += int((diff > 0).sum())
+                if int(diff.max()) > 1 or off_codes > 1e-3 * a.numel():
+                    raise AssertionError(f"check_rmsnorm_quant {name} {n}x{h}: codes disagree")
+                err = max(err, float((a.float() - b_.float()).abs().max()))
+            out_bytes = n * h * (2 + 4) if is_moe else n * h
+            nbytes = n * h * 2 + h * 2 + sc.numel() * 4 + out_bytes
+            line = dict(name=name, tokens=n, hidden=h, codes_off_by_one=off_codes)
+            if (n, h) == NORM_ROW_SHAPE:
+                rows.append(kernel_row(name, "hpc_ops_tpu_torch/csrc/normalization.cu",
+                                       "hpc_ops_tpu/ops/normalization.py:51", err, ms, plain, None, nbytes,
+                                       5 * n * h, tokens=n, hidden=h))
+            else:
+                bd, by = bound(nbytes, 5 * n * h)
+                emit("rmsnorm_quant", **line, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bd, bound_by=by)
+    return rows, launches
+
+
+# benchmark/route_gemm/bench_route_gemm.py: (m, n, k)
+ROUTE_SHAPES = [(256, 256, 7168), (4096, 256, 7168), (16384, 256, 7168), (4096, 4096, 4096),
+                (8192, 8192, 8192)]
+ROUTE_ROW_SHAPE = (4096, 256, 7168)  # the kernels-line row's shape
+
+
+def check_route_gemm(dev, gen):
+    """The route GEMM kernel at the JAX route benchmark's shapes: its float32
+    output within the float32 summation bound of the float64 product of the
+    split weights ((k / 16 + 1) ulps of |x| @ |w|^T, element by element: one
+    rounding per tensor-core step), its bf16 output within half a bf16 step
+    more; max_abs_err is its bf16 output against the plain version (two
+    float32 products with TF32 off);
+    the library column is one cuBLAS float32 product x.float() @ w.T (TF32
+    off), the reference's own baseline; gemm_bf16xfp32 driven once per shape.
+    Returns (rows, launches by row name)."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.gemm import _route_gemm_ref, gemm_bf16xfp32, route_gemm, split_fp32_weight
+
+    rows, launches = [], {}
+    for m, n, k in ROUTE_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(m + n)
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        w32 = torch.randn((n, k), generator=g, device=dev)
+        wh, wl, ws = split_fp32_weight(w32)
+        _, counts = driven(lambda: gemm_bf16xfp32(x, wh, wl, ws))
+        count_drive(launches, counts, {"route_gemm": 1}, "route_gemm", f"route_gemm {m}x{n}x{k}")
+        got, ms = run_timed(lambda: route_gemm(x, wh, wl, ws, False))
+        want, plain = run_timed(lambda: _route_gemm_ref(x, wh, wl, ws, True))
+        got32 = route_gemm(x, wh, wl, ws, True)
+        # the float64 product of the split weights, and the float32 summation
+        # bound: the kernel adds k / 16 tensor-core steps into each float32
+        # accumulator, each rounding by at most one ulp of a partial sum no
+        # larger than (|x| @ |w_high + scale * w_low|^T)
+        xd, whd, wld = x.double(), wh.double(), wl.double()
+        exact = xd @ (whd + float(ws) * wld).T
+        sum_tol = (k / 16 + 1) * 2.0**-23 * (xd.abs() @ (whd.abs() + float(ws) * wld.abs()).T)
+        torch.cuda.synchronize()
+        if not bool(((got32.double() - exact).abs() <= sum_tol).all()):
+            raise AssertionError(f"route_gemm {m}x{n}x{k} fp32: kernel outside the float32 summation bound")
+        if not bool(((got.double() - exact).abs() <= sum_tol + 2.0**-8 * exact.abs()).all()):
+            raise AssertionError(f"route_gemm {m}x{n}x{k}: kernel outside the bound plus half a bf16 step")
+        err = float((got.float() - want).abs().max())
+        del xd, whd, wld, sum_tol
+        xf = x.float()
+        _, lib = run_timed(lambda: xf @ w32.T)
+        exact_err = float((got32.double() - x.double() @ w32.double().T).abs().max())
+        del exact
+        nbytes, flops = m * k * 2 + 2 * n * k * 2 + m * n * 2, 4 * m * n * k
+        if (m, n, k) == ROUTE_ROW_SHAPE:
+            rows.append(kernel_row("route_gemm", "hpc_ops_tpu_torch/csrc/gemm.cu", "hpc_ops_tpu/ops/gemm.py:35",
+                                   err, ms, plain, lib, nbytes, flops, shape=[m, n, k],
+                                   fp32_out_abs_err_vs_float64=exact_err))
+        else:
+            bd, by = bound(nbytes, flops)
+            emit("route_gemm", shape=[m, n, k], max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                 bound_ms=bd, bound_by=by, fp32_out_abs_err_vs_float64=exact_err)
+        del x, w32, wh, wl, got, got32, want, xf
+        torch.cuda.empty_cache()
+    return rows, launches
 
 
 # ---------------------------------------------------------------- MoE kernels
@@ -2698,6 +3228,11 @@ def main() -> int:
     phase("check_decode_tasks", check_decode_tasks, dev, gen)
     sched_rows, launches_sched = phase("decode_sched", decode_sched, dev)
     torch.cuda.empty_cache()
+    phase("check_prefill_sparse", check_prefill_sparse, dev, gen)
+    sparse_rows_, launches_sparse = phase("prefill_sparse", prefill_sparse, dev)
+    norm_rows, launches_norm = phase("check_rmsnorm_quant", check_rmsnorm_quant, dev, gen)
+    route_rows, launches_route = phase("check_route_gemm", check_route_gemm, dev, gen)
+    torch.cuda.empty_cache()
     phase("slice_tiny", slice_tiny, dev)
     phase("slice_tiny_int8", slice_tiny, dev, "slice_tiny_int8", int8_kv=True, kv_scale=0.02)
     phase("slice_tiny_moe", slice_tiny, dev, "slice_tiny_moe", moe=True)
@@ -2762,6 +3297,13 @@ def main() -> int:
     for r in sched_rows:
         r["launches"] = launches_sched.get(r["name"], 0)
     rows += fused_rows + sched_rows
+    # the block-sparse prefill, RMSNorm + fp8 and route GEMM forms, reached
+    # by their operator entry points only: prefill_sparse drove the sparse
+    # e4m3 form once per mask and case and the bf16 and per-token forms once;
+    # check_rmsnorm_quant and check_route_gemm drove theirs once per shape
+    for r in sparse_rows_ + norm_rows + route_rows:
+        r["launches"] = {**launches_sparse, **launches_norm, **launches_route}.get(r["name"], 0)
+    rows += sparse_rows_ + norm_rows + route_rows
     for r in rows:
         r["route"] = "cuda"
         r["kernel_ms"] = r["ms"]
@@ -2770,7 +3312,8 @@ def main() -> int:
     emit("launches", bf16=counts, int8_kv=counts_int8, fp8_kv=counts_fp8, w8a8=counts_w8a8,
          moe=counts_moe, moe_int8=counts_moe_int8, moe_bw=counts_moe_bw, ops_fp8=launches_ops,
          ops_moe=launches_moe_ops, ops_moe_bw=launches_moe_bw_ops, decode_fused=launches_fused,
-         decode_sched=launches_sched)
+         decode_sched=launches_sched, prefill_sparse=launches_sparse, rmsnorm_quant=launches_norm,
+         route_gemm=launches_route)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -24,11 +24,11 @@ from hpc_ops_tpu_torch.config import (
 __version__ = "0.1.0.dev0"
 
 # the op modules whose public names the top level re-exports; the JAX
-# package's ops.gemm, ops.stem and parallel are not ported yet (ROADMAP
-# queue 1 items 4, 6 and 8)
+# package's parallel is not ported yet (ROADMAP queue 1 item 8)
 OP_MODULES = (
     "hpc_ops_tpu_torch.ops.activation",
     "hpc_ops_tpu_torch.ops.attention",
+    "hpc_ops_tpu_torch.ops.gemm",
     "hpc_ops_tpu_torch.ops.group_gemm",
     "hpc_ops_tpu_torch.ops.kv_cache",
     "hpc_ops_tpu_torch.ops.moe",
@@ -36,6 +36,7 @@ OP_MODULES = (
     "hpc_ops_tpu_torch.ops.quant",
     "hpc_ops_tpu_torch.ops.rope",
     "hpc_ops_tpu_torch.ops.sampler",
+    "hpc_ops_tpu_torch.ops.stem",
 )
 
 

@@ -41,6 +41,26 @@
 // place. Rows of the output past cu_seqlens[B] belong to no request; the
 // wrapper zero-fills them.
 //
+// Block-sparse form (kSparse; replaces
+// hpc_ops_tpu/ops/attention/prefill.py:_prefill_sparse_kernel, reached
+// through _prefill_sparse_pallas; launcher hpc_paged_prefill_sparse): the
+// same kernel with a uint8 mask [B, hq, n_tm, n_tkv]. Row i of a request
+// lies in mask row i / mask_tile_q, key position p in mask column
+// p / mask_tile_kv; a mask entry past the mask's edge reads as 0. First the
+// block's threads, one KV tile of 64 columns each, OR the entries that cover
+// the block's rows (every head of the GQA group) and the tile's columns into
+// one flag a tile in shared memory (the TPU kernel's active-chunk list);
+// the walk over the KV tiles then skips every tile whose flag is 0: no K/V
+// load, no scale read, no math, no barrier. That skip is the sparse
+// kernel's whole gain: its bound is the kept tiles' bytes and operations.
+// In a kept tile each (row, column) logit is masked by its own head's entry
+// beside the causal mask, so any mask tile size gives the same function;
+// when every entry over the tile is set (the usual case for masks of 64
+// columns or more shared by a GQA group) that lookup is skipped: done in
+// every kept tile, the lookup (a division and a byte load a logit) made
+// the sparse call 1.6x as long on an H100 (chip_smoke.py prefill_sparse).
+// A row with no kept key comes back 0, as the TPU kernel writes it.
+//
 // Known limit: the products run on the CUDA cores in float32, not on the
 // tensor cores (wgmma); that is later work.
 
@@ -103,7 +123,13 @@ __device__ __forceinline__ void load8(const e4m3_t* p, float* f) {
   }
 }
 
-template <int D, typename T>
+// The block mask of the sparse form (mask null: the dense form).
+struct BlockMask {
+  const uint8_t* bits;  // [batch, hq, n_tm, n_tkv]
+  int n_tm, n_tkv, tile_q, tile_kv;
+};
+
+template <int D, typename T, bool kSparse>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q,  // [rows, hq * D]
     const T* __restrict__ kc, const T* __restrict__ vc,
@@ -113,13 +139,15 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const int32_t* __restrict__ block_ids, const float* __restrict__ kscale,
     const float* __restrict__ vscale, const float* __restrict__ ktok,
     __nv_bfloat16* __restrict__ out, int max_blocks, int page_size, int hq, int hkv, int q_tile,
-    int vscale_per_head, float scale) {
+    int vscale_per_head, float scale, BlockMask bm) {
   constexpr int kColGroups = D / 64;  // output columns c = k*64 + tx*4 + e
   extern __shared__ float smem[];
   float* qt_s = smem;              // [D][kRows], pre-scaled
   float* kt_s = qt_s + D * kRows;  // [D][kCols]
   float* v_s = kt_s + D * kCols;   // [kCols][D]
   float* pt_s = v_s + kCols * D;   // [kCols][kRows]
+  // sparse: one flag per KV tile of the page table
+  uint8_t* tile_flag_s = reinterpret_cast<uint8_t*>(pt_s + kCols * kRows);
   __shared__ float ktok_s[kCols];  // the tile's per-token K scales
 
   const int b = blockIdx.x, h = blockIdx.y;
@@ -153,17 +181,56 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   float o[4][4 * kColGroups];
   float m_i[4], l_i[4];
   int limit[4];
+  const uint8_t* mrow[4];  // sparse: each row's mask row (null: no entry, all masked)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     limit[i] = r < rows_used ? kv_off + i0 + r / g_per : -1;
+    mrow[i] = nullptr;
+    if constexpr (kSparse) {
+      const int tq = (i0 + r / g_per) / bm.tile_q;
+      if (r < rows_used && tq < bm.n_tm)
+        mrow[i] = bm.bits + ((static_cast<int64_t>(b) * hq + h * g_per + r % g_per) * bm.n_tm + tq) *
+                                bm.n_tkv;
+    }
     m_i[i] = -INFINITY;
     l_i[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < 4 * kColGroups; ++c) o[i][c] = 0.f;
   }
 
+  // sparse: one flag per KV tile, from the mask rows the block's rows span
+  // and the mask columns the tile spans (entries past the mask's edge are
+  // 0): 0 skip, 1 kept, 2 kept with every entry set (no per-logit lookup)
+  bool full = true;
+  if constexpr (kSparse) {
+    const int tm_lo = i0 / bm.tile_q, tm_hi = (i0 + n_tok - 1) / bm.tile_q;
+    const int tm_n = min(tm_hi, bm.n_tm - 1) - tm_lo + 1;
+    for (int t = tid; t * kCols < kv_end; t += kThreads) {
+      const int tk_lo = t * kCols / bm.tile_kv;
+      const int tk_hi = (min(t * kCols + kCols, kv_end) - 1) / bm.tile_kv;
+      const int tk_n = min(tk_hi, bm.n_tkv - 1) - tk_lo + 1;
+      int kept = 0, all = tm_hi < bm.n_tm && tk_hi < bm.n_tkv;
+      const int n_entries = tm_n > 0 && tk_n > 0 ? g_per * tm_n * tk_n : 0;
+      for (int e = 0; e < n_entries; ++e) {
+        const int g = e % g_per, rest = e / g_per;
+        const int tq = tm_lo + rest % tm_n, tk = tk_lo + rest / tm_n;
+        const int bit =
+            bm.bits[((static_cast<int64_t>(b) * hq + h * g_per + g) * bm.n_tm + tq) * bm.n_tkv + tk];
+        kept |= bit;
+        all &= bit != 0;
+      }
+      tile_flag_s[t] = kept ? (all ? 2 : 1) : 0;
+    }
+    __syncthreads();
+  }
+
   for (int t0 = 0; t0 < kv_end; t0 += kCols) {
+    if constexpr (kSparse) {
+      const uint8_t flag = tile_flag_s[t0 / kCols];  // the block's threads agree
+      if (flag == 0) continue;  // no K/V loads, no math for this tile
+      full = flag == 2;
+    }
     __syncthreads();  // previous tile's readers are done
     // K tile, transposed: two threads per 16 columns of a row
     for (int idx = tid; idx < kCols * D / 8; idx += kThreads) {
@@ -239,7 +306,12 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = t0 + tx * 4 + j;
-        if (!(kpos <= limit[i] && kpos < kv_end)) s[i][j] = -INFINITY;
+        if (!(kpos <= limit[i] && kpos < kv_end)) {
+          s[i][j] = -INFINITY;
+        } else if constexpr (kSparse) {
+          const int tk = kpos / bm.tile_kv;
+          if (!full && (mrow[i] == nullptr || tk >= bm.n_tkv || !mrow[i][tk])) s[i][j] = -INFINITY;
+        }
         mx = fmaxf(mx, s[i][j]);
       }
       mx = group16_max(mx);
@@ -296,28 +368,44 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   }
 }
 
-template <int D, typename T>
-int launch(const void* q, const void* kc, const void* vc, const int64_t* st,
-           const void* cu, const void* kv_lens, const void* block_ids, const void* kscale,
-           const void* vscale, const void* ktok, void* out, int batch, int max_blocks,
-           int page_size, int hq, int hkv, int n_q_tiles, int q_tile, int vscale_per_head,
-           float scale, cudaStream_t stream) {
+template <int D, typename T, bool kSparse>
+int launch_form(const void* q, const void* kc, const void* vc, const int64_t* st,
+                const void* cu, const void* kv_lens, const void* block_ids, const void* kscale,
+                const void* vscale, const void* ktok, void* out, int batch, int max_blocks,
+                int page_size, int hq, int hkv, int n_q_tiles, int q_tile, int vscale_per_head,
+                float scale, BlockMask bm, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (static_cast<size_t>(D) * (kRows + kCols) +
-                                       static_cast<size_t>(kCols) * (D + kRows));
-  cudaError_t e = cudaFuncSetAttribute(paged_prefill_kernel<D, T>,
+                                       static_cast<size_t>(kCols) * (D + kRows)) +
+                      (kSparse ? (static_cast<size_t>(max_blocks) * page_size + kCols - 1) / kCols : 0);
+  cudaError_t e = cudaFuncSetAttribute(paged_prefill_kernel<D, T, kSparse>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(batch, hkv, n_q_tiles);
-  paged_prefill_kernel<D, T><<<grid, kThreads, smem, stream>>>(
+  paged_prefill_kernel<D, T, kSparse><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), st[0], st[1], st[2], st[3], st[4], st[5],
       static_cast<const int32_t*>(cu), static_cast<const int32_t*>(kv_lens),
       static_cast<const int32_t*>(block_ids), static_cast<const float*>(kscale),
       static_cast<const float*>(vscale), static_cast<const float*>(ktok),
       static_cast<__nv_bfloat16*>(out), max_blocks, page_size, hq, hkv, q_tile, vscale_per_head,
-      scale);
+      scale, bm);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, typename T>
+int launch(const void* q, const void* kc, const void* vc, const int64_t* st,
+           const void* cu, const void* kv_lens, const void* block_ids, const void* kscale,
+           const void* vscale, const void* ktok, void* out, int batch, int max_blocks,
+           int page_size, int hq, int hkv, int n_q_tiles, int q_tile, int vscale_per_head,
+           float scale, BlockMask bm, cudaStream_t stream) {
+  if (bm.bits != nullptr)
+    return launch_form<D, T, true>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok,
+                                   out, batch, max_blocks, page_size, hq, hkv, n_q_tiles, q_tile,
+                                   vscale_per_head, scale, bm, stream);
+  return launch_form<D, T, false>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok,
+                                  out, batch, max_blocks, page_size, hq, hkv, n_q_tiles, q_tile,
+                                  vscale_per_head, scale, bm, stream);
 }
 
 template <typename T>
@@ -325,7 +413,7 @@ int launch_d(const void* q, const void* kc, const void* vc, const int64_t* st,
              const void* cu, const void* kv_lens, const void* block_ids, const void* kscale,
              const void* vscale, const void* ktok, void* out, int batch, int max_blocks,
              int page_size, int hq, int hkv, int d, int max_seqlens_q, int vscale_per_head,
-             float scale, cudaStream_t stream) {
+             float scale, BlockMask bm, cudaStream_t stream) {
   if (hq % hkv != 0 || hq / hkv > kRows) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || max_seqlens_q == 0) return 0;
   const int q_tile = kRows / (hq / hkv);
@@ -334,11 +422,11 @@ int launch_d(const void* q, const void* kc, const void* vc, const int64_t* st,
     case 64:
       return launch<64, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok, out,
                            batch, max_blocks, page_size, hq, hkv, n_q_tiles, q_tile,
-                           vscale_per_head, scale, stream);
+                           vscale_per_head, scale, bm, stream);
     case 128:
       return launch<128, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok, out,
                             batch, max_blocks, page_size, hq, hkv, n_q_tiles, q_tile,
-                            vscale_per_head, scale, stream);
+                            vscale_per_head, scale, bm, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -351,28 +439,30 @@ int launch_typed(int kv_type, const void* q, const void* kc, const void* vc, int
                  const int64_t* st, const void* cu, const void* kv_lens, const void* block_ids,
                  const void* kscale, const void* vscale, const void* ktok, void* out, int batch,
                  int max_blocks, int page_size, int hq, int hkv, int d, int max_seqlens_q,
-                 int vscale_per_head, float scale, cudaStream_t stream) {
+                 int vscale_per_head, float scale, BlockMask bm, cudaStream_t stream) {
   // v_off: elements from vc to the first V row (the slab's K|V offset)
   switch (kv_type) {
     case kBf16:
       return launch_d<__nv_bfloat16>(
           q, kc, static_cast<const __nv_bfloat16*>(vc) + v_off, st, cu, kv_lens, block_ids, kscale,
           vscale, ktok, out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
-          vscale_per_head, scale, stream);
+          vscale_per_head, scale, bm, stream);
     case kInt8:
       return launch_d<int8_t>(
           q, kc, static_cast<const int8_t*>(vc) + v_off, st, cu, kv_lens, block_ids, kscale,
           vscale, ktok, out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
-          vscale_per_head, scale, stream);
+          vscale_per_head, scale, bm, stream);
     case kE4m3:
       return launch_d<e4m3_t>(
           q, kc, static_cast<const e4m3_t*>(vc) + v_off, st, cu, kv_lens, block_ids, kscale,
           vscale, ktok, out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
-          vscale_per_head, scale, stream);
+          vscale_per_head, scale, bm, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+constexpr BlockMask kDense = {nullptr, 0, 0, 1, 1};
 
 }  // namespace
 
@@ -394,7 +484,7 @@ extern "C" int hpc_paged_prefill(
                          v_head_stride, v_page_stride, v_slot_stride};
   return launch_typed(kv_type, q, kcache, vcache, 0, st, cu, kv_lens, block_ids, kscale, vscale,
                       ktok, out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
-                      vscale_per_head, scale, static_cast<cudaStream_t>(stream));
+                      vscale_per_head, scale, kDense, static_cast<cudaStream_t>(stream));
 }
 
 // The NHD_FUSED slab [num_pages, 2*page_size, hkv*d] of kv_type. kscale and
@@ -410,5 +500,27 @@ extern "C" int hpc_paged_prefill_nhd_fused(
   // a page's V rows follow its page_size K rows
   return launch_typed(kv_type, q, kv_slab, kv_slab, page_size * slot, st, cu, kv_lens, block_ids,
                       kscale, vscale, nullptr, out, batch, max_blocks, page_size, hq, hkv, d,
-                      max_seqlens_q, 0, scale, static_cast<cudaStream_t>(stream));
+                      max_seqlens_q, 0, scale, kDense, static_cast<cudaStream_t>(stream));
+}
+
+// The block-sparse form over split K and V caches, arguments as
+// hpc_paged_prefill's plus the uint8 mask [batch, hq, n_tm, n_tkv] and its
+// tile sizes (tokens per mask row and per mask column, each >= 1).
+extern "C" int hpc_paged_prefill_sparse(
+    const void* q, const void* kcache, const void* vcache, int kv_type,
+    int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
+    int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
+    const void* kscale, const void* vscale, const void* ktok,
+    const void* cu, const void* kv_lens, const void* block_ids, const void* mask, void* out,
+    int batch, int max_blocks, int page_size, int hq, int hkv, int d,
+    int max_seqlens_q, int vscale_per_head, int n_tm, int n_tkv, int mask_tile_q,
+    int mask_tile_kv, float scale, void* stream) {
+  if (mask == nullptr || n_tm < 1 || n_tkv < 1 || mask_tile_q < 1 || mask_tile_kv < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t st[6] = {k_head_stride, k_page_stride, k_slot_stride,
+                         v_head_stride, v_page_stride, v_slot_stride};
+  const BlockMask bm = {static_cast<const uint8_t*>(mask), n_tm, n_tkv, mask_tile_q, mask_tile_kv};
+  return launch_typed(kv_type, q, kcache, vcache, 0, st, cu, kv_lens, block_ids, kscale, vscale,
+                      ktok, out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
+                      vscale_per_head, scale, bm, static_cast<cudaStream_t>(stream));
 }

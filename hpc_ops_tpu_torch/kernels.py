@@ -25,7 +25,8 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("rope_store.cu", "decode.cu", "prefill.cu", "group_gemm.cu", "activation.cu", "moe.cu")
+SOURCES = ("rope_store.cu", "decode.cu", "prefill.cu", "group_gemm.cu", "activation.cu", "moe.cu",
+           "normalization.cu", "gemm.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -43,6 +44,7 @@ _SIGNATURES = {
     "hpc_decode_combine": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 5 + [_P],
     "hpc_paged_prefill": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 7 + [_I] * 8 + [_F, _P],
     "hpc_paged_prefill_nhd_fused": [_P, _P, _I] + [_P] * 6 + [_I] * 7 + [_F, _P],
+    "hpc_paged_prefill_sparse": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 8 + [_I] * 12 + [_F, _P],
     "hpc_gg_scatter_e4m3": [_P] * 7 + [_I] * 4 + [_P],
     "hpc_gg_scatter_i8": [_P] * 7 + [_I] * 4 + [_P],
     "hpc_gg_scatter_i8_act": [_P] * 8 + [_I] * 6 + [_P],
@@ -53,6 +55,8 @@ _SIGNATURES = {
     "hpc_gg_bw_aligned_e4m3": [_P] * 8 + [_I] * 6 + [_P],
     "hpc_act_mul_quant": [_P] * 4 + [_I] * 4 + [_P],
     "hpc_moe_reduce": [_P] * 5 + [_I] * 3 + [_P],
+    "hpc_rmsnorm_quant": [_P] * 6 + [_I] * 2 + [_F, _P],
+    "hpc_route_gemm": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 _LOCK = threading.Lock()
@@ -143,6 +147,7 @@ def wrappers() -> dict:
     from hpc_ops_tpu_torch.ops.attention.prefill import (
         paged_prefill_attention,
         paged_prefill_nhd_fused,
+        paged_prefill_sparse,
     )
     from hpc_ops_tpu_torch.ops.activation import act_quant
     from hpc_ops_tpu_torch.ops.group_gemm import (
@@ -153,7 +158,9 @@ def wrappers() -> dict:
         gg_scatter_i8,
         gg_scatter_i8_act,
     )
+    from hpc_ops_tpu_torch.ops.gemm import route_gemm
     from hpc_ops_tpu_torch.ops.moe import moe_reduce
+    from hpc_ops_tpu_torch.ops.normalization import rmsnorm_quant
     from hpc_ops_tpu_torch.ops.rope_kernel import rope_store_rows, rope_store_rows_int8
 
     return {
@@ -174,6 +181,9 @@ def wrappers() -> dict:
         "gg_bw_aligned": gg_bw_aligned,
         "paged_decode_tasks": paged_decode_tasks,
         "decode_combine": decode_combine,
+        "paged_prefill_sparse": paged_prefill_sparse,
+        "rmsnorm_quant": rmsnorm_quant,
+        "route_gemm": route_gemm,
     }
 
 

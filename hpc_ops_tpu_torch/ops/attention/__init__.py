@@ -10,6 +10,7 @@ from hpc_ops_tpu_torch.ops.attention.decode import (
 from hpc_ops_tpu_torch.ops.attention.paging import pack_kv_fused, unpack_kv_fused
 from hpc_ops_tpu_torch.ops.attention.prefill import (
     attention_prefill_bf16,
+    attention_with_kvcache_blocksparse_prefill_fp8,
     attention_with_kvcache_prefill,
     attention_with_kvcache_prefill_bf16,
     attention_with_kvcache_prefill_fp8,
@@ -40,6 +41,7 @@ __all__ = [
     "attention_with_kvcache_prefill",
     "attention_with_kvcache_prefill_bf16",
     "attention_with_kvcache_prefill_fp8",
+    "attention_with_kvcache_blocksparse_prefill_fp8",
     "attention_decode_ref",
     "attention_prefill_bf16_ref",
     "attention_with_kvcache_prefill_ref",

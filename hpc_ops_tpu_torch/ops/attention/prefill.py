@@ -18,7 +18,16 @@ QuantTypes 0 and 3 and one K scale per (token, kv head), paged
 ``[num_blocks, block_size, Hkv, 1]``, the kernel multiplies each logit
 column by its token's scale; scales grouped along D take the plain
 reference, as in the JAX package. Also ``sm_scale`` and ``impl="ref"``.
-Block-sparse masks are a later slice and raise ``NotImplementedError``.
+
+A ``block_mask`` ``[B, Hq, n_tm, n_tkv]`` (uint8 or bool, one row of tiles
+per q head) selects the block-sparse path, :func:`paged_prefill_sparse`:
+the same kernel skips every 64-column KV tile that no head of a block's
+GQA group keeps and masks the logits of each head by its own tiles, for
+any ``mask_tile_q``/``mask_tile_kv``, over every cache layout, type and
+scale scheme above but K scales grouped along D: on CUDA tensors those
+raise ``NotImplementedError``, on CPU tensors they take the reference.
+Rows with no kept key are 0, as the JAX kernel writes them; ``impl="ref"``
+keeps the JAX reference's semantics (such a row averages V).
 """
 
 from __future__ import annotations
@@ -38,7 +47,11 @@ from hpc_ops_tpu_torch.ops.attention.decode import (
     _scale_tensor,
 )
 from hpc_ops_tpu_torch.ops.attention.paging import nhd_fused_views
-from hpc_ops_tpu_torch.ops.attention.reference import attention_with_kvcache_prefill_ref
+from hpc_ops_tpu_torch.ops.attention.reference import (
+    _gather_pages,
+    _tile_keep,
+    attention_with_kvcache_prefill_ref,
+)
 from hpc_ops_tpu_torch.utils.common import cdiv
 
 
@@ -53,6 +66,42 @@ def _prefill_ref(q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens, max_seqlen
                     else QuantType.QPERTOKEN_PERHEAD_KPERTENSOR_VPERTENSOR),
         sm_scale=scale,
     )
+
+
+def _split_cache_launch_args(name, q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens, cache_layout,
+                             kscale, vscale, ktok, *more):
+    """Checks shared by the wrappers over split K and V caches (``more``:
+    other tensors that must lie on q's device). Returns the launchers' common
+    arguments: (kv_type, k and v strides, the three scale pointers, cu,
+    lengths and table as contiguous int32, page_size, hkv, per-head vscale)."""
+    kv_type = _kv_type(name, kcache, vcache)
+    if q.dtype != torch.bfloat16 or not q.is_contiguous():
+        raise ValueError(f"{name}: q must be contiguous bf16")
+    for t in (kcache, vcache, cu_seqlens_q, block_ids, kv_lens, *more):
+        if t.device != q.device:
+            raise ValueError(f"{name}: all tensors must be on one device")
+    hq, d = q.shape[1], q.shape[2]
+    hkv = kcache.shape[0] if cache_layout == "HND" else kcache.shape[2]
+    nb = kcache.shape[1] if cache_layout == "HND" else kcache.shape[0]
+    page_size = kcache.shape[2] if cache_layout == "HND" else kcache.shape[1]
+    if d not in (64, 128) or vcache.shape[3] != d or kcache.shape[3] != d:
+        raise ValueError(f"{name}: the CUDA kernel takes head_dim 64 or 128")
+    if hq % hkv or hq // hkv > 64:
+        raise ValueError(f"{name}: unsupported GQA group")
+    k_st = _page_strides(kcache, cache_layout)
+    v_st = _page_strides(vcache, cache_layout)
+    _check_rows_aligned(name, (kcache, k_st), (vcache, v_st))
+    if ktok is not None:
+        if kscale is not None:
+            raise ValueError(f"{name}: per-token K scales replace the per-tensor kscale")
+        if ktok.device != q.device or tuple(ktok.shape) != (nb, page_size, hkv, 1):
+            raise ValueError(f"{name}: K scales must be [{nb}, {page_size}, {hkv}, 1] on q's device")
+        ktok = ktok.float().contiguous()
+    per_head = vscale is not None and hkv > 1 and torch.as_tensor(vscale).numel() == hkv
+    scales = (_scale_tensor(kscale, q.device), _scale_tensor(vscale, q.device, hkv if per_head else 1),
+              ktok)
+    tables = tuple(t.to(torch.int32).contiguous() for t in (cu_seqlens_q, kv_lens, block_ids))
+    return kv_type, k_st, v_st, scales, tables, page_size, hkv, per_head
 
 
 def paged_prefill_attention(
@@ -82,43 +131,14 @@ def paged_prefill_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: unsupported device {q.device}")
-    name = "paged_prefill_attention"
-    kv_type = _kv_type(name, kcache, vcache)
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: q must be bf16")
-    for t in (kcache, vcache, cu_seqlens_q, block_ids, kv_lens):
-        if t.device != q.device:
-            raise ValueError("paged_prefill_attention: all tensors must be on one device")
+    kv_type, k_st, v_st, scales, (cu, lens, tbl), page_size, hkv, per_head = _split_cache_launch_args(
+        "paged_prefill_attention", q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens, cache_layout,
+        kscale, vscale, ktok)
     total_q, hq, d = q.shape
-    hkv = kcache.shape[0] if cache_layout == "HND" else kcache.shape[2]
-    nb = kcache.shape[1] if cache_layout == "HND" else kcache.shape[0]
-    page_size = kcache.shape[2] if cache_layout == "HND" else kcache.shape[1]
-    if d not in (64, 128) or vcache.shape[3] != d or kcache.shape[3] != d:
-        raise ValueError("paged_prefill_attention: the CUDA kernel takes head_dim 64 or 128")
-    if hq % hkv or hq // hkv > 64:
-        raise ValueError("paged_prefill_attention: unsupported GQA group")
-    if not q.is_contiguous():
-        raise ValueError("paged_prefill_attention: q must be contiguous")
-    k_st = _page_strides(kcache, cache_layout)
-    v_st = _page_strides(vcache, cache_layout)
-    _check_rows_aligned("paged_prefill_attention", (kcache, k_st), (vcache, v_st))
-    if ktok is not None:
-        if kscale is not None:
-            raise ValueError(f"{name}: per-token K scales replace the per-tensor kscale")
-        if ktok.device != q.device or tuple(ktok.shape) != (nb, page_size, hkv, 1):
-            raise ValueError(f"{name}: K scales must be [{nb}, {page_size}, {hkv}, 1] on q's device")
-        ktok = ktok.float().contiguous()
-    ks = _scale_tensor(kscale, q.device)
-    per_head = vscale is not None and hkv > 1 and torch.as_tensor(vscale).numel() == hkv
-    vs = _scale_tensor(vscale, q.device, hkv if per_head else 1)
-    cu = cu_seqlens_q.to(torch.int32).contiguous()
-    lens = kv_lens.to(torch.int32).contiguous()
-    tbl = block_ids.to(torch.int32).contiguous()
     out = torch.zeros((total_q, hq, d), dtype=torch.bfloat16, device=q.device)
     rc = kernels.lib().hpc_paged_prefill(
         q.data_ptr(), kcache.data_ptr(), vcache.data_ptr(), kv_type, *k_st, *v_st,
-        _ptr(ks), _ptr(vs), _ptr(ktok),
-        cu.data_ptr(), lens.data_ptr(), tbl.data_ptr(), out.data_ptr(),
+        *(_ptr(t) for t in scales), cu.data_ptr(), lens.data_ptr(), tbl.data_ptr(), out.data_ptr(),
         lens.shape[0], tbl.shape[1], page_size, hq, hkv, d, int(max_seqlens_q), int(per_head),
         float(scale), kernels.stream_ptr(q),
     )
@@ -195,6 +215,135 @@ def paged_prefill_nhd_fused(
 paged_prefill_nhd_fused.launches = 0
 
 
+def _check_block_mask(block_mask, b, hq, max_blocks, page_size, mask_tile_q, mask_tile_kv):
+    """The mask as contiguous uint8 ``[B, Hq, n_tm, n_tkv]``; raises
+    ``ValueError`` on another shape, on tiles below 1 token, or on a mask
+    with a column wholly past the page table (JAX asserts there)."""
+    if mask_tile_q < 1 or mask_tile_kv < 1:
+        raise ValueError("block_mask: mask_tile_q and mask_tile_kv must be at least 1")
+    if block_mask.dim() != 4 or tuple(block_mask.shape[:2]) != (b, hq) or 0 in block_mask.shape:
+        raise ValueError(f"block_mask must be [{b}, {hq}, n_tm, n_tkv], got {tuple(block_mask.shape)}")
+    n_tkv = block_mask.shape[3]
+    if n_tkv > cdiv(max_blocks * page_size, mask_tile_kv):
+        raise ValueError(
+            f"block_mask covers {n_tkv} kv tiles of {mask_tile_kv} but the page table holds "
+            f"{max_blocks * page_size} positions: check mask_tile_kv against the mask"
+        )
+    return (block_mask != 0).to(torch.uint8).contiguous()
+
+
+def _gather_request(cache, tbl_row, n):
+    """One request's first ``n`` cache rows, [n, H, X] float32 (pages below 0 read 0)."""
+    raw = cache.view(torch.uint8) if cache.element_size() == 1 else cache
+    rows = _gather_pages(raw, tbl_row[None], n)[0]
+    return (rows.view(cache.dtype) if cache.element_size() == 1 else rows).float()
+
+
+def _prefill_sparse_ref(q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens, max_seqlens_q, scale,
+                        cache_layout, block_mask, mask_tile_q, mask_tile_kv, kscale=None,
+                        vscale=None, ktok=None, chunk=1024):
+    """Plain PyTorch version of :func:`paged_prefill_sparse` (float32), as
+    the JAX kernel computes: each head's logits are kept where the causal
+    mask and its own mask tile allow (tiles past the mask's edge are 0), a
+    row with no kept key is 0, and so are rows past ``cu_seqlens_q[-1]``.
+    Request by request, ``chunk`` q rows at a time."""
+    del max_seqlens_q
+    total_q, hq, d = q.shape
+    kn, vn = _nhd(kcache, cache_layout), _nhd(vcache, cache_layout)
+    hkv = kn.shape[2]
+    g = hq // hkv
+    out = torch.zeros((total_q, hq, vn.shape[3]), dtype=torch.float32, device=q.device)
+    cu = [int(x) for x in cu_seqlens_q.tolist()]
+    lens = [int(x) for x in kv_lens.tolist()]
+    kv_cap = block_ids.shape[1] * kn.shape[1]
+    for bi, kv_len in enumerate(lens):
+        q0, q_len = cu[bi], cu[bi + 1] - cu[bi]
+        kl = min(kv_len, kv_cap)
+        if q_len == 0 or kl <= 0:
+            continue
+        k = _gather_request(kn, block_ids[bi], kl)
+        v = _gather_request(vn, block_ids[bi], kl)
+        if ktok is not None:
+            k = k * _gather_request(ktok, block_ids[bi], kl)
+        elif kscale is not None:
+            k = k * torch.as_tensor(kscale, dtype=torch.float32, device=k.device).reshape(())
+        if vscale is not None:
+            v = v * torch.as_tensor(vscale, dtype=torch.float32, device=v.device).reshape(-1)[None, :, None]
+        k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+        kpos = torch.arange(kl, device=q.device)
+        for r0 in range(0, q_len, chunk):
+            rows = torch.arange(r0, min(q_len, r0 + chunk), device=q.device)
+            s = torch.einsum("qhd,khd->hqk", q[q0 + rows].float(), k) * scale
+            keep = (kpos[None, :] <= (kv_len - q_len + rows)[:, None])[None] & _tile_keep(
+                block_mask[bi], rows, kl, mask_tile_q, mask_tile_kv, pad_missing=True)
+            s = s.masked_fill(~keep, float("-inf"))
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp(s - m.masked_fill(m == float("-inf"), 0.0))
+            l = p.sum(dim=-1, keepdim=True)
+            o = torch.einsum("hqk,khd->qhd", p / l.masked_fill(l == 0, 1.0), v)
+            out[q0 + rows] = o
+    return out.to(torch.bfloat16)
+
+
+def paged_prefill_sparse(
+    q: torch.Tensor,  # [total_q, Hq, D] bf16 (rows past cu[-1] allowed)
+    kcache: torch.Tensor,
+    vcache: torch.Tensor,
+    cu_seqlens_q: torch.Tensor,  # [B+1]
+    block_ids: torch.Tensor,  # [B, max_blocks], -1 padded
+    kv_lens: torch.Tensor,  # [B]
+    max_seqlens_q: int,
+    scale: float,
+    cache_layout: str,
+    block_mask: torch.Tensor,  # [B, Hq, n_tm, n_tkv] uint8 or bool
+    mask_tile_q: int,
+    mask_tile_kv: int,
+    kscale=None,  # [1] f32 per-tensor K scale (None: 1)
+    vscale=None,  # [1] f32 per-tensor, or [Hkv] per-head, V scale (None: 1)
+    ktok=None,  # [num_blocks, block_size, Hkv, 1] f32 per-token K scales, in place of kscale
+) -> torch.Tensor:
+    """Block-sparse causal varlen prefill over paged K and V caches (HND or
+    NHD, strided views of an NHD_FUSED slab included; bf16, int8 or e4m3);
+    returns [total_q, Hq, D] bf16. Row i of request b, head h attends key
+    position p where p is causal and ``block_mask[b, h, i // mask_tile_q, p
+    // mask_tile_kv]`` is set (0 past the mask's edge); rows with no such key
+    are 0.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.
+    """
+    name = "paged_prefill_sparse"
+    total_q, hq, d = q.shape
+    page_size = kcache.shape[2] if cache_layout == "HND" else kcache.shape[1]
+    mask = _check_block_mask(block_mask, kv_lens.shape[0], hq, block_ids.shape[1], page_size,
+                             mask_tile_q, mask_tile_kv)
+    if q.device.type == "cpu":
+        return _prefill_sparse_ref(
+            q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens, max_seqlens_q, scale,
+            cache_layout, mask, mask_tile_q, mask_tile_kv, kscale, vscale, ktok,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    kv_type, k_st, v_st, scales, (cu, lens, tbl), page_size, hkv, per_head = _split_cache_launch_args(
+        name, q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens, cache_layout, kscale, vscale, ktok,
+        mask)
+    out = torch.zeros((total_q, hq, d), dtype=torch.bfloat16, device=q.device)
+    rc = kernels.lib().hpc_paged_prefill_sparse(
+        q.data_ptr(), kcache.data_ptr(), vcache.data_ptr(), kv_type, *k_st, *v_st,
+        *(_ptr(t) for t in scales), cu.data_ptr(), lens.data_ptr(), tbl.data_ptr(), mask.data_ptr(),
+        out.data_ptr(),
+        lens.shape[0], tbl.shape[1], page_size, hq, hkv, d, int(max_seqlens_q), int(per_head),
+        mask.shape[2], mask.shape[3], int(mask_tile_q), int(mask_tile_kv), float(scale),
+        kernels.stream_ptr(q),
+    )
+    kernels.check(rc, "hpc_paged_prefill_sparse")
+    paged_prefill_sparse.launches += 1
+    return out
+
+
+paged_prefill_sparse.launches = 0
+
+
 def attention_with_kvcache_prefill(
     q,
     kcache,
@@ -228,10 +377,11 @@ def attention_with_kvcache_prefill(
 
     ``aligned_seq_starts=True`` asserts that every ``cu_seqlens_q`` entry is a
     multiple of 8 (the JAX package's packing contract); it is checked here,
-    although this kernel needs no alignment. ``tq``, ``mask_tile_*`` and
+    although this kernel needs no alignment. ``block_mask`` selects the
+    block-sparse path (see the module docstring). ``tq`` and
     ``pages_per_compute_block`` are TPU tuning knobs, accepted and unused.
     """
-    del mask_tile_q, mask_tile_kv, tq, pages_per_compute_block
+    del tq, pages_per_compute_block
     if aligned_seq_starts:
         cu_list = [int(x) for x in cu_seqlens_q.tolist()]
         if any(x % 8 for x in cu_list):
@@ -240,8 +390,6 @@ def attention_with_kvcache_prefill(
                 f"to be a multiple of 8, got {cu_list}; pass "
                 "aligned_seq_starts=False for arbitrary packing"
             )
-    if block_mask is not None:
-        raise NotImplementedError("block-sparse prefill arrives with ROADMAP queue 1 item 6")
     if cache_layout not in ("NHD", "HND", "NHD_FUSED"):
         raise NotImplementedError(
             f"cache_layout={cache_layout!r} is not a prefill cache layout"
@@ -254,16 +402,25 @@ def attention_with_kvcache_prefill(
         kscale = vscale = None
     if pertoken_k and kscale is None:
         raise ValueError("per-token K scales (QuantType 0, 3) need kscale")
-    if cache_layout == "NHD_FUSED" and (pertoken_k or impl == "ref"):
+    sparse = block_mask is not None
+    if cache_layout == "NHD_FUSED" and (pertoken_k or sparse or impl == "ref"):
+        # the split-cache kernels read the slab in place through NHD views
         kcache, vcache = nhd_fused_views(kcache, kcache.shape[2] // d)
         cache_layout = "NHD"
-    if impl == "ref" or (pertoken_k and kscale.shape[-1] != 1):
+    grouped_k = pertoken_k and kscale.shape[-1] != 1
+    if grouped_k and sparse and q.device.type == "cuda" and impl != "ref":
+        raise NotImplementedError(
+            f"block_mask with K scales grouped along D (kscale {tuple(kscale.shape)}): the "
+            "sparse kernel takes one K scale per (token, kv head), [nb, bs, Hkv, 1]"
+        )
+    if impl == "ref" or grouped_k:
         # QuantType 0 has a kernel path for one scale per (token, kv head)
         # only; scales grouped along D take the reference, as in the JAX package
         return attention_with_kvcache_prefill_ref(
             q, _nhd(kcache, cache_layout), _nhd(vcache, cache_layout), cu_seqlens_q, block_ids,
             seqlens_kvcache, max_seqlens_q, qscale=qscale, kscale=kscale, vscale=vscale,
-            quant_type=quant_type, sm_scale=scale,
+            quant_type=quant_type, block_mask=block_mask, mask_tile_q=mask_tile_q,
+            mask_tile_kv=mask_tile_kv, sm_scale=scale,
         )
     if qscale is not None:
         # gather the per-(request, head, position) scale onto the packed rows
@@ -284,6 +441,11 @@ def attention_with_kvcache_prefill(
         kscale, ktok = None, kscale
     else:
         ktok = None
+    if sparse:
+        return paged_prefill_sparse(
+            qb, kcache, vcache, cu_seqlens_q, block_ids, seqlens_kvcache, max_seqlens_q, scale,
+            cache_layout, block_mask, mask_tile_q, mask_tile_kv, kscale, vscale, ktok,
+        )
     return paged_prefill_attention(
         qb, kcache, vcache, cu_seqlens_q, block_ids, seqlens_kvcache, max_seqlens_q, scale,
         cache_layout, kscale, vscale, ktok,
@@ -308,6 +470,22 @@ def attention_with_kvcache_prefill_fp8(
     return attention_with_kvcache_prefill(
         q, kcache, vcache, cu_seqlens_q, block_ids, seqlens_kvcache, max_seqlens_q,
         qscale=qscale, kscale=kscale, vscale=vscale, quant_type=quant_type, **kw,
+    )
+
+
+def attention_with_kvcache_blocksparse_prefill_fp8(
+    q, kcache, vcache, qscale, kscale, vscale, cu_seqlens_q, block_ids, seqlens_kvcache,
+    max_seqlens_q,
+    quant_type: QuantType = QuantType.QPERTOKEN_PERHEAD_KPERTENSOR_VPERTENSOR, block_mask=None,
+    **kw,
+):
+    """Dense or block-sparse fp8 paged prefill (the JAX package's argument
+    order): ``block_mask`` [B, Hq, n_tm, n_tkv] uint8, 1 = tile computed.
+    See :func:`attention_with_kvcache_prefill`."""
+    return attention_with_kvcache_prefill(
+        q, kcache, vcache, cu_seqlens_q, block_ids, seqlens_kvcache, max_seqlens_q,
+        qscale=qscale, kscale=kscale, vscale=vscale, quant_type=quant_type,
+        block_mask=block_mask, **kw,
     )
 
 
@@ -349,6 +527,8 @@ __all__ = [
     "attention_with_kvcache_prefill",
     "attention_with_kvcache_prefill_bf16",
     "attention_with_kvcache_prefill_fp8",
+    "attention_with_kvcache_blocksparse_prefill_fp8",
     "paged_prefill_attention",
     "paged_prefill_nhd_fused",
+    "paged_prefill_sparse",
 ]

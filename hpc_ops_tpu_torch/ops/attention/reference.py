@@ -55,9 +55,22 @@ def _gather_pages(cache, block_ids, max_len):
     return out.reshape(b, nblk * bs, *cache.shape[2:])[:, :max_len]
 
 
-def _no_block_mask(block_mask) -> None:
-    if block_mask is not None:
-        raise NotImplementedError("block-sparse prefill arrives with ROADMAP queue 1 item 6")
+def _tile_keep(block_mask, rows, kv_len, mask_tile_q, mask_tile_kv, pad_missing=False):
+    """One request's block mask ``[Hq, n_tm, n_tkv]`` expanded to the bool
+    ``[Hq, len(rows), kv_len]`` keep mask of its q rows ``rows``: row i lies
+    in q tile ``i // mask_tile_q`` (counted from the request's first q row),
+    key position p in kv tile ``p // mask_tile_kv`` (counted from position
+    0). Tiles past the mask's edge take its last row or column, as JAX's
+    clamped gather does in the reference; with ``pad_missing`` they are 0, as
+    in the kernels."""
+    dev = block_mask.device
+    tq = rows.to(dev) // mask_tile_q
+    tk = torch.arange(kv_len, device=dev) // mask_tile_kv
+    n_tm, n_tkv = block_mask.shape[-2:]
+    keep = block_mask[:, tq.clamp(max=n_tm - 1)][:, :, tk.clamp(max=n_tkv - 1)] != 0
+    if pad_missing:
+        keep = keep & (tq < n_tm)[None, :, None] & (tk < n_tkv)[None, None, :]
+    return keep
 
 
 def mha_varlen_prefill_ref(
@@ -76,10 +89,10 @@ def mha_varlen_prefill_ref(
 ):
     """Varlen causal attention over per-request KV; returns [total_q, Hq, Dv]
     float32. Query i of request b sits at position ``kv_len - q_len + i``.
-    ``block_mask`` (block-sparse attention) and its tiles are ROADMAP queue 1
-    item 6: a mask raises ``NotImplementedError``."""
-    _no_block_mask(block_mask)
-    del mask_tile_q, mask_tile_kv
+    With ``block_mask`` ``[B, Hq, n_tm, n_tkv]`` the logits of tiles whose
+    entry is 0 become ``MASK_VALUE`` after the causal mask (see
+    :func:`_tile_keep`), as in the JAX reference: a row with no kept key
+    averages V over the request's keys (the docstring there says NaN)."""
     total_q, hq, d = q.shape
     b, _, hkv, _ = k.shape
     dv = v.shape[-1]
@@ -104,6 +117,10 @@ def mha_varlen_prefill_ref(
             qpos = kv_len - q_len + torch.arange(q_len, device=q.device)
             kpos = torch.arange(kv_len, device=q.device)
             s = s.masked_fill(~(kpos[None, :] <= qpos[:, None])[None], MASK_VALUE)
+        if block_mask is not None:
+            keep = _tile_keep(block_mask[bi].to(q.device), torch.arange(q_len), kv_len, mask_tile_q,
+                              mask_tile_kv)
+            s = s.masked_fill(~keep, MASK_VALUE)
         p = torch.softmax(s, dim=-1)
         out[q_start : q_start + q_len] = torch.einsum("hqk,khd->qhd", p, vi)
     return out
@@ -144,17 +161,16 @@ def attention_with_kvcache_prefill_ref(
     sm_scale: Optional[float] = None,
 ):
     """Paged-cache varlen prefill over an NHD cache, bf16 or quantised
-    (``qscale`` [B, Hq, max_q_pad] dequantises q). Returns bf16. A
-    ``block_mask`` raises ``NotImplementedError`` (ROADMAP queue 1 item 6)."""
-    _no_block_mask(block_mask)
-    del mask_tile_q, mask_tile_kv
+    (``qscale`` [B, Hq, max_q_pad] dequantises q). Returns bf16. With
+    ``block_mask`` the semantics of :func:`mha_varlen_prefill_ref`."""
     seqlens_q = cu_seqlens_q[1:] - cu_seqlens_q[:-1]
     max_kv = int(seqlens_kvcache.max())
     kf, vf = _dequant_kv(kcache, vcache, kscale, vscale, quant_type)
     kb = _gather_pages(kf, block_ids, max_kv)
     vb = _gather_pages(vf, block_ids, max_kv)
     out = mha_varlen_prefill_ref(
-        q, kb, vb, seqlens_q, cu_seqlens_q, seqlens_kvcache, q_scale=qscale, sm_scale=sm_scale
+        q, kb, vb, seqlens_q, cu_seqlens_q, seqlens_kvcache, q_scale=qscale,
+        block_mask=block_mask, mask_tile_q=mask_tile_q, mask_tile_kv=mask_tile_kv, sm_scale=sm_scale,
     )
     return out.to(torch.bfloat16)
 

@@ -1545,3 +1545,224 @@ def test_fused_and_task_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         decode_combine(o, m, l, tm, 1, 8)
     with pytest.raises(ValueError, match="partials must be"):
         decode_combine(o[:8], m[:8], l[:8], tmd, 1, 8)
+
+
+# -------------------- block-sparse prefill, RMSNorm + fp8, route GEMM
+# The sparse kernel against its plain version within the attention 1e-2;
+# rows with no kept key exactly 0. RMSNorm + fp8: every e4m3 code and every
+# float32 norm equal to the plain version on the card (both sum the squares
+# in float64, every later step one correctly rounded float32 operation; the
+# CPU's float64 sum, in another order, can round a row's mean an ulp apart
+# when its squares span more than 53 bits). Route GEMM:
+# float32 output within 1e-5 of the largest |output| (float32 sums of exact
+# bf16 products in another order), bf16 output within one bf16 step more.
+from hpc_ops_tpu_torch.ops.attention import attention_with_kvcache_prefill  # noqa: E402
+from hpc_ops_tpu_torch.ops.attention.paging import nhd_fused_views  # noqa: E402
+from hpc_ops_tpu_torch.ops.attention.prefill import (  # noqa: E402
+    _prefill_sparse_ref,
+    paged_prefill_sparse,
+)
+from hpc_ops_tpu_torch.ops.gemm import _route_gemm_ref, route_gemm, split_fp32_weight  # noqa: E402
+from hpc_ops_tpu_torch.ops.normalization import _rmsnorm_quant_ref, rmsnorm_quant  # noqa: E402
+
+
+def sparse_mask(gen, q_lens, kv_lens, hq, mtq, mtkv, keep=0.4):
+    """A random [B, Hq, n_tm, n_tkv] tile mask keeping each q tile's causal
+    diagonal tile; head 1's first q tile of request 0 keeps nothing."""
+    n_tm, n_tkv = -(-max(q_lens) // mtq), -(-max(kv_lens) // mtkv)
+    mask = (torch.rand((len(q_lens), hq, n_tm, n_tkv), generator=gen) < keep).to(torch.uint8)
+    for b, (ql, kl) in enumerate(zip(q_lens, kv_lens)):
+        for t in range(-(-ql // mtq)):
+            mask[b, :, t, (kl - ql + t * mtq) // mtkv] = 1
+    mask[0, 1, 0] = 0
+    return mask
+
+
+def sparse_case(gen, kind, layout, q_lens, kv_lens, pad=0, hq=32, hkv=8, mtq=128, mtkv=64):
+    """q, caches of ``kind`` in ``layout`` (NHD_FUSED: NHD views of the
+    slab), cu, table, lengths, the mask and per-tensor scales."""
+    if kind == "bf16":
+        q, k, v, tbl, kv = paged(gen, kv_lens, hq, hkv, 128, q_rows=sum(q_lens) + pad)
+        scales = (None, None)
+    elif kind == "e4m3":
+        q, k, v, tbl, kv = fp8_paged(gen, kv_lens, hq, hkv, 128, q_rows=sum(q_lens) + pad)
+        scales = (KS, VS)
+    else:
+        q, k, v, tbl, kv = paged(gen, kv_lens, hq, hkv, 128, q_rows=sum(q_lens) + pad)
+        k = torch.randint(-127, 128, k.shape, generator=gen, dtype=torch.int8)
+        v = torch.randint(-127, 128, v.shape, generator=gen, dtype=torch.int8)
+        scales = (torch.tensor([0.01]), torch.tensor([0.02]))
+    if layout == "NHD":
+        k, v = hnd_to_nhd(k).contiguous(), hnd_to_nhd(v).contiguous()
+    elif layout == "NHD_FUSED":
+        raw = pack_kv_fused_nhd(*(x.view(torch.uint8) if x.element_size() == 1 else x for x in (k, v)))
+        k, v = nhd_fused_views(raw.view(k.dtype), hkv)
+        layout = "NHD"
+    cu = torch.tensor([0] + torch.tensor(q_lens).cumsum(0).tolist(), dtype=torch.int32)
+    mask = sparse_mask(gen, q_lens, kv_lens, hq, mtq, mtkv)
+    return (q, k, v, cu, tbl, kv, max(q_lens)), layout, mask, scales
+
+
+def test_sparse_norm_gemm_wrappers_take_the_plain_version_on_cpu():
+    gen = torch.Generator().manual_seed(50)
+    fns = (paged_prefill_sparse, rmsnorm_quant, route_gemm, paged_prefill_attention)
+    n0 = [f.launches for f in fns]
+    args, layout, mask, _ = sparse_case(gen, "bf16", "HND", [13, 40], [13, 100], hq=4, hkv=2)
+    assert torch.equal(paged_prefill_sparse(*args, 0.1, layout, mask, 128, 64),
+                       _prefill_sparse_ref(*args, 0.1, layout, mask, 128, 64))
+    x = randn(gen, 5, 64)
+    w, sc = torch.rand(64, generator=gen), torch.tensor([0.5, 2.0])
+    for is_moe in (False, True):
+        a, b = rmsnorm_quant(x, w, sc, 1e-6, is_moe), _rmsnorm_quant_ref(x, w, sc, 1e-6, is_moe)
+        assert all(torch.equal(s.view(torch.uint8) if s.element_size() == 1 else s,
+                               t.view(torch.uint8) if t.element_size() == 1 else t)
+                   for s, t in zip(a if is_moe else (a,), b if is_moe else (b,)))
+    wh, wl, ws = split_fp32_weight(torch.randn((24, 64), generator=gen))
+    assert torch.equal(route_gemm(x, wh, wl, ws, True), _route_gemm_ref(x, wh, wl, ws, True))
+    assert [f.launches for f in fns] == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["HND", "NHD", "NHD_FUSED"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "e4m3"])
+def test_prefill_sparse_kernel_matches_plain(cuda, kind, layout):
+    """Three requests (unaligned cu, kv prefixes longer than q, padded rows),
+    128 x 64 mask tiles, a q tile with no kept key (its rows come back 0)."""
+    gen = torch.Generator().manual_seed(51)
+    args, lay, mask, (ks, vs) = sparse_case(gen, kind, layout, [13, 7, 250], [13, 100, 300], pad=11)
+    want = _prefill_sparse_ref(*args, 128**-0.5, lay, mask, 128, 64, ks, vs)
+    dev = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    got = paged_prefill_sparse(*dev, 128**-0.5, lay, mask.to(cuda), 128, 64,
+                               None if ks is None else ks.to(cuda), None if vs is None else vs.to(cuda))
+    torch.cuda.synchronize()
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name=f"sparse {kind} {layout}")
+    assert not got[:13, 1].float().any()  # q head 1 keeps nothing in request 0's first q tile
+    assert not got[sum([13, 7, 250]):].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [(64, 64), (128, 128), (32, 48), (16, 16)])
+def test_prefill_sparse_pertoken_kernel_matches_plain(cuda, tiles):
+    """e4m3 with one K scale per (token, kv head) and a V scale per head,
+    over mask tiles that are and are not multiples of the kernel's tiles."""
+    gen = torch.Generator().manual_seed(52)
+    args, lay, mask, _ = sparse_case(gen, "e4m3", "HND", [100, 64, 31], [300, 64, 500], pad=3,
+                                     mtq=tiles[0], mtkv=tiles[1])
+    ktok, vhead = token_scales(gen, args[1], "HND")
+    want = _prefill_sparse_ref(*args, 128**-0.5, lay, mask, *tiles, None, vhead, ktok)
+    dev = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    got = paged_prefill_sparse(*dev, 128**-0.5, lay, mask.to(cuda), *tiles, None, vhead.to(cuda),
+                               ktok.to(cuda))
+    torch.cuda.synchronize()
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name=f"sparse pertoken {tiles}")
+
+
+@pytest.mark.cuda
+def test_sparse_entry_point_launches_the_sparse_kernel_only(cuda):
+    gen = torch.Generator().manual_seed(53)
+    args, lay, mask, (ks, vs) = sparse_case(gen, "e4m3", "HND", [200, 77], [400, 77])
+    want = attention_with_kvcache_prefill(*args, kscale=ks, vscale=vs, block_mask=mask,
+                                          mask_tile_q=128, mask_tile_kv=64, cache_layout=lay)
+    dev = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    fns = (paged_prefill_sparse, paged_prefill_attention, paged_prefill_nhd_fused)
+    n0 = [f.launches for f in fns]
+    got = attention_with_kvcache_prefill(*dev, kscale=ks.to(cuda), vscale=vs.to(cuda),
+                                         block_mask=mask.to(cuda), mask_tile_q=128, mask_tile_kv=64,
+                                         cache_layout=lay)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(fns, n0)] == [1, 0, 0]
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="sparse entry point")
+
+
+@pytest.mark.cuda
+def test_sparse_entry_point_refuses_k_scales_grouped_along_d(cuda):
+    """The sparse kernel takes one K scale per (token, kv head); scales
+    grouped along D raise on the card instead of running the reference."""
+    gen = torch.Generator().manual_seed(58)
+    args, lay, mask, _ = sparse_case(gen, "e4m3", "HND", [40, 9], [100, 9])
+    ktok, vhead = token_scales(gen, args[1], lay)
+    grouped = ktok.expand(-1, -1, -1, 4).contiguous()  # [nb, bs, Hkv, 4]: 4 groups of 32 along D
+    kw = dict(kscale=grouped, vscale=vhead, quant_type=QT0, block_mask=mask, mask_tile_q=128,
+              mask_tile_kv=64, cache_layout=lay)
+    assert attention_with_kvcache_prefill(*args, **kw).shape == args[0].shape  # CPU: the reference
+    dev = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    kw.update(kscale=grouped.to(cuda), vscale=vhead.to(cuda), block_mask=mask.to(cuda))
+    fns = (paged_prefill_sparse, paged_prefill_attention)
+    n0 = [f.launches for f in fns]
+    with pytest.raises(NotImplementedError, match="grouped along D"):
+        attention_with_kvcache_prefill(*dev, **kw)
+    assert [f.launches for f in fns] == n0
+
+
+@pytest.mark.cuda
+def test_prefill_sparse_skips_masked_tiles(cuda):
+    """A mask keeping only each q tile's diagonal tile (1/64 of the causal
+    tiles at 8192 tokens) runs in a small part of the all-ones mask's time:
+    the skipped tiles cost no K/V loads and no math."""
+    gen = torch.Generator().manual_seed(54)
+    n = 8192
+    q, k, v, tbl, kv = paged(gen, [n], 32, 8, 128, q_rows=n)
+    args = [t.to(cuda) for t in (q, k, v)] + [torch.tensor([0, n], dtype=torch.int32, device=cuda),
+                                             tbl.to(cuda), kv.to(cuda), n]
+    ones = torch.ones((1, 32, n // 64, n // 64), dtype=torch.uint8, device=cuda)
+    diag = torch.eye(n // 64, dtype=torch.uint8, device=cuda).expand(1, 32, -1, -1).contiguous()
+
+    def ms(mask):
+        paged_prefill_sparse(*args, 0.1, "HND", mask, 64, 64)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        paged_prefill_sparse(*args, 0.1, "HND", mask, 64, 64)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    assert ms(diag) < 0.1 * ms(ones)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_moe", [False, True])
+@pytest.mark.parametrize("n,h", [(8, 4096), (2048, 5120), (5, 320)])
+def test_rmsnorm_quant_kernel_matches_plain(cuda, n, h, is_moe):
+    gen = torch.Generator().manual_seed(55)
+    x = randn(gen, n, h) * 3
+    w = torch.rand(h, generator=gen).to(torch.bfloat16)
+    sc = torch.tensor([2.5, 5.0] if is_moe else [0.01])  # 0.01: many codes saturate at 448
+    args = (x.to(cuda), w.to(cuda), sc.to(cuda), 1e-6, is_moe)
+    want = _rmsnorm_quant_ref(*args)  # on the card: the CPU's float64 sum may round a mean apart
+    got = rmsnorm_quant(*args)
+    torch.cuda.synchronize()
+    for g, t in zip(got if is_moe else (got,), want if is_moe else (want,)):
+        if g.dtype == torch.float32:
+            assert torch.equal(g, t)
+        else:
+            assert torch.equal(g.view(torch.uint8), t.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fp32", [False, True])
+@pytest.mark.parametrize("m,n,k", [(256, 256, 7168), (100, 192, 512), (33, 72, 520), (1, 8, 8)])
+def test_route_gemm_kernel_matches_plain(cuda, m, n, k, fp32):
+    gen = torch.Generator().manual_seed(56)
+    x = randn(gen, m, k)
+    wh, wl, ws = split_fp32_weight(torch.randn((n, k), generator=gen))
+    want = _route_gemm_ref(x, wh, wl, ws, fp32).float()
+    got = route_gemm(x.to(cuda), wh.to(cuda), wl.to(cuda), ws.to(cuda), fp32)
+    torch.cuda.synchronize()
+    assert got.dtype == (torch.float32 if fp32 else torch.bfloat16)
+    big = float(want.abs().max())
+    assert_allclose(got.float(), want, atol=1e-5 * big, rtol=0 if fp32 else 2.0**-7, name="route gemm")
+
+
+@pytest.mark.cuda
+def test_sparse_norm_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator().manual_seed(57)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rmsnorm_quant(randn(gen, 2, 12).to(cuda), torch.ones(12, device=cuda),
+                      torch.ones(1, device=cuda), 1e-6, False)
+    x = randn(gen, 4, 24).to(cuda)
+    w = randn(gen, 8, 24).to(cuda)
+    odd = torch.zeros(8 * 24 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(8, 24)  # 2-byte offset
+    with pytest.raises(ValueError, match="aligned"):
+        route_gemm(x, odd, w, torch.ones(1, device=cuda), False)
+    with pytest.raises(ValueError, match="one device"):
+        route_gemm(x, w, w, torch.ones(1), False)

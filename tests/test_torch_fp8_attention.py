@@ -370,7 +370,7 @@ def test_fp8_attention_still_raises_for_later_slices():
     c = decode_case(44, [5])
     k, v = to_layout(c["k8"], c["v8"], "HND")
     args = (t8(c["q8"]), t8(k), t8(v), torch.from_numpy(c["tbl"]), torch.from_numpy(c["lens"]))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="block_mask"):  # a mask must be [B, Hq, n_tm, n_tkv]
         attention_with_kvcache_prefill(args[0], args[1], args[2], torch.tensor([0, 1]), args[3],
                                        args[4], 1, cache_layout="HND", block_mask=torch.ones(1))
     with pytest.raises(ValueError, match="need kscale"):

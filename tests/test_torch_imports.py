@@ -99,3 +99,18 @@ def test_ported_functions_take_the_jax_keywords():
         if lacking:
             bad[name] = lacking
     assert not bad, f"ported functions without the JAX keywords: {bad}"
+
+
+@pytest.mark.parametrize("module", ["ops.stem", "ops.gemm", "ops.normalization", "ops.attention"])
+def test_every_public_name_of_the_module_is_on_the_top_level(module):
+    """``hpc.<name>`` works for every public name of JAX's ``ops.stem``,
+    ``ops.gemm``, ``ops.normalization`` and ``ops.attention`` (the
+    block-sparse prefill entry point among them), each the port module's own."""
+    import importlib
+
+    import hpc_ops_tpu_torch as T
+
+    jax_mod = importlib.import_module("hpc_ops_tpu." + module)
+    port_mod = importlib.import_module("hpc_ops_tpu_torch." + module)
+    missing = [n for n in jax_mod.__all__ if getattr(T, n, None) is not getattr(port_mod, n, 0)]
+    assert not missing, f"{module}: not exported by hpc_ops_tpu_torch: {missing}"

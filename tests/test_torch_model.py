@@ -353,33 +353,39 @@ def test_later_slices_raise(field):
         with pytest.raises(ValueError, match="mutually exclusive"):
             T.init_cache(T.tiny_config(fp8_kv=True, int8_kv=True), 4, 16, device="cpu")
         return
-    if field == "int8_kv":
-        # int8_kv serves now, and the int8 FUSED slabs decode; block-sparse
-        # prefill over an int8 slab is a later slice
-        kv = torch.zeros((4, 32, 2 * 128), dtype=torch.int8)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-            attention_with_kvcache_prefill(q, kv, None, torch.tensor([0, 1]),
-                                           torch.zeros((1, 1), dtype=torch.int32), one, 1,
-                                           cache_layout="NHD_FUSED", block_mask=torch.ones(1))
-        return
-    if field == "dense_int8":
-        # dense_int8 serves now; block-sparse prefill is a later slice
-        kv = torch.zeros((2, 4, 16, 128), dtype=torch.bfloat16)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-            attention_with_kvcache_prefill(q, kv, kv, torch.tensor([0, 1]),
-                                           torch.zeros((1, 1), dtype=torch.int32), one, 1,
-                                           cache_layout="HND", block_mask=torch.ones(1))
+    if field in ("int8_kv", "dense_int8"):
+        # both serve now, and block-sparse prefill reads the int8 FUSED slab
+        # and bf16 HND caches: a malformed mask raises, a mask keeping every
+        # tile gives the dense result
+        gen = torch.Generator().manual_seed(5)
+        if field == "int8_kv":
+            kv = torch.randint(-127, 128, (4, 32, 2 * 128), generator=gen, dtype=torch.int8)
+            caches = dict(kcache=kv, vcache=None, cache_layout="NHD_FUSED")
+        else:
+            kv = torch.randn((2, 4, 16, 128), generator=gen).to(torch.bfloat16)
+            caches = dict(kcache=kv, vcache=kv, cache_layout="HND")
+        qr = torch.randn((5, 8, 128), generator=gen).to(torch.bfloat16)
+        args = dict(q=qr, cu_seqlens_q=torch.tensor([0, 5]), block_ids=torch.tensor([[2, 0]]),
+                    seqlens_kvcache=torch.tensor([20]), max_seqlens_q=5, **caches)
+        with pytest.raises(ValueError, match="block_mask"):
+            attention_with_kvcache_prefill(**args, block_mask=torch.ones(1))
+        dense = attention_with_kvcache_prefill(**args)
+        ones = torch.ones((1, 8, 1, 2), dtype=torch.uint8)
+        sparse = attention_with_kvcache_prefill(**args, block_mask=ones, mask_tile_q=8,
+                                                mask_tile_kv=16)
+        assert_allclose(sparse.float(), dense.float(), atol=1e-2, rtol=1e-2,  # one bf16 step
+                        name=f"{field} all-ones mask")
         return
     if field == "moe":
-        # every MoE scheme serves now, blockwise_int8 included; the reference's
-        # block-sparse prefill is a later slice
+        # every MoE scheme serves now, blockwise_int8 included
         cfg = T.tiny_config(moe=True)
         T.init_cache(cfg._replace(moe=cfg.moe._replace(scheme="blockwise_int8")), 4, 16, device="cpu")
-        kv = torch.zeros((4, 16, 2, 128), dtype=torch.bfloat16)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-            attention_with_kvcache_prefill_ref(q, kv, kv, torch.tensor([0, 1]),
-                                               torch.zeros((1, 1), dtype=torch.int32), one, 1,
-                                               block_mask=torch.ones(1))
+        # and the reference takes a block mask: one keeping every tile is the
+        # dense reference
+        kv = torch.randn((4, 16, 2, 128), generator=torch.Generator().manual_seed(6)).to(torch.bfloat16)
+        args = (q, kv, kv, torch.tensor([0, 1]), torch.zeros((1, 1), dtype=torch.int32), one, 1)
+        assert torch.equal(attention_with_kvcache_prefill_ref(*args),
+                           attention_with_kvcache_prefill_ref(*args, block_mask=torch.ones((1, 8, 1, 1))))
         return
     # qkv_bias serves now (forward_step adds a layer's "qkv_bias"); tensor
     # parallelism over axis_name is a later slice

@@ -104,7 +104,7 @@ def test_prefill_aligned_seq_starts_is_checked():
     with pytest.raises(ValueError, match="multiple of 8"):
         attention_with_kvcache_prefill(q, k, v, cu, tbl, kv, 5, cache_layout="HND",
                                        aligned_seq_starts=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="block_mask"):  # a mask must be [B, Hq, n_tm, n_tkv]
         attention_with_kvcache_prefill(q, k, v, cu, tbl, kv, 5, cache_layout="HND",
                                        block_mask=torch.ones(1))
 

@@ -73,7 +73,12 @@ Phases, each printing one JSON line:
      check_rmsnorm_quant, the RMSNorm + fp8 kernel at 8 and 2048 tokens x
      hidden 4096 and 5120 with and without the MoE outputs; check_route_gemm,
      the route GEMM at the JAX route benchmark's shapes beside one cuBLAS
-     float32 product;
+     float32 product; check_allreduce, the fused all-reduce + residual +
+     RMSNorm (both schedules and both epilogues) on 2, 4 and 8 virtual ranks
+     of the card, with and without skew, every rank's outputs bit-equal to
+     the plain version's, then the JAX collective benchmark's grid at world 8
+     beside the plain version and the unfused chain. The QuantType-0 decode
+     and the per-token prefill also run with K scales in 4 groups along D;
   4. slice_tiny, slice_tiny_int8, slice_tiny_moe, slice_tiny_fp8,
      slice_tiny_moe_int8 and slice_tiny_moe_bw: Engine on tiny_config (bf16
      KV, int8_kv, fp8 MoE, fp8_kv, int8 MoE, blockwise int8 MoE) on the card
@@ -81,6 +86,9 @@ Phases, each printing one JSON line:
      CPU with the same weights: logits of the first prefill and decode steps within 0.15 abs /
      0.1 rel, greedy tokens identical wherever the CPU path's top-2 margin
      exceeds that tolerance;
+     slice_tiny_tp and slice_tiny_tp_moe: make_sharded_step's first steps
+     and ShardedEngine on a (dp 2, tp 2) mesh of virtual ranks on the card
+     against CPU ranks (dense, and the fp8 MoE under rank_ep);
   5. slice_full and slice_full_int8: Engine(llama3_8b) at full width and
      depth, bf16 KV then int8_kv, on one set of random weights, serving 8
      prompts x 32 new tokens; logits finite, tokens in the vocab, each
@@ -95,6 +103,11 @@ Phases, each printing one JSON line:
      saturated e4m3 codes, one device-to-host copy per profiled decode step;
      slice_full_w8a8: dense_int8 over the same weights quantised layer by
      layer on the card, cosine as above, the int8 products' device time;
+     slice_full_tp: ShardedEngine over the same weights sharded on a (dp 1,
+     tp 4) mesh of virtual ranks on the card: the serving stats, prefill
+     logits within cosine 0.98 of bf16's, the one_shot collective 2 x 32
+     times a forward call and its plain version never, one device-to-host
+     copy a profiled decode step (decode_profile_tp);
   6. slice_full_moe: the llama3_8b weights are freed, then Engine serves the
      published Mixtral-8x7B-v0.1 widths at full depth (32 layers, 8 fp8
      experts of 14336, top-2; 45 GB of seeded expert weights built layer by
@@ -589,6 +602,16 @@ def e4m3_caches(dev, gen, nb):
     return k, v, slab, ktok, vhead
 
 
+K_GROUPS = 4  # K scales grouped along D (fault F4's forms): 4 groups of 32 columns
+
+
+def grouped_scales(gen, nb, dev):
+    """[nb, BS, HKV, K_GROUPS] float32 K scales, one per token, kv head and group of D / K_GROUPS columns."""
+    import torch
+
+    return (torch.rand((nb, BS, HKV, K_GROUPS), generator=gen) + 0.5).to(dev)
+
+
 def gathered_hnd(k, v, tbl, kv_len_max, ktok, vscale):
     """K and V of each request gathered from HND e4m3 caches into [B, Hq, L, D]
     bf16 (repeated over the GQA group) and dequantised (``ktok``: a [1] scale
@@ -599,8 +622,9 @@ def gathered_hnd(k, v, tbl, kv_len_max, ktok, vscale):
     b = tbl.shape[0]
     pages = tbl[:, : -(-kv_len_max // BS)].clamp(min=0).long()
     kg = k[:, pages].float()  # [HKV, B, n, BS, D]
-    if ktok.numel() > 1:
-        kg = kg * ktok[pages].permute(3, 0, 1, 2, 4)  # [B, n, BS, HKV, 1] -> [HKV, B, n, BS, 1]
+    if ktok.numel() > 1:  # [B, n, BS, HKV, G] -> [HKV, B, n, BS, D]: each group's scale over D/G columns
+        kt = ktok[pages]
+        kg = kg * kt.repeat_interleave(D // kt.shape[-1], dim=-1).permute(3, 0, 1, 2, 4)
     else:
         kg = kg * ktok
     vg = v[:, pages].float() * vscale.reshape(-1, 1, 1, 1, 1)
@@ -633,6 +657,7 @@ def check_decode_fp8(dev, gen):
     kv_lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
     scale = D**-0.5
     k, v, slab, ktok, vhead = e4m3_caches(dev, gen, nb)
+    kgrp = grouped_scales(gen, nb, dev)
     ks, vs = torch.tensor([KSCALE], device=dev), torch.tensor([VSCALE], device=dev)
     variants = {
         "paged_decode_e4m3": (
@@ -650,6 +675,11 @@ def check_decode_fp8(dev, gen):
             lambda q, lens, sq: _decode_qt0_ref(q, k, v, ktok, vhead, tbl, lens, sq, scale, "HND"),
             "hpc_ops_tpu/ops/attention/decode.py:881", ktok, vhead,
             4 * sum(lens_l) * HKV + 4 * HKV),  # 4 bytes of scale per token and kv head
+        "paged_decode_qt0_grouped": (
+            lambda q, lens, sq: paged_decode_qt0(q, k, v, kgrp, vhead, tbl, lens, sq, scale, "HND"),
+            lambda q, lens, sq: _decode_qt0_ref(q, k, v, kgrp, vhead, tbl, lens, sq, scale, "HND"),
+            "hpc_ops_tpu/ops/attention/decode.py:881", kgrp, vhead,
+            4 * K_GROUPS * sum(lens_l) * HKV + 4 * HKV),
     }
     hnd = (k, v)
     nhd = (k.permute(1, 2, 0, 3).contiguous(), v.permute(1, 2, 0, 3).contiguous())
@@ -659,10 +689,11 @@ def check_decode_fp8(dev, gen):
     rows = []
     for name, (kern, plain_fn, replaces, kscale, vscale, scale_bytes) in variants.items():
         err = 0.0
+        agree = close_scaled if name.endswith("_grouped") else close
         for sq in (1, 3):  # the second: mtp = 2
             q = torch.randn((b * sq, HQ, D), generator=gen).to(torch.bfloat16).to(dev)
             lens_sq = kv_lens.clamp(min=sq)
-            err = max(err, close(kern(q, lens_sq, sq), plain_fn(q, lens_sq, sq), f"{name} sq={sq}"))
+            err = max(err, agree(kern(q, lens_sq, sq), plain_fn(q, lens_sq, sq), f"{name} sq={sq}"))
         if name == "paged_decode_e4m3":
             err = max(err, close(kern(q, lens_sq, 3, "NHD"), plain_fn(q, lens_sq, 3, "NHD"),
                                  f"{name} NHD"))
@@ -696,6 +727,7 @@ def check_prefill_fp8(dev, gen):
     scale = D**-0.5
     nb = NUM_BLOCKS + 8
     k, v, slab, ktok, vhead = e4m3_caches(dev, gen, nb)
+    kgrp = grouped_scales(gen, nb, dev)
     ks, vs = torch.tensor([KSCALE], device=dev), torch.tensor([VSCALE], device=dev)
     variants = {
         "paged_prefill_e4m3": (
@@ -711,6 +743,11 @@ def check_prefill_fp8(dev, gen):
             lambda *a: _prefill_ref(a[0], k, v, *a[1:], scale, "HND", None, vhead, ktok),
             "hpc_ops_tpu/ops/attention/prefill.py:48", ktok, vhead,
             4 * PREFILL_ROWS * HKV + 4 * HKV),
+        "paged_prefill_pertoken_ks_grouped": (
+            lambda *a: paged_prefill_attention(a[0], k, v, *a[1:], scale, "HND", None, vhead, kgrp),
+            lambda *a: _prefill_ref(a[0], k, v, *a[1:], scale, "HND", None, vhead, kgrp),
+            "hpc_ops_tpu/ops/attention/prefill.py:48", kgrp, vhead,
+            4 * K_GROUPS * PREFILL_ROWS * HKV + 4 * HKV),
     }
     cases = {
         "one": ([PREFILL_ROWS], [PREFILL_ROWS], 0),
@@ -725,7 +762,8 @@ def check_prefill_fp8(dev, gen):
     pairs = PREFILL_ROWS * (PREFILL_ROWS + 1) // 2  # causal (q, k) pairs of the timed input
     rows = []
     for name, (kern, plain_fn, replaces, kscale, vscale, scale_bytes) in variants.items():
-        err = max(close(kern(*a), plain_fn(*a), f"{name} {c}") for c, a in inputs.items())
+        agree = close_scaled if name.endswith("_grouped") else close
+        err = max(agree(kern(*a), plain_fn(*a), f"{name} {c}") for c, a in inputs.items())
         timed = inputs["one"]
         ms = time_ms(lambda: kern(*timed), 10)
         plain = time_ms(lambda: plain_fn(*timed), 3)
@@ -760,6 +798,7 @@ def ops_fp8(dev, gen):
     tbl = random_table(gen, lens_l, max(lens_l) // BS + 4, nb, dev)
     kv_lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
     k, v, slab, ktok, vhead = e4m3_caches(dev, gen, nb)
+    kgrp = grouped_scales(gen, nb, dev)
     ks, vs = torch.tensor([KSCALE], device=dev), torch.tensor([VSCALE], device=dev)
     knhd, vnhd = k.permute(1, 2, 0, 3).contiguous(), v.permute(1, 2, 0, 3).contiguous()
     # the tail-row serving layout: 32-slot NHD pages whose last row holds the
@@ -806,6 +845,12 @@ def ops_fp8(dev, gen):
                 qp8, slab, None, pscale, ks, vs, *pre, cache_layout="NHD_FUSED", **kw)),
         "paged_prefill_pertoken_ks": ("paged_prefill", lambda **kw: attention_with_kvcache_prefill_fp8(
             qpb, knhd, vnhd, None, ktok, vhead, *pre, quant_type=qt0, **kw)),
+        # fault F4's forms: K scales in K_GROUPS groups along D launch the kernels
+        "paged_decode_qt0_grouped": ("paged_decode_qt0", lambda **kw: attention_decode_fp8(
+            qb, knhd, vnhd, tbl, kv_lens, None, kgrp, vhead, quant_type=qt0, **dec, **kw)),
+        "paged_prefill_pertoken_ks_grouped": (
+            "paged_prefill", lambda **kw: attention_with_kvcache_prefill_fp8(
+                qpb, knhd, vnhd, None, kgrp, vhead, *pre, quant_type=qt0, **kw)),
     }
     launches, errs = {}, {}
     for name, (wrapper, call) in forms.items():
@@ -1797,6 +1842,171 @@ MOE_H, MOE_I, MOE_E, MOE_K = 4096, 14336, 8, 2  # Mixtral-8x7B: hidden, expert w
 # 32, 64 and 160, one for each instance of the grouped GEMM (32-, 64- and
 # 128-row blocks, the last with a ragged second block). 2048 tokens (tm 512)
 # is the throughput shape, which this run's short prompts never reach.
+# ------------------------------------------- fused all-reduce + RMSNorm
+ALLREDUCE_WS = (2, 4, 8)  # virtual ranks of the bit-equality checks
+ALLREDUCE_CHECK = (128, 4096)  # their tokens x hidden (two_shot needs tokens % (8 * ws) == 0)
+ALLREDUCE_SKEW = 2000  # rank r raises its ready flag after about r * 2000 spins of ~100 ns
+# the JAX collective benchmark's grid (benchmark/fuse_allreduce_rmsnorm/bench_allreduce.py:33-36)
+ALLREDUCE_GRID = dict(world=8, hidden=(4096, 5120, 7168), tokens=(8, 128, 2048, 32768))
+# the kernels-line rows: (mode, ranks, tokens, hidden): slice_full_tp's decode
+# collective, and a prefill-sized two_shot over the same ranks
+ALLREDUCE_ROWS = {"allreduce_rmsnorm_one_shot": ("one_shot", 4, 8, 4096),
+                  "allreduce_rmsnorm_two_shot": ("two_shot", 4, 2048, 4096)}
+ALLREDUCE_REPLACES = {"one_shot": "hpc_ops_tpu/parallel/collective_kernels.py:95",
+                      "two_shot": "hpc_ops_tpu/parallel/collective_kernels.py:166"}
+
+
+def allreduce_inputs(dev, gen, ws, n, h):
+    """``ws`` seeded bf16 partials [n, h] (standard deviation 0.5), a residual
+    for each rank (equal values, separate tensors) and a float32 weight in
+    [0.5, 1.5), made on the card."""
+    import torch
+
+    xs = [(torch.randn((n, h), generator=gen, device=dev) * 0.5).to(torch.bfloat16) for _ in range(ws)]
+    res = torch.randn((n, h), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.rand((h,), generator=gen, device=dev) + 0.5
+    return xs, [res.clone() for _ in range(ws)], w
+
+
+def allreduce_bytes(ws, n, h):
+    """Each partial read once, the residual and weight once, each rank's two
+    outputs written once."""
+    return ws * n * h * 2 + n * h * 2 + h * 4 + ws * 2 * n * h * 2
+
+
+def check_allreduce(dev, _gen):
+    """Rows 20 and 21 on virtual ranks of the card: both schedules, both
+    epilogues, 2, 4 and 8 ranks, with and without skew, each rank's outputs
+    bit-equal to the plain version's and to every other rank's, one launch a
+    call; each public entry point driven once with the launch counts read
+    around it; then the JAX benchmark's grid at world 8: kernel ms, the
+    bytes bound, the plain version's ms (one set of outputs and a copy per
+    rank, as the CPU ranks get them) and the unfused chain's (sum of the
+    partials, residual add, RMSNorm: one library call each). Returns
+    (kernels-line rows, {row: launches})."""
+    import torch
+    import torch.nn.functional as F
+
+    from hpc_ops_tpu_torch import kernels
+    from hpc_ops_tpu_torch.parallel import (
+        fuse_allreduce_rmsnorm,
+        fuse_allreduce_rmsnorm_pallas,
+        fuse_allreduce_rmsnorm_sharded,
+        make_mesh,
+    )
+    from hpc_ops_tpu_torch.parallel.collective_kernels import (
+        _allreduce_rmsnorm_ref,
+        _SignalPad,
+        allreduce_rmsnorm,
+        collective_rmsnorm,
+    )
+    from hpc_ops_tpu_torch.parallel.mesh import run_ranks
+
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    eps = 1e-5
+    n, h = ALLREDUCE_CHECK
+    checked = 0
+    launches = {}
+    for ws in ALLREDUCE_WS:
+        mesh = make_mesh(tp=ws, devices=[dev] * ws)
+        xs, res, w = allreduce_inputs(dev, gen, ws, n, h)
+        for mode in ("one_shot", "two_shot"):
+            for bf16_norm in (False, True):
+                want = _allreduce_rmsnorm_ref(xs, res[0], w, eps, mode, bf16_norm)
+                for skew in (0, ALLREDUCE_SKEW):
+                    n0 = allreduce_rmsnorm.launches
+                    outs = run_ranks(mesh, lambda g, _: collective_rmsnorm(
+                        g, xs[g.rank], res[g.rank], w, eps, mode, bf16_norm, skew))[0]
+                    torch.cuda.synchronize()
+                    if allreduce_rmsnorm.launches != n0 + 1:
+                        raise AssertionError(f"allreduce {mode} ws={ws}: {allreduce_rmsnorm.launches - n0} "
+                                             "launches for one call")
+                    for r, (o, o_res) in enumerate(outs):
+                        if not (torch.equal(o, want[0]) and torch.equal(o_res, want[1])):
+                            bad = float((o.float() - want[0].float()).abs().max())
+                            raise AssertionError(f"allreduce {mode} ws={ws} bf16_norm={bf16_norm} "
+                                                 f"skew={skew} rank {r}: not bit-equal to the plain "
+                                                 f"version (max err {bad})")
+                    checked += 1
+        # the public entry points, each once
+        for row, mode, call in (
+                ("allreduce_rmsnorm_one_shot", "one_shot", lambda g, _: fuse_allreduce_rmsnorm_pallas(
+                    xs[g.rank], res[g.rank], w, ws, g, "one_shot", eps)),
+                ("allreduce_rmsnorm_two_shot", "two_shot", lambda g, _: fuse_allreduce_rmsnorm(
+                    xs[g.rank], res[g.rank], w, eps, g, "two_shot"))):
+            kernels.reset_launch_counts()
+            outs = run_ranks(mesh, call)[0]
+            torch.cuda.synchronize()
+            count_drive(launches, kernels.launch_counts(),
+                        {**{k: 0 for k in kernels.launch_counts()}, "allreduce_rmsnorm": 1}, row,
+                        f"allreduce entry {mode} ws={ws}")
+            want = _allreduce_rmsnorm_ref(xs, res[0], w, eps, mode, row.endswith("two_shot"))
+            if not all(torch.equal(o, want[0]) and torch.equal(r_, want[1]) for o, r_ in outs):
+                raise AssertionError(f"allreduce entry {mode} ws={ws}: not bit-equal to the plain version")
+        kernels.reset_launch_counts()
+        x_parts = torch.stack(xs)
+        out, _ = fuse_allreduce_rmsnorm_sharded(mesh, x_parts, res[0], w, eps, mode="two_shot")
+        count_drive(launches, kernels.launch_counts(),
+                    {**{k: 0 for k in kernels.launch_counts()}, "allreduce_rmsnorm": 1},
+                    "allreduce_rmsnorm_two_shot", f"fuse_allreduce_rmsnorm_sharded ws={ws}")
+        if not torch.equal(out, _allreduce_rmsnorm_ref(xs, res[0], w, eps, "two_shot", True)[0]):
+            raise AssertionError(f"fuse_allreduce_rmsnorm_sharded ws={ws}: not bit-equal to plain")
+        del xs, res, x_parts, outs
+    emit("check_allreduce", bit_equal_cases=checked, ranks=ALLREDUCE_WS, tokens=n, hidden=h,
+         skew=ALLREDUCE_SKEW)
+
+    def timed(mode, ws, n, h):
+        xs, res, w = allreduce_inputs(dev, gen, ws, n, h)
+        res = [res[0]] * ws  # one residual tensor read by every rank, as the bound counts it
+        ws_w = [w] * ws
+        outs = [torch.empty_like(xs[0]) for _ in range(ws)]
+        oress = [torch.empty_like(xs[0]) for _ in range(ws)]
+        pad = _SignalPad(dev)
+
+        def kern():
+            allreduce_rmsnorm(xs, res, ws_w, outs, oress, eps, mode, False, 0, pad)
+
+        def plain():
+            o, r_ = _allreduce_rmsnorm_ref(xs, res[0], w, eps, mode, False)
+            for a, b in zip(outs, oress):
+                a.copy_(o)
+                b.copy_(r_)
+
+        def unfused():
+            r_ = torch.stack(xs).sum(0, dtype=torch.float32) + res[0]
+            return F.rms_norm(r_, (h,), w, eps).to(torch.bfloat16), r_.to(torch.bfloat16)
+
+        kern()
+        want = _allreduce_rmsnorm_ref(xs, res[0], w, eps, mode, False)
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, want[0]) and torch.equal(r_, want[1]) for o, r_ in zip(outs, oress)):
+            raise AssertionError(f"allreduce grid {mode} {ws}x{n}x{h}: not bit-equal to the plain version")
+        big = n * h >= 2048 * 4096
+        ms = time_ms(kern, 5 if big else 20)
+        plain_ms = time_ms(plain, 3 if big else 10, 1)
+        unfused_ms = time_ms(unfused, 3 if big else 10, 1)
+        return ms, plain_ms, unfused_ms
+
+    g = ALLREDUCE_GRID
+    for h in g["hidden"]:
+        for n in g["tokens"]:
+            for mode in ("one_shot", "two_shot"):
+                if mode == "two_shot" and n % (8 * g["world"]):
+                    continue
+                ms, plain_ms, unfused_ms = timed(mode, g["world"], n, h)
+                bd, by = bound(allreduce_bytes(g["world"], n, h), 0)
+                emit("allreduce", mode=mode, world=g["world"], tokens=n, hidden=h, ms=ms, plain_ms=plain_ms,
+                     unfused_ms=unfused_ms, bound_ms=bd, bound_by=by)
+                torch.cuda.empty_cache()
+    rows = []
+    for name, (mode, ws, n, h) in ALLREDUCE_ROWS.items():
+        ms, plain_ms, unfused_ms = timed(mode, ws, n, h)
+        rows.append(kernel_row(name, "hpc_ops_tpu_torch/csrc/collective.cu", ALLREDUCE_REPLACES[mode], 0.0,
+                               ms, plain_ms, None, allreduce_bytes(ws, n, h), n * h * (ws + 6),
+                               ranks=ws, tokens=n, hidden=h, unfused_ms=unfused_ms))
+    return rows, launches
+
+
 MOE_SHAPES = {"decode": 8, "prefill_200": 200, "prefill_512": 512, "prefill_2048": 2048}
 FP8_STD = 80.0  # standard deviation of the seeded e4m3 test tensors
 I8_STD = 30.0  # standard deviation of the seeded int8 test codes
@@ -2702,6 +2912,76 @@ def slice_tiny(dev, phase="slice_tiny", moe_scheme=None, **cfg_kw):
          near_tie_flips=flips)
 
 
+def sharded_first_steps(llama, cfg, w, mesh, dev):
+    """slice_tiny's first steps on a (dp 2, tp 2) mesh: each dp shard
+    prefills one request (7 and 5 tokens, rows padded to 7), then decodes
+    one token each."""
+    import torch
+
+    t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    weights = llama.shard_weights(w, cfg, mesh)
+    caches = [[llama.init_cache(cfg, 8, BS, tp=2, device=dev) for _ in range(2)] for _ in range(2)]
+    tbl = t([[0, 1, -1], [2, 3, -1]])
+    lp, caches = llama.make_sharded_step(mesh, cfg, True, max_seqlens_q=7)(
+        weights, caches, t(list(range(7)) + list(range(10, 15)) + [0, 0]), t([7, 5]), t([0, 7, 0, 5]), tbl)
+    ld, _ = llama.make_sharded_step(mesh, cfg, False, max_seqlens_q=1)(
+        weights, caches, t([3, 5]), t([8, 6]), t([0, 1, 0, 1]), tbl)
+    return lp.float().cpu(), ld.float().cpu()
+
+
+def slice_tiny_tp(dev, phase="slice_tiny_tp", **cfg_kw):
+    """make_sharded_step and ShardedEngine on a (dp 2, tp 2) mesh of virtual
+    ranks on the card against the same calls on CPU ranks: logits within 0.15
+    abs / 0.1 rel, greedy tokens identical wherever the CPU path's top-2
+    margin exceeds that tolerance; with moe=True the fp8 MoE kernels run
+    under rank_ep (4 experts a rank)."""
+    import torch
+
+    from hpc_ops_tpu_torch import kernels
+    from hpc_ops_tpu_torch.models import llama
+    from hpc_ops_tpu_torch.parallel import make_mesh
+    from hpc_ops_tpu_torch.runtime.sharded_engine import ShardedEngine
+    from hpc_ops_tpu_torch.utils.testing import assert_greedy_match, top2_margin
+
+    cfg = llama.tiny_config(**cfg_kw)
+    w_cpu = llama.init_weights(cfg, torch.Generator().manual_seed(0), device="cpu")
+    w_gpu = {**{k: v.to(dev) for k, v in w_cpu.items() if k != "layers"},
+             "layers": [{k: v.to(dev) for k, v in layer.items()} for layer in w_cpu["layers"]]}
+    meshes = {"cpu": make_mesh(tp=2, dp=2, devices=["cpu"] * 4),
+              str(dev): make_mesh(tp=2, dp=2, devices=[dev] * 4)}
+    kernels.reset_launch_counts()
+    steps = {d: sharded_first_steps(llama, cfg, w_cpu if d == "cpu" else w_gpu, m, d)
+             for d, m in meshes.items()}
+    torch.cuda.synchronize()
+    if kernels.launch_counts()["allreduce_rmsnorm"] != 2 * 2 * 2 * cfg.layers:
+        raise AssertionError(f"{phase}: {kernels.launch_counts()['allreduce_rmsnorm']} collective launches")
+    diffs = {}
+    for name, c, g in zip(("prefill", "decode"), steps["cpu"], steps[str(dev)]):
+        if not torch.isfinite(g).all() or not torch.allclose(g, c, atol=ATOL_LOGITS, rtol=RTOL_LOGITS):
+            raise AssertionError(f"{phase} {name} logits: card vs CPU beyond 0.15/0.1")
+        diffs[name] = float((g - c).abs().max())
+    prompts = [[1, 2, 3, 4, 5], [7, 8], [9, 10, 11], list(range(20, 61))]
+    outs = {d: ShardedEngine(cfg, w_cpu if d == "cpu" else w_gpu, m, num_blocks=64, block_size=BS,
+                             max_batch=2, prefill_chunk=16).run(prompts, max_new=8)
+            for d, m in meshes.items()}
+
+    def margin(tokens):
+        n = len(tokens)
+        t = lambda x: torch.tensor(x, dtype=torch.int32)  # noqa: E731
+        logits, _ = llama.forward_step(w_cpu, llama.init_cache(cfg, 8, BS, device="cpu"), cfg, t(tokens),
+                                       t([n]), t([0, n]), t([list(range(8))]), is_prefill=True,
+                                       max_seqlens_q=n)
+        return top2_margin(logits.float())
+
+    flips = []
+    for p, want, got in zip(prompts, outs["cpu"], outs[str(dev)]):
+        j = assert_greedy_match(want, got, lambda j, p=p, want=want: margin(p + want[:j]), ATOL_LOGITS)
+        if j is not None:
+            flips.append({"prompt": p, "step": j, "cpu_margin": margin(p + want[:j])})
+    emit(phase, max_logits_diff=diffs, tokens_card=outs[str(dev)], tokens_cpu=outs["cpu"],
+         near_tie_flips=flips)
+
+
 PROFILE_FROM, PROFILE_STEPS = 4, 3  # decode steps 5..7 of slice_full
 
 
@@ -2791,37 +3071,60 @@ def full_prompts(vocab, longest=2000):
     return lens, [[int(t) for t in rng.randint(0, vocab, n)] for n in lens]
 
 
-def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=2000):
-    """Engine(cfg) at full width and depth on weights ``w``: 8 prompts (of 16
-    to ``longest`` tokens) x 32 new tokens, with every sampled-from logits
-    tensor checked finite, the launch counts of ``kernels_used`` (and, with
-    ``cfg.moe``, of the MoE kernels) as the step counts say and every other
-    kernel at 0, and three decode steps profiled. Returns (stats, launch
-    counts, last-token logits of each prefill call, the engine, the profile)."""
+def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=2000, mesh=None):
+    """Engine(cfg) at full width and depth on weights ``w`` (with ``mesh``:
+    ShardedEngine over the mesh's ranks): 8 prompts (of 16 to ``longest``
+    tokens) x 32 new tokens, with every sampled-from logits tensor checked
+    finite, the launch counts of ``kernels_used`` (once per rank; with
+    ``cfg.moe``, the MoE kernels; with ``mesh``, the one_shot collective
+    twice per layer and call, one launch for all ranks) as the step counts say
+    and every other kernel at 0, and three decode steps profiled. Returns
+    (stats, launch counts, last-token logits of each prefill call, the
+    engine, the profile)."""
     import torch
 
     from hpc_ops_tpu_torch import kernels
     from hpc_ops_tpu_torch.runtime import engine as engine_mod
+    from hpc_ops_tpu_torch.runtime import sharded_engine as sharded_mod
 
     lens, prompts = full_prompts(cfg.vocab, longest)
     finite, prefill_logits = [], []
-    base_forward = engine_mod.forward_step
+    base_forward, base_make_step = engine_mod.forward_step, sharded_mod.make_sharded_step
+
+    def checked(out, is_prefill):
+        finite.append(torch.isfinite(out).all())
+        if is_prefill:
+            prefill_logits.append(out.float().reshape(-1))
 
     def checked_forward(*a, **kw):
         out, caches = base_forward(*a, **kw)
-        finite.append(torch.isfinite(out).all())
-        if kw.get("is_prefill"):
-            prefill_logits.append(out.float().reshape(-1))
+        checked(out, kw.get("is_prefill"))
         return out, caches
 
-    engine_mod.forward_step = checked_forward
+    def checked_make_step(*a, **kw):
+        step = base_make_step(*a, **kw)
+
+        def run(*sa):
+            out, caches = step(*sa)
+            checked(out, kw.get("is_prefill"))
+            return out, caches
+
+        return run
+
+    def make_engine(num_blocks):
+        if mesh is None:
+            return engine_mod.Engine(cfg, w, num_blocks=num_blocks, block_size=BS, max_batch=8, device=dev)
+        return sharded_mod.ShardedEngine(cfg, w, mesh, num_blocks=num_blocks, block_size=BS, max_batch=8)
+
+    engine_mod.forward_step, sharded_mod.make_sharded_step = checked_forward, checked_make_step
     try:
-        warm = engine_mod.Engine(cfg, w, num_blocks=64, block_size=BS, max_batch=8, device=dev)
+        warm = make_engine(64)
         warm.run([prompts[0]], max_new=2)  # cuBLAS and allocator warm-up
         del warm
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        eng = engine_mod.Engine(cfg, w, num_blocks=NUM_BLOCKS, block_size=BS, max_batch=8, device=dev)
+        eng = make_engine(NUM_BLOCKS)
         rids = [eng.add_request(p, max_new=32) for p in prompts]
         prefill_logits.clear()
         kernels.reset_launch_counts()
@@ -2835,7 +3138,7 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
                 profiled = DecodeProfile(torch, {
                     **{sub: k for sub, k in zip(("rope_store", "paged_decode", "paged_prefill"),
                                                 kernels_used) if k},
-                    **{k: k for k in MOE_CLASSES}})
+                    **{k: k for k in MOE_CLASSES}, "allreduce_rmsnorm": "allreduce_rmsnorm"})
             torch.cuda.synchronize()
             t = time.perf_counter()
             if not eng.step():
@@ -2853,7 +3156,7 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
                 decode_tokens += min(st["active"], eng.max_batch)
         counts = kernels.launch_counts()
     finally:
-        engine_mod.forward_step = base_forward
+        engine_mod.forward_step, sharded_mod.make_sharded_step = base_forward, base_make_step
     outs = [eng.requests[r].out for r in rids]
     if not all(bool(f) for f in finite):
         raise AssertionError(f"{phase}: non-finite logits")
@@ -2861,9 +3164,12 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
         raise AssertionError(f"{phase}: missing tokens or tokens outside the vocab")
     st = eng.stats
     n_pre, n_dec = st["prefill_dispatches"], st["decode_dispatches"]
-    per_step = {k: n for k, n in zip(kernels_used, (n_dec, n_dec, n_pre)) if k}
+    ranks = 1 if mesh is None else mesh.shape["dp"] * mesh.shape["tp"]
+    per_step = {k: n * ranks for k, n in zip(kernels_used, (n_dec, n_dec, n_pre)) if k}
     if cfg.moe is not None:  # every call, the scheme's MoE kernels in every layer
-        per_step.update({k: v * (n_dec + n_pre) for k, v in MOE_PER_CALL[cfg.moe.scheme].items()})
+        per_step.update({k: v * (n_dec + n_pre) * ranks for k, v in MOE_PER_CALL[cfg.moe.scheme].items()})
+    if mesh is not None:  # two fused collectives a layer, one launch per tp group
+        per_step["allreduce_rmsnorm"] = 2 * (n_dec + n_pre) * mesh.shape["dp"]
     expect = {k: per_step.get(k, 0) * cfg.layers for k in counts}
     if counts != expect or min(counts[k] for k in per_step) == 0:
         raise AssertionError(f"{phase}: launch counts {counts} != expected {expect}")
@@ -2887,11 +3193,64 @@ def slice_full(dev, w):
 
     cfg = llama.llama3_8b(residual_alpha=1.0 / 8)
     stats, counts, prefill_logits, eng, profiled = serve_full(dev, cfg, w, "slice_full", BF16_KERNELS)
+    tokens = [r.out for r in eng.requests.values()]
     del eng
     torch.cuda.empty_cache()
     emit("slice_full", **stats)
     emit("decode_profile", **profiled.summary())
-    return counts, prefill_logits
+    return counts, prefill_logits, tokens
+
+
+TP_FULL = 4  # slice_full_tp's tp ranks: 8 q heads, 2 kv heads and 3584 MLP columns each
+
+
+def slice_full_tp(dev, w, bf16_prefill_logits, bf16_tokens):
+    """ShardedEngine(llama3_8b) at full width and depth on a (dp 1, tp 4) mesh
+    of virtual ranks on the card, over slice_full's weights sharded once:
+    the serving stats, prefill logits within cosine 0.98 of the single-device
+    bf16 run's, the one_shot collective launched twice a layer and call (one
+    launch for all four ranks) and its plain version never, one
+    device-to-host copy a profiled decode step; the share of greedy tokens
+    equal to the single-device run's is reported, not gated."""
+    import torch
+
+    from hpc_ops_tpu_torch.models import llama
+    from hpc_ops_tpu_torch.parallel import collective_kernels, make_mesh
+
+    cfg = llama.llama3_8b(residual_alpha=1.0 / 8)
+    mesh = make_mesh(tp=TP_FULL, dp=1, devices=[dev] * TP_FULL)
+    plain_calls = []
+    base_plain = collective_kernels._allreduce_rmsnorm_ref
+
+    def counted_plain(*a, **kw):
+        plain_calls.append(1)
+        return base_plain(*a, **kw)
+
+    collective_kernels._allreduce_rmsnorm_ref = counted_plain
+    try:
+        stats, counts, prefill_logits, eng, profiled = serve_full(
+            dev, cfg, w, "slice_full_tp", BF16_KERNELS, mesh=mesh)
+    finally:
+        collective_kernels._allreduce_rmsnorm_ref = base_plain
+    cos = prefill_cosines("slice_full_tp", prefill_logits, bf16_prefill_logits)
+    calls = stats["prefill_calls"] + stats["decode_steps"]
+    if counts["allreduce_rmsnorm"] != 2 * cfg.layers * calls or plain_calls:
+        raise AssertionError(f"slice_full_tp: {counts['allreduce_rmsnorm']} collective launches for "
+                             f"{calls} forward calls (want {2 * cfg.layers} each), {len(plain_calls)} "
+                             "plain collectives")
+    profile = profiled.summary()
+    if profile["device_to_host_copies_per_step"] != 1:
+        raise AssertionError("slice_full_tp: a decode step copies to the host "
+                             f"{profile['device_to_host_copies_per_step']} times (expected 1)")
+    tokens = [r.out for r in eng.requests.values()]
+    same = sum(a == b for x, y in zip(tokens, bf16_tokens) for a, b in zip(x, y))
+    del eng
+    torch.cuda.empty_cache()
+    emit("slice_full_tp", tp=TP_FULL, dp=1, prefill_cosine_vs_bf16=cos, prefill_cosine_min=min(cos),
+         collective_launches_per_call=counts["allreduce_rmsnorm"] / calls,
+         greedy_tokens_equal_to_single_device=same / sum(len(x) for x in bf16_tokens), **stats)
+    emit("decode_profile_tp", **profile)
+    return counts
 
 
 def slice_full_int8(dev, w, bf16_prefill_logits):
@@ -3233,6 +3592,8 @@ def main() -> int:
     norm_rows, launches_norm = phase("check_rmsnorm_quant", check_rmsnorm_quant, dev, gen)
     route_rows, launches_route = phase("check_route_gemm", check_route_gemm, dev, gen)
     torch.cuda.empty_cache()
+    allreduce_rows, launches_allreduce = phase("check_allreduce", check_allreduce, dev, gen)
+    torch.cuda.empty_cache()
     phase("slice_tiny", slice_tiny, dev)
     phase("slice_tiny_int8", slice_tiny, dev, "slice_tiny_int8", int8_kv=True, kv_scale=0.02)
     phase("slice_tiny_moe", slice_tiny, dev, "slice_tiny_moe", moe=True)
@@ -3241,6 +3602,8 @@ def main() -> int:
           moe=True)
     phase("slice_tiny_moe_bw", slice_tiny, dev, "slice_tiny_moe_bw", moe_scheme="blockwise_int8",
           moe=True)
+    phase("slice_tiny_tp", slice_tiny_tp, dev)
+    phase("slice_tiny_tp_moe", slice_tiny_tp, dev, "slice_tiny_tp_moe", moe=True)
 
     from hpc_ops_tpu_torch.models import llama
 
@@ -3250,10 +3613,11 @@ def main() -> int:
     w = llama.init_weights(llama.llama3_8b(), torch.Generator(device=dev).manual_seed(0), device=dev)
     torch.cuda.synchronize()
     emit("init_weights", config="llama3_8b", seconds=time.perf_counter() - t0)
-    counts, bf16_prefill_logits = phase("slice_full", slice_full, dev, w)
+    counts, bf16_prefill_logits, bf16_tokens = phase("slice_full", slice_full, dev, w)
     counts_int8 = phase("slice_full_int8", slice_full_int8, dev, w, bf16_prefill_logits)
     counts_fp8 = phase("slice_full_fp8", slice_full_fp8, dev, w, bf16_prefill_logits)
     counts_w8a8 = phase("slice_full_w8a8", slice_full_w8a8, dev, w, bf16_prefill_logits)
+    counts_tp = phase("slice_full_tp", slice_full_tp, dev, w, bf16_prefill_logits, bf16_tokens)
     # the fp8 experts of the MoE model (45 GB) need the room of the llama3_8b weights
     del w, bf16_prefill_logits
     torch.cuda.empty_cache()
@@ -3304,6 +3668,12 @@ def main() -> int:
     for r in sparse_rows_ + norm_rows + route_rows:
         r["launches"] = {**launches_sparse, **launches_norm, **launches_route}.get(r["name"], 0)
     rows += sparse_rows_ + norm_rows + route_rows
+    # the fused collective: slice_full_tp's run launched the one_shot form
+    # (the model's); check_allreduce drove the two_shot form's entry points
+    for r in allreduce_rows:
+        r["launches"] = (counts_tp["allreduce_rmsnorm"] if r["name"] == "allreduce_rmsnorm_one_shot"
+                         else launches_allreduce.get(r["name"], 0))
+    rows += allreduce_rows
     for r in rows:
         r["route"] = "cuda"
         r["kernel_ms"] = r["ms"]
@@ -3313,7 +3683,7 @@ def main() -> int:
          moe=counts_moe, moe_int8=counts_moe_int8, moe_bw=counts_moe_bw, ops_fp8=launches_ops,
          ops_moe=launches_moe_ops, ops_moe_bw=launches_moe_bw_ops, decode_fused=launches_fused,
          decode_sched=launches_sched, prefill_sparse=launches_sparse, rmsnorm_quant=launches_norm,
-         route_gemm=launches_route)
+         route_gemm=launches_route, tp=counts_tp, allreduce=launches_allreduce)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

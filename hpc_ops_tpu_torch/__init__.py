@@ -23,8 +23,8 @@ from hpc_ops_tpu_torch.config import (
 
 __version__ = "0.1.0.dev0"
 
-# the op modules whose public names the top level re-exports; the JAX
-# package's parallel is not ported yet (ROADMAP queue 1 item 8)
+# the modules whose public names the top level re-exports, as the JAX
+# package's top level re-exports its op modules and parallel
 OP_MODULES = (
     "hpc_ops_tpu_torch.ops.activation",
     "hpc_ops_tpu_torch.ops.attention",
@@ -37,6 +37,7 @@ OP_MODULES = (
     "hpc_ops_tpu_torch.ops.rope",
     "hpc_ops_tpu_torch.ops.sampler",
     "hpc_ops_tpu_torch.ops.stem",
+    "hpc_ops_tpu_torch.parallel",
 )
 
 

@@ -24,7 +24,7 @@
 // e4m3) for only G * sq query rows, so the work is about G * sq FLOPs per
 // byte, far below the ~295 FLOPs per byte at which the H100's tensor cores,
 // not its memory, would be the limit. One-byte elements halve the bytes; the
-// per-token K scales add 4 bytes a token.
+// per-token K scales add 4 * kgroups bytes a token.
 //
 // Design: one block per (request, kv head), or in the task form one block
 // per task of a task map (a contiguous KV range [tile_start * tile,
@@ -36,10 +36,12 @@
 //      vector loads (8 bf16, or 16 int8 or e4m3 codes per load, converted to
 //      float in registers; all 128 rows of the tile in flight at once) and
 //      forms the scores of all rows against it; with per-token K scales
-//      (kTokenScale) the token's scale multiplies its scores after the dot,
-//      which is exact because the scale is constant along D, and is read
-//      through the page table like the row; the block copies the tile's V
-//      rows (as stored) into shared memory at the same time;
+//      (kTokenScale) the token's kgroups scales, each over D / kgroups
+//      consecutive columns, are read through the page table like the row and
+//      each multiplies its group's float32 partial dot, score = sum_g
+//      kscale[g] * dot(q[g], k[g]) (kgroups = 1: one scale per token and kv
+//      head, the score times the scale); the block copies the tile's V rows
+//      (as stored) into shared memory at the same time;
 //   2. one warp per query row updates the online softmax (running max m,
 //      running sum l) and turns the scores into probabilities;
 //   3. every thread owns output columns and adds p * v for all rows.
@@ -156,6 +158,33 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Four rows' partial dots over K columns [c_lo, c_hi) of one token's row,
+// added to s[0..3] (rows r0..r0+3; rows past `rows` untouched).
+template <typename T>
+__device__ __forceinline__ void dot4(const T* krow, const float* q_s, int d, int r0, int rows,
+                                     int c_lo, int c_hi, float* s) {
+  constexpr int kVec = Vec<T>::N;
+#pragma unroll (32 / kVec)
+  for (int c = c_lo; c < c_hi; c += kVec) {
+    const uint4 u = *reinterpret_cast<const uint4*>(krow + c);
+    float kf[kVec];
+    Vec<T>::to_f32(u, kf);
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      if (r0 + rr < rows) {
+        const float* qr = q_s + (r0 + rr) * d + c;
+        float acc4 = 0.f;
+#pragma unroll
+        for (int j = 0; j < kVec; j += 4) {
+          const float4 qa = *reinterpret_cast<const float4*>(qr + j);
+          acc4 += qa.x * kf[j] + qa.y * kf[j + 1] + qa.z * kf[j + 2] + qa.w * kf[j + 3];
+        }
+        s[rr] += acc4;
+      }
+    }
+  }
+}
+
 // The task form's map and partial outputs (unused by the grid form).
 struct Tasks {
   const int32_t* batch;       // [cap] request, < 0 for a sentinel task
@@ -176,13 +205,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
     const int32_t* __restrict__ block_ids,  // [B, max_blocks]
     const int32_t* __restrict__ kv_lens,    // [B]
-    // kTokenScale: kscale [num_pages, page_size, hkv] per token and kv head,
-    // vscale [hkv]; else [1] each. Null is a scale of 1.
+    // kTokenScale: kscale [num_pages, page_size, hkv, kgroups] per token, kv
+    // head and group of D / kgroups columns, vscale [hkv]; else [1] each.
+    // Null is a scale of 1.
     const float* __restrict__ kscale, const float* __restrict__ vscale,
     __nv_bfloat16* __restrict__ out,        // [B * sq, hq, dv] (grid form)
     Tasks tasks,                            // (task form)
     int max_blocks, int page_size, int sq, int hq, int hkv, int d, int dv,
-    float scale) {
+    int kgroups, float scale) {
   constexpr int kVec = Vec<T>::N;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int g_per = hq / hkv;
@@ -259,37 +289,29 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
         const int page = max(tbl[kpos / page_size], 0);
         const T* krow =
             kc + h * k_head_stride + page * k_page_stride + (kpos % page_size) * k_slot_stride;
-        const float ks =
-            kTokenScale
-                ? kscale[(static_cast<int64_t>(page) * page_size + kpos % page_size) * hkv + h]
-                : 1.f;
+        const float* ks = kTokenScale
+            ? kscale + ((static_cast<int64_t>(page) * page_size + kpos % page_size) * hkv + h) * kgroups
+            : nullptr;
         for (int r0 = 0; r0 < rows; r0 += 4) {
           float sc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll (32 / kVec)
-          for (int c = 0; c < d; c += kVec) {
-            const uint4 u = *reinterpret_cast<const uint4*>(krow + c);
-            float kf[kVec];
-            Vec<T>::to_f32(u, kf);
+          if constexpr (kTokenScale) {
+            const int gw = d / kgroups;
+            for (int g = 0; g < kgroups; ++g) {
+              float gs[4] = {0.f, 0.f, 0.f, 0.f};
+              dot4(krow, q_s, d, r0, rows, g * gw, (g + 1) * gw, gs);
+              const float kg = ks[g];
 #pragma unroll
-            for (int rr = 0; rr < 4; ++rr) {
-              if (r0 + rr < rows) {
-                const float* qr = q_s + (r0 + rr) * d + c;
-                float acc4 = 0.f;
-#pragma unroll
-                for (int j = 0; j < kVec; j += 4) {
-                  const float4 qa = *reinterpret_cast<const float4*>(qr + j);
-                  acc4 += qa.x * kf[j] + qa.y * kf[j + 1] + qa.z * kf[j + 2] + qa.w * kf[j + 3];
-                }
-                sc[rr] += acc4;
-              }
+              for (int rr = 0; rr < 4; ++rr) sc[rr] += gs[rr] * kg;
             }
+          } else {
+            dot4(krow, q_s, d, r0, rows, 0, d, sc);
           }
 #pragma unroll
           for (int rr = 0; rr < 4; ++rr) {
             const int r = r0 + rr;
             if (r < rows) {
               const int limit = kv_len - sq + (r % sq);  // causal w.r.t. draft row
-              p_s[r * kTile + t] = kpos <= limit ? (kTokenScale ? sc[rr] * ks : sc[rr]) : -INFINITY;
+              p_s[r * kTile + t] = kpos <= limit ? sc[rr] : -INFINITY;
             }
           }
         }
@@ -362,10 +384,12 @@ template <typename T, bool kTokenScale = false>
 int launch(const void* q, const void* kcache, const void* vcache, const int64_t* st,
            const void* block_ids, const void* kv_lens, const void* kscale, const void* vscale,
            void* out, int batch, int max_blocks, int page_size, int sq, int hq, int hkv, int d,
-           int dv, float scale, cudaStream_t stream, const Tasks* tasks = nullptr) {
+           int dv, float scale, cudaStream_t stream, const Tasks* tasks = nullptr,
+           int kgroups = 1) {
   constexpr int kVec = Vec<T>::N;
   if (batch == 0) return 0;
-  if (d % kVec != 0 || dv % kVec != 0 || hq % hkv != 0) {
+  if (d % kVec != 0 || dv % kVec != 0 || hq % hkv != 0 || kgroups < 1 || d % kgroups != 0 ||
+      (d / kgroups) % kVec != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int rows = (hq / hkv) * sq;
@@ -382,7 +406,8 @@ int launch(const void* q, const void* kcache, const void* vcache, const int64_t*
         static_cast<const T*>(vcache), st[0], st[1], st[2], st[3], st[4], st[5],
         static_cast<const int32_t*>(block_ids), static_cast<const int32_t*>(kv_lens),
         static_cast<const float*>(kscale), static_cast<const float*>(vscale),
-        static_cast<__nv_bfloat16*>(out), tk, max_blocks, page_size, sq, hq, hkv, d, dv, scale);
+        static_cast<__nv_bfloat16*>(out), tk, max_blocks, page_size, sq, hq, hkv, d, dv, kgroups,
+        scale);
     return static_cast<int>(cudaGetLastError());
   };
   if constexpr (!kTokenScale) {
@@ -487,22 +512,23 @@ extern "C" int hpc_paged_decode(
                       static_cast<cudaStream_t>(stream));
 }
 
-// QuantType 0: e4m3 K and V caches, kscale [num_pages, page_size, hkv]
-// float32 (one scale per token and kv head, paged like the cache), vscale
-// [hkv] float32 or null.
+// QuantType 0: e4m3 K and V caches, kscale [num_pages, page_size, hkv,
+// kgroups] float32 (per token and kv head, kgroups scales each over d /
+// kgroups consecutive columns, a multiple of 16; paged like the cache),
+// vscale [hkv] float32 or null.
 extern "C" int hpc_paged_decode_qt0(
     const void* q, const void* kcache, const void* vcache,
     int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
     int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
     const void* kscale, const void* vscale, const void* block_ids, const void* kv_lens,
     void* out, int batch, int max_blocks, int page_size, int sq, int hq, int hkv, int d, int dv,
-    float scale, void* stream) {
+    int kgroups, float scale, void* stream) {
   if (kscale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[6] = {k_head_stride, k_page_stride, k_slot_stride,
                          v_head_stride, v_page_stride, v_slot_stride};
   return launch<e4m3_t, true>(q, kcache, vcache, st, block_ids, kv_lens, kscale, vscale, out,
                               batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale,
-                              static_cast<cudaStream_t>(stream));
+                              static_cast<cudaStream_t>(stream), nullptr, kgroups);
 }
 
 // The NHD_FUSED slab [num_pages, 2*page_size, hkv*d] of kv_type. kscale and

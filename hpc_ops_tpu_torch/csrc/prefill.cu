@@ -25,9 +25,16 @@
 //     cvt.rn.f16x2.e4m3x2);
 //   * each thread computes a 4 x 4 block of scores from float4 reads and
 //     keeps it in registers; with per-token K scales (ktok, [num_pages,
-//     page_size, hkv] float32, read through the page table beside the K
-//     tile) column j is multiplied by the scale of its token after the dot,
-//     exact because the scale is constant along D; the causal mask
+//     page_size, hkv, kgroups] float32, read through the page table beside
+//     the K tile) and kgroups = 1, column j is multiplied by the scale of
+//     its token after the dot, exact because the scale is constant along D;
+//     with kgroups > 1 (each scale over D / kgroups consecutive columns)
+//     every K element is multiplied by its group's scale as the tile is
+//     staged, so the dot is sum_g ktok[g] * dot(q[g], k[g]) in exact
+//     arithmetic and rounds as the dequantised K of the plain version does
+//     (per-group accumulators in registers and the scales in shared memory
+//     cost the dense path its second block per SM: 1.99 ms against 1.52
+//     for 2048 tokens, chip_smoke.py check_prefill_fp8 on an H100); the causal mask
 //     kpos <= (kv_len - q_len) + qpos is applied before the exponential;
 //   * the online softmax reduces each row across the 16 threads that hold
 //     it with warp shuffles, rescales the thread's 4 x (D/16) output
@@ -78,6 +85,7 @@ struct e4m3_t {
 constexpr int kRows = 64;
 constexpr int kCols = 64;
 constexpr int kThreads = 256;  // 16 x 16
+constexpr int kMaxGroups = 8;  // K scales per (token, kv head); a group spans >= 8 columns
 
 __device__ __forceinline__ float group16_max(float v) {
 #pragma unroll
@@ -139,7 +147,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const int32_t* __restrict__ block_ids, const float* __restrict__ kscale,
     const float* __restrict__ vscale, const float* __restrict__ ktok,
     __nv_bfloat16* __restrict__ out, int max_blocks, int page_size, int hq, int hkv, int q_tile,
-    int vscale_per_head, float scale, BlockMask bm) {
+    int vscale_per_head, int kgroups, float scale, BlockMask bm) {
   constexpr int kColGroups = D / 64;  // output columns c = k*64 + tx*4 + e
   extern __shared__ float smem[];
   float* qt_s = smem;              // [D][kRows], pre-scaled
@@ -148,7 +156,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   float* pt_s = v_s + kCols * D;   // [kCols][kRows]
   // sparse: one flag per KV tile of the page table
   uint8_t* tile_flag_s = reinterpret_cast<uint8_t*>(pt_s + kCols * kRows);
-  __shared__ float ktok_s[kCols];  // the tile's per-token K scales
+  __shared__ float ktok_s[kCols];  // the tile's per-token K scales (kgroups = 1)
 
   const int b = blockIdx.x, h = blockIdx.y;
   const int g_per = hq / hkv;
@@ -243,11 +251,18 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
         const int page = max(tbl[kpos / page_size], 0);
         load8(kc + h * k_head_stride + page * k_page_stride + (kpos % page_size) * k_slot_stride + d0,
               f);
+        if (ktok != nullptr && kgroups > 1) {  // the 8 columns lie in one group
+          const float ks =
+              ktok[((static_cast<int64_t>(page) * page_size + kpos % page_size) * hkv + h) * kgroups +
+                   d0 / (D / kgroups)];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) f[j] *= ks;
+        }
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j) kt_s[(d0 + j) * kCols + n] = f[j];
     }
-    if (ktok != nullptr && tid < kCols) {
+    if (ktok != nullptr && kgroups == 1 && tid < kCols) {
       const int kpos = t0 + tid;
       float ks = 0.f;
       if (kpos < kv_end) {
@@ -290,7 +305,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
         for (int j = 0; j < 4; ++j) s[i][j] += av[i] * kv[j];
     }
 
-    if (ktok != nullptr) {
+    if (ktok != nullptr && kgroups == 1) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float ks = ktok_s[tx * 4 + j];
@@ -373,7 +388,7 @@ int launch_form(const void* q, const void* kc, const void* vc, const int64_t* st
                 const void* cu, const void* kv_lens, const void* block_ids, const void* kscale,
                 const void* vscale, const void* ktok, void* out, int batch, int max_blocks,
                 int page_size, int hq, int hkv, int n_q_tiles, int q_tile, int vscale_per_head,
-                float scale, BlockMask bm, cudaStream_t stream) {
+                int kgroups, float scale, BlockMask bm, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (static_cast<size_t>(D) * (kRows + kCols) +
                                        static_cast<size_t>(kCols) * (D + kRows)) +
                       (kSparse ? (static_cast<size_t>(max_blocks) * page_size + kCols - 1) / kCols : 0);
@@ -389,7 +404,7 @@ int launch_form(const void* q, const void* kc, const void* vc, const int64_t* st
       static_cast<const int32_t*>(block_ids), static_cast<const float*>(kscale),
       static_cast<const float*>(vscale), static_cast<const float*>(ktok),
       static_cast<__nv_bfloat16*>(out), max_blocks, page_size, hq, hkv, q_tile, vscale_per_head,
-      scale, bm);
+      kgroups, scale, bm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -398,14 +413,14 @@ int launch(const void* q, const void* kc, const void* vc, const int64_t* st,
            const void* cu, const void* kv_lens, const void* block_ids, const void* kscale,
            const void* vscale, const void* ktok, void* out, int batch, int max_blocks,
            int page_size, int hq, int hkv, int n_q_tiles, int q_tile, int vscale_per_head,
-           float scale, BlockMask bm, cudaStream_t stream) {
+           int kgroups, float scale, BlockMask bm, cudaStream_t stream) {
   if (bm.bits != nullptr)
     return launch_form<D, T, true>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok,
                                    out, batch, max_blocks, page_size, hq, hkv, n_q_tiles, q_tile,
-                                   vscale_per_head, scale, bm, stream);
+                                   vscale_per_head, kgroups, scale, bm, stream);
   return launch_form<D, T, false>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok,
                                   out, batch, max_blocks, page_size, hq, hkv, n_q_tiles, q_tile,
-                                  vscale_per_head, scale, bm, stream);
+                                  vscale_per_head, kgroups, scale, bm, stream);
 }
 
 template <typename T>
@@ -413,8 +428,9 @@ int launch_d(const void* q, const void* kc, const void* vc, const int64_t* st,
              const void* cu, const void* kv_lens, const void* block_ids, const void* kscale,
              const void* vscale, const void* ktok, void* out, int batch, int max_blocks,
              int page_size, int hq, int hkv, int d, int max_seqlens_q, int vscale_per_head,
-             float scale, BlockMask bm, cudaStream_t stream) {
-  if (hq % hkv != 0 || hq / hkv > kRows) return static_cast<int>(cudaErrorInvalidValue);
+             int kgroups, float scale, BlockMask bm, cudaStream_t stream) {
+  if (hq % hkv != 0 || hq / hkv > kRows || kgroups < 1 || kgroups > kMaxGroups || d % kgroups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || max_seqlens_q == 0) return 0;
   const int q_tile = kRows / (hq / hkv);
   const int n_q_tiles = (max_seqlens_q + q_tile - 1) / q_tile;
@@ -422,11 +438,11 @@ int launch_d(const void* q, const void* kc, const void* vc, const int64_t* st,
     case 64:
       return launch<64, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok, out,
                            batch, max_blocks, page_size, hq, hkv, n_q_tiles, q_tile,
-                           vscale_per_head, scale, bm, stream);
+                           vscale_per_head, kgroups, scale, bm, stream);
     case 128:
       return launch<128, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok, out,
                             batch, max_blocks, page_size, hq, hkv, n_q_tiles, q_tile,
-                            vscale_per_head, scale, bm, stream);
+                            vscale_per_head, kgroups, scale, bm, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -439,24 +455,24 @@ int launch_typed(int kv_type, const void* q, const void* kc, const void* vc, int
                  const int64_t* st, const void* cu, const void* kv_lens, const void* block_ids,
                  const void* kscale, const void* vscale, const void* ktok, void* out, int batch,
                  int max_blocks, int page_size, int hq, int hkv, int d, int max_seqlens_q,
-                 int vscale_per_head, float scale, BlockMask bm, cudaStream_t stream) {
+                 int vscale_per_head, int kgroups, float scale, BlockMask bm, cudaStream_t stream) {
   // v_off: elements from vc to the first V row (the slab's K|V offset)
   switch (kv_type) {
     case kBf16:
       return launch_d<__nv_bfloat16>(
           q, kc, static_cast<const __nv_bfloat16*>(vc) + v_off, st, cu, kv_lens, block_ids, kscale,
           vscale, ktok, out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
-          vscale_per_head, scale, bm, stream);
+          vscale_per_head, kgroups, scale, bm, stream);
     case kInt8:
       return launch_d<int8_t>(
           q, kc, static_cast<const int8_t*>(vc) + v_off, st, cu, kv_lens, block_ids, kscale,
           vscale, ktok, out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
-          vscale_per_head, scale, bm, stream);
+          vscale_per_head, kgroups, scale, bm, stream);
     case kE4m3:
       return launch_d<e4m3_t>(
           q, kc, static_cast<const e4m3_t*>(vc) + v_off, st, cu, kv_lens, block_ids, kscale,
           vscale, ktok, out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
-          vscale_per_head, scale, bm, stream);
+          vscale_per_head, kgroups, scale, bm, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -470,8 +486,10 @@ constexpr BlockMask kDense = {nullptr, 0, 0, 1, 1};
 // slot) strides in elements. Launches one block per (request, kv head, q
 // tile of 64 / G tokens) and returns a cudaError_t code. d (the head dim of
 // q, K and V) is 64 or 128. kscale is a [1] float32 device scalar; vscale is
-// [1], or [hkv] with vscale_per_head; ktok is [num_pages, page_size, hkv]
-// float32, one K scale per token and kv head. Each may be null (a scale of 1).
+// [1], or [hkv] with vscale_per_head; ktok is [num_pages, page_size, hkv,
+// kgroups] float32, kgroups (1..8, dividing d) K scales per token and kv
+// head, each over d / kgroups consecutive columns. Each may be null (a scale
+// of 1).
 extern "C" int hpc_paged_prefill(
     const void* q, const void* kcache, const void* vcache, int kv_type,
     int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
@@ -479,12 +497,12 @@ extern "C" int hpc_paged_prefill(
     const void* kscale, const void* vscale, const void* ktok,
     const void* cu, const void* kv_lens, const void* block_ids, void* out,
     int batch, int max_blocks, int page_size, int hq, int hkv, int d,
-    int max_seqlens_q, int vscale_per_head, float scale, void* stream) {
+    int max_seqlens_q, int vscale_per_head, int kgroups, float scale, void* stream) {
   const int64_t st[6] = {k_head_stride, k_page_stride, k_slot_stride,
                          v_head_stride, v_page_stride, v_slot_stride};
   return launch_typed(kv_type, q, kcache, vcache, 0, st, cu, kv_lens, block_ids, kscale, vscale,
                       ktok, out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
-                      vscale_per_head, scale, kDense, static_cast<cudaStream_t>(stream));
+                      vscale_per_head, kgroups, scale, kDense, static_cast<cudaStream_t>(stream));
 }
 
 // The NHD_FUSED slab [num_pages, 2*page_size, hkv*d] of kv_type. kscale and
@@ -500,7 +518,7 @@ extern "C" int hpc_paged_prefill_nhd_fused(
   // a page's V rows follow its page_size K rows
   return launch_typed(kv_type, q, kv_slab, kv_slab, page_size * slot, st, cu, kv_lens, block_ids,
                       kscale, vscale, nullptr, out, batch, max_blocks, page_size, hq, hkv, d,
-                      max_seqlens_q, 0, scale, kDense, static_cast<cudaStream_t>(stream));
+                      max_seqlens_q, 0, 1, scale, kDense, static_cast<cudaStream_t>(stream));
 }
 
 // The block-sparse form over split K and V caches, arguments as
@@ -513,7 +531,7 @@ extern "C" int hpc_paged_prefill_sparse(
     const void* kscale, const void* vscale, const void* ktok,
     const void* cu, const void* kv_lens, const void* block_ids, const void* mask, void* out,
     int batch, int max_blocks, int page_size, int hq, int hkv, int d,
-    int max_seqlens_q, int vscale_per_head, int n_tm, int n_tkv, int mask_tile_q,
+    int max_seqlens_q, int vscale_per_head, int kgroups, int n_tm, int n_tkv, int mask_tile_q,
     int mask_tile_kv, float scale, void* stream) {
   if (mask == nullptr || n_tm < 1 || n_tkv < 1 || mask_tile_q < 1 || mask_tile_kv < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -522,5 +540,5 @@ extern "C" int hpc_paged_prefill_sparse(
   const BlockMask bm = {static_cast<const uint8_t*>(mask), n_tm, n_tkv, mask_tile_q, mask_tile_kv};
   return launch_typed(kv_type, q, kcache, vcache, 0, st, cu, kv_lens, block_ids, kscale, vscale,
                       ktok, out, batch, max_blocks, page_size, hq, hkv, d, max_seqlens_q,
-                      vscale_per_head, scale, bm, static_cast<cudaStream_t>(stream));
+                      vscale_per_head, kgroups, scale, bm, static_cast<cudaStream_t>(stream));
 }

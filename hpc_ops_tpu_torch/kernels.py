@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("rope_store.cu", "decode.cu", "prefill.cu", "group_gemm.cu", "activation.cu", "moe.cu",
-           "normalization.cu", "gemm.cu")
+           "normalization.cu", "gemm.cu", "collective.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -37,14 +37,14 @@ _SIGNATURES = {
     "hpc_rope_store_bf16": [_P] * 10 + [_I] * 8 + [_I64] * 5 + [_I, _P],
     "hpc_rope_store_int8": [_P] * 11 + [_I] * 8 + [_I64, _I, _P],
     "hpc_paged_decode": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 5 + [_I] * 8 + [_F, _P],
-    "hpc_paged_decode_qt0": [_P] * 3 + [_I64] * 6 + [_P] * 5 + [_I] * 8 + [_F, _P],
+    "hpc_paged_decode_qt0": [_P] * 3 + [_I64] * 6 + [_P] * 5 + [_I] * 9 + [_F, _P],
     "hpc_paged_decode_nhd_fused": [_P, _P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P],
     "hpc_paged_decode_tasks": ([_P] * 3 + [_I] + [_I64] * 6 + [_P] * 5 + [_I] * 2 + [_P] * 5
                                + [_I] * 7 + [_F, _P]),
     "hpc_decode_combine": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 5 + [_P],
-    "hpc_paged_prefill": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 7 + [_I] * 8 + [_F, _P],
+    "hpc_paged_prefill": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 7 + [_I] * 9 + [_F, _P],
     "hpc_paged_prefill_nhd_fused": [_P, _P, _I] + [_P] * 6 + [_I] * 7 + [_F, _P],
-    "hpc_paged_prefill_sparse": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 8 + [_I] * 12 + [_F, _P],
+    "hpc_paged_prefill_sparse": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 8 + [_I] * 13 + [_F, _P],
     "hpc_gg_scatter_e4m3": [_P] * 7 + [_I] * 4 + [_P],
     "hpc_gg_scatter_i8": [_P] * 7 + [_I] * 4 + [_P],
     "hpc_gg_scatter_i8_act": [_P] * 8 + [_I] * 6 + [_P],
@@ -57,6 +57,7 @@ _SIGNATURES = {
     "hpc_moe_reduce": [_P] * 5 + [_I] * 3 + [_P],
     "hpc_rmsnorm_quant": [_P] * 6 + [_I] * 2 + [_F, _P],
     "hpc_route_gemm": [_P] * 5 + [_I] * 4 + [_P],
+    "hpc_allreduce_rmsnorm": [_P] * 6 + [ctypes.c_uint64, _P] + [_I] * 3 + [_F] + [_I] * 3 + [_P],
 }
 
 _LOCK = threading.Lock()
@@ -124,6 +125,16 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count(wrapper) -> None:
+    """Add one to a wrapper's ``launches`` (under a lock: tensor-parallel
+    ranks launch from several threads)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
@@ -162,6 +173,7 @@ def wrappers() -> dict:
     from hpc_ops_tpu_torch.ops.moe import moe_reduce
     from hpc_ops_tpu_torch.ops.normalization import rmsnorm_quant
     from hpc_ops_tpu_torch.ops.rope_kernel import rope_store_rows, rope_store_rows_int8
+    from hpc_ops_tpu_torch.parallel.collective_kernels import allreduce_rmsnorm
 
     return {
         "rope_store": rope_store_rows,
@@ -184,6 +196,7 @@ def wrappers() -> dict:
         "paged_prefill_sparse": paged_prefill_sparse,
         "rmsnorm_quant": rmsnorm_quant,
         "route_gemm": route_gemm,
+        "allreduce_rmsnorm": allreduce_rmsnorm,
     }
 
 
@@ -202,6 +215,7 @@ __all__ = [
     "build",
     "lib",
     "check",
+    "count",
     "stream_ptr",
     "wrappers",
     "reset_launch_counts",

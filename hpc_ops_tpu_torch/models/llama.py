@@ -1,6 +1,7 @@
 """Llama-class decoder on the port's operator stack (port of
-``models/llama.py``, single-device path; bf16, int8 or fp8 KV; dense bf16 or
-W8A8 projections; dense, fp8-MoE, int8-MoE or blockwise-int8-MoE MLP).
+``models/llama.py``; bf16, int8 or fp8 KV; dense bf16 or W8A8 projections;
+dense, fp8-MoE, int8-MoE or blockwise-int8-MoE MLP; one device, or
+tensor-parallel over a (dp, tp) mesh).
 
 Weights are a plain dict of tensors with the JAX package's layout:
 ``{"embed", "final_norm", "lm_head", "cos_sin", "layers": [{"attn_norm",
@@ -36,6 +37,18 @@ and top-k reduce kernels; int8, the gate-up GEMM with the activation in its
 epilogue, the aligned down GEMM and the reduce kernel; blockwise int8, the
 blockwise scatter gate-up GEMM, a plain-tensor activation and re-quantisation,
 the blockwise aligned down GEMM and the reduce kernel.
+
+Tensor parallelism, as in the JAX package: q/kv heads and the MLP
+intermediate are split over ``tp`` (GQA groups stay whole, so attention needs
+no communication), MoE experts are expert-parallel on the same axis
+(``rank_ep`` = the tp rank), and each row-parallel projection (``wo``, the
+down projection or the MoE) ends in the fused all-reduce + residual + RMSNorm
+(``parallel/collectives.py``), the only communication of a layer.
+:func:`shard_weights` places each rank's shard (after the column repacks of
+:func:`shard_weights_for_tp`), :func:`init_cache` with ``tp`` makes one
+rank's caches, and :func:`make_sharded_step` runs :func:`forward_step` on
+every rank of the mesh with ``axis_name`` set to the rank's
+:class:`~hpc_ops_tpu_torch.parallel.mesh.RankGroup`; ``dp`` shards the batch.
 """
 
 from __future__ import annotations
@@ -67,6 +80,8 @@ from hpc_ops_tpu_torch.ops.sampler import (
     fused_sampler_temperature_sample,
     gumbel_from_uniform,
 )
+from hpc_ops_tpu_torch.parallel.collectives import fuse_allreduce_rmsnorm
+from hpc_ops_tpu_torch.parallel.mesh import run_ranks
 
 
 class MoEConfig(NamedTuple):
@@ -131,16 +146,13 @@ def tiny_config(moe: bool = False, **kw) -> ModelConfig:
 MOE_SCHEMES = ("pertensor_fp8", "pertensor_int8", "blockwise_int8")
 
 
-def check_supported(cfg: ModelConfig, axis_name=None) -> None:
-    """Raise NotImplementedError for configurations of later slices
-    (``axis_name``), and ValueError for ``fp8_kv`` with ``int8_kv`` (one
-    cache, one type) or an unknown MoE scheme."""
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ValueError for ``fp8_kv`` with ``int8_kv`` (one cache, one type)
+    or an unknown MoE scheme."""
     if cfg.fp8_kv and cfg.int8_kv:
         raise ValueError("fp8_kv and int8_kv are mutually exclusive")
     if cfg.moe is not None and cfg.moe.scheme not in MOE_SCHEMES:
         raise ValueError(f"unknown MoE scheme {cfg.moe.scheme!r}")
-    if axis_name is not None:
-        raise NotImplementedError("axis_name is not ported yet: ROADMAP queue 1 item 8 (multi-GPU)")
 
 
 def init_weights(
@@ -310,7 +322,9 @@ def weights_from_numpy(tree, device="cuda"):
 def init_cache(cfg: ModelConfig, num_blocks: int, block_size: int, tp: int = 1, device="cuda"):
     """Per-layer HND caches ``{"k", "v"}`` of [Hkv/tp, blocks, bs, D] zeros
     (bf16, or float8_e4m3fn with ``cfg.fp8_kv``), or with ``cfg.int8_kv`` one
-    int8 NHD_FUSED slab ``{"kv"}`` of [blocks, 2*bs, (Hkv/tp)*D] zeros."""
+    int8 NHD_FUSED slab ``{"kv"}`` of [blocks, 2*bs, (Hkv/tp)*D] zeros: with
+    ``tp`` > 1 one rank's caches (its kv heads; its lanes of the slab, as
+    JAX's ``P(rows, None, "tp")``) over its row shard's ``num_blocks``."""
     check_supported(cfg)
     hkv = cfg.kv_heads // tp
     if cfg.int8_kv:
@@ -420,9 +434,13 @@ def forward_step(
 
     Returns ``(out, caches)``: sampled token ids [B, 1] when temperature > 0,
     else the bf16 logits of each request's last row [B, vocab] (of every row
-    with ``return_all_logits``). The caches are written in place.
+    with ``return_all_logits``). The caches are written in place. With
+    ``axis_name`` (a :class:`~hpc_ops_tpu_torch.parallel.mesh.RankGroup`,
+    under :func:`~hpc_ops_tpu_torch.parallel.mesh.run_ranks`) the weights and
+    caches are this rank's shards and both residual adds + RMSNorms of a layer
+    are the fused all-reduce (``mode="one_shot"``), as in the JAX package.
     """
-    check_supported(cfg, axis_name)
+    check_supported(cfg)
     rows = token_ids.shape[0]
     x = weights["embed"][token_ids.long()]
     h_normed = rmsnorm_ref(x, weights["layers"][0]["attn_norm"], cfg.norm_eps).to(torch.bfloat16)
@@ -476,11 +494,15 @@ def forward_step(
                 q, k_cache, v_cache, block_ids, seq_lens, mtp=mtp, new_kv_included=True,
                 qscale=q_scale, **attn_kw,
             )
-        attn_out = _mm(attn.reshape(rows, -1), layer, "wo")
+        attn_out = _mm(attn.reshape(rows, -1), layer, "wo")  # a partial over tp
         if cfg.residual_alpha != 1.0:
             attn_out = attn_out * cfg.residual_alpha
-        x_res = (x_res.float() + attn_out.float()).to(torch.bfloat16)
-        h_normed = rmsnorm_ref(x_res, layer["mlp_norm"], cfg.norm_eps).to(torch.bfloat16)
+        if axis_name is not None:  # fused all-reduce + residual + mlp norm
+            h_normed, x_res = fuse_allreduce_rmsnorm(attn_out.contiguous(), x_res, layer["mlp_norm"],
+                                                     cfg.norm_eps, axis_name, mode="one_shot")
+        else:
+            x_res = (x_res.float() + attn_out.float()).to(torch.bfloat16)
+            h_normed = rmsnorm_ref(x_res, layer["mlp_norm"], cfg.norm_eps).to(torch.bfloat16)
         if cfg.moe is None:
             mlp_out = _mlp_dense(h_normed, layer)
         else:
@@ -490,8 +512,12 @@ def forward_step(
         next_norm = (
             weights["layers"][li + 1]["attn_norm"] if li + 1 < cfg.layers else weights["final_norm"]
         )
-        x_res = (x_res.float() + mlp_out.float()).to(torch.bfloat16)
-        h_normed = rmsnorm_ref(x_res, next_norm, cfg.norm_eps).to(torch.bfloat16)
+        if axis_name is not None:
+            h_normed, x_res = fuse_allreduce_rmsnorm(mlp_out.to(torch.bfloat16).contiguous(), x_res,
+                                                     next_norm, cfg.norm_eps, axis_name, mode="one_shot")
+        else:
+            x_res = (x_res.float() + mlp_out.float()).to(torch.bfloat16)
+            h_normed = rmsnorm_ref(x_res, next_norm, cfg.norm_eps).to(torch.bfloat16)
 
     if return_all_logits:
         return h_normed @ weights["lm_head"], caches
@@ -560,6 +586,141 @@ def decode_multi(
     return tokens, caches
 
 
+def shard_weights_specs(cfg: ModelConfig) -> dict:
+    """The weight tree with, for each leaf, the dim split over ``tp`` (None:
+    replicated): JAX's PartitionSpecs for a (dp, tp) mesh. Column-parallel
+    projections (``wqkv``, ``w_gate_up``) split their output dim and their
+    per-column scales, row-parallel ones (``wo``, ``w_down``) their input dim
+    (their scales replicate); MoE experts split along the expert dim with
+    their scales (per expert, or per 128 x 128 block)."""
+    layer = {"attn_norm": None, "wqkv": 1, "wo": 0, "mlp_norm": None}
+    if cfg.qkv_bias:
+        layer["qkv_bias"] = 0
+    if cfg.dense_int8:
+        layer.update(wqkv_scale=0, wo_scale=None)
+        if cfg.moe is None:
+            layer.update(w_gate_up_scale=0, w_down_scale=None)
+    if cfg.moe is None:
+        layer.update(w_gate_up=1, w_down=0)
+    else:
+        layer.update(router=None, moe_gate_up=0, moe_down=0, moe_gate_up_scale=0, moe_down_scale=0)
+        if cfg.moe.scheme == "pertensor_int8":
+            layer["moe_act_scale"] = None
+    return {"embed": None, "final_norm": None, "lm_head": None, "cos_sin": None,
+            "layers": [dict(layer) for _ in range(cfg.layers)]}
+
+
+def repack_qkv_for_tp(wqkv: torch.Tensor, cfg: ModelConfig, tp: int) -> torch.Tensor:
+    """Reorder packed [H, (Hq+2Hkv)*D] columns so a tp-split gives each rank
+    its own contiguous [q_heads/tp | k_heads/tp | v_heads/tp] block. Rows pass
+    through untouched (a [1, cols] bias view repacks the same way)."""
+    h = wqkv.shape[0]
+    d = cfg.head_dim
+    q, kh = cfg.q_heads, cfg.kv_heads
+    wq = wqkv[:, : q * d].reshape(h, tp, q // tp * d)
+    wk = wqkv[:, q * d : (q + kh) * d].reshape(h, tp, kh // tp * d)
+    wv = wqkv[:, (q + kh) * d :].reshape(h, tp, kh // tp * d)
+    return torch.cat([wq, wk, wv], dim=-1).reshape(h, -1)
+
+
+def repack_gate_up_for_tp(w_gate_up: torch.Tensor, tp: int) -> torch.Tensor:
+    """Reorder packed [H, 2I] (gate|up halves) columns so a tp-split gives
+    each rank its own contiguous [gate_r | up_r] block."""
+    h, two_i = w_gate_up.shape
+    i = two_i // 2
+    g = w_gate_up[:, :i].reshape(h, tp, i // tp)
+    u = w_gate_up[:, i:].reshape(h, tp, i // tp)
+    return torch.cat([g, u], dim=-1).reshape(h, -1)
+
+
+def _repack_layer(layer: dict, cfg: ModelConfig, tp: int) -> dict:
+    nl = {**layer, "wqkv": repack_qkv_for_tp(layer["wqkv"], cfg, tp)}
+    for name in ("qkv_bias", "wqkv_scale"):
+        if name in layer:
+            nl[name] = repack_qkv_for_tp(layer[name][None, :], cfg, tp).reshape(-1)
+    if "w_gate_up" in layer:
+        nl["w_gate_up"] = repack_gate_up_for_tp(layer["w_gate_up"], tp)
+    if "w_gate_up_scale" in layer:
+        nl["w_gate_up_scale"] = repack_gate_up_for_tp(layer["w_gate_up_scale"][None, :], tp).reshape(-1)
+    return nl
+
+
+def shard_weights_for_tp(weights: dict, cfg: ModelConfig, tp: int) -> dict:
+    """Apply the column repacks needed before splitting weights over tp."""
+    return {**weights, "layers": [_repack_layer(layer, cfg, tp) for layer in weights["layers"]]}
+
+
+def shard_weights(weights: dict, cfg: ModelConfig, mesh) -> list:
+    """Each tp rank's weights, placed once on its device: a list over the tp
+    ranks of weight dicts (every dp shard's rank r uses entry r). Layer by
+    layer: repack (:func:`shard_weights_for_tp`), then split each leaf along
+    its :func:`shard_weights_specs` dim; replicated leaves are moved, not
+    copied, where they already lie on the rank's device (virtual ranks on one
+    card share them), and int8 matrices keep the column-major layout
+    :func:`quantize_w8` gives them."""
+    tp = mesh.shape["tp"]
+    devs = list(mesh.devices[0])
+    experts = cfg.moe.num_experts if cfg.moe is not None else tp
+    if cfg.q_heads % tp or cfg.kv_heads % tp or cfg.intermediate % tp or experts % tp:
+        raise ValueError(f"tp={tp} must divide the q and kv heads, the intermediate and the experts")
+    specs = shard_weights_specs(cfg)
+
+    def split(t, dim, r):
+        if dim is None:
+            return t.to(devs[r])
+        n = t.shape[dim] // tp
+        part = t.narrow(dim, r * n, n).to(devs[r])
+        return _column_major(part) if t.dtype == torch.int8 and t.dim() == 2 else part.contiguous()
+
+    ranks = [{k: split(weights[k], None, r) for k in ("embed", "final_norm", "lm_head", "cos_sin")}
+             for r in range(tp)]
+    for r in ranks:
+        r["layers"] = []
+    for layer, spec in zip(weights["layers"], specs["layers"]):
+        repacked = _repack_layer(layer, cfg, tp)
+        for r in range(tp):
+            ranks[r]["layers"].append({k: split(v, spec[k], r) for k, v in repacked.items()})
+    return ranks
+
+
+def make_sharded_step(mesh, cfg: ModelConfig, is_prefill: bool = False, **fw_kw):
+    """A forward step over a (dp, tp) mesh: ``step(weights, caches, token_ids,
+    seq_lens, q_index, block_ids) -> (out, caches)`` with JAX's data
+    conventions. ``weights`` is :func:`shard_weights`'s list, ``caches`` a
+    ``[dp][tp]`` list of each rank's :func:`init_cache` (``tp=tp``, the row
+    shard's own page pool). The data rows are split evenly over the dp
+    shards: ``token_ids`` [rows], ``seq_lens`` [B] and ``block_ids`` [B,
+    max_blocks] concatenated over the shards (block ids index the shard's
+    pool), ``q_index`` each shard's prefix sums, concatenated ([0, 1, 2, 0, 1,
+    2] for two shards of two decode rows). Every rank of a dp shard runs
+    :func:`forward_step` on its shards of the weights and caches with
+    ``axis_name`` its rank group and ``rank_ep`` its tp rank. Returns the out
+    of each dp shard's tp rank 0 (every rank's is the same), concatenated,
+    and the ranks' caches."""
+    check_supported(cfg)
+    dp = mesh.shape["dp"]
+
+    def step(weights, caches, token_ids, seq_lens, q_index, block_ids):
+        for t in (token_ids, seq_lens, q_index, block_ids):
+            if t.shape[0] % dp:
+                raise ValueError(f"a data array of {t.shape[0]} rows does not split over dp={dp}")
+        tok, lens, qi = (t.reshape(dp, -1) for t in (token_ids, seq_lens, q_index))
+        tbl = block_ids.reshape(dp, -1, block_ids.shape[-1])
+
+        def rank(group, d):
+            dev = group.device
+            return forward_step(
+                weights[group.rank], caches[d][group.rank], cfg, tok[d].to(dev), lens[d].to(dev),
+                qi[d].to(dev), tbl[d].to(dev), is_prefill, axis_name=group, rank_ep=group.rank,
+                **fw_kw)
+
+        res = run_ranks(mesh, rank)
+        out = torch.cat([row[0][0] for row in res])
+        return out, [[r[1] for r in row] for row in res]
+
+    return step
+
+
 __all__ = [
     "ModelConfig",
     "MoEConfig",
@@ -571,4 +732,10 @@ __all__ = [
     "init_cache",
     "forward_step",
     "decode_multi",
+    "make_sharded_step",
+    "shard_weights",
+    "shard_weights_specs",
+    "repack_qkv_for_tp",
+    "repack_gate_up_for_tp",
+    "shard_weights_for_tp",
 ]

@@ -123,7 +123,7 @@ def act_quant(
         int(out_dtype == torch.int8), kernels.stream_ptr(gate_up),
     )
     kernels.check(rc, "hpc_act_mul_quant")
-    act_quant.launches += 1
+    kernels.count(act_quant)
     return out
 
 

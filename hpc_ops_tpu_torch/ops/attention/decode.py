@@ -14,9 +14,11 @@ kscale`` and the output by ``vscale``; a per-token-per-head ``qscale``
 ``[B*Sq, Hq]`` is folded into q, rounded to bf16, before the kernel, as the
 JAX wrapper does. QuantTypes 0 and 3 carry one K scale per (token, kv head),
 paged like the cache (``[num_blocks, block_size, Hkv, 1]``) or in the tail
-rows of the K pages (:func:`unpack_tailrow_kscale`), and a per-head
-``vscale``: their own kernel (:func:`paged_decode_qt0`); scales grouped
-along D take the plain reference, as in the JAX package. Also mtp 0..4,
+rows of the K pages (:func:`unpack_tailrow_kscale`), or G scales per
+(token, kv head) grouped along D (``[num_blocks, block_size, Hkv, G]``, each
+over D/G consecutive columns), and a per-head ``vscale``: their own kernel
+(:func:`paged_decode_qt0`; the JAX package sends grouped scales to its
+reference, the port's kernel takes them). Also mtp 0..4,
 ``new_kv_included``, ``sm_scale`` and ``impl="ref"``.
 
 ``task_map`` (a :class:`~hpc_ops_tpu_torch.ops.attention.scheduler.TaskMap`)
@@ -195,7 +197,7 @@ def paged_decode_attention(
         kernels.stream_ptr(q),
     )
     kernels.check(rc, "hpc_paged_decode")
-    paged_decode_attention.launches += 1
+    kernels.count(paged_decode_attention)
     return out
 
 
@@ -216,7 +218,7 @@ def paged_decode_qt0(
     q: torch.Tensor,  # [B*sq, Hq, D] bf16
     kcache: torch.Tensor,  # e4m3, HND or NHD
     vcache: torch.Tensor,
-    ktok: torch.Tensor,  # [num_blocks, block_size, Hkv, 1] f32: one K scale per token and kv head
+    ktok: torch.Tensor,  # [num_blocks, block_size, Hkv, G] f32: K scales per token, kv head and D-group
     vhead,  # [Hkv] f32 per-head V scale (None: 1)
     block_ids: torch.Tensor,  # [B, max_blocks], -1 padded
     kv_lens: torch.Tensor,  # [B] effective KV length (new tokens included)
@@ -224,9 +226,11 @@ def paged_decode_qt0(
     scale: float,
     cache_layout: str,
 ) -> torch.Tensor:
-    """QuantType-0 decode attention: each KV token's scale multiplies its
-    logit after the q.k product, the per-head V scale the output; the scales
-    are read paged, through the page table. Returns [B*sq, Hq, Dv] bf16.
+    """QuantType-0 decode attention: each KV token's G scales multiply the
+    partial q.k products of their D/G columns (G = 1: the token's scale
+    multiplies its logit), the per-head V scale the output; the scales are
+    read paged, through the page table. G divides D into groups of a multiple
+    of 16 columns. Returns [B*sq, Hq, Dv] bf16.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise.
@@ -242,20 +246,23 @@ def paged_decode_qt0(
     hkv, page_size, dv, k_st, v_st, tbl, lens = _split_cache_geometry(
         name, q, kcache, vcache, block_ids, kv_lens, sq, cache_layout)
     nb = kcache.shape[1] if cache_layout == "HND" else kcache.shape[0]
-    if ktok.device != q.device or tuple(ktok.shape) != (nb, page_size, hkv, 1):
-        raise ValueError(f"{name}: K scales must be [{nb}, {page_size}, {hkv}, 1] on q's device")
+    bsq, hq, d = q.shape
+    groups = ktok.shape[-1]
+    if (ktok.device != q.device or tuple(ktok.shape[:3]) != (nb, page_size, hkv) or ktok.dim() != 4
+            or d % groups or (d // groups) % 16):
+        raise ValueError(f"{name}: K scales must be [{nb}, {page_size}, {hkv}, G] on q's device, "
+                         "G groups of a multiple of 16 columns")
     ktok = ktok.float().contiguous()
     vs = _scale_tensor(vhead, q.device, hkv)
-    bsq, hq, d = q.shape
     out = torch.empty((bsq, hq, dv), dtype=torch.bfloat16, device=q.device)
     rc = kernels.lib().hpc_paged_decode_qt0(
         q.data_ptr(), kcache.data_ptr(), vcache.data_ptr(), *k_st, *v_st,
         ktok.data_ptr(), _ptr(vs), tbl.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        lens.shape[0], tbl.shape[1], page_size, sq, hq, hkv, d, dv, float(scale),
+        lens.shape[0], tbl.shape[1], page_size, sq, hq, hkv, d, dv, groups, float(scale),
         kernels.stream_ptr(q),
     )
     kernels.check(rc, "hpc_paged_decode_qt0")
-    paged_decode_qt0.launches += 1
+    kernels.count(paged_decode_qt0)
     return out
 
 
@@ -304,7 +311,7 @@ def paged_decode_nhd_fused(
         kernels.stream_ptr(q),
     )
     kernels.check(rc, "hpc_paged_decode_nhd_fused")
-    paged_decode_nhd_fused.launches += 1
+    kernels.count(paged_decode_nhd_fused)
     return out
 
 
@@ -398,7 +405,7 @@ def paged_decode_tasks(
         float(scale), kernels.stream_ptr(q),
     )
     kernels.check(rc, "hpc_paged_decode_tasks")
-    paged_decode_tasks.launches += 1
+    kernels.count(paged_decode_tasks)
     return o, m, l
 
 
@@ -467,7 +474,7 @@ def decode_combine(
         out.data_ptr(), b, sq, hq, hkv, dv, kernels.stream_ptr(o),
     )
     kernels.check(rc, "hpc_decode_combine")
-    decode_combine.launches += 1
+    kernels.count(decode_combine)
     return out
 
 
@@ -556,9 +563,7 @@ def attention_decode(
         elif cache_layout in ("FUSED", "NHD_FUSED"):
             kcache, vcache = _hnd_views(kcache, vcache, cache_layout, d)
             cache_layout = "HND"
-    if impl == "ref" or (pertoken_k and kscale.shape[-1] != 1):
-        # QuantType 0 has a kernel for one scale per (token, kv head); scales
-        # grouped along D take the reference, as in the JAX package
+    if impl == "ref":
         kv_k, kv_v = _hnd_views(kcache, vcache, cache_layout, d)
         return attention_decode_ref(
             q, hnd_to_nhd(kv_k), hnd_to_nhd(kv_v), block_ids, kv_lens,

@@ -14,20 +14,20 @@ unused). With per-tensor ``kscale``/``vscale`` the logits are scaled by
 ``sm_scale * kscale`` and the output by ``vscale`` (one scale, or one per kv
 head); a per-token-per-head ``qscale`` ``[B, Hq, pad]`` is gathered onto the
 packed rows and folded into q, rounded to bf16, before the kernel. With
-QuantTypes 0 and 3 and one K scale per (token, kv head), paged
-``[num_blocks, block_size, Hkv, 1]``, the kernel multiplies each logit
-column by its token's scale; scales grouped along D take the plain
-reference, as in the JAX package. Also ``sm_scale`` and ``impl="ref"``.
+QuantTypes 0 and 3 and G K scales per (token, kv head), paged
+``[num_blocks, block_size, Hkv, G]``, the kernel multiplies each logit
+column by its token's scale (G = 1) or each K element by its token's scale
+for its group of D/G columns (G > 1; the JAX package sends those to its
+reference). Also ``sm_scale`` and ``impl="ref"``.
 
 A ``block_mask`` ``[B, Hq, n_tm, n_tkv]`` (uint8 or bool, one row of tiles
 per q head) selects the block-sparse path, :func:`paged_prefill_sparse`:
 the same kernel skips every 64-column KV tile that no head of a block's
 GQA group keeps and masks the logits of each head by its own tiles, for
 any ``mask_tile_q``/``mask_tile_kv``, over every cache layout, type and
-scale scheme above but K scales grouped along D: on CUDA tensors those
-raise ``NotImplementedError``, on CPU tensors they take the reference.
-Rows with no kept key are 0, as the JAX kernel writes them; ``impl="ref"``
-keeps the JAX reference's semantics (such a row averages V).
+scale scheme above. Rows with no kept key are 0, as the JAX kernel writes
+them; ``impl="ref"`` keeps the JAX reference's semantics (such a row
+averages V).
 """
 
 from __future__ import annotations
@@ -73,7 +73,8 @@ def _split_cache_launch_args(name, q, kcache, vcache, cu_seqlens_q, block_ids, k
     """Checks shared by the wrappers over split K and V caches (``more``:
     other tensors that must lie on q's device). Returns the launchers' common
     arguments: (kv_type, k and v strides, the three scale pointers, cu,
-    lengths and table as contiguous int32, page_size, hkv, per-head vscale)."""
+    lengths and table as contiguous int32, page_size, hkv, per-head vscale,
+    K scale groups)."""
     kv_type = _kv_type(name, kcache, vcache)
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise ValueError(f"{name}: q must be contiguous bf16")
@@ -91,17 +92,21 @@ def _split_cache_launch_args(name, q, kcache, vcache, cu_seqlens_q, block_ids, k
     k_st = _page_strides(kcache, cache_layout)
     v_st = _page_strides(vcache, cache_layout)
     _check_rows_aligned(name, (kcache, k_st), (vcache, v_st))
+    groups = 1
     if ktok is not None:
         if kscale is not None:
             raise ValueError(f"{name}: per-token K scales replace the per-tensor kscale")
-        if ktok.device != q.device or tuple(ktok.shape) != (nb, page_size, hkv, 1):
-            raise ValueError(f"{name}: K scales must be [{nb}, {page_size}, {hkv}, 1] on q's device")
+        groups = ktok.shape[-1]
+        if (ktok.device != q.device or ktok.dim() != 4 or tuple(ktok.shape[:3]) != (nb, page_size, hkv)
+                or groups > 8 or d % groups):
+            raise ValueError(f"{name}: K scales must be [{nb}, {page_size}, {hkv}, G] on q's device, "
+                             "G <= 8 dividing D")
         ktok = ktok.float().contiguous()
     per_head = vscale is not None and hkv > 1 and torch.as_tensor(vscale).numel() == hkv
     scales = (_scale_tensor(kscale, q.device), _scale_tensor(vscale, q.device, hkv if per_head else 1),
               ktok)
     tables = tuple(t.to(torch.int32).contiguous() for t in (cu_seqlens_q, kv_lens, block_ids))
-    return kv_type, k_st, v_st, scales, tables, page_size, hkv, per_head
+    return kv_type, k_st, v_st, scales, tables, page_size, hkv, per_head, groups
 
 
 def paged_prefill_attention(
@@ -116,7 +121,7 @@ def paged_prefill_attention(
     cache_layout: str,
     kscale=None,  # [1] f32 per-tensor K scale (None: 1)
     vscale=None,  # [1] f32 per-tensor, or [Hkv] per-head, V scale (None: 1)
-    ktok=None,  # [num_blocks, block_size, Hkv, 1] f32 per-token K scales, in place of kscale
+    ktok=None,  # [num_blocks, block_size, Hkv, G] f32 per-token K scales, in place of kscale
 ) -> torch.Tensor:
     """Causal varlen prefill over paged K and V caches (HND or NHD; bf16,
     int8 or e4m3); returns [total_q, Hq, D] bf16.
@@ -131,19 +136,19 @@ def paged_prefill_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: unsupported device {q.device}")
-    kv_type, k_st, v_st, scales, (cu, lens, tbl), page_size, hkv, per_head = _split_cache_launch_args(
-        "paged_prefill_attention", q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens, cache_layout,
-        kscale, vscale, ktok)
+    kv_type, k_st, v_st, scales, (cu, lens, tbl), page_size, hkv, per_head, groups = (
+        _split_cache_launch_args("paged_prefill_attention", q, kcache, vcache, cu_seqlens_q, block_ids,
+                                 kv_lens, cache_layout, kscale, vscale, ktok))
     total_q, hq, d = q.shape
     out = torch.zeros((total_q, hq, d), dtype=torch.bfloat16, device=q.device)
     rc = kernels.lib().hpc_paged_prefill(
         q.data_ptr(), kcache.data_ptr(), vcache.data_ptr(), kv_type, *k_st, *v_st,
         *(_ptr(t) for t in scales), cu.data_ptr(), lens.data_ptr(), tbl.data_ptr(), out.data_ptr(),
         lens.shape[0], tbl.shape[1], page_size, hq, hkv, d, int(max_seqlens_q), int(per_head),
-        float(scale), kernels.stream_ptr(q),
+        groups, float(scale), kernels.stream_ptr(q),
     )
     kernels.check(rc, "hpc_paged_prefill")
-    paged_prefill_attention.launches += 1
+    kernels.count(paged_prefill_attention)
     return out
 
 
@@ -208,7 +213,7 @@ def paged_prefill_nhd_fused(
         float(scale), kernels.stream_ptr(q),
     )
     kernels.check(rc, "hpc_paged_prefill_nhd_fused")
-    paged_prefill_nhd_fused.launches += 1
+    kernels.count(paged_prefill_nhd_fused)
     return out
 
 
@@ -263,8 +268,9 @@ def _prefill_sparse_ref(q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens, max
             continue
         k = _gather_request(kn, block_ids[bi], kl)
         v = _gather_request(vn, block_ids[bi], kl)
-        if ktok is not None:
-            k = k * _gather_request(ktok, block_ids[bi], kl)
+        if ktok is not None:  # [kl, Hkv, G] scales, each over D/G columns
+            ks = _gather_request(ktok, block_ids[bi], kl)
+            k = k * ks.repeat_interleave(d // ks.shape[-1], dim=-1)
         elif kscale is not None:
             k = k * torch.as_tensor(kscale, dtype=torch.float32, device=k.device).reshape(())
         if vscale is not None:
@@ -300,7 +306,7 @@ def paged_prefill_sparse(
     mask_tile_kv: int,
     kscale=None,  # [1] f32 per-tensor K scale (None: 1)
     vscale=None,  # [1] f32 per-tensor, or [Hkv] per-head, V scale (None: 1)
-    ktok=None,  # [num_blocks, block_size, Hkv, 1] f32 per-token K scales, in place of kscale
+    ktok=None,  # [num_blocks, block_size, Hkv, G] f32 per-token K scales, in place of kscale
 ) -> torch.Tensor:
     """Block-sparse causal varlen prefill over paged K and V caches (HND or
     NHD, strided views of an NHD_FUSED slab included; bf16, int8 or e4m3);
@@ -324,20 +330,20 @@ def paged_prefill_sparse(
         )
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
-    kv_type, k_st, v_st, scales, (cu, lens, tbl), page_size, hkv, per_head = _split_cache_launch_args(
-        name, q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens, cache_layout, kscale, vscale, ktok,
-        mask)
+    kv_type, k_st, v_st, scales, (cu, lens, tbl), page_size, hkv, per_head, groups = (
+        _split_cache_launch_args(name, q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens,
+                                 cache_layout, kscale, vscale, ktok, mask))
     out = torch.zeros((total_q, hq, d), dtype=torch.bfloat16, device=q.device)
     rc = kernels.lib().hpc_paged_prefill_sparse(
         q.data_ptr(), kcache.data_ptr(), vcache.data_ptr(), kv_type, *k_st, *v_st,
         *(_ptr(t) for t in scales), cu.data_ptr(), lens.data_ptr(), tbl.data_ptr(), mask.data_ptr(),
         out.data_ptr(),
         lens.shape[0], tbl.shape[1], page_size, hq, hkv, d, int(max_seqlens_q), int(per_head),
-        mask.shape[2], mask.shape[3], int(mask_tile_q), int(mask_tile_kv), float(scale),
+        groups, mask.shape[2], mask.shape[3], int(mask_tile_q), int(mask_tile_kv), float(scale),
         kernels.stream_ptr(q),
     )
     kernels.check(rc, "hpc_paged_prefill_sparse")
-    paged_prefill_sparse.launches += 1
+    kernels.count(paged_prefill_sparse)
     return out
 
 
@@ -407,15 +413,7 @@ def attention_with_kvcache_prefill(
         # the split-cache kernels read the slab in place through NHD views
         kcache, vcache = nhd_fused_views(kcache, kcache.shape[2] // d)
         cache_layout = "NHD"
-    grouped_k = pertoken_k and kscale.shape[-1] != 1
-    if grouped_k and sparse and q.device.type == "cuda" and impl != "ref":
-        raise NotImplementedError(
-            f"block_mask with K scales grouped along D (kscale {tuple(kscale.shape)}): the "
-            "sparse kernel takes one K scale per (token, kv head), [nb, bs, Hkv, 1]"
-        )
-    if impl == "ref" or grouped_k:
-        # QuantType 0 has a kernel path for one scale per (token, kv head)
-        # only; scales grouped along D take the reference, as in the JAX package
+    if impl == "ref":
         return attention_with_kvcache_prefill_ref(
             q, _nhd(kcache, cache_layout), _nhd(vcache, cache_layout), cu_seqlens_q, block_ids,
             seqlens_kvcache, max_seqlens_q, qscale=qscale, kscale=kscale, vscale=vscale,

@@ -266,7 +266,7 @@ def gg_scatter(
     out, rc = _launch_scatter("hpc_gg_scatter_e4m3", x, weight, y_scale, row_idx, grp, tm,
                               num_valid_tiles, FP8_DTYPE)
     kernels.check(rc, "hpc_gg_scatter_e4m3")
-    gg_scatter.launches += 1
+    kernels.count(gg_scatter)
     return out
 
 
@@ -310,7 +310,7 @@ def gg_scatter_i8(x, weight, y_scale, row_idx, grp, tm, num_valid_tiles=None):
     out, rc = _launch_scatter("hpc_gg_scatter_i8", x, weight, y_scale, row_idx, grp, tm,
                               num_valid_tiles, torch.int8)
     kernels.check(rc, "hpc_gg_scatter_i8")
-    gg_scatter_i8.launches += 1
+    kernels.count(gg_scatter_i8)
     return out
 
 
@@ -326,7 +326,7 @@ def gg_scatter_i8_act(x, weight, y_scale, act_scale, row_idx, grp, tm, num_valid
     out, rc = _launch_scatter("hpc_gg_scatter_i8_act", x, weight, y_scale, row_idx, grp, tm,
                               num_valid_tiles, torch.int8, (act_scale, use_bf16_mul, pair))
     kernels.check(rc, "hpc_gg_scatter_i8_act")
-    gg_scatter_i8_act.launches += 1
+    kernels.count(gg_scatter_i8_act)
     return out
 
 
@@ -387,7 +387,7 @@ def gg_pertensor(
         nvt.data_ptr(), out.data_ptr(), num_tiles, tm, n, k, elem, kernels.stream_ptr(x_al),
     )
     kernels.check(rc, "hpc_gg_pertensor")
-    gg_pertensor.launches += 1
+    kernels.count(gg_pertensor)
     return out
 
 
@@ -512,7 +512,7 @@ def gg_bw_scatter(
     if row_idx.shape[0] != grp.shape[0] * tm:
         raise ValueError("gg_bw_scatter: row_idx must be [num_tiles * tm]")
     out = _launch_bw("scatter", x, weight, sx, sw, row_idx, grp, tm, num_valid_tiles)
-    gg_bw_scatter.launches += 1
+    kernels.count(gg_bw_scatter)
     return out
 
 
@@ -543,7 +543,7 @@ def gg_bw_aligned(
     if row_blk.shape[0] != grp.shape[0] or x_al.shape[0] % tm:
         raise ValueError("gg_bw_aligned: one row block per tile, x_al in whole row blocks")
     out = _launch_bw("aligned", x_al, weight, sx_al, sw, row_blk, grp, tm, num_valid_tiles)
-    gg_bw_aligned.launches += 1
+    kernels.count(gg_bw_aligned)
     return out
 
 

@@ -221,7 +221,7 @@ def moe_reduce(
         kernels.stream_ptr(x),
     )
     kernels.check(rc, "hpc_moe_reduce")
-    moe_reduce.launches += 1
+    kernels.count(moe_reduce)
     return out
 
 

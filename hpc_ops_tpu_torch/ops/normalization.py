@@ -96,7 +96,7 @@ def rmsnorm_quant(
         n, h, float(eps), kernels.stream_ptr(a),
     )
     kernels.check(rc, "hpc_rmsnorm_quant")
-    rmsnorm_quant.launches += 1
+    kernels.count(rmsnorm_quant)
     return (norm, y0, y1) if is_moe else y0
 
 

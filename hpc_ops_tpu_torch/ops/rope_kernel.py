@@ -197,7 +197,7 @@ def rope_store_rows(
         policy, kernels.stream_ptr(qkv),
     )
     kernels.check(rc, "hpc_rope_store_bf16")
-    rope_store_rows.launches += 1
+    kernels.count(rope_store_rows)
     return q_out, kflat, vflat
 
 
@@ -302,7 +302,7 @@ def rope_store_rows_int8(
         block_size, nb, policy, kernels.stream_ptr(qkv),
     )
     kernels.check(rc, "hpc_rope_store_int8")
-    rope_store_rows_int8.launches += 1
+    kernels.count(rope_store_rows_int8)
     return q_out, kv_slab
 
 

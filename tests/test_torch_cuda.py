@@ -1676,22 +1676,114 @@ def test_sparse_entry_point_launches_the_sparse_kernel_only(cuda):
 
 @pytest.mark.cuda
 def test_sparse_entry_point_refuses_k_scales_grouped_along_d(cuda):
-    """The sparse kernel takes one K scale per (token, kv head); scales
-    grouped along D raise on the card instead of running the reference."""
+    """K scales grouped along D (4 groups of 32 columns) with a block mask:
+    the sparse kernel takes them (it refused them before it had a grouped
+    form), launched once, no dense kernel, within ``close_scaled`` of the
+    plain sparse version."""
     gen = torch.Generator().manual_seed(58)
     args, lay, mask, _ = sparse_case(gen, "e4m3", "HND", [40, 9], [100, 9])
-    ktok, vhead = token_scales(gen, args[1], lay)
-    grouped = ktok.expand(-1, -1, -1, 4).contiguous()  # [nb, bs, Hkv, 4]: 4 groups of 32 along D
+    _, vhead = token_scales(gen, args[1], lay)
+    grouped = group_scales(gen, args[1], lay, 4)
     kw = dict(kscale=grouped, vscale=vhead, quant_type=QT0, block_mask=mask, mask_tile_q=128,
               mask_tile_kv=64, cache_layout=lay)
-    assert attention_with_kvcache_prefill(*args, **kw).shape == args[0].shape  # CPU: the reference
+    want = attention_with_kvcache_prefill(*args, **kw)  # CPU: the plain sparse version
     dev = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
     kw.update(kscale=grouped.to(cuda), vscale=vhead.to(cuda), block_mask=mask.to(cuda))
     fns = (paged_prefill_sparse, paged_prefill_attention)
     n0 = [f.launches for f in fns]
-    with pytest.raises(NotImplementedError, match="grouped along D"):
-        attention_with_kvcache_prefill(*dev, **kw)
-    assert [f.launches for f in fns] == n0
+    got = attention_with_kvcache_prefill(*dev, **kw)
+    assert [f.launches - n for f, n in zip(fns, n0)] == [1, 0]
+    close_scaled(got, want, "sparse entry point, grouped K scales")
+
+
+def group_scales(gen, k, layout, groups):
+    """[nb, bs, Hkv, groups] float32 K scales for a cache in ``layout``."""
+    hkv, nb = (k.shape[0], k.shape[1]) if layout == "HND" else (k.shape[2], k.shape[0])
+    return torch.rand((nb, BS, hkv, groups), generator=gen) * 30 + 5
+
+
+def close_scaled(got, want, what):
+    """|got - want| <= 1e-2 |want| + min(1e-2, 1e-2 max|want|), all finite
+    (``chip_smoke.py``'s bar for attention outputs)."""
+    torch.cuda.synchronize()
+    g, w = got.float().cpu(), want.float().cpu()
+    atol = min(1e-2, 1e-2 * float(w.abs().max()))
+    assert bool(torch.isfinite(g).all()) and torch.allclose(g, w, atol=atol, rtol=1e-2), (
+        f"{what}: max err {float((g - w).abs().max())}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [2, 4, 8])
+@pytest.mark.parametrize("op,layout", [("decode", "HND"), ("decode", "NHD"), ("prefill", "HND"),
+                                       ("prefill", "NHD"), ("prefill_sparse", "HND")])
+def test_grouped_k_scale_kernels_match_plain(cuda, op, layout, groups):
+    """The grouped forms of the QuantType-0 decode kernel and of the prefill
+    kernel's per-token form (dense and sparse): G K scales per (token, kv
+    head), each over D/G columns, against their plain versions."""
+    gen = torch.Generator().manual_seed(59 + groups)
+    if op == "decode":
+        q, k, v, tbl, kv = fp8_paged(gen, [max(n, 2) for n in FP8_LENS], 32, 8, 128, sq=2,
+                                     layout=layout)
+        _, vhead = token_scales(gen, k, layout)
+        ktok = group_scales(gen, k, layout, groups)
+        want = _decode_qt0_ref(q, k, v, ktok, vhead, tbl, kv, 2, 128**-0.5, layout)
+        n0 = paged_decode_qt0.launches
+        got = paged_decode_qt0(*(t.to(cuda) for t in (q, k, v, ktok, vhead, tbl, kv)), 2, 128**-0.5,
+                               layout)
+        assert paged_decode_qt0.launches == n0 + 1
+    elif op == "prefill":
+        q_lens, kv_lens = [13, 7, 250], [13, 100, 300]
+        q, k, v, tbl, kv = fp8_paged(gen, kv_lens, 32, 8, 128, layout=layout, q_rows=sum(q_lens) + 5)
+        cu = torch.tensor([0] + torch.tensor(q_lens).cumsum(0).tolist(), dtype=torch.int32)
+        _, vhead = token_scales(gen, k, layout)
+        ktok = group_scales(gen, k, layout, groups)
+        args = (q, k, v, cu, tbl, kv)
+        want = _prefill_ref(*args, max(q_lens), 128**-0.5, layout, None, vhead, ktok)
+        got = paged_prefill_attention(*(t.to(cuda) for t in args), max(q_lens), 128**-0.5, layout,
+                                      None, vhead.to(cuda), ktok.to(cuda))
+    else:
+        args, lay, mask, _ = sparse_case(gen, "e4m3", layout, [100, 64, 31], [300, 64, 500], pad=3)
+        _, vhead = token_scales(gen, args[1], lay)
+        ktok = group_scales(gen, args[1], lay, groups)
+        want = _prefill_sparse_ref(*args, 128**-0.5, lay, mask, 128, 64, None, vhead, ktok)
+        dev = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+        got = paged_prefill_sparse(*dev, 128**-0.5, lay, mask.to(cuda), 128, 64, None, vhead.to(cuda),
+                                   ktok.to(cuda))
+    close_scaled(got, want, f"{op} {layout} G={groups}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["decode", "prefill"])
+def test_grouped_k_scale_entry_points_launch_the_kernel(cuda, op):
+    """``attention_decode`` and ``attention_with_kvcache_prefill`` with K
+    scales in 4 groups along D launch the QuantType-0 decode kernel or the
+    prefill kernel once, under sync debug mode "error" (no reference, which
+    reads lengths back to the host), and agree with the CPU run."""
+    gen = torch.Generator().manual_seed(63)
+    q, k, v, tbl, kv = fp8_paged(gen, FP8_LENS if op == "decode" else [40, 300], 32, 8, 128,
+                                 q_rows=None if op == "decode" else 60)
+    _, vhead = token_scales(gen, k, "HND")
+    ktok = group_scales(gen, k, "HND", 4)
+    kw = dict(kscale=ktok, vscale=vhead, quant_type=QT0, cache_layout="HND")
+    if op == "decode":
+        fn, counted = attention_decode, paged_decode_qt0
+        args = (q, k, v, tbl, kv)
+        kw["new_kv_included"] = True
+    else:
+        fn, counted = attention_with_kvcache_prefill, paged_prefill_attention
+        args = (q, k, v, torch.tensor([0, 20, 60], dtype=torch.int32), tbl, kv, 40)
+    want = fn(*args, **kw)
+    dev = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    kw.update(kscale=ktok.to(cuda), vscale=vhead.to(cuda))
+    n0 = counted.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fn(*dev, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert counted.launches == n0 + 1
+    close_scaled(got, want, f"{op} entry point, grouped K scales")
 
 
 @pytest.mark.cuda
@@ -1766,3 +1858,128 @@ def test_sparse_norm_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         route_gemm(x, odd, w, torch.ones(1, device=cuda), False)
     with pytest.raises(ValueError, match="one device"):
         route_gemm(x, w, w, torch.ones(1), False)
+
+
+# ------------------------------------------- fused all-reduce + RMSNorm
+from hpc_ops_tpu_torch.parallel import make_mesh  # noqa: E402
+from hpc_ops_tpu_torch.parallel.collective_kernels import (  # noqa: E402
+    _allreduce_rmsnorm_ref,
+    allreduce_rmsnorm,
+    collective_rmsnorm,
+)
+from hpc_ops_tpu_torch.parallel.mesh import run_ranks  # noqa: E402
+
+
+def allreduce_case(gen, ws, n, h, dev="cpu"):
+    xs = [(torch.randn((n, h), generator=gen) * 0.5).to(torch.bfloat16).to(dev) for _ in range(ws)]
+    res = torch.randn((n, h), generator=gen).to(torch.bfloat16).to(dev)
+    w = (torch.rand(h, generator=gen) + 0.5).to(dev)
+    return xs, [res.clone() for _ in range(ws)], w
+
+
+def test_allreduce_wrapper_takes_the_plain_version_on_cpu():
+    gen = torch.Generator().manual_seed(70)
+    xs, res, w = allreduce_case(gen, 4, 64, 264)
+    outs = [torch.empty_like(xs[0]) for _ in range(4)]
+    oress = [torch.empty_like(xs[0]) for _ in range(4)]
+    n0 = allreduce_rmsnorm.launches
+    allreduce_rmsnorm(xs, res, [w] * 4, outs, oress, 1e-5, "two_shot", True)
+    want = _allreduce_rmsnorm_ref(xs, res[0], w, 1e-5, "two_shot", True)
+    assert all(torch.equal(o, want[0]) and torch.equal(r, want[1]) for o, r in zip(outs, oress))
+    assert allreduce_rmsnorm.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skew", [0, 2000])
+@pytest.mark.parametrize("bf16_norm", [False, True])
+@pytest.mark.parametrize("mode", ["one_shot", "two_shot"])
+@pytest.mark.parametrize("ws", [2, 4, 8])
+def test_allreduce_rmsnorm_kernel_is_bit_equal_to_plain(cuda, ws, mode, bf16_norm, skew):
+    """Rows 20 and 21 on ``ws`` virtual ranks of the card: one launch for
+    all ranks; each rank's outputs bit-equal to the plain version's (the
+    same summation order and rounding) and to every other rank's. H = 1032
+    leaves the kernel's second chunk sweep ragged."""
+    gen = torch.Generator().manual_seed(71 + ws)
+    xs, res, w = allreduce_case(gen, ws, 16 * ws, 1032, cuda)
+    want = _allreduce_rmsnorm_ref(xs, res[0], w, 1e-5, mode, bf16_norm)
+    n0 = allreduce_rmsnorm.launches
+    outs = run_ranks(make_mesh(tp=ws, devices=[cuda] * ws), lambda g, _: collective_rmsnorm(
+        g, xs[g.rank], res[g.rank], w, 1e-5, mode, bf16_norm, skew))[0]
+    torch.cuda.synchronize()
+    assert allreduce_rmsnorm.launches == n0 + 1
+    for r, (o, o_res) in enumerate(outs):
+        assert torch.equal(o, want[0]) and torch.equal(o_res, want[1]), f"rank {r}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [4096, 5120])
+def test_allreduce_plain_version_on_the_card_equals_the_cpu(cuda, h):
+    """The plain version gives the same bits on the card and on the CPU, so
+    CPU ranks and card ranks compute one function (5120: the mean's division
+    is not a product with an exact reciprocal)."""
+    gen = torch.Generator().manual_seed(80)
+    xs, res, w = allreduce_case(gen, 4, 2048, h)
+    for mode in ("one_shot", "two_shot"):
+        for bf16_norm in (False, True):
+            cpu = _allreduce_rmsnorm_ref(xs, res[0], w, 1e-5, mode, bf16_norm)
+            card = _allreduce_rmsnorm_ref([x.to(cuda) for x in xs], res[0].to(cuda), w.to(cuda), 1e-5, mode,
+                                          bf16_norm)
+            assert all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card))
+
+
+@pytest.mark.cuda
+def test_allreduce_kernel_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator().manual_seed(81)
+    xs, res, w = allreduce_case(gen, 2, 16, 256, cuda)
+    outs = [torch.empty_like(xs[0]) for _ in range(2)]
+    n0 = allreduce_rmsnorm.launches
+    with pytest.raises(ValueError, match="bf16"):
+        allreduce_rmsnorm([x.float() for x in xs], res, [w] * 2, outs, outs, 1e-5, "one_shot", False)
+    with pytest.raises(ValueError, match="float32"):
+        allreduce_rmsnorm(xs, res, [w.to(torch.bfloat16)] * 2, outs, outs, 1e-5, "one_shot", False)
+    with pytest.raises(ValueError, match="ranks"):
+        allreduce_rmsnorm(xs * 5, res * 5, [w] * 10, outs * 5, outs * 5, 1e-5, "one_shot", False)
+    big = torch.zeros((16, 8200), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        allreduce_rmsnorm([big] * 2, [big] * 2, [torch.ones(8200, device=cuda)] * 2, [big] * 2, [big] * 2,
+                          1e-5, "one_shot", False)
+    assert allreduce_rmsnorm.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moe", [False, True])
+def test_tp_forward_step_on_the_card_syncs_nothing_and_matches_cpu(cuda, moe):
+    """make_sharded_step on a tp-2 mesh of virtual ranks on the card: a
+    prefill, then a decode step under sync debug mode "error" (no host
+    sync in any rank); two collective launches a layer and call; logits
+    within 0.15 abs / 0.1 rel of the same step on CPU ranks."""
+    from hpc_ops_tpu_torch.models import llama as T
+
+    cfg = T.tiny_config(moe=moe)
+    w = T.init_weights(cfg, torch.Generator().manual_seed(0), device="cpu")
+    outs = {}
+    for dev in ("cpu", cuda):
+        mesh = make_mesh(tp=2, devices=[dev] * 2)
+        t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+        weights = T.shard_weights(w, cfg, mesh)
+        caches = [[T.init_cache(cfg, 8, BS, tp=2, device=dev) for _ in range(2)]]
+        tbl = t([[0, 1, -1], [2, 3, -1]])
+        n0 = allreduce_rmsnorm.launches
+        lp, caches = T.make_sharded_step(mesh, cfg, True, max_seqlens_q=7)(
+            weights, caches, t(list(range(12))), t([7, 5]), t([0, 7, 12]), tbl)
+        decode = T.make_sharded_step(mesh, cfg, False, max_seqlens_q=1)
+        step = (t([3, 5]), t([8, 6]), t([0, 1, 2]), tbl)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ld, _ = decode(weights, caches, *step)
+        finally:
+            if dev != "cpu":
+                torch.cuda.set_sync_debug_mode("default")
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert allreduce_rmsnorm.launches == n0 + 2 * 2 * cfg.layers
+        outs[str(dev)] = (lp.float().cpu(), ld.float().cpu())
+    for name, c, g in zip(("prefill", "decode"), outs["cpu"], outs[str(cuda)]):
+        assert_allclose(g, c, atol=0.15, rtol=0.1, name=f"tp {name} logits")

@@ -366,6 +366,62 @@ def test_prefill_fp8_pertoken_k_matches_jax(s_groups):
                     name="qt0 prefill vs jax kernel path")
 
 
+QT3 = QuantType.QPERTOKEN_PERHEAD_KPERTOKEN_PERHEAD_VPERHEAD_QKHADAMARD
+
+
+@pytest.mark.parametrize("s_groups", [2, 4])
+@pytest.mark.parametrize("qt", [0, 3])
+@pytest.mark.parametrize("op,layout", [("decode", "NHD"), ("decode", "HND"), ("prefill", "NHD"),
+                                       ("prefill_sparse", "HND")])
+def test_k_scales_grouped_along_d_take_the_kernel_path_match_jax(s_groups, qt, op, layout):
+    """QuantTypes 0 and 3 with G = 2 or 4 K scales per (token, kv head),
+    each over D/G columns: the port's entry points take the QuantType-0
+    kernel's path (its plain version on these CPU tensors, which the kernel
+    is held to on the card), JAX its reference. Against JAX ``impl="ref"``
+    at atol = rtol = 1e-2, the tolerance of the QuantType-0 parity tests
+    above; the sparse case runs the JAX test's mask (a random half of the
+    64 x 64 tiles plus each q tile's diagonal one) through both references."""
+    quant = QT0 if qt == 0 else QT3
+    jquant = JQuantType(int(quant))
+    c = qt0_case(29 + s_groups, [40, 16, 64], s_groups)
+    k, v = to_layout(c["k8"], c["v8"], layout)
+    common = dict(kscale=torch.from_numpy(c["kscale"]), vscale=torch.from_numpy(c["vscale"]),
+                  quant_type=quant, cache_layout=layout)
+    jcommon = dict(kscale=jnp.asarray(c["kscale"]), vscale=jnp.asarray(c["vscale"]),
+                   quant_type=jquant, cache_layout=layout, impl="ref")
+    tbl, lens = c["tbl"], c["lens"]
+    if op == "decode":
+        got = attention_decode(c["q"], t8(k), t8(v), torch.from_numpy(tbl), torch.from_numpy(lens),
+                               new_kv_included=True, **common)
+        want = jax_decode(jq(c["q"]), j8(k), j8(v), jnp.asarray(tbl), jnp.asarray(lens),
+                          new_kv_included=True, **jcommon)
+    else:
+        q_lens = [24, 16, 5]
+        cu = np.concatenate([[0], np.cumsum(q_lens)]).astype(np.int32)
+        q = torch.from_numpy(np.random.RandomState(7).randn(int(cu[-1]), 8, 128).astype(np.float32))
+        q = q.to(torch.bfloat16)
+        mask = {}
+        if op == "prefill_sparse":
+            rng = np.random.RandomState(8)
+            n_tkv = -(-int(lens.max()) // 64)
+            m = (rng.rand(3, 8, 1, n_tkv) < 0.5).astype(np.uint8)
+            for bi, (ql, kl) in enumerate(zip(q_lens, lens)):
+                m[bi, :, 0, (kl - ql) // 64] = 1
+            mask = dict(mask_tile_q=64, mask_tile_kv=64)
+            got = attention_with_kvcache_prefill(
+                q, t8(k), t8(v), torch.from_numpy(cu), torch.from_numpy(tbl), torch.from_numpy(lens),
+                max(q_lens), block_mask=torch.from_numpy(m), **mask, **common)
+            mask["block_mask"] = jnp.asarray(m)
+        else:
+            got = attention_with_kvcache_prefill(
+                q, t8(k), t8(v), torch.from_numpy(cu), torch.from_numpy(tbl), torch.from_numpy(lens),
+                max(q_lens), **common)
+        want = jax_prefill(jq(q), j8(k), j8(v), jnp.asarray(cu), jnp.asarray(tbl), jnp.asarray(lens),
+                           max(q_lens), **mask, **jcommon)
+    assert_allclose(got.float(), np.asarray(want, np.float32), **TIGHT,
+                    name=f"{op} G={s_groups} QuantType {qt} vs jax ref")
+
+
 def test_fp8_attention_still_raises_for_later_slices():
     c = decode_case(44, [5])
     k, v = to_layout(c["k8"], c["v8"], "HND")

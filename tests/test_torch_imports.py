@@ -114,3 +114,24 @@ def test_every_public_name_of_the_module_is_on_the_top_level(module):
     port_mod = importlib.import_module("hpc_ops_tpu_torch." + module)
     missing = [n for n in jax_mod.__all__ if getattr(T, n, None) is not getattr(port_mod, n, 0)]
     assert not missing, f"{module}: not exported by hpc_ops_tpu_torch: {missing}"
+
+
+def test_top_level_carries_the_ported_parallel_names():
+    """JAX's top level re-exports ``hpc_ops_tpu.parallel``; the port's carries
+    every name of it but ``ring_attention`` (not ported: it raises), each the
+    port module's own, and ``fuse_allreduce_rmsnorm_pallas`` takes the JAX
+    kernel wrapper's keywords (``interpret`` and ``collective_id`` are TPU
+    hints, accepted and unused)."""
+    import inspect
+
+    import hpc_ops_tpu.parallel as jax_parallel
+    import hpc_ops_tpu_torch as T
+    import hpc_ops_tpu_torch.parallel as port_parallel
+
+    names = [n for n in jax_parallel.__all__ if n != "ring_attention"]
+    assert sorted(port_parallel.__all__) == sorted(names)
+    assert all(getattr(T, n) is getattr(port_parallel, n) and n in T.__all__ for n in names)
+    want = list(inspect.signature(jax_parallel.fuse_allreduce_rmsnorm_pallas).parameters)
+    assert list(inspect.signature(T.fuse_allreduce_rmsnorm_pallas).parameters) == want
+    with pytest.raises(NotImplementedError, match="item 8"):
+        port_parallel.ring_attention()

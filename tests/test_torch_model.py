@@ -387,11 +387,14 @@ def test_later_slices_raise(field):
         assert torch.equal(attention_with_kvcache_prefill_ref(*args),
                            attention_with_kvcache_prefill_ref(*args, block_mask=torch.ones((1, 8, 1, 1))))
         return
-    # qkv_bias serves now (forward_step adds a layer's "qkv_bias"); tensor
-    # parallelism over axis_name is a later slice
+    # qkv_bias serves now (forward_step adds a layer's "qkv_bias"), and so
+    # does tensor parallelism over axis_name on virtual ranks of one device;
+    # a mesh over distinct CUDA devices and ring attention are a later slice
     cfg = T.tiny_config(qkv_bias=True)
     T.init_cache(cfg, 4, 16, device="cpu")
-    tok = torch.zeros(1, dtype=torch.int32)
+    from hpc_ops_tpu_torch.parallel import make_mesh, ring_attention
+
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        T.forward_step(None, None, cfg, tok, one, torch.tensor([0, 1]), tok[:, None], True,
-                       axis_name="tp")
+        make_mesh(tp=2, devices=[torch.device("cuda", 0), torch.device("cuda", 1)])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        ring_attention(q, q, q)

@@ -359,7 +359,7 @@ def check_prefill(dev, gen):
     flops = 4 * pairs * HQ * D
     bd, by = bound(nbytes, flops)
     emit("kernel", name="paged_prefill", max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-         bound_ms=bd, bound_by=by)
+         bound_ms=bd, bound_by=by, tflops=tflops(flops, ms), library_tflops=tflops(flops, lib))
     return dict(name="paged_prefill", source="hpc_ops_tpu_torch/csrc/prefill.cu",
                 replaces="hpc_ops_tpu/ops/attention/prefill.py:48", max_abs_err=err, ms=ms,
                 plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib)
@@ -542,7 +542,8 @@ def check_prefill_nhd_fused(dev, gen):
     bd, by = bound(nbytes, flops)
     bd16, _ = bound(nbytes + 2 * 2048 * HKV * D, flops)
     emit("kernel", name="paged_prefill_nhd_fused", max_abs_err=err, ms=ms, plain_ms=plain,
-         library_ms=lib, bound_ms=bd, bound_by=by, ms_bf16_slab=ms_bf16, bound_ms_bf16_slab=bd16)
+         library_ms=lib, bound_ms=bd, bound_by=by, ms_bf16_slab=ms_bf16, bound_ms_bf16_slab=bd16,
+         tflops=tflops(flops, ms), tflops_bf16_slab=tflops(flops, ms_bf16))
     return dict(name="paged_prefill_nhd_fused", source="hpc_ops_tpu_torch/csrc/prefill.cu",
                 replaces="hpc_ops_tpu/ops/attention/prefill.py:1070", max_abs_err=err, ms=ms,
                 plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib)
@@ -552,6 +553,11 @@ def check_prefill_nhd_fused(dev, gen):
 DECODE_LENS = [1, 2048, 4096, 2963, 1346, 3412, 2436, 1735]  # check_decode's kv_lens
 KSCALE, VSCALE = 0.75, 1.25  # per-tensor scales of the e4m3 checks
 PREFILL_ROWS = 2048  # the timed prefill: one request of this many rows
+
+
+def tflops(flops, ms):
+    """Achieved rate of a timed call, TFLOP/s."""
+    return flops / ms / 1e9
 
 
 def kernel_row(name, source, replaces, err, ms, plain, lib, nbytes, flops, **more):
@@ -773,8 +779,9 @@ def check_prefill_fp8(dev, gen):
         del kg, vg
         nbytes = (2 * PREFILL_ROWS * HQ * D * 2 + 2 * PREFILL_ROWS * HKV * D + timed[2].numel() * 4
                   + scale_bytes)
+        flops = 4 * pairs * HQ * D
         rows.append(kernel_row(name, "hpc_ops_tpu_torch/csrc/prefill.cu", replaces, err, ms, plain,
-                               lib, nbytes, 4 * pairs * HQ * D))
+                               lib, nbytes, flops, tflops=tflops(flops, ms)))
     return rows
 
 
@@ -1389,8 +1396,9 @@ def check_prefill_sparse(dev, gen):
     caches, and per-token K scales with a V scale per head; three requests
     with kv prefixes longer than q (mtp-style chunked prefill), unaligned
     starts and padded rows; mask tiles of 64 x 64, 128 x 64 and 128 x 128; q
-    head 1 keeps no tile in request 0's first q tile, so its rows must come
-    back exactly 0. Within close_scaled."""
+    head 1 keeps no tile in request 0's first q tile, nor does any q head of
+    kv head 2 (a block whose walk is empty), so their rows must come back
+    exactly 0. Within close_scaled."""
     import torch
 
     from hpc_ops_tpu_torch.ops.attention.paging import nhd_fused_views, pack_kv_fused_nhd
@@ -1415,6 +1423,7 @@ def check_prefill_sparse(dev, gen):
     }
     tiles = [(64, 64), (128, 64), (128, 128)]
     errs, dead_rows = {}, q_lens[0]
+    dead_group = slice(2 * (HQ // HKV), 3 * (HQ // HKV))  # the q heads of kv head 2
     for i, (kind, layout) in enumerate([(k, l) for k in caches for l in ("HND", "NHD", "NHD_FUSED")]
                                        + [("pertoken", "HND"), ("pertoken", "NHD_FUSED")]):
         k, v, ks, vs = caches["e4m3" if kind == "pertoken" else kind]
@@ -1424,6 +1433,7 @@ def check_prefill_sparse(dev, gen):
         mtq, mtkv = tiles[i % len(tiles)]
         mask = random_tile_mask(gen, q_lens, kv_lens, mtq, mtkv, 0.4)
         mask[0, 1, 0] = 0  # q head 1 keeps nothing in request 0's first q tile
+        mask[0, dead_group, 0] = 0  # nor does kv head 2's whole group: an empty walk
         mask = mask.to(dev)
         kc, vc, lay = k, v, "HND"
         if layout == "NHD":
@@ -1436,7 +1446,8 @@ def check_prefill_sparse(dev, gen):
         want = _prefill_sparse_ref(*args)
         name = f"{kind} {layout} {mtq}x{mtkv}"
         errs[name] = close_scaled(got, want, f"check_prefill_sparse {name}")
-        if got[:dead_rows, 1].float().abs().max() != 0:
+        dead = torch.cat([got[:dead_rows, 1:2], got[:dead_rows, dead_group]], dim=1)
+        if dead.float().abs().max() != 0:
             raise AssertionError(f"check_prefill_sparse {name}: a row with no kept key is not 0")
     emit("check_prefill_sparse", max_abs_err=errs)
 
@@ -1598,6 +1609,7 @@ def prefill_sparse(dev):
         pairs_d, pos_d = kept_work(ones, lens, 128, SPARSE_BS)
         tbl_bytes = x["tbl"].numel() * 4
         line["dense_bound_ms"] = bound(*sparse_bound(total, pairs_d, pos_d, 0, tbl_bytes))[0]
+        line["dense_tflops"] = tflops(4 * pairs_d * D, line["dense_fp8_ms"])
         del got, ones
 
         mask = random_tile_mask(gen, lens, lens, 128, SPARSE_BS, SPARSE_KEEP, per_kv_head=True)
@@ -1621,7 +1633,8 @@ def prefill_sparse(dev):
         line.update(keep_frac=float(mask.float().mean()), speedup_vs_dense_fp8=line["dense_fp8_ms"] / line["sparse_ms"],
                     kept_pair_frac=pairs / pairs_d, sparse_kv_bytes=2 * positions * D,
                     sparse_bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                    sparse_bound_ops_ms=flops / BF16_FLOPS_PER_S * 1e3)
+                    sparse_bound_ops_ms=flops / BF16_FLOPS_PER_S * 1e3,
+                    sparse_tflops=tflops(flops, line["sparse_ms"]))
 
         def stem():
             return stem_paged_kv(x["q8"], x["k8"], x["v8"], x["qscale"], one, one, x["tbl"], x["cu"],
@@ -1710,7 +1723,7 @@ def sparse_rows(dev, x, mask, line, launches):
         out.append(kernel_row(SPARSE_FORMS[form], "hpc_ops_tpu_torch/csrc/prefill.cu",
                               "hpc_ops_tpu/ops/attention/prefill.py:543", err, ms, plain,
                               line["sdpa_mask_ms"], nbytes + scale_bytes, flops, case=line["case"],
-                              keep_frac=line["keep_frac"]))
+                              keep_frac=line["keep_frac"], tflops=tflops(flops, ms)))
         del got, want
     return out
 

@@ -42,9 +42,9 @@ _SIGNATURES = {
     "hpc_paged_decode_tasks": ([_P] * 3 + [_I] + [_I64] * 6 + [_P] * 5 + [_I] * 2 + [_P] * 5
                                + [_I] * 7 + [_F, _P]),
     "hpc_decode_combine": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 5 + [_P],
-    "hpc_paged_prefill": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 7 + [_I] * 9 + [_F, _P],
-    "hpc_paged_prefill_nhd_fused": [_P, _P, _I] + [_P] * 6 + [_I] * 7 + [_F, _P],
-    "hpc_paged_prefill_sparse": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 8 + [_I] * 13 + [_F, _P],
+    "hpc_paged_prefill": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 7 + [_I] * 10 + [_F, _P],
+    "hpc_paged_prefill_nhd_fused": [_P, _P, _I] + [_P] * 6 + [_I] * 8 + [_F, _P],
+    "hpc_paged_prefill_sparse": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 8 + [_I] * 14 + [_F, _P],
     "hpc_gg_scatter_e4m3": [_P] * 7 + [_I] * 4 + [_P],
     "hpc_gg_scatter_i8": [_P] * 7 + [_I] * 4 + [_P],
     "hpc_gg_scatter_i8_act": [_P] * 8 + [_I] * 6 + [_P],

@@ -5,8 +5,8 @@ q is read from, and the output written to, packed ``[total_q, Hq*D]`` rows
 through ``cu_seqlens_q``; query i of request b sits at position
 ``seqlens_kvcache[b] - q_len[b] + i``, so a prefix already in the cache
 (chunked prefill) is attended. Rows past ``cu_seqlens_q[-1]`` belong to no
-request and come back as zeros. The kernel is ``csrc/prefill.cu``; it needs
-no alignment of ``cu_seqlens_q``.
+request and come back as zeros (the kernel writes them). The kernel is
+``csrc/prefill.cu``; it needs no alignment of ``cu_seqlens_q``.
 
 Caches are bf16, int8 codes or e4m3 (``torch.float8_e4m3fn``) in HND, NHD or
 the NHD_FUSED slab ``[num_blocks, 2*block_size, Hkv*D]`` (``vcache``
@@ -16,9 +16,12 @@ head); a per-token-per-head ``qscale`` ``[B, Hq, pad]`` is gathered onto the
 packed rows and folded into q, rounded to bf16, before the kernel. With
 QuantTypes 0 and 3 and G K scales per (token, kv head), paged
 ``[num_blocks, block_size, Hkv, G]``, the kernel multiplies each logit
-column by its token's scale (G = 1) or each K element by its token's scale
-for its group of D/G columns (G > 1; the JAX package sends those to its
-reference). Also ``sm_scale`` and ``impl="ref"``.
+column by its token's scale (G = 1) or sums each group's float32 partial
+product over its D/G columns times its token's scale for that group (G > 1;
+the JAX package sends those to its reference). Also ``sm_scale`` and
+``impl="ref"``. The kernel multiplies on the tensor cores in 16 bits
+(bf16 q and K; P and V in bf16 for bf16 caches, fp16 for int8 and e4m3
+codes, which convert exactly) with float32 sums.
 
 A ``block_mask`` ``[B, Hq, n_tm, n_tkv]`` (uint8 or bool, one row of tiles
 per q head) selects the block-sparse path, :func:`paged_prefill_sparse`:
@@ -140,11 +143,11 @@ def paged_prefill_attention(
         _split_cache_launch_args("paged_prefill_attention", q, kcache, vcache, cu_seqlens_q, block_ids,
                                  kv_lens, cache_layout, kscale, vscale, ktok))
     total_q, hq, d = q.shape
-    out = torch.zeros((total_q, hq, d), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((total_q, hq, d), dtype=torch.bfloat16, device=q.device)  # every row written
     rc = kernels.lib().hpc_paged_prefill(
         q.data_ptr(), kcache.data_ptr(), vcache.data_ptr(), kv_type, *k_st, *v_st,
         *(_ptr(t) for t in scales), cu.data_ptr(), lens.data_ptr(), tbl.data_ptr(), out.data_ptr(),
-        lens.shape[0], tbl.shape[1], page_size, hq, hkv, d, int(max_seqlens_q), int(per_head),
+        total_q, lens.shape[0], tbl.shape[1], page_size, hq, hkv, d, int(max_seqlens_q), int(per_head),
         groups, float(scale), kernels.stream_ptr(q),
     )
     kernels.check(rc, "hpc_paged_prefill")
@@ -205,10 +208,10 @@ def paged_prefill_nhd_fused(
     cu = cu_seqlens_q.to(torch.int32).contiguous()
     lens = kv_lens.to(torch.int32).contiguous()
     tbl = block_ids.to(torch.int32).contiguous()
-    out = torch.zeros((total_q, hq, d), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((total_q, hq, d), dtype=torch.bfloat16, device=q.device)  # every row written
     rc = kernels.lib().hpc_paged_prefill_nhd_fused(
         q.data_ptr(), kv.data_ptr(), kv_type, _ptr(ks), _ptr(vs),
-        cu.data_ptr(), lens.data_ptr(), tbl.data_ptr(), out.data_ptr(),
+        cu.data_ptr(), lens.data_ptr(), tbl.data_ptr(), out.data_ptr(), total_q,
         lens.shape[0], tbl.shape[1], kv.shape[1] // 2, hq, hkv, d, int(max_seqlens_q),
         float(scale), kernels.stream_ptr(q),
     )
@@ -333,11 +336,11 @@ def paged_prefill_sparse(
     kv_type, k_st, v_st, scales, (cu, lens, tbl), page_size, hkv, per_head, groups = (
         _split_cache_launch_args(name, q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens,
                                  cache_layout, kscale, vscale, ktok, mask))
-    out = torch.zeros((total_q, hq, d), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((total_q, hq, d), dtype=torch.bfloat16, device=q.device)  # every row written
     rc = kernels.lib().hpc_paged_prefill_sparse(
         q.data_ptr(), kcache.data_ptr(), vcache.data_ptr(), kv_type, *k_st, *v_st,
         *(_ptr(t) for t in scales), cu.data_ptr(), lens.data_ptr(), tbl.data_ptr(), mask.data_ptr(),
-        out.data_ptr(),
+        out.data_ptr(), total_q,
         lens.shape[0], tbl.shape[1], page_size, hq, hkv, d, int(max_seqlens_q), int(per_head),
         groups, mask.shape[2], mask.shape[3], int(mask_tile_q), int(mask_tile_kv), float(scale),
         kernels.stream_ptr(q),

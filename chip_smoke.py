@@ -13,7 +13,16 @@ Phases, each printing one JSON line:
      PyTorch library call for the same function where one exists, and its
      bound. At the llama3_8b serving shapes (Hq 32, Hkv 8, D 128, pages of
      16): the bf16 RoPE store, paged decode and paged prefill, and the int8
-     quantising RoPE store, NHD_FUSED decode and NHD_FUSED prefill. At
+     quantising RoPE store, NHD_FUSED decode and NHD_FUSED prefill (the
+     decode kernels, shorter than their wrappers' host time since PR 11,
+     are timed by device time: torch.profiler's sum of their kernels a
+     call, as are their SDPA yardsticks, or, where the profiler records no
+     kernel, CUDA events around calls queued behind a spin kernel; their
+     wrappers' CUDA-event time beside). check_f5: the head shapes of fault F5 (prefill at head_dim
+     96 and 256 and at Hq 128 over Hkv 1, dense, sparse and NHD_FUSED;
+     decode at G 32 with 4 draft tokens and at G 128, split and not)
+     against the plain versions, the dense bf16 prefill and the bf16
+     decode timed. At
      Mixtral-8x7B width (hidden 4096, expert intermediate 14336, 8 experts,
      top-2), for a decode batch of 8 tokens and prefills of 200, 512 and
      2048 (m-tiles of 32, 64, 160 and 512 slots: every instance of the
@@ -177,6 +186,68 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: the time of the kernels it
+    launches (torch.profiler, CUPTI), over ``iters`` calls. Unlike
+    :func:`time_ms` it leaves out the host's time between launches, which
+    exceeds a short kernel's (the decode kernels since PR 11). A session
+    now and then records only some of the kernels, so each kernel counts
+    its mean duration times its launches a call (its count over the calls,
+    rounded, at least 1). A session may also record no kernel at all; after
+    two such sessions the time comes from :func:`queued_ms` instead, and a
+    ``device_ms_fallback`` line says so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == cuda and e.count
+                  and "Memcpy" not in e.key and "Memset" not in e.key]
+        if events:
+            return sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
+                       for e in events) / 1e3
+    ms = queued_ms(fn, iters)
+    emit("device_ms_fallback", reason="two profiling sessions recorded no kernel", queued_ms=ms)
+    return ms
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn`` from CUDA events, with the calls
+    queued behind a spin kernel (``torch.cuda._sleep``) that outlasts the
+    host's time to launch them, so the card runs them back to back. It
+    counts the gaps between kernels (about a microsecond each), which
+    torch.profiler leaves out. If the spin ended before the host had
+    queued every call, it runs again with a longer spin; the last try's
+    time is an upper bound either way."""
+    import torch
+
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for spin in (2, 8, 32):
+        torch.cuda._sleep(int(spin * host_s * 2e9) + 1_000_000)  # cycles; the clock is at most 1.98 GHz
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        caught_up = start.query()
+        torch.cuda.synchronize()
+        if not caught_up:
+            break
+    return start.elapsed_time(end) / iters
+
+
 def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
     """Least time in ms for this work: ``flops_per_s`` is the card's peak for
     the type of the function's operands, whatever type a kernel multiplies in."""
@@ -267,7 +338,11 @@ def check_decode(dev, gen):
     import torch
     import torch.nn.functional as F
 
-    from hpc_ops_tpu_torch.ops.attention.decode import _decode_ref, paged_decode_attention
+    from hpc_ops_tpu_torch.ops.attention.decode import (
+        _decode_ref,
+        decode_splits,
+        paged_decode_attention,
+    )
 
     b = 8
     lens = torch.randint(1, 4097, (b,), generator=gen)
@@ -283,14 +358,21 @@ def check_decode(dev, gen):
         shape = (HKV, NUM_BLOCKS + 8, BS, D) if layout == "HND" else (NUM_BLOCKS + 8, BS, HKV, D)
         k = torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
         v = torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
-        got = paged_decode_attention(q, k, v, tbl, kv_lens, 1, scale, layout)
         want = _decode_ref(q, k, v, tbl, kv_lens, 1, scale, layout)
-        torch.cuda.synchronize()
-        if not torch.allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2):
-            raise AssertionError(f"decode {layout}: kernel disagrees with the plain version")
-        err = max(err, float((got.float() - want.float()).abs().max()))
-    # the main path's layout (HND) is timed
-    ms = time_ms(lambda: paged_decode_attention(q, k, v, tbl, kv_lens, 1, scale, "HND"), 50)
+        for splitk in (True, False):
+            got = paged_decode_attention(q, k, v, tbl, kv_lens, 1, scale, layout, splitk=splitk)
+            torch.cuda.synchronize()
+            if not torch.allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2):
+                raise AssertionError(f"decode {layout} splitk={splitk}: kernel disagrees with the "
+                                     "plain version")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+    # the main path's layout (HND) is timed, split (the default) and not:
+    # device time (the kernel is shorter than the wrapper's host time), and
+    # the wrapper's time by CUDA events around eager calls
+    ms = device_ms(lambda: paged_decode_attention(q, k, v, tbl, kv_lens, 1, scale, "HND"), 50)
+    wrapper = time_ms(lambda: paged_decode_attention(q, k, v, tbl, kv_lens, 1, scale, "HND"), 50)
+    ms_no_split = device_ms(
+        lambda: paged_decode_attention(q, k, v, tbl, kv_lens, 1, scale, "HND", splitk=False), 50)
     plain = time_ms(lambda: _decode_ref(q, k, v, tbl, kv_lens, 1, scale, "HND"), 5)
     # library yardstick: SDPA over K/V gathered contiguous (gather not timed)
     L = max(lens_l)
@@ -301,13 +383,14 @@ def check_decode(dev, gen):
     vg = vg.repeat_interleave(HQ // HKV, dim=1).contiguous()
     mask = (torch.arange(L, device=dev)[None, :] < kv_lens[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
-    lib = time_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask), 20)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask), 20)
     sum_kv = sum(lens_l)
     nbytes = 2 * b * HQ * D * 2 + 2 * sum_kv * HKV * D * 2 + tbl.numel() * 4 + b * 4
     flops = 4 * sum_kv * HQ * D
     bd, by = bound(nbytes, flops)
     emit("kernel", name="paged_decode", max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-         bound_ms=bd, bound_by=by, kv_lens=lens_l)
+         bound_ms=bd, bound_by=by, kv_lens=lens_l, ms_splitk_false=ms_no_split, wrapper_ms=wrapper,
+         splits=decode_splits(b, max_blocks * BS))
     return dict(name="paged_decode", source="hpc_ops_tpu_torch/csrc/decode.cu",
                 replaces="hpc_ops_tpu/ops/attention/decode.py:74", max_abs_err=err, ms=ms,
                 plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib)
@@ -477,15 +560,19 @@ def check_decode_nhd_fused(dev, gen):
         err = max(err, float((got.float() - want.float()).abs().max()))
     q = torch.randn((b, HQ, D), generator=gen).to(torch.bfloat16).to(dev)
     slab = slabs["int8"]
-    ms = time_ms(lambda: paged_decode_nhd_fused(q, slab, tbl, kv_lens, 1, scale, sc, sc), 50)
-    ms_bf16 = time_ms(lambda: paged_decode_nhd_fused(q, slabs["bf16"], tbl, kv_lens, 1, scale), 50)
+    ms = device_ms(lambda: paged_decode_nhd_fused(q, slab, tbl, kv_lens, 1, scale, sc, sc), 50)
+    wrapper = time_ms(lambda: paged_decode_nhd_fused(q, slab, tbl, kv_lens, 1, scale, sc, sc), 50)
+    ms_bf16 = device_ms(lambda: paged_decode_nhd_fused(q, slabs["bf16"], tbl, kv_lens, 1, scale), 50)
     plain = time_ms(lambda: _decode_nhd_fused_ref(q, slab, tbl, kv_lens, 1, scale, sc, sc), 5)
     # library yardstick: SDPA over dequantised K/V gathered contiguous (gather not timed)
     L = max(lens_l)
     kg, vg = gathered_dequant(slab, tbl, L, 0.05)
     mask = (torch.arange(L, device=dev)[None, :] < kv_lens[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
-    lib = time_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask), 20)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask), 20)
+    kg, vg = gathered_dequant(slabs["bf16"], tbl, L, 1.0)  # the bf16 slab's yardstick
+    lib16 = device_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask), 20)
+    del kg, vg
     sum_kv = sum(lens_l)
     nbytes = 2 * b * HQ * D * 2 + 2 * sum_kv * HKV * D + tbl.numel() * 4 + b * 4 + 8
     flops = 4 * sum_kv * HQ * D
@@ -493,7 +580,7 @@ def check_decode_nhd_fused(dev, gen):
     bd16, _ = bound(nbytes + 2 * sum_kv * HKV * D, flops)
     emit("kernel", name="paged_decode_nhd_fused", max_abs_err=err, ms=ms, plain_ms=plain,
          library_ms=lib, bound_ms=bd, bound_by=by, ms_bf16_slab=ms_bf16, bound_ms_bf16_slab=bd16,
-         kv_lens=lens_l)
+         library_ms_bf16_slab=lib16, wrapper_ms=wrapper, kv_lens=lens_l)
     return dict(name="paged_decode_nhd_fused", source="hpc_ops_tpu_torch/csrc/decode.cu",
                 replaces="hpc_ops_tpu/ops/attention/decode.py:449", max_abs_err=err, ms=ms,
                 plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib)
@@ -531,10 +618,12 @@ def check_prefill_nhd_fused(dev, gen):
     ms = time_ms(lambda: paged_prefill_nhd_fused(q, slab, cu, tbl, kv, 2048, scale, sc, sc), 10)
     slab16 = torch.randn((nb, 2 * BS, HKV * D), generator=gen).to(torch.bfloat16).to(dev)
     ms_bf16 = time_ms(lambda: paged_prefill_nhd_fused(q, slab16, cu, tbl, kv, 2048, scale), 10)
-    del slab16
+    q4 = q.permute(1, 0, 2)[None].contiguous()
+    kg, vg = gathered_dequant(slab16, tbl[:1], 2048, 1.0)  # the bf16 slab's yardstick
+    lib16 = time_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, is_causal=True), 10)
+    del slab16, kg, vg
     plain = time_ms(lambda: _prefill_nhd_fused_ref(q, slab, cu, tbl, kv, 2048, scale, sc, sc), 3)
     kg, vg = gathered_dequant(slab, tbl[:1], 2048, 0.05)
-    q4 = q.permute(1, 0, 2)[None].contiguous()
     lib = time_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, is_causal=True), 10)
     pairs = 2048 * 2049 // 2  # causal (q, k) pairs of this input
     nbytes = 2 * 2048 * HQ * D * 2 + 2 * 2048 * HKV * D + tbl.numel() * 4 + 8
@@ -543,10 +632,123 @@ def check_prefill_nhd_fused(dev, gen):
     bd16, _ = bound(nbytes + 2 * 2048 * HKV * D, flops)
     emit("kernel", name="paged_prefill_nhd_fused", max_abs_err=err, ms=ms, plain_ms=plain,
          library_ms=lib, bound_ms=bd, bound_by=by, ms_bf16_slab=ms_bf16, bound_ms_bf16_slab=bd16,
-         tflops=tflops(flops, ms), tflops_bf16_slab=tflops(flops, ms_bf16))
+         library_ms_bf16_slab=lib16, tflops=tflops(flops, ms), tflops_bf16_slab=tflops(flops, ms_bf16))
     return dict(name="paged_prefill_nhd_fused", source="hpc_ops_tpu_torch/csrc/prefill.cu",
                 replaces="hpc_ops_tpu/ops/attention/prefill.py:1070", max_abs_err=err, ms=ms,
                 plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib)
+
+
+# ------------------------------------------------------- fault F5's head shapes
+F5_PREFILL = {"d96": (96, 32, 8), "d256": (256, 8, 2), "g128": (128, 128, 1)}  # D, Hq, Hkv
+F5_DECODE = {"g32_mtp4": (32, 5), "g128": (128, 1)}  # Hq over one kv head (D 128), sq
+F5_CHECK_Q, F5_CHECK_KV = [300, 77], [600, 77]  # the prefill checks' requests
+F5_TIMED_ROWS = 2048  # the timed dense prefill: one request of this many rows
+
+
+def f5_caches(dev, gen, kind, nb, hkv, d):
+    """HND K and V of ``kind`` on the card and their per-tensor scales."""
+    import torch
+
+    shape = (hkv, nb, BS, d)
+    if kind == "int8":
+        k, v = (torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev) for _ in "kv")
+        sc = torch.tensor([0.05], device=dev)
+        return k, v, sc, sc
+    k, v = (torch.randn(shape, generator=gen).to(dev) for _ in "kv")
+    if kind == "e4m3":
+        ks, vs = torch.tensor([KSCALE], device=dev), torch.tensor([VSCALE], device=dev)
+        return (k * 0.05).to(torch.float8_e4m3fn), (v * 0.05).to(torch.float8_e4m3fn), ks, vs
+    return k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+
+
+def check_f5(dev, gen):
+    """Fault F5's head shapes, which the card refused before PR 11, through
+    the kernels against their plain versions at chip_smoke's 1e-2: prefill
+    dense (bf16, int8, e4m3), sparse (e4m3, 128 x 64 mask tiles) and over
+    the NHD_FUSED slab (int8) at head_dim 96 and 256 and at Hq 128 over Hkv
+    1; decode over bf16, int8 and e4m3 HND caches at G 32 with 4 draft
+    tokens and at G 128 (D 128), split and not. One line each; the dense
+    bf16 prefill is timed at 2048 rows and the bf16 decode at B 8, kv_len
+    1-4096, beside their bounds (not kernel-table rows: the rows are D 128's)."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops.attention.decode import _decode_ref, paged_decode_attention
+    from hpc_ops_tpu_torch.ops.attention.paging import pack_kv_fused_nhd
+    from hpc_ops_tpu_torch.ops.attention.prefill import (
+        _prefill_nhd_fused_ref,
+        _prefill_ref,
+        _prefill_sparse_ref,
+        paged_prefill_attention,
+        paged_prefill_nhd_fused,
+        paged_prefill_sparse,
+    )
+
+    nb = 2 * (F5_TIMED_ROWS // BS) + 64
+    for name, (d, hq, hkv) in F5_PREFILL.items():
+        scale, err = d**-0.5, {}
+        ql, kl = F5_CHECK_Q, F5_CHECK_KV
+        cu = torch.tensor([0] + list(torch.tensor(ql).cumsum(0)), dtype=torch.int32, device=dev)
+        tbl = random_table(gen, kl, max(kl) // BS + 2, nb, dev)
+        kv = torch.tensor(kl, dtype=torch.int32, device=dev)
+        q = torch.randn((sum(ql), hq, d), generator=gen).to(torch.bfloat16).to(dev)
+        for kind in ("bf16", "int8", "e4m3"):
+            k, v, ks, vs = f5_caches(dev, gen, kind, nb, hkv, d)
+            args = (q, k, v, cu, tbl, kv, max(ql), scale, "HND")
+            err[f"dense_{kind}"] = close(paged_prefill_attention(*args, ks, vs), _prefill_ref(*args, ks, vs),
+                                         f"f5 prefill {name} {kind}")
+            if kind == "e4m3":
+                n_tm, n_tkv = -(-max(ql) // 128), -(-max(kl) // 64)
+                mask = (torch.rand((len(ql), hq, n_tm, n_tkv), generator=gen) < 0.5).to(torch.uint8)
+                for b_, (a, c) in enumerate(zip(ql, kl)):
+                    for t in range(n_tm):
+                        mask[b_, :, t, min((c - a + t * 128) // 64, n_tkv - 1)] = 1
+                mask = mask.to(dev)
+                err["sparse_e4m3"] = close(paged_prefill_sparse(*args, mask, 128, 64, ks, vs),
+                                           _prefill_sparse_ref(*args, mask, 128, 64, ks, vs),
+                                           f"f5 sparse {name}")
+            if kind == "int8":
+                slab = pack_kv_fused_nhd(k, v)
+                sargs = (q, slab, cu, tbl, kv, max(ql), scale, ks, vs)
+                err["nhd_fused_int8"] = close(paged_prefill_nhd_fused(*sargs), _prefill_nhd_fused_ref(*sargs),
+                                              f"f5 nhd_fused {name}")
+                del slab
+            del k, v
+        # timed: one bf16 request of F5_TIMED_ROWS rows
+        n = F5_TIMED_ROWS
+        k, v, _, _ = f5_caches(dev, gen, "bf16", nb, hkv, d)
+        cu = torch.tensor([0, n], dtype=torch.int32, device=dev)
+        tbl = random_table(gen, [n], n // BS + 2, nb, dev)
+        kv = torch.tensor([n], dtype=torch.int32, device=dev)
+        q = torch.randn((n, hq, d), generator=gen).to(torch.bfloat16).to(dev)
+        ms = time_ms(lambda: paged_prefill_attention(q, k, v, cu, tbl, kv, n, scale, "HND"), 10)
+        flops = 4 * (n * (n + 1) // 2) * hq * d
+        bd, by = bound(2 * n * hq * d * 2 + 2 * n * hkv * d * 2, flops)
+        emit("f5_prefill", shape=name, head_dim=d, hq=hq, hkv=hkv, max_abs_err=err, ms=ms,
+             bound_ms=bd, bound_by=by, tflops=tflops(flops, ms), rows=n)
+        del k, v, q
+    lens = [1, 2048, 4096, 2963, 1346, 3412, 2436, 1735]
+    max_blocks = 4096 // BS + 4
+    nbd = NUM_BLOCKS + 8
+    tbl = random_table(gen, lens, max_blocks, nbd, dev)
+    for name, (hq, sq) in F5_DECODE.items():
+        lens_sq = torch.tensor(lens, dtype=torch.int32, device=dev).clamp(min=sq)
+        q = torch.randn((len(lens) * sq, hq, D), generator=gen).to(torch.bfloat16).to(dev)
+        err = {}
+        for kind in ("bf16", "int8", "e4m3"):
+            k, v, ks, vs = f5_caches(dev, gen, kind, nbd, 1, D)
+            args = (q, k, v, tbl, lens_sq, sq, D**-0.5, "HND", ks, vs)
+            want = _decode_ref(*args)
+            for splitk in (True, False):
+                err[f"{kind}_split" if splitk else kind] = close(
+                    paged_decode_attention(*args, splitk=splitk), want, f"f5 decode {name} {kind}")
+            if kind == "bf16":
+                ms = time_ms(lambda: paged_decode_attention(*args), 20)
+                sum_kv = int(lens_sq.sum())
+                bd, by = bound(2 * q.numel() * 2 + 2 * sum_kv * D * 2, 4 * sum_kv * hq * sq * D)
+            del k, v
+        emit("f5_decode", shape=name, hq=hq, hkv=1, sq=sq, max_abs_err=err, ms=ms, bound_ms=bd,
+             bound_by=by, kv_lens=lens)
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------- e4m3 attention kernels
@@ -704,15 +906,16 @@ def check_decode_fp8(dev, gen):
             err = max(err, close(kern(q, lens_sq, 3, "NHD"), plain_fn(q, lens_sq, 3, "NHD"),
                                  f"{name} NHD"))
         q = torch.randn((b, HQ, D), generator=gen).to(torch.bfloat16).to(dev)
-        ms = time_ms(lambda: kern(q, kv_lens, 1), 50)
+        ms = device_ms(lambda: kern(q, kv_lens, 1), 50)
+        wrapper = time_ms(lambda: kern(q, kv_lens, 1), 50)
         plain = time_ms(lambda: plain_fn(q, kv_lens, 1), 5)
         kg, vg = gathered_hnd(k, v, tbl, L, kscale, vscale)
         q4 = q[:, :, None, :]
-        lib = time_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask), 20)
+        lib = device_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask), 20)
         del kg, vg
         nbytes = 2 * b * HQ * D * 2 + 2 * sum_kv * HKV * D + tbl.numel() * 4 + b * 4 + scale_bytes
         rows.append(kernel_row(name, "hpc_ops_tpu_torch/csrc/decode.cu", replaces, err, ms, plain,
-                               lib, nbytes, 4 * sum_kv * HQ * D, kv_lens=lens_l))
+                               lib, nbytes, 4 * sum_kv * HQ * D, kv_lens=lens_l, wrapper_ms=wrapper))
     return rows
 
 
@@ -997,12 +1200,13 @@ def check_decode_fused(dev, gen):
         for name, ls in timed:
             lens = torch.tensor(ls, dtype=torch.int32, device=dev)
             args = (q, kh, vh, tbls[name], lens, 1, scale, "HND", ks, vs)
-            ms = time_ms(lambda: paged_decode_attention(*args), 50)
+            ms = device_ms(lambda: paged_decode_attention(*args), 50)
+            wrapper = time_ms(lambda: paged_decode_attention(*args), 50)
             plain = time_ms(lambda: _decode_ref(*args), 5)
             L = max(ls)
             kg, vg = gathered_fused(slab, tbls[name], L, ks, vs)
             mask = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-            lib = time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kg, vg, attn_mask=mask), 20)
+            lib = device_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kg, vg, attn_mask=mask), 20)
             del kg, vg
             sum_kv = sum(ls)
             nbytes = (2 * b * HQ * D * 2 + 2 * sum_kv * HKV * D * elem + tbls[name].numel() * 4 + b * 4
@@ -1012,7 +1216,8 @@ def check_decode_fused(dev, gen):
             replaces = ("hpc_ops_tpu/ops/attention/decode.py:671" if name == "short"
                         else "hpc_ops_tpu/ops/attention/decode.py:245")
             rows.append(kernel_row(row_name, "hpc_ops_tpu_torch/csrc/decode.cu", replaces, errs[kind],
-                                   ms, plain, lib, nbytes, 4 * sum_kv * HQ * D, kv_lens=ls))
+                                   ms, plain, lib, nbytes, 4 * sum_kv * HQ * D, kv_lens=ls,
+                                   wrapper_ms=wrapper))
     return rows, launches
 
 
@@ -1173,7 +1378,7 @@ def sdpa_ms(q, k, v, tbl, kv_lens, kw):
         out.append((x.float() * s if s is not None else x).to(torch.bfloat16).contiguous())
     mask = (torch.arange(L, device=q.device)[None, :] < kv_lens[:, None])[:, None, None, :]
     q4 = q.view(b, HKV, HQ // HKV, D)
-    return time_ms(lambda: F.scaled_dot_product_attention(q4, out[0], out[1], attn_mask=mask), 5, 1)
+    return device_ms(lambda: F.scaled_dot_product_attention(q4, out[0], out[1], attn_mask=mask), 5, 1)
 
 
 def tasks_ref_chunked(q, k, v, tbl, lens, tm, kscale, chunk=128):
@@ -1256,6 +1461,7 @@ def decode_sched(dev):
                   {"paged_decode": fused_row if kind == "int8" else "paged_decode"})
             line["grid_max_abs_err"] = close_scaled(grid, want, f"decode_sched {case} {kind} grid vs {against}")
             line["grid_ms"] = time_ms(lambda: attention_decode(q, k, v, tbl, lens, **kw), 5, 1)
+            line["grid_device_ms"] = device_ms(lambda: attention_decode(q, k, v, tbl, lens, **kw), 5, 1)
             if kind != "int8":  # the benchmark runs no task map over the fused slab
                 for impl in ("native", "torch"):
                     other = assign_attention_decode_task(
@@ -1273,7 +1479,9 @@ def decode_sched(dev):
                 line.update(num_tasks=int(tm.num_tasks), capacity=tm.capacity, partials_max_abs_err=perr,
                             max_abs_err=close_scaled(got, want, f"decode_sched {case} {kind} vs {against}"),
                             taskmap_ms=time_ms(lambda: attention_decode(q, k, v, tbl, lens, task_map=tm,
-                                                                        **kw), 5, 1))
+                                                                        **kw), 5, 1),
+                            taskmap_device_ms=device_ms(
+                                lambda: attention_decode(q, k, v, tbl, lens, task_map=tm, **kw), 5, 1))
                 line["faster"] = "taskmap" if line["taskmap_ms"] < line["grid_ms"] else "grid"
                 line["picked_faster"] = mode == line["faster"]
                 if case == ROW_SCENARIO:
@@ -1299,7 +1507,7 @@ def task_rows(q, kh, vh, tbl, lens, tm, kw, kind, sum_kv, elem, line, err, parts
     )
 
     args = (q, kh, vh, tbl, lens, tm, 1, D**-0.5, kw.get("kscale"))
-    ms = time_ms(lambda: tasks_fn(*args), 10, 2)
+    ms = device_ms(lambda: tasks_fn(*args), 10, 2)
     plain = time_ms(lambda: tasks_ref(*args), 2, 1)
     b = lens.shape[0]
     rows_per = HQ // HKV
@@ -1317,7 +1525,7 @@ def task_rows(q, kh, vh, tbl, lens, tm, kw, kind, sum_kv, elem, line, err, parts
         vs = kw.get("vscale")
         cerr = close_scaled(combine_fn(o, m, l, tm, 1, HQ, vs), combine_ref(o, m, l, tm, 1, HQ, vs),
                             "decode_sched combine")
-        cms = time_ms(lambda: combine_fn(o, m, l, tm, 1, HQ, vs), 20, 2)
+        cms = device_ms(lambda: combine_fn(o, m, l, tm, 1, HQ, vs), 20, 2)
         cplain = time_ms(lambda: combine_ref(o, m, l, tm, 1, HQ, vs), 5, 1)
         cbytes = part_bytes + 2 * 4 * tm.capacity + b * HQ * D * 2
         out.append(kernel_row("decode_combine", "hpc_ops_tpu_torch/csrc/decode.cu",
@@ -3575,6 +3783,7 @@ def main() -> int:
             phase("check_rope_int8", check_rope_int8, dev, gen),
             phase("check_decode_nhd_fused", check_decode_nhd_fused, dev, gen),
             phase("check_prefill_nhd_fused", check_prefill_nhd_fused, dev, gen)]
+    phase("check_f5", check_f5, dev, gen)
     moe_inp = phase("moe_check_inputs", moe_check_inputs, dev, gen)
     rows += [phase("check_gg_scatter", check_gg_scatter, dev, moe_inp),
              phase("check_act_quant", check_act_quant, dev, moe_inp),

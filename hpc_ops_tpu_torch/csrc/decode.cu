@@ -1,7 +1,9 @@
 // Paged GQA decode attention with MTP draft rows, over a KV cache of bf16,
-// int8 codes or e4m3 (per-tensor scales, or one K scale per token and kv
-// head), split K and V caches, the head-major FUSED K|V slab or the
-// NHD_FUSED K|V slab; and its task-map (split-KV) form with the combine.
+// int8 codes or e4m3 (per-tensor scales, or K scales per token and kv head
+// in 1..8 groups along D), split K and V caches, the head-major FUSED K|V
+// slab or the NHD_FUSED K|V slab; and its task-map form with the combine.
+// Both products run on the tensor cores (mma.sync m16n8k16, bf16 operands,
+// float32 sums).
 //
 // Replaces: hpc_ops_tpu/ops/attention/decode.py:_decode_kernel (reached
 // through _decode_pallas; launcher hpc_paged_decode),
@@ -24,63 +26,103 @@
 // e4m3) for only G * sq query rows, so the work is about G * sq FLOPs per
 // byte, far below the ~295 FLOPs per byte at which the H100's tensor cores,
 // not its memory, would be the limit. One-byte elements halve the bytes; the
-// per-token K scales add 4 * kgroups bytes a token.
+// per-token K scales add 4 * kgroups bytes a token. So the design is about
+// keeping enough bytes in flight on every SM (about 25 KB at 3.35 TB/s and
+// 1 us of latency) and spending few instructions on each byte.
 //
-// Design: one block per (request, kv head), or in the task form one block
-// per task of a task map (a contiguous KV range [tile_start * tile,
-// (tile_start + num_tiles) * tile) of one request and kv head). The block
-// stages its G * sq query rows in shared memory (float32, pre-scaled by
-// sm_scale * kscale) and walks its KV positions in tiles of kTile = 128
-// tokens through the page table:
-//   1. one thread per token of the tile reads the token's K row with 16-byte
-//      vector loads (8 bf16, or 16 int8 or e4m3 codes per load, converted to
-//      float in registers; all 128 rows of the tile in flight at once) and
-//      forms the scores of all rows against it; with per-token K scales
-//      (kTokenScale) the token's kgroups scales, each over D / kgroups
-//      consecutive columns, are read through the page table like the row and
-//      each multiplies its group's float32 partial dot, score = sum_g
-//      kscale[g] * dot(q[g], k[g]) (kgroups = 1: one scale per token and kv
-//      head, the score times the scale); the block copies the tile's V rows
-//      (as stored) into shared memory at the same time;
-//   2. one warp per query row updates the online softmax (running max m,
-//      running sum l) and turns the scores into probabilities;
-//   3. every thread owns output columns and adds p * v for all rows.
-// The output is acc / l * vscale (one scale, or with kTokenScale one per kv
-// head). The task form writes the unnormalised float32 acc and the row's m
-// and l instead (a row that saw no key keeps m = -inf, l = 0, acc = 0; a
-// sentinel task of batch < 0 writes exactly that), and the combine kernel
-// merges a segment's partials: one block per (request, kv head) finds the
-// segment's tasks in task order, weights each partial by exp(m - max m)
-// (0 where m = -inf) and writes sum(w * acc) / sum(w * l) * vscale, rounded
-// once to bf16. Positions at or past kv_len are never
-// read: their scores are -inf before the exponential and their V rows are
-// zeros in shared memory, and a probability of 0 never multiplies a V value,
-// so a page that holds NaN past kv_len cannot leak. Page ids below 0 are
-// read as page 0. Row r of the block is (g = r / sq, s = r % sq) and sees
-// keys up to kv_len - sq + s. Page, slot and head strides are arguments, so
-// the same kernel reads the head-major HND cache, the NHD cache, the FUSED
-// slab ([Hkv, nb, 2*bs, D]: V at K's address + bs*D) and the NHD_FUSED
-// slab ([nb, 2*bs, Hkv*D]: K of head h, page p, slot s at
-// p*2*bs*Hkv*D + s*Hkv*D + h*D, V at the same address + bs*Hkv*D) in place;
-// K/V rows must be 16-byte aligned.
+// Design: a block of eight warps (256 threads) takes 16 query rows (one m16
+// tile: rows r = g * sq + s of the kv head's G * sq, padded with zero rows)
+// and a contiguous range of KV positions of one (request, kv head):
+//   * split-KV in the grid form: each (request, kv head) is cut into `splits`
+//     chunks of whole 64-position tiles, one block each (grid B * Hkv x
+//     splits x row blocks). The wrapper takes `splits` from what the host
+//     knows (the batch and the table's width x page size: 16 at batch <= 32,
+//     else 4, the reference's static rule, never more than the table's
+//     tiles), never from kv_lens, and the chunks are `splits` equal runs of
+//     the table's tiles. (Runs of each request's own tiles, cut on the
+//     device from its kv_len, were slower on an H100: 0.0567 against 0.0524
+//     ms at check_decode's shape, 0.035 against 0.029 at a serving one, as
+//     every block pays a fixed cost and they make more blocks that stream
+//     something; scripts/time_decode.py.) Each block writes float32
+//     partials (o, m, l) to a workspace and takes an atomic ticket for its (request, kv head, row
+//     block); the last block merges the chunks' partials in chunk order
+//     (float4 loads, all issued before their sums), writes bf16 once and
+//     resets the ticket to 0 (a zeroed int32 buffer the wrapper keeps per
+//     CUDA stream). A chunk past its request's end writes the neutral
+//     partial (m = -inf, l = 0; its o is never read), skipping the warps'
+//     merge, and takes its ticket. With one split (splitk=False, or a
+//     one-tile table) a block writes bf16 directly. The task form (one block
+//     per task of a task map, float32 partials out, merged by
+//     decode_combine_kernel) runs the same body over the task's range;
+//   * copies: every thread issues cp.async of 16 bytes into a 3-stage ring
+//     of 64-position K and V tiles, two tiles ahead of the one computed
+//     (bf16 at D 128: 32 KB a stage, 64 KB in flight a block, two blocks an
+//     SM). A tile's pages are looked up once, one page id a lane, a tile
+//     ahead of its copies, and each row takes its page by a shuffle. Rows at
+//     or past the block's end are zero-filled by cp.async itself and never
+//     read (a page may hold NaN there); page ids below 0 read page 0;
+//   * each warp takes 8 positions of a tile (eight warps of 8, against four
+//     of 16, took the one-block-an-SM time of a tile from 2.5 to 1.6 us on
+//     an H100: a warp's chain of dependent mma, ldmatrix and shuffles bounds
+//     a tile, so more, shorter warps). int8 and e4m3 codes convert exactly
+//     to bf16 (int8 by float, e4m3 through cvt.rn.f16x2.e4m3x2) into the
+//     warp's own 16-bit rows; bf16 tiles are read from the ring in place
+//     (16-byte chunks XOR-swizzled by the row, so ldmatrix is conflict-free);
+//   * S = q K^T by mma.sync m16n8k16 (q and K fragments by ldmatrix; even
+//     and odd k-steps into two accumulators), the logit scale sm_scale *
+//     kscale * log2(e) applied to the float32 logits. Per-token K scales
+//     (kgroups groups of D / kgroups columns, a multiple of 16) take one
+//     product per group and sum the scaled float32 partials;
+//   * online softmax per warp over its positions in the exp2 domain, each
+//     row's max reduced over the 4 lanes that hold it; masked logits (past
+//     the range, past the row's causal limit kv_len - sq + s) are -inf;
+//   * O += P V by mma.sync m16n8k8 (the S accumulator is the A fragment of
+//     a k8 product) with V fragments by ldmatrix.trans, each tile's product
+//     in a fresh accumulator added to O in float32 (the running sum rounds
+//     as float32 does, not as the tensor core's accumulation). P is split
+//     into three bf16 terms, each the rounded remainder of those before,
+//     each multiplied (P to about 2^-24, as float32 keeps it: the task
+//     form's float32 partials, held to 1e-3 of the plain version's, need
+//     it; one bf16 P is 2^-8, two terms 2^-16, which left decode_sched's
+//     e4m3 partials just outside 1e-3 at 2048-position tasks). The sums l
+//     stay float32 of the unrounded p;
+//   * epilogue: the eight warps' (o, m, l) merge through shared memory (the
+//     ring's), then the block writes its output or partial. A row that sees
+//     no key writes 0.
+// Shapes: head_dim D and Dv are multiples of 16 bytes of the cache element
+// (D 72 in bf16 included), padded with zero columns to the instance's DP of
+// 64, 128 or 256; a GQA group of any size (G * sq rows become row blocks of
+// 16, which read the same KV range: L2 serves the repeats). Page, slot and
+// head strides are arguments, so the same kernel reads the head-major HND
+// cache, the NHD cache, the FUSED slab ([Hkv, nb, 2*bs, D]: V at K's address
+// + bs*D) and the NHD_FUSED slab ([nb, 2*bs, Hkv*D]: K of head h, page p,
+// slot s at p*2*bs*Hkv*D + s*Hkv*D + h*D, V at the same address + bs*Hkv*D)
+// in place; K/V rows must be 16-byte aligned.
 //
-// Int8 codes convert to float exactly, and so does every e4m3 code,
-// subnormals included (cvt.rn.f16x2.e4m3x2 to fp16, then to float; the NaN
-// codes 0x7f and 0xff never come out of a saturating store). The TPU
-// kernels' grid of one program per request (all kv heads, to save DMA
-// descriptors) and the dense, gathered scale rows of _decode_qt0_kernel are
-// not copied: a block here reads its own pages and scales.
+// Why the tensor cores: at G * sq = 4 the CUDA cores would keep up with the
+// bytes, but at G * sq = 40 (G 8, mtp 4) float32 dots take about 10x the
+// bytes time; an m16 tile pads 4 rows to 16 and costs nothing that shows.
+// mma.sync, not wgmma: decode has few rows and wgmma's 64 would waste more.
 //
-// Known limit: in the grid form B * Hkv blocks (64 at B = 8, Hkv = 8) cannot
-// fill 132 SMs, and a long request's tiles run in order in one block; the
-// task form splits them across blocks.
+// Registers and shared memory a block (nvcc -Xptxas -v, sm_90a, CUDA 12.8):
+// DP 128 120-126 registers a thread (bf16 grid 122, tasks 126; int8 126,
+// 122; e4m3 120, 122, QuantType 0 124), DP 64 86-107, DP 256 196-210 (one
+// block an SM); no spills, no stack frame, in every instance. Dynamic shared memory at DP 128: bf16 100 KiB (q 4 KiB, ring 96
+// KiB), codes 84 KiB (ring 48 KiB, the warps' 16-bit rows 32 KiB), plus 6
+// KiB of K scales for QuantType 0; static 5.2-5.4 KiB (the chunks' merge
+// weights). Two blocks an SM at DP <= 128 (launch bounds cap 128
+// registers).
+//
+// The TPU kernels' grid of one program per request (all kv heads, to save
+// DMA descriptors) and the dense, gathered scale rows of _decode_qt0_kernel
+// are not copied: a block here reads its own pages and scales.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <climits>
+#include <atomic>
 
 namespace {
 
@@ -88,101 +130,120 @@ struct e4m3_t {
   uint8_t bits;
 };
 
-// Two e4m3 bytes -> two floats (exact).
-__device__ __forceinline__ float2 e4m3x2_to_float2(uint16_t two_bytes) {
-  uint32_t h2;
-  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(h2) : "h"(two_bytes));
-  return __half22float2(*reinterpret_cast<const __half2*>(&h2));
-}
+constexpr int kTile = 64;                 // KV positions a tile
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kWarpPos = kTile / kWarps;  // positions of a tile a warp takes
+constexpr int kRowsBlk = 16;              // query rows a block: one m16 tile
+constexpr int kStages = 3;                // ring of K/V tile pairs
+constexpr int kMaxGroups = 8;             // K scales per (token, kv head)
+constexpr int kMaxSplits = 64;            // splits of the grid form
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-constexpr int kTile = 128;
-constexpr int kThreads = 128;  // one thread per token of a tile
-constexpr int kWarps = kThreads / 32;
+enum Mode { kGrid = 0, kGridTok = 1, kTasks = 2 };
 
-// 16 bytes of cache elements -> floats.
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void to_f32(const uint4& u, float* f) {
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 t = __bfloat1622float2(p[j]);
-      f[2 * j] = t.x;
-      f[2 * j + 1] = t.y;
-    }
-  }
-  static __device__ __forceinline__ float one(__nv_bfloat16 x) { return __bfloat162float(x); }
+// Shared memory of one block, in bytes: q's 16 rows (bf16, swizzled); the
+// ring of (K, V) tiles as stored (bf16 rows swizzled, 8-bit rows plain); for
+// 8-bit caches each warp's 8 K and V rows in bf16 (swizzled); for QuantType
+// 0 a ring of the tiles' K scales. The epilogue's merge buffer, [kWarps][16]
+// [DP] float32, reuses the ring (and for codes the warps' rows after it).
+template <int DP, typename T, int kMode>
+struct Layout {
+  static constexpr bool kQuant = sizeof(T) == 1;
+  static constexpr int kRowBytes = DP * static_cast<int>(sizeof(T));
+  static constexpr int kTileBytes = kTile * kRowBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kRing = kQ + kRowsBlk * DP * 2;
+  static constexpr int kWarpRows = kQuant ? 2 * kWarpPos * DP * 2 : 0;
+  static constexpr int kScratch = kRing + kStages * 2 * kTileBytes;
+  static constexpr int kKs = kScratch + kWarps * kWarpRows;
+  static constexpr int kKsStage = kTile * kMaxGroups * 4;
+  static constexpr int kBytes = kKs + (kMode == kGridTok ? kStages * kKsStage : 0);
+  static_assert(kWarps * kRowsBlk * DP * 4 <= kKs - kRing, "merge buffer");
 };
 
-template <>
-struct Vec<int8_t> {
-  static constexpr int N = 16;
-  static __device__ __forceinline__ void to_f32(const uint4& u, float* f) {
-    const int8_t* p = reinterpret_cast<const int8_t*>(&u);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) f[j] = static_cast<float>(p[j]);
-  }
-  static __device__ __forceinline__ float one(int8_t x) { return static_cast<float>(x); }
-};
-
-template <>
-struct Vec<e4m3_t> {
-  static constexpr int N = 16;
-  static __device__ __forceinline__ void to_f32(const uint4& u, float* f) {
-    const uint16_t* p = reinterpret_cast<const uint16_t*>(&u);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 t = e4m3x2_to_float2(p[j]);
-      f[2 * j] = t.x;
-      f[2 * j + 1] = t.y;
-    }
-  }
-  static __device__ __forceinline__ float one(e4m3_t x) {
-    return e4m3x2_to_float2(static_cast<uint16_t>(x.bits)).x;
-  }
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
+  const int bytes = pred ? 16 : 0;  // 0: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool pred) {
+  const int bytes = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Four rows' partial dots over K columns [c_lo, c_hi) of one token's row,
-// added to s[0..3] (rows r0..r0+3; rows past `rows` untouched).
-template <typename T>
-__device__ __forceinline__ void dot4(const T* krow, const float* q_s, int d, int r0, int rows,
-                                     int c_lo, int c_hi, float* s) {
-  constexpr int kVec = Vec<T>::N;
-#pragma unroll (32 / kVec)
-  for (int c = c_lo; c < c_hi; c += kVec) {
-    const uint4 u = *reinterpret_cast<const uint4*>(krow + c);
-    float kf[kVec];
-    Vec<T>::to_f32(u, kf);
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      if (r0 + rr < rows) {
-        const float* qr = q_s + (r0 + rr) * d + c;
-        float acc4 = 0.f;
-#pragma unroll
-        for (int j = 0; j < kVec; j += 4) {
-          const float4 qa = *reinterpret_cast<const float4*>(qr + j);
-          acc4 += qa.x * kf[j] + qa.y * kf[j + 1] + qa.z * kf[j + 2] + qa.w * kf[j + 3];
-        }
-        s[rr] += acc4;
-      }
-    }
-  }
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+// d += a b: a 16x8 (row), b 8x8 (col), bf16; d 16x8 float32
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+// d += a b: a 16x16 (row), b 16x8 (col), bf16; d 16x8 float32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Two 8-bit codes (the low byte first) -> a bf16 pair, exactly.
+__device__ __forceinline__ uint32_t widen2(const int8_t*, uint32_t two) {
+  return pack_bf16(static_cast<float>(static_cast<int8_t>(two & 0xff)),
+                   static_cast<float>(static_cast<int8_t>((two >> 8) & 0xff)));
+}
+__device__ __forceinline__ uint32_t widen2(const e4m3_t*, uint32_t two) {
+  uint32_t h;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(h) : "h"(static_cast<uint16_t>(two)));
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+  return pack_bf16(f.x, f.y);
+}
+
+// Byte offset of 16-byte chunk c of row r in a [rows][DP] 16-bit tile: the
+// chunk XOR-swizzled by the row, so the 8 rows of an ldmatrix hit 8
+// distinct bank groups.
+template <int DP>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>(r * (DP * 2) + ((c ^ (r & 7)) << 4));
 }
 
 // The task form's map and partial outputs (unused by the grid form).
@@ -193,255 +254,611 @@ struct Tasks {
   const int32_t* num_tiles;   // [cap] work tiles
   int tile;                   // tokens per work tile
   float* o;                   // [cap, rows, dv] unnormalised
-  float* m;                   // [cap, rows] running max
+  float* m;                   // [cap, rows] running max (natural units)
   float* l;                   // [cap, rows] running sum
 };
 
-template <typename T, bool kTokenScale, bool kTasks>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [B * sq, hq, d]
-    const T* __restrict__ kc, const T* __restrict__ vc,
-    int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
-    int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
-    const int32_t* __restrict__ block_ids,  // [B, max_blocks]
-    const int32_t* __restrict__ kv_lens,    // [B]
-    // kTokenScale: kscale [num_pages, page_size, hkv, kgroups] per token, kv
-    // head and group of D / kgroups columns, vscale [hkv]; else [1] each.
-    // Null is a scale of 1.
-    const float* __restrict__ kscale, const float* __restrict__ vscale,
-    __nv_bfloat16* __restrict__ out,        // [B * sq, hq, dv] (grid form)
-    Tasks tasks,                            // (task form)
-    int max_blocks, int page_size, int sq, int hq, int hkv, int d, int dv,
-    int kgroups, float scale) {
-  constexpr int kVec = Vec<T>::N;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int g_per = hq / hkv;
-  const int rows = g_per * sq;
-  const int tid = threadIdx.x;
-  // this block's request, kv head and KV positions [lo, hi)
-  int b, h, lo = 0, hi = INT_MAX;
-  if constexpr (kTasks) {
+// The grid form's split-KV: workspace and tickets (splits 1: unused).
+struct Split {
+  float* ws;         // [segs, splits, 16, dv] o, then [segs, splits, 2, 16] (m, l)
+  int32_t* tickets;  // [segs], zero between launches
+  int splits;        // chunks a (request, kv head), cut from its own length
+};
+
+struct Args {
+  const __nv_bfloat16* q;  // [B * sq, hq, d]
+  const void* kc;
+  const void* vc;
+  int64_t k_head, k_page, k_slot, v_head, v_page, v_slot;  // strides in elements
+  const int32_t* block_ids;  // [B, max_blocks]
+  const int32_t* kv_lens;    // [B]
+  // kTokenScale: kscale [num_pages, page_size, hkv, kgroups] per token, kv
+  // head and group, vscale [hkv]; else [1] each. Null is a scale of 1.
+  const float* kscale;
+  const float* vscale;
+  __nv_bfloat16* out;  // [B * sq, hq, dv] (grid form)
+  Tasks tasks;
+  Split split;
+  int batch, max_blocks, page_size, sq, hq, hkv, d, dv, kgroups;
+  float scale;
+};
+
+template <int DP, typename T, int kMode>
+__global__ void __launch_bounds__(kThreads, DP <= 128 ? 2 : 1) paged_decode_kernel(const Args a) {
+  using L = Layout<DP, T, kMode>;
+  constexpr bool kQuant = L::kQuant;
+  constexpr int kSteps = DP / 16;  // k-steps of S
+  constexpr int kNt = DP / 8;      // n-tiles of O
+  constexpr int kChunks = L::kRowBytes / 16;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ float warp_m[kWarps][kRowsBlk], warp_l[kWarps][kRowsBlk];
+  __shared__ float wt_s[kMaxSplits][kRowsBlk];
+  __shared__ float row_m[kRowsBlk], row_l[kRowsBlk];
+  __shared__ int last_s;
+  const uint32_t s_base = smem_u32(smem);
+  const T* kc = static_cast<const T*>(a.kc);
+  const T* vc = static_cast<const T*>(a.vc);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tq = lane & 3;
+  const int g_per = a.hq / a.hkv;
+  const int rows = g_per * a.sq;
+  const int rb = kMode == kTasks ? blockIdx.y : blockIdx.z;
+  const int r0 = rb * kRowsBlk;
+  int b, h, lo, hi;
+  if constexpr (kMode == kTasks) {
     const int task = blockIdx.x;
-    b = tasks.batch[task];
-    if (b < 0) {  // sentinel: neutral partials, which the combine skips
-      float* o = tasks.o + static_cast<int64_t>(task) * rows * dv;
-      for (int i = tid; i < rows * dv; i += kThreads) o[i] = 0.f;
-      for (int r = tid; r < rows; r += kThreads) {
-        tasks.m[task * rows + r] = -INFINITY;
-        tasks.l[task * rows + r] = 0.f;
+    b = a.tasks.batch[task];
+    if (b < 0) {  // sentinel: the neutral partial, which the combine skips
+      for (int i = tid; i < kRowsBlk * a.dv; i += kThreads) {
+        const int r = r0 + i / a.dv;
+        if (r < rows) a.tasks.o[(static_cast<int64_t>(task) * rows + r) * a.dv + i % a.dv] = 0.f;
+      }
+      if (tid < kRowsBlk && r0 + tid < rows) {
+        a.tasks.m[static_cast<int64_t>(task) * rows + r0 + tid] = -INFINITY;
+        a.tasks.l[static_cast<int64_t>(task) * rows + r0 + tid] = 0.f;
       }
       return;
     }
-    h = tasks.head[task];
-    lo = tasks.tile_start[task] * tasks.tile;
-    hi = lo + tasks.num_tiles[task] * tasks.tile;
+    h = a.tasks.head[task];
+    lo = a.tasks.tile_start[task] * a.tasks.tile;
+    hi = lo + a.tasks.num_tiles[task] * a.tasks.tile;
   } else {
-    b = blockIdx.x;
-    h = blockIdx.y;
+    // chunk blockIdx.y of `splits` runs of whole tiles of the table
+    b = blockIdx.x / a.hkv;
+    h = blockIdx.x % a.hkv;
+    const int tiles = (a.max_blocks * a.page_size + kTile - 1) / kTile;
+    const int chunk = (tiles + a.split.splits - 1) / a.split.splits;
+    lo = blockIdx.y * chunk * kTile;
+    hi = lo + chunk * kTile;
   }
-  T* v_s = reinterpret_cast<T*>(smem_raw);                   // [kTile, dv]
-  float* q_s = reinterpret_cast<float*>(v_s + kTile * dv);  // [rows, d]
-  float* p_s = q_s + rows * d;                              // [rows, kTile]
-  float* acc = p_s + rows * kTile;                          // [rows, dv]
-  float* m_s = acc + rows * dv;                             // [rows]
-  float* l_s = m_s + rows;                                  // [rows]
-  float* alpha_s = l_s + rows;                              // [rows]
+  const int kv_len = a.kv_lens[b];
+  const int n_valid = min(hi, min(kv_len, a.max_blocks * a.page_size));
+  const int n_tiles = n_valid > lo ? (n_valid - lo + kTile - 1) / kTile : 0;
+  const int32_t* tbl = a.block_ids + static_cast<int64_t>(b) * a.max_blocks;
+  const int ps = a.page_size;
+  const int ps_shift = (ps & (ps - 1)) == 0 ? __ffs(ps) - 1 : -1;
+  auto page_of = [&](int pos) { return ps_shift >= 0 ? pos >> ps_shift : pos / ps; };
 
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int kv_len = kv_lens[b];
-  const int32_t* tbl = block_ids + static_cast<int64_t>(b) * max_blocks;
-  const float qscale = scale * (!kTokenScale && kscale ? *kscale : 1.f);
-
-  for (int i = tid; i < rows * d; i += kThreads) {
-    const int r = i / d, c = i % d;
-    const int g = r / sq, s = r % sq;
-    const int64_t src = (static_cast<int64_t>(b * sq + s) * hq + h * g_per + g) * d + c;
-    q_s[i] = __bfloat162float(q[src]) * qscale;
+  // this thread's two rows (gid, gid + 8) and their causal limits
+  int lim[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + gid + 8 * hf;
+    lim[hf] = r < rows ? kv_len - a.sq + r % a.sq : -1;
   }
-  for (int i = tid; i < rows * dv; i += kThreads) acc[i] = 0.f;
-  for (int r = tid; r < rows; r += kThreads) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
-  }
-  __syncthreads();
 
-  const int n_valid = min(hi, min(kv_len, max_blocks * page_size));
-  for (int t0 = lo; t0 < n_valid; t0 += kTile) {
-    // 1a. V rows of the tile -> shared memory as stored (zeros past kv_len)
-    const int vchunks = dv / kVec;
-    for (int i = tid; i < kTile * vchunks; i += kThreads) {
-      const int t = i / vchunks, c0 = (i % vchunks) * kVec;
-      const int kpos = t0 + t;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (kpos < n_valid) {
-        const int page = max(tbl[kpos / page_size], 0);
-        val = *reinterpret_cast<const uint4*>(vc + h * v_head_stride + page * v_page_stride +
-                                              (kpos % page_size) * v_slot_stride + c0);
+  // q's 16 rows -> shared memory (zeros past the group's rows and past d);
+  // they join the first tile's copy group
+  if (n_tiles > 0) {
+    constexpr int kQChunks = DP / 8;
+    for (int i = tid; i < kRowsBlk * kQChunks; i += kThreads) {
+      const int rr = i / kQChunks, c = i % kQChunks;
+      const int r = r0 + rr;
+      const bool ok = r < rows && c * 8 < a.d;
+      const __nv_bfloat16* src = a.q;
+      if (ok) {
+        const int g = r / a.sq, s = r % a.sq;
+        src = a.q + (static_cast<int64_t>(b * a.sq + s) * a.hq + h * g_per + g) * a.d + c * 8;
       }
-      *reinterpret_cast<uint4*>(v_s + t * dv + c0) = val;
+      cp_async16(s_base + L::kQ + swz<DP>(rr, c), src, ok);
     }
-    // 1b. scores: one thread per token, all rows, four rows per pass
-    {
-      const int t = tid;
-      const int kpos = t0 + t;
-      if (kpos < n_valid) {
-        const int page = max(tbl[kpos / page_size], 0);
-        const T* krow =
-            kc + h * k_head_stride + page * k_page_stride + (kpos % page_size) * k_slot_stride;
-        const float* ks = kTokenScale
-            ? kscale + ((static_cast<int64_t>(page) * page_size + kpos % page_size) * hkv + h) * kgroups
-            : nullptr;
-        for (int r0 = 0; r0 < rows; r0 += 4) {
-          float sc[4] = {0.f, 0.f, 0.f, 0.f};
-          if constexpr (kTokenScale) {
-            const int gw = d / kgroups;
-            for (int g = 0; g < kgroups; ++g) {
-              float gs[4] = {0.f, 0.f, 0.f, 0.f};
-              dot4(krow, q_s, d, r0, rows, g * gw, (g + 1) * gw, gs);
-              const float kg = ks[g];
+  }
+
+  // The page ids of the next tile to issue, fetched a tile ahead so their
+  // latency hides behind a tile's work: one id a lane (lanes hold the tile's
+  // pages p0 + lane and p0 + 32 + lane); rows take theirs by a shuffle.
+  int pg_next[2] = {0, 0};
+  auto fetch_pages = [&](int j) {
+    const int p0 = page_of(lo + j * kTile);
 #pragma unroll
-              for (int rr = 0; rr < 4; ++rr) sc[rr] += gs[rr] * kg;
-            }
-          } else {
-            dot4(krow, q_s, d, r0, rows, 0, d, sc);
-          }
+    for (int u = 0; u < 2; ++u) {
+      const int p = p0 + lane + 32 * u;
+      pg_next[u] = j < n_tiles && p < a.max_blocks && p * ps < n_valid ? tbl[p] : 0;
+    }
+  };
+  // Issues the copies of the j-th tile of the range (pg_next holds its pages).
+  constexpr int kElems = 16 / static_cast<int>(sizeof(T));  // elements a chunk
+  const int k_real = a.d / kElems, v_real = a.dv / kElems;
+  const T* k_head = kc + h * a.k_head;
+  const T* v_head = vc + h * a.v_head;
+  auto load_tile = [&](int j) {
+    const int t0 = lo + j * kTile;
+    const int p0 = page_of(t0);
+    const int pg[2] = {max(pg_next[0], 0), max(pg_next[1], 0)};
+    const uint32_t kdst0 = s_base + L::kRing + (j % kStages) * 2 * L::kTileBytes;
 #pragma unroll
-          for (int rr = 0; rr < 4; ++rr) {
-            const int r = r0 + rr;
-            if (r < rows) {
-              const int limit = kv_len - sq + (r % sq);  // causal w.r.t. draft row
-              p_s[r * kTile + t] = kpos <= limit ? sc[rr] : -INFINITY;
+    for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
+      const int idx = tid + i * kThreads;
+      const int n = idx / kChunks, c = idx % kChunks;
+      const int pos = t0 + n;
+      const int pidx = page_of(pos);
+      const int pi = pidx - p0;
+      const int pa = __shfl_sync(0xffffffffu, pg[0], pi & 31);
+      const int pb = __shfl_sync(0xffffffffu, pg[1], pi & 31);
+      const int64_t page = pi < 32 ? pa : pb;
+      const int64_t slot = pos - pidx * ps;
+      const bool in = pos < n_valid;
+      const bool kin = in && c < k_real, vin = in && c < v_real;
+      const T* ksrc = kin ? k_head + page * a.k_page + slot * a.k_slot + c * kElems : kc;
+      const T* vsrc = vin ? v_head + page * a.v_page + slot * a.v_slot + c * kElems : vc;
+      const uint32_t off = kQuant ? static_cast<uint32_t>(n * L::kRowBytes + c * 16) : swz<DP>(n, c);
+      cp_async16(kdst0 + off, ksrc, kin);
+      cp_async16(kdst0 + L::kTileBytes + off, vsrc, vin);
+    }
+    if constexpr (kMode == kGridTok) {
+      // the tile's K scales, [kTile][kgroups] (warp-uniform trip counts:
+      // kTile * kgroups is a multiple of 64)
+      const uint32_t kdst = s_base + L::kKs + (j % kStages) * L::kKsStage;
+      for (int e = tid; e < kTile * a.kgroups; e += kThreads) {
+        const int pos = t0 + e / a.kgroups;
+        const int pidx = page_of(pos);
+        const int pi = pidx - p0;
+        const int pa = __shfl_sync(0xffffffffu, pg[0], pi & 31);
+        const int pb = __shfl_sync(0xffffffffu, pg[1], pi & 31);
+        const int64_t page = pi < 32 ? pa : pb;
+        const bool in = pos < n_valid;
+        const float* src = a.kscale;
+        if (in)
+          src += ((page * ps + pos - pidx * ps) * a.hkv + h) * a.kgroups + e % a.kgroups;
+        cp_async4(kdst + e * 4, src, in);
+      }
+    }
+  };
+
+  const float sl2 =
+      a.scale * (kMode != kGridTok && a.kscale != nullptr ? *a.kscale : 1.f) * kLog2e;
+  float o[kNt][4];
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+
+  const int w0 = warp * kWarpPos;  // the warp's positions in a tile
+  // ldmatrix lane addresses: q (A, x4: rows 0-7 / 8-15, k 0-7 / 8-15); K (B,
+  // x4: the warp's 8 positions, k 0-7 / 8-15 of two k-steps); V (B, x4
+  // trans: the 8 positions, 32 columns)
+  const int qa_row = (lane & 7) + ((lane >> 3) & 1) * 8, qa_c = lane >> 4;
+  const int kb_row = lane & 7, kb_c = lane >> 3;
+
+  fetch_pages(0);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) load_tile(s);
+    fetch_pages(s + 1);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<kStages - 2>();  // tile j's copies (this thread's)
+    __syncthreads();               // everyone's; tile j - 1's stage is free
+    if (j + kStages - 1 < n_tiles) load_tile(j + kStages - 1);
+    fetch_pages(j + kStages);
+    cp_async_commit();
+    const int st = j % kStages;
+    const uint8_t* ring = smem + L::kRing + st * 2 * L::kTileBytes;
+    // the warp's 8 K and V rows in 16 bits: in the ring (bf16), or
+    // converted into the warp's own rows (int8, e4m3)
+    uint32_t k_rows, v_rows;
+    if constexpr (kQuant) {
+      uint8_t* k16 = smem + L::kScratch + warp * L::kWarpRows;
+      uint8_t* v16 = k16 + kWarpPos * DP * 2;
+      constexpr int kRawChunks = DP / 16;  // 16 codes a chunk
+#pragma unroll
+      for (int i = 0; i < 2 * kWarpPos * kRawChunks / 32; ++i) {
+        const int idx = lane + 32 * i;
+        const bool is_v = idx >= kWarpPos * kRawChunks;
+        const int rem = is_v ? idx - kWarpPos * kRawChunks : idx;
+        const int n = rem / kRawChunks, c = rem % kRawChunks;
+        const uint4 raw = *reinterpret_cast<const uint4*>(ring + (is_v ? L::kTileBytes : 0) +
+                                                          (w0 + n) * L::kRowBytes + c * 16);
+        const uint32_t wv[4] = {raw.x, raw.y, raw.z, raw.w};
+        uint32_t o16[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          o16[k] = widen2(static_cast<const T*>(nullptr), wv[k / 2] >> (16 * (k % 2)));
+        uint8_t* dst = is_v ? v16 : k16;
+        *reinterpret_cast<uint4*>(dst + swz<DP>(n, 2 * c)) = make_uint4(o16[0], o16[1], o16[2], o16[3]);
+        *reinterpret_cast<uint4*>(dst + swz<DP>(n, 2 * c + 1)) =
+            make_uint4(o16[4], o16[5], o16[6], o16[7]);
+      }
+      __syncwarp();
+      k_rows = smem_u32(k16);
+      v_rows = smem_u32(v16);
+    } else {
+      k_rows = smem_u32(ring) + w0 * DP * 2;  // w0 is a multiple of 8: the swizzle holds
+      v_rows = k_rows + L::kTileBytes;
+    }
+
+    // S = q K^T over the warp's 8 positions (one n-tile), even and odd
+    // k-steps into two accumulators (shorter dependence chains)
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (kMode == kGridTok) {
+      // one product per group of D / kgroups columns, each scaled by its
+      // token's K scale and summed in float32
+      const float* ks = reinterpret_cast<const float*>(smem + L::kKs + st * L::kKsStage);
+      const int spg = a.d / a.kgroups / 16;  // k-steps a group
+      float sg[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k2 = 0; k2 < kSteps / 2; ++k2) {
+        if (k2 * 32 < a.d) {
+          uint32_t kb[4];
+          ldsm_x4(kb, k_rows + swz<DP>(kb_row, 4 * k2 + kb_c));
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int kk = 2 * k2 + hf;
+            if (kk * 16 < a.d) {
+              uint32_t qa[4];
+              ldsm_x4(qa, s_base + L::kQ + swz<DP>(qa_row, 2 * kk + qa_c));
+              mma_bf16(sg, qa, kb[2 * hf], kb[2 * hf + 1]);
+              if ((kk + 1) % spg == 0) {
+                const int g = kk / spg;
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const float kv = ks[(w0 + 2 * tq + e) * a.kgroups + g];
+                  s[e] += kv * sg[e];
+                  s[2 + e] += kv * sg[2 + e];
+                  sg[e] = 0.f;
+                  sg[2 + e] = 0.f;
+                }
+              }
             }
           }
         }
-      } else {
-        for (int r = 0; r < rows; ++r) p_s[r * kTile + t] = -INFINITY;
       }
+    } else {
+      float s2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k2 = 0; k2 < kSteps / 2; ++k2) {
+        if (k2 * 32 < a.d) {
+          uint32_t kb[4], qa[4], qb[4];
+          ldsm_x4(kb, k_rows + swz<DP>(kb_row, 4 * k2 + kb_c));
+          ldsm_x4(qa, s_base + L::kQ + swz<DP>(qa_row, 4 * k2 + qa_c));
+          mma_bf16(s, qa, kb[0], kb[1]);
+          if (k2 * 32 + 16 < a.d) {
+            ldsm_x4(qb, s_base + L::kQ + swz<DP>(qa_row, 4 * k2 + 2 + qa_c));
+            mma_bf16(s2, qb, kb[2], kb[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[e] += s2[e];
     }
-    __syncthreads();
-    // 2. online softmax: one warp per row
-    for (int r = warp; r < rows; r += kWarps) {
-      float* pr = p_s + r * kTile;
+
+    // mask, then the online softmax in the exp2 domain (scaled logits)
+    const int pbase = lo + j * kTile + w0 + 2 * tq;
+    float alpha[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
       float mx = -INFINITY;
-      for (int t = lane; t < kTile; t += 32) mx = fmaxf(mx, pr[t]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int pos = pbase + e;
+        float& x = s[2 * hf + e];
+        x = pos < n_valid && pos <= lim[hf] ? x * sl2 : -INFINITY;
+        mx = fmaxf(mx, x);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[hf], mx);
+      alpha[hf] = m_r[hf] == m_new ? 1.f : ex2(m_r[hf] - m_new);
+      const float neg = m_new == -INFINITY ? 0.f : -m_new;
       float sum = 0.f;
-      for (int t = lane; t < kTile; t += 32) {
-        const float e = m_new == -INFINITY || pr[t] == -INFINITY ? 0.f : __expf(pr[t] - m_new);
-        pr[t] = e;
-        sum += e;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[2 * hf + e];
+        x = ex2(x + neg);
+        sum += x;
       }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = m_prev == -INFINITY ? 0.f : __expf(m_prev - m_new);
-        alpha_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
+      l_r[hf] = l_r[hf] * alpha[hf] + sum;
+      m_r[hf] = m_new;
+    }
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        o[nt][0] *= alpha[0];
+        o[nt][1] *= alpha[0];
+        o[nt][2] *= alpha[1];
+        o[nt][3] *= alpha[1];
       }
     }
-    __syncthreads();
-    // 3. acc = acc * alpha + p @ v
-    const int n_here = min(kTile, n_valid - t0);
-    for (int i = tid; i < rows * dv; i += kThreads) {
-      const int r = i / dv, c = i % dv;
-      const float* pr = p_s + r * kTile;
-      float a = 0.f;
-      for (int t = 0; t < n_here; ++t) {
-        const float pv = pr[t];
-        if (pv != 0.f) a += pv * Vec<T>::one(v_s[t * dv + c]);
+    // P as the A operand of a k8 product (the S accumulator layout is A's),
+    // in three bf16 terms: each the remainder of the ones before, rounded
+    uint32_t p3[3][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float x0 = s[2 * i], x1 = s[2 * i + 1];
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const __nv_bfloat162 hb = __floats2bfloat162_rn(x0, x1);
+        p3[t][i] = *reinterpret_cast<const uint32_t*>(&hb);
+        const float2 hf = __bfloat1622float2(hb);
+        x0 -= hf.x;
+        x1 -= hf.y;
       }
-      acc[i] = acc[i] * alpha_s[r] + a;
     }
-    __syncthreads();
+    // O += P V, four n-tiles (32 columns) an ldmatrix; each tile's product
+    // in a fresh accumulator, added to O in float32
+#pragma unroll
+    for (int n4 = 0; n4 < kNt / 4; ++n4) {
+      if (n4 * 32 < a.dv) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, v_rows + swz<DP>(kb_row, 4 * n4 + kb_c));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int t = 0; t < 3; ++t) mma_bf16_k8(pv, p3[t][0], p3[t][1], vb[i]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[4 * n4 + i][e] += pv[e];
+        }
+      }
+    }
   }
 
-  if constexpr (kTasks) {
-    const int64_t task = blockIdx.x;
-    for (int i = tid; i < rows * dv; i += kThreads) tasks.o[task * rows * dv + i] = acc[i];
-    for (int r = tid; r < rows; r += kThreads) {
-      tasks.m[task * rows + r] = m_s[r];
-      tasks.l[task * rows + r] = l_s[r];
+  // epilogue: the warps' (o, m, l) -> one per row through shared memory (a
+  // block with no tile, most chunks of a short request, skips the merge)
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+  float* mbuf = reinterpret_cast<float*>(smem + L::kRing);  // [kWarps][16][DP]
+  if (n_tiles == 0) {
+    if (tid < kRowsBlk) {
+      row_m[tid] = -INFINITY;
+      row_l[tid] = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) wt_s[w][tid] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2 && n_tiles > 0; ++hf) {
+    float l = l_r[hf];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (tq == 0) {
+      warp_m[warp][gid + 8 * hf] = m_r[hf];
+      warp_l[warp][gid + 8 * hf] = l;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt)
+      *reinterpret_cast<float2*>(mbuf + (warp * kRowsBlk + gid + 8 * hf) * DP + 8 * nt + 2 * tq) =
+          make_float2(o[nt][2 * hf], o[nt][2 * hf + 1]);
+  }
+  __syncthreads();
+  if (tid < kRowsBlk && n_tiles > 0) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, warp_m[w][tid]);
+    float lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = warp_m[w][tid] == -INFINITY ? 0.f : ex2(warp_m[w][tid] - mx);
+      wt_s[w][tid] = wt;
+      lsum += wt * warp_l[w][tid];
+    }
+    row_m[tid] = mx;
+    row_l[tid] = lsum;
+  }
+  __syncthreads();
+  auto block_o = [&](int r, int c) {  // the block's unnormalised o of row r, column c
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {  // (an empty block's mbuf is never written)
+      const float wt = wt_s[w][r];
+      if (wt != 0.f) v += wt * mbuf[(w * kRowsBlk + r) * DP + c];
+    }
+    return v;
+  };
+  auto out_at = [&](int r) {  // out's row of the block's row r (r0 + r < rows)
+    const int g = (r0 + r) / a.sq, s = (r0 + r) % a.sq;
+    return a.out + (static_cast<int64_t>(b * a.sq + s) * a.hq + h * g_per + g) * a.dv;
+  };
+  const float oscale = a.vscale ? a.vscale[kMode == kGridTok ? h : 0] : 1.f;
+
+  if constexpr (kMode == kTasks) {
+    const int64_t t_row = static_cast<int64_t>(blockIdx.x) * rows + r0;
+    for (int i = tid; i < kRowsBlk * a.dv; i += kThreads) {
+      const int r = i / a.dv, c = i % a.dv;
+      if (r0 + r < rows) a.tasks.o[(t_row + r) * a.dv + c] = block_o(r, c);
+    }
+    if (tid < kRowsBlk && r0 + tid < rows) {
+      a.tasks.m[t_row + tid] = row_m[tid] == -INFINITY ? -INFINITY : row_m[tid] * kLn2;
+      a.tasks.l[t_row + tid] = row_l[tid];
     }
     return;
-  }
-  const float oscale = vscale ? vscale[kTokenScale ? h : 0] : 1.f;
-  for (int i = tid; i < rows * dv; i += kThreads) {
-    const int r = i / dv, c = i % dv;
-    const int g = r / sq, s = r % sq;
-    const float l = l_s[r];
-    const float o = l == 0.f ? 0.f : acc[i] / l * oscale;
-    out[(static_cast<int64_t>(b * sq + s) * hq + h * g_per + g) * dv + c] = __float2bfloat16(o);
+  } else {
+    const int splits = a.split.splits;
+    if (splits == 1) {
+      for (int i = tid; i < kRowsBlk * a.dv; i += kThreads) {
+        const int r = i / a.dv, c = i % a.dv;
+        if (r0 + r < rows) {
+          const float l = row_l[r];
+          out_at(r)[c] = __float2bfloat16(l == 0.f ? 0.f : block_o(r, c) / l * oscale);
+        }
+      }
+      return;
+    }
+    // split-KV: this chunk's partial -> workspace, then a ticket; the last
+    // block of the (request, kv head, row block) merges every chunk's
+    const int64_t seg = static_cast<int64_t>(blockIdx.x) * gridDim.z + rb;
+    const int64_t n_part = static_cast<int64_t>(gridDim.x) * gridDim.z * splits;
+    float* ws_o = a.split.ws;
+    float* ws_ml = a.split.ws + n_part * kRowsBlk * a.dv;
+    const int64_t part = seg * splits + blockIdx.y;
+    for (int i = tid; i < kRowsBlk * a.dv; i += kThreads) {
+      const int r = i / a.dv, c = i % a.dv;
+      if (row_m[r] != -INFINITY) ws_o[(part * kRowsBlk + r) * a.dv + c] = block_o(r, c);
+    }
+    if (tid < kRowsBlk) {
+      ws_ml[part * 2 * kRowsBlk + tid] = row_m[tid];
+      ws_ml[part * 2 * kRowsBlk + kRowsBlk + tid] = row_l[tid];
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last_s = atomicAdd(a.split.tickets + seg, 1) == splits - 1;
+    __syncthreads();
+    if (!last_s) return;
+    __threadfence();
+    if (tid < kRowsBlk) {
+      const float* ml = ws_ml + seg * splits * 2 * kRowsBlk;
+      float mx = -INFINITY;
+      for (int p = 0; p < splits; ++p) mx = fmaxf(mx, __ldcg(ml + p * 2 * kRowsBlk + tid));
+      float lsum = 0.f;
+      for (int p = 0; p < splits; ++p) {
+        const float mp = __ldcg(ml + p * 2 * kRowsBlk + tid);
+        const float wt = mp == -INFINITY ? 0.f : ex2(mp - mx);
+        wt_s[p][tid] = wt;
+        lsum += wt * __ldcg(ml + p * 2 * kRowsBlk + kRowsBlk + tid);
+      }
+      row_l[tid] = lsum;
+    }
+    __syncthreads();
+    // 4 columns a thread, every chunk's load issued before its sum (a
+    // neutral chunk's o, never written, is loaded but never added)
+    const int dv4 = a.dv / 4;
+    const int64_t p_stride = static_cast<int64_t>(kRowsBlk) * dv4;  // float4s between chunks
+    for (int i = tid; i < kRowsBlk * dv4; i += kThreads) {
+      const int r = i / dv4, c4 = i % dv4;
+      if (r0 + r >= rows) continue;
+      const float4* src =
+          reinterpret_cast<const float4*>(ws_o + (seg * splits * kRowsBlk + r) * a.dv) + c4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+      for (int p = 0; p < splits; ++p) {  // chunk order
+        const float4 x = __ldcg(src + p * p_stride);
+        const float wt = wt_s[p][r];
+        if (wt != 0.f) {
+          v.x += wt * x.x;
+          v.y += wt * x.y;
+          v.z += wt * x.z;
+          v.w += wt * x.w;
+        }
+      }
+      const float l = row_l[r];
+      const float f = l == 0.f ? 0.f : oscale / l;
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out_at(r) + 4 * c4);
+      dst[0] = __floats2bfloat162_rn(v.x * f, v.y * f);
+      dst[1] = __floats2bfloat162_rn(v.z * f, v.w * f);
+    }
+    if (tid == 0) a.split.tickets[seg] = 0;  // every chunk has taken its ticket
   }
 }
 
-// Grid form: one block per (request, kv head) into `out`; task form (a
-// non-null tasks): one block per task of the map's `batch` (capacity) tasks
-// into the partials.
-template <typename T, bool kTokenScale = false>
-int launch(const void* q, const void* kcache, const void* vcache, const int64_t* st,
-           const void* block_ids, const void* kv_lens, const void* kscale, const void* vscale,
-           void* out, int batch, int max_blocks, int page_size, int sq, int hq, int hkv, int d,
-           int dv, float scale, cudaStream_t stream, const Tasks* tasks = nullptr,
-           int kgroups = 1) {
-  constexpr int kVec = Vec<T>::N;
-  if (batch == 0) return 0;
-  if (d % kVec != 0 || dv % kVec != 0 || hq % hkv != 0 || kgroups < 1 || d % kgroups != 0 ||
-      (d / kgroups) % kVec != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+template <int DP, typename T, int kMode>
+int launch_dp(const Args& a, int grid_x, cudaStream_t stream) {
+  using L = Layout<DP, T, kMode>;
+  auto kernel = paged_decode_kernel<DP, T, kMode>;
+  // the attribute once an instance (not inside a CUDA graph's capture after
+  // the first launch); tensor-parallel ranks launch from threads
+  static std::atomic<bool> granted{false};
+  if (L::kBytes > 48 * 1024 && !granted.load()) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    granted.store(true);
   }
-  const int rows = (hq / hkv) * sq;
-  const size_t smem = sizeof(T) * static_cast<size_t>(kTile) * dv +
-                      sizeof(float) * (static_cast<size_t>(rows) * (d + kTile + dv) + 3 * rows);
-  auto run = [&](auto kernel, dim3 grid, const Tasks& tk) {
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kcache),
-        static_cast<const T*>(vcache), st[0], st[1], st[2], st[3], st[4], st[5],
-        static_cast<const int32_t*>(block_ids), static_cast<const int32_t*>(kv_lens),
-        static_cast<const float*>(kscale), static_cast<const float*>(vscale),
-        static_cast<__nv_bfloat16*>(out), tk, max_blocks, page_size, sq, hq, hkv, d, dv, kgroups,
-        scale);
-    return static_cast<int>(cudaGetLastError());
-  };
-  if constexpr (!kTokenScale) {
-    if (tasks != nullptr) return run(paged_decode_kernel<T, false, true>, dim3(batch), *tasks);
-  }
-  return run(paged_decode_kernel<T, kTokenScale, false>, dim3(batch, hkv), Tasks{});
+  const int row_blocks = ((a.hq / a.hkv) * a.sq + kRowsBlk - 1) / kRowsBlk;
+  const dim3 grid = kMode == kTasks ? dim3(grid_x, row_blocks)
+                                    : dim3(grid_x, a.split.splits, row_blocks);
+  kernel<<<grid, kThreads, L::kBytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int kMode>
+int launch_mode(const Args& a, int grid_x, cudaStream_t stream) {
+  const int dmax = a.d > a.dv ? a.d : a.dv;
+  if (dmax <= 64) return launch_dp<64, T, kMode>(a, grid_x, stream);
+  if (dmax <= 128) return launch_dp<128, T, kMode>(a, grid_x, stream);
+  if (dmax <= 256) return launch_dp<256, T, kMode>(a, grid_x, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Cache element types of the launchers' kv_type argument.
 enum KvType { kBf16 = 0, kInt8 = 1, kE4m3 = 2 };
 
-int launch_typed(int kv_type, const void* q, const void* kcache, const void* vcache,
-                 int64_t v_off, const int64_t* st, const void* block_ids, const void* kv_lens,
-                 const void* kscale, const void* vscale, void* out, int batch, int max_blocks,
-                 int page_size, int sq, int hq, int hkv, int d, int dv, float scale,
-                 cudaStream_t stream, const Tasks* tasks = nullptr) {
-  // v_off: elements from vcache to the first V row (the slab's K|V offset)
+// Checks shared by every form; grid_x is B * Hkv (grid) or the task count.
+int launch(int kv_type, int mode, Args a, int grid_x, cudaStream_t stream) {
+  if (grid_x == 0) return 0;
+  const int elems = kv_type == kBf16 ? 8 : 16;  // elements of 16 bytes
+  if (a.hkv < 1 || a.hq % a.hkv != 0 || a.sq < 1 || a.d % elems != 0 || a.dv % elems != 0 ||
+      a.page_size < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == kGridTok && (a.kgroups < 1 || a.kgroups > kMaxGroups || a.d % a.kgroups != 0 ||
+                           (a.d / a.kgroups) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode != kTasks && (a.split.splits < 1 || a.split.splits > kMaxSplits ||
+                         (a.split.splits > 1 && (a.split.ws == nullptr || a.split.tickets == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (kv_type) {
     case kBf16:
-      return launch<__nv_bfloat16>(
-          q, kcache, static_cast<const __nv_bfloat16*>(vcache) + v_off, st, block_ids, kv_lens,
-          kscale, vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale, stream,
-          tasks);
+      if (mode == kTasks) return launch_mode<__nv_bfloat16, kTasks>(a, grid_x, stream);
+      return launch_mode<__nv_bfloat16, kGrid>(a, grid_x, stream);
     case kInt8:
-      return launch<int8_t>(
-          q, kcache, static_cast<const int8_t*>(vcache) + v_off, st, block_ids, kv_lens, kscale,
-          vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale, stream, tasks);
+      if (mode == kTasks) return launch_mode<int8_t, kTasks>(a, grid_x, stream);
+      return launch_mode<int8_t, kGrid>(a, grid_x, stream);
     case kE4m3:
-      return launch<e4m3_t>(
-          q, kcache, static_cast<const e4m3_t*>(vcache) + v_off, st, block_ids, kv_lens, kscale,
-          vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale, stream, tasks);
+      if (mode == kTasks) return launch_mode<e4m3_t, kTasks>(a, grid_x, stream);
+      if (mode == kGridTok) return launch_mode<e4m3_t, kGridTok>(a, grid_x, stream);
+      return launch_mode<e4m3_t, kGrid>(a, grid_x, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+Args make_args(const void* q, const void* kc, const void* vc, const int64_t* st,
+               const void* block_ids, const void* kv_lens, const void* kscale, const void* vscale,
+               void* out, int batch, int max_blocks, int page_size, int sq, int hq, int hkv, int d,
+               int dv, int kgroups, float scale) {
+  Args a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.kc = kc;
+  a.vc = vc;
+  a.k_head = st[0];
+  a.k_page = st[1];
+  a.k_slot = st[2];
+  a.v_head = st[3];
+  a.v_page = st[4];
+  a.v_slot = st[5];
+  a.block_ids = static_cast<const int32_t*>(block_ids);
+  a.kv_lens = static_cast<const int32_t*>(kv_lens);
+  a.kscale = static_cast<const float*>(kscale);
+  a.vscale = static_cast<const float*>(vscale);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.batch = batch;
+  a.max_blocks = max_blocks;
+  a.page_size = page_size;
+  a.sq = sq;
+  a.hq = hq;
+  a.hkv = hkv;
+  a.d = d;
+  a.dv = dv;
+  a.kgroups = kgroups;
+  a.scale = scale;
+  return a;
+}
+
+Split make_split(void* ws, void* tickets, int splits) {
+  return Split{static_cast<float*>(ws), static_cast<int32_t*>(tickets), splits};
 }
 
 // One block per segment (request b, kv head h): merges the segment's task
@@ -497,60 +914,71 @@ __global__ void __launch_bounds__(kThreads) decode_combine_kernel(
 
 // Split K and V caches of kv_type (0 bf16, 1 int8, 2 e4m3); (head, page,
 // slot) strides in elements. kscale and vscale are [1] float32 device
-// scalars or null (a scale of 1).
+// scalars or null (a scale of 1). The last three arguments are the split-KV
+// grid: `splits` chunks a (request, kv head); with splits > 1, ws is a
+// float32 workspace of B * Hkv * ceil(G * sq / 16) * splits * 16 * (dv + 2)
+// elements and tickets an int32 buffer of B * Hkv * ceil(G * sq / 16)
+// zeros (left zero); with splits 1 both may be null.
 extern "C" int hpc_paged_decode(
     const void* q, const void* kcache, const void* vcache, int kv_type,
     int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
     int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
     const void* kscale, const void* vscale, const void* block_ids, const void* kv_lens,
     void* out, int batch, int max_blocks, int page_size, int sq, int hq, int hkv, int d, int dv,
-    float scale, void* stream) {
+    float scale, void* stream, void* ws, void* tickets, int splits) {
   const int64_t st[6] = {k_head_stride, k_page_stride, k_slot_stride,
                          v_head_stride, v_page_stride, v_slot_stride};
-  return launch_typed(kv_type, q, kcache, vcache, 0, st, block_ids, kv_lens, kscale, vscale, out,
-                      batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale,
-                      static_cast<cudaStream_t>(stream));
+  Args a = make_args(q, kcache, vcache, st, block_ids, kv_lens, kscale, vscale, out, batch,
+                     max_blocks, page_size, sq, hq, hkv, d, dv, 1, scale);
+  a.split = make_split(ws, tickets, splits);
+  return launch(kv_type, kGrid, a, batch * hkv, static_cast<cudaStream_t>(stream));
 }
 
 // QuantType 0: e4m3 K and V caches, kscale [num_pages, page_size, hkv,
 // kgroups] float32 (per token and kv head, kgroups scales each over d /
 // kgroups consecutive columns, a multiple of 16; paged like the cache),
-// vscale [hkv] float32 or null.
+// vscale [hkv] float32 or null. The split-KV arguments as hpc_paged_decode's.
 extern "C" int hpc_paged_decode_qt0(
     const void* q, const void* kcache, const void* vcache,
     int64_t k_head_stride, int64_t k_page_stride, int64_t k_slot_stride,
     int64_t v_head_stride, int64_t v_page_stride, int64_t v_slot_stride,
     const void* kscale, const void* vscale, const void* block_ids, const void* kv_lens,
     void* out, int batch, int max_blocks, int page_size, int sq, int hq, int hkv, int d, int dv,
-    int kgroups, float scale, void* stream) {
+    int kgroups, float scale, void* stream, void* ws, void* tickets, int splits) {
   if (kscale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[6] = {k_head_stride, k_page_stride, k_slot_stride,
                          v_head_stride, v_page_stride, v_slot_stride};
-  return launch<e4m3_t, true>(q, kcache, vcache, st, block_ids, kv_lens, kscale, vscale, out,
-                              batch, max_blocks, page_size, sq, hq, hkv, d, dv, scale,
-                              static_cast<cudaStream_t>(stream), nullptr, kgroups);
+  Args a = make_args(q, kcache, vcache, st, block_ids, kv_lens, kscale, vscale, out, batch,
+                     max_blocks, page_size, sq, hq, hkv, d, dv, kgroups, scale);
+  a.split = make_split(ws, tickets, splits);
+  return launch(kE4m3, kGridTok, a, batch * hkv, static_cast<cudaStream_t>(stream));
 }
 
 // The NHD_FUSED slab [num_pages, 2*page_size, hkv*d] of kv_type. kscale and
-// vscale are [1] float32 device scalars or null (a scale of 1).
+// vscale are [1] float32 device scalars or null (a scale of 1). The split-KV
+// arguments as hpc_paged_decode's.
 extern "C" int hpc_paged_decode_nhd_fused(
     const void* q, const void* kv_slab, int kv_type, const void* kscale, const void* vscale,
     const void* block_ids, const void* kv_lens, void* out, int batch, int max_blocks,
-    int page_size, int sq, int hq, int hkv, int d, float scale, void* stream) {
+    int page_size, int sq, int hq, int hkv, int d, float scale, void* stream, void* ws,
+    void* tickets, int splits) {
   const int64_t slot = static_cast<int64_t>(hkv) * d;
   const int64_t page = 2 * page_size * slot;
   const int64_t st[6] = {d, page, slot, d, page, slot};
   // a page's V rows follow its page_size K rows
-  return launch_typed(kv_type, q, kv_slab, kv_slab, page_size * slot, st, block_ids, kv_lens,
-                      kscale, vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, d, scale,
-                      static_cast<cudaStream_t>(stream));
+  const int64_t v_off = page_size * slot * (kv_type == kBf16 ? 2 : 1);  // bytes
+  Args a = make_args(q, kv_slab, static_cast<const uint8_t*>(kv_slab) + v_off, st, block_ids,
+                     kv_lens, kscale, vscale, out, batch, max_blocks, page_size, sq, hq, hkv, d, d,
+                     1, scale);
+  a.split = make_split(ws, tickets, splits);
+  return launch(kv_type, kGrid, a, batch * hkv, static_cast<cudaStream_t>(stream));
 }
 
 // Task form: K and V of kv_type read as [hkv, num_pages, page_size, d] with
 // the given (head, page, slot) strides in elements (HND, NHD and both fused
-// slabs in place), one block per task of the map's `cap` entries; writes
-// the float32 partials o [cap, G*sq, dv] (unnormalised), m and l
-// [cap, G*sq]. kscale is a [1] float32 device scalar or null; the V scale
+// slabs in place), a block per task of the map's `cap` entries and 16 query
+// rows; writes the float32 partials o [cap, G*sq, dv] (unnormalised), m and
+// l [cap, G*sq]. kscale is a [1] float32 device scalar or null; the V scale
 // is the combine's.
 extern "C" int hpc_paged_decode_tasks(
     const void* q, const void* kcache, const void* vcache, int kv_type,
@@ -562,13 +990,13 @@ extern "C" int hpc_paged_decode_tasks(
     int dv, float scale, void* stream) {
   const int64_t st[6] = {k_head_stride, k_page_stride, k_slot_stride,
                          v_head_stride, v_page_stride, v_slot_stride};
-  const Tasks tasks{static_cast<const int32_t*>(t_batch), static_cast<const int32_t*>(t_head),
-                    static_cast<const int32_t*>(t_tile_start),
-                    static_cast<const int32_t*>(t_num_tiles), tile, static_cast<float*>(o),
-                    static_cast<float*>(m), static_cast<float*>(l)};
-  return launch_typed(kv_type, q, kcache, vcache, 0, st, block_ids, kv_lens, kscale, nullptr,
-                      nullptr, cap, max_blocks, page_size, sq, hq, hkv, d, dv, scale,
-                      static_cast<cudaStream_t>(stream), &tasks);
+  Args a = make_args(q, kcache, vcache, st, block_ids, kv_lens, kscale, nullptr, nullptr, 0,
+                     max_blocks, page_size, sq, hq, hkv, d, dv, 1, scale);
+  a.tasks = Tasks{static_cast<const int32_t*>(t_batch), static_cast<const int32_t*>(t_head),
+                  static_cast<const int32_t*>(t_tile_start),
+                  static_cast<const int32_t*>(t_num_tiles), tile, static_cast<float*>(o),
+                  static_cast<float*>(m), static_cast<float*>(l)};
+  return launch(kv_type, kTasks, a, cap, static_cast<cudaStream_t>(stream));
 }
 
 // Merges the task partials of hpc_paged_decode_tasks by segment (request *

@@ -93,6 +93,26 @@
 // the sparse call 1.6x as long on an H100 (chip_smoke.py prefill_sparse). A
 // row with no kept key comes back 0, as the TPU kernel writes it.
 //
+// Head shapes (instances <D, DA, DV>): head_dim 64 and 128 as above; 96
+// zero-padded to 128 in shared memory (q's, K's and V's columns 96-127
+// copied as zeros by cp.async, those output columns never stored: a third
+// more products, one code path); 256 as two blocks a (kv head, q tile), each
+// computing S over all 256 columns and P V for 128 of V's (O at D 256 would
+// be 128 float32 registers a thread before S and P; q's 128 rows are 64
+// KiB). At D 256 a stage is K 32 KiB + V 16 KiB: bf16 takes 3 stages copied
+// one tile ahead, codes 2 raw and 2 16-bit stages, a tile converted after
+// the barrier that ends the P V that last read its 16-bit stage (kLate).
+// A GQA group of up to 128 (kRows): 128 / G tokens a block, one at G 128.
+// Grouped K scales at D 96 and 256 take groups of a multiple of 16 columns
+// (D 64's 8-column groups keep their own path, compiled only there).
+// Registers (nvcc -Xptxas -v, sm_90a, CUDA 12.8): D 96 bf16 190, int8 204,
+// e4m3 198, grouped 255, no spills; D 256 bf16 193, int8 and e4m3 194, no
+// spills; D 256 grouped 255 with 56-96 bytes of stack (64-104 bytes of
+// spill stores, 108-128 of loads), no C7520 (the 8-column path, dead at D
+// 96 and 256, had made ptxas serialise their wgmmas). Shared memory a
+// block: D 96 as D 128; D 256 216 KiB (q 64, ring 144 or 2 x 48 + 2 x 24,
+// K scales 8) plus the 1 KiB alignment.
+//
 // Known limits: no warp specialisation (every thread copies and computes,
 // a __syncthreads a tile keeps the two warpgroups in step, so their
 // softmaxes coincide instead of alternating with the other's products; a
@@ -122,23 +142,33 @@ constexpr int kMaxGroups = 8;  // K scales per (token, kv head)
 constexpr int kKsStages = 4;   // ring of per-token K scales, by tile ordinal
 
 // Shared memory of one block, in bytes from a 1024-byte aligned base (the
-// 128-byte swizzle repeats every 1024 bytes): q's 128 rows; a ring of
-// 16-bit (K, V) tile pairs (bf16 caches: 4 stages filled by cp.async; int8
-// and e4m3: 3 stages filled by conversion from a 3-stage ring of raw code
-// tiles); the ring of per-token K scales; for the sparse form the list of
-// kept tiles.
-template <int D, typename T>
+// 128-byte swizzle repeats every 1024 bytes): q's 128 rows of D; a ring of
+// 16-bit (K, V) tile pairs, K of D columns and V of the block's DV (bf16
+// caches: 4 stages filled by cp.async; int8 and e4m3: 3 stages filled by
+// conversion from a 3-stage ring of raw code tiles); the ring of per-token
+// K scales; for the sparse form the list of kept tiles. At D 256 (kBig) a
+// stage is 48 KiB and q 64 KiB, so bf16 takes 3 stages copied one tile
+// ahead, and codes 2 raw and 2 16-bit stages, a tile converted only after
+// the P V that last read its 16-bit stage (kLate).
+template <int D, int DV, typename T>
 struct Smem {
   static constexpr bool kQuant = sizeof(T) == 1;
-  static constexpr int kTile16 = kCols * D * 2;  // one 16-bit K or V tile
-  static constexpr int kRawTile = kCols * D;     // one tile of 8-bit codes
-  static constexpr int kStages16 = kQuant ? 3 : 4;
-  static constexpr int kRawStages = kQuant ? 3 : 0;
-  static constexpr int kAhead = kQuant ? 3 : 2;  // tiles copied ahead of the one computed
+  static constexpr bool kBig = D > 128;
+  static constexpr bool kLate = kQuant && kBig;
+  static constexpr int kTile16 = kCols * D * 2;    // one 16-bit K tile
+  static constexpr int kTile16V = kCols * DV * 2;  // one 16-bit V tile
+  static constexpr int kRawTile = kCols * D;       // one K tile of 8-bit codes
+  static constexpr int kRawTileV = kCols * DV;     // one V tile of 8-bit codes
+  static constexpr int kStage16 = kTile16 + kTile16V;
+  static constexpr int kRawStage = kRawTile + kRawTileV;
+  static constexpr int kStages16 = kQuant ? (kBig ? 2 : 3) : (kBig ? 3 : 4);
+  static constexpr int kRawStages = kQuant ? (kBig ? 2 : 3) : 0;
+  // tiles copied ahead of the one computed
+  static constexpr int kAhead = kQuant ? (kBig ? 2 : 3) : (kBig ? 1 : 2);
   static constexpr int kQ = 0;
   static constexpr int kRing16 = kQ + kRows * D * 2;
-  static constexpr int kRaw = kRing16 + kStages16 * 2 * kTile16;
-  static constexpr int kKs = kRaw + kRawStages * 2 * kRawTile;
+  static constexpr int kRaw = kRing16 + kStages16 * kStage16;
+  static constexpr int kKs = kRaw + kRawStages * kRawStage;
   static constexpr int kKsStage = kCols * kMaxGroups * 4;
   static constexpr int kList = kKs + kKsStages * kKsStage;
 };
@@ -324,7 +354,11 @@ struct BlockMask {
   int n_tm, n_tkv, tile_q, tile_kv;
 };
 
-template <int D, typename T, bool kGrouped>
+// D: q's and K's columns as staged (the head dim, or 128 for a head dim DA
+// of 96: columns DA..D-1 are zeros); DV: the V and output columns a block
+// computes, at column (blockIdx.y % (DA / DV)) * DV (D 256: two blocks of
+// 128, each reading the whole of K).
+template <int D, int DA, int DV, typename T, bool kGrouped>
 __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q,  // [rows, hq * D]
     const T* __restrict__ kc, const T* __restrict__ vc,
@@ -335,20 +369,23 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
     const float* __restrict__ vscale, const float* __restrict__ ktok,
     __nv_bfloat16* __restrict__ out, int total_q, int max_blocks, int page_size, int hq, int hkv,
     int q_tile, int vscale_per_head, int kgroups, float scale, BlockMask bm) {
-  using L = Smem<D, T>;
+  using L = Smem<D, DV, T>;
   constexpr bool kQuant = L::kQuant;
-  constexpr bool kHalfPV = kQuant;  // P and V in fp16 for int8 and e4m3 caches
-  constexpr int kSteps = D / 16;    // k-steps of Q K^T
-  constexpr int kDBlocks = D / 64;  // 64-column blocks of the output
+  constexpr bool kHalfPV = kQuant;   // P and V in fp16 for int8 and e4m3 caches
+  constexpr int kSteps = D / 16;     // k-steps of Q K^T
+  constexpr int kStepsA = DA / 16;   // of them, those over the head dim
+  constexpr int kDBlocks = DV / 64;  // 64-column blocks of the output
+  constexpr int kVSplit = DA > DV ? DA / DV : 1;  // blocks sharing a q tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t s_base = smem_u32(smem);
 
   // values that steer the walk are broadcast from lane 0, so the compiler
   // sees them warp-uniform and keeps the wgmmas unserialized
-  const int b = blockIdx.x, h = blockIdx.y;
+  const int b = blockIdx.x, h = blockIdx.y / kVSplit;
+  const int vcol0 = (blockIdx.y % kVSplit) * DV;  // the block's V and output columns
   const int g_per = hq / hkv;
-  const int64_t row_stride = static_cast<int64_t>(hq) * D;
+  const int64_t row_stride = static_cast<int64_t>(hq) * DA;
   const int tid = threadIdx.x, lane = tid & 31;
   if (b == gridDim.x - 1) {
     // the last column of blocks: out's rows past cu[batch] (no request's)
@@ -417,8 +454,8 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
     for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
       const int idx = tid + i * kThreads;
       const int m = idx / kChunks, c = idx % kChunks;
-      const bool ok = m < rows_used;
-      const int64_t at = (q_start + i0 + tok_of(m)) * row_stride + (h * g_per + head_of(m)) * D;
+      const bool ok = m < rows_used && c < DA / 8;
+      const int64_t at = (q_start + i0 + tok_of(m)) * row_stride + (h * g_per + head_of(m)) * DA;
       const __nv_bfloat16* src = q + (ok ? at + c * 8 : 0);
       cp_async16(s_base + L::kQ + swz<kRows>(m, c), src, ok);
     }
@@ -479,38 +516,75 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
   auto entry_of = [&](int j) { return sparse ? list_s[j] : 2 * j + 1; };
 
   // Issues the copies of KV tile t, the j-th of the walk: kChunks threads a
-  // row, one page lookup for the row's K and V chunks.
-  constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;  // 16-byte chunks a row
+  // row, one page lookup for the row's K and V chunks (where K and V rows
+  // have as many chunks; at D 256 K and V each take their own pass).
+  constexpr int kElems = 16 / static_cast<int>(sizeof(T));        // elements a chunk
+  constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;   // 16-byte chunks a K row
+  constexpr int kChunksV = DV * static_cast<int>(sizeof(T)) / 16;  // and a V row
+  constexpr int kRealK = DA / kElems;                             // of them, over the head dim
+  constexpr int kRealV = (DA - (kVSplit - 1) * DV) / kElems;      // (DA 96: 96 of 128)
   constexpr int kRowsPass = kThreads / kChunks;
   const int chunk = tid % kChunks;
-  const T* k_base = kc + h * k_head_stride + chunk * (16 / static_cast<int>(sizeof(T)));
-  const T* v_base = vc + h * v_head_stride + chunk * (16 / static_cast<int>(sizeof(T)));
+  const T* k_base = kc + h * k_head_stride + chunk * kElems;
+  const T* v_base = vc + h * v_head_stride + vcol0 + chunk * kElems;
+  auto page_at = [&](int kpos, int64_t& in_page) {
+    const int pidx = page_shift >= 0 ? kpos >> page_shift : kpos / page_size;
+    in_page = kpos - pidx * page_size;
+    return static_cast<int64_t>(max(tbl[pidx], 0));
+  };
   auto load_tile = [&](int t, int j) {
     const int t0 = t * kCols;
+    const uint32_t kst = kQuant ? s_base + L::kRaw + (j % L::kRawStages) * L::kRawStage
+                                : s_base + L::kRing16 + (j % L::kStages16) * L::kStage16;
+    const uint32_t vst = kst + (kQuant ? L::kRawTile : L::kTile16);
+    if constexpr (kChunks == kChunksV) {
 #pragma unroll
-    for (int p = 0; p < kCols / kRowsPass; ++p) {
-      const int n = tid / kChunks + p * kRowsPass;
-      const int kpos = t0 + n;
-      const bool ok = kpos < kv_end;
-      const T* ksrc = kc;
-      const T* vsrc = vc;
-      if (ok) {
-        const int pidx = page_shift >= 0 ? kpos >> page_shift : kpos / page_size;
-        const int64_t page = max(tbl[pidx], 0);
-        const int64_t in_page = kpos - pidx * page_size;
-        ksrc = k_base + page * k_page_stride + in_page * k_slot_stride;
-        vsrc = v_base + page * v_page_stride + in_page * v_slot_stride;
+      for (int p = 0; p < kCols / kRowsPass; ++p) {
+        const int n = tid / kChunks + p * kRowsPass;
+        const int kpos = t0 + n;
+        const bool ok = kpos < kv_end;
+        const T* ksrc = kc;
+        const T* vsrc = vc;
+        if (ok) {
+          int64_t in_page;
+          const int64_t page = page_at(kpos, in_page);
+          ksrc = k_base + page * k_page_stride + in_page * k_slot_stride;
+          vsrc = v_base + page * v_page_stride + in_page * v_slot_stride;
+        }
+        const uint32_t off = kQuant ? n * D + chunk * 16 : swz<kCols>(n, chunk);
+        cp_async16(kst + off, ksrc, ok && chunk < kRealK);
+        cp_async16(vst + off, vsrc, ok && chunk < kRealV);
       }
-      uint32_t kdst, vdst;
-      if constexpr (kQuant) {
-        kdst = s_base + L::kRaw + (j % L::kRawStages) * 2 * L::kRawTile + n * D + chunk * 16;
-        vdst = kdst + L::kRawTile;
-      } else {
-        kdst = s_base + L::kRing16 + (j % L::kStages16) * 2 * L::kTile16 + swz<kCols>(n, chunk);
-        vdst = kdst + L::kTile16;
+    } else {
+#pragma unroll
+      for (int p = 0; p < kCols / kRowsPass; ++p) {
+        const int n = tid / kChunks + p * kRowsPass;
+        const int kpos = t0 + n;
+        const bool ok = kpos < kv_end;
+        const T* ksrc = kc;
+        if (ok) {
+          int64_t in_page;
+          const int64_t page = page_at(kpos, in_page);
+          ksrc = k_base + page * k_page_stride + in_page * k_slot_stride;
+        }
+        cp_async16(kst + (kQuant ? n * D + chunk * 16 : swz<kCols>(n, chunk)), ksrc, ok);
       }
-      cp_async16(kdst, ksrc, ok);
-      cp_async16(vdst, vsrc, ok);
+      constexpr int kRowsPassV = kThreads / kChunksV;
+      const int vchunk = tid % kChunksV;
+      const T* vb = vc + h * v_head_stride + vcol0 + vchunk * kElems;
+#pragma unroll
+      for (int p = 0; p < kCols / kRowsPassV; ++p) {
+        const int n = tid / kChunksV + p * kRowsPassV;
+        const int kpos = t0 + n;
+        const bool ok = kpos < kv_end;
+        const T* vsrc = vc;
+        if (ok) {
+          int64_t in_page;
+          const int64_t page = page_at(kpos, in_page);
+          vsrc = vb + page * v_page_stride + in_page * v_slot_stride;
+        }
+        cp_async16(vst + (kQuant ? n * DV + vchunk * 16 : swz<kCols>(n, vchunk)), vsrc, ok);
+      }
     }
     if (ktok != nullptr) {
       for (int e = tid; e < kCols * kgroups; e += kThreads) {
@@ -531,17 +605,19 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
   // V (fp16) tiles, in the swizzled layout.
   auto convert_tile = [&](int j) {
     if constexpr (kQuant) {
-      constexpr int kRawChunks = D / 16;  // 16 codes a chunk
-      const uint8_t* raw_kv = smem + L::kRaw + (j % L::kRawStages) * 2 * L::kRawTile;
-      uint8_t* tile = smem + L::kRing16 + (j % L::kStages16) * 2 * L::kTile16;
+      constexpr int kRawChunks = D / 16;    // 16 codes a chunk of a K row
+      constexpr int kRawChunksV = DV / 16;  // and of a V row
+      const uint8_t* raw_kv = smem + L::kRaw + (j % L::kRawStages) * L::kRawStage;
+      uint8_t* tile = smem + L::kRing16 + (j % L::kStages16) * L::kStage16;
 #pragma unroll
-      for (int i = 0; i < 2 * kCols * kRawChunks / kThreads; ++i) {
+      for (int i = 0; i < kCols * (kRawChunks + kRawChunksV) / kThreads; ++i) {
         const int idx = tid + i * kThreads;
         const bool is_v = idx >= kCols * kRawChunks;
         const int rem = is_v ? idx - kCols * kRawChunks : idx;
-        const int n = rem / kRawChunks, c = rem % kRawChunks;
-        const uint4 raw =
-            *reinterpret_cast<const uint4*>(raw_kv + (is_v ? L::kRawTile : 0) + n * D + c * 16);
+        const int per = is_v ? kRawChunksV : kRawChunks;
+        const int n = rem / per, c = rem % per;
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            raw_kv + (is_v ? L::kRawTile + n * DV : n * D) + c * 16);
         const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
         uint32_t o16[8];
 #pragma unroll
@@ -573,7 +649,7 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
   const uint64_t q_desc = desc_sw128(s_base + L::kQ + wg * 64 * 128);  // this warpgroup's 64 rows
   auto pv = [&](int j) {  // O += P V of the j-th tile (after a wgmma fence)
     const uint64_t vd =
-        desc_sw128(s_base + L::kRing16 + (j % L::kStages16) * 2 * L::kTile16 + L::kTile16);
+        desc_sw128(s_base + L::kRing16 + (j % L::kStages16) * L::kStage16 + L::kTile16);
     if constexpr (kDBlocks == 2) {
       // D 128: one m64n128k16 a k-step, V's two 64-column blocks a leading
       // byte offset apart
@@ -603,7 +679,13 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
   }
 #pragma unroll 1
   for (int j = 0; j < n_iter; ++j) {
-    cp_async_wait<1>();  // bf16: tile j's copies; int8 / e4m3: tile j + 1's codes (this thread's)
+    // bf16: tile j's copies; int8 / e4m3: tile j + 1's codes (this
+    // thread's); kLate converted tile j at the end of iteration j - 1
+    if constexpr (!kQuant) {
+      cp_async_wait<L::kAhead - 1>();
+    } else if constexpr (!L::kLate) {
+      cp_async_wait<1>();
+    }
     fence_proxy_async();
     __syncthreads();  // everyone's; every warpgroup is done with tile j - 1's S and j - 2's P V
     const int entry = __shfl_sync(0xffffffffu, entry_of(j), 0);
@@ -612,7 +694,7 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
     // some row of the warpgroup reaches the tile (else its P is 0: the
     // products run all the same, so no wgmma sits on a divergent path)
     const bool live = wg_live && t0 <= wg_hi;
-    const uint64_t k_desc = desc_sw128(s_base + L::kRing16 + (j % L::kStages16) * 2 * L::kTile16);
+    const uint64_t k_desc = desc_sw128(s_base + L::kRing16 + (j % L::kStages16) * L::kStage16);
     wgmma_fence();
     if constexpr (!kGrouped) {
 #pragma unroll
@@ -625,7 +707,7 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
     wgmma_commit();
     if (j + L::kAhead < n_iter) load_tile(entry_of(j + L::kAhead) >> 1, j + L::kAhead);
     cp_async_commit();
-    if constexpr (kQuant) {
+    if constexpr (kQuant && !L::kLate) {
       if (j + 1 < n_iter) convert_tile(j + 1);
       fence_proxy_async();
     }
@@ -649,24 +731,28 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
       // one product per group of D / kgroups columns, q from shared memory
         // into registers, scaled and summed in float32; spg k-steps a group,
         // 0: a k-step spans two groups of 8 columns
+        // (only D 64 has groups of 8 columns: 8 groups; D 96 and 256 take
+        // groups of a multiple of 16)
         float sg[32];
-        const int spg = kSteps / kgroups;
+        constexpr bool kHalfSteps = DA == 64;
+        const int spg = kStepsA / kgroups;
+        const bool halves = kHalfSteps && spg == 0;
 #pragma unroll
         for (int i = 0; i < 32; ++i) s[i] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < kSteps; ++kk) {
+        for (int kk = 0; kk < kStepsA; ++kk) {
           uint32_t qa[4];
 #pragma unroll
           for (int r = 0; r < 4; ++r)
             qa[r] = *reinterpret_cast<const uint32_t*>(
                 smem + L::kQ + swz<kRows>(row0 + 8 * (r & 1), 2 * kk + (r >> 1)) + 4 * tq);
 #pragma unroll
-          for (int part = 0; part < 2; ++part) {
-            if (part == 1 && spg != 0) continue;
-            const bool first = spg == 0 || kk % spg == 0;
-            const bool last = spg == 0 || kk % spg == spg - 1;
+          for (int part = 0; part < (kHalfSteps ? 2 : 1); ++part) {
+            if (part == 1 && !halves) continue;
+            const bool first = halves || kk % spg == 0;
+            const bool last = halves || kk % spg == spg - 1;
             uint32_t a[4] = {qa[0], qa[1], qa[2], qa[3]};
-            if (spg == 0) {  // keep only this part's 8 columns of the k-step
+            if (halves) {  // keep only this part's 8 columns of the k-step
               a[2 - 2 * part] = 0u;
               a[3 - 2 * part] = 0u;
             }
@@ -677,7 +763,7 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
               wgmma_commit();
               wgmma_wait<0>();
               fence_acc(sg);
-              const int g = spg == 0 ? 2 * kk + part : kk / spg;
+              const int g = halves ? 2 * kk + part : kk / spg;
 #pragma unroll
               for (int jn = 0; jn < 8; ++jn)
 #pragma unroll
@@ -759,6 +845,16 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
     }
 #pragma unroll
     for (int i = 0; i < 16; ++i) pf[i / 4][i % 4] = pn[i / 4][i % 4];
+    if constexpr (L::kLate) {
+      // tile j + 1's codes -> the 16-bit stage that tile j - 1's P V (done
+      // in every warpgroup: the barrier) last read
+      if (j + 1 < n_iter) {
+        cp_async_wait<1>();
+        __syncthreads();
+        convert_tile(j + 1);
+      }
+      fence_proxy_async();
+    }
   }
   if (n_iter > 0) {
     wgmma_fence();
@@ -793,15 +889,15 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
             __floats2bfloat162_rn(o[db][4 * jn + 2 * hf] * inv, o[db][4 * jn + 2 * hf + 1] * inv);
   }
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the warpgroup's rows staged
-  constexpr int kOutChunks = D / 8;
+  constexpr int kOutChunks = DV / 8;
   const int wtid = tid & 127;
 #pragma unroll
   for (int i = 0; i < 64 * kOutChunks / 128; ++i) {
     const int idx = wtid + i * 128;
     const int r = wg * 64 + idx / kOutChunks, c = idx % kOutChunks;
-    if (r < rows_used)
+    if (r < rows_used && vcol0 + c * 8 < DA)
       *reinterpret_cast<uint4*>(out + (q_start + i0 + tok_of(r)) * row_stride +
-                                (h * g_per + head_of(r)) * D + c * 8) =
+                                (h * g_per + head_of(r)) * DA + vcol0 + c * 8) =
           *reinterpret_cast<const uint4*>(smem + L::kQ + swz<kRows>(r, c));
   }
 }
@@ -810,29 +906,31 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
 #undef HPC_D32
 #undef HPC_D64
 
-template <int D, typename T, bool kGrouped>
+template <int D, int DA, int DV, typename T, bool kGrouped>
 int launch_form(const void* q, const void* kc, const void* vc, const int64_t* st,
                 const void* cu, const void* kv_lens, const void* block_ids, const void* kscale,
                 const void* vscale, const void* ktok, void* out, int total_q, int batch,
                 int max_blocks, int page_size, int hq, int hkv, int n_q_tiles, int q_tile,
                 int vscale_per_head, int kgroups, float scale, BlockMask bm, cudaStream_t stream) {
   const size_t cap = (static_cast<size_t>(max_blocks) * page_size + kCols - 1) / kCols;
-  const int smem = static_cast<int>(1024 + Smem<D, T>::kList + (bm.bits ? 4 * cap : 0));
+  const int smem = static_cast<int>(1024 + Smem<D, DV, T>::kList + (bm.bits ? 4 * cap : 0));
   // the largest dynamic shared memory granted so far: cudaFuncSetAttribute
   // only when a launch needs more (and not inside a CUDA graph's capture
   // after the first launch); ranks of a tensor-parallel mesh launch from
   // threads
   static std::atomic<int> granted{0};
   if (smem > granted.load()) {
-    const cudaError_t e = cudaFuncSetAttribute(paged_prefill_kernel<D, T, kGrouped>,
+    const cudaError_t e = cudaFuncSetAttribute(paged_prefill_kernel<D, DA, DV, T, kGrouped>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     int seen = granted.load();
     while (smem > seen && !granted.compare_exchange_weak(seen, smem)) {
     }
   }
-  dim3 grid(batch + 1, hkv, n_q_tiles);  // the last column zero-fills the rows past cu[batch]
-  paged_prefill_kernel<D, T, kGrouped><<<grid, kThreads, smem, stream>>>(
+  // the last column zero-fills the rows past cu[batch]; DA / DV blocks a
+  // (kv head, q tile) at D 256
+  dim3 grid(batch + 1, hkv * (DA > DV ? DA / DV : 1), n_q_tiles);
+  paged_prefill_kernel<D, DA, DV, T, kGrouped><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), st[0], st[1], st[2], st[3], st[4], st[5],
       static_cast<const int32_t*>(cu), static_cast<const int32_t*>(kv_lens),
@@ -843,17 +941,17 @@ int launch_form(const void* q, const void* kc, const void* vc, const int64_t* st
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, typename T>
+template <int D, int DA, int DV, typename T>
 int launch(const void* q, const void* kc, const void* vc, const int64_t* st,
            const void* cu, const void* kv_lens, const void* block_ids, const void* kscale,
            const void* vscale, const void* ktok, void* out, int total_q, int batch, int max_blocks,
            int page_size, int hq, int hkv, int n_q_tiles, int q_tile, int vscale_per_head,
            int kgroups, float scale, BlockMask bm, cudaStream_t stream) {
   if (ktok != nullptr && kgroups > 1)
-    return launch_form<D, T, true>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok,
+    return launch_form<D, DA, DV, T, true>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok,
                                    out, total_q, batch, max_blocks, page_size, hq, hkv, n_q_tiles,
                                    q_tile, vscale_per_head, kgroups, scale, bm, stream);
-  return launch_form<D, T, false>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok,
+  return launch_form<D, DA, DV, T, false>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok,
                                   out, total_q, batch, max_blocks, page_size, hq, hkv, n_q_tiles,
                                   q_tile, vscale_per_head, kgroups, scale, bm, stream);
 }
@@ -866,17 +964,31 @@ int launch_d(const void* q, const void* kc, const void* vc, const int64_t* st,
              int vscale_per_head, int kgroups, float scale, BlockMask bm, cudaStream_t stream) {
   if (hq % hkv != 0 || hq / hkv > kRows || kgroups < 1 || kgroups > kMaxGroups || d % kgroups != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  // grouped K scales at D 96 and 256: groups of a multiple of 16 columns
+  if (kgroups > 1 && (d == 96 || d == 256) && (d / kgroups) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int q_tile = kRows / (hq / hkv);
   const int n_q_tiles = max((max_seqlens_q + q_tile - 1) / q_tile, 1);
   switch (d) {
     case 64:
-      return launch<64, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok, out,
+      return launch<64, 64, 64, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok, out,
                            total_q, batch, max_blocks, page_size, hq, hkv, n_q_tiles, q_tile,
                            vscale_per_head, kgroups, scale, bm, stream);
+    case 96:  // zero-padded to 128 columns in shared memory
+      return launch<128, 96, 128, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok,
+                                     out, total_q, batch, max_blocks, page_size, hq, hkv,
+                                     n_q_tiles, q_tile, vscale_per_head, kgroups, scale, bm,
+                                     stream);
     case 128:
-      return launch<128, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok, out,
-                            total_q, batch, max_blocks, page_size, hq, hkv, n_q_tiles, q_tile,
-                            vscale_per_head, kgroups, scale, bm, stream);
+      return launch<128, 128, 128, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok,
+                                      out, total_q, batch, max_blocks, page_size, hq, hkv,
+                                      n_q_tiles, q_tile, vscale_per_head, kgroups, scale, bm,
+                                      stream);
+    case 256:  // two blocks a q tile, 128 V columns each
+      return launch<256, 256, 128, T>(q, kc, vc, st, cu, kv_lens, block_ids, kscale, vscale, ktok,
+                                      out, total_q, batch, max_blocks, page_size, hq, hkv,
+                                      n_q_tiles, q_tile, vscale_per_head, kgroups, scale, bm,
+                                      stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -922,7 +1034,7 @@ constexpr BlockMask kDense = {nullptr, 0, 0, 1, 1};
 // tile of 128 / G tokens), and a column of blocks that zero-fills out's rows
 // from cu[batch] to total_q (out may come uninitialised), and returns a
 // cudaError_t code. d (the head dim of
-// q, K and V) is 64 or 128. kscale is a [1] float32 device scalar; vscale is
+// q, K and V) is 64, 96, 128 or 256. kscale is a [1] float32 device scalar; vscale is
 // [1], or [hkv] with vscale_per_head; ktok is [num_pages, page_size, hkv,
 // kgroups] float32, kgroups (1..8, dividing d) K scales per token and kv
 // head, each over d / kgroups consecutive columns. Each may be null (a scale

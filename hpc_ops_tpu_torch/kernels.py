@@ -36,9 +36,9 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "hpc_rope_store_bf16": [_P] * 10 + [_I] * 8 + [_I64] * 5 + [_I, _P],
     "hpc_rope_store_int8": [_P] * 11 + [_I] * 8 + [_I64, _I, _P],
-    "hpc_paged_decode": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 5 + [_I] * 8 + [_F, _P],
-    "hpc_paged_decode_qt0": [_P] * 3 + [_I64] * 6 + [_P] * 5 + [_I] * 9 + [_F, _P],
-    "hpc_paged_decode_nhd_fused": [_P, _P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P],
+    "hpc_paged_decode": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 5 + [_I] * 8 + [_F, _P, _P, _P, _I],
+    "hpc_paged_decode_qt0": [_P] * 3 + [_I64] * 6 + [_P] * 5 + [_I] * 9 + [_F, _P, _P, _P, _I],
+    "hpc_paged_decode_nhd_fused": [_P, _P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P, _P, _P, _I],
     "hpc_paged_decode_tasks": ([_P] * 3 + [_I] + [_I64] * 6 + [_P] * 5 + [_I] * 2 + [_P] * 5
                                + [_I] * 7 + [_F, _P]),
     "hpc_decode_combine": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 5 + [_P],

@@ -21,6 +21,16 @@ over D/G consecutive columns), and a per-head ``vscale``: their own kernel
 reference, the port's kernel takes them). Also mtp 0..4,
 ``new_kv_included``, ``sm_scale`` and ``impl="ref"``.
 
+On the card every grid form splits KV inside its one launch: each (request,
+kv head) is cut into :func:`decode_splits` chunks of 64-position tiles, one
+block each, and the last block of a (request, kv head) to finish merges the
+chunks' float32 partials (a workspace from ``torch.empty``, an atomic ticket
+in a zeroed int32 buffer kept per CUDA stream). The split count comes from
+the batch and the page table's width, never from ``kv_lens``, so no value
+is read back to the host; ``attention_decode(splitk=False)`` runs one block
+per (request, kv head). Both products run on the tensor cores (bf16
+operands, float32 sums; P as three bf16 terms, about float32's precision).
+
 ``task_map`` (a :class:`~hpc_ops_tpu_torch.ops.attention.scheduler.TaskMap`)
 selects the split-KV mode: one block per task over a contiguous KV range of
 one (request, kv head) writes float32 partials (:func:`paged_decode_tasks`),
@@ -43,6 +53,7 @@ from hpc_ops_tpu_torch.ops.attention.paging import (
     unpack_kv_fused_nhd,
 )
 from hpc_ops_tpu_torch.ops.attention.reference import attention_decode_ref
+from hpc_ops_tpu_torch.utils.common import cdiv
 
 # the launchers' kv_type argument
 _KV_TYPES = {torch.bfloat16: 0, torch.int8: 1, FP8_DTYPE: 2}
@@ -50,6 +61,43 @@ _PERTOKEN_K = (
     QuantType.QPERTOKEN_PERHEAD_KPERTOKEN_PERHEAD_VPERHEAD,
     QuantType.QPERTOKEN_PERHEAD_KPERTOKEN_PERHEAD_VPERHEAD_QKHADAMARD,
 )
+
+
+KV_TILE = 64  # KV positions a tile of the kernel (csrc/decode.cu kTile)
+ROWS_PER_BLOCK = 16  # query rows a block: G * sq rows make ceil(G * sq / 16) row blocks
+
+
+def decode_splits(batch: int, max_positions: int, splitk: bool = True) -> int:
+    """Chunks of the KV range a (request, kv head) is cut into on the card.
+
+    From what the host knows only (the batch and the page table's width x
+    page size, never the lengths): 16 at batch <= 32, else 4 (the
+    reference's static split-K), never more than the 64-position tiles the
+    table spans; 1 without ``splitk``. A chunk past a request's length costs
+    a block that writes a neutral partial."""
+    tiles = cdiv(max_positions, KV_TILE)
+    if not splitk or tiles <= 1:
+        return 1
+    return min(16 if batch <= 32 else 4, tiles)
+
+
+_TICKETS: dict = {}  # (device index, stream) -> int32 zeros the kernel leaves zero
+
+
+def _split_buffers(q, batch, hkv, sq, dv, splits):
+    """The split-KV workspace (``torch.empty``) and this stream's ticket
+    buffer, or ``(None, None)`` for one split. Tensor-parallel ranks launch
+    on their own streams at once, so each stream has its own tickets."""
+    if splits == 1:
+        return None, None
+    segs = batch * hkv * cdiv((q.shape[1] // hkv) * sq, ROWS_PER_BLOCK)
+    ws = torch.empty(segs * splits * ROWS_PER_BLOCK * (dv + 2), dtype=torch.float32, device=q.device)
+    key = (q.device.index, kernels.stream_ptr(q))
+    tickets = _TICKETS.get(key)
+    if tickets is None or tickets.numel() < segs:
+        tickets = torch.zeros(max(segs, 4096), dtype=torch.int32, device=q.device)
+        _TICKETS[key] = tickets
+    return ws, tickets
 
 
 def _nhd(cache, cache_layout):
@@ -102,6 +150,15 @@ def _check_slab(name, kv, num_kv_heads, d):
     _check_rows_aligned(name, (kv, (d,)))
 
 
+def _check_q(name, q, rows):
+    """q as the kernels copy it: contiguous bf16 [rows, Hq, D] from a
+    16-byte aligned address (its rows go in 16-byte copies)."""
+    if q.dtype != torch.bfloat16 or q.shape[0] != rows or not q.is_contiguous():
+        raise ValueError(f"{name}: q must be contiguous bf16 [{rows}, Hq, D]")
+    if q.data_ptr() % 16:
+        raise ValueError(f"{name}: q must start 16-byte aligned")
+
+
 def _slab_args(name, q, kv, block_ids, kv_lens, sq, hkv):
     """Checks shared by the wrappers over one K|V slab. Returns ``(kv_type,
     block_ids, kv_lens)``, the tables as contiguous int32."""
@@ -109,9 +166,8 @@ def _slab_args(name, q, kv, block_ids, kv_lens, sq, hkv):
         if t.device != q.device:
             raise ValueError(f"{name}: all tensors must be on one device")
     b = kv_lens.shape[0]
-    bsq, hq, _ = q.shape
-    if q.dtype != torch.bfloat16 or bsq != b * sq or not q.is_contiguous():
-        raise ValueError(f"{name}: q must be contiguous bf16 [{b * sq}, Hq, D]")
+    hq = q.shape[1]
+    _check_q(name, q, b * sq)
     if hkv == 0 or hq % hkv:
         raise ValueError(f"{name}: unsupported head geometry")
     return (_kv_type(name, kv), block_ids.to(torch.int32).contiguous(),
@@ -137,9 +193,8 @@ def _split_cache_geometry(name, q, kcache, vcache, block_ids, kv_lens, sq, cache
         if t.device != q.device:
             raise ValueError(f"{name}: all tensors must be on one device")
     b = kv_lens.shape[0]
-    bsq, hq, d = q.shape
-    if q.dtype != torch.bfloat16 or bsq != b * sq or not q.is_contiguous():
-        raise ValueError(f"{name}: q must be contiguous bf16 [{b * sq}, Hq, D]")
+    _, hq, d = q.shape
+    _check_q(name, q, b * sq)
     hkv = kcache.shape[0] if cache_layout == "HND" else kcache.shape[2]
     page_size = kcache.shape[2] if cache_layout == "HND" else kcache.shape[1]
     if hq % hkv or kcache.shape[3] != d:
@@ -171,6 +226,8 @@ def paged_decode_attention(
     cache_layout: str,
     kscale=None,  # [1] f32 per-tensor K scale (None: 1)
     vscale=None,  # [1] f32 per-tensor V scale (None: 1)
+    *,
+    splitk: bool = True,  # split KV across blocks (decode_splits)
 ) -> torch.Tensor:
     """Decode attention over paged K and V caches (HND or NHD; bf16, int8 or
     e4m3); returns [B*sq, Hq, Dv] bf16.
@@ -189,12 +246,15 @@ def paged_decode_attention(
         name, q, kcache, vcache, block_ids, kv_lens, sq, cache_layout)
     ks, vs = _scale_tensor(kscale, q.device), _scale_tensor(vscale, q.device)
     bsq, hq, d = q.shape
+    b = lens.shape[0]
+    splits = decode_splits(b, tbl.shape[1] * page_size, splitk)
+    ws, tickets = _split_buffers(q, b, hkv, sq, dv, splits)
     out = torch.empty((bsq, hq, dv), dtype=torch.bfloat16, device=q.device)
     rc = kernels.lib().hpc_paged_decode(
         q.data_ptr(), kcache.data_ptr(), vcache.data_ptr(), kv_type, *k_st, *v_st,
         _ptr(ks), _ptr(vs), tbl.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        lens.shape[0], tbl.shape[1], page_size, sq, hq, hkv, d, dv, float(scale),
-        kernels.stream_ptr(q),
+        b, tbl.shape[1], page_size, sq, hq, hkv, d, dv, float(scale),
+        kernels.stream_ptr(q), _ptr(ws), _ptr(tickets), splits,
     )
     kernels.check(rc, "hpc_paged_decode")
     kernels.count(paged_decode_attention)
@@ -225,6 +285,8 @@ def paged_decode_qt0(
     sq: int,
     scale: float,
     cache_layout: str,
+    *,
+    splitk: bool = True,  # split KV across blocks (decode_splits)
 ) -> torch.Tensor:
     """QuantType-0 decode attention: each KV token's G scales multiply the
     partial q.k products of their D/G columns (G = 1: the token's scale
@@ -254,12 +316,15 @@ def paged_decode_qt0(
                          "G groups of a multiple of 16 columns")
     ktok = ktok.float().contiguous()
     vs = _scale_tensor(vhead, q.device, hkv)
+    b = lens.shape[0]
+    splits = decode_splits(b, tbl.shape[1] * page_size, splitk)
+    ws, tickets = _split_buffers(q, b, hkv, sq, dv, splits)
     out = torch.empty((bsq, hq, dv), dtype=torch.bfloat16, device=q.device)
     rc = kernels.lib().hpc_paged_decode_qt0(
         q.data_ptr(), kcache.data_ptr(), vcache.data_ptr(), *k_st, *v_st,
         ktok.data_ptr(), _ptr(vs), tbl.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        lens.shape[0], tbl.shape[1], page_size, sq, hq, hkv, d, dv, groups, float(scale),
-        kernels.stream_ptr(q),
+        b, tbl.shape[1], page_size, sq, hq, hkv, d, dv, groups, float(scale),
+        kernels.stream_ptr(q), _ptr(ws), _ptr(tickets), splits,
     )
     kernels.check(rc, "hpc_paged_decode_qt0")
     kernels.count(paged_decode_qt0)
@@ -288,6 +353,8 @@ def paged_decode_nhd_fused(
     scale: float,
     kscale=None,  # [1] f32 per-tensor K scale (None: 1)
     vscale=None,  # [1] f32 per-tensor V scale (None: 1)
+    *,
+    splitk: bool = True,  # split KV across blocks (decode_splits)
 ) -> torch.Tensor:
     """Decode attention over an NHD_FUSED slab; returns [B*sq, Hq, D] bf16.
 
@@ -303,12 +370,15 @@ def paged_decode_nhd_fused(
     kv_type, tbl, lens = _slab_args("paged_decode_nhd_fused", q, kv, block_ids, kv_lens, sq, hkv)
     _check_slab("paged_decode_nhd_fused", kv, hkv, d)
     ks, vs = _scale_tensor(kscale, q.device), _scale_tensor(vscale, q.device)
+    b, page_size = lens.shape[0], kv.shape[1] // 2
+    splits = decode_splits(b, tbl.shape[1] * page_size, splitk)
+    ws, tickets = _split_buffers(q, b, hkv, sq, d, splits)
     out = torch.empty((bsq, hq, d), dtype=torch.bfloat16, device=q.device)
     rc = kernels.lib().hpc_paged_decode_nhd_fused(
         q.data_ptr(), kv.data_ptr(), kv_type, _ptr(ks), _ptr(vs),
         tbl.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        lens.shape[0], tbl.shape[1], kv.shape[1] // 2, sq, hq, hkv, d, float(scale),
-        kernels.stream_ptr(q),
+        b, tbl.shape[1], page_size, sq, hq, hkv, d, float(scale),
+        kernels.stream_ptr(q), _ptr(ws), _ptr(tickets), splits,
     )
     kernels.check(rc, "hpc_paged_decode_nhd_fused")
     kernels.count(paged_decode_nhd_fused)
@@ -533,10 +603,14 @@ def attention_decode(
     scales a bf16 output). ``task_map`` runs the split-KV mode over the map's
     own tile, which must be a multiple of the page size; QuantTypes 0 and 3
     ignore the map and take their grid kernel (the JAX package's reference
-    gives the same output), and ``impl="ref"`` ignores it too. ``splitk``, ``pages_per_compute_block`` and ``task_tile`` (a map
-    carries its own tile) are accepted for call compatibility and unused.
+    gives the same output), and ``impl="ref"`` ignores it too. On the card
+    ``splitk`` (default True) splits each (request, kv head)'s KV range
+    across blocks of the grid kernel (:func:`decode_splits`); False runs one
+    block per (request, kv head). The output is the same function either
+    way. ``pages_per_compute_block`` and ``task_tile`` (a map carries its
+    own tile) are accepted for call compatibility and unused.
     """
-    del splitk, pages_per_compute_block, task_tile
+    del pages_per_compute_block, task_tile
     if cache_layout not in ("NHD", "HND", "NHD_FUSED", "FUSED"):
         raise ValueError(f"attention_decode: unknown cache_layout {cache_layout!r}")
     sq = mtp + 1
@@ -576,7 +650,7 @@ def attention_decode(
         qb = q.to(torch.bfloat16).contiguous()
     if pertoken_k:  # a task map changes only the schedule: the grid kernel serves it
         return paged_decode_qt0(qb, kcache, vcache, kscale, vscale, block_ids, kv_lens, sq,
-                                scale, cache_layout)
+                                scale, cache_layout, splitk=splitk)
     if task_map is not None:
         kv_k, kv_v = _hnd_views(kcache, vcache, cache_layout, d)
         o, m, l = paged_decode_tasks(qb, kv_k, kv_v, block_ids, kv_lens, task_map, sq, scale,
@@ -586,9 +660,10 @@ def attention_decode(
         kcache, vcache = _hnd_views(kcache, vcache, cache_layout, d)
         cache_layout = "HND"
     if cache_layout == "NHD_FUSED":
-        return paged_decode_nhd_fused(qb, kcache, block_ids, kv_lens, sq, scale, kscale, vscale)
+        return paged_decode_nhd_fused(qb, kcache, block_ids, kv_lens, sq, scale, kscale, vscale,
+                                      splitk=splitk)
     return paged_decode_attention(qb, kcache, vcache, block_ids, kv_lens, sq, scale,
-                                  cache_layout, kscale, vscale)
+                                  cache_layout, kscale, vscale, splitk=splitk)
 
 
 def attention_decode_bf16(
@@ -639,6 +714,7 @@ __all__ = [
     "attention_decode_bf16",
     "attention_decode_fp8",
     "decode_combine",
+    "decode_splits",
     "paged_decode_attention",
     "paged_decode_nhd_fused",
     "paged_decode_qt0",

@@ -71,6 +71,18 @@ def _prefill_ref(q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens, max_seqlen
     )
 
 
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)  # csrc/prefill.cu's instances (96: zero-padded to 128)
+MAX_GQA_GROUP = 128  # query heads a kv head: 128 / G tokens a block, one at G 128
+
+
+def _check_heads(name, d, hq, hkv):
+    """Raises ``ValueError`` for a head shape the kernel has no instance for."""
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: the CUDA kernel takes head_dim {', '.join(map(str, KERNEL_HEAD_DIMS))}")
+    if hkv < 1 or hq % hkv or hq // hkv > MAX_GQA_GROUP:
+        raise ValueError(f"{name}: unsupported GQA group (at most {MAX_GQA_GROUP} q heads a kv head)")
+
+
 def _split_cache_launch_args(name, q, kcache, vcache, cu_seqlens_q, block_ids, kv_lens, cache_layout,
                              kscale, vscale, ktok, *more):
     """Checks shared by the wrappers over split K and V caches (``more``:
@@ -88,10 +100,9 @@ def _split_cache_launch_args(name, q, kcache, vcache, cu_seqlens_q, block_ids, k
     hkv = kcache.shape[0] if cache_layout == "HND" else kcache.shape[2]
     nb = kcache.shape[1] if cache_layout == "HND" else kcache.shape[0]
     page_size = kcache.shape[2] if cache_layout == "HND" else kcache.shape[1]
-    if d not in (64, 128) or vcache.shape[3] != d or kcache.shape[3] != d:
-        raise ValueError(f"{name}: the CUDA kernel takes head_dim 64 or 128")
-    if hq % hkv or hq // hkv > 64:
-        raise ValueError(f"{name}: unsupported GQA group")
+    _check_heads(name, d, hq, hkv)
+    if vcache.shape[3] != d or kcache.shape[3] != d:
+        raise ValueError(f"{name}: q, K and V must share one head_dim")
     k_st = _page_strides(kcache, cache_layout)
     v_st = _page_strides(vcache, cache_layout)
     _check_rows_aligned(name, (kcache, k_st), (vcache, v_st))
@@ -101,9 +112,9 @@ def _split_cache_launch_args(name, q, kcache, vcache, cu_seqlens_q, block_ids, k
             raise ValueError(f"{name}: per-token K scales replace the per-tensor kscale")
         groups = ktok.shape[-1]
         if (ktok.device != q.device or ktok.dim() != 4 or tuple(ktok.shape[:3]) != (nb, page_size, hkv)
-                or groups > 8 or d % groups):
+                or groups > 8 or d % groups or (groups > 1 and d in (96, 256) and (d // groups) % 16)):
             raise ValueError(f"{name}: K scales must be [{nb}, {page_size}, {hkv}, G] on q's device, "
-                             "G <= 8 dividing D")
+                             "G <= 8 dividing D (at D 96 and 256 into groups of a multiple of 16)")
         ktok = ktok.float().contiguous()
     per_head = vscale is not None and hkv > 1 and torch.as_tensor(vscale).numel() == hkv
     scales = (_scale_tensor(kscale, q.device), _scale_tensor(vscale, q.device, hkv if per_head else 1),
@@ -194,11 +205,8 @@ def paged_prefill_nhd_fused(
     total_q, hq, d = q.shape
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise ValueError("paged_prefill_nhd_fused: q must be contiguous bf16")
-    if d not in (64, 128):
-        raise ValueError("paged_prefill_nhd_fused: the CUDA kernel takes head_dim 64 or 128")
     hkv = kv.shape[2] // d
-    if hkv == 0 or hq % hkv or hq // hkv > 64:
-        raise ValueError("paged_prefill_nhd_fused: unsupported GQA group")
+    _check_heads("paged_prefill_nhd_fused", d, hq, hkv)
     kv_type = _kv_type("paged_prefill_nhd_fused", kv)
     _check_slab("paged_prefill_nhd_fused", kv, hkv, d)
     ks, vs = _scale_tensor(kscale, q.device), _scale_tensor(vscale, q.device)

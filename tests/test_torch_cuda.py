@@ -2135,3 +2135,263 @@ def test_prefill_sparse_empty_walk_writes_zeros(cuda):
     assert not got[:128, 0:4].float().any()
     assert not got[200:277, 4:8].float().any()
     assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="sparse empty walk")
+
+
+# ------------------------------- fault F5's head shapes; the split-KV decode grid
+# Every kernel against its plain version at the file's 1e-2 (grouped K
+# scales: close_scaled). F5: prefill (dense, sparse, NHD_FUSED slab) at
+# head_dim 96 and 256 and at Hq 128 over Hkv 1, decode at G * sq = 160 and
+# G 128; each raised ValueError on the card before the kernels took them.
+# Split-KV: splitk=True and False agree, repeated calls are bit-equal (the
+# tickets go back to 0), two streams at once, mostly empty chunks, a 64K
+# request, NaN past kv_len.
+from hpc_ops_tpu_torch.ops.attention.decode import decode_splits  # noqa: E402
+
+F5_SHAPES = {"d96": (96, 32, 8), "d256": (256, 8, 2), "g128": (128, 128, 1)}
+F5_Q, F5_KV = [13, 7, 150], [13, 100, 300]
+
+
+def f5_prefill_case(gen, kind, d, hq, hkv, pad=5):
+    """q, HND caches of ``kind``, cu, table, lengths and the kind's scales."""
+    q, k, v, tbl, kv = paged(gen, F5_KV, hq, hkv, d, q_rows=sum(F5_Q) + pad)
+    if kind == "int8":
+        k, v = (torch.randint(-127, 128, tuple(t.shape), generator=gen, dtype=torch.int8) for t in (k, v))
+        ks, vs = SC, SC
+    elif kind == "e4m3":
+        k, v = (k.float() * 0.05).to(FP8), (v.float() * 0.05).to(FP8)
+        ks, vs = KS, VS
+    else:
+        ks = vs = None
+    cu = torch.tensor([0] + torch.tensor(F5_Q).cumsum(0).tolist(), dtype=torch.int32)
+    return (q, k, v, cu, tbl, kv), ks, vs
+
+
+def on(dev, *ts):
+    return [None if t is None else t.to(dev) for t in ts]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "e4m3"])
+@pytest.mark.parametrize("shape", list(F5_SHAPES))
+def test_f5_prefill_head_shapes_match_plain(cuda, shape, kind):
+    gen = torch.Generator().manual_seed(80)
+    d, hq, hkv = F5_SHAPES[shape]
+    args, ks, vs = f5_prefill_case(gen, kind, d, hq, hkv)
+    want = _prefill_ref(*args, max(F5_Q), d**-0.5, "HND", ks, vs)
+    n0 = paged_prefill_attention.launches
+    got = paged_prefill_attention(*on(cuda, *args), max(F5_Q), d**-0.5, "HND", *on(cuda, ks, vs))
+    torch.cuda.synchronize()
+    assert paged_prefill_attention.launches == n0 + 1
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name=f"f5 prefill {shape} {kind}")
+    assert not got[sum(F5_Q):].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [("d96", 3), ("d256", 4), ("g128", 1)])
+def test_f5_prefill_per_token_k_scales_match_plain(cuda, shape, groups):
+    """e4m3 with K scales per token and kv head in groups along D (D 96: 3
+    groups of 32 columns, D 256: 4 of 64) and a V scale per head."""
+    gen = torch.Generator().manual_seed(81)
+    d, hq, hkv = F5_SHAPES[shape]
+    args, _, _ = f5_prefill_case(gen, "e4m3", d, hq, hkv)
+    ktok, vhead = group_scales(gen, args[1], "HND", groups), torch.rand(hkv, generator=gen) * 20 + 10
+    want = _prefill_ref(*args, max(F5_Q), d**-0.5, "HND", None, vhead, ktok)
+    got = paged_prefill_attention(*on(cuda, *args), max(F5_Q), d**-0.5, "HND", None,
+                                  *on(cuda, vhead, ktok))
+    close_scaled(got, want, f"f5 prefill {shape} {groups} K-scale groups")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "e4m3"])
+@pytest.mark.parametrize("shape", list(F5_SHAPES))
+def test_f5_prefill_sparse_head_shapes_match_plain(cuda, shape, kind):
+    gen = torch.Generator().manual_seed(82)
+    d, hq, hkv = F5_SHAPES[shape]
+    args, ks, vs = f5_prefill_case(gen, kind, d, hq, hkv)
+    mask = sparse_mask(gen, F5_Q, F5_KV, hq, 128, 64)
+    want = _prefill_sparse_ref(*args, max(F5_Q), d**-0.5, "HND", mask, 128, 64, ks, vs)
+    n0 = paged_prefill_sparse.launches
+    got = paged_prefill_sparse(*on(cuda, *args), max(F5_Q), d**-0.5, "HND", mask.to(cuda), 128, 64,
+                               *on(cuda, ks, vs))
+    torch.cuda.synchronize()
+    assert paged_prefill_sparse.launches == n0 + 1
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name=f"f5 sparse {shape} {kind}")
+    assert not got[:13, 1].float().any()  # q head 1 keeps nothing in request 0's first q tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("shape", list(F5_SHAPES))
+def test_f5_prefill_nhd_fused_head_shapes_match_plain(cuda, shape, kind):
+    gen = torch.Generator().manual_seed(83)
+    d, hq, hkv = F5_SHAPES[shape]
+    (q, k, v, cu, tbl, kv), _, _ = f5_prefill_case(gen, "bf16", d, hq, hkv)
+    slab = pack_kv_fused_nhd(k, v)
+    scs = (None, None)
+    if kind == "int8":
+        slab = torch.randint(-127, 128, tuple(slab.shape), generator=gen, dtype=torch.int8)
+        scs = (SC, SC)
+    want = _prefill_nhd_fused_ref(q, slab, cu, tbl, kv, max(F5_Q), d**-0.5, *scs)
+    n0 = paged_prefill_nhd_fused.launches
+    got = paged_prefill_nhd_fused(*on(cuda, q, slab, cu, tbl, kv), max(F5_Q), d**-0.5, *on(cuda, *scs))
+    torch.cuda.synchronize()
+    assert paged_prefill_nhd_fused.launches == n0 + 1
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name=f"f5 slab {shape} {kind}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "e4m3"])
+@pytest.mark.parametrize("hq,sq", [(32, 5), (128, 1)])
+def test_f5_decode_large_groups_match_plain(cuda, hq, sq, kind):
+    """G * sq = 160 (G 32, mtp 4) and G 128 over one kv head: every layout
+    through attention_decode, split and not, and the task map."""
+    gen = torch.Generator().manual_seed(84)
+    lens = [max(n, sq) for n in (1, 300, 4097, 64)]
+    q, k, v, tbl, kv_lens, ks, vs = fused_caches(gen, lens, kind, sq=sq, hq=hq, hkv=1)
+    want = _decode_ref(q, k, v, tbl, kv_lens, sq, 128**-0.5, "HND", ks, vs)
+    kw = dict(mtp=sq - 1, new_kv_included=True, kscale=None if ks is None else ks.to(cuda),
+              vscale=None if vs is None else vs.to(cuda))
+    dq, dtbl, dlens = on(cuda, q, tbl, kv_lens)
+    for layout in ("HND", "NHD", "FUSED", "NHD_FUSED"):
+        kc, vc = on(cuda, *layout_caches(k, v, layout))
+        for splitk in (True, False):
+            got = attention_decode(dq, kc, vc, dtbl, dlens, splitk=splitk, cache_layout=layout, **kw)
+            assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2,
+                            name=f"f5 decode G*sq={hq * sq} {kind} {layout} splitk={splitk}")
+    tm = assign_attention_decode_task(dlens, 1, sq - 1, True, tile=256, min_process_len=512,
+                                      impl="torch")
+    kc, vc = on(cuda, k, v)
+    got = attention_decode(dq, kc, vc, dtbl, dlens, task_map=tm, cache_layout="HND", **kw)
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name=f"f5 task map {kind}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 4])
+def test_f5_decode_qt0_large_group_matches_plain(cuda, groups):
+    gen = torch.Generator().manual_seed(85)
+    q, k, v, tbl, kv_lens = fp8_paged(gen, [5, 300, 4097, 64], 32, 1, 128, sq=5)
+    ktok, vhead = group_scales(gen, k, "HND", groups), torch.rand(1, generator=gen) * 20 + 10
+    want = _decode_qt0_ref(q, k, v, ktok, vhead, tbl, kv_lens, 5, 128**-0.5, "HND")
+    for splitk in (True, False):
+        got = paged_decode_qt0(*on(cuda, q, k, v, ktok, vhead, tbl, kv_lens), 5, 128**-0.5, "HND",
+                               splitk=splitk)
+        close_scaled(got, want, f"f5 qt0 G 32 sq 5, {groups} groups, splitk={splitk}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", [(64, 64), (72, 72), (96, 96), (256, 256), (128, 64)])
+def test_decode_head_dims_match_plain(cuda, d, dv):
+    """Every head_dim of 16-byte bf16 rows up to 256 (72 pads its last
+    k-step with zero columns), and Dv below D."""
+    gen = torch.Generator().manual_seed(86)
+    q, k, v, tbl, kv_lens = paged(gen, [1, 17, 300, 2000], 16, 4, d, sq=2)
+    v = v[..., :dv].contiguous()
+    want = _decode_ref(q, k, v, tbl, kv_lens, 2, d**-0.5, "HND")
+    for splitk in (True, False):
+        got = paged_decode_attention(*on(cuda, q, k, v, tbl, kv_lens), 2, d**-0.5, "HND", splitk=splitk)
+        assert got.shape == (8, 16, dv)
+        assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2,
+                        name=f"decode d={d} dv={dv} splitk={splitk}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "e4m3"])
+@pytest.mark.parametrize("layout", ["HND", "NHD", "FUSED", "NHD_FUSED"])
+def test_splitk_true_and_false_agree(cuda, layout, kind):
+    gen = torch.Generator().manual_seed(87)
+    lens = [max(n, 2) for n in (1, 16, 17, 300, 1024, 4095, 3, 64)]
+    q, k, v, tbl, kv_lens, ks, vs = fused_caches(gen, lens, kind, sq=2)
+    assert decode_splits(8, tbl.shape[1] * BS) == 16
+    want = _decode_ref(q, k, v, tbl, kv_lens, 2, 128**-0.5, "HND", ks, vs)
+    kc, vc = on(cuda, *layout_caches(k, v, layout))
+    kw = dict(mtp=1, new_kv_included=True, cache_layout=layout, kscale=None if ks is None else ks.to(cuda),
+              vscale=None if vs is None else vs.to(cuda))
+    outs = {}
+    for splitk in (True, False):
+        outs[splitk] = attention_decode(*on(cuda, q), kc, vc, *on(cuda, tbl, kv_lens), splitk=splitk, **kw)
+        assert_allclose(outs[splitk].float(), want.float(), atol=1e-2, rtol=1e-2,
+                        name=f"{layout} {kind} splitk={splitk}")
+    assert_allclose(outs[True].float(), outs[False].float(), atol=1e-2, rtol=1e-2, name="split vs not")
+
+
+@pytest.mark.cuda
+def test_splitk_ten_calls_in_a_row_are_bit_equal(cuda):
+    """The last block of each (request, kv head) resets its ticket: every
+    call merges the same chunks in the same order."""
+    gen = torch.Generator().manual_seed(88)
+    q, k, v, tbl, kv_lens = on(cuda, *paged(gen, [1, 16, 17, 300, 1024, 4095, 3, 64], 32, 8, 128))
+    first = paged_decode_attention(q, k, v, tbl, kv_lens, 1, 128**-0.5, "HND")
+    for _ in range(9):
+        assert torch.equal(paged_decode_attention(q, k, v, tbl, kv_lens, 1, 128**-0.5, "HND"), first)
+    want = _decode_ref(*on("cpu", q, k, v, tbl, kv_lens), 1, 128**-0.5, "HND")
+    assert_allclose(first.float(), want.float(), atol=1e-2, rtol=1e-2, name="ten calls")
+
+
+@pytest.mark.cuda
+def test_splitk_two_streams_at_once(cuda):
+    """Two streams decode different batches at once, as the tensor-parallel
+    ranks do: each stream's tickets are its own."""
+    gen = torch.Generator().manual_seed(89)
+    cases = [paged(gen, lens, 32, 8, 128) for lens in ([4095, 1, 300, 2000], [17, 4000, 3, 1024])]
+    wants = [_decode_ref(*c, 1, 128**-0.5, "HND") for c in cases]
+    dev = [on(cuda, *c) for c in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(8):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(paged_decode_attention(*dev[i], 1, 128**-0.5, "HND"))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got in outs[i]:
+            assert_allclose(got.float(), wants[i].float(), atol=1e-2, rtol=1e-2, name=f"stream {i}")
+
+
+@pytest.mark.cuda
+def test_splitk_short_requests_among_a_long_one(cuda):
+    """kv_len 1 beside a 4096-token request: most chunks start past their
+    request's length and write the neutral partial."""
+    gen = torch.Generator().manual_seed(90)
+    lens = [1, 1, 4096, 1, 2, 1, 1, 1]
+    q, k, v, tbl, kv_lens = paged(gen, lens, 32, 8, 128)
+    want = _decode_ref(q, k, v, tbl, kv_lens, 1, 128**-0.5, "HND")
+    got = paged_decode_attention(*on(cuda, q, k, v, tbl, kv_lens), 1, 128**-0.5, "HND")
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="short among long")
+
+
+@pytest.mark.cuda
+def test_splitk_one_64k_request(cuda):
+    gen = torch.Generator().manual_seed(91)
+    q, k, v, tbl, kv_lens = paged(gen, [65536], 32, 8, 128)
+    want = _decode_ref(q, k, v, tbl, kv_lens, 1, 128**-0.5, "HND")
+    for splitk in (True, False):
+        got = paged_decode_attention(*on(cuda, q, k, v, tbl, kv_lens), 1, 128**-0.5, "HND",
+                                     splitk=splitk)
+        assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name=f"64K splitk={splitk}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splitk", [True, False])
+def test_splitk_keeps_nan_past_kv_len_out(cuda, splitk):
+    gen = torch.Generator().manual_seed(92)
+    q, k, v, tbl, kv_lens = paged(gen, [3, 20, 1000, 4001], 8, 2, 128)
+    want = _decode_ref(q, k, v, tbl, kv_lens, 1, 128**-0.5, "HND")
+    for i, n in enumerate(kv_lens.tolist()):
+        page = int(tbl[i, n // BS])
+        k[:, page, n % BS :] = float("nan")
+        v[:, page, n % BS :] = float("nan")
+    got = paged_decode_attention(*on(cuda, q, k, v, tbl, kv_lens), 1, 128**-0.5, "HND", splitk=splitk)
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name=f"nan tail splitk={splitk}")
+
+
+@pytest.mark.cuda
+def test_decode_wrappers_refuse_a_misaligned_q(cuda):
+    """The decode kernel copies q's rows 16 bytes at a time."""
+    gen = torch.Generator().manual_seed(93)
+    q, k, v, tbl, kv_lens = on(cuda, *paged(gen, [20, 40], 8, 2, 128))
+    bad = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_decode_attention(bad, k, v, tbl, kv_lens, 1, 0.1, "HND")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_decode_nhd_fused(bad, pack_kv_fused_nhd(k, v), tbl, kv_lens, 1, 0.1)

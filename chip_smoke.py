@@ -2008,10 +2008,22 @@ def check_route_gemm(dev, gen):
     float32 products with TF32 off);
     the library column is one cuBLAS float32 product x.float() @ w.T (TF32
     off), the reference's own baseline; gemm_bf16xfp32 driven once per shape.
+    Kernel and library times (``ms``, ``library_ms``) are wall times over
+    back-to-back calls (CUDA events), host time included; their device times
+    (torch.profiler) stand beside them as ``device_ms`` and
+    ``library_device_ms``. Each line carries the kernel's share of its bound
+    (of its device time) and its form (ops/gemm.py:route_form: body, tile,
+    splits of K, blocks).
     Returns (rows, launches by row name)."""
     import torch
 
-    from hpc_ops_tpu_torch.ops.gemm import _route_gemm_ref, gemm_bf16xfp32, route_gemm, split_fp32_weight
+    from hpc_ops_tpu_torch.ops.gemm import (
+        _route_gemm_ref,
+        gemm_bf16xfp32,
+        route_form,
+        route_gemm,
+        split_fp32_weight,
+    )
 
     rows, launches = [], {}
     for m, n, k in ROUTE_SHAPES:
@@ -2022,6 +2034,7 @@ def check_route_gemm(dev, gen):
         _, counts = driven(lambda: gemm_bf16xfp32(x, wh, wl, ws))
         count_drive(launches, counts, {"route_gemm": 1}, "route_gemm", f"route_gemm {m}x{n}x{k}")
         got, ms = run_timed(lambda: route_gemm(x, wh, wl, ws, False))
+        dev_ms = device_ms(lambda: route_gemm(x, wh, wl, ws, False))
         want, plain = run_timed(lambda: _route_gemm_ref(x, wh, wl, ws, True))
         got32 = route_gemm(x, wh, wl, ws, True)
         # the float64 product of the split weights, and the float32 summation
@@ -2040,17 +2053,22 @@ def check_route_gemm(dev, gen):
         del xd, whd, wld, sum_tol
         xf = x.float()
         _, lib = run_timed(lambda: xf @ w32.T)
+        lib_dev = device_ms(lambda: xf @ w32.T)
         exact_err = float((got32.double() - x.double() @ w32.double().T).abs().max())
         del exact
         nbytes, flops = m * k * 2 + 2 * n * k * 2 + m * n * 2, 4 * m * n * k
+        bd, by = bound(nbytes, flops)
+        f = route_form(m, n, k)
+        form = dict(body=f.body, tile=[f.tile_m, f.tile_n], splits=f.splits, blocks=f.blocks)
         if (m, n, k) == ROUTE_ROW_SHAPE:
             rows.append(kernel_row("route_gemm", "hpc_ops_tpu_torch/csrc/gemm.cu", "hpc_ops_tpu/ops/gemm.py:35",
                                    err, ms, plain, lib, nbytes, flops, shape=[m, n, k],
-                                   fp32_out_abs_err_vs_float64=exact_err))
+                                   fp32_out_abs_err_vs_float64=exact_err, share_of_bound=bd / dev_ms,
+                                   form=form, device_ms=dev_ms, library_device_ms=lib_dev))
         else:
-            bd, by = bound(nbytes, flops)
             emit("route_gemm", shape=[m, n, k], max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                 bound_ms=bd, bound_by=by, fp32_out_abs_err_vs_float64=exact_err)
+                 bound_ms=bd, bound_by=by, share_of_bound=bd / dev_ms, form=form, device_ms=dev_ms,
+                 library_device_ms=lib_dev, fp32_out_abs_err_vs_float64=exact_err)
         del x, w32, wh, wl, got, got32, want, xf
         torch.cuda.empty_cache()
     return rows, launches
@@ -2095,18 +2113,64 @@ def allreduce_bytes(ws, n, h):
     return ws * n * h * 2 + n * h * 2 + h * 4 + ws * 2 * n * h * 2
 
 
+def allreduce_case(dev, gen, mode, ws, n, h, eps=1e-5, bf16_norm=False, own_res=False):
+    """One case of the fused collective on ``ws`` virtual ranks of the card,
+    from seeded inputs: the kernel's call (one launch for the group; run once
+    here and checked bit-equal to the plain version on every rank), the
+    plain version's (one set of outputs and a copy per rank, as the CPU ranks
+    get them) and the unfused chain's (sum of the partials, residual add,
+    RMSNorm: one library call each), as closures. The ranks read one
+    residual tensor, as the bound counts it, or with ``own_res`` each its
+    own copy, as the serving ranks do."""
+    import torch
+    import torch.nn.functional as F
+
+    from hpc_ops_tpu_torch.parallel.collective_kernels import (
+        _allreduce_rmsnorm_ref,
+        _SignalPad,
+        allreduce_rmsnorm,
+    )
+
+    xs, res, w = allreduce_inputs(dev, gen, ws, n, h)
+    if not own_res:
+        res = [res[0]] * ws
+    ws_w = [w] * ws
+    outs = [torch.empty_like(xs[0]) for _ in range(ws)]
+    oress = [torch.empty_like(xs[0]) for _ in range(ws)]
+    pad = _SignalPad(dev)
+
+    def kern():
+        allreduce_rmsnorm(xs, res, ws_w, outs, oress, eps, mode, bf16_norm, 0, pad)
+
+    def plain():
+        o, r_ = _allreduce_rmsnorm_ref(xs, res[0], w, eps, mode, bf16_norm)
+        for a, b in zip(outs, oress):
+            a.copy_(o)
+            b.copy_(r_)
+
+    def unfused():
+        r_ = torch.stack(xs).sum(0, dtype=torch.float32) + res[0]
+        return F.rms_norm(r_, (h,), w, eps).to(torch.bfloat16), r_.to(torch.bfloat16)
+
+    kern()
+    want = _allreduce_rmsnorm_ref(xs, res[0], w, eps, mode, bf16_norm)
+    torch.cuda.synchronize()
+    if not all(torch.equal(o, want[0]) and torch.equal(r_, want[1]) for o, r_ in zip(outs, oress)):
+        raise AssertionError(f"allreduce {mode} {ws}x{n}x{h}: not bit-equal to the plain version")
+    return kern, plain, unfused
+
+
 def check_allreduce(dev, _gen):
     """Rows 20 and 21 on virtual ranks of the card: both schedules, both
     epilogues, 2, 4 and 8 ranks, with and without skew, each rank's outputs
     bit-equal to the plain version's and to every other rank's, one launch a
     call; each public entry point driven once with the launch counts read
-    around it; then the JAX benchmark's grid at world 8: kernel ms, the
-    bytes bound, the plain version's ms (one set of outputs and a copy per
-    rank, as the CPU ranks get them) and the unfused chain's (sum of the
-    partials, residual add, RMSNorm: one library call each). Returns
-    (kernels-line rows, {row: launches})."""
+    around it; then the JAX benchmark's grid at world 8 (:func:`allreduce_case`):
+    kernel ms, the bytes bound, the plain version's ms and the unfused
+    chain's, and the share of the bound; the one_shot row at slice_full_tp's decode shape takes the
+    kernel's device time (torch.profiler), its wall time is the host's.
+    Returns (kernels-line rows, {row: launches})."""
     import torch
-    import torch.nn.functional as F
 
     from hpc_ops_tpu_torch import kernels
     from hpc_ops_tpu_torch.parallel import (
@@ -2117,7 +2181,6 @@ def check_allreduce(dev, _gen):
     )
     from hpc_ops_tpu_torch.parallel.collective_kernels import (
         _allreduce_rmsnorm_ref,
-        _SignalPad,
         allreduce_rmsnorm,
         collective_rmsnorm,
     )
@@ -2177,36 +2240,12 @@ def check_allreduce(dev, _gen):
          skew=ALLREDUCE_SKEW)
 
     def timed(mode, ws, n, h):
-        xs, res, w = allreduce_inputs(dev, gen, ws, n, h)
-        res = [res[0]] * ws  # one residual tensor read by every rank, as the bound counts it
-        ws_w = [w] * ws
-        outs = [torch.empty_like(xs[0]) for _ in range(ws)]
-        oress = [torch.empty_like(xs[0]) for _ in range(ws)]
-        pad = _SignalPad(dev)
-
-        def kern():
-            allreduce_rmsnorm(xs, res, ws_w, outs, oress, eps, mode, False, 0, pad)
-
-        def plain():
-            o, r_ = _allreduce_rmsnorm_ref(xs, res[0], w, eps, mode, False)
-            for a, b in zip(outs, oress):
-                a.copy_(o)
-                b.copy_(r_)
-
-        def unfused():
-            r_ = torch.stack(xs).sum(0, dtype=torch.float32) + res[0]
-            return F.rms_norm(r_, (h,), w, eps).to(torch.bfloat16), r_.to(torch.bfloat16)
-
-        kern()
-        want = _allreduce_rmsnorm_ref(xs, res[0], w, eps, mode, False)
-        torch.cuda.synchronize()
-        if not all(torch.equal(o, want[0]) and torch.equal(r_, want[1]) for o, r_ in zip(outs, oress)):
-            raise AssertionError(f"allreduce grid {mode} {ws}x{n}x{h}: not bit-equal to the plain version")
+        kern, plain, unfused = allreduce_case(dev, gen, mode, ws, n, h, eps)
         big = n * h >= 2048 * 4096
         ms = time_ms(kern, 5 if big else 20)
         plain_ms = time_ms(plain, 3 if big else 10, 1)
         unfused_ms = time_ms(unfused, 3 if big else 10, 1)
-        return ms, plain_ms, unfused_ms
+        return ms, plain_ms, unfused_ms, kern
 
     g = ALLREDUCE_GRID
     for h in g["hidden"]:
@@ -2214,17 +2253,22 @@ def check_allreduce(dev, _gen):
             for mode in ("one_shot", "two_shot"):
                 if mode == "two_shot" and n % (8 * g["world"]):
                     continue
-                ms, plain_ms, unfused_ms = timed(mode, g["world"], n, h)
+                ms, plain_ms, unfused_ms, _ = timed(mode, g["world"], n, h)
                 bd, by = bound(allreduce_bytes(g["world"], n, h), 0)
                 emit("allreduce", mode=mode, world=g["world"], tokens=n, hidden=h, ms=ms, plain_ms=plain_ms,
-                     unfused_ms=unfused_ms, bound_ms=bd, bound_by=by)
+                     unfused_ms=unfused_ms, bound_ms=bd, bound_by=by, share_of_bound=bd / ms)
                 torch.cuda.empty_cache()
     rows = []
     for name, (mode, ws, n, h) in ALLREDUCE_ROWS.items():
-        ms, plain_ms, unfused_ms = timed(mode, ws, n, h)
+        wall_ms, plain_ms, unfused_ms, kern = timed(mode, ws, n, h)
+        # the decode collective's wall time is the host's (a launch a call);
+        # its row takes the kernel's device time, as the decode rows do
+        ms = device_ms(kern, 50) if n <= 64 else wall_ms
+        bd, _ = bound(allreduce_bytes(ws, n, h), n * h * (ws + 6))
         rows.append(kernel_row(name, "hpc_ops_tpu_torch/csrc/collective.cu", ALLREDUCE_REPLACES[mode], 0.0,
                                ms, plain_ms, None, allreduce_bytes(ws, n, h), n * h * (ws + 6),
-                               ranks=ws, tokens=n, hidden=h, unfused_ms=unfused_ms))
+                               ranks=ws, tokens=n, hidden=h, unfused_ms=unfused_ms, wrapper_ms=wall_ms,
+                               share_of_bound=bd / ms))
     return rows, launches
 
 

@@ -11,33 +11,40 @@
 //
 // Bound on the card: bytes (a few operations per element). Each partial is
 // read once, the residual and weight once, and each rank's two outputs are
-// written once; one_shot reads every partial once per rank (ws times in
-// all), two_shot once.
+// written once.
 //
 // Design. The ranks of a group are virtual ranks on one device (one host
 // thread each), and one cooperative launch serves all of them: blockIdx.y is
-// the rank, and a rank table holds every rank's partial, residual, weight
-// and outputs. A signal pad in device memory plays the TPU kernel's per-slot
+// a rank, and a rank table holds every rank's partial, residual, weight and
+// outputs. A signal pad in device memory plays the TPU kernel's per-slot
 // semaphores: block 0 of rank r raises ready[r] (after r * skew spins of
-// about 100 ns: the TPU kernel's staggered-arrival test hook), and every
-// block waits on ready[s] (ld.acquire.gpu, bounded by about 1 s of
-// %globaltimer, then __trap) before it reads slab s, consuming the slabs in
-// absolute rank order as their flags arrive. The counters only grow: a call
-// waits for ready[s] to reach its epoch, so nothing is reset between calls.
-// The slabs are the callers' partials, which the next call cannot overwrite
-// while this one runs (the launch is stream-ordered after every rank's
-// work, and every rank's stream waits on it). The grid is sized from the
-// occupancy query so that all ranks' blocks are resident at once (an
-// over-large cooperative grid is a launch error, not a deadlock); blocks
-// loop over rows, one row per block of 128 threads, each thread holding up
-// to 8 chunks of 8 columns in registers (h <= 8192).
-//   * one_shot: every rank's blocks reduce every row, acc = 0 + x_0 + x_1 +
-//     ... + x_{ws-1}, and write that rank's outputs.
-//   * two_shot: rank r owns rows [r*C, (r+1)*C), C = n / ws: acc = x_r, then
-//     + x_s for s != r in absolute order; it normalises its chunk and writes
-//     both outputs of the chunk into every rank's outputs, then raises
-//     done[r] (one count per block); block 0 of each rank waits until every
-//     owner's count reaches this call's total, the all-gather's completion.
+// about 100 ns: the TPU kernel's staggered-arrival test hook). Before its
+// first row a block polls the ready flags of all ws slabs at once (lane s of
+// warp 0 waits on ready[s], ld.acquire.gpu, bounded by about 1 s of
+// %globaltimer, then __trap); the counters only grow: a call waits for each
+// flag to reach its epoch, so nothing is reset between calls. The slabs are
+// the callers' partials, which the next call cannot overwrite while this one
+// runs (the launch is stream-ordered after every rank's work, and every
+// rank's stream waits on it). The grid is sized from the occupancy query so
+// that all ranks' blocks are resident at once (an over-large cooperative
+// grid is a launch error, not a deadlock). A block stages its rank's norm
+// weight in shared memory while it polls. One row a block of 128 threads,
+// each thread holding up to 8 chunks of 8 columns in registers (h <= 8192);
+// for each chunk a thread issues the loads of every slab and of the residual
+// before its first add, so a row costs one round trip to memory, not one a
+// slab. The block that reduces a row writes both outputs of the row into
+// every rank's outputs, with streaming stores (st.global.cs) so that the
+// copies, two thirds of the bound's bytes, do not evict partials still to
+// be read. The residual and the weight are replicated by contract; the
+// block reads its own rank's copy.
+//   * one_shot: the group's blocks share the rows (block b of B = ws x
+//     gridDim.x takes rows b, b + B, ...), so each partial is read once:
+//     acc = 0 + x_0 + x_1 + ... + x_{ws-1}, in absolute rank order.
+//   * two_shot: rank r's blocks own rows [r*C, (r+1)*C), C = n / ws: acc =
+//     x_r, then + x_s for s != r in absolute order; after its rows a block
+//     raises done[r] (one count per block), and block 0 of each rank waits
+//     until every owner's count reaches this call's total, the all-gather's
+//     completion.
 // The row's sum of squares is taken in a fixed order that the plain version
 // (parallel/collective_kernels.py) repeats with tensor operations: thread t
 // adds, in float32 with no fused multiply-add, the squares of its chunks
@@ -49,6 +56,12 @@
 // parallel/collectives.py:_norm, bf16(bf16(out_res * rms) * bf16(w)).
 // Partials are read with ld.global.cg (L2, not the SM's L1), so a partial
 // written by a peer during the launch would be seen.
+//
+// What bounds it (H100 80GB HBM3 at 700 W, scripts/time_route_allreduce.py):
+// bytes at prefill sizes (world 8 x 32768 x 7168: 0.82 of the bound, both
+// schedules); at slice_full_tp's decode collective (4 ranks x 8 rows x 4096)
+// a few blocks pay a launch and three dependent round trips to memory (the
+// flags, the row, the stores' drain): about 5.6 us of device time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,21 +105,27 @@ __device__ __forceinline__ void add_release(unsigned long long* p, unsigned long
   asm volatile("red.release.gpu.global.add.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-// Thread 0 waits until *flag >= target, then the block goes on. A flag that
-// never comes traps after about 1 s: a CUDA error at the next sync, not a hang.
-__device__ void wait_flag(const unsigned long long* flag, unsigned long long target) {
-  if (threadIdx.x == 0) {
-    const unsigned long long t0 = global_ns();
-    while (load_acquire(flag) < target) {
-      if (global_ns() - t0 > kWaitNs) __trap();
-      __nanosleep(32);
-    }
+// Waits, bounded, until *flag >= target (one thread). A flag that never
+// comes traps after about 1 s: a CUDA error at the next sync, not a hang.
+__device__ __forceinline__ void spin_until(const unsigned long long* flag, unsigned long long target) {
+  const unsigned long long t0 = global_ns();
+  while (load_acquire(flag) < target) {
+    if (global_ns() - t0 > kWaitNs) __trap();
+    __nanosleep(32);
   }
+}
+
+// Lanes 0 .. count - 1 of warp 0 wait on flags[lane]; then the block goes on.
+__device__ void wait_flags(const unsigned long long* flags, int count, unsigned long long target) {
+  if (threadIdx.x < count) spin_until(flags + threadIdx.x, target);
   __syncthreads();
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  const uint4 u = __ldcg(reinterpret_cast<const uint4*>(p));
+__device__ __forceinline__ uint4 load16(const __nv_bfloat16* p) {
+  return __ldcg(reinterpret_cast<const uint4*>(p));
+}
+
+__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -121,7 +140,7 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* f) {
   __nv_bfloat162* b = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) b[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
+  __stcs(reinterpret_cast<uint4*>(p), u);  // streaming: evict first, keep the partials in L2
 }
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -138,53 +157,60 @@ __global__ void __launch_bounds__(kThreads) allreduce_rmsnorm_kernel(RankTable t
     for (long long i = 0; i < static_cast<long long>(rank) * skew; ++i) __nanosleep(100);
     add_release(sig.ready + rank, 1);
   }
+  // one_shot: the group's blocks share all rows; two_shot: rank r's blocks
+  // share its chunk
+  const int first = kTwoShot ? blockIdx.x : rank * gridDim.x + blockIdx.x;
+  const int stride = kTwoShot ? gridDim.x : gridDim.x * gridDim.y;
   const int rows = kTwoShot ? n / ws : n;
   const int row0 = kTwoShot ? rank * rows : 0;
   const int nchunks = h / 8;
-  const float* w = t.w[rank];
+  extern __shared__ float4 w_s[];  // the norm weight [h / 4], staged while the flags are polled
   __shared__ float warp_s[kWarps];
-  unsigned seen = 0;  // slabs whose ready flag this block has seen
+  if (first < rows) {
+    const float4* w = reinterpret_cast<const float4*>(t.w[rank]);
+    for (int i = tid; i < h / 4; i += kThreads) w_s[i] = w[i];
+    wait_flags(sig.ready, ws, sig.ready_target);  // its __syncthreads publishes w_s
+  }
 
-  for (int rr = blockIdx.x; rr < rows; rr += gridDim.x) {
+  for (int rr = first; rr < rows; rr += stride) {
     const int64_t off = static_cast<int64_t>(row0 + rr) * h;
-    float acc[kMaxChunks][8];
-#pragma unroll
-    for (int k = 0; k < kMaxChunks; ++k)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[k][j] = 0.f;
-    for (int i = 0; i < ws; ++i) {
-      // two_shot: the owner's own slab first, then the others in order
-      const int s = kTwoShot ? (i == 0 ? rank : (i <= rank ? i - 1 : i)) : i;
-      if (!(seen & (1u << s))) {
-        wait_flag(sig.ready + s, sig.ready_target);
-        seen |= 1u << s;
-      }
-      const __nv_bfloat16* xs = t.x[s] + off;
-#pragma unroll
-      for (int k = 0; k < kMaxChunks; ++k) {
-        const int c = tid + k * kThreads;
-        if (c < nchunks) {
-          float f[8];
-          load8(xs + c * 8, f);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[k][j] = (kTwoShot && i == 0) ? f[j] : __fadd_rn(acc[k][j], f[j]);
-        }
-      }
-    }
-    // residual, then this thread's sum of squares
-    float ss = 0.f;
     const __nv_bfloat16* res = t.res[rank] + off;
+    float acc[kMaxChunks][8];
 #pragma unroll
     for (int k = 0; k < kMaxChunks; ++k) {
       const int c = tid + k * kThreads;
       if (c < nchunks) {
-        float f[8];
-        load8(res + c * 8, f);
+        uint4 raw[kMaxRanks];  // every slab's chunk, in summation order
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[k][j] = __fadd_rn(acc[k][j], f[j]);
-          ss = __fadd_rn(ss, __fmul_rn(acc[k][j], acc[k][j]));
+        for (int i = 0; i < kMaxRanks; ++i) {
+          // two_shot: the owner's own slab first, then the others in order
+          const int s = kTwoShot ? (i == 0 ? rank : (i <= rank ? i - 1 : i)) : i;
+          if (i < ws) raw[i] = load16(t.x[s] + off + c * 8);
         }
+        const uint4 rraw = load16(res + c * 8);
+#pragma unroll
+        for (int i = 0; i < kMaxRanks; ++i) {
+          if (i < ws) {
+            float f[8];
+            unpack8(raw[i], f);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              acc[k][j] = (kTwoShot && i == 0) ? f[j] : __fadd_rn(i == 0 ? 0.f : acc[k][j], f[j]);
+          }
+        }
+        float f[8];
+        unpack8(rraw, f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[k][j] = __fadd_rn(acc[k][j], f[j]);
+      }
+    }
+    // this thread's sum of squares, chunk by chunk in column order
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxChunks; ++k) {
+      if (tid + k * kThreads < nchunks) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ss = __fadd_rn(ss, __fmul_rn(acc[k][j], acc[k][j]));
       }
     }
 #pragma unroll
@@ -199,8 +225,7 @@ __global__ void __launch_bounds__(kThreads) allreduce_rmsnorm_kernel(RankTable t
     for (int k = 0; k < kMaxChunks; ++k) {
       const int c = tid + k * kThreads;
       if (c < nchunks) {
-        const float4 w0 = *reinterpret_cast<const float4*>(w + c * 8);
-        const float4 w1 = *reinterpret_cast<const float4*>(w + c * 8 + 4);
+        const float4 w0 = w_s[2 * c], w1 = w_s[2 * c + 1];
         const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
         float o[8];
 #pragma unroll
@@ -208,14 +233,9 @@ __global__ void __launch_bounds__(kThreads) allreduce_rmsnorm_kernel(RankTable t
           o[j] = kBf16Norm ? __fmul_rn(bf16_round(__fmul_rn(acc[k][j], rms)), bf16_round(wv[j]))
                            : __fmul_rn(__fmul_rn(acc[k][j], rms), wv[j]);
         }
-        if (kTwoShot) {
-          for (int d = 0; d < ws; ++d) {
-            store8(t.out[d] + off + c * 8, o);
-            store8(t.out_res[d] + off + c * 8, acc[k]);
-          }
-        } else {
-          store8(t.out[rank] + off + c * 8, o);
-          store8(t.out_res[rank] + off + c * 8, acc[k]);
+        for (int d = 0; d < ws; ++d) {
+          store8(t.out[d] + off + c * 8, o);
+          store8(t.out_res[d] + off + c * 8, acc[k]);
         }
       }
     }
@@ -226,8 +246,7 @@ __global__ void __launch_bounds__(kThreads) allreduce_rmsnorm_kernel(RankTable t
       __threadfence();
       add_release(sig.done + rank, 1);
     }
-    if (blockIdx.x == 0)
-      for (int s = 0; s < ws; ++s) wait_flag(sig.done + s, sig.done_target);
+    if (blockIdx.x == 0) wait_flags(sig.done, ws, sig.done_target);
   }
 }
 
@@ -236,18 +255,20 @@ int launch(const RankTable& t, Signals sig, unsigned long long* done_total, int 
            float eps, int skew, cudaStream_t stream) {
   auto kernel = allreduce_rmsnorm_kernel<kTwoShot, kBf16Norm>;
   int per_sm = 0, dev = 0, sms = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  const size_t smem = static_cast<size_t>(h) * sizeof(float);  // the staged weight
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int per_rank = per_sm * sms / ws;  // blocks a rank may have with every rank resident
   if (per_rank < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const int rows = kTwoShot ? n / ws : n;
+  // blocks a rank: two_shot one a row of its chunk, one_shot one a row of its share
+  const int rows = kTwoShot ? n / ws : (n + ws - 1) / ws;
   const int nbx = rows < per_rank ? rows : per_rank;
   sig.done_target = *done_total + static_cast<unsigned long long>(nbx);
   void* args[] = {const_cast<RankTable*>(&t), &sig, &ws, &n, &h, &eps, &skew};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(nbx, ws),
-                                  dim3(kThreads), args, 0, stream);
+                                  dim3(kThreads), args, smem, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (kTwoShot) *done_total = sig.done_target;
   return 0;

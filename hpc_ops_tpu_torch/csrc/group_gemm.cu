@@ -139,7 +139,6 @@
 // shared memory for 4.2 M operations, so shared memory, not the fp16 rate,
 // bounds them (A from registers, converted there, would halve it).
 
-#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -147,6 +146,7 @@
 #include <cstring>
 #include <type_traits>
 
+#include "tma.cuh"    // mbarriers, TMA box loads, the tensor-map encoder
 #include "wgmma.cuh"  // cp.async, the wgmma fence, commit and wait, descriptors
 
 namespace {
@@ -257,36 +257,6 @@ __device__ __forceinline__ uint32_t e4m3x2_to_f16x2(uint32_t two_bytes) {
   const unsigned short in = static_cast<unsigned short>(two_bytes);
   asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(out) : "h"(in));
   return out;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// Waits for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// A box of the tensor map at (byte c0 of K, row c1) into shared memory,
-// completing on the mbarrier bar.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -764,27 +734,6 @@ auto kernel_of() {
     if constexpr (I8_OPS) return gg_scatter_i8_kernel<WG>;
     else return gg_scatter_e4m3_kernel<WG>;
   }
-}
-
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
-                                                                     : nullptr;
-  }();
-  return fn;
 }
 
 // The weights [groups, n, k] bytes as a 2D tensor of groups * n rows of k

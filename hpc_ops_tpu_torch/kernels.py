@@ -27,7 +27,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("rope_store.cu", "decode.cu", "prefill.cu", "group_gemm.cu", "activation.cu", "moe.cu",
            "normalization.cu", "gemm.cu", "collective.cu")
-HEADERS = ("wgmma.cuh",)  # included by the sources: part of the library's hash
+HEADERS = ("wgmma.cuh", "tma.cuh")  # included by the sources: part of the library's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -58,7 +58,7 @@ _SIGNATURES = {
     "hpc_act_mul_quant": [_P] * 4 + [_I] * 4 + [_P],
     "hpc_moe_reduce": [_P] * 5 + [_I] * 3 + [_P],
     "hpc_rmsnorm_quant": [_P] * 6 + [_I] * 2 + [_F, _P],
-    "hpc_route_gemm": [_P] * 5 + [_I] * 4 + [_P],
+    "hpc_route_gemm": [_P] * 5 + [_I] * 4 + [_P] * 2 + [_I] * 3 + [_P],
     "hpc_allreduce_rmsnorm": [_P] * 6 + [ctypes.c_uint64, _P] + [_I] * 3 + [_F] + [_I] * 3 + [_P],
 }
 
@@ -117,6 +117,8 @@ def build() -> str:
 def lib() -> ctypes.CDLL:
     """The bound kernel library, built on first use."""
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is None:
             handle = ctypes.CDLL(build())
@@ -143,9 +145,12 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_ptr(t) -> int:
+    """The handle of the current CUDA stream of ``t``'s device, from torch's
+    raw accessor (a ``torch.cuda.Stream`` object costs the host a few
+    microseconds a call, more than some kernels take)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def wrappers() -> dict:

@@ -16,7 +16,9 @@ kernel's two schedules:
 
 On a card the kernel is ``csrc/collective.cu`` (:func:`allreduce_rmsnorm`):
 one cooperative launch serves all ranks of a group that share the device
-(see :mod:`hpc_ops_tpu_torch.parallel.mesh` for the rank threads). Its plain
+(see :mod:`hpc_ops_tpu_torch.parallel.mesh` for the rank threads), and the
+block that reduces a row writes it into every rank's outputs, so one_shot
+reads each partial once for the whole group, not once a rank. Its plain
 version, :func:`_allreduce_rmsnorm_ref`, repeats the kernel's order of every
 float32 sum, so on the same inputs the two agree bit for bit; CPU ranks run
 it. Two epilogues: the TPU kernel's ``bf16((out_res * rms) * w)``, and

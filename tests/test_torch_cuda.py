@@ -1722,6 +1722,7 @@ from hpc_ops_tpu_torch.ops.attention.prefill import (  # noqa: E402
     _prefill_sparse_ref,
     paged_prefill_sparse,
 )
+from hpc_ops_tpu_torch.ops import gemm as gemm_ops  # noqa: E402
 from hpc_ops_tpu_torch.ops.gemm import _route_gemm_ref, route_gemm, split_fp32_weight  # noqa: E402
 from hpc_ops_tpu_torch.ops.normalization import _rmsnorm_quant_ref, rmsnorm_quant  # noqa: E402
 
@@ -2004,19 +2005,89 @@ def test_rmsnorm_quant_kernel_matches_plain(cuda, n, h, is_moe):
             assert torch.equal(g.view(torch.uint8), t.view(torch.uint8))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("fp32", [False, True])
-@pytest.mark.parametrize("m,n,k", [(256, 256, 7168), (100, 192, 512), (33, 72, 520), (1, 8, 8)])
-def test_route_gemm_kernel_matches_plain(cuda, m, n, k, fp32):
-    gen = torch.Generator().manual_seed(56)
+# (16, 256, 7168) and the router's (256, 256, 7168) take the small body with
+# split K, (4096, 256, 7168) the large one with split K, 7176 makes 113
+# stages that the splits share unevenly (ops/gemm.py:route_form)
+ROUTE_CARD_SHAPES = [(256, 256, 7168), (16, 256, 7168), (4096, 256, 7168), (256, 256, 7176),
+                     (100, 192, 512), (33, 72, 520), (1, 8, 8)]
+
+
+def route_case(gen, m, n, k, dev):
     x = randn(gen, m, k)
     wh, wl, ws = split_fp32_weight(torch.randn((n, k), generator=gen))
-    want = _route_gemm_ref(x, wh, wl, ws, fp32).float()
-    got = route_gemm(x.to(cuda), wh.to(cuda), wl.to(cuda), ws.to(cuda), fp32)
-    torch.cuda.synchronize()
+    return x.to(dev), wh.to(dev), wl.to(dev), ws.to(dev)
+
+
+def assert_route_close(got, x, wh, wl, ws, fp32, name):
+    """The file's tolerance against the plain version (on the CPU), and the
+    float32 output inside the float32 summation bound of the float64 product
+    of the split weights: (k / 16 + 1) ulps of |x| @ |w|^T, element by
+    element (chip_smoke.py's check_route_gemm)."""
+    xc, whc, wlc, wsc = (t.cpu() for t in (x, wh, wl, ws))
+    want = _route_gemm_ref(xc, whc, wlc, wsc, fp32).float()
+    got = got.cpu()
     assert got.dtype == (torch.float32 if fp32 else torch.bfloat16)
     big = float(want.abs().max())
-    assert_allclose(got.float(), want, atol=1e-5 * big, rtol=0 if fp32 else 2.0**-7, name="route gemm")
+    assert_allclose(got.float(), want, atol=1e-5 * big, rtol=0 if fp32 else 2.0**-7, name=name)
+    if fp32:
+        k = x.shape[1]
+        xd, whd, wld, s = xc.double(), whc.double(), wlc.double(), float(wsc)
+        exact = xd @ (whd + s * wld).T
+        sum_tol = (k / 16 + 1) * 2.0**-23 * (xd.abs() @ (whd.abs() + s * wld.abs()).T)
+        assert bool(((got.double() - exact).abs() <= sum_tol).all()), f"{name}: outside the float32 sum bound"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fp32", [False, True])
+@pytest.mark.parametrize("m,n,k", ROUTE_CARD_SHAPES)
+def test_route_gemm_kernel_matches_plain(cuda, m, n, k, fp32):
+    gen = torch.Generator().manual_seed(56)
+    x, wh, wl, ws = route_case(gen, m, n, k, cuda)
+    got = route_gemm(x, wh, wl, ws, fp32)
+    torch.cuda.synchronize()
+    assert_route_close(got, x, wh, wl, ws, fp32, "route gemm")
+
+
+# Every body and tile, split and not, with uneven runs (33 stages)
+ROUTE_FORCED = [("small", 16, 1), ("small", 16, 4), ("small", 32, 7), ("small", 64, 1), ("small", 64, 16),
+                ("large", 128, 1), ("large", 128, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,tile,splits", ROUTE_FORCED)
+def test_route_gemm_every_form_matches_plain(cuda, monkeypatch, body, tile, splits):
+    """Each body, token tile and split count forced through route_form (the
+    wrapper has no knob), at a shape with ragged rows, columns and K."""
+    m, n, k = 150, 200, 2104
+    tm, tn = (tile, 64) if body == "small" else (128, 128)
+    form = gemm_ops.make_form(body, tm, tn, m, n, splits)
+    monkeypatch.setattr(gemm_ops, "route_form", lambda *_: form)
+    gen = torch.Generator().manual_seed(58)
+    x, wh, wl, ws = route_case(gen, m, n, k, cuda)
+    for fp32 in (False, True):
+        got = route_gemm(x, wh, wl, ws, fp32)
+        torch.cuda.synchronize()
+        assert_route_close(got, x, wh, wl, ws, fp32, f"route gemm {body} {tile} x {splits}")
+
+
+@pytest.mark.cuda
+def test_route_gemm_split_form_repeats_bit_for_bit(cuda):
+    """Two calls of a split form give the same bits (the last block of a
+    tile resets its ticket, and the merge adds the splits in order), and a
+    call at another shape in between, which reuses the workspace and the
+    tickets, does not disturb the next one."""
+    gen = torch.Generator().manual_seed(59)
+    a = route_case(gen, 256, 256, 7168, cuda)
+    b = route_case(gen, 16, 256, 7176, cuda)
+    assert gemm_ops.route_form(256, 256, 7168).splits > 1 and gemm_ops.route_form(16, 256, 7176).splits > 1
+    first = route_gemm(*a, True)
+    second = route_gemm(*a, True)
+    other = route_gemm(*b, True)
+    third = route_gemm(*a, True)
+    again = route_gemm(*b, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, third) and torch.equal(other, again)
+    assert_route_close(other, *b, True, "route gemm between calls")
 
 
 @pytest.mark.cuda
@@ -2079,6 +2150,28 @@ def test_allreduce_rmsnorm_kernel_is_bit_equal_to_plain(cuda, ws, mode, bf16_nor
     n0 = allreduce_rmsnorm.launches
     outs = run_ranks(make_mesh(tp=ws, devices=[cuda] * ws), lambda g, _: collective_rmsnorm(
         g, xs[g.rank], res[g.rank], w, 1e-5, mode, bf16_norm, skew))[0]
+    torch.cuda.synchronize()
+    assert allreduce_rmsnorm.launches == n0 + 1
+    for r, (o, o_res) in enumerate(outs):
+        assert torch.equal(o, want[0]) and torch.equal(o_res, want[1]), f"rank {r}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skew", [0, 2000])
+@pytest.mark.parametrize("mode", ["one_shot", "two_shot"])
+@pytest.mark.parametrize("ws,n,h", [(4, 8, 4096), (8, 2048, 4096)])
+def test_allreduce_rmsnorm_kernel_at_serving_widths(cuda, ws, n, h, mode, skew):
+    """slice_full_tp's decode collective (4 ranks x 8 tokens x 4096) and the
+    JAX benchmark's world 8 x 2048 x 4096: every rank's outputs bit-equal to
+    the plain version, one launch a call, with and without skew. one_shot
+    shares the rows among the whole group's blocks, so at 8 rows most ranks'
+    blocks reduce no row of their own rank and write every rank's outputs."""
+    gen = torch.Generator().manual_seed(90 + ws)
+    xs, res, w = allreduce_case(gen, ws, n, h, cuda)
+    want = _allreduce_rmsnorm_ref(xs, res[0], w, 1e-5, mode, False)
+    n0 = allreduce_rmsnorm.launches
+    outs = run_ranks(make_mesh(tp=ws, devices=[cuda] * ws), lambda g, _: collective_rmsnorm(
+        g, xs[g.rank], res[g.rank], w, 1e-5, mode, False, skew))[0]
     torch.cuda.synchronize()
     assert allreduce_rmsnorm.launches == n0 + 1
     for r, (o, o_res) in enumerate(outs):

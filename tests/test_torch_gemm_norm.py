@@ -6,7 +6,8 @@ Route GEMM: the split weights are bit-equal to JAX's; the float32 output
 within 1e-5 of the largest |output| (two float32 sums of exact bf16
 products, in another order), the bf16 output within one bf16 step (2^-7
 relative) plus that; both against the float64 product at the JAX test's
-tolerance, and more accurate than one bf16 product.
+tolerance, and more accurate than one bf16 product. The host's choice of
+the kernel's form on a card (body, tile, split of K) is checked here too.
 
 RMSNorm + fp8: every e4m3 code equal to JAX's Pallas kernel (interpret mode)
 and to JAX's reference (the port's plain version sums the squares in
@@ -27,8 +28,11 @@ from hpc_ops_tpu.ops.normalization import fused_rmsnorm_with_scale as jax_norm
 from hpc_ops_tpu.ops.normalization import fused_rmsnorm_with_scale_ref as jax_norm_ref
 from hpc_ops_tpu_torch import kernels
 from hpc_ops_tpu_torch.ops.gemm import (
+    SMS,
+    STAGE_K,
     gemm_bf16xfp32,
     get_gemm_bf16xfp32_workspace,
+    route_form,
     route_gemm,
     split_fp32_weight,
 )
@@ -37,6 +41,7 @@ from hpc_ops_tpu_torch.ops.normalization import (
     fused_rmsnorm_with_scale,
     rmsnorm_quant,
 )
+from hpc_ops_tpu_torch.utils.common import cdiv
 from hpc_ops_tpu_torch.utils.testing import assert_allclose
 
 torch.set_num_threads(1)
@@ -90,6 +95,53 @@ def test_route_gemm_ref_and_arguments():
     assert_allclose(plain, want, atol=1e-3, rtol=1e-5, name="plain vs ref")
     ws_ = get_gemm_bf16xfp32_workspace(7168, 4096, device="cpu")
     assert tuple(ws_.shape) == (256, 112) and ws_.dtype == torch.int32 and not ws_.any()
+
+
+def split_stages(stages, splits):
+    """The K stages of each split as csrc/gemm.cu cuts them: the first
+    stages % splits splits take one stage more."""
+    q, r = divmod(stages, splits)
+    return [q + (s < r) for s in range(splits)]
+
+
+ROUTE_FORM_SHAPES = [(256, 256, 7168), (16, 256, 7168), (4096, 256, 7168), (16384, 256, 7168),
+                     (4096, 4096, 4096), (8192, 8192, 8192), (33, 72, 520), (1, 8, 8), (256, 256, 7176),
+                     (257, 100, 64)]
+
+
+@pytest.mark.parametrize("m,n,k", ROUTE_FORM_SHAPES)
+def test_route_form_splits_whole_stages_and_sizes_its_workspace(m, n, k):
+    """No split is empty, each is a whole number of 64-element stages, the
+    first stages % splits one stage longer; the tiles cover the output; the
+    workspace holds each split's hi and lo sums of each tile."""
+    f = route_form(m, n, k)
+    stages = cdiv(k, STAGE_K)
+    runs = split_stages(stages, f.splits)
+    assert len(runs) == f.splits and sum(runs) == stages and min(runs) >= 1
+    assert runs == sorted(runs, reverse=True) and runs[0] - runs[-1] <= 1
+    assert f.body == ("small" if m <= 256 else "large")
+    assert (f.tile_m, f.tile_n) in ({(16, 64), (32, 64), (64, 64)} if f.body == "small" else {(128, 128)})
+    assert f.tiles == cdiv(m, f.tile_m) * cdiv(n, f.tile_n) and f.blocks == f.tiles * f.splits
+    assert f.workspace == (0 if f.splits == 1 else f.blocks * 2 * f.tile_m * f.tile_n)
+    assert route_form(m, n, k) == f  # host integers only
+
+
+def test_route_form_fills_the_card_where_the_tiles_do_not():
+    """The router's decode shape splits K until the grid fills the 132 SMs
+    in one wave: one split more would pass 132 blocks (which ran slower on
+    an H100: two blocks sharing an SM, or a second wave); 4096^3 has tiles
+    enough and does not split; (1, 8, 8) is one block; no split of the
+    large body makes a second, partial wave."""
+    router = route_form(256, 256, 7168)
+    assert router.body == "small" and router.splits > 1
+    assert router.blocks <= SMS < router.blocks + router.tiles
+    assert route_form(4096, 4096, 4096).splits == 1
+    one = route_form(1, 8, 8)
+    assert one.blocks == 1 and one.splits == 1 and one.workspace == 0
+    prefill = route_form(4096, 256, 7168)
+    assert prefill.body == "large" and prefill.splits == 2 and prefill.blocks <= SMS
+    assert route_form(256, 256, 7176).splits == router.splits  # 113 stages: uneven runs
+    assert len(set(split_stages(113, router.splits))) == 2
 
 
 @pytest.mark.parametrize("is_moe", [False, True])

@@ -13,7 +13,10 @@ Phases, each printing one JSON line:
      PyTorch library call for the same function where one exists, and its
      bound. At the llama3_8b serving shapes (Hq 32, Hkv 8, D 128, pages of
      16): the bf16 RoPE store, paged decode and paged prefill, and the int8
-     quantising RoPE store, NHD_FUSED decode and NHD_FUSED prefill (the
+     quantising RoPE store, NHD_FUSED decode and NHD_FUSED prefill (both
+     RoPE stores at a decode batch and a ragged 2048-row prefill, with
+     torch.profiler device time, share of the bytes bound and, at decode,
+     the wrapper's host microseconds a call beside the wall time; the
      decode kernels, shorter than their wrappers' host time since PR 11,
      are timed by device time: torch.profiler's sum of their kernels a
      call, as are their SDPA yardsticks, or, where the profiler records no
@@ -28,7 +31,9 @@ Phases, each printing one JSON line:
      2048 (m-tiles of 32, 64, 160 and 512 slots: every instance of the
      grouped GEMM that the serving run launches, and the throughput shape):
      the scatter grouped GEMM (gate-up and down), the activation + e4m3
-     quantisation and the top-k reduce; then moe_pipeline: the three chained
+     quantisation and the top-k reduce (device time and share of bound at
+     every token count, the wrapper's host time at decode); then
+     moe_pipeline: the three chained
      with every garbage row filled with NaN, and the whole MoE under
      torch's sync debug mode (which raises on the device-to-host copies it
      detects; decode_profile_moe counts them). The int8 MoE at the same
@@ -248,6 +253,26 @@ def queued_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, calls: int = 200, warmup: int = 20, repeats: int = 5) -> float:
+    """Host microseconds a call of ``fn``: ``calls`` calls enqueued back to
+    back without a sync (a wrapper's checks, conversions, allocation and
+    launch), after a warm-up; the least of ``repeats`` such runs, since the
+    host's clock picks up other work on a shared machine."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return best
+
+
 def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
     """Least time in ms for this work: ``flops_per_s`` is the card's peak for
     the type of the function's operands, whatever type a kernel multiplies in."""
@@ -271,29 +296,66 @@ def random_table(gen, lens, max_blocks, num_blocks, device, bs=BS):
 
 
 # ------------------------------------------------------------------ kernels
+ROPE_MAX_POS = 8192  # positions of the cos|sin table
+# a ragged prefill of 2048 rows: new rows a request, and each request's
+# length with them; the last runs past the cos|sin table's end
+ROPE_PREFILL_Q = [700, 1, 512, 300, 535]
+ROPE_PREFILL_KV = [700, 4000, 1024, 300, 8700]
+
+
+def rope_rows_case(dev, gen, prefill):
+    """qkv, seq_lens, q_index and a page table over NUM_BLOCKS pages: a decode
+    batch of 8 rows at lengths up to 4096, or the ragged 2048-row prefill."""
+    import torch
+
+    if prefill:
+        lens, q_lens = ROPE_PREFILL_KV, ROPE_PREFILL_Q
+    else:
+        lens = [int(n) for n in torch.randint(1, 4097, (8,), generator=gen, dtype=torch.int32)]
+        q_lens = [1] * 8
+    rows = sum(q_lens)
+    qkv = torch.randn((rows, (HQ + 2 * HKV) * D), generator=gen).to(torch.bfloat16).to(dev)
+    tbl = random_table(gen, lens, max(lens) // BS + 4, NUM_BLOCKS, dev)
+    q_index = torch.tensor([0] + torch.tensor(q_lens).cumsum(0).tolist(), dtype=torch.int32, device=dev)
+    return qkv, torch.tensor(lens, dtype=torch.int32, device=dev), q_index, tbl
+
+
+def rope_bytes(rows, kv_elem):
+    """qkv and cos|sin rows in, q and the K/V rows out, 3 table entries a row."""
+    return rows * ((HQ + 2 * HKV) * D * 2 + D * 4 + 12 + HQ * D * 2 + 2 * HKV * D * kv_elem)
+
+
 def check_rope(dev, gen):
+    """The bf16 store at a decode batch of 8 rows (HND and NHD, every policy)
+    and at the ragged 2048-row prefill (HND policy 0, NHD policy 1) against
+    the plain version: q and K within one bf16 ulp, V bit-equal, every
+    unaddressed cache byte unchanged. Timed at both shapes, HND policy 0:
+    wall ms over back-to-back calls, torch.profiler's device ms, the share
+    of the bytes bound (of device time) and, at decode, the wrapper's host
+    microseconds a call."""
     import torch
 
     from hpc_ops_tpu_torch.ops.rope import make_cos_sin_cache
     from hpc_ops_tpu_torch.ops.rope_kernel import rope_store_rows, rope_store_rows_ref, row_slots
     from hpc_ops_tpu_torch.utils.testing import max_bf16_ulp_err
 
-    # a decode batch: one new row per request, at lengths up to 4096
-    rows = 8
-    cos_sin = make_cos_sin_cache(8192, D, 500000.0, device=dev)
-    qkv = torch.randn((rows, (HQ + 2 * HKV) * D), generator=gen).to(torch.bfloat16).to(dev)
-    seq_lens = torch.randint(1, 4097, (rows,), generator=gen, dtype=torch.int32)
-    tbl = random_table(gen, [int(n) for n in seq_lens], 4096 // BS + 4, NUM_BLOCKS, dev)
-    seq_lens = seq_lens.to(dev)
-    q_index = torch.arange(rows + 1, dtype=torch.int32, device=dev)
-    _, slots = row_slots(rows, seq_lens, q_index, tbl, BS, NUM_BLOCKS * BS)
+    cos_sin = make_cos_sin_cache(ROPE_MAX_POS, D, 500000.0, device=dev)
     w = (torch.rand(D, generator=gen) + 0.5).to(dev)
+    dgen = torch.Generator(device=dev).manual_seed(int(torch.randint(0, 2**31, (1,), generator=gen)))
+    shapes = {"HND": (HKV, NUM_BLOCKS * BS, D), "NHD": (NUM_BLOCKS * BS, HKV, D)}
+    # each layout's K and V caches before the store, drawn once on the card
+    before = {lay: [torch.randn(shape, generator=dgen, device=dev).to(torch.bfloat16) for _ in range(2)]
+              for lay, shape in shapes.items()}
     worst_q = worst_kv = 0.0
-    for layout in ("HND", "NHD"):
-        shape = (HKV, NUM_BLOCKS * BS, D) if layout == "HND" else (NUM_BLOCKS * BS, HKV, D)
-        k0 = torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
-        v0 = torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
-        for policy in (0, 1, 2):
+    timed = {}
+    for prefill, cases in ((False, [(lay, pol) for lay in ("HND", "NHD") for pol in (0, 1, 2)]),
+                           (True, [("HND", 0), ("NHD", 1)])):
+        qkv, seq_lens, q_index, tbl = rope_rows_case(dev, gen, prefill)
+        rows = qkv.shape[0]
+        _, slots = row_slots(rows, seq_lens, q_index, tbl, BS, NUM_BLOCKS * BS)
+        for layout, policy in cases:
+            shape = shapes[layout]
+            k0, v0 = before[layout]
             kw = dict(hq=HQ, hkv=HKV, d=D, dv=D, block_size=BS, qk_norm_policy=policy,
                       head_major=layout == "HND")
             args = (qkv, cos_sin, seq_lens, q_index, tbl, w, w)
@@ -307,31 +369,41 @@ def check_rope(dev, gen):
             else:
                 written[slots] = True
             if not (torch.equal(kk[~written], k0[~written]) and torch.equal(kv[~written], v0[~written])):
-                raise AssertionError(f"rope {layout}: untouched cache slots changed")
+                raise AssertionError(f"rope {layout} {rows} rows: untouched cache slots changed")
             if not torch.equal(kv[written], pv[written]):
-                raise AssertionError(f"rope {layout}: V rows differ from the plain version")
+                raise AssertionError(f"rope {layout} {rows} rows: V rows differ from the plain version")
             worst_kv = max(worst_kv, max_bf16_ulp_err(kk[written], pk[written]))
+            del kk, kv, pk, pv, written
+        # timing on the decode main path's form: HND, policy 0
+        kf = torch.zeros((HKV, NUM_BLOCKS * BS, D), dtype=torch.bfloat16, device=dev)
+        vf = torch.zeros_like(kf)
+        kw = dict(hq=HQ, hkv=HKV, d=D, dv=D, block_size=BS, qk_norm_policy=0, head_major=True)
+        args = (qkv, cos_sin, seq_lens, q_index, tbl, None, None, kf, vf)
+        diff = float((rope_store_rows(*args, **kw)[0].float()
+                      - rope_store_rows_ref(*args, **kw)[0].float()).abs().max())
+        call = lambda: rope_store_rows(*args, **kw)  # noqa: E731
+        b, by = bound(rope_bytes(rows, 2), rows * (HQ + HKV) * D * 3)
+        dev_ms = device_ms(call, 50)
+        timed["prefill" if prefill else "decode"] = dict(
+            rows=rows, diff=diff, ms=time_ms(call, 200 if not prefill else 50),
+            plain_ms=time_ms(lambda: rope_store_rows_ref(*args, **kw), 50 if not prefill else 5),
+            device_ms=dev_ms, bound_ms=b, bound_by=by, share_of_bound=b / dev_ms,
+            **({} if prefill else {"host_us": host_us(call)}))
+        del kf, vf
+    del before
     err = max(worst_q, worst_kv)
     if err > 1.0:
         raise AssertionError(f"rope: {err} bf16 ulp from the plain version (limit 1)")
-    # timing at the decode main path: HND, policy 0
-    kf = torch.zeros((HKV, NUM_BLOCKS * BS, D), dtype=torch.bfloat16, device=dev)
-    vf = torch.zeros_like(kf)
-    kw = dict(hq=HQ, hkv=HKV, d=D, dv=D, block_size=BS, qk_norm_policy=0, head_major=True)
-    args = (qkv, cos_sin, seq_lens, q_index, tbl, None, None, kf, vf)
-    diff = float((rope_store_rows(*args, **kw)[0].float()
-                  - rope_store_rows_ref(*args, **kw)[0].float()).abs().max())
-    ms = time_ms(lambda: rope_store_rows(*args, **kw), 200)
-    plain = time_ms(lambda: rope_store_rows_ref(*args, **kw), 50)
-    # qkv and cos|sin rows in, q and the K/V rows out, 3 table entries per row
-    nbytes = rows * ((HQ + 2 * HKV) * D * 2 + D * 4 + 12 + HQ * D * 2 + 2 * HKV * D * 2)
-    flops = rows * (HQ + HKV) * D * 3
-    b, by = bound(nbytes, flops)
-    emit("kernel", name="rope_store", max_ulp=err, max_abs_err=diff, ms=ms, plain_ms=plain,
-         bound_ms=b, bound_by=by, library_ms=None, rows=rows)
+    m, pre = timed["decode"], timed.pop("prefill")
+    diff = max(m["diff"], pre["diff"])
+    emit("kernel", name="rope_store", max_ulp=err, max_abs_err=diff, ms=m["ms"], plain_ms=m["plain_ms"],
+         bound_ms=m["bound_ms"], bound_by=m["bound_by"], library_ms=None, rows=m["rows"],
+         device_ms=m["device_ms"], share_of_bound=m["share_of_bound"], host_us=m["host_us"],
+         prefill=pre)
     return dict(name="rope_store", source="hpc_ops_tpu_torch/csrc/rope_store.cu",
                 replaces="hpc_ops_tpu/ops/rope_kernel.py:43", max_abs_err=diff, max_ulp=err,
-                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+                ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+                library_ms=None, device_ms=m["device_ms"], host_us=m["host_us"])
 
 
 def check_decode(dev, gen):
@@ -449,6 +521,11 @@ def check_prefill(dev, gen):
 
 
 def check_rope_int8(dev, gen):
+    """The int8 store into a NUM_BLOCKS-page NHD_FUSED slab at a decode batch
+    of 8 rows (every policy) and at the ragged 2048-row prefill (policies 0
+    and 1) against the plain version: q within one bf16 ulp, codes equal or
+    one apart on at most 0.1% (QK-norm's sums in another order), every
+    unaddressed slab byte unchanged. Timed as check_rope, policy 0."""
     import torch
 
     from hpc_ops_tpu_torch.ops.rope import make_cos_sin_cache
@@ -459,56 +536,66 @@ def check_rope_int8(dev, gen):
     )
     from hpc_ops_tpu_torch.utils.testing import max_bf16_ulp_err
 
-    # a decode batch of 8 rows into a 2048-page int8 NHD_FUSED slab
-    rows = 8
-    cos_sin = make_cos_sin_cache(8192, D, 500000.0, device=dev)
-    qkv = torch.randn((rows, (HQ + 2 * HKV) * D), generator=gen).to(torch.bfloat16).to(dev)
-    seq_lens = torch.randint(1, 4097, (rows,), generator=gen, dtype=torch.int32)
-    tbl = random_table(gen, [int(n) for n in seq_lens], 4096 // BS + 4, NUM_BLOCKS, dev)
-    seq_lens = seq_lens.to(dev)
-    q_index = torch.arange(rows + 1, dtype=torch.int32, device=dev)
-    _, slots = row_slots(rows, seq_lens, q_index, tbl, BS, NUM_BLOCKS * 2 * BS, fused=True)
-    written = torch.zeros(NUM_BLOCKS * 2 * BS, dtype=torch.bool, device=dev)
-    written[slots] = True
-    written[slots + BS] = True
-    written = written.view(NUM_BLOCKS, 2 * BS, 1).expand(NUM_BLOCKS, 2 * BS, HKV * D)
+    cos_sin = make_cos_sin_cache(ROPE_MAX_POS, D, 500000.0, device=dev)
     w = (torch.rand(D, generator=gen) + 0.5).to(dev)
     scales = (torch.tensor([0.05], device=dev), torch.tensor([0.05], device=dev))
-    slab0 = torch.randint(-127, 128, (NUM_BLOCKS, 2 * BS, HKV * D), generator=gen,
-                          dtype=torch.int8).to(dev)
-    worst_q, code_diff, diff_share = 0.0, 0, 0.0
+    dgen = torch.Generator(device=dev).manual_seed(int(torch.randint(0, 2**31, (1,), generator=gen)))
+    slab0 = torch.randint(-127, 128, (NUM_BLOCKS, 2 * BS, HKV * D), generator=dgen, device=dev,
+                          dtype=torch.int8)
+    worst_q, code_diff, diff_share, policy0_diff = 0.0, 0, 0.0, 0
     kw = dict(hq=HQ, hkv=HKV, d=D, block_size=BS)
-    for policy in (0, 1, 2):
-        args = (qkv, cos_sin, seq_lens, q_index, tbl, w, w)
-        kq, ks = rope_store_rows_int8(*args, slab0.clone(), *scales, qk_norm_policy=policy, **kw)
-        pq, ps = rope_store_rows_int8_ref(*args, slab0.clone(), *scales, qk_norm_policy=policy, **kw)
-        torch.cuda.synchronize()
-        worst_q = max(worst_q, max_bf16_ulp_err(kq, pq))
-        if not torch.equal(ks[~written], slab0[~written]):
-            raise AssertionError(f"rope int8 policy {policy}: untouched slab bytes changed")
-        diff = (ks[written].int() - ps[written].int()).abs()
-        code_diff = max(code_diff, int(diff.max()))
-        diff_share = max(diff_share, float((diff > 0).float().mean()))
-    if worst_q > 1.0 or code_diff > 1 or diff_share > 1e-3:
+    timed = {}
+    for prefill, policies in ((False, (0, 1, 2)), (True, (0, 1))):
+        qkv, seq_lens, q_index, tbl = rope_rows_case(dev, gen, prefill)
+        rows = qkv.shape[0]
+        _, slots = row_slots(rows, seq_lens, q_index, tbl, BS, NUM_BLOCKS * 2 * BS, fused=True)
+        written = torch.zeros(NUM_BLOCKS * 2 * BS, dtype=torch.bool, device=dev)
+        written[slots] = True
+        written[slots + BS] = True
+        written = written.view(NUM_BLOCKS, 2 * BS, 1).expand(NUM_BLOCKS, 2 * BS, HKV * D)
+        for policy in policies:
+            args = (qkv, cos_sin, seq_lens, q_index, tbl, w, w)
+            kq, ks = rope_store_rows_int8(*args, slab0.clone(), *scales, qk_norm_policy=policy, **kw)
+            pq, ps = rope_store_rows_int8_ref(*args, slab0.clone(), *scales, qk_norm_policy=policy, **kw)
+            torch.cuda.synchronize()
+            worst_q = max(worst_q, max_bf16_ulp_err(kq, pq))
+            if not torch.equal(ks[~written], slab0[~written]):
+                raise AssertionError(f"rope int8 {rows} rows policy {policy}: untouched slab bytes changed")
+            diff = (ks[written].int() - ps[written].int()).abs()
+            code_diff = max(code_diff, int(diff.max()))
+            diff_share = max(diff_share, float((diff > 0).float().mean()))
+            if policy == 0:
+                policy0_diff = max(policy0_diff, int(diff.max()))
+            del ks, ps, diff
+        # timing on the decode main path's form: policy 0
+        args = (qkv, cos_sin, seq_lens, q_index, tbl, None, None, slab0.clone(), *scales)
+        kw0 = dict(kw, qk_norm_policy=0)
+        diff = float((rope_store_rows_int8(*args, **kw0)[0].float()
+                      - rope_store_rows_int8_ref(*args, **kw0)[0].float()).abs().max())
+        call = lambda: rope_store_rows_int8(*args, **kw0)  # noqa: E731
+        b, by = bound(rope_bytes(rows, 1), rows * (HQ + HKV) * D * 3 + rows * 2 * HKV * D * 2)
+        dev_ms = device_ms(call, 50)
+        timed["prefill" if prefill else "decode"] = dict(
+            rows=rows, diff=diff, ms=time_ms(call, 200 if not prefill else 50),
+            plain_ms=time_ms(lambda: rope_store_rows_int8_ref(*args, **kw0), 50 if not prefill else 5),
+            device_ms=dev_ms, bound_ms=b, bound_by=by, share_of_bound=b / dev_ms,
+            **({} if prefill else {"host_us": host_us(call)}))
+        del args
+    if worst_q > 1.0 or code_diff > 1 or diff_share > 1e-3 or policy0_diff:
         raise AssertionError(f"rope int8: q {worst_q} ulp (limit 1), codes {code_diff} apart on "
-                             f"{diff_share:.4%} (limits 1 and 0.1%)")
-    # timing at the decode main path: policy 0
-    args = (qkv, cos_sin, seq_lens, q_index, tbl, None, None, slab0.clone(), *scales)
-    kw["qk_norm_policy"] = 0
-    diff = float((rope_store_rows_int8(*args, **kw)[0].float()
-                  - rope_store_rows_int8_ref(*args, **kw)[0].float()).abs().max())
-    ms = time_ms(lambda: rope_store_rows_int8(*args, **kw), 200)
-    plain = time_ms(lambda: rope_store_rows_int8_ref(*args, **kw), 50)
-    # qkv and cos|sin rows in, q and the int8 K/V rows out, 3 table entries per row
-    nbytes = rows * ((HQ + 2 * HKV) * D * 2 + D * 4 + 12 + HQ * D * 2 + 2 * HKV * D)
-    flops = rows * (HQ + HKV) * D * 3 + rows * 2 * HKV * D * 2
-    b, by = bound(nbytes, flops)
+                             f"{diff_share:.4%} (limits 1 and 0.1%), {policy0_diff} with QK-norm off "
+                             "(limit 0)")
+    m, pre = timed["decode"], timed.pop("prefill")
+    diff = max(m["diff"], pre["diff"])
     emit("kernel", name="rope_store_int8", max_ulp=worst_q, max_abs_err=diff,
-         code_max_diff=code_diff, code_diff_share=diff_share, ms=ms, plain_ms=plain,
-         bound_ms=b, bound_by=by, library_ms=None, rows=rows)
+         code_max_diff=code_diff, code_diff_share=diff_share, ms=m["ms"], plain_ms=m["plain_ms"],
+         bound_ms=m["bound_ms"], bound_by=m["bound_by"], library_ms=None, rows=m["rows"],
+         device_ms=m["device_ms"], share_of_bound=m["share_of_bound"], host_us=m["host_us"],
+         prefill=pre)
     return dict(name="rope_store_int8", source="hpc_ops_tpu_torch/csrc/rope_store.cu",
                 replaces="hpc_ops_tpu/ops/rope_kernel.py:43", max_abs_err=diff, max_ulp=worst_q,
-                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+                ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+                library_ms=None, device_ms=m["device_ms"], host_us=m["host_us"])
 
 
 def gathered_dequant(slab, tbl, kv_len_max, scale):
@@ -2580,9 +2667,14 @@ def check_act_quant(dev, inp):
 
 
 def check_moe_reduce(dev, inp):
+    """The top-k reduce at every MOE_SHAPES token count, with and without a
+    shared expert, every garbage row NaN: bit-equal to the plain version, no
+    NaN in the output. Timed per shape without a shared expert: wall ms over
+    back-to-back calls, torch.profiler's device ms and its share of the bytes
+    bound; at the decode shape also the wrapper's host microseconds a call."""
     import torch
 
-    from hpc_ops_tpu_torch.ops.moe import moe_reduce, moe_reduce_ref
+    from hpc_ops_tpu_torch.ops.moe import moe_reduce, moe_reduce_ref, reduce_form
 
     detail, err = {}, 0.0
     for shape in MOE_SHAPES:
@@ -2597,21 +2689,28 @@ def check_moe_reduce(dev, inp):
             if not torch.isfinite(got.float()).all():
                 raise AssertionError(f"moe_reduce {shape}: NaN of a garbage row reached the output")
             err = max(err, float((got.float() - want.float()).abs().max()))
-        ms = time_ms(lambda: moe_reduce(x, c["topk_pos"], c["ts"]), 50)
+        call = lambda: moe_reduce(x, c["topk_pos"], c["ts"])  # noqa: E731
+        ms = time_ms(call, 50)
         plain = time_ms(lambda: moe_reduce_ref(x, c["topk_pos"], c["ts"]), 5)
+        dev_ms = device_ms(call, 50)
         pairs = c["s"] * MOE_K
         bd, by = bound(pairs * MOE_H * 2 + c["s"] * MOE_H * 2 + pairs * 8, 2.0 * pairs * MOE_H)
-        detail[shape] = dict(ms=ms, plain_ms=plain, bound_ms=bd, bound_by=by, tokens=c["s"])
+        detail[shape] = dict(ms=ms, plain_ms=plain, bound_ms=bd, bound_by=by, tokens=c["s"],
+                             device_ms=dev_ms, share_of_bound=bd / dev_ms,
+                             form=reduce_form(c["s"], MOE_H)._asdict())
+        if shape == "decode":
+            detail[shape]["host_us"] = host_us(call)
     if err != 0.0:
         raise AssertionError(f"moe_reduce: {err} from the plain version (limit 0: the same "
                              "float32 operations in the same order)")
     main = detail["decode"]
     emit("kernel", name="moe_reduce", max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
-         library_ms=None, bound_ms=main["bound_ms"], bound_by=main["bound_by"], shapes=detail)
+         library_ms=None, bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+         device_ms=main["device_ms"], host_us=main["host_us"], shapes=detail)
     return dict(name="moe_reduce", source="hpc_ops_tpu_torch/csrc/moe.cu",
                 replaces="hpc_ops_tpu/ops/moe.py:212", max_abs_err=err, ms=main["ms"],
                 plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=None)
+                library_ms=None, device_ms=main["device_ms"], host_us=main["host_us"])
 
 
 def check_moe_pipeline(dev, inp):

@@ -33,10 +33,13 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
+SMS = 132  # an H100 SXM's streaming multiprocessors: one block each fills the card
+
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
-    "hpc_rope_store_bf16": [_P] * 10 + [_I] * 8 + [_I64] * 5 + [_I, _P],
-    "hpc_rope_store_int8": [_P] * 11 + [_I] * 8 + [_I64, _I, _P],
+    # the rope stores end in (a RopeShape's address, stream): ops/rope_kernel.py:_RopeShape
+    "hpc_rope_store_bf16": [_P] * 12,
+    "hpc_rope_store_int8": [_P] * 13,
     "hpc_paged_decode": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 5 + [_I] * 8 + [_F, _P, _P, _P, _I],
     "hpc_paged_decode_qt0": [_P] * 3 + [_I64] * 6 + [_P] * 5 + [_I] * 9 + [_F, _P, _P, _P, _I],
     "hpc_paged_decode_nhd_fused": [_P, _P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P, _P, _P, _I],
@@ -56,7 +59,7 @@ _SIGNATURES = {
     "hpc_gg_bw_aligned_i8": [_P] * 8 + [_I] * 6 + [_P, _I, _I],
     "hpc_gg_bw_aligned_e4m3": [_P] * 8 + [_I] * 6 + [_P, _I, _I],
     "hpc_act_mul_quant": [_P] * 4 + [_I] * 4 + [_P],
-    "hpc_moe_reduce": [_P] * 5 + [_I] * 3 + [_P],
+    "hpc_moe_reduce": [_P] * 5 + [_I] * 5 + [_P],
     "hpc_rmsnorm_quant": [_P] * 6 + [_I] * 2 + [_F, _P],
     "hpc_route_gemm": [_P] * 5 + [_I] * 4 + [_P] * 2 + [_I] * 3 + [_P],
     "hpc_allreduce_rmsnorm": [_P] * 6 + [ctypes.c_uint64, _P] + [_I] * 3 + [_F] + [_I] * 3 + [_P],
@@ -218,6 +221,7 @@ def launch_counts() -> dict:
 
 __all__ = [
     "BUILD_DIR",
+    "SMS",
     "SOURCES",
     "build",
     "lib",

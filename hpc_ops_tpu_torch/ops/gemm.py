@@ -20,9 +20,9 @@ from typing import NamedTuple
 import torch
 
 from hpc_ops_tpu_torch import kernels
+from hpc_ops_tpu_torch.kernels import SMS
 from hpc_ops_tpu_torch.utils.common import cdiv
 
-SMS = 132  # an H100 SXM's streaming multiprocessors: one block each fills the card
 STAGE_K = 64  # K elements of a stage of the kernel (csrc/gemm.cu BK)
 SMALL_M = 256  # token counts up to this take the small body (the router's decode shapes)
 SMALL_TN = (16, 32, 64)  # the small body's token tiles

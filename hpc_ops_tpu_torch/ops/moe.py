@@ -37,6 +37,7 @@ re-quantisation.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -188,6 +189,37 @@ def moe_reduce_ref(x, topk_pos, topk_scale, shared_output=None):
     return out.to(torch.bfloat16)
 
 
+REDUCE_THREADS = (256, 128, 64)  # threads a block of the reduce kernel, one 8-column group at a time
+
+
+class ReduceForm(NamedTuple):
+    """A launch of the top-k reduce (csrc/moe.cu): ``chunks`` blocks of
+    ``threads`` a token, each walking its chunk's 8-column groups;
+    ``blocks`` in the grid."""
+
+    threads: int
+    chunks: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=1024)
+def reduce_form(tokens: int, h: int) -> ReduceForm:
+    """The reduce kernel's form for ``tokens`` x ``h``. Threads: the largest
+    block whose grid, one 8-column group a thread, holds two blocks an SM,
+    else the smallest (a decode step), never more than the row's groups
+    rounded up to a warp. Chunks: a token's row is split only as far as the
+    grid needs two blocks an SM, so a prefill of hundreds of tokens takes one
+    block a token that walks its row, and 8 tokens at h 4096 take 8 chunks
+    (64 blocks of 64 threads)."""
+    groups = cdiv(h, 8)
+    for t in REDUCE_THREADS:
+        if tokens * cdiv(groups, t) >= 2 * kernels.SMS:
+            break
+    t = min(t, max(32, cdiv(groups, 32) * 32))
+    chunks = max(1, min(cdiv(groups, t), cdiv(2 * kernels.SMS, max(tokens, 1))))
+    return ReduceForm(t, chunks, tokens * chunks)
+
+
 def moe_reduce(
     x: torch.Tensor,  # [rows, H] bf16
     topk_pos: torch.Tensor,  # [S, K] int32, -1 dropped
@@ -196,29 +228,37 @@ def moe_reduce(
 ) -> torch.Tensor:
     """``out[s] = sum_k topk_scale[s,k] * x[topk_pos[s,k]] (+ shared_output[s])``,
     [S, H] bf16. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
-    if x.device.type == "cpu":
-        return moe_reduce_ref(x, topk_pos, topk_scale, shared_output)
-    if x.device.type != "cuda":
+    kernel or raise. Inputs already in the kernel's types, layouts and device
+    pass unconverted."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return moe_reduce_ref(x, topk_pos, topk_scale, shared_output)
         raise ValueError(f"moe_reduce: unsupported device {x.device}")
     s, k = topk_pos.shape
     h = x.shape[-1]
     if x.dtype != torch.bfloat16 or x.dim() != 2 or not x.is_contiguous() or h % 8:
         raise ValueError("moe_reduce: x must be contiguous bf16 [rows, H] with H % 8 == 0")
-    if tuple(topk_scale.shape) != (s, k):
+    if topk_scale.shape != topk_pos.shape:
         raise ValueError("moe_reduce: topk_scale must have topk_pos's shape")
-    pos = topk_pos.to(device=x.device, dtype=torch.int32).contiguous()
-    sc = topk_scale.to(device=x.device, dtype=torch.float32).contiguous()
+    dev = x.get_device()
+    pos, sc = topk_pos, topk_scale
+    if pos.dtype != torch.int32 or not pos.is_contiguous() or pos.get_device() != dev:
+        pos = pos.to(device=x.device, dtype=torch.int32).contiguous()
+    if sc.dtype != torch.float32 or not sc.is_contiguous() or sc.get_device() != dev:
+        sc = sc.to(device=x.device, dtype=torch.float32).contiguous()
     sh_ptr = None
     if shared_output is not None:
-        if tuple(shared_output.shape) != (s, h) or shared_output.device != x.device:
+        if shared_output.shape != (s, h) or shared_output.get_device() != dev:
             raise ValueError("moe_reduce: shared_output must be [S, H] on x's device")
-        sh = shared_output.to(torch.bfloat16).contiguous()
+        sh = shared_output
+        if sh.dtype != torch.bfloat16 or not sh.is_contiguous():
+            sh = sh.to(torch.bfloat16).contiguous()
         sh_ptr = sh.data_ptr()
     out = torch.empty((s, h), dtype=torch.bfloat16, device=x.device)
+    form = reduce_form(s, h)
     rc = kernels.lib().hpc_moe_reduce(
         x.data_ptr(), pos.data_ptr(), sc.data_ptr(), sh_ptr, out.data_ptr(), s, k, h,
-        kernels.stream_ptr(x),
+        form.threads, form.chunks, kernels.stream_ptr(x),
     )
     kernels.check(rc, "hpc_moe_reduce")
     kernels.count(moe_reduce)
@@ -576,6 +616,8 @@ __all__ = [
     "reduce",
     "moe_reduce",
     "moe_reduce_ref",
+    "ReduceForm",
+    "reduce_form",
     "fuse_moe",
     "fuse_moe_pertensor_fp8",
     "fuse_moe_pertensor_int8",

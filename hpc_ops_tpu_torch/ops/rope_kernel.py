@@ -16,13 +16,16 @@ package's clip does. The caches are updated IN PLACE.
 
 from __future__ import annotations
 
-import torch
-
+import ctypes
+import functools
 from typing import NamedTuple
+
+import torch
 
 from hpc_ops_tpu_torch import kernels
 from hpc_ops_tpu_torch.config import QKNormPolicy
 from hpc_ops_tpu_torch.ops.kv_cache import OOB_SLOT, flat_slot_ids
+from hpc_ops_tpu_torch.utils.common import cdiv, round_up
 
 _NORM_EPS = 1e-6
 
@@ -124,6 +127,100 @@ def rope_store_rows_ref(
     return q.reshape(rows, hq * d).to(torch.bfloat16), kflat, vflat
 
 
+class RopeForm(NamedTuple):
+    """A launch of the rope store kernel: a lane loads ``vec`` elements of
+    each half of its head as one word, ``chunks`` words a half; ``lanes``
+    lanes (a power of two, at most 32) own a head, a block of ``threads``
+    owns ``heads_per_block`` heads of one row; ``blocks`` in the grid."""
+
+    vec: int
+    lanes: int
+    chunks: int
+    heads_per_block: int
+    threads: int
+    blocks: int
+
+
+ROPE_VECS = (8, 4, 2, 1)  # words of 16, 8, 4 or 2 bytes of bf16
+ROPE_MAX_ELEMS = 8  # elements of each half a lane holds (csrc/rope_store.cu kMaxElems)
+ROPE_MAX_THREADS = 256
+
+
+@functools.lru_cache(maxsize=1024)
+def rope_form(d: int, heads: int, rows: int, align: int = 16) -> RopeForm:
+    """The kernel's form for ``rows`` rows of ``heads`` heads of ``d``
+    elements, every pointer aligned to ``align`` bytes of bf16 (a float32
+    pointer to twice that, an int8 one to half). ``vec`` is the widest word
+    that divides d / 2 and that the alignment allows; enough lanes to cover
+    d / 2 in one word each, at most 32 (then more chunks). A block holds as
+    many heads as 256 threads do, halved while the grid has fewer than two
+    blocks an SM and a block more than one warp (a decode step), then
+    spread evenly over a row's blocks in whole warps."""
+    half = d // 2
+    vec = next((v for v in ROPE_VECS if half % v == 0 and 2 * v <= align), 1)
+    lanes = min(32, 1 << max(0, (cdiv(half, vec) - 1).bit_length()))
+    hpb = ROPE_MAX_THREADS // lanes
+    while hpb * lanes > 32 and rows * cdiv(heads, hpb) < 2 * kernels.SMS:
+        hpb //= 2
+    hpb = round_up(cdiv(heads, cdiv(heads, hpb)), max(1, 32 // lanes))
+    return RopeForm(vec, lanes, cdiv(half, vec * lanes), hpb, hpb * lanes, rows * cdiv(heads, hpb))
+
+
+def _align(bits: int) -> int:
+    """The largest power of two, at most 16, that divides ``bits`` (an OR of
+    byte addresses)."""
+    low = bits & -bits
+    return 16 if bits == 0 or low >= 16 else low
+
+
+class _RopeShape(ctypes.Structure):
+    """``RopeShape`` of csrc/rope_store.cu, field for field."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "rows", "hq", "hkv", "d", "max_pos", "num_req", "max_blocks", "page_size", "policy",
+        "vec", "lanes", "heads_per_block", "head_major")] + [("num_slots", ctypes.c_int64)]
+
+
+@functools.lru_cache(maxsize=1024)
+def _rope_shape(rows, hq, hkv, d, max_pos, num_req, max_blocks, page_size, policy, head_major,
+                num_slots, align):
+    """(the launch's RopeShape, its address): built once per shape, so a call
+    passes one pointer for its sizes. The caller keeps the pair while it
+    launches."""
+    f = rope_form(d, hq + 2 * hkv, rows, align)
+    shape = _RopeShape(rows, hq, hkv, d, max_pos, num_req, max_blocks, page_size, policy, f.vec,
+                       f.lanes, f.heads_per_block, head_major, num_slots)
+    return shape, ctypes.addressof(shape)
+
+
+def _policy(qk_norm_policy) -> int:
+    if qk_norm_policy not in (0, 1, 2):
+        QKNormPolicy(qk_norm_policy)  # raises ValueError
+    return int(qk_norm_policy)
+
+
+def _f32(t):
+    return t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
+
+
+def _i32(t):
+    return t if t.dtype == torch.int32 and t.is_contiguous() else t.to(torch.int32).contiguous()
+
+
+def _check_tables(name, seq_lens, q_index, block_ids):
+    seq_lens, q_index, block_ids = _i32(seq_lens), _i32(q_index), _i32(block_ids)
+    if q_index.shape[0] != seq_lens.shape[0] + 1 or block_ids.shape[0] != seq_lens.shape[0]:
+        raise ValueError(f"{name}: seq_lens, q_index and block_ids disagree on requests")
+    return seq_lens, q_index, block_ids
+
+
+def _one_device(dev: int, *tensors) -> bool:
+    for t in tensors:
+        if t.get_device() != dev:
+            return False
+    return True
+
+
 def rope_store_rows(
     qkv: torch.Tensor,  # [rows, (hq + 2*hkv) * d] bf16, every row a real token
     cos_sin: torch.Tensor,  # [max_position, d] f32 table (cos | sin)
@@ -147,18 +244,18 @@ def rope_store_rows(
 
     Returns ``(q_out [rows, hq*d] bf16, kflat, vflat)``; the caches are
     written in place. CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise.
+    the kernel or raise. Inputs already in the kernel's types and layouts
+    pass unconverted.
     """
-    if qkv.device.type == "cpu":
-        return rope_store_rows_ref(
-            qkv, cos_sin, seq_lens, q_index, block_ids, q_norm_weight, k_norm_weight, kflat,
-            vflat, hq=hq, hkv=hkv, d=d, dv=dv, block_size=block_size,
-            qk_norm_policy=qk_norm_policy, head_major=head_major,
-        )
-    rows = qkv.shape[0]
-    policy = int(QKNormPolicy(qk_norm_policy))
-    if qkv.device.type != "cuda":
+    if not qkv.is_cuda:
+        if qkv.device.type == "cpu":
+            return rope_store_rows_ref(
+                qkv, cos_sin, seq_lens, q_index, block_ids, q_norm_weight, k_norm_weight, kflat,
+                vflat, hq=hq, hkv=hkv, d=d, dv=dv, block_size=block_size,
+                qk_norm_policy=qk_norm_policy, head_major=head_major,
+            )
         raise ValueError(f"rope_store_rows: unsupported device {qkv.device}")
+    policy = _policy(qk_norm_policy)
     if qkv.dtype != torch.bfloat16 or kflat.dtype != torch.bfloat16 or vflat.dtype != torch.bfloat16:
         raise ValueError(
             "rope_store_rows: the CUDA kernel stores bf16 caches only (the int8 "
@@ -171,30 +268,27 @@ def rope_store_rows(
         raise ValueError(f"rope_store_rows: qkv must be contiguous [rows, {(hq + 2 * hkv) * d}]")
     if not (kflat.is_contiguous() and vflat.is_contiguous()):
         raise ValueError("rope_store_rows: caches must be contiguous")
-    cos_sin = cos_sin.float().contiguous()
+    cos_sin = _f32(cos_sin)
     if cos_sin.shape[1] != d:
         raise ValueError("rope_store_rows: cos_sin must be [max_position, d]")
     seq_lens, q_index, block_ids = _check_tables("rope_store_rows", seq_lens, q_index, block_ids)
-    if policy != 0:
-        q_norm_weight = q_norm_weight.float().contiguous()
-        k_norm_weight = k_norm_weight.float().contiguous()
-    for t in (cos_sin, seq_lens, q_index, block_ids, kflat, vflat):
-        if t.device != qkv.device:
-            raise ValueError("rope_store_rows: all tensors must be on one device")
-    # element strides of (head, slot) in the flat cache views
-    k_st = (kflat.stride(0), kflat.stride(1)) if head_major else (kflat.stride(1), kflat.stride(0))
-    v_st = (vflat.stride(0), vflat.stride(1)) if head_major else (vflat.stride(1), vflat.stride(0))
-    q_out = torch.empty((rows, hq * d), dtype=torch.bfloat16, device=qkv.device)
+    if not _one_device(qkv.get_device(), cos_sin, seq_lens, q_index, block_ids, kflat, vflat):
+        raise ValueError("rope_store_rows: all tensors must be on one device")
+    rows = qkv.shape[0]
+    qp, cp, kp, vp = qkv.data_ptr(), cos_sin.data_ptr(), kflat.data_ptr(), vflat.data_ptr()
+    bits = qp | kp | vp | cp >> 1
+    qw = kw = None
+    if policy:
+        q_norm_weight, k_norm_weight = _f32(q_norm_weight), _f32(k_norm_weight)
+        qw, kw = q_norm_weight.data_ptr(), k_norm_weight.data_ptr()
+        bits |= (qw | kw) >> 1
     num_slots = kflat.shape[1] if head_major else kflat.shape[0]
+    shape = _rope_shape(rows, hq, hkv, d, cos_sin.shape[0], seq_lens.shape[0], block_ids.shape[1],
+                        block_size, policy, int(head_major), num_slots, _align(bits))
+    q_out = torch.empty((rows, hq * d), dtype=torch.bfloat16, device=qkv.device)
     rc = kernels.lib().hpc_rope_store_bf16(
-        qkv.data_ptr(), cos_sin.data_ptr(), seq_lens.data_ptr(), q_index.data_ptr(),
-        block_ids.data_ptr(),
-        q_norm_weight.data_ptr() if policy else None,
-        k_norm_weight.data_ptr() if policy else None,
-        q_out.data_ptr(), kflat.data_ptr(), vflat.data_ptr(),
-        rows, hq, hkv, d, cos_sin.shape[0], seq_lens.shape[0], block_ids.shape[1],
-        block_size, num_slots, k_st[0], k_st[1], v_st[0], v_st[1],
-        policy, kernels.stream_ptr(qkv),
+        qp, cp, seq_lens.data_ptr(), q_index.data_ptr(), block_ids.data_ptr(), qw, kw,
+        q_out.data_ptr(), kp, vp, shape[1], kernels.stream_ptr(qkv),
     )
     kernels.check(rc, "hpc_rope_store_bf16")
     kernels.count(rope_store_rows)
@@ -202,15 +296,6 @@ def rope_store_rows(
 
 
 rope_store_rows.launches = 0
-
-
-def _check_tables(name, seq_lens, q_index, block_ids):
-    seq_lens = seq_lens.to(torch.int32).contiguous()
-    q_index = q_index.to(torch.int32).contiguous()
-    block_ids = block_ids.to(torch.int32).contiguous()
-    if q_index.shape[0] != seq_lens.shape[0] + 1 or block_ids.shape[0] != seq_lens.shape[0]:
-        raise ValueError(f"{name}: seq_lens, q_index and block_ids disagree on requests")
-    return seq_lens, q_index, block_ids
 
 
 def rope_store_rows_int8_ref(
@@ -255,15 +340,15 @@ def rope_store_rows_int8(
     place, and only the addressed rows. CPU tensors take the plain version;
     CUDA tensors launch the kernel or raise.
     """
-    if qkv.device.type == "cpu":
-        return rope_store_rows_int8_ref(
-            qkv, cos_sin, seq_lens, q_index, block_ids, q_norm_weight, k_norm_weight, kv_slab,
-            k_scale, v_scale, hq=hq, hkv=hkv, d=d, block_size=block_size,
-            qk_norm_policy=qk_norm_policy,
-        )
-    if qkv.device.type != "cuda":
+    if not qkv.is_cuda:
+        if qkv.device.type == "cpu":
+            return rope_store_rows_int8_ref(
+                qkv, cos_sin, seq_lens, q_index, block_ids, q_norm_weight, k_norm_weight, kv_slab,
+                k_scale, v_scale, hq=hq, hkv=hkv, d=d, block_size=block_size,
+                qk_norm_policy=qk_norm_policy,
+            )
         raise ValueError(f"rope_store_rows_int8: unsupported device {qkv.device}")
-    policy = int(QKNormPolicy(qk_norm_policy))
+    policy = _policy(qk_norm_policy)
     if qkv.dtype != torch.bfloat16 or kv_slab.dtype != torch.int8:
         raise ValueError("rope_store_rows_int8: needs bf16 qkv and an int8 slab")
     if qkv.shape[1] != (hq + 2 * hkv) * d or not qkv.is_contiguous():
@@ -275,31 +360,33 @@ def rope_store_rows_int8(
         raise ValueError(
             f"rope_store_rows_int8: the slab must be contiguous [nb, {2 * block_size}, {hkv * d}]"
         )
-    cos_sin = cos_sin.float().contiguous()
+    cos_sin = _f32(cos_sin)
     if cos_sin.shape[1] != d:
         raise ValueError("rope_store_rows_int8: cos_sin must be [max_position, d]")
     seq_lens, q_index, block_ids = _check_tables(
         "rope_store_rows_int8", seq_lens, q_index, block_ids
     )
-    if policy != 0:
-        q_norm_weight = q_norm_weight.float().contiguous()
-        k_norm_weight = k_norm_weight.float().contiguous()
-    for t in (k_scale, v_scale):
-        if t.dtype != torch.float32 or t.numel() != 1:
-            raise ValueError("rope_store_rows_int8: scales must be [1] float32")
-    for t in (cos_sin, seq_lens, q_index, block_ids, kv_slab, k_scale, v_scale):
-        if t.device != qkv.device:
-            raise ValueError("rope_store_rows_int8: all tensors must be on one device")
+    if (k_scale.dtype != torch.float32 or k_scale.numel() != 1 or v_scale.dtype != torch.float32
+            or v_scale.numel() != 1):
+        raise ValueError("rope_store_rows_int8: scales must be [1] float32")
+    if not _one_device(qkv.get_device(), cos_sin, seq_lens, q_index, block_ids, kv_slab, k_scale,
+                       v_scale):
+        raise ValueError("rope_store_rows_int8: all tensors must be on one device")
     rows = qkv.shape[0]
+    qp, cp, sp = qkv.data_ptr(), cos_sin.data_ptr(), kv_slab.data_ptr()
+    bits = qp | cp >> 1 | sp << 1
+    qw = kw = None
+    if policy:
+        q_norm_weight, k_norm_weight = _f32(q_norm_weight), _f32(k_norm_weight)
+        qw, kw = q_norm_weight.data_ptr(), k_norm_weight.data_ptr()
+        bits |= (qw | kw) >> 1
+    shape = _rope_shape(rows, hq, hkv, d, cos_sin.shape[0], seq_lens.shape[0], block_ids.shape[1],
+                        block_size, policy, 0, nb, _align(bits))
     q_out = torch.empty((rows, hq * d), dtype=torch.bfloat16, device=qkv.device)
     rc = kernels.lib().hpc_rope_store_int8(
-        qkv.data_ptr(), cos_sin.data_ptr(), seq_lens.data_ptr(), q_index.data_ptr(),
-        block_ids.data_ptr(),
-        q_norm_weight.data_ptr() if policy else None,
-        k_norm_weight.data_ptr() if policy else None,
-        k_scale.data_ptr(), v_scale.data_ptr(), q_out.data_ptr(), kv_slab.data_ptr(),
-        rows, hq, hkv, d, cos_sin.shape[0], seq_lens.shape[0], block_ids.shape[1],
-        block_size, nb, policy, kernels.stream_ptr(qkv),
+        qp, cp, seq_lens.data_ptr(), q_index.data_ptr(), block_ids.data_ptr(), qw, kw,
+        k_scale.data_ptr(), v_scale.data_ptr(), q_out.data_ptr(), sp, shape[1],
+        kernels.stream_ptr(qkv),
     )
     kernels.check(rc, "hpc_rope_store_int8")
     kernels.count(rope_store_rows_int8)
@@ -309,7 +396,9 @@ def rope_store_rows_int8(
 rope_store_rows_int8.launches = 0
 
 __all__ = [
+    "RopeForm",
     "quantize_int8",
+    "rope_form",
     "rope_store_rows",
     "rope_store_rows_int8",
     "rope_store_rows_int8_ref",

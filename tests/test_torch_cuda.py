@@ -7,7 +7,12 @@ on the CPU that each wrapper takes its plain version for CPU tensors and
 counts no launch.
 
 Tolerances: attention within 1e-2 abs/rel in bf16 output (int8 slabs too:
-kernel and plain version read the same codes); RoPE within one bf16 ulp;
+kernel and plain version read the same codes); RoPE within one bf16 ulp
+(where QK-norm runs before the rotation, in the ragged-prefill and
+head-shape cases, plus 2^-22 of |n1| + |n2| of each NeoX pair: the norm's
+sum in another order moves the normalised inputs by about a float32 ulp,
+and where n1 * c - n2 * s cancels, the two products' roundings are many
+ulps of the small result; rotation_envelope);
 int8 codes equal, or one apart on at most 0.1% of them (a rounding tie);
 untouched cache bytes bit-identical. e4m3 caches: attention within the same
 1e-2 (kernel and plain version decode the same codes exactly, subnormals
@@ -326,6 +331,338 @@ def test_rope_int8_kernel_invalid_rows_clip_to_the_last_page_rows(cuda):
     assert not torch.equal(ks[-1, -1], slab[-1, -1])  # the V row of a pad row landed there
 
 
+# ------------------------------------------- the rope store's shapes and forms
+# A ragged prefill of 2048 rows: new rows a request (one request empty) and
+# each request's length with them, 5 pad rows past q_index[-1]; with a
+# cos|sin table of 2048 positions two requests run past its end, and the last
+# request's last page is -1, so its rows there have no valid slot either.
+RAGGED_Q, RAGGED_KV, RAGGED_PAD, RAGGED_POS = [700, 0, 1, 512, 300, 530], [700, 50, 4000, 1024, 300, 2600], 5, 2048
+# (head_dim, Hq, Hkv): fault F5's head shapes, llama3_8b's, and two whose
+# half is not a multiple of 8 (the kernel's 4-byte and 2-byte words)
+ROPE_SHAPES = {"d64": (64, 32, 8), "d96": (96, 32, 8), "d128": (128, 32, 8), "d256": (256, 8, 2),
+               "g128": (128, 128, 1), "d100": (100, 4, 2), "d42": (42, 4, 2)}
+
+
+def ragged_rope_case(gen, q_lens, kv_lens, hq, hkv, d, pad=0, max_pos=8192, hole=True):
+    """Plain-version inputs of a ragged batch over a shuffled page table with
+    a few spare pages; ``hole``: the last request's last page id is -1."""
+    pages = [-(-n // BS) for n in kv_lens]
+    nb = sum(pages) + 3
+    perm = torch.randperm(nb, generator=gen).to(torch.int32)
+    tbl = torch.full((len(kv_lens), max(pages) + 2), -1, dtype=torch.int32)
+    off = 0
+    for i, n in enumerate(pages):
+        tbl[i, :n] = perm[off : off + n]
+        off += n
+    if hole:
+        tbl[-1, pages[-1] - 1] = -1
+    qkv = randn(gen, sum(q_lens) + pad, (hq + 2 * hkv) * d)
+    cos_sin = make_cos_sin_cache(max_pos, d, 500000.0, device="cpu")
+    q_index = torch.tensor([0] + torch.tensor(q_lens).cumsum(0).tolist(), dtype=torch.int32)
+    w = torch.rand(d, generator=gen) + 0.5
+    return (qkv, cos_sin, torch.tensor(kv_lens, dtype=torch.int32), q_index, tbl, w, w), nb
+
+
+def clip_candidates(args, hq, hkv, d, policy, num_slots, fused, bs=BS):
+    """(slot of every row, the clip slot, K and V float32 rows [n, hkv, d] of
+    the rows that land on it, their K envelopes): rows with no valid slot all
+    write the clip slot, and which row's chunk wins there is a race."""
+    from hpc_ops_tpu_torch.ops.rope_kernel import _rope_rows_f32
+
+    qkv, cos_sin, seq_lens, q_index, tbl, w, _ = args
+    pos, slots = row_slots(qkv.shape[0], seq_lens, q_index, tbl, bs, num_slots, fused=fused)
+    clip = num_slots - 1 - (bs if fused else 0)
+    _, k, v = _rope_rows_f32(qkv, cos_sin, pos, w, w, hq, hkv, d, d, policy)
+    on = slots == clip
+    return slots, clip, k[on], v[on], rotation_envelope(args, hq, hkv, d, policy)[1][on]
+
+
+def bf16_ulp(want):
+    w = want.double()
+    return torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=2.0**-126))) - 7)
+
+
+def one_of(got, cands, ulps, env=None):
+    """Every element of ``got`` within ``ulps`` of its bf16 ulp (ulps 0:
+    equal), plus 2^-22 of ``env`` where given, of the same element of one of
+    ``cands``."""
+    g, c = got.double(), cands.double()
+    tol = ulps * bf16_ulp(c) + (0.0 if env is None else 2.0**-22 * env.double())
+    return bool(((g[None] - c).abs() <= tol).any(0).all())
+
+
+def rotation_envelope(args, hq, hkv, d, policy):
+    """Per row and q/k head, |n1| + |n2| of each NeoX pair (both halves) of
+    what the rotation multiplies: with QK-norm before RoPE (policy 2) the
+    kernel's sum of squares runs in another order than the plain version's,
+    the normalised inputs differ by an ulp or so of float32, and the two
+    products' roundings differ by up to 2^-24 of each product; where
+    n1 * c - n2 * s cancels, that is many ulps of the small result. Zero for
+    the other policies, whose rotation reads the same inputs on both sides
+    (RoPE then norm scales each element: no cancellation after it).
+    Returns (q [rows, hq * d], k [rows, hkv, d])."""
+    from hpc_ops_tpu_torch.ops.rope_kernel import _head_rmsnorm
+
+    qkv, w = args[0], args[5]
+    rows = qkv.shape[0]
+    x = qkv.float()
+    q = x[:, : hq * d].reshape(rows, hq, d)
+    k = x[:, hq * d : (hq + hkv) * d].reshape(rows, hkv, d)
+    if policy != 2:
+        return torch.zeros(rows, hq * d), torch.zeros(rows, hkv, d)
+
+    def env(t):
+        n = _head_rmsnorm(t, w).abs()
+        half = n[..., : d // 2] + n[..., d // 2 :]
+        return torch.cat([half, half], dim=-1)
+
+    return env(q).reshape(rows, hq * d), env(k)
+
+
+def within_ulp(got, want, env):
+    """|got - want| <= one bf16 ulp of want + 2^-22 * env, element by element."""
+    return bool(((got.double() - want.double()).abs() <= bf16_ulp(want) + 2.0**-22 * env.double()).all())
+
+
+def cache_envelope(env_k, slots, shape, layout):
+    """The K envelope [rows, hkv, d] placed as the plain version stores K."""
+    out = torch.zeros(shape)
+    if layout == "HND":
+        out[:, slots.long()] = env_k.transpose(0, 1)
+    else:
+        out[slots.long()] = env_k
+    return out
+
+
+def check_bf16_store(got_q, got_k, got_v, want, k0, v0, cand, layout, env):
+    """q and K within one bf16 ulp of the plain version (plus the rotation's
+    envelope term with QK-norm before RoPE: ``rotation_envelope``), V
+    bit-equal, every other cache byte unchanged; at the clip slot each
+    element from one of the rows that land there."""
+    pq, pk, pv = want
+    slots, clip, ck, cv, ek = cand
+    env_q, env_k = env
+    assert within_ulp(got_q, pq, env_q)
+    hnd = layout == "HND"
+    written = torch.zeros(k0.shape, dtype=torch.bool)
+    keep = slots[slots != clip].long()
+    if hnd:
+        written[:, keep] = True
+    else:
+        written[keep] = True
+    touched = written.clone()
+    if hnd:
+        touched[:, clip] = True
+    else:
+        touched[clip] = True
+    assert torch.equal(got_k[~touched], k0[~touched]) and torch.equal(got_v[~touched], v0[~touched])
+    assert torch.equal(got_v[written], pv[written])
+    assert within_ulp(got_k[written], pk[written], env_k[written])
+    if ck.shape[0]:
+        at = (lambda t: t[:, clip]) if hnd else (lambda t: t[clip])
+        assert one_of(at(got_k), ck.to(torch.bfloat16), 1, ek)
+        assert one_of(at(got_v), cv.to(torch.bfloat16), 0)
+
+
+def check_int8_rows(got_q, got_slab, want, slab0, cand, scales, policy, env_q, bs=BS):
+    """q within one bf16 ulp (plus the rotation's envelope term, as in
+    check_bf16_store); codes equal with QK-norm off, else equal or one
+    apart on at most 0.1%; every other slab byte unchanged; at the clip
+    slots each code from one of the rows that land there."""
+    from hpc_ops_tpu_torch.ops.rope_kernel import quantize_int8
+
+    pq, ps = want
+    slots, clip, ck, cv, _ = cand
+    nb = slab0.shape[0]
+    assert within_ulp(got_q, pq, env_q)
+    flat_got, flat_want, flat0 = (t.view(nb * 2 * bs, -1) for t in (got_slab, ps, slab0))
+    keep = slots[slots != clip].long()
+    written = torch.zeros(nb * 2 * bs, dtype=torch.bool)
+    written[keep] = written[keep + bs] = True
+    touched = written.clone()
+    touched[clip] = touched[clip + bs] = True
+    assert torch.equal(flat_got[~touched], flat0[~touched])
+    diff = (flat_got[written].int() - flat_want[written].int()).abs()
+    if policy == 0:
+        assert int(diff.max()) == 0
+    else:
+        assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+    if ck.shape[0]:
+        kc = quantize_int8(ck, 1.0 / scales[0].reshape(()).float()).view(ck.shape[0], -1)
+        vc = quantize_int8(cv, 1.0 / scales[1].reshape(()).float()).view(cv.shape[0], -1)
+        for got, cands in ((flat_got[clip], kc), (flat_got[clip + bs], vc)):
+            assert bool(((got.int()[None] - cands.int()).abs() <= (policy != 0)).any(0).all())
+
+
+def run_bf16_case(cuda, args, nb, hq, hkv, d, layout, policy):
+    shape = (hkv, nb * BS, d) if layout == "HND" else (nb * BS, hkv, d)
+    gen = torch.Generator().manual_seed(hq * d + policy)
+    k0, v0 = randn(gen, *shape), randn(gen, *shape)
+    kw = dict(hq=hq, hkv=hkv, d=d, dv=d, block_size=BS, qk_norm_policy=policy, head_major=layout == "HND")
+    got = rope_store_rows(*[a.to(cuda) for a in args], k0.clone().to(cuda), v0.clone().to(cuda), **kw)
+    want = rope_store_rows_ref(*args, k0.clone(), v0.clone(), **kw)
+    torch.cuda.synchronize()
+    cand = clip_candidates(args, hq, hkv, d, policy, nb * BS, False)
+    env_q, env_k = rotation_envelope(args, hq, hkv, d, policy)
+    env = (env_q, cache_envelope(env_k, cand[0], shape, layout))
+    check_bf16_store(*(t.cpu() for t in got), want, k0, v0, cand, layout, env)
+
+
+def run_int8_case(cuda, args, nb, hq, hkv, d, policy):
+    gen = torch.Generator().manual_seed(hq * d + policy + 1)
+    slab = torch.randint(-127, 128, (nb, 2 * BS, hkv * d), generator=gen, dtype=torch.int8)
+    scales = (torch.tensor([0.031]), torch.tensor([0.047]))
+    kw = dict(hq=hq, hkv=hkv, d=d, block_size=BS, qk_norm_policy=policy)
+    got = rope_store_rows_int8(*[a.to(cuda) for a in args], slab.clone().to(cuda),
+                               *(x.to(cuda) for x in scales), **kw)
+    want = rope_store_rows_int8_ref(*args, slab.clone(), *scales, **kw)
+    torch.cuda.synchronize()
+    cand = clip_candidates(args, hq, hkv, d, policy, nb * 2 * BS, True)
+    env_q = rotation_envelope(args, hq, hkv, d, policy)[0]
+    check_int8_rows(*(t.cpu() for t in got), want, slab, cand, scales, policy, env_q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [0, 1, 2])
+@pytest.mark.parametrize("layout", ["HND", "NHD"])
+def test_rope_kernel_ragged_prefill_matches_plain(cuda, layout, policy):
+    """2048 ragged rows: an empty request, positions past the cos|sin
+    table's end, pad rows and rows on a -1 page (all at the clip slot)."""
+    gen = torch.Generator().manual_seed(31)
+    args, nb = ragged_rope_case(gen, RAGGED_Q, RAGGED_KV, 32, 8, 128, pad=RAGGED_PAD, max_pos=RAGGED_POS)
+    assert args[0].shape[0] == 2048
+    run_bf16_case(cuda, args, nb, 32, 8, 128, layout, policy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [0, 1, 2])
+def test_rope_int8_kernel_ragged_prefill_matches_plain(cuda, policy):
+    gen = torch.Generator().manual_seed(32)
+    args, nb = ragged_rope_case(gen, RAGGED_Q, RAGGED_KV, 32, 8, 128, pad=RAGGED_PAD, max_pos=RAGGED_POS)
+    run_int8_case(cuda, args, nb, 32, 8, 128, policy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [0, 2])
+@pytest.mark.parametrize("kind", ["HND", "NHD", "int8"])
+@pytest.mark.parametrize("shape", list(ROPE_SHAPES))
+def test_rope_kernels_head_shapes_match_plain(cuda, shape, kind, policy):
+    """Every head shape at a decode batch and a small ragged prefill with a
+    pad row and a -1 page; d 100 and 42 take the kernel's narrower words."""
+    from hpc_ops_tpu_torch.ops.rope_kernel import rope_form
+
+    d, hq, hkv = ROPE_SHAPES[shape]
+    gen = torch.Generator().manual_seed(33 + d + hq)
+    for q_lens, kv_lens, pad in (([1] * 8, [1, 17, 300, 1024, 4095, 3, 64, 2000], 0),
+                                 ([5, 1, 40], [5, 90, 50], 2)):
+        args, nb = ragged_rope_case(gen, q_lens, kv_lens, hq, hkv, d, pad=pad, hole=pad > 0)
+        if kind == "int8":
+            run_int8_case(cuda, args, nb, hq, hkv, d, policy)
+        else:
+            run_bf16_case(cuda, args, nb, hq, hkv, d, kind, policy)
+    assert rope_form(d, hq + 2 * hkv, 8).vec == {"d100": 2, "d42": 1}.get(shape, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["qkv", "cos_sin", "cache"])
+def test_rope_kernels_take_misaligned_views(cuda, view):
+    """A view that starts off a 16-byte boundary takes a narrower word: the
+    same results, bf16 and int8."""
+    from hpc_ops_tpu_torch.ops.rope_kernel import _align
+
+    gen = torch.Generator().manual_seed(34)
+    args, nb = ragged_rope_case(gen, [3, 1, 9], [30, 7, 9], 8, 2, 128, pad=1)
+    qkv, cos_sin = args[0].to(cuda), args[1].to(cuda)
+    if view == "qkv":  # 2 bytes off
+        qkv = torch.empty(qkv.numel() + 1, dtype=qkv.dtype, device=cuda)[1:].view(qkv.shape).copy_(qkv)
+        assert _align(qkv.data_ptr()) == 2
+    elif view == "cos_sin":  # 4 bytes off
+        cos_sin = torch.empty(cos_sin.numel() + 1, device=cuda)[1:].view(cos_sin.shape).copy_(cos_sin)
+    dargs = (qkv, cos_sin, *(a.to(cuda) for a in args[2:]))
+    for int8 in (False, True):
+        if int8:
+            slab0 = torch.randint(-127, 128, (nb, 2 * BS, 2 * 128), generator=gen, dtype=torch.int8)
+            slab = slab0.to(cuda)
+            if view == "cache":  # 1 byte off
+                slab = torch.empty(slab.numel() + 1, dtype=torch.int8, device=cuda)[1:].view(slab.shape).copy_(slab)
+            sc = (torch.tensor([0.03]), torch.tensor([0.05]))
+            kw = dict(hq=8, hkv=2, d=128, block_size=BS, qk_norm_policy=0)
+            got = rope_store_rows_int8(*dargs, slab, *(x.to(cuda) for x in sc), **kw)
+            want = rope_store_rows_int8_ref(*args, slab0.clone(), *sc, **kw)
+            torch.cuda.synchronize()
+            check_int8_rows(*(t.cpu() for t in got), want, slab0,
+                            clip_candidates(args, 8, 2, 128, 0, nb * 2 * BS, True), sc, 0,
+                            torch.zeros(want[0].shape))
+        else:
+            k0, v0 = randn(gen, 2, nb * BS, 128), randn(gen, 2, nb * BS, 128)
+            kc, vc = k0.to(cuda), v0.to(cuda)
+            if view == "cache":  # 2 bytes off
+                kc = torch.empty(kc.numel() + 1, dtype=kc.dtype, device=cuda)[1:].view(kc.shape).copy_(kc)
+            kw = dict(hq=8, hkv=2, d=128, dv=128, block_size=BS, qk_norm_policy=0, head_major=True)
+            got = rope_store_rows(*dargs, kc, vc, **kw)
+            want = rope_store_rows_ref(*args, k0.clone(), v0.clone(), **kw)
+            torch.cuda.synchronize()
+            check_bf16_store(*(t.cpu() for t in got), want, k0, v0,
+                             clip_candidates(args, 8, 2, 128, 0, nb * BS, False), "HND",
+                             (torch.zeros(want[0].shape), torch.zeros(k0.shape)))
+
+
+def rope_raise_cases(cuda):
+    """(name, call, message) for every ValueError of the two CUDA wrappers."""
+    gen = torch.Generator().manual_seed(35)
+    args, nb = ragged_rope_case(gen, [3, 1], [30, 7], 4, 2, 64)
+    qkv, cs, lens, qi, tbl, w, _ = (a.to(cuda) for a in args)
+    k, v = randn(gen, 2, nb * BS, 64).to(cuda), randn(gen, 2, nb * BS, 64).to(cuda)
+    slab = torch.zeros((nb, 2 * BS, 128), dtype=torch.int8, device=cuda)
+    sc = torch.tensor([0.05], device=cuda)
+    kw = dict(hq=4, hkv=2, d=64, dv=64, block_size=BS, qk_norm_policy=0, head_major=True)
+    kw8 = dict(hq=4, hkv=2, d=64, block_size=BS, qk_norm_policy=0)
+
+    def bf16(*a, **over):
+        return lambda: rope_store_rows(*a, **{**kw, **over})
+
+    def i8(*a, **over):
+        return lambda: rope_store_rows_int8(*a, **{**kw8, **over})
+
+    base = (qkv, cs, lens, qi, tbl, w, w)
+    odd = qkv.t().contiguous().t()  # the same shape, not contiguous
+    return [
+        ("bf16 device", bf16(qkv.to("meta"), *base[1:], k, v), "unsupported device"),
+        ("bf16 policy", bf16(*base, k, v, qk_norm_policy=3), "QKNormPolicy"),
+        ("bf16 dtype", bf16(*base, k.float(), v), "bf16 caches only"),
+        ("bf16 dv", bf16(*base, k, v, dv=32), "dv == d"),
+        ("bf16 qkv shape", bf16(qkv[:, :-64].contiguous(), *base[1:], k, v), "qkv must be"),
+        ("bf16 qkv layout", bf16(odd, *base[1:], k, v), "qkv must be"),
+        ("bf16 caches", bf16(*base, k.transpose(0, 1).contiguous().transpose(0, 1), v), "contiguous"),
+        ("bf16 cos_sin", bf16(qkv, cs[:, :32], *base[2:], k, v), "cos_sin must be"),
+        ("bf16 tables", bf16(qkv, cs, lens, qi[:-1], tbl, w, w, k, v), "disagree on requests"),
+        ("bf16 one device", bf16(qkv, cs, lens.cpu(), qi, tbl, w, w, k, v), "one device"),
+        ("int8 device", i8(qkv.to("meta"), *base[1:], slab, sc, sc), "unsupported device"),
+        ("int8 policy", i8(*base, slab, sc, sc, qk_norm_policy=3), "QKNormPolicy"),
+        ("int8 dtype", i8(*base, slab.to(torch.bfloat16), sc, sc), "int8 slab"),
+        ("int8 qkv shape", i8(qkv[:, :-64].contiguous(), *base[1:], slab, sc, sc), "qkv must be"),
+        ("int8 slab shape", i8(*base, slab, sc, sc, block_size=8), "slab must be"),
+        ("int8 slab layout", i8(*base, slab.transpose(0, 1).contiguous().transpose(0, 1), sc, sc),
+         "slab must be"),
+        ("int8 cos_sin", i8(qkv, cs[:, :32], *base[2:], slab, sc, sc), "cos_sin must be"),
+        ("int8 tables", i8(qkv, cs, lens, qi, tbl[:1], w, w, slab, sc, sc), "disagree on requests"),
+        ("int8 scales", i8(*base, slab, sc.double(), sc), "scales must be"),
+        ("int8 scale size", i8(*base, slab, sc, sc.repeat(2)), "scales must be"),
+        ("int8 one device", i8(*base, slab, sc, sc.cpu()), "one device"),
+    ]
+
+
+@pytest.mark.cuda
+def test_rope_wrappers_still_raise_value_error(cuda):
+    """Every ValueError the CUDA wrappers raise, bf16 and int8, still raises,
+    and no launch is counted for it."""
+    before = (rope_store_rows.launches, rope_store_rows_int8.launches)
+    for name, call, message in rope_raise_cases(cuda):
+        with pytest.raises(ValueError, match=message):
+            call()
+    assert (rope_store_rows.launches, rope_store_rows_int8.launches) == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8,sq", [(True, 1), (True, 3), (False, 1), (False, 2)])
 def test_decode_nhd_fused_kernel_matches_plain(cuda, int8, sq):
@@ -526,6 +863,37 @@ def test_moe_reduce_kernel_matches_plain_and_drops_nan_rows(cuda, has_shared):
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [4096, 5120, 14336])
+@pytest.mark.parametrize("tokens", [1, 8, 2048])
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_moe_reduce_kernel_bit_equal_at_every_form(cuda, k, tokens, h):
+    """Bit-equal to the plain version (run on the card) with and without a
+    shared expert: slots dropped at random, one token with every slot
+    dropped, NaN in every row no valid slot points at."""
+    from hpc_ops_tpu_torch.ops.moe import reduce_form
+
+    gen = torch.Generator(device=cuda).manual_seed(k * 1000 + tokens + h)
+    rows = tokens * k + 3
+    x = torch.randn((rows, h), generator=gen, device=cuda).to(torch.bfloat16)
+    pos = torch.randperm(rows, generator=gen, device=cuda)[: tokens * k].view(tokens, k).to(torch.int32)
+    pos[torch.rand((tokens, k), generator=gen, device=cuda) < 0.25] = -1
+    pos[tokens // 2] = -1
+    read = torch.zeros(rows, dtype=torch.bool, device=cuda)
+    read[pos[pos >= 0].long()] = True
+    x[~read] = float("nan")
+    ts = torch.rand((tokens, k), generator=gen, device=cuda)
+    for shared in (None, torch.randn((tokens, h), generator=gen, device=cuda).to(torch.bfloat16)):
+        got = moe_reduce(x, pos, ts, shared)
+        want = moe_reduce_ref(x, pos, ts, shared)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        assert torch.equal(got, want)
+        if shared is None:
+            assert not got[tokens // 2].float().any()
+    assert 32 <= reduce_form(tokens, h).threads <= 256
 
 
 def moe_inputs(gen, s, k, h, interm, e_local, e_total):

@@ -195,12 +195,19 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device time of one call of ``fn``: the time of the kernels it
     launches (torch.profiler, CUPTI), over ``iters`` calls. Unlike
     :func:`time_ms` it leaves out the host's time between launches, which
-    exceeds a short kernel's (the decode kernels since PR 11). A session
-    now and then records only some of the kernels, so each kernel counts
-    its mean duration times its launches a call (its count over the calls,
-    rounded, at least 1). A session may also record no kernel at all; after
-    two such sessions the time comes from :func:`queued_ms` instead, and a
-    ``device_ms_fallback`` line says so."""
+    exceeds a short kernel's (the decode kernels'). See
+    :func:`profile_kernels`."""
+    return profile_kernels(fn, iters, warmup)[0]
+
+
+def profile_kernels(fn, iters: int = 20, warmup: int = 3) -> tuple[float, int | None]:
+    """(device ms of one call of ``fn``, kernels it launches a call). A
+    session now and then records only some of the kernels, so each kernel
+    counts its mean duration times its launches a call (its count over the
+    calls, rounded, at least 1); the kernels a call are those launches
+    summed. A session may also record no kernel at all; after two such
+    sessions the time comes from :func:`queued_ms` instead, the count is
+    None, and a ``device_ms_fallback`` line says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -216,11 +223,12 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         events = [e for e in prof.key_averages() if e.device_type == cuda and e.count
                   and "Memcpy" not in e.key and "Memset" not in e.key]
         if events:
-            return sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
-                       for e in events) / 1e3
+            per_call = [max(1, round(e.count / iters)) for e in events]
+            return (sum(e.self_device_time_total / e.count * k for e, k in zip(events, per_call)) / 1e3,
+                    sum(per_call))
     ms = queued_ms(fn, iters)
     emit("device_ms_fallback", reason="two profiling sessions recorded no kernel", queued_ms=ms)
-    return ms
+    return ms, None
 
 
 def queued_ms(fn, iters: int = 20) -> float:
@@ -1494,8 +1502,9 @@ def decode_sched(dev):
     and task map, is held against impl="ref" where its padded float32
     gather fits REF_GATHER_LIMIT, else against the plain task-map pipeline
     (the task kernel's and the combine's plain versions, the tasks gathered
-    in chunks), within close_scaled; the task kernel's partials are held
-    against their plain version in every scenario. Each mode is driven once
+    in chunks), within close_scaled; the task kernel's partials, and the
+    combine over the plain partials, are held against their plain versions
+    in every scenario. Each mode is driven once
     with the launch counts set to 0 before and read after; the kernels-line
     rows of the task kernel and the combine are timed at ROW_SCENARIO.
     Returns (rows, launches by kernels-line name)."""
@@ -1505,6 +1514,7 @@ def decode_sched(dev):
         _decode_combine_ref,
         _hnd_views,
         attention_decode,
+        decode_combine,
         paged_decode_tasks,
     )
     from hpc_ops_tpu_torch.ops.attention.scheduler import (
@@ -1563,6 +1573,10 @@ def decode_sched(dev):
                       {"paged_decode_tasks": task_row, "decode_combine": "decode_combine"})
                 perr = partials_err(paged_decode_tasks(q, kh, vh, tbl, lens, tm, 1, D**-0.5, kw.get("kscale")),
                                     parts_plain, f"decode_sched {case} {kind} partials")
+                vs = kw.get("vscale")
+                line["combine_max_abs_err"] = close_scaled(
+                    decode_combine(*parts_plain, tm, 1, HQ, vs), _decode_combine_ref(*parts_plain, tm, 1, HQ, vs),
+                    f"decode_sched {case} {kind} combine")
                 line.update(num_tasks=int(tm.num_tasks), capacity=tm.capacity, partials_max_abs_err=perr,
                             max_abs_err=close_scaled(got, want, f"decode_sched {case} {kind} vs {against}"),
                             taskmap_ms=time_ms(lambda: attention_decode(q, k, v, tbl, lens, task_map=tm,
@@ -1579,6 +1593,15 @@ def decode_sched(dev):
             del q, k, v, kh, vh, want, grid, parts_plain
             torch.cuda.empty_cache()
     return rows, launches
+
+
+def combine_work(capacity, batch):
+    """(bytes, operations) of the segment combine at Hq, Hkv and D over a
+    map of ``capacity`` tasks: every partial (o, m, l) and the map's batch
+    and segment read once, the bf16 output written once."""
+    rows = HQ // HKV
+    return (capacity * rows * (D + 2) * 4 + 2 * 4 * capacity + batch * HQ * D * 2,
+            capacity * rows * (3 * D + 4))
 
 
 def task_rows(q, kh, vh, tbl, lens, tm, kw, kind, sum_kv, elem, line, err, parts_plain):
@@ -1614,10 +1637,9 @@ def task_rows(q, kh, vh, tbl, lens, tm, kw, kind, sum_kv, elem, line, err, parts
                             "decode_sched combine")
         cms = device_ms(lambda: combine_fn(o, m, l, tm, 1, HQ, vs), 20, 2)
         cplain = time_ms(lambda: combine_ref(o, m, l, tm, 1, HQ, vs), 5, 1)
-        cbytes = part_bytes + 2 * 4 * tm.capacity + b * HQ * D * 2
         out.append(kernel_row("decode_combine", "hpc_ops_tpu_torch/csrc/decode.cu",
                               "hpc_ops_tpu/ops/attention/decode.py:1325", cerr, cms, cplain, None,
-                              cbytes, tm.capacity * rows_per * (3 * D + 4), scenario=line["case"]))
+                              *combine_work(tm.capacity, b), scenario=line["case"]))
     return out
 
 
@@ -2027,23 +2049,33 @@ NORM_SHAPES = [(8, 4096), (8, 5120), (2048, 4096), (2048, 5120)]  # tokens x hid
 NORM_ROW_SHAPE = (2048, 4096)  # the kernels-line rows' shape
 
 
+def norm_bytes(n, h, is_moe):
+    """Bytes of RMSNorm + fp8 over [n, h]: the bf16 input and bf16 weight
+    read, the scales, the codes (and with the MoE outputs the float32 norm
+    and the second codes) written."""
+    return n * h * 2 + h * 2 + (8 if is_moe else 4) + n * h * (6 if is_moe else 1)
+
+
 def check_rmsnorm_quant(dev, gen):
     """The RMSNorm + fp8 kernel against its plain version on the card at 8
     and 2048 tokens x hidden 4096 and 5120, with and without the MoE
     outputs: every float32 norm equal, every e4m3 code equal (a code one
     step apart is counted and allowed on at most 0.1% of them); the entry point
-    fused_rmsnorm_with_scale driven once per shape and form. Returns (rows,
-    launches by row name)."""
+    fused_rmsnorm_with_scale driven once per shape and form. The kernel's
+    time is torch.profiler's device time, and a call at the bf16 weight
+    launches one kernel (profiler count; held wherever a session counted).
+    Returns (rows, launches by row name)."""
     import torch
 
     from hpc_ops_tpu_torch.ops.normalization import (
         _F32_EPS,
         _rmsnorm_quant_ref,
         fused_rmsnorm_with_scale,
+        norm_form,
         rmsnorm_quant,
     )
 
-    rows, launches = [], {}
+    rows, launches, counted = [], {}, 0
     for n, h in NORM_SHAPES:
         x = (torch.randn((n, h), generator=gen) * 2).to(torch.bfloat16).to(dev)
         w = (torch.rand(h, generator=gen) + 0.5).to(torch.bfloat16).to(dev)
@@ -2052,7 +2084,11 @@ def check_rmsnorm_quant(dev, gen):
             sc = torch.tensor([0.02, 0.05] if is_moe else [0.02], device=dev)  # some codes saturate
             _, counts = driven(lambda: fused_rmsnorm_with_scale(x, w, scale=sc, is_moe=is_moe))
             count_drive(launches, counts, {"rmsnorm_quant": 1}, name, f"{name} {n}x{h}")
-            got, ms = run_timed(lambda: rmsnorm_quant(x, w, sc, _F32_EPS, is_moe))
+            got = rmsnorm_quant(x, w, sc, _F32_EPS, is_moe)
+            ms, kernels_a_call = profile_kernels(lambda: rmsnorm_quant(x, w, sc, _F32_EPS, is_moe))
+            if kernels_a_call not in (None, 1):
+                raise AssertionError(f"check_rmsnorm_quant {name} {n}x{h}: {kernels_a_call} kernels a call")
+            counted += kernels_a_call is not None
             want, plain = run_timed(lambda: _rmsnorm_quant_ref(x, w, sc, _F32_EPS, is_moe))
             got, want = (got, want) if is_moe else ((got,), (want,))
             off_codes, err = 0, 0.0
@@ -2067,16 +2103,19 @@ def check_rmsnorm_quant(dev, gen):
                 if int(diff.max()) > 1 or off_codes > 1e-3 * a.numel():
                     raise AssertionError(f"check_rmsnorm_quant {name} {n}x{h}: codes disagree")
                 err = max(err, float((a.float() - b_.float()).abs().max()))
-            out_bytes = n * h * (2 + 4) if is_moe else n * h
-            nbytes = n * h * 2 + h * 2 + sc.numel() * 4 + out_bytes
-            line = dict(name=name, tokens=n, hidden=h, codes_off_by_one=off_codes)
+            nbytes = norm_bytes(n, h, is_moe)
+            bd, by = bound(nbytes, 5 * n * h)
+            line = dict(tokens=n, hidden=h, codes_off_by_one=off_codes, kernels_a_call=kernels_a_call,
+                        share_of_bound=bd / ms, form=norm_form(n, h)._asdict())
             if (n, h) == NORM_ROW_SHAPE:
                 rows.append(kernel_row(name, "hpc_ops_tpu_torch/csrc/normalization.cu",
                                        "hpc_ops_tpu/ops/normalization.py:51", err, ms, plain, None, nbytes,
-                                       5 * n * h, tokens=n, hidden=h))
+                                       5 * n * h, **line))
             else:
-                bd, by = bound(nbytes, 5 * n * h)
-                emit("rmsnorm_quant", **line, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bd, bound_by=by)
+                emit("rmsnorm_quant", name=name, **line, max_abs_err=err, ms=ms, plain_ms=plain,
+                     bound_ms=bd, bound_by=by)
+    if not counted:
+        raise AssertionError("check_rmsnorm_quant: no profiling session counted the kernels a call")
     return rows, launches
 
 
@@ -2626,7 +2665,16 @@ def e4m3_ordinals(codes):
     return torch.where(b >= 128, -(b & 0x7F), b & 0x7F)
 
 
+def act_bytes(valid_rows):
+    """Bytes of the activation + quantisation over ``valid_rows`` rows: the
+    bf16 gate|up row read, the codes written, the scale and the count."""
+    return valid_rows * (2 * MOE_I * 2 + MOE_I) + 8
+
+
 def check_act_quant(dev, inp):
+    """The activation + quantisation at every MOE_SHAPES entry: codes at most
+    one step from the plain version's on at most 0.1% of them; wall ms,
+    torch.profiler's device ms and its share of the bytes bound per shape."""
     import torch
 
     from hpc_ops_tpu_torch.ops.activation import act_quant, act_quant_ref
@@ -2646,11 +2694,12 @@ def check_act_quant(dev, inp):
         worst, share = max(worst, int(d.max())), max(share, float((d > 0).float().mean()))
         value_err = float((got[:n_valid].float() - want[:n_valid].float()).abs().max())
         del got, want, d
-        ms = time_ms(lambda: act_quant(gate_up, inp["act"], True, fp8, nv), 50)
+        ms = time_ms(lambda: act_quant(gate_up, inp["act"], True, fp8, nv), 20)
+        dev_ms = device_ms(lambda: act_quant(gate_up, inp["act"], True, fp8, nv), 20)
         plain = time_ms(lambda: act_quant_ref(gate_up, inp["act"], True, fp8, nv), 3, 1)
-        bd, by = bound(n_valid * (2 * MOE_I * 2 + MOE_I) + 8, n_valid * MOE_I * 12.0)
-        detail[shape] = dict(ms=ms, plain_ms=plain, bound_ms=bd, bound_by=by, rows=rows,
-                             valid_rows=n_valid, max_abs_err=value_err)
+        bd, by = bound(act_bytes(n_valid), n_valid * MOE_I * 12.0)
+        detail[shape] = dict(ms=ms, device_ms=dev_ms, share_of_bound=bd / dev_ms, plain_ms=plain,
+                             bound_ms=bd, bound_by=by, rows=rows, valid_rows=n_valid, max_abs_err=value_err)
         del gate_up
     if worst > 1 or share > 1e-3:
         raise AssertionError(f"act_quant: codes {worst} apart on {share:.4%} (limits 1 and 0.1%)")
@@ -2659,7 +2708,7 @@ def check_act_quant(dev, inp):
     err = max(v["max_abs_err"] for v in detail.values())
     emit("kernel", name="act_quant", code_max_diff=worst, code_diff_share=share, max_abs_err=err,
          ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None, bound_ms=main["bound_ms"],
-         bound_by=main["bound_by"], shapes=detail)
+         bound_by=main["bound_by"], device_ms=main["device_ms"], shapes=detail)
     return dict(name="act_quant", source="hpc_ops_tpu_torch/csrc/activation.cu",
                 replaces="hpc_ops_tpu/ops/activation.py:86", max_abs_err=err, ms=main["ms"],
                 plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],

@@ -861,52 +861,243 @@ Split make_split(void* ws, void* tickets, int splits) {
   return Split{static_cast<float*>(ws), static_cast<int32_t*>(tickets), splits};
 }
 
-// One block per segment (request b, kv head h): merges the segment's task
-// partials into out[b * sq + s, h * g_per + g, :] for row r = g * sq + s.
-__global__ void __launch_bounds__(kThreads) decode_combine_kernel(
-    const float* __restrict__ o,  // [cap, rows, dv]
-    const float* __restrict__ m,  // [cap, rows]
-    const float* __restrict__ l,  // [cap, rows]
-    const int32_t* __restrict__ t_batch, const int32_t* __restrict__ t_seg, int cap,
-    const float* __restrict__ vscale,  // [1] or null (a scale of 1)
-    __nv_bfloat16* __restrict__ out, int sq, int hq, int hkv, int dv) {
-  extern __shared__ int task_s[];  // [cap]: the segment's tasks in task order
-  __shared__ int warp_n[kWarps];
-  const int seg = blockIdx.x;
-  const int b = seg / hkv, h = seg % hkv;
-  const int g_per = hq / hkv;
-  const int rows = g_per * sq;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // ordered compaction: a ballot per warp, warps in order, chunks in order
-  int n = 0;
-  for (int base = 0; base < cap; base += kThreads) {
-    const int t = base + tid;
-    const bool mine = t < cap && t_batch[t] >= 0 && t_seg[t] == seg;
-    const unsigned bal = __ballot_sync(0xffffffffu, mine);
-    if (lane == 0) warp_n[warp] = __popc(bal);
-    __syncthreads();
-    int off = n;
-    for (int w = 0; w < warp; ++w) off += warp_n[w];
-    if (mine) task_s[off + __popc(bal & ((1u << lane) - 1u))] = t;
-    for (int w = 0; w < kWarps; ++w) n += warp_n[w];
-    __syncthreads();
-  }
-  const float vs = vscale ? *vscale : 1.f;
-  for (int i = tid; i < rows * dv; i += kThreads) {
-    const int r = i / dv, c = i % dv;
-    float mx = -INFINITY;
-    for (int k = 0; k < n; ++k) mx = fmaxf(mx, m[task_s[k] * rows + r]);
-    float osum = 0.f, lsum = 0.f;
-    for (int k = 0; k < n; ++k) {
-      const int64_t tr = static_cast<int64_t>(task_s[k]) * rows + r;
-      const float mt = m[tr];
-      const float w = mt == -INFINITY ? 0.f : expf(mt - mx);
-      lsum += w * l[tr];
-      osum += w * o[tr * dv + c];
+// The task form's combine: each segment (request b, kv head h) merges its
+// tasks' partials into out[b * sq + s, h * g_per + g, :] for rows r =
+// g * sq + s: max m over the tasks, weights w = exp(m - max) (0 at m =
+// -inf), o = sum(w * o_t) / sum(w * l_t) * vscale (0 where the sum of w * l
+// is 0), rounded once to bf16.
+//
+// Bound on the card: bytes (each partial read once, each output written
+// once), but at serving's sizes a few dependent round trips to memory set
+// its time, so the design cuts the chain and spreads the work:
+//   * a block takes rows_per_block (<= 8) rows of one segment and a chunk of
+//     its columns (col_splits chunks of VEC-float groups; the form from
+//     ops/attention/decode.py:combine_form, from the segment count and the
+//     head geometry only), so a map of few segments (one long request) is
+//     spread over more blocks. A block's time is a fixed chain of about
+//     3 us on an H100 at these sizes, so the grid is kept to one wave
+//     (registers for four blocks an SM) and split no further than half
+//     the SMs need;
+//   * finding the segment's tasks: the block reads kCombineScan map entries
+//     at once (two a thread, coalesced) and compacts its own in task order
+//     with one ballot a warp and entry, a count per warp in shared memory
+//     and two barriers; a map longer than kCombineScan is taken in chunks,
+//     merged online (the running max, sum and output rescaled). No other
+//     pass over the map, and no second launch: a block's critical path
+//     holds one round trip for each 512 entries, whatever the segment
+//     count (the grid reads the map once a block, from L2);
+//   * the threads of a block are items (row, column group of VEC floats)
+//     times task slices; each thread issues its first kCombineHeld float4
+//     loads of o right after the compaction, before the weights are known;
+//   * meanwhile one warp a row reads the row's (m, l) of every task, a task
+//     a lane, reduces the max and sum(w * l) by shuffles and keeps the
+//     weights in shared memory: computed once per (segment, row), not per
+//     column. Then each thread's FMAs, one exchange between the slices
+//     through shared memory, and the output.
+// 64 registers a thread, no spills (ptxas, sm_90a, CUDA 12.8); shared
+// memory 4.3 KB static and at most 34 KB dynamic (the chunk's task ids and
+// each row's (m | w, l)).
+constexpr int kCombineScan = 2 * kThreads;  // map entries compacted at once
+constexpr int kCombineRows = kWarps;        // rows a block: a warp each for the weights
+constexpr int kCombineHeld = 4;             // o loads a thread issues before the weights
+constexpr int kCombineBlocksPerSm = 4;      // registers for four blocks an SM: 528 in one wave
+
+struct CombineArgs {
+  const float* o;  // [cap, rows, dv]
+  const float* m;  // [cap, rows]
+  const float* l;  // [cap, rows]
+  const int32_t* t_batch;
+  const int32_t* t_seg;
+  const float* vscale;  // [1] or null (a scale of 1)
+  __nv_bfloat16* out;
+  int cap, chunk, sq, hq, hkv, dv, rows;
+  int rows_per_block, col_splits, groups_per_block;
+};
+
+template <int VEC>
+struct CVec {
+  float v[VEC];
+  __device__ __forceinline__ void load(const float* p) {
+    if constexpr (VEC == 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+      v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+    } else {
+      v[0] = __ldg(p);
     }
-    const int g = r / sq, s = r % sq;
-    const float val = lsum == 0.f ? 0.f : osum / lsum * vs;
-    out[(static_cast<int64_t>(b * sq + s) * hq + h * g_per + g) * dv + c] = __float2bfloat16(val);
+  }
+};
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads, kCombineBlocksPerSm) decode_combine_kernel(const CombineArgs p) {
+  extern __shared__ float4 combine_smem[];  // [chunk] task ids, then [rows_per_block][chunk] (m | w, l)
+  __shared__ float red[kThreads * VEC];     // the task slices' sums
+  __shared__ float mx_s[kCombineRows], lsum_s[kCombineRows], rescale_s[kCombineRows];
+  __shared__ int cnt_s[2][kWarps];
+  int* tk = reinterpret_cast<int*>(combine_smem);
+  float2* mw = reinterpret_cast<float2*>(tk + p.chunk);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row_blocks = (p.rows + p.rows_per_block - 1) / p.rows_per_block;
+  const int cs = blockIdx.x % p.col_splits;
+  const int rbk = (blockIdx.x / p.col_splits) % row_blocks;
+  const int seg = blockIdx.x / (p.col_splits * row_blocks);
+  const int r0 = rbk * p.rows_per_block;
+  const int nr = min(p.rows_per_block, p.rows - r0);
+  const int g0 = cs * p.groups_per_block;
+  const int ng = min(p.groups_per_block, p.dv / VEC - g0);
+  const int items = p.rows_per_block * p.groups_per_block;
+  const int slices = kThreads / items;
+  const int item = tid % items, slice = tid / items;
+  const int ri = item / p.groups_per_block, gi = item % p.groups_per_block;
+  const bool valid = slice < slices && ri < nr && gi < ng;
+  const int r = r0 + ri, c = (g0 + gi) * VEC;
+  const float* o_col = p.o + static_cast<int64_t>(r) * p.dv + c;
+  const int64_t o_task = static_cast<int64_t>(p.rows) * p.dv;
+  const float vs = p.vscale ? __ldg(p.vscale) : 1.f;
+  if (tid < kCombineRows) {
+    mx_s[tid] = -INFINITY;
+    lsum_s[tid] = 0.f;
+  }
+  float acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+
+  for (int base = 0; base < p.cap; base += p.chunk) {
+    // the chunk's tasks of this segment, in task order
+    bool mine[2];
+    unsigned bal[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int e = base + j * kThreads + tid;
+      const bool in = j * kThreads + tid < p.chunk && e < p.cap;
+      const int tb = in ? __ldg(p.t_batch + e) : -1;  // both loads issued together
+      const int ts = in ? __ldg(p.t_seg + e) : -1;
+      mine[j] = tb >= 0 && ts == seg;
+      bal[j] = __ballot_sync(0xffffffffu, mine[j]);
+    }
+    if (lane == 0) {
+      cnt_s[0][warp] = __popc(bal[0]);
+      cnt_s[1][warp] = __popc(bal[1]);
+    }
+    __syncthreads();  // also: every thread is done with the last chunk's tasks
+    int n = 0, off[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      off[j] = n;
+      for (int w = 0; w < kWarps; ++w) {
+        off[j] += w < warp ? cnt_s[j][w] : 0;
+        n += cnt_s[j][w];
+      }
+    }
+    const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (mine[j]) tk[off[j] + __popc(bal[j] & below)] = base + j * kThreads + tid;
+    __syncthreads();
+
+    // the first o loads, before the weights are known
+    CVec<VEC> held[kCombineHeld];
+#pragma unroll
+    for (int i = 0; i < kCombineHeld; ++i) {
+      const int k = slice + i * slices;
+      if (valid && k < n) held[i].load(o_col + tk[k] * o_task);
+    }
+    // a warp a row: max, weights and sum(w * l), a task a lane
+    if (warp < nr) {
+      const int rr = r0 + warp;
+      float2* row_mw = mw + warp * p.chunk;
+      float cmx = -INFINITY;
+#pragma unroll 2
+      for (int k = lane; k < n; k += 32) {
+        const int64_t tr = static_cast<int64_t>(tk[k]) * p.rows + rr;
+        const float2 v = make_float2(__ldg(p.m + tr), __ldg(p.l + tr));
+        row_mw[k] = v;
+        cmx = fmaxf(cmx, v.x);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) cmx = fmaxf(cmx, __shfl_xor_sync(0xffffffffu, cmx, o));
+      const float old = mx_s[warp];
+      const float mx = fmaxf(old, cmx);
+      float ls = 0.f;
+      for (int k = lane; k < n; k += 32) {
+        const float2 v = row_mw[k];
+        const float w = v.x == -INFINITY ? 0.f : expf(v.x - mx);
+        row_mw[k].x = w;
+        ls += w * v.y;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, o);
+      if (lane == 0) {
+        const float rescale = old == -INFINITY ? 0.f : expf(old - mx);
+        mx_s[warp] = mx;
+        lsum_s[warp] = lsum_s[warp] * rescale + ls;
+        rescale_s[warp] = rescale;
+      }
+    }
+    __syncthreads();
+    if (valid) {
+      const float2* row_w = mw + ri * p.chunk;
+      const float rs = rescale_s[ri];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] *= rs;
+#pragma unroll
+      for (int i = 0; i < kCombineHeld; ++i) {
+        const int k = slice + i * slices;
+        if (k < n) {
+          const float w = row_w[k].x;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[e] = fmaf(w, held[i].v[e], acc[e]);
+        }
+      }
+      for (int k0 = slice + kCombineHeld * slices; k0 < n; k0 += kCombineHeld * slices) {
+        CVec<VEC> more[kCombineHeld];
+#pragma unroll
+        for (int i = 0; i < kCombineHeld; ++i) {
+          const int k = k0 + i * slices;
+          if (k < n) more[i].load(o_col + tk[k] * o_task);
+        }
+#pragma unroll
+        for (int i = 0; i < kCombineHeld; ++i) {
+          const int k = k0 + i * slices;
+          if (k < n) {
+            const float w = row_w[k].x;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[e] = fmaf(w, more[i].v[e], acc[e]);
+          }
+        }
+      }
+    }
+  }
+  if (slices > 1) {  // uniform over the block
+    if (valid && slice > 0) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) red[tid * VEC + e] = acc[e];
+    }
+    __syncthreads();
+    if (valid && slice == 0) {
+      for (int s = 1; s < slices; ++s) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] += red[(s * items + item) * VEC + e];
+      }
+    }
+  }
+  if (!valid || slice != 0) return;
+  const float ls = lsum_s[ri];
+  const int g_per = p.hq / p.hkv;
+  const int b = seg / p.hkv, h = seg % p.hkv, g = r / p.sq, s = r % p.sq;
+  __nv_bfloat16* dst =
+      p.out + (static_cast<int64_t>(b * p.sq + s) * p.hq + h * g_per + g) * p.dv + c;
+  float val[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) val[e] = ls == 0.f ? 0.f : acc[e] / ls * vs;
+  if constexpr (VEC == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(val[0], val[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(val[2], val[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<const uint32_t*>(&lo);
+    u.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(dst) = u;
+  } else {
+    *dst = __float2bfloat16(val[0]);
   }
 }
 
@@ -1001,21 +1192,37 @@ extern "C" int hpc_paged_decode_tasks(
 
 // Merges the task partials of hpc_paged_decode_tasks by segment (request *
 // hkv + kv head; tasks with t_batch < 0 skipped) into out [B*sq, hq, dv]
-// bf16, times vscale ([1] float32 or null).
+// bf16, times vscale ([1] float32 or null). The form (ops/attention/decode.py:
+// combine_form): rows_per_block (1..8) rows and one of col_splits chunks of
+// the dv / vec column groups a block, vec 4 (o 16-byte aligned, dv a
+// multiple of 4) or 1, at most 256 (row, group) items a block.
 extern "C" int hpc_decode_combine(
     const void* o, const void* m, const void* l, const void* t_batch, const void* t_seg, int cap,
-    const void* vscale, void* out, int batch, int sq, int hq, int hkv, int dv, void* stream) {
+    const void* vscale, void* out, int batch, int sq, int hq, int hkv, int dv, int rows_per_block,
+    int col_splits, int vec, void* stream) {
   if (batch == 0) return 0;
-  if (hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(int) * static_cast<size_t>(cap);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_combine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  decode_combine_kernel<<<batch * hkv, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(o), static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<const int32_t*>(t_batch), static_cast<const int32_t*>(t_seg), cap,
-      static_cast<const float*>(vscale), static_cast<__nv_bfloat16*>(out), sq, hq, hkv, dv);
+  if (hkv <= 0 || hq % hkv != 0 || dv <= 0 || (vec != 1 && vec != 4) || dv % vec != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec == 4 && reinterpret_cast<uintptr_t>(o) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const int rows = hq / hkv * sq;
+  const int groups = dv / vec;
+  if (rows_per_block < 1 || rows_per_block > kCombineRows || col_splits < 1 || col_splits > groups)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int gpb = (groups + col_splits - 1) / col_splits;
+  if (rows_per_block * gpb > kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const int chunk = cap < kCombineScan ? (cap + 1) / 2 * 2 : kCombineScan;  // even: float2 after
+  CombineArgs a{static_cast<const float*>(o), static_cast<const float*>(m),
+                static_cast<const float*>(l), static_cast<const int32_t*>(t_batch),
+                static_cast<const int32_t*>(t_seg), static_cast<const float*>(vscale),
+                static_cast<__nv_bfloat16*>(out), cap, chunk, sq, hq, hkv, dv, rows,
+                rows_per_block, col_splits, gpb};
+  const int blocks = batch * hkv * ((rows + rows_per_block - 1) / rows_per_block) * col_splits;
+  const size_t smem = sizeof(int) * chunk + sizeof(float2) * rows_per_block * chunk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 4)
+    decode_combine_kernel<4><<<blocks, kThreads, smem, s>>>(a);
+  else
+    decode_combine_kernel<1><<<blocks, kThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

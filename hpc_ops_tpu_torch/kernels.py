@@ -45,7 +45,7 @@ _SIGNATURES = {
     "hpc_paged_decode_nhd_fused": [_P, _P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P, _P, _P, _I],
     "hpc_paged_decode_tasks": ([_P] * 3 + [_I] + [_I64] * 6 + [_P] * 5 + [_I] * 2 + [_P] * 5
                                + [_I] * 7 + [_F, _P]),
-    "hpc_decode_combine": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 5 + [_P],
+    "hpc_decode_combine": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 8 + [_P],
     "hpc_paged_prefill": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 7 + [_I] * 10 + [_F, _P],
     "hpc_paged_prefill_nhd_fused": [_P, _P, _I] + [_P] * 6 + [_I] * 8 + [_F, _P],
     "hpc_paged_prefill_sparse": [_P] * 3 + [_I] + [_I64] * 6 + [_P] * 8 + [_I] * 14 + [_F, _P],
@@ -60,7 +60,7 @@ _SIGNATURES = {
     "hpc_gg_bw_aligned_e4m3": [_P] * 8 + [_I] * 6 + [_P, _I, _I],
     "hpc_act_mul_quant": [_P] * 4 + [_I] * 4 + [_P],
     "hpc_moe_reduce": [_P] * 5 + [_I] * 5 + [_P],
-    "hpc_rmsnorm_quant": [_P] * 6 + [_I] * 2 + [_F, _P],
+    "hpc_rmsnorm_quant": [_P, _P, _I] + [_P] * 4 + [_I] * 2 + [_F, _I, _P],
     "hpc_route_gemm": [_P] * 5 + [_I] * 4 + [_P] * 2 + [_I] * 3 + [_P],
     "hpc_allreduce_rmsnorm": [_P] * 6 + [ctypes.c_uint64, _P] + [_I] * 3 + [_F] + [_I] * 3 + [_P],
 }

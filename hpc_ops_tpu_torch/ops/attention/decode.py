@@ -34,12 +34,16 @@ operands, float32 sums; P as three bf16 terms, about float32's precision).
 ``task_map`` (a :class:`~hpc_ops_tpu_torch.ops.attention.scheduler.TaskMap`)
 selects the split-KV mode: one block per task over a contiguous KV range of
 one (request, kv head) writes float32 partials (:func:`paged_decode_tasks`),
-then one block per (request, kv head) merges them
-(:func:`decode_combine`): two launches and no read back to the host. Every
-layout is read in place in this mode too.
+then the combine merges each (request, kv head)'s partials
+(:func:`decode_combine`, its blocks spread over the segments' rows and
+columns by :func:`combine_form`): two launches and no read back to the
+host. Every layout is read in place in this mode too.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -65,6 +69,9 @@ _PERTOKEN_K = (
 
 KV_TILE = 64  # KV positions a tile of the kernel (csrc/decode.cu kTile)
 ROWS_PER_BLOCK = 16  # query rows a block: G * sq rows make ceil(G * sq / 16) row blocks
+COMBINE_THREADS = 256  # the combine's block (csrc/decode.cu kThreads)
+COMBINE_ROWS = 8  # rows a combine block at most (kCombineRows: a warp each)
+COMBINE_MIN_ITEMS = 32  # (row, column group) items a block at least: a warp's loads
 
 
 def decode_splits(batch: int, max_positions: int, splitk: bool = True) -> int:
@@ -505,6 +512,49 @@ def _decode_combine_ref(o, m, l, task_map, sq, hq, vscale=None):
     return out.to(torch.bfloat16)
 
 
+class CombineForm(NamedTuple):
+    vec: int  # floats a column group: 4 (16-byte loads of o) or 1
+    rows_per_block: int
+    col_splits: int  # column chunks a row block
+    groups_per_block: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=1024)
+def combine_form(num_segs: int, rows: int, dv: int, align: int = 16) -> CombineForm:
+    """The combine kernel's form for ``num_segs`` segments of ``rows`` (G *
+    sq) rows of ``dv`` columns, ``o`` aligned to ``align`` bytes: from the
+    map's segment count and the head geometry only, never a value on the
+    device (a segment's task count is one). A block takes
+    ``rows_per_block`` rows and a chunk of the dv / vec column groups, at
+    most 256 (row, group) items; its 256 threads are those items times task
+    slices. Starting from 8 rows a block (whole rows), rows and then columns
+    are split while the grid has fewer blocks than half the SMs and a block
+    more than a warp's 32 items, so a map of few segments (one long request)
+    spreads each over several blocks and a map of many short segments takes
+    one block a segment. A block's time is a fixed chain of round trips (the
+    map, the partials, the store), so blocks past that only add time: on an
+    H100 the forms of 128 blocks beat those of 256 at skewed_extreme and
+    one_64k_7x4k, 512 blocks took 1.4 times as long and 1024 2.4 times
+    (scripts/time_norm_combine.py --forms). The map's capacity only sets how
+    many passes the kernel's compaction takes (512 entries each)."""
+    vec = 4 if dv % 4 == 0 and align >= 16 else 1
+    groups = dv // vec
+    rb, splits = min(COMBINE_ROWS, rows), 1
+    while rb * cdiv(groups, splits) > COMBINE_THREADS:
+        splits += 1
+    while (num_segs * cdiv(rows, rb) * splits < kernels.SMS // 2
+           and rb * cdiv(groups, splits) > COMBINE_MIN_ITEMS):
+        if rb > 1:
+            rb = cdiv(rb, 2)
+        elif splits < groups:
+            splits *= 2
+        else:
+            break
+    splits = min(splits, groups)
+    return CombineForm(vec, rb, splits, cdiv(groups, splits), num_segs * cdiv(rows, rb) * splits)
+
+
 def decode_combine(
     o: torch.Tensor,  # [cap, G*sq, Dv] f32 partials of paged_decode_tasks
     m: torch.Tensor,  # [cap, G*sq] f32
@@ -530,18 +580,22 @@ def decode_combine(
         raise ValueError("decode_combine: partials do not match the head geometry")
     hkv = hq // (rows // sq)
     b = task_map.num_segs // hkv
-    parts = [t.contiguous() for t in (o, m, l)]
+    parts = [t if t.is_contiguous() else t.contiguous() for t in (o, m, l)]
     if any(t.dtype != torch.float32 for t in parts) or tuple(m.shape) != (cap, rows) or tuple(
             l.shape) != (cap, rows) or task_map.capacity != cap:
         raise ValueError("decode_combine: partials must be float32 [cap, rows(, Dv)] of the map")
     arrays = [task_map.batch, task_map.seg]
-    if any(a.device != o.device or a.dtype != torch.int32 or not a.is_contiguous() for a in arrays):
+    dev = o.get_device()
+    if any(a.get_device() != dev or a.dtype != torch.int32 or not a.is_contiguous() for a in arrays):
         raise ValueError("decode_combine: the task map must be contiguous int32 on the partials' device")
     vs = _scale_tensor(vscale, o.device)
     out = torch.empty((b * sq, hq, dv), dtype=torch.bfloat16, device=o.device)
+    o_ptr = parts[0].data_ptr()
+    f = combine_form(task_map.num_segs, rows, dv, 16 if o_ptr % 16 == 0 else 4)
     rc = kernels.lib().hpc_decode_combine(
-        *(t.data_ptr() for t in parts), *(a.data_ptr() for a in arrays), cap, _ptr(vs),
-        out.data_ptr(), b, sq, hq, hkv, dv, kernels.stream_ptr(o),
+        o_ptr, parts[1].data_ptr(), parts[2].data_ptr(), *(a.data_ptr() for a in arrays), cap,
+        _ptr(vs), out.data_ptr(), b, sq, hq, hkv, dv, f.rows_per_block, f.col_splits, f.vec,
+        kernels.stream_ptr(o),
     )
     kernels.check(rc, "hpc_decode_combine")
     kernels.count(decode_combine)
@@ -713,6 +767,7 @@ __all__ = [
     "attention_decode",
     "attention_decode_bf16",
     "attention_decode_fp8",
+    "combine_form",
     "decode_combine",
     "decode_splits",
     "paged_decode_attention",

@@ -10,12 +10,18 @@ card the kernel is ``csrc/normalization.cu`` (:func:`rmsnorm_quant`).
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from hpc_ops_tpu_torch import kernels
 from hpc_ops_tpu_torch.config import FP8_DTYPE, FP8_MAX
+from hpc_ops_tpu_torch.ops.rope_kernel import _align
 
 _F32_EPS = float(torch.finfo(torch.float32).eps)
+
+NORM_THREADS = 256  # csrc/normalization.cu kThreads: one block a row
 
 
 def rmsnorm_ref(x, weight, eps=1e-6):
@@ -58,9 +64,28 @@ def _rmsnorm_quant_ref(a, weight, scale, eps, is_moe):
     return norm, y0, (norm * inv[1]).clamp(-FP8_MAX, FP8_MAX).to(FP8_DTYPE)
 
 
+class NormForm(NamedTuple):
+    vec: int  # elements a thread and load: 8 (16 bytes of bf16), 4, 2 or 1
+    threads: int  # a block: one row
+    blocks: int
+
+
+@functools.lru_cache(maxsize=1024)
+def norm_form(n: int, h: int, a_align: int = 16, w_align: int = 16, w_elem: int = 2) -> NormForm:
+    """The RMSNorm + fp8 kernel's form for ``n`` rows of ``h`` (a multiple
+    of 8) with ``a`` aligned to ``a_align`` bytes and the weight (``w_elem``
+    bytes an element) to ``w_align``: ``vec`` is the widest word both
+    pointers allow (a float32 weight's word loads at most 16 bytes at once),
+    a block of NORM_THREADS threads a row, each thread every NORM_THREADS-th
+    word of it (every multiple of 8 takes every word: ``h`` does not
+    change the form)."""
+    vec = next(v for v in (8, 4, 2, 1) if 2 * v <= a_align and min(16, w_elem * v) <= w_align)
+    return NormForm(vec, NORM_THREADS, n)
+
+
 def rmsnorm_quant(
     a: torch.Tensor,  # [n, h] bf16
-    weight: torch.Tensor,  # [h]
+    weight: torch.Tensor,  # [h] (or [1, h]) bf16 or float32
     scale: torch.Tensor,  # [1], or [2] with is_moe, float32
     eps: float,
     is_moe: bool,
@@ -69,31 +94,40 @@ def rmsnorm_quant(
     with ``is_moe`` ``(norm float32, e4m3(norm / scale[0]), e4m3(norm /
     scale[1]))``.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel (one
+    launch a call) or raise. A bf16 or float32 weight is read in its own
+    type; inputs already in the kernel's types and layouts pass unconverted.
     """
     name = "rmsnorm_quant"
-    if a.device.type == "cpu":
-        return _rmsnorm_quant_ref(a, weight, scale, eps, is_moe)
-    if a.device.type != "cuda":
+    if not a.is_cuda:
+        if a.device.type == "cpu":
+            return _rmsnorm_quant_ref(a, weight, scale, eps, is_moe)
         raise ValueError(f"{name}: unsupported device {a.device}")
     if a.dim() != 2 or a.dtype != torch.bfloat16 or not a.is_contiguous():
         raise ValueError(f"{name}: a must be contiguous bf16 [n, h]")
     n, h = a.shape
     if h % 8 or weight.numel() != h or scale.numel() < (2 if is_moe else 1):
         raise ValueError(f"{name}: the kernel takes h a multiple of 8, weight [h] and one scale per output")
-    for t in (weight, scale):
-        if t.device != a.device:
-            raise ValueError(f"{name}: all tensors must be on one device")
-    w = weight.reshape(h).float().contiguous()
-    sc = scale.reshape(-1).float().contiguous()
+    dev = a.get_device()
+    if weight.get_device() != dev or scale.get_device() != dev:
+        raise ValueError(f"{name}: all tensors must be on one device")
+    w = weight
+    if w.dtype not in (torch.bfloat16, torch.float32) or not w.is_contiguous():
+        w = w.float().contiguous()
+    sc = scale
+    if sc.dtype != torch.float32 or not sc.is_contiguous():
+        sc = sc.float().contiguous()
+    w_ptr = w.data_ptr()
+    f = norm_form(n, h, _align(a.data_ptr()), _align(w_ptr), w.element_size())
     y0 = torch.empty((n, h), dtype=FP8_DTYPE, device=a.device)
-    norm = torch.empty((n, h), dtype=torch.float32, device=a.device) if is_moe else None
-    y1 = torch.empty((n, h), dtype=FP8_DTYPE, device=a.device) if is_moe else None
+    norm = y1 = None
+    if is_moe:
+        norm = torch.empty((n, h), dtype=torch.float32, device=a.device)
+        y1 = torch.empty((n, h), dtype=FP8_DTYPE, device=a.device)
     rc = kernels.lib().hpc_rmsnorm_quant(
-        a.data_ptr(), w.data_ptr(), sc.data_ptr(), y0.data_ptr(),
+        a.data_ptr(), w_ptr, w.element_size() == 4, sc.data_ptr(), y0.data_ptr(),
         None if norm is None else norm.data_ptr(), None if y1 is None else y1.data_ptr(),
-        n, h, float(eps), kernels.stream_ptr(a),
+        n, h, float(eps), f.vec, kernels.stream_ptr(a),
     )
     kernels.check(rc, "hpc_rmsnorm_quant")
     kernels.count(rmsnorm_quant)

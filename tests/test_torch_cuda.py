@@ -60,7 +60,7 @@ from hpc_ops_tpu_torch.ops.attention.decode import (
     paged_decode_tasks,
 )
 from hpc_ops_tpu_torch.ops.attention.paging import hnd_to_nhd, pack_kv_fused, pack_kv_fused_nhd
-from hpc_ops_tpu_torch.ops.attention.scheduler import assign_attention_decode_task
+from hpc_ops_tpu_torch.ops.attention.scheduler import TaskMap, assign_attention_decode_task
 from hpc_ops_tpu_torch.ops.attention.prefill import (
     _prefill_nhd_fused_ref,
     _prefill_ref,
@@ -1964,31 +1964,101 @@ def test_decode_tasks_kernel_matches_plain(cuda, layout, kind, sq):
     assert_partials_close(got, want, f"tasks {layout} {kind} sq={sq}")
 
 
-@pytest.mark.cuda
-def test_decode_combine_kernel_matches_plain(cuda):
-    """Partials with rows at m = -inf, sentinel tasks and a map whose
-    segments are not contiguous (tasks shuffled)."""
-    gen = torch.Generator().manual_seed(43)
-    lens = [1, 300, 1025, 4097, 64]
-    tm = assign_attention_decode_task(torch.tensor(lens), 8, tile=256, min_process_len=256,
-                                      capacity=240, impl="np")
-    perm = torch.randperm(240, generator=gen)
-    tm = tm._replace(**{f: getattr(tm, f)[perm].contiguous() for f in ("batch", "head", "tile_start",
-                                                                       "num_tiles", "seg")})
-    rows = 4 * 3
-    o = torch.randn((240, rows, 128), generator=gen)
-    m = torch.randn((240, rows), generator=gen) * 4
-    m[torch.rand((240, rows), generator=gen) < 0.2] = float("-inf")
-    l = torch.rand((240, rows), generator=gen) * 50 + 1
+def combine_map(gen, counts, sentinels, hkv):
+    """A shuffled TaskMap of ``counts[s]`` real tasks of segment s and
+    ``sentinels`` sentinel tasks (t_batch -1) in the segments listed."""
+    seg = torch.cat([torch.full((c,), s, dtype=torch.int32) for s, c in enumerate(counts)]
+                    + [torch.tensor(sentinels, dtype=torch.int32)])
+    real = sum(counts)
+    batch = torch.cat([seg[:real] // hkv, torch.full((len(sentinels),), -1, dtype=torch.int32)])
+    perm = torch.randperm(seg.shape[0], generator=gen)
+    zeros = torch.zeros(seg.shape[0], dtype=torch.int32)
+    return TaskMap(batch[perm].contiguous(), zeros, zeros, zeros, seg[perm].contiguous(),
+                   torch.tensor(real, dtype=torch.int32), len(counts), 16)
+
+
+def combine_partials(gen, tm, rows, dv):
+    """Seeded partials with a fifth of the rows, and every sentinel task, at
+    m = -inf (l = 0, o = 0 there, as the task kernel writes them)."""
+    cap = tm.capacity
+    o = torch.randn((cap, rows, dv), generator=gen)
+    m = torch.randn((cap, rows), generator=gen) * 4
+    m[(torch.rand((cap, rows), generator=gen) < 0.2) | (tm.batch < 0)[:, None]] = float("-inf")
+    l = torch.rand((cap, rows), generator=gen) * 50 + 1
     o[torch.isinf(m)] = 0
     l[torch.isinf(m)] = 0
-    want = _decode_combine_ref(o, m, l, tm, 3, 32, VS)
+    return o, m, l
+
+
+# (case, hq, hkv, sq, dv): counts of real tasks by segment and sentinel
+# tasks' segments come from the case
+COMBINE_CARD_CASES = [
+    ("long_segment", 32, 8, 3, 128),  # a segment of 64 tasks beside segments of 0-3
+    ("sentinel_segment", 32, 8, 1, 128),  # segment 5 holds only sentinel tasks: output 0
+    ("gqa128", 128, 1, 1, 128),  # G * sq 128 rows: 16 blocks of 8 rows a segment
+    ("many_chunks", 16, 2, 2, 128),  # 1100 entries: three compaction passes, merged online
+    ("narrow_columns", 8, 2, 1, 66),  # dv not a multiple of 4: one float a column group
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["shuffled"] + [c[0] for c in COMBINE_CARD_CASES])
+def test_decode_combine_kernel_matches_plain(cuda, case):
+    """Partials with rows at m = -inf, sentinel tasks and a map whose
+    segments are not contiguous (tasks shuffled); a 64-task segment, a
+    segment of sentinels only, G * sq 128 (Hq 128 over Hkv 1), sq 3, a map
+    longer than one compaction pass and dv 66. The kernel's forms come from
+    combine_form (one block a segment at many segments, a block a row and
+    chunk at few)."""
+    gen = torch.Generator().manual_seed(43)
+    if case == "shuffled":
+        lens = [1, 300, 1025, 4097, 64]
+        tm = assign_attention_decode_task(torch.tensor(lens), 8, tile=256, min_process_len=256,
+                                          capacity=240, impl="np")
+        perm = torch.randperm(240, generator=gen)
+        tm = tm._replace(**{f: getattr(tm, f)[perm].contiguous() for f in ("batch", "head", "tile_start",
+                                                                           "num_tiles", "seg")})
+        hq, hkv, sq, dv = 32, 8, 3, 128
+    else:
+        hq, hkv, sq, dv = next(c[1:] for c in COMBINE_CARD_CASES if c[0] == case)
+        segs = 2 * hkv
+        counts = {"long_segment": [64, 3, 0, 1] + [2] * (segs - 4),
+                  "sentinel_segment": [2] * 5 + [0] + [1] * (segs - 6),
+                  "gqa128": [7, 1],
+                  "many_chunks": [600, 150, 1, 300],
+                  "narrow_columns": [5, 1, 0, 9]}[case]
+        sentinels = [5, 5, 0, 2] if case == "sentinel_segment" else [1, 0, segs - 1]
+        if case == "many_chunks":
+            sentinels = sentinels * 15
+        tm = combine_map(gen, counts, sentinels, hkv)
+    rows = hq // hkv * sq
+    o, m, l = combine_partials(gen, tm, rows, dv)
+    want = _decode_combine_ref(o, m, l, tm, sq, hq, VS)
+    if case == "sentinel_segment":
+        assert torch.all(want.view(2, sq, hkv, -1)[0, :, 5] == 0)
     tmd = tm._replace(batch=tm.batch.to(cuda), seg=tm.seg.to(cuda))
     n0 = decode_combine.launches
-    got = decode_combine(o.to(cuda), m.to(cuda), l.to(cuda), tmd, 3, 32, VS)
+    got = decode_combine(o.to(cuda), m.to(cuda), l.to(cuda), tmd, sq, hq, VS)
     torch.cuda.synchronize()
     assert decode_combine.launches == n0 + 1
-    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="combine")
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name=f"combine {case}")
+
+
+@pytest.mark.cuda
+def test_decode_combine_kernel_takes_misaligned_partials(cuda):
+    """o as a contiguous view 4 bytes off a 16-byte boundary: the kernel
+    takes one float a column group and matches the plain version."""
+    gen = torch.Generator().manual_seed(44)
+    tm = combine_map(gen, [9, 1, 0, 33, 2, 2, 4, 1], [2, 3], 4)
+    o, m, l = combine_partials(gen, tm, 4, 128)
+    buf = torch.zeros(o.numel() + 1, device=cuda)
+    od = buf[1:].view(o.shape)
+    od.copy_(o)
+    assert od.is_contiguous() and od.data_ptr() % 16 == 4
+    tmd = tm._replace(batch=tm.batch.to(cuda), seg=tm.seg.to(cuda))
+    got = decode_combine(od, m.to(cuda), l.to(cuda), tmd, 1, 16)
+    want = _decode_combine_ref(o, m, l, tm, 1, 16)
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name="combine misaligned")
 
 
 @pytest.mark.cuda
@@ -2092,7 +2162,8 @@ from hpc_ops_tpu_torch.ops.attention.prefill import (  # noqa: E402
 )
 from hpc_ops_tpu_torch.ops import gemm as gemm_ops  # noqa: E402
 from hpc_ops_tpu_torch.ops.gemm import _route_gemm_ref, route_gemm, split_fp32_weight  # noqa: E402
-from hpc_ops_tpu_torch.ops.normalization import _rmsnorm_quant_ref, rmsnorm_quant  # noqa: E402
+from hpc_ops_tpu_torch.ops.normalization import _rmsnorm_quant_ref, norm_form, rmsnorm_quant  # noqa: E402
+from hpc_ops_tpu_torch.ops.rope_kernel import _align  # noqa: E402
 
 
 def sparse_mask(gen, q_lens, kv_lens, hq, mtq, mtkv, keep=0.4):
@@ -2354,23 +2425,81 @@ def test_prefill_sparse_skips_masked_tiles(cuda):
     assert t_diag < 0.1 * t_ones
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("is_moe", [False, True])
-@pytest.mark.parametrize("n,h", [(8, 4096), (2048, 5120), (5, 320)])
-def test_rmsnorm_quant_kernel_matches_plain(cuda, n, h, is_moe):
-    gen = torch.Generator().manual_seed(55)
-    x = randn(gen, n, h) * 3
-    w = torch.rand(h, generator=gen).to(torch.bfloat16)
-    sc = torch.tensor([2.5, 5.0] if is_moe else [0.01])  # 0.01: many codes saturate at 448
-    args = (x.to(cuda), w.to(cuda), sc.to(cuda), 1e-6, is_moe)
-    want = _rmsnorm_quant_ref(*args)  # on the card: the CPU's float64 sum may round a mean apart
-    got = rmsnorm_quant(*args)
-    torch.cuda.synchronize()
+def assert_norm_outputs_equal(got, want, is_moe):
     for g, t in zip(got if is_moe else (got,), want if is_moe else (want,)):
         if g.dtype == torch.float32:
             assert torch.equal(g, t)
         else:
             assert torch.equal(g.view(torch.uint8), t.view(torch.uint8))
+
+
+# rows 1-4097 x widths 8 to 65544 (any multiple of 8 runs the kernel)
+NORM_CARD_SHAPES = [(8, 4096), (2048, 5120), (5, 320), (1, 8), (3, 7168), (4097, 8192), (1, 16384),
+                    (3, 16384), (2048, 4096), (2, 65544)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("is_moe", [False, True])
+@pytest.mark.parametrize("n,h", NORM_CARD_SHAPES)
+def test_rmsnorm_quant_kernel_matches_plain(cuda, n, h, is_moe, w_dtype):
+    gen = torch.Generator().manual_seed(55)
+    x = randn(gen, n, h) * 3
+    w = torch.rand(h, generator=gen).to(torch.bfloat16).to(w_dtype)
+    if w_dtype == torch.float32:
+        w = w + torch.rand(h, generator=gen) * 2**-10  # bits a bf16 weight cannot hold
+    sc = torch.tensor([2.5, 5.0] if is_moe else [0.01])  # 0.01: many codes saturate at 448
+    args = (x.to(cuda), w.to(cuda), sc.to(cuda), 1e-6, is_moe)
+    want = _rmsnorm_quant_ref(*args)  # on the card: the CPU's float64 sum may round a mean apart
+    got = rmsnorm_quant(*args)
+    torch.cuda.synchronize()
+    assert_norm_outputs_equal(got, want, is_moe)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("a_off,w_off", [(1, 0), (2, 0), (4, 0), (0, 1), (0, 2), (1, 1), (4, 2)])
+@pytest.mark.parametrize("h", [4096, 5120])
+def test_rmsnorm_quant_kernel_takes_misaligned_views(cuda, h, a_off, w_off, w_dtype):
+    """``a`` and the weight as contiguous views at offsets of 1, 2 or 4
+    elements (2-16 bytes off a 16-byte boundary): the kernel takes narrower
+    words (norm_form) and stays bit-equal to the plain version."""
+    gen = torch.Generator().manual_seed(58)
+    n = 37
+    a_buf = (randn(gen, n * h + 8) * 3).to(cuda)
+    w_buf = torch.rand(h + 8, generator=gen).to(w_dtype).to(cuda)
+    x = a_buf[a_off: a_off + n * h].view(n, h)
+    w = w_buf[w_off: w_off + h]
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (a_off > 0)
+    f = norm_form(n, h, _align(x.data_ptr()), _align(w.data_ptr()), w.element_size())
+    assert f.vec < 8
+    for is_moe in (False, True):
+        sc = torch.tensor([2.5, 5.0] if is_moe else [0.01], device=cuda)
+        got = rmsnorm_quant(x, w, sc, 1e-6, is_moe)
+        assert_norm_outputs_equal(got, _rmsnorm_quant_ref(x, w, sc, 1e-6, is_moe), is_moe)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_moe", [False, True])
+def test_rmsnorm_quant_launches_one_kernel_a_call(cuda, is_moe):
+    """At a bf16 weight a call is one launch: no conversion of the weight or
+    the scales runs on the card (torch.profiler's kernel count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(59)
+    x = randn(gen, 64, 4096).to(cuda)
+    w = torch.rand(4096, generator=gen).to(torch.bfloat16).to(cuda)
+    sc = torch.tensor([2.5, 5.0] if is_moe else [0.5], device=cuda)
+    rmsnorm_quant(x, w, sc, 1e-6, is_moe)
+    torch.cuda.synchronize()
+    n0 = rmsnorm_quant.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            rmsnorm_quant(x, w, sc, 1e-6, is_moe)
+        torch.cuda.synchronize()
+    kinds = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+    assert rmsnorm_quant.launches == n0 + 10
+    assert [e.count for e in kinds] == [10] and "rmsnorm_quant_kernel" in kinds[0].key
 
 
 # (16, 256, 7168) and the router's (256, 256, 7168) take the small body with

@@ -303,6 +303,42 @@ def test_task_map_partials_and_combine():
     assert_allclose(got.float(), want.float().numpy(), atol=1e-2, rtol=1e-2, name="combine")
 
 
+def test_combine_ref_matches_jax_segment_combine_over_a_long_segment():
+    """The plain combine against JAX's ``_segment_combine`` over a shuffled
+    map of 57 tasks: a segment of 40 tasks (more than a warp's lanes),
+    segments of 1-5, one holding only sentinel tasks (t_batch -1, neutral
+    partials as the task kernel writes them: m = -inf, l = 0, o = 0) and a
+    fifth of the rows at m = -inf. Within half a bf16 step (the port rounds
+    its output to bf16 once; JAX returns float32 before its scale)."""
+    from hpc_ops_tpu.ops.attention.decode import _segment_combine
+
+    rng = np.random.RandomState(61)
+    b, hkv, g, sq, dv = 3, 2, 2, 2, 16
+    rows, hq, num_segs = g * sq, hkv * g, b * hkv
+    counts = [40, 3, 1, 0, 5, 2]  # real tasks by segment; segment 3 only sentinels
+    seg = np.concatenate([np.full(c, i, np.int32) for i, c in enumerate(counts)] + [
+        np.array([3, 3, 0, 5, 1, 3], np.int32)])
+    batch = np.concatenate([seg[: sum(counts)] // hkv, np.full(6, -1, np.int32)]).astype(np.int32)
+    perm = rng.permutation(seg.shape[0])
+    seg, batch = seg[perm], batch[perm]
+    cap = seg.shape[0]
+    o = rng.randn(cap, rows, dv).astype(np.float32)
+    m = (rng.randn(cap, rows) * 4).astype(np.float32)
+    l = (rng.rand(cap, rows) * 50 + 1).astype(np.float32)
+    blind = (rng.rand(cap, rows) < 0.2) | (batch < 0)[:, None]
+    m[blind], l[blind], o[blind] = -np.inf, 0.0, 0.0
+    zeros = torch.zeros(cap, dtype=torch.int32)
+    tm = S.TaskMap(torch.from_numpy(batch), zeros, zeros, zeros, torch.from_numpy(seg),
+                   torch.tensor(int((batch >= 0).sum()), dtype=torch.int32), num_segs, 16)
+    got = D.decode_combine(torch.from_numpy(o), torch.from_numpy(m), torch.from_numpy(l), tm, sq, hq)
+    want = np.asarray(_segment_combine(jnp.asarray(o), jnp.asarray(m), jnp.asarray(l), jnp.asarray(seg),
+                                       num_segs))
+    want = want.reshape(b, hkv, g, sq, dv).transpose(0, 3, 1, 2, 4).reshape(b * sq, hq, dv)
+    assert got.dtype == torch.bfloat16 and got.shape == (b * sq, hq, dv)
+    assert np.all(want.reshape(b, sq, hkv, g, dv)[1, :, 1] == 0)  # segment 3: sentinels only
+    assert_allclose(got.float(), want, atol=1e-6, rtol=2**-8, name="combine vs _segment_combine")
+
+
 def test_task_tile_must_be_a_multiple_of_the_page_size():
     q, kc, vc, block_ids, lens = make_decode_case(17, [40], sq=1, bs=16)
     tm = S.assign_attention_decode_task(ints(lens), 2, tile=24, impl="np", capacity=8)

@@ -1,18 +1,23 @@
-"""The host-side choosers of two kernels' launches, on the CPU.
+"""The host-side choosers of four kernels' launches, on the CPU.
 
 ``ops/rope_kernel.py:rope_form`` picks the rope store's word width, lanes a
 head and heads a block (csrc/rope_store.cu), ``ops/moe.py:reduce_form`` the
-top-k reduce's threads a block (csrc/moe.cu). The kernels run only on the
-card (tests/test_torch_cuda.py); these tests hold the choosers to what the
-kernels assume: every element of a head's half owned by exactly one lane
-and chunk, words that the pointers' alignment allows, blocks within the
-launch bounds, a grid that spreads a decode step over the card, and a
-RopeShape whose fields mirror the kernel's struct.
+top-k reduce's threads a block (csrc/moe.cu), ``ops/normalization.py:
+norm_form`` the RMSNorm + fp8 kernel's word width (csrc/normalization.cu),
+``ops/attention/decode.py:
+combine_form`` the segment combine's rows and column chunks a block
+(csrc/decode.cu). The kernels run only on the card (tests/test_torch_cuda.py);
+these tests hold the choosers to what the kernels assume: every element of a
+head's half (a row; a segment's outputs) owned by exactly one lane and chunk
+(thread and word; block), words that the pointers' alignment allows, blocks
+within the launch bounds, a grid that spreads a decode step over the card,
+and a RopeShape whose fields mirror the kernel's struct.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 import os
 import re
 
@@ -20,7 +25,15 @@ import pytest
 import torch
 
 from hpc_ops_tpu_torch import kernels
+from hpc_ops_tpu_torch.ops.attention.decode import (
+    COMBINE_MIN_ITEMS,
+    COMBINE_ROWS,
+    COMBINE_THREADS,
+    combine_form,
+)
+from hpc_ops_tpu_torch.ops.attention.scheduler import assign_attention_decode_task
 from hpc_ops_tpu_torch.ops.moe import REDUCE_THREADS, reduce_form
+from hpc_ops_tpu_torch.ops.normalization import NORM_THREADS, norm_form
 from hpc_ops_tpu_torch.ops.rope_kernel import (
     ROPE_MAX_ELEMS,
     ROPE_MAX_THREADS,
@@ -139,3 +152,118 @@ def test_reduce_form_spreads_a_decode_step():
     assert tuple(reduce_form(8, 4096)) == (64, 8, 64)
     assert tuple(reduce_form(512, 4096)) == (256, 1, 512)
     assert tuple(reduce_form(2048, 4096)) == (256, 1, 2048)
+
+
+NORM_HIDDEN = [8, 320, 4096, 5120, 7168, 8192, 16384, 65544]  # multiples of 8 up to past 64K
+NORM_ROWS = [1, 5, 8, 2048]
+
+
+def source_constant(name, source):
+    with open(os.path.join(kernels.CSRC_DIR, source)) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+)", f.read()).group(1))
+
+
+@pytest.mark.parametrize("h", NORM_HIDDEN)
+def test_norm_form_owns_each_element_once_within_the_launch_bounds(h):
+    """At every row count and alignment of a and of the weight (bf16 or
+    float32): vec the widest word of 8, 4, 2 or 1 elements that both allow
+    (a word of the float32 weight loads at most 16 bytes at once); one
+    block of the kernel's 256 threads a row; each element of the row in
+    exactly one (thread, word), thread t taking words t, t + 256, ..."""
+    checked = set()
+    for n, a_align, w_align, w_elem in itertools.product(NORM_ROWS, (16, 8, 4, 2), (16, 8, 4, 2), (2, 4)):
+        if w_align < w_elem:  # a float32 pointer is 4-byte aligned
+            continue
+        f = norm_form(n, h, a_align, w_align, w_elem)
+        fits = [v for v in (8, 4, 2, 1) if 2 * v <= a_align and min(16, w_elem * v) <= w_align]
+        assert f.vec == fits[0] and h % f.vec == 0
+        assert (f.threads, f.blocks) == (NORM_THREADS, n)
+        assert norm_form(n, h, a_align, w_align, w_elem) == f  # host integers only
+        if f.vec in checked:
+            continue
+        checked.add(f.vec)
+        owned = sorted(c + e for t in range(f.threads) for c in range(t * f.vec, h, f.threads * f.vec)
+                       for e in range(f.vec))
+        assert owned == list(range(h))
+    assert source_constant("kThreads", "normalization.cu") == NORM_THREADS
+
+
+def test_norm_form_narrows_the_word_for_misaligned_pointers():
+    """16-byte words where both pointers allow them; a bf16 view 2, 4 or 8
+    bytes off a 16-byte boundary takes 1, 2 or 4 elements a word; a float32
+    weight 8 or 4 bytes off takes 2 or 1."""
+    assert norm_form(2048, 4096).vec == 8 and norm_form(8, 5120, 16, 16, 4).vec == 8
+    assert [norm_form(8, 4096, a).vec for a in (16, 8, 4, 2)] == [8, 4, 2, 1]
+    assert [norm_form(8, 4096, 16, a).vec for a in (16, 8, 4, 2)] == [8, 4, 2, 1]
+    assert [norm_form(8, 4096, 16, a, 4).vec for a in (16, 8, 4)] == [8, 2, 1]
+    assert _align(0x7F00_0000_0002) == 2 and norm_form(8, 4096, _align(0x7F00_0000_0002)).vec == 1
+
+
+def scenario_segments():
+    """The decode benchmark's scenarios as chip_smoke.py runs them: (case,
+    segments, capacity of the "tight" map)."""
+    scen = {"uniform_512": [(64, 512)], "skewed_mix": [(32, 128), (32, 4096)],
+            "skewed_extreme": [(1, 16384), (15, 64)], "one_64k_7x4k": [(1, 65536), (7, 4096)],
+            "one_128k_31x4k": [(1, 131072), (31, 4096)]}
+    for case, spec in scen.items():
+        lens = torch.tensor([n for count, n in spec for _ in range(count)], dtype=torch.int32)
+        tm = assign_attention_decode_task(lens, 8, tile=2048, capacity="tight", impl="np")
+        yield case, tm.num_segs, tm.capacity
+
+
+COMBINE_GEOMETRY = [(4, 128), (12, 128), (1, 64), (32, 96), (128, 128), (128, 66), (8, 256), (40, 4)]
+
+
+def combine_blocks(f, rows, dv, first, count):
+    """(segment, row, column group) of every output item, by block, for
+    ``count`` blocks from ``first`` (the kernel's decomposition of blockIdx)."""
+    groups = dv // f.vec
+    out = []
+    for blk in range(first, first + count):
+        cs_, rest = blk % f.col_splits, blk // f.col_splits
+        rbk, seg = rest % cdiv(rows, f.rows_per_block), rest // cdiv(rows, f.rows_per_block)
+        out.append([(seg, r, g) for r in range(rbk * f.rows_per_block, min(rows, (rbk + 1) * f.rows_per_block))
+                    for g in range(cs_ * f.groups_per_block, min(groups, (cs_ + 1) * f.groups_per_block))])
+    return out
+
+
+@pytest.mark.parametrize("rows,dv", COMBINE_GEOMETRY)
+def test_combine_form_owns_each_output_once_within_the_launch_bounds(rows, dv):
+    """G * sq rows up to 128, dv with and without 16-byte words: at most 8
+    rows and 256 (row, column group) items a block, no empty block, every
+    output of every segment in exactly one block, rows and then columns
+    split only while the grid has fewer blocks than half the SMs and a
+    block more than a warp's items."""
+    for num_segs in (1, 8, 64, 128, 256, 512):
+        for align in (16, 4):
+            f = combine_form(num_segs, rows, dv, align)
+            assert f.vec == (4 if dv % 4 == 0 and align == 16 else 1)
+            groups = dv // f.vec
+            items = f.rows_per_block * f.groups_per_block
+            assert 1 <= f.rows_per_block <= min(COMBINE_ROWS, rows) and items <= COMBINE_THREADS
+            assert f.groups_per_block == cdiv(groups, f.col_splits) and f.col_splits <= groups
+            assert f.blocks == num_segs * cdiv(rows, f.rows_per_block) * f.col_splits
+            per_seg = f.blocks // num_segs
+            for seg in {0, num_segs - 1}:  # a segment's blocks: every output once
+                blocks = combine_blocks(f, rows, dv, seg * per_seg, per_seg)
+                assert all(blocks) and sorted(x for b in blocks for x in b) == [
+                    (seg, r, g) for r in range(rows) for g in range(groups)]
+            if f.blocks < kernels.SMS // 2:
+                assert items <= COMBINE_MIN_ITEMS or (f.rows_per_block == 1 and f.col_splits == groups)
+            assert combine_form(num_segs, rows, dv, align) == f  # host integers only
+    assert source_constant("kWarps", "decode.cu") == COMBINE_ROWS
+    assert 32 * COMBINE_ROWS == COMBINE_THREADS
+
+
+@pytest.mark.parametrize("case,num_segs,capacity", list(scenario_segments()))
+def test_combine_form_spreads_the_decode_scenarios(case, num_segs, capacity):
+    """Llama3_8b heads (G 4, sq 1, D 128): every segment's 4 rows in one
+    block (128 items, two task slices) where the segments are at least
+    half the SMs; one_64k_7x4k's 64 segments take two blocks of 2 rows each
+    (64 items, four task slices: its 16-task segments' float4 loads in one
+    round trip). At most 512 blocks: one wave at four blocks an SM."""
+    f = combine_form(num_segs, 4, 128)
+    want = {"uniform_512": (4, 512), "skewed_mix": (4, 512), "skewed_extreme": (4, 128),
+            "one_64k_7x4k": (2, 128), "one_128k_31x4k": (4, 256)}[case]
+    assert (f.rows_per_block, f.blocks) == want and f.col_splits == 1 and f.vec == 4
+    assert capacity <= 512  # one compaction pass a block (csrc/decode.cu kCombineScan)

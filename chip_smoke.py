@@ -102,7 +102,10 @@ Phases, each printing one JSON line:
      exceeds that tolerance;
      slice_tiny_tp and slice_tiny_tp_moe: make_sharded_step's first steps
      and ShardedEngine on a (dp 2, tp 2) mesh of virtual ranks on the card
-     against CPU ranks (dense, and the fp8 MoE under rank_ep);
+     against CPU ranks (dense, and the fp8 MoE under rank_ep); each of the
+     eight phases also serves with multi_step=4 and logprobs=True (on the
+     card the captured multi-step decode graph), its tokens held to the CPU
+     engine's by the same rule, one logprob a token;
   5. slice_full and slice_full_int8: Engine(llama3_8b) at full width and
      depth, bf16 KV then int8_kv, on one set of random weights, serving 8
      prompts x 32 new tokens; logits finite, tokens in the vocab, each
@@ -122,6 +125,18 @@ Phases, each printing one JSON line:
      logits within cosine 0.98 of bf16's, the one_shot collective 2 x 32
      times a forward call and its plain version never, one device-to-host
      copy a profiled decode step (decode_profile_tp);
+     slice_full_multi and slice_full_tp_multi: Engine(multi_step=8) and
+     ShardedEngine(multi_step=8) on the tp 4 mesh over the same weights and
+     prompts, 128 new tokens: every decode dispatch after the first one
+     replay of the captured graph (the whole mesh's ranks in one graph), the
+     launches counted through the replays (the collective at 2 x layers x
+     steps, every collective node cooperative), one device-to-host copy a
+     profiled dispatch, each request's first 32 tokens equal to slice_full's
+     (slice_full_tp's) but for a first flip at a top-2 margin below 0.15; a
+     summary line each (decode ms a step, device busy and idle share, the
+     latter also from the union of kernel intervals, launches a step, copies
+     a dispatch, capture and instantiate seconds, the graph's pool, peak
+     memory);
   6. slice_full_moe: the llama3_8b weights are freed, then Engine serves the
      published Mixtral-8x7B-v0.1 widths at full depth (32 layers, 8 fp8
      experts of 14336, top-2; 45 GB of seeded expert weights built layer by
@@ -3468,11 +3483,13 @@ def slice_tiny(dev, phase="slice_tiny", moe_scheme=None, **cfg_kw):
             raise AssertionError(f"{phase} {name} logits: card vs CPU beyond 0.15/0.1")
         diffs[name] = float((g - c).abs().max())
     prompts = [[1, 2, 3, 4, 5], [7, 8], [9, 10, 11], list(range(20, 61))]
-    outs = {}
+    outs, multi = {}, {}
     for d in ("cpu", dev):
-        eng = Engine(cfg, w_cpu if d == "cpu" else w_gpu, num_blocks=64, block_size=BS, max_batch=4,
-                     prefill_chunk=16, device=d)
-        outs[str(d)] = eng.run(prompts, max_new=8)
+        for ms, into in ((1, outs), (TINY_MULTI_STEP, multi)):
+            eng = Engine(cfg, w_cpu if d == "cpu" else w_gpu, num_blocks=64, block_size=BS, max_batch=4,
+                         prefill_chunk=16, device=d, multi_step=ms, logprobs=ms > 1)
+            into[str(d)] = (eng.run(prompts, max_new=8), [r.logprobs for r in eng.requests.values()])
+    outs = {d: o for d, (o, _) in outs.items()}
 
     def margin(tokens):
         n = len(tokens)
@@ -3488,7 +3505,36 @@ def slice_tiny(dev, phase="slice_tiny", moe_scheme=None, **cfg_kw):
         if j is not None:
             flips.append({"prompt": p, "step": j, "cpu_margin": margin(p + want[:j])})
     emit(phase, max_logits_diff=diffs, tokens_card=outs[str(dev)], tokens_cpu=outs["cpu"],
-         near_tie_flips=flips)
+         near_tie_flips=flips, **multi_step_vs_cpu(phase, prompts, multi, str(dev), margin))
+
+
+TINY_MULTI_STEP = 4  # the slice_tiny* phases' second run: Engine(multi_step=4, logprobs=True)
+
+
+def multi_step_vs_cpu(phase, prompts, runs, dev, margin):
+    """The slice_tiny* phases' multi-step run (``runs``: device -> (tokens,
+    logprobs), the card's a captured graph): the card's tokens held to the
+    CPU engine's by ``assert_greedy_match``, one logprob a token, each <= 0,
+    and each logprob before any accepted flip within the logits' tolerance
+    of the CPU engine's (0.15 abs / 0.1 rel: a logprob is a logit less the
+    row's log-sum-exp); returns the largest difference."""
+    from hpc_ops_tpu_torch.utils.testing import assert_greedy_match
+
+    flips, lp_diff = [], 0.0
+    for i, p in enumerate(prompts):
+        (want, want_lp), (got, got_lp) = ((runs[d][0][i], runs[d][1][i]) for d in ("cpu", dev))
+        if len(got_lp) != len(got) or not all(v <= 0.0 for v in got_lp):
+            raise AssertionError(f"{phase} multi_step: {len(got_lp)} logprobs for {len(got)} tokens")
+        j = assert_greedy_match(want, got, lambda j, p=p, want=want: margin(p + want[:j]), ATOL_LOGITS)
+        if j is not None:
+            flips.append({"prompt": p, "step": j})
+        for k, (a, b) in enumerate(zip(want_lp[:j], got_lp[:j])):
+            if not abs(a - b) <= ATOL_LOGITS + RTOL_LOGITS * abs(a):
+                raise AssertionError(f"{phase} multi_step request {i} token {k}: logprob {b} on the card, "
+                                     f"{a} on the CPU, beyond 0.15/0.1")
+            lp_diff = max(lp_diff, abs(a - b))
+    return {"multi_step": TINY_MULTI_STEP, "multi_step_tokens_card": runs[dev][0],
+            "multi_step_near_tie_flips": flips, "multi_step_max_logprob_diff": lp_diff}
 
 
 def sharded_first_steps(llama, cfg, w, mesh, dev):
@@ -3540,9 +3586,13 @@ def slice_tiny_tp(dev, phase="slice_tiny_tp", **cfg_kw):
             raise AssertionError(f"{phase} {name} logits: card vs CPU beyond 0.15/0.1")
         diffs[name] = float((g - c).abs().max())
     prompts = [[1, 2, 3, 4, 5], [7, 8], [9, 10, 11], list(range(20, 61))]
-    outs = {d: ShardedEngine(cfg, w_cpu if d == "cpu" else w_gpu, m, num_blocks=64, block_size=BS,
-                             max_batch=2, prefill_chunk=16).run(prompts, max_new=8)
-            for d, m in meshes.items()}
+    outs, multi = {}, {}
+    for d, m in meshes.items():
+        for ms, into in ((1, outs), (TINY_MULTI_STEP, multi)):
+            eng = ShardedEngine(cfg, w_cpu if d == "cpu" else w_gpu, m, num_blocks=64, block_size=BS,
+                                max_batch=2, prefill_chunk=16, multi_step=ms, logprobs=ms > 1)
+            into[d] = (eng.run(prompts, max_new=8), [r.logprobs for r in eng.requests.values()])
+    outs = {d: o for d, (o, _) in outs.items()}
 
     def margin(tokens):
         n = len(tokens)
@@ -3558,7 +3608,7 @@ def slice_tiny_tp(dev, phase="slice_tiny_tp", **cfg_kw):
         if j is not None:
             flips.append({"prompt": p, "step": j, "cpu_margin": margin(p + want[:j])})
     emit(phase, max_logits_diff=diffs, tokens_card=outs[str(dev)], tokens_cpu=outs["cpu"],
-         near_tie_flips=flips)
+         near_tie_flips=flips, **multi_step_vs_cpu(phase, prompts, multi, str(dev), margin))
 
 
 PROFILE_FROM, PROFILE_STEPS = 4, 3  # decode steps 5..7 of slice_full
@@ -3568,12 +3618,13 @@ class DecodeProfile:
     """torch.profiler over a few decode steps: device time per step by kernel
     class and the device's idle share of the window's wall time."""
 
-    def __init__(self, torch, classes):
+    def __init__(self, torch, classes, steps_per_dispatch=1):
         from torch.profiler import ProfilerActivity, profile
 
         self.torch = torch
         self.classes = classes  # kernel-name substring -> class name
-        self.steps = 0
+        self.per = steps_per_dispatch  # decode steps a profiled engine step runs (multi_step)
+        self.steps = 0  # engine steps profiled
         self.active = True
         self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         self.prof.__enter__()
@@ -3609,15 +3660,33 @@ class DecodeProfile:
                 else:
                     classes["other"] += us
                     other[name[:80]] = other.get(name[:80], 0.0) + us
-        n = self.steps
+        n = self.steps * self.per
         busy_ms = sum(classes.values()) / 1e3 / n
         wall_ms = self.wall_s * 1e3 / n
+        # the time some kernel ran: the union of the kernels' intervals (the
+        # branches of a tensor-parallel graph overlap, so the sum above can
+        # exceed the wall time)
+        spans = sorted((e.time_range.start, e.time_range.end) for e in self.prof.events()
+                       if e.device_type == cuda and "Memcpy" not in e.name and "Memset" not in e.name)
+        union_us, end = 0.0, float("-inf")
+        for a, b in spans:
+            if b > end:
+                union_us += b - max(a, end)
+                end = b
+        union_ms = union_us / 1e3 / n
+        per_dispatch = {}
+        if self.per > 1:
+            per_dispatch = {"dispatches": self.steps, "steps_per_dispatch": self.per,
+                            "device_to_host_copies_per_dispatch": dtoh / self.steps}
         return {
+            **per_dispatch,
             "steps": n,
             "device_ms_per_step": {k: v / 1e3 / n for k, v in classes.items()},
             "device_busy_ms_per_step": busy_ms,
             "wall_ms_per_step": wall_ms,
             "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+            "device_busy_union_ms_per_step": union_ms,
+            "idle_share_union": 1.0 - union_ms / wall_ms if union_ms else None,
             "kernel_launches_per_step": launches / n,
             "device_to_host_copies_per_step": dtoh / n,
             "top_other_ms_per_step": {k: v / 1e3 / n for k, v in
@@ -3650,25 +3719,40 @@ def full_prompts(vocab, longest=2000):
     return lens, [[int(t) for t in rng.randint(0, vocab, n)] for n in lens]
 
 
-def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=2000, mesh=None):
+def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=2000, mesh=None,
+               multi_step=1, new_tokens=32):
     """Engine(cfg) at full width and depth on weights ``w`` (with ``mesh``:
     ShardedEngine over the mesh's ranks): 8 prompts (of 16 to ``longest``
-    tokens) x 32 new tokens, with every sampled-from logits tensor checked
-    finite, the launch counts of ``kernels_used`` (once per rank; with
-    ``cfg.moe``, the MoE kernels; with ``mesh``, the one_shot collective
-    twice per layer and call, one launch for all ranks) as the step counts say
-    and every other kernel at 0, and three decode steps profiled. Returns
-    (stats, launch counts, last-token logits of each prefill call, the
-    engine, the profile)."""
+    tokens) x ``new_tokens`` new tokens, with every sampled-from logits
+    tensor checked finite (on the multi-step path by a device flag a call
+    that the graph updates at every replay), the launch counts of
+    ``kernels_used`` (once per rank; with ``cfg.moe``, the MoE kernels; with
+    ``mesh``, the one_shot collective twice per layer and call, one launch
+    for all ranks) as the step counts say and every other kernel at 0, and
+    three decode dispatches profiled. With ``multi_step`` > 1 a decode
+    dispatch is a replay of the captured multi-step graph (its launches
+    counted through the replays), the first dispatch, which captures it after
+    one eager run of its steps, is left out of the step times, and the
+    decode ms per step is a dispatch's wall time over ``multi_step``.
+    Returns (stats, launch counts, last-token logits of each prefill call,
+    the engine, the profile)."""
+    import itertools
+
     import torch
 
     from hpc_ops_tpu_torch import kernels
+    from hpc_ops_tpu_torch.models import llama as llama_mod
     from hpc_ops_tpu_torch.runtime import engine as engine_mod
     from hpc_ops_tpu_torch.runtime import sharded_engine as sharded_mod
 
     lens, prompts = full_prompts(cfg.vocab, longest)
     finite, prefill_logits = [], []
     base_forward, base_make_step = engine_mod.forward_step, sharded_mod.make_sharded_step
+    base_model_forward = llama_mod.forward_step  # what decode_multi and the sharded ranks call
+    # one flag a forward call of the model (modulo 64: the calls of one step
+    # on the ranks' streams write different flags), ANDed on the device
+    flags = torch.ones(64, dtype=torch.bool, device=dev)
+    slots = itertools.count()
 
     def checked(out, is_prefill):
         finite.append(torch.isfinite(out).all())
@@ -3690,24 +3774,33 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
 
         return run
 
-    def make_engine(num_blocks):
+    def flagged_forward(*a, **kw):
+        out, caches = base_model_forward(*a, **kw)
+        flags[next(slots) % len(flags)].logical_and_(torch.isfinite(out).all())
+        return out, caches
+
+    def make_engine(num_blocks, ms):
         if mesh is None:
-            return engine_mod.Engine(cfg, w, num_blocks=num_blocks, block_size=BS, max_batch=8, device=dev)
-        return sharded_mod.ShardedEngine(cfg, w, mesh, num_blocks=num_blocks, block_size=BS, max_batch=8)
+            return engine_mod.Engine(cfg, w, num_blocks=num_blocks, block_size=BS, max_batch=8, device=dev,
+                                     multi_step=ms)
+        return sharded_mod.ShardedEngine(cfg, w, mesh, num_blocks=num_blocks, block_size=BS, max_batch=8,
+                                         multi_step=ms)
 
     engine_mod.forward_step, sharded_mod.make_sharded_step = checked_forward, checked_make_step
+    if multi_step > 1:
+        llama_mod.forward_step = flagged_forward
     try:
-        warm = make_engine(64)
+        warm = make_engine(64, 1)
         warm.run([prompts[0]], max_new=2)  # cuBLAS and allocator warm-up
         del warm
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        eng = make_engine(NUM_BLOCKS)
-        rids = [eng.add_request(p, max_new=32) for p in prompts]
+        eng = make_engine(NUM_BLOCKS, multi_step)
+        rids = [eng.add_request(p, max_new=new_tokens) for p in prompts]
         prefill_logits.clear()
         kernels.reset_launch_counts()
-        prefill_s, decode_s, decode_tokens = [], [], 0
+        prefill_s, decode_s, decode_tokens, capture_dispatch_s = [], [], 0, None
         profiled = None
         while True:
             st = eng.stats
@@ -3717,7 +3810,7 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
                 profiled = DecodeProfile(torch, {
                     **{sub: k for sub, k in zip(("rope_store", "paged_decode", "paged_prefill"),
                                                 kernels_used) if k},
-                    **{k: k for k in MOE_CLASSES}, "allreduce_rmsnorm": "allreduce_rmsnorm"})
+                    **{k: k for k in MOE_CLASSES}, "allreduce_rmsnorm": "allreduce_rmsnorm"}, multi_step)
             torch.cuda.synchronize()
             t = time.perf_counter()
             if not eng.step():
@@ -3730,38 +3823,51 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
                 profiled.steps += 1
                 if profiled.steps == PROFILE_STEPS:
                     profiled.stop()
+            elif multi_step > 1 and n_dec == 0:  # the dispatch that captured the graph
+                capture_dispatch_s = dt
             else:  # profiled steps are left out of the step times
                 decode_s.append(dt)
-                decode_tokens += min(st["active"], eng.max_batch)
+                decode_tokens += eng.stats["tokens_out"] - st["tokens_out"]
         counts = kernels.launch_counts()
+        finite.append(flags.all())
     finally:
         engine_mod.forward_step, sharded_mod.make_sharded_step = base_forward, base_make_step
+        llama_mod.forward_step = base_model_forward
     outs = [eng.requests[r].out for r in rids]
     if not all(bool(f) for f in finite):
         raise AssertionError(f"{phase}: non-finite logits")
-    if not all(len(o) == 32 and all(0 <= x < cfg.vocab for x in o) for o in outs):
+    if not all(len(o) == new_tokens and all(0 <= x < cfg.vocab for x in o) for o in outs):
         raise AssertionError(f"{phase}: missing tokens or tokens outside the vocab")
     st = eng.stats
     n_pre, n_dec = st["prefill_dispatches"], st["decode_dispatches"]
+    # forward calls of the decode path: every dispatch runs multi_step steps,
+    # and the first of a captured run also its eager run before the capture
+    calls = n_dec * multi_step + (multi_step if multi_step > 1 else 0)
     ranks = 1 if mesh is None else mesh.shape["dp"] * mesh.shape["tp"]
-    per_step = {k: n * ranks for k, n in zip(kernels_used, (n_dec, n_dec, n_pre)) if k}
+    per_step = {k: n * ranks for k, n in zip(kernels_used, (calls, calls, n_pre)) if k}
     if cfg.moe is not None:  # every call, the scheme's MoE kernels in every layer
-        per_step.update({k: v * (n_dec + n_pre) * ranks for k, v in MOE_PER_CALL[cfg.moe.scheme].items()})
+        per_step.update({k: v * (calls + n_pre) * ranks for k, v in MOE_PER_CALL[cfg.moe.scheme].items()})
     if mesh is not None:  # two fused collectives a layer, one launch per tp group
-        per_step["allreduce_rmsnorm"] = 2 * (n_dec + n_pre) * mesh.shape["dp"]
+        per_step["allreduce_rmsnorm"] = 2 * (calls + n_pre) * mesh.shape["dp"]
     expect = {k: per_step.get(k, 0) * cfg.layers for k in counts}
     if counts != expect or min(counts[k] for k in per_step) == 0:
         raise AssertionError(f"{phase}: launch counts {counts} != expected {expect}")
     stats = dict(config=config, int8_kv=cfg.int8_kv, fp8_kv=cfg.fp8_kv, dense_int8=cfg.dense_int8,
                  kv_scale=cfg.kv_scale,
                  residual_alpha=cfg.residual_alpha, layers=cfg.layers, prompt_lens=lens,
-                 new_tokens=32, prefill_calls=n_pre, prefill_s_total=sum(prefill_s),
+                 new_tokens=new_tokens, prefill_calls=n_pre, prefill_s_total=sum(prefill_s),
                  prefill_s_each=prefill_s, prefill_tokens_per_s=sum(lens) / sum(prefill_s),
                  decode_steps=n_dec, decode_steps_timed=len(decode_s),
-                 decode_ms_per_step=1e3 * sum(decode_s) / len(decode_s),
+                 decode_ms_per_step=1e3 * sum(decode_s) / len(decode_s) / multi_step,
                  decode_tokens_per_s=decode_tokens / sum(decode_s),
                  max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
                  launches=counts, first_tokens=[o[:4] for o in outs])
+    if multi_step > 1:
+        graph = eng._multi if mesh is None else eng._multi.graph
+        stats.update(multi_step=multi_step, decode_dispatches=n_dec,
+                     decode_ms_per_dispatch=1e3 * sum(decode_s) / len(decode_s),
+                     capture_dispatch_s=capture_dispatch_s, graph=graph.stats,
+                     graph_launches_per_replay=graph.launches)
     return stats, counts, prefill_logits, eng, profiled
 
 
@@ -3854,6 +3960,107 @@ def slice_full_tp(dev, w, bf16_prefill_logits, bf16_tokens):
          collective_launches_per_call=counts["allreduce_rmsnorm"] / calls,
          greedy_tokens_equal_to_single_device=same / sum(len(x) for x in bf16_tokens), **stats)
     emit("decode_profile_tp", **profile)
+    return counts, tokens
+
+
+MULTI_STEP, MULTI_NEW = 8, 128  # slice_full_multi*: 1 prefill token + 16 dispatches of 8 steps
+MULTI_COMPARE = 32  # each request's first tokens held to the single-step run's
+
+
+def prompt_margin(cfg, prefill):
+    """``margin(tokens)``: the top-2 logit margin after a prefill of
+    ``tokens`` by ``prefill(tokens, seq_lens, q_index, table, caches, n)``
+    over fresh caches of its own."""
+    import torch
+
+    from hpc_ops_tpu_torch.utils.testing import top2_margin
+
+    def margin(tokens):
+        n = len(tokens)
+        nb = -(-n // BS)
+        t = lambda x: torch.tensor(x, dtype=torch.int32, device="cuda")  # noqa: E731
+        logits = prefill(t(tokens), t([n]), t([0, n]), t([list(range(nb))]), nb, n)
+        return top2_margin(logits.float().reshape(-1))
+
+    return margin
+
+
+def hold_to_single_step(phase, want, got, prompts, margin):
+    """Each request's first MULTI_COMPARE tokens of ``got`` (the multi-step
+    run) against ``want`` (the single-step run) by ``assert_greedy_match``:
+    a first difference is accepted only where ``margin`` (the reference's
+    top-2 logit margin there) is below 0.15, and the comparison stops there.
+    Returns (share of equal tokens, accepted flips)."""
+    from hpc_ops_tpu_torch.utils.testing import assert_greedy_match
+
+    flips, same = [], 0
+    for i, (p, w, g) in enumerate(zip(prompts, want, got)):
+        w, g = w[:MULTI_COMPARE], g[:MULTI_COMPARE]
+        try:
+            j = assert_greedy_match(w, g, lambda j, p=p, w=w: margin(p + w[:j]), ATOL_LOGITS)
+        except AssertionError as e:
+            raise AssertionError(f"{phase} request {i}: {e}") from None
+        if j is not None:
+            flips.append({"request": i, "step": j})
+        same += sum(a == b for a, b in zip(w, g))
+    return same / sum(len(w[:MULTI_COMPARE]) for w in want), flips
+
+
+def slice_full_multi(dev, w, bf16_tokens, mesh=None, ref_phase="slice_full"):
+    """Engine(llama3_8b, multi_step=8) (with ``mesh``: ShardedEngine over
+    it) at full width and depth over slice_full's weights and prompts, batch
+    8, greedy, 128 new tokens: each decode dispatch after the first is one
+    replay of the captured graph, its launches counted through the replays
+    (the collective at 2 x layers x steps); one device-to-host copy a
+    profiled dispatch; the capture's cost and the graph's pool; each
+    request's first 32 tokens held to ``ref_phase``'s run."""
+    import torch
+
+    from hpc_ops_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(residual_alpha=1.0 / 8)
+    phase = "slice_full_multi" if mesh is None else "slice_full_tp_multi"
+    stats, counts, _, eng, profiled = serve_full(dev, cfg, w, phase, BF16_KERNELS, mesh=mesh,
+                                                 multi_step=MULTI_STEP, new_tokens=MULTI_NEW)
+    profile = profiled.summary()
+    if profile["device_to_host_copies_per_dispatch"] != 1:
+        raise AssertionError(f"{phase}: a dispatch copies to the host "
+                             f"{profile['device_to_host_copies_per_dispatch']} times (expected 1)")
+    graph = stats["graph"]
+    if graph["host_memcpy_nodes"]:
+        raise AssertionError(f"{phase}: the graph holds {graph['host_memcpy_nodes']} host copies")
+    if mesh is not None and not (graph["collective_nodes"] == 2 * cfg.layers * MULTI_STEP
+                                 == stats["graph_launches_per_replay"]["allreduce_rmsnorm"]):
+        raise AssertionError(f"{phase}: {graph['collective_nodes']} collective nodes in the graph, "
+                             f"want {2 * cfg.layers * MULTI_STEP}")
+    tokens = [r.out for r in eng.requests.values()]
+    _, prompts = full_prompts(cfg.vocab)
+    if mesh is None:
+        def prefill(toks, lens, qi, tbl, nb, n):
+            caches = llama.init_cache(cfg, nb, BS, device=dev)
+            return llama.forward_step(eng.weights, caches, cfg, toks, lens, qi, tbl, is_prefill=True,
+                                      max_seqlens_q=n)[0]
+    else:
+        def prefill(toks, lens, qi, tbl, nb, n):
+            caches = [[llama.init_cache(cfg, nb, BS, tp=TP_FULL, device=dev) for _ in range(TP_FULL)]]
+            return llama.make_sharded_step(mesh, cfg, True, max_seqlens_q=n)(
+                eng.weights, caches, toks, lens, qi, tbl)[0]
+    share, flips = hold_to_single_step(phase, bf16_tokens, tokens, prompts, prompt_margin(cfg, prefill))
+    del eng
+    torch.cuda.empty_cache()
+    emit(phase, **{f"greedy_tokens_equal_to_{ref_phase}": share, "near_tie_flips": flips,
+                   "compared_tokens_per_request": MULTI_COMPARE, **stats})
+    emit("decode_profile_multi" if mesh is None else "decode_profile_tp_multi", **profile)
+    emit(f"{phase}_summary", decode_ms_per_step=stats["decode_ms_per_step"],
+         device_busy_ms_per_step=profile["device_busy_ms_per_step"], idle_share=profile["idle_share"],
+         device_busy_union_ms_per_step=profile["device_busy_union_ms_per_step"],
+         idle_share_union=profile["idle_share_union"],
+         launches_per_step=profile["kernel_launches_per_step"],
+         device_to_host_copies_per_dispatch=profile["device_to_host_copies_per_dispatch"],
+         capture_s=graph["capture_s"], instantiate_s=graph["instantiate_s"],
+         graph_pool_bytes=graph["pool_bytes"], peak_memory_bytes=stats["max_memory_allocated_bytes"],
+         graph_kernel_nodes=graph["kernel_nodes"], collective_nodes=graph["collective_nodes"],
+         collective_nodes_cooperative=graph["collective_nodes_cooperative"])
     return counts
 
 
@@ -4215,6 +4422,7 @@ def main() -> int:
     phase("slice_tiny_tp_moe", slice_tiny_tp, dev, "slice_tiny_tp_moe", moe=True)
 
     from hpc_ops_tpu_torch.models import llama
+    from hpc_ops_tpu_torch.parallel import make_mesh
 
     # one set of seeded weights (16 GB) serves four paths: int8_kv and fp8_kv
     # change no weight, dense_int8 quantises copies of them
@@ -4226,7 +4434,10 @@ def main() -> int:
     counts_int8 = phase("slice_full_int8", slice_full_int8, dev, w, bf16_prefill_logits)
     counts_fp8 = phase("slice_full_fp8", slice_full_fp8, dev, w, bf16_prefill_logits)
     counts_w8a8 = phase("slice_full_w8a8", slice_full_w8a8, dev, w, bf16_prefill_logits)
-    counts_tp = phase("slice_full_tp", slice_full_tp, dev, w, bf16_prefill_logits, bf16_tokens)
+    counts_tp, tp_tokens = phase("slice_full_tp", slice_full_tp, dev, w, bf16_prefill_logits, bf16_tokens)
+    counts_multi = phase("slice_full_multi", slice_full_multi, dev, w, bf16_tokens)
+    counts_tp_multi = phase("slice_full_tp_multi", slice_full_multi, dev, w, tp_tokens,
+                            make_mesh(tp=TP_FULL, dp=1, devices=[dev] * TP_FULL), "slice_full_tp")
     # the fp8 experts of the MoE model (45 GB) need the room of the llama3_8b weights
     del w, bf16_prefill_logits
     torch.cuda.empty_cache()
@@ -4234,9 +4445,10 @@ def main() -> int:
     counts_moe_int8 = phase("slice_full_moe_int8", slice_full_moe_int8, dev, fp8_moe_prefill_logits)
     counts_moe_bw = phase("slice_full_moe_bw", slice_full_moe_bw, dev, fp8_moe_prefill_logits)
     for r in rows:
-        # each kernel's launches on its own path's run
+        # each kernel's launches on its own path's run: the bf16 kernels'
+        # from slice_full_multi's, whose decode ran through graph replays
         by_path = counts_int8 if r["name"] in INT8_KERNELS else (
-            counts_moe if r["name"] in MOE_KERNELS else counts)
+            counts_moe if r["name"] in MOE_KERNELS else counts_multi)
         r["launches"] = by_path[r["name"]]
     # the e4m3 variants: the fp8_kv serving run launched the HND decode and
     # prefill; the other forms are reached by the operator entry points only
@@ -4277,10 +4489,11 @@ def main() -> int:
     for r in sparse_rows_ + norm_rows + route_rows:
         r["launches"] = {**launches_sparse, **launches_norm, **launches_route}.get(r["name"], 0)
     rows += sparse_rows_ + norm_rows + route_rows
-    # the fused collective: slice_full_tp's run launched the one_shot form
-    # (the model's); check_allreduce drove the two_shot form's entry points
+    # the fused collective: slice_full_tp_multi's run launched the one_shot
+    # form (the model's), its decode through graph replays; check_allreduce
+    # drove the two_shot form's entry points
     for r in allreduce_rows:
-        r["launches"] = (counts_tp["allreduce_rmsnorm"] if r["name"] == "allreduce_rmsnorm_one_shot"
+        r["launches"] = (counts_tp_multi["allreduce_rmsnorm"] if r["name"] == "allreduce_rmsnorm_one_shot"
                          else launches_allreduce.get(r["name"], 0))
     rows += allreduce_rows
     for r in rows:
@@ -4292,7 +4505,8 @@ def main() -> int:
          moe=counts_moe, moe_int8=counts_moe_int8, moe_bw=counts_moe_bw, ops_fp8=launches_ops,
          ops_moe=launches_moe_ops, ops_moe_bw=launches_moe_bw_ops, decode_fused=launches_fused,
          decode_sched=launches_sched, prefill_sparse=launches_sparse, rmsnorm_quant=launches_norm,
-         route_gemm=launches_route, tp=counts_tp, allreduce=launches_allreduce)
+         route_gemm=launches_route, tp=counts_tp, multi=counts_multi, tp_multi=counts_tp_multi,
+         allreduce=launches_allreduce)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

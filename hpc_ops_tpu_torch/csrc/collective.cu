@@ -22,7 +22,18 @@
 // first row a block polls the ready flags of all ws slabs at once (lane s of
 // warp 0 waits on ready[s], ld.acquire.gpu, bounded by about 1 s of
 // %globaltimer, then __trap); the counters only grow: a call waits for each
-// flag to reach its epoch, so nothing is reset between calls. The slabs are
+// flag to reach its epoch, so nothing is reset between calls. The epoch (the
+// calls completed on the pad) lives in the pad, not on the host: every
+// launch reads it there (with the flags' first load) and advances it by one
+// quantum (2^20) shared out among its blocks, each adding its share once it
+// has read the epoch (block (0, 0) the quantum less one for every other
+// block, the others one), so a value read while the launch runs rounds down
+// to the launch's own epoch and the last share completes it; two_shot's
+// done counts grow a quantum a call the same way. So a launch replayed from
+// a captured CUDA graph, whose arguments were frozen at capture, waits for
+// the right counts, eager calls and replays share one count, and no block
+// waits on a ticket (a last-block ticket cost 0.5-0.9 us a launch at the
+// decode shape). The slabs are
 // the callers' partials, which the next call cannot overwrite while this one
 // runs (the launch is stream-ordered after every rank's work, and every
 // rank's stream waits on it). The grid is sized from the occupancy query so
@@ -42,9 +53,9 @@
 //     acc = 0 + x_0 + x_1 + ... + x_{ws-1}, in absolute rank order.
 //   * two_shot: rank r's blocks own rows [r*C, (r+1)*C), C = n / ws: acc =
 //     x_r, then + x_s for s != r in absolute order; after its rows a block
-//     raises done[r] (one count per block), and block 0 of each rank waits
-//     until every owner's count reaches this call's total, the all-gather's
-//     completion.
+//     adds its share of the call's quantum to done[r], and block 0 of each
+//     rank waits until every owner's count reaches the next quantum, the
+//     all-gather's completion.
 // The row's sum of squares is taken in a fixed order that the plain version
 // (parallel/collective_kernels.py) repeats with tensor operations: thread t
 // adds, in float32 with no fused multiply-add, the squares of its chunks
@@ -83,10 +94,17 @@ struct RankTable {
   __nv_bfloat16* out_res[kMaxRanks];    // [n, h]
 };
 
+// The signal pad: kPadWords uint64 on the device, zero when first used and
+// kept for the group.
+constexpr int kPadWords = 2 * kMaxRanks + 1;
+// A launch adds one quantum to the epoch and (two_shot) to each rank's done
+// count, shared out among its blocks, so a value read while the launch runs
+// rounds down to the launch's own epoch.
+constexpr unsigned long long kQuantum = 1ull << 20;
 struct Signals {
   unsigned long long* ready;  // [kMaxRanks] slabs ready, one count per call
-  unsigned long long* done;   // [kMaxRanks] two_shot chunks written, one count per block
-  unsigned long long ready_target, done_target;
+  unsigned long long* done;   // [kMaxRanks] two_shot chunks written, a quantum per call
+  unsigned long long* epoch;  // calls completed on the pad, in quanta
 };
 
 __device__ __forceinline__ unsigned long long global_ns() {
@@ -115,9 +133,20 @@ __device__ __forceinline__ void spin_until(const unsigned long long* flag, unsig
   }
 }
 
-// Lanes 0 .. count - 1 of warp 0 wait on flags[lane]; then the block goes on.
-__device__ void wait_flags(const unsigned long long* flags, int count, unsigned long long target) {
-  if (threadIdx.x < count) spin_until(flags + threadIdx.x, target);
+__device__ __forceinline__ unsigned long long load_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Lanes 0 .. count - 1 of warp 0 wait until flags[lane] reaches the epoch
+// after the one in *epoch; then the block goes on. The epoch's load goes
+// out with the flag's first, so a flag already up costs one round trip.
+__device__ void wait_flags(const unsigned long long* flags, int count, const unsigned long long* epoch) {
+  if (threadIdx.x < count) {
+    const unsigned long long target = load_relaxed(epoch) / kQuantum + 1;
+    if (load_acquire(flags + threadIdx.x) < target) spin_until(flags + threadIdx.x, target);
+  }
   __syncthreads();
 }
 
@@ -166,10 +195,22 @@ __global__ void __launch_bounds__(kThreads) allreduce_rmsnorm_kernel(RankTable t
   const int nchunks = h / 8;
   extern __shared__ float4 w_s[];  // the norm weight [h / 4], staged while the flags are polled
   __shared__ float warp_s[kWarps];
+  __shared__ unsigned long long done_target_s;  // two_shot, block 0: every rank's done count to wait for
+  unsigned long long done_now = 0;  // two_shot, thread 0 of block 0: in flight with the flags' loads
   if (first < rows) {
     const float4* w = reinterpret_cast<const float4*>(t.w[rank]);
     for (int i = tid; i < h / 4; i += kThreads) w_s[i] = w[i];
-    wait_flags(sig.ready, ws, sig.ready_target);  // its __syncthreads publishes w_s
+    if (kTwoShot && blockIdx.x == 0 && tid == 0) done_now = load_relaxed(sig.done + rank);
+    wait_flags(sig.ready, ws, sig.epoch);  // its __syncthreads publishes w_s
+  }
+  // The block has read the epoch (every lane used its value before the
+  // barrier above): it adds its share of the launch's quantum, block (0, 0)
+  // the quantum less one for every other block. done[rank] cannot reach
+  // the next quantum before block 0's own count at its end.
+  if (tid == 0) {
+    const unsigned long long blocks = static_cast<unsigned long long>(gridDim.x) * gridDim.y;
+    if (kTwoShot && blockIdx.x == 0) done_target_s = (done_now / kQuantum + 1) * kQuantum;
+    atomicAdd(sig.epoch, blockIdx.x == 0 && blockIdx.y == 0 ? kQuantum - (blocks - 1) : 1ull);
   }
 
   for (int rr = first; rr < rows; rr += stride) {
@@ -244,15 +285,15 @@ __global__ void __launch_bounds__(kThreads) allreduce_rmsnorm_kernel(RankTable t
     __syncthreads();
     if (tid == 0) {
       __threadfence();
-      add_release(sig.done + rank, 1);
+      add_release(sig.done + rank, blockIdx.x == 0 ? kQuantum - (gridDim.x - 1) : 1ull);
     }
-    if (blockIdx.x == 0) wait_flags(sig.done, ws, sig.done_target);
+    if (blockIdx.x == 0 && tid < ws) spin_until(sig.done + tid, done_target_s);
   }
 }
 
 template <bool kTwoShot, bool kBf16Norm>
-int launch(const RankTable& t, Signals sig, unsigned long long* done_total, int ws, int n, int h,
-           float eps, int skew, cudaStream_t stream) {
+int launch(const RankTable& t, Signals sig, int ws, int n, int h, float eps, int skew,
+           cudaStream_t stream) {
   auto kernel = allreduce_rmsnorm_kernel<kTwoShot, kBf16Norm>;
   int per_sm = 0, dev = 0, sms = 0;
   const size_t smem = static_cast<size_t>(h) * sizeof(float);  // the staged weight
@@ -265,31 +306,25 @@ int launch(const RankTable& t, Signals sig, unsigned long long* done_total, int 
   // blocks a rank: two_shot one a row of its chunk, one_shot one a row of its share
   const int rows = kTwoShot ? n / ws : (n + ws - 1) / ws;
   const int nbx = rows < per_rank ? rows : per_rank;
-  sig.done_target = *done_total + static_cast<unsigned long long>(nbx);
   void* args[] = {const_cast<RankTable*>(&t), &sig, &ws, &n, &h, &eps, &skew};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(nbx, ws),
-                                  dim3(kThreads), args, smem, stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (kTwoShot) *done_total = sig.done_target;
-  return 0;
+  return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                                      dim3(nbx, ws), dim3(kThreads), args, smem,
+                                                      stream));
 }
 
 }  // namespace
 
 // x, res, out, out_res: host arrays of ws device pointers (each rank's [n, h]
 // bf16 partial, residual and outputs); w: ws device pointers to [h] float32.
-// signals: [2 * 8] uint64 on the device, zero when first used and kept for
-// the group (ready counts, then done counts). ready_target is this call's
-// epoch (the number of calls made on the pad, this one included); done_total
-// (host, in/out) is the running total of two_shot blocks per rank, advanced
-// when the launch succeeds. n % ws == 0 for two_shot; h % 8 == 0, h <= 8192;
+// signals: the group's pad, kPadWords uint64 on the device (ready counts,
+// done counts, epoch), zero when first used and kept for the group: every
+// launch reads its targets there and advances them, so the host keeps no
+// count. n % ws == 0 for two_shot; h % 8 == 0, h <= 8192;
 // 1 <= ws <= 8. Returns a cudaError_t code.
 extern "C" int hpc_allreduce_rmsnorm(const void* const* x, const void* const* res,
                                      const void* const* w, void* const* out, void* const* out_res,
-                                     void* signals, unsigned long long ready_target,
-                                     unsigned long long* done_total, int ws, int n, int h,
-                                     float eps, int two_shot, int bf16_norm, int skew,
-                                     void* stream) {
+                                     void* signals, int ws, int n, int h, float eps, int two_shot,
+                                     int bf16_norm, int skew, void* stream) {
   if (ws < 1 || ws > kMaxRanks || h % 8 != 0 || h <= 0 || h > kMaxChunks * 8 * kThreads ||
       (two_shot && n % ws != 0) || skew < 0 || signals == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -303,11 +338,74 @@ extern "C" int hpc_allreduce_rmsnorm(const void* const* x, const void* const* re
     t.out_res[r] = static_cast<__nv_bfloat16*>(out_res[r]);
   }
   unsigned long long* pad = static_cast<unsigned long long*>(signals);
-  const Signals sig{pad, pad + kMaxRanks, ready_target, 0};
+  const Signals sig{pad, pad + kMaxRanks, pad + 2 * kMaxRanks};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (two_shot)
-    return bf16_norm ? launch<true, true>(t, sig, done_total, ws, n, h, eps, skew, s)
-                     : launch<true, false>(t, sig, done_total, ws, n, h, eps, skew, s);
-  return bf16_norm ? launch<false, true>(t, sig, done_total, ws, n, h, eps, skew, s)
-                   : launch<false, false>(t, sig, done_total, ws, n, h, eps, skew, s);
+    return bf16_norm ? launch<true, true>(t, sig, ws, n, h, eps, skew, s)
+                     : launch<true, false>(t, sig, ws, n, h, eps, skew, s);
+  return bf16_norm ? launch<false, true>(t, sig, ws, n, h, eps, skew, s)
+                   : launch<false, false>(t, sig, ws, n, h, eps, skew, s);
+}
+
+// Whether a memcpy node's pointer is host memory.
+static bool on_host(const void* p) {
+  if (p == nullptr) return false;
+  cudaPointerAttributes a;
+  if (cudaPointerGetAttributes(&a, p) != cudaSuccess) {
+    cudaGetLastError();
+    return true;  // not known to the runtime: pageable host memory
+  }
+  return a.type == cudaMemoryTypeHost || a.type == cudaMemoryTypeUnregistered;
+}
+
+// The nodes of a captured CUDA graph (a cudaGraph_t, before it is
+// instantiated): counts[0] kernel nodes, counts[1] those of this file's
+// kernel, counts[2] those of them that the capture marked cooperative,
+// counts[3] memcpy nodes, counts[4] every node, counts[5] the memcpy nodes
+// that read or write host memory. Reads the graph only. Returns a
+// cudaError_t code.
+extern "C" int hpc_graph_node_counts(void* graph, int* counts) {
+  const cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t num = 0;
+  cudaError_t e = cudaGraphGetNodes(g, nullptr, &num);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[num > 0 ? num : 1];
+  e = cudaGraphGetNodes(g, nodes, &num);
+  const void* ours[] = {reinterpret_cast<const void*>(allreduce_rmsnorm_kernel<false, false>),
+                        reinterpret_cast<const void*>(allreduce_rmsnorm_kernel<false, true>),
+                        reinterpret_cast<const void*>(allreduce_rmsnorm_kernel<true, false>),
+                        reinterpret_cast<const void*>(allreduce_rmsnorm_kernel<true, true>)};
+  for (int i = 0; i < 6; ++i) counts[i] = 0;
+  for (size_t i = 0; e == cudaSuccess && i < num; ++i) {
+    ++counts[4];
+    cudaGraphNodeType type;
+    e = cudaGraphNodeGetType(nodes[i], &type);
+    if (e != cudaSuccess) break;
+    if (type == cudaGraphNodeTypeMemcpy) {
+      ++counts[3];
+      cudaMemcpy3DParms m;
+      e = cudaGraphMemcpyNodeGetParams(nodes[i], &m);
+      if (e != cudaSuccess) break;
+      if (m.kind == cudaMemcpyHostToDevice || m.kind == cudaMemcpyDeviceToHost ||
+          m.kind == cudaMemcpyHostToHost || on_host(m.srcPtr.ptr) || on_host(m.dstPtr.ptr))
+        ++counts[5];
+    }
+    if (type != cudaGraphNodeTypeKernel) continue;
+    ++counts[0];
+    cudaKernelNodeParams p;
+    if (cudaGraphKernelNodeGetParams(nodes[i], &p) != cudaSuccess) {
+      cudaGetLastError();  // a node launched through cuLaunchKernel (a library's kernel): not ours
+      continue;
+    }
+    bool mine = false;
+    for (const void* f : ours) mine = mine || p.func == f;
+    if (!mine) continue;
+    ++counts[1];
+    cudaLaunchAttributeValue v;
+    e = cudaGraphKernelNodeGetAttribute(nodes[i], cudaLaunchAttributeCooperative, &v);
+    if (e != cudaSuccess) break;
+    if (v.cooperative) ++counts[2];
+  }
+  delete[] nodes;
+  return static_cast<int>(e);
 }

@@ -62,7 +62,8 @@ _SIGNATURES = {
     "hpc_moe_reduce": [_P] * 5 + [_I] * 5 + [_P],
     "hpc_rmsnorm_quant": [_P, _P, _I] + [_P] * 4 + [_I] * 2 + [_F, _I, _P],
     "hpc_route_gemm": [_P] * 5 + [_I] * 4 + [_P] * 2 + [_I] * 3 + [_P],
-    "hpc_allreduce_rmsnorm": [_P] * 6 + [ctypes.c_uint64, _P] + [_I] * 3 + [_F] + [_I] * 3 + [_P],
+    "hpc_allreduce_rmsnorm": [_P] * 6 + [_I] * 3 + [_F] + [_I] * 3 + [_P],
+    "hpc_graph_node_counts": [_P, _P],
 }
 
 _LOCK = threading.Lock()
@@ -140,6 +141,30 @@ def count(wrapper) -> None:
     ranks launch from several threads)."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+
+
+def refuse_under_capture(what: str) -> None:
+    """Raise where a wrapper would make per-stream state (a buffer kept and
+    reused across calls) while the current stream is being captured into a
+    CUDA graph: the buffer would live in the graph's memory pool, and a
+    memset that zeroes it would be replayed. An eager run of the same work on
+    the same streams before the capture makes it."""
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} must be made before a CUDA graph capture: run the captured "
+                           "work once eagerly on the same streams first")
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` ({wrapper name: launches}, as :func:`launch_counts`
+    gives them) to the wrappers' counts: a captured CUDA graph counts its
+    kernels so at each replay, where no wrapper runs (and takes back the
+    counts its capture made, which launched nothing)."""
+    by_name = wrappers()
+    with _COUNT_LOCK:
+        for name, n in counts.items():
+            by_name[name].launches += n
 
 
 def check(rc: int, name: str) -> None:
@@ -227,8 +252,10 @@ __all__ = [
     "lib",
     "check",
     "count",
+    "refuse_under_capture",
     "stream_ptr",
     "wrappers",
     "reset_launch_counts",
     "launch_counts",
+    "add_launches",
 ]

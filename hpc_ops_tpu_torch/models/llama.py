@@ -544,22 +544,30 @@ def decode_multi(
     axis_name: Optional[str] = None,
     rank_ep: int = 0,
     return_logprobs: bool = False,
+    generator: Optional[torch.Generator] = None,
 ):
     """``num_steps`` decode steps in a loop: forward, sample, append to the
-    cache, feed the token back (the JAX version is one ``lax.scan``).
+    cache, feed the token back (the JAX version is one ``lax.scan``). On a
+    card :class:`~hpc_ops_tpu_torch.runtime.decode_graph.DecodeMultiGraph`
+    captures this loop as one CUDA graph; the loop itself is the CPU path and
+    the graph's reference.
 
     The caller pre-extends each page table to cover ``seq_lens + num_steps -
     1`` slots. Greedy matches single-step decode token for token;
-    temperature > 0 draws each step's Gumbel noise from a ``torch.Generator``
-    seeded with ``sample_seed`` (other numbers than JAX's).
+    temperature > 0 draws each step's Gumbel noise from ``generator`` as the
+    caller seeded it, or else from a ``torch.Generator`` seeded with
+    ``sample_seed`` (other numbers than JAX's).
 
     Returns ``(tokens [num_steps, B] int32, caches)``, or with
-    ``return_logprobs`` ``((tokens, logprobs [num_steps, B] f32), caches)``.
+    ``return_logprobs`` ``((tokens, logprobs [num_steps, B] f32), caches)``:
+    the log-softmax of the logits at each sampled token.
     """
     b = seq_lens.shape[0]
     dev = last_tokens.device
     q_index = torch.arange(b + 1, dtype=torch.int32, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(int(sample_seed)) if temperature > 0 else None
+    gen = generator
+    if gen is None and temperature > 0:
+        gen = torch.Generator(device=dev).manual_seed(int(sample_seed))
     toks = last_tokens.to(torch.int32)
     lens = seq_lens.to(torch.int32)
     out, lps = [], []
@@ -721,6 +729,105 @@ def make_sharded_step(mesh, cfg: ModelConfig, is_prefill: bool = False, **fw_kw)
     return step
 
 
+def _sharded_multi_body(mesh, cfg: ModelConfig, num_steps: int, return_logprobs: bool,
+                        temperature: float, weights, caches):
+    """The eager body of :func:`make_sharded_multi_step` over fixed weights
+    and caches, as :class:`~hpc_ops_tpu_torch.runtime.decode_graph.DecodeMultiGraph`
+    takes it: rank r of dp shard d runs :func:`decode_multi` on the shard's
+    rows with ``generators[d * tp + r]``; returns each dp shard's tp rank 0
+    tokens (and logprobs), concatenated over the shards."""
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+
+    def body(last_tokens, seq_lens, block_ids, generators):
+        tok, lens = (t.reshape(dp, -1) for t in (last_tokens, seq_lens))
+        tbl = block_ids.reshape(dp, -1, block_ids.shape[-1])
+
+        def rank(group, d):
+            dev = group.device
+            out, _ = decode_multi(
+                weights[group.rank], caches[d][group.rank], cfg, tok[d].to(dev), lens[d].to(dev),
+                tbl[d].to(dev), num_steps, temperature=temperature, axis_name=group, rank_ep=group.rank,
+                return_logprobs=return_logprobs,
+                generator=None if generators is None else generators[d * tp + group.rank])
+            return out
+
+        firsts = [row[0] for row in run_ranks(mesh, rank)]
+        if return_logprobs:
+            return tuple(torch.cat([f[i] for f in firsts], dim=1) for i in range(2))
+        return torch.cat(firsts, dim=1)
+
+    return body
+
+
+def _addresses(tree) -> tuple:
+    """The data addresses of the tensors in a tree of lists and dicts."""
+    if isinstance(tree, torch.Tensor):
+        return (tree.data_ptr(),)
+    if isinstance(tree, (list, tuple, dict)):
+        return tuple(a for x in (tree.values() if isinstance(tree, dict) else tree) for a in _addresses(x))
+    return ()
+
+
+class _ShardedMultiStep:
+    """:func:`make_sharded_multi_step`'s step. An object, not a closure: a
+    closure that reached itself (``step.graph``) would be a reference cycle,
+    keeping the weights and caches it holds alive until a collection."""
+
+    def __init__(self, mesh, cfg: ModelConfig, num_steps: int, return_logprobs: bool, temperature: float):
+        self.mesh, self.cfg, self.num_steps = mesh, cfg, num_steps
+        self.return_logprobs, self.temperature = return_logprobs, temperature
+        self.graph = None
+        self._served = None  # the first call's batch shape, weights and cache addresses
+
+    def __call__(self, weights, caches, last_tokens, seq_lens, block_ids, sample_seed=0, to_host=False):
+        from hpc_ops_tpu_torch.runtime.decode_graph import DecodeMultiGraph
+
+        dp, tp = self.mesh.shape["dp"], self.mesh.shape["tp"]
+        for t in (last_tokens, seq_lens, block_ids):
+            if t.shape[0] % dp:
+                raise ValueError(f"a data array of {t.shape[0]} rows does not split over dp={dp}")
+        shape, addresses = tuple(block_ids.shape), _addresses(caches)
+        if self.graph is None:
+            self._served = shape, weights, addresses
+            self.graph = DecodeMultiGraph(
+                _sharded_multi_body(self.mesh, self.cfg, self.num_steps, self.return_logprobs,
+                                    self.temperature, weights, caches),
+                shape[0], shape[1], self.num_steps, self.mesh.device, ranks=dp * tp,
+                temperature=self.temperature, return_logprobs=self.return_logprobs)
+        elif (shape, addresses) != (self._served[0], self._served[2]) or weights is not self._served[1]:
+            raise ValueError("a multi-step step serves the weights, caches and batch shape of its first call")
+        if to_host:
+            return self.graph(last_tokens, seq_lens, block_ids, int(sample_seed)), caches
+        return self.graph.replay(last_tokens, seq_lens, block_ids, int(sample_seed)), caches
+
+
+def make_sharded_multi_step(mesh, cfg: ModelConfig, num_steps: int, return_logprobs: bool = False,
+                            temperature: float = 0.0):
+    """The sharded counterpart of :func:`decode_multi`, with
+    :func:`make_sharded_step`'s data conventions: ``step(weights, caches,
+    last_tokens, seq_lens, block_ids, sample_seed) -> (out, caches)``, the
+    rows (``last_tokens`` [rows], ``seq_lens`` [rows], ``block_ids`` [rows,
+    max_blocks]) split evenly over the dp shards; every rank runs
+    :func:`decode_multi` with ``axis_name`` its rank group and ``rank_ep`` its
+    tp rank; ``out`` is the tokens [num_steps, rows] int32, or with
+    ``return_logprobs`` (tokens, logprobs [num_steps, rows] float32),
+    concatenated over the dp shards. Each rank draws its noise from a
+    generator seeded with ``sample_seed``, so every rank samples the same
+    tokens.
+
+    A step serves the weights, caches and batch shape of its first call and
+    raises for others. On a card the whole mesh's ``num_steps`` steps are ONE
+    CUDA graph (:class:`~hpc_ops_tpu_torch.runtime.decode_graph.DecodeMultiGraph`,
+    ``step.graph`` after the first call), captured at the first call and
+    replayed at the next: the caches are written in place, and ``out`` lies
+    in the graph's static output buffer, which the next call overwrites.
+    With ``to_host=True`` the step returns ``out`` as numpy arrays from one
+    device-to-host copy ((tokens, logprobs or None)). On CPU ranks each call
+    runs the loop."""
+    check_supported(cfg)
+    return _ShardedMultiStep(mesh, cfg, num_steps, return_logprobs, temperature)
+
+
 __all__ = [
     "ModelConfig",
     "MoEConfig",
@@ -733,6 +840,7 @@ __all__ = [
     "forward_step",
     "decode_multi",
     "make_sharded_step",
+    "make_sharded_multi_step",
     "shard_weights",
     "shard_weights_specs",
     "repack_qkv_for_tp",

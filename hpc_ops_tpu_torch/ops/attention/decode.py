@@ -102,6 +102,7 @@ def _split_buffers(q, batch, hkv, sq, dv, splits):
     key = (q.device.index, kernels.stream_ptr(q))
     tickets = _TICKETS.get(key)
     if tickets is None or tickets.numel() < segs:
+        kernels.refuse_under_capture("the decode kernel's ticket buffer")
         tickets = torch.zeros(max(segs, 4096), dtype=torch.int32, device=q.device)
         _TICKETS[key] = tickets
     return ws, tickets

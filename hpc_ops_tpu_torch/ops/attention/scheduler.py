@@ -313,11 +313,16 @@ def print_attention_decode_task(tm: TaskMap) -> None:
         print(f"task:{t} ibatch:{bi} ihead_kv:{h} tile_start:{ts} num_tiles:{nt} seg:{sg}")
 
 
+
+# the JAX package's name for the scheduler that runs on the device
+assign_decode_tasks_jnp = assign_decode_tasks_torch
+
 __all__ = [
     "TaskMap",
     "task_capacity",
     "assign_decode_tasks_np",
     "assign_decode_tasks_torch",
+    "assign_decode_tasks_jnp",
     "assign_decode_tasks_native",
     "assign_attention_decode_task",
     "select_decode_mode",

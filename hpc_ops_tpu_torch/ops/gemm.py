@@ -115,6 +115,8 @@ def _split_buffers(key, x, form):
     if form.splits == 1:
         return 0, 0
     ws, tickets = _BUFFERS.get(key, (None, None))
+    if ws is None or ws.numel() < form.workspace or tickets is None or tickets.numel() < form.tiles:
+        kernels.refuse_under_capture("the route GEMM's split workspace")
     if ws is None or ws.numel() < form.workspace:
         ws = torch.empty(form.workspace, dtype=torch.float32, device=x.device)
     if tickets is None or tickets.numel() < form.tiles:

@@ -588,6 +588,18 @@ for _w in (gg_bw_scatter, gg_bw_aligned):
     _w.launches = 0
 
 
+def gg_blockwise_prescale_aligned(x_al, weight, sx_al, sw_compact, grp, row_blk, tm, tn,
+                                  interpret=False, num_valid_tiles=None):
+    """The JAX package's aligned-rows blockwise entry (its scheme
+    "prescale"): :func:`gg_bw_aligned` under JAX's signature. ``x_al`` [rows,
+    K] int8 or e4m3 codes in tm-aligned group blocks, ``sx_al`` [rows, >=
+    K/128] and ``sw_compact`` [G, N/128, >= K/128] float32 scales; returns
+    [rows, N] bf16. ``tn`` and ``interpret`` are TPU hints, accepted and
+    unused."""
+    del tn, interpret
+    return gg_bw_aligned(x_al, weight, sx_al, sw_compact, grp, row_blk, tm, num_valid_tiles)
+
+
 # --------------------------------------------------------------- public API
 
 
@@ -877,4 +889,5 @@ __all__ = [
     "gg_bw_scatter_ref",
     "gg_bw_aligned",
     "gg_bw_aligned_ref",
+    "gg_blockwise_prescale_aligned",
 ]

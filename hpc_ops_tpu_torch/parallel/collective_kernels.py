@@ -96,15 +96,26 @@ def _allreduce_rmsnorm_ref(xs, residual, weight, eps, mode, bf16_norm):
     return out, out_res.to(torch.bfloat16)
 
 
+PAD_WORDS = 2 * MAX_RANKS + 1  # csrc/collective.cu kPadWords
+_QUANTUM = 1 << 20  # csrc/collective.cu kQuantum: a launch's share of the epoch
+_EPOCH = 2 * MAX_RANKS  # the pad's word counting the calls completed on it
+
+
 class _SignalPad:
     """A group's signal pad on its card: ready and done counters that only
-    grow, the number of calls made on them and the running total of two_shot
-    blocks per rank (the kernel's ``ready_target`` and ``done_total``)."""
+    grow and the epoch (calls completed on the pad, in quanta of 2^20), all
+    in device memory. Every launch reads its targets from the pad and its
+    blocks advance them, so a launch replayed from a captured graph counts
+    as an eager one does. Made before any capture that uses it (a pad made
+    during a capture would live in the graph's memory pool)."""
 
     def __init__(self, device):
-        self.pad = torch.zeros((2 * MAX_RANKS,), dtype=torch.int64, device=device)
-        self.calls = 0
-        self.done_total = ctypes.c_uint64(0)
+        kernels.refuse_under_capture("a collective's signal pad")
+        self.pad = torch.zeros((PAD_WORDS,), dtype=torch.int64, device=device)
+
+    def epoch(self) -> int:
+        """Calls completed on the pad (reads the device: synchronises)."""
+        return int(self.pad[_EPOCH]) // _QUANTUM
 
 
 def _check_mode(mode, n, ws, rows_multiple):
@@ -156,12 +167,10 @@ def allreduce_rmsnorm(xs, residuals, weights, outs, out_ress, eps: float, mode: 
     ptrs = [(ctypes.c_void_p * ws)(*(t.data_ptr() for t in g)) for g in (*groups, weights)]
     x_p, res_p, out_p, ores_p, w_p = (ctypes.cast(p, ctypes.c_void_p) for p in ptrs)
     rc = kernels.lib().hpc_allreduce_rmsnorm(
-        x_p, res_p, w_p, out_p, ores_p, signals.pad.data_ptr(), signals.calls + 1,
-        ctypes.addressof(signals.done_total), ws, n, h, float(eps), int(mode == "two_shot"),
-        int(bool(bf16_norm)), int(skew), kernels.stream_ptr(xs[0]),
+        x_p, res_p, w_p, out_p, ores_p, signals.pad.data_ptr(), ws, n, h, float(eps),
+        int(mode == "two_shot"), int(bool(bf16_norm)), int(skew), kernels.stream_ptr(xs[0]),
     )
     kernels.check(rc, "hpc_allreduce_rmsnorm")
-    signals.calls += 1
     kernels.count(allreduce_rmsnorm)
 
 

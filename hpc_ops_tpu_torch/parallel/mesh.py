@@ -62,10 +62,15 @@ class Mesh:
         return self.devices.flat[0]
 
     def _runtime(self):
+        """Each rank's thread (an executor of one worker, so that a rank always
+        runs on the same thread: per-thread state such as the cuBLAS handle
+        made for the rank's stream is made once, by an eager call, and found
+        again when that work is captured into a CUDA graph), and the groups."""
         with self._lock:
             if self._pool is None:
                 dp, tp = self.devices.shape
-                self._pool = ThreadPoolExecutor(max_workers=dp * tp, thread_name_prefix="tp-rank")
+                self._pool = [[ThreadPoolExecutor(max_workers=1, thread_name_prefix=f"tp-rank-{d}-{r}")
+                               for r in range(tp)] for d in range(dp)]
                 self._groups = [
                     [RankGroup(r, tp, self.devices[d, r],
                                torch.cuda.Stream(self.devices[d, r]) if self.device.type == "cuda"
@@ -247,7 +252,7 @@ def run_ranks(mesh: Mesh, fn) -> list:
         finally:
             mesh.baton.release()
 
-    futures = [[pool.submit(task, g, d) for g in groups[d]] for d in range(len(groups))]
+    futures = [[pool[d][g.rank].submit(task, g, d) for g in groups[d]] for d in range(len(groups))]
     results, first, peer = [], None, None
     for row in futures:
         out_row = []

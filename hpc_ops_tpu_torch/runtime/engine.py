@@ -9,11 +9,26 @@ exactly the prompt's (or chunk's) rows. Decode still runs the full
 ``max_batch``, with dummy slots parked on a reserved page, so every decode
 step has one shape.
 
+Fused multi-step decode (``multi_step`` > 1), as in the JAX engine: a
+dispatch runs ``multi_step`` decode steps of a fixed batch
+(:func:`~hpc_ops_tpu_torch.models.llama.decode_multi`), each request's page
+table pre-extended by ``multi_step - 1`` slots, tokens past ``max_new`` or a
+stop token dropped. On a card the steps are one CUDA graph
+(:class:`~hpc_ops_tpu_torch.runtime.decode_graph.DecodeMultiGraph`), captured
+at the first multi-step dispatch and kept by the engine: a dispatch is one
+host-to-device copy, one replay and one device-to-host copy. Prefill stays
+eager, and chunked prefill still interleaves with the dispatches.
+
+``logprobs``: each output token's log-softmax under the logits it was sampled
+from (``Request.logprobs``), computed on the device and copied with the
+tokens, one device-to-host copy a step.
+
 Ported: ``add_request`` (n=1) with its capacity check, continuous batching,
 whole-prompt and chunked prefill (``prefill_chunk``), greedy and
-engine-level temperature sampling, stop tokens, ``cancel``, ``stats``,
-``step`` and ``run``. The other features of the JAX engine raise
-``NotImplementedError`` naming ROADMAP queue 1 item 1.
+engine-level temperature sampling, stop tokens, ``multi_step``,
+``logprobs``, ``cancel``, ``stats``, ``step`` and ``run``. The other
+features of the JAX engine raise ``NotImplementedError`` naming ROADMAP
+queue 1 item 1.
 """
 
 from __future__ import annotations
@@ -26,11 +41,13 @@ import torch
 from hpc_ops_tpu_torch.models.llama import (
     ModelConfig,
     check_supported,
+    decode_multi,
     forward_step,
     init_cache,
 )
 from hpc_ops_tpu_torch.ops.sampler import fused_sampler
 from hpc_ops_tpu_torch.runtime import PagedBlockAllocator
+from hpc_ops_tpu_torch.runtime.decode_graph import DecodeMultiGraph
 
 __all__ = ["Engine", "Request"]
 
@@ -46,10 +63,35 @@ class Request:
     done: bool = False
     prefilled: int = 0  # prompt tokens already written to the KV cache
     stop: frozenset = frozenset()  # sampling any of these ends the request
+    logprobs: list = field(default_factory=list)  # per output token, with logprobs=True
 
     @property
     def tokens(self) -> list:
         return self.prompt + self.out
+
+
+def sample_rows(logits: torch.Tensor, temperature: float, seed: int, logprobs: bool):
+    """Sample one token a row of ``logits`` [rows, vocab]: greedy, or at
+    ``temperature`` with noise seeded from ``seed``. Returns (tokens,
+    logprobs or None) as host lists, from one device-to-host copy: with
+    ``logprobs`` each token's log-softmax under its row's logits, computed on
+    the device and packed with the tokens."""
+    if temperature <= 0.0:
+        toks = torch.argmax(logits, dim=-1).to(torch.int32)
+    else:
+        toks, _ = fused_sampler(logits, temperature=float(temperature), seed=seed)
+        toks = toks.reshape(-1).to(torch.int32)
+    if not logprobs:
+        return toks.tolist(), None
+    lp = torch.log_softmax(logits.float(), dim=-1).gather(1, toks.long()[:, None])[:, 0]
+    host = torch.stack([toks, lp.view(torch.int32)]).cpu().numpy()
+    return host[0].tolist(), host[1].view(np.float32).tolist()
+
+
+def next_seed(seed: int, calls: int) -> int:
+    """The seed of a sampling call: a per-call counter folded into the
+    engine's seed, so calls draw different noise (the JAX engine's rule)."""
+    return (seed + 0x9E3779B9 * calls) % (2**31)
 
 
 def _to_device(tree, device):
@@ -58,6 +100,21 @@ def _to_device(tree, device):
     if isinstance(tree, list):
         return [_to_device(v, device) for v in tree]
     return tree.to(device)
+
+
+def _append_runs(requests: dict, rids, toks: np.ndarray, lps, finish) -> None:
+    """Append a fused run's tokens ``toks`` [steps, slots] (and logprobs) to
+    the requests of the slots, each up to its ``max_new`` or stop token."""
+    for i, rid in enumerate(rids):
+        req = requests[rid]
+        for j in range(toks.shape[0]):
+            if req.done or len(req.out) >= req.max_new:
+                break
+            req.out.append(int(toks[j, i]))
+            if lps is not None:
+                req.logprobs.append(float(lps[j, i]))
+            finish(req)
+        finish(req)
 
 
 class Engine:
@@ -93,19 +150,19 @@ class Engine:
     ):
         deferred = {
             "speculative_k": speculative_k != 0 or draft_fn is not None,
-            "multi_step > 1": multi_step != 1,
             "prefix_cache": prefix_cache,
             "topk/topp/repetition_penalty/softmax_policy": (
                 topk != 0 or topp != 0.0 or repetition_penalty != 0.0
                 or softmax_policy is not None
             ),
-            "logprobs": logprobs,
         }
         for name, on in deferred.items():
             if on:
                 raise NotImplementedError(f"Engine({name}) {_LATER}")
         if prefill_chunk is not None and prefill_chunk <= 0:
             raise ValueError("prefill_chunk must be positive")
+        if multi_step < 1:
+            raise ValueError("multi_step must be at least 1")
         check_supported(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -121,6 +178,9 @@ class Engine:
         self.prefill_chunk = prefill_chunk
         self._prefer_decode = False
         self.stop_tokens = frozenset(map(int, stop_tokens))
+        self.multi_step = multi_step
+        self.logprobs = logprobs
+        self._multi = None  # the fused multi-step decode, made at its first dispatch
         self._sample_calls = 0
         self._prefill_dispatches = 0
         self._decode_dispatches = 0
@@ -145,7 +205,7 @@ class Engine:
             raise NotImplementedError(f"add_request(n > 1) {_LATER}")
         if temperature is not None or topk is not None or topp is not None:
             raise NotImplementedError(f"per-request sampling params {_LATER}")
-        need = len(prompt_ids) + max_new
+        need = len(prompt_ids) + max_new + self.multi_step - 1  # a fused run's slack
         cap = self.max_blocks_per_seq * self.block_size
         if need > cap:
             raise ValueError(
@@ -180,14 +240,12 @@ class Engine:
             pass  # never prefilled: it holds no pages
 
     # --------------------------------------------------------------- steps
-    def _sample(self, logits: torch.Tensor) -> list:
-        if self.temperature <= 0.0:
-            return torch.argmax(logits, dim=-1).tolist()
-        # fold a step counter into the seed so steps draw different noise
-        self._sample_calls += 1
-        seed = (self.seed + 0x9E3779B9 * self._sample_calls) % (2**31)
-        toks, _ = fused_sampler(logits, temperature=float(self.temperature), seed=seed)
-        return toks.reshape(-1).tolist()
+    def _sample(self, logits: torch.Tensor):
+        """(tokens, logprobs or None) of each row, one device-to-host copy."""
+        if self.temperature > 0.0:
+            self._sample_calls += 1
+        return sample_rows(logits, self.temperature, next_seed(self.seed, self._sample_calls),
+                           self.logprobs)
 
     def _table(self, rid: int) -> np.ndarray:
         return self.alloc.table(rid, pad_to=self.max_blocks_per_seq)
@@ -218,7 +276,10 @@ class Engine:
         req.prefilled = start + n
         if req.prefilled < total:
             return False
-        req.out.append(int(self._sample(logits.reshape(1, -1))[0]))
+        toks, lps = self._sample(logits.reshape(1, -1))
+        req.out.append(int(toks[0]))
+        if lps is not None:
+            req.logprobs.append(lps[0])
         self._active.append(rid)
         self._finish_if_done(req)
         return True
@@ -232,7 +293,10 @@ class Engine:
                 self._active.remove(req.rid)
             self._release(req.rid)
 
-    def _decode_batch(self) -> None:
+    def _batch_inputs(self, slack: int):
+        """The decode batch's rids and its [max_batch] inputs (last tokens,
+        lengths, page tables), each request's table extended to cover
+        ``slack`` more slots; dummy slots sit on the reserved page."""
         rids = self._active[: self.max_batch]
         b = self.max_batch
         tokens = np.zeros((b,), np.int32)
@@ -241,10 +305,15 @@ class Engine:
         for i, rid in enumerate(rids):
             req = self.requests[rid]
             new_len = len(req.tokens)
-            self.alloc.extend(rid, new_len)
+            self.alloc.extend(rid, new_len + slack)
             tokens[i] = req.tokens[-1]
             seq_lens[i] = new_len
             tables[i] = self._table(rid)
+        return rids, tokens, seq_lens, tables
+
+    def _decode_batch(self) -> None:
+        rids, tokens, seq_lens, tables = self._batch_inputs(0)
+        b = self.max_batch
         logits, self.caches = forward_step(
             self.weights, self.caches, self.cfg,
             token_ids=self._tensor(tokens),
@@ -254,11 +323,46 @@ class Engine:
             is_prefill=False,
             max_seqlens_q=1,
         )
-        toks = self._sample(logits)
+        toks, lps = self._sample(logits)
         for i, rid in enumerate(rids):
             req = self.requests[rid]
             req.out.append(int(toks[i]))
+            if lps is not None:
+                req.logprobs.append(lps[i])
             self._finish_if_done(req)
+
+    def _decode_multi_fn(self) -> DecodeMultiGraph:
+        """The engine's fused multi-step decode over its weights and caches
+        (captured on a card at its first dispatch)."""
+        if self._multi is None:
+            # no reference to the engine: a cycle would keep its weights and
+            # caches alive after the engine is dropped, until a collection
+            weights, caches, cfg, steps = self.weights, self.caches, self.cfg, self.multi_step
+            temperature, logprobs = self.temperature, self.logprobs
+
+            def body(last_tokens, seq_lens, block_ids, generators):
+                out, _ = decode_multi(
+                    weights, caches, cfg, last_tokens, seq_lens, block_ids, steps,
+                    temperature=temperature, return_logprobs=logprobs,
+                    generator=None if generators is None else generators[0])
+                return out
+
+            self._multi = DecodeMultiGraph(
+                body, self.max_batch, self.max_blocks_per_seq, self.multi_step, self.device,
+                temperature=self.temperature, return_logprobs=self.logprobs)
+        return self._multi
+
+    def _decode_batch_multi(self) -> None:
+        """One fused ``multi_step``-step decode dispatch: the batch membership
+        is fixed for the run; a request that reaches ``max_new`` or a stop
+        token mid-run drops the surplus tokens (its page-table slack covered
+        their cache writes)."""
+        rids, tokens, seq_lens, tables = self._batch_inputs(self.multi_step - 1)
+        # a per-run seed: a fixed one would replay the same noise every run
+        self._sample_calls += 1
+        toks, lps = self._decode_multi_fn()(tokens, seq_lens, tables,
+                                            next_seed(self.seed, self._sample_calls))
+        _append_runs(self.requests, rids, toks, lps, self._finish_if_done)
 
     @property
     def stats(self) -> dict:
@@ -290,7 +394,10 @@ class Engine:
         self._prefer_decode = False
         if self._active:
             self._decode_dispatches += 1
-            self._decode_batch()
+            if self.multi_step > 1:
+                self._decode_batch_multi()
+            else:
+                self._decode_batch()
             return True
         return False
 

@@ -16,11 +16,18 @@ JAX's power-of-two buckets). Token rows move host <-> device as small int32
 arrays, one device-to-host copy a step (the sampled tokens); weights and
 caches stay on the mesh.
 
+With ``multi_step`` > 1 a decode round is one fused run of ``multi_step``
+steps over the whole mesh (:func:`~hpc_ops_tpu_torch.models.llama.
+make_sharded_multi_step`): on a card ONE CUDA graph for every rank of
+the mesh, captured at the first such round and replayed at the next, one
+host-to-device and one device-to-host copy a round; the Engine's rules
+(slack, fixed batch, surplus tokens dropped). ``logprobs`` records each
+output token's log-softmax, copied with the tokens.
+
 Ported: ``add_request`` with its capacity check, least-loaded shard
 assignment, whole-prompt and chunked prefill (``prefill_chunk``), greedy and
-engine-level temperature sampling, stop tokens, ``stats``, ``step`` and
-``run``. ``multi_step > 1`` and ``logprobs`` raise ``NotImplementedError``
-(ROADMAP queue 1 items 1a and 1b).
+engine-level temperature sampling, stop tokens, ``multi_step``,
+``logprobs``, ``stats``, ``step`` and ``run``.
 """
 
 from __future__ import annotations
@@ -32,12 +39,12 @@ from hpc_ops_tpu_torch.models.llama import (
     ModelConfig,
     check_supported,
     init_cache,
+    make_sharded_multi_step,
     make_sharded_step,
     shard_weights,
 )
-from hpc_ops_tpu_torch.ops.sampler import fused_sampler
 from hpc_ops_tpu_torch.runtime import PagedBlockAllocator
-from hpc_ops_tpu_torch.runtime.engine import Request
+from hpc_ops_tpu_torch.runtime.engine import Request, _append_runs, next_seed, sample_rows
 
 __all__ = ["ShardedEngine"]
 
@@ -63,15 +70,10 @@ class ShardedEngine:
         temperature: float = 0.0,
         seed: int = 0,
     ):
-        if multi_step != 1:
-            raise NotImplementedError(
-                "ShardedEngine(multi_step > 1) is not ported yet: ROADMAP queue 1 item 1a "
-                "(a captured decode step)")
-        if logprobs:
-            raise NotImplementedError(
-                "ShardedEngine(logprobs) is not ported yet: ROADMAP queue 1 item 1b")
         if prefill_chunk is not None and prefill_chunk <= 0:
             raise ValueError("prefill_chunk must be positive")
+        if multi_step < 1:
+            raise ValueError("multi_step must be at least 1")
         check_supported(cfg)
         self.cfg = cfg
         self.mesh = mesh
@@ -83,6 +85,11 @@ class ShardedEngine:
         self.prefill_chunk = prefill_chunk
         self._prefer_decode = False
         self.stop_tokens = frozenset(map(int, stop_tokens))
+        # fused multi-step decode over the mesh: Engine(multi_step)'s rules
+        self.multi_step = multi_step
+        self.logprobs = logprobs
+        self._multi = (make_sharded_multi_step(mesh, cfg, multi_step, return_logprobs=logprobs,
+                                               temperature=temperature) if multi_step > 1 else None)
         self.temperature = temperature
         self.seed = seed
         self._sample_calls = 0
@@ -110,7 +117,7 @@ class ShardedEngine:
     def add_request(self, prompt_ids, max_new: int = 16, stop=None) -> int:
         """Queue a request and return its rid. Raises ValueError when its KV
         footprint cannot fit ``max_blocks_per_seq``."""
-        need = len(prompt_ids) + max_new
+        need = len(prompt_ids) + max_new + self.multi_step - 1  # a fused run's slack
         cap = self.max_blocks_per_seq * self.block_size
         if need > cap:
             raise ValueError(
@@ -130,15 +137,13 @@ class ShardedEngine:
     def _table(self, shard: int, rid: int) -> np.ndarray:
         return self.allocs[shard].table(rid, pad_to=self.max_blocks_per_seq)
 
-    def _sample(self, logits: torch.Tensor) -> list:
+    def _sample(self, logits: torch.Tensor):
         """Greedy argmax, or temperature sampling with a seed advanced per
-        dispatch; one device-to-host copy."""
-        if self.temperature <= 0.0:
-            return torch.argmax(logits, dim=-1).tolist()
-        self._sample_calls += 1
-        seed = (self.seed + 0x9E3779B9 * self._sample_calls) % (2**31)
-        toks, _ = fused_sampler(logits, temperature=float(self.temperature), seed=seed)
-        return toks.reshape(-1).tolist()
+        dispatch, and the logprobs when asked; one device-to-host copy."""
+        if self.temperature > 0.0:
+            self._sample_calls += 1
+        return sample_rows(logits, self.temperature, next_seed(self.seed, self._sample_calls),
+                           self.logprobs)
 
     def _prefill_round(self) -> None:
         """Prefill up to one pending request per shard in one global step (the
@@ -182,7 +187,7 @@ class ShardedEngine:
         logits, self.caches = step(self.weights, self.caches, self._tensor(tokens.reshape(-1)),
                                    self._tensor(seq_lens.reshape(-1)), self._tensor(q_index.reshape(-1)),
                                    self._tensor(tables.reshape(self.num_shards, -1)))
-        toks = self._sample(logits)  # one row per shard
+        toks, lps = self._sample(logits)  # one row per shard
         for s, rid in enumerate(take):
             if rid is None:
                 continue
@@ -192,6 +197,8 @@ class ShardedEngine:
                 continue  # more chunks to go; this row's logits are a prefix's
             self._pending.remove(rid)
             req.out.append(int(toks[s]))
+            if lps is not None:
+                req.logprobs.append(lps[s])
             self._active[s].append(rid)
             self._finish_if_done(req)
 
@@ -205,7 +212,11 @@ class ShardedEngine:
                 self._active[s].remove(req.rid)
             self.allocs[s].free(req.rid)
 
-    def _decode_round(self) -> None:
+    def _round_inputs(self, slack: int):
+        """Each shard's served rids and the round's inputs ([shards, batch]
+        last tokens and lengths, [shards, batch, max_blocks] page tables),
+        each request's table extended to cover ``slack`` more slots; empty
+        slots sit on the shard's reserved page."""
         b = self.max_batch
         tokens = np.zeros((self.num_shards, b), np.int32)
         seq_lens = np.ones((self.num_shards, b), np.int32)
@@ -218,21 +229,41 @@ class ShardedEngine:
             for i, rid in enumerate(rids):
                 req = self.requests[rid]
                 new_len = len(req.tokens)
-                self.allocs[s].extend(rid, new_len)
+                self.allocs[s].extend(rid, new_len + slack)
                 tokens[s, i] = req.tokens[-1]
                 seq_lens[s, i] = new_len
                 tables[s, i] = self._table(s, rid)
+        return served, tokens, seq_lens, tables
+
+    def _decode_round(self) -> None:
+        b = self.max_batch
+        served, tokens, seq_lens, tables = self._round_inputs(0)
         q_index = np.tile(np.arange(b + 1, dtype=np.int32), self.num_shards)
         logits, self.caches = self._decode_step(
             self.weights, self.caches, self._tensor(tokens.reshape(-1)),
             self._tensor(seq_lens.reshape(-1)), self._tensor(q_index),
             self._tensor(tables.reshape(self.num_shards * b, -1)))
-        toks = self._sample(logits)
+        toks, lps = self._sample(logits)
         for s, rids in enumerate(served):
             for i, rid in enumerate(rids):
                 req = self.requests[rid]
                 req.out.append(int(toks[s * b + i]))
+                if lps is not None:
+                    req.logprobs.append(lps[s * b + i])
                 self._finish_if_done(req)
+
+    def _decode_round_multi(self) -> None:
+        """One fused ``multi_step`` decode dispatch over the whole mesh."""
+        b, n = self.max_batch, self.multi_step
+        served, tokens, seq_lens, tables = self._round_inputs(n - 1)
+        self._sample_calls += 1  # a per-run seed
+        (toks, lps), _ = self._multi(self.weights, self.caches, tokens.reshape(-1), seq_lens.reshape(-1),
+                                     tables.reshape(self.num_shards * b, -1),
+                                     next_seed(self.seed, self._sample_calls), to_host=True)
+        rids = [rid for rids in served for rid in rids]
+        slots = [s * b + i for s, rids in enumerate(served) for i in range(len(rids))]
+        _append_runs(self.requests, rids, toks[:, slots], None if lps is None else lps[:, slots],
+                     self._finish_if_done)
 
     @property
     def stats(self) -> dict:
@@ -264,7 +295,10 @@ class ShardedEngine:
         self._prefer_decode = False
         if any(self._active):
             self._decode_dispatches += 1
-            self._decode_round()
+            if self.multi_step > 1:
+                self._decode_round_multi()
+            else:
+                self._decode_round()
             return True
         return False
 

@@ -3143,3 +3143,239 @@ def test_decode_wrappers_refuse_a_misaligned_q(cuda):
         paged_decode_attention(bad, k, v, tbl, kv_lens, 1, 0.1, "HND")
     with pytest.raises(ValueError, match="16-byte aligned"):
         paged_decode_nhd_fused(bad, pack_kv_fused_nhd(k, v), tbl, kv_lens, 1, 0.1)
+
+
+# ------------------------------------------ captured multi-step decode
+# decode_multi captured as one CUDA graph (runtime/decode_graph.py) against
+# the eager loop on a copy of the same caches: tokens equal, logprobs within
+# 1e-5 (the same kernels on the same inputs; the log-softmax is the only
+# float32 step outside them), the caches bit-equal afterwards.
+from hpc_ops_tpu_torch.parallel.collective_kernels import MODES, _SignalPad  # noqa: E402
+from hpc_ops_tpu_torch.runtime.decode_graph import DecodeMultiGraph  # noqa: E402
+
+MULTI_MODES = {
+    "bf16": {}, "int8_kv": dict(int8_kv=True, kv_scale=0.02), "fp8_kv": dict(fp8_kv=True),
+    "dense_int8": dict(dense_int8=True), "moe_fp8": dict(moe="pertensor_fp8"),
+    "moe_int8": dict(moe="pertensor_int8"), "moe_bw": dict(moe="blockwise_int8"),
+}
+MULTI_PROMPTS = [5, 9, 3, 17]  # prompt lengths of the batch, 4 pages of 16 slots each
+MULTI_STEPS = 4
+
+
+def multi_model(mode, dev, seed=0):
+    """tiny_config in a serving mode, seeded weights on ``dev``."""
+    from hpc_ops_tpu_torch.models import llama as T
+
+    kw = dict(MULTI_MODES[mode])
+    scheme = kw.pop("moe", None)
+    cfg = T.tiny_config(moe=scheme is not None, **kw)
+    if scheme is not None:
+        cfg = cfg._replace(moe=cfg.moe._replace(scheme=scheme))
+    w = T.init_weights(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    return cfg, {**{k: v.to(dev) for k, v in w.items() if k != "layers"},
+                 "layers": [{k: v.to(dev) for k, v in layer.items()} for layer in w["layers"]]}
+
+
+def multi_prefill(step, dev, vocab):
+    """Prefill MULTI_PROMPTS through ``step(tokens, seq_lens, q_index, table,
+    max_q)`` (a prefill forward call); returns the decode inputs: last tokens,
+    seq_lens (prompt + 1) and the page table."""
+    b = len(MULTI_PROMPTS)
+    gen = torch.Generator().manual_seed(7)
+    toks = torch.randint(0, vocab, (sum(MULTI_PROMPTS),), generator=gen, dtype=torch.int32)
+    cu = torch.tensor([0] + torch.tensor(MULTI_PROMPTS).cumsum(0).tolist(), dtype=torch.int32)
+    tbl = torch.arange(4 * b, dtype=torch.int32).view(b, 4)
+    logits = step(toks.to(dev), torch.tensor(MULTI_PROMPTS, dtype=torch.int32, device=dev), cu.to(dev),
+                  tbl.to(dev), max(MULTI_PROMPTS))
+    last = torch.argmax(logits, dim=-1).to(torch.int32)
+    return last, torch.tensor(MULTI_PROMPTS, dtype=torch.int32, device=dev) + 1, tbl.to(dev)
+
+
+def clone_caches(caches):
+    return [{k: v.clone() for k, v in layer.items()} for layer in caches]
+
+
+def equal_caches(a, b):
+    return all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+@pytest.mark.parametrize("mode", list(MULTI_MODES))
+def test_decode_multi_graph_equals_the_eager_loop(cuda, mode, temperature):
+    """Each serving mode: three dispatches with new inputs each (the tokens
+    fed back, the lengths grown), the graph against decode_multi's loop with
+    the same seed; then, at temperature 0.7, a replay of the last inputs with
+    the same seed gives the same tokens and with another seed others."""
+    from hpc_ops_tpu_torch import kernels
+    from hpc_ops_tpu_torch.models import llama as T
+
+    cfg, w = multi_model(mode, cuda)
+    caches = T.init_cache(cfg, num_blocks=32, block_size=BS, device=cuda)
+    last, lens, tbl = multi_prefill(lambda *a: T.forward_step(
+        w, caches, cfg, *a[:4], is_prefill=True, max_seqlens_q=a[4])[0], cuda, cfg.vocab)
+    graph_caches = clone_caches(caches)
+
+    def body(toks, seq_lens, table, gens):
+        return T.decode_multi(w, graph_caches, cfg, toks, seq_lens, table, MULTI_STEPS,
+                              temperature=temperature, return_logprobs=True,
+                              generator=None if gens is None else gens[0])[0]
+
+    graph = DecodeMultiGraph(body, len(MULTI_PROMPTS), 4, MULTI_STEPS, cuda, temperature=temperature,
+                             return_logprobs=True)
+    for dispatch in range(3):
+        seed = 11 + dispatch
+        (want, want_lp), _ = T.decode_multi(w, caches, cfg, last, lens, tbl, MULTI_STEPS,
+                                            temperature=temperature, sample_seed=seed, return_logprobs=True)
+        n0 = kernels.launch_counts()
+        got, got_lp = graph(last.cpu().numpy(), lens.cpu().numpy(), tbl.cpu().numpy(), seed)
+        if dispatch:  # a replay adds the launches of its capture
+            assert {k: v - n0[k] for k, v in kernels.launch_counts().items() if v != n0[k]} == graph.launches
+        assert (got == want.cpu().numpy()).all(), f"{mode} dispatch {dispatch}: {got} != {want}"
+        assert_allclose(got_lp, want_lp, atol=1e-5, rtol=0, name=f"{mode} logprobs {dispatch}")
+        if dispatch < 2:
+            last, lens = want[-1], lens + MULTI_STEPS
+    assert equal_caches(caches, graph_caches), f"{mode}: the caches differ"
+    assert graph.stats["host_memcpy_nodes"] == 0 and graph.launches
+    if temperature > 0:
+        inputs = (last.cpu().numpy(), lens.cpu().numpy(), tbl.cpu().numpy())
+        again, _ = graph(*inputs, 13)
+        other, _ = graph(*inputs, 14)
+        assert (again == got).all() and (other != got).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_sharded_multi_step_graph_equals_the_eager_loop(cuda, tp, temperature):
+    """make_sharded_multi_step on tp virtual ranks: one graph for the mesh,
+    three dispatches against the eager ranks on a copy of the caches, the
+    collective counted through the replays at 2 x layers x steps."""
+    from hpc_ops_tpu_torch.models import llama as T
+
+    cfg, w = multi_model("bf16", cuda)
+    mesh = make_mesh(tp=tp, devices=[cuda] * tp)
+    weights = T.shard_weights(w, cfg, mesh)
+    caches = [[T.init_cache(cfg, 32, BS, tp=tp, device=cuda) for _ in range(tp)]]
+    prefill = T.make_sharded_step(mesh, cfg, True, max_seqlens_q=max(MULTI_PROMPTS))
+    last, lens, tbl = multi_prefill(lambda *a: prefill(weights, caches, *a[:4])[0], cuda, cfg.vocab)
+    graph_caches = [[clone_caches(c) for c in row] for row in caches]
+    eager = T._sharded_multi_body(mesh, cfg, MULTI_STEPS, True, temperature, weights, caches)
+    step = T.make_sharded_multi_step(mesh, cfg, MULTI_STEPS, return_logprobs=True, temperature=temperature)
+    for dispatch in range(3):
+        seed = 21 + dispatch
+        gens = ([torch.Generator(device=cuda).manual_seed(seed) for _ in range(tp)]
+                if temperature > 0 else None)
+        want, want_lp = eager(last, lens, tbl, gens)
+        n0 = allreduce_rmsnorm.launches
+        (got, got_lp), _ = step(weights, graph_caches, last, lens, tbl, seed)
+        torch.cuda.synchronize()
+        if dispatch:
+            assert allreduce_rmsnorm.launches == n0 + 2 * cfg.layers * MULTI_STEPS
+        assert torch.equal(got, want), f"tp {tp} dispatch {dispatch}"
+        assert_allclose(got_lp, want_lp, atol=1e-5, rtol=0, name=f"tp {tp} logprobs {dispatch}")
+        last, lens = want[-1].clone(), lens + MULTI_STEPS
+    for a, b in zip(caches[0], graph_caches[0]):
+        assert equal_caches(a, b)
+
+
+def profile_dispatch(fn):
+    """torch.profiler over ``fn``: (graph launches, device-to-host copies,
+    kernels run on the device)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if "cudaGraphLaunch" in e.key and e.device_type != cuda_t)
+    dtoh = sum(e.count for e in events if e.device_type == cuda_t and "Memcpy DtoH" in e.key)
+    kernels_run = sum(e.count for e in events if e.device_type == cuda_t and "Memcpy" not in e.key
+                      and "Memset" not in e.key)
+    return launches, dtoh, kernels_run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logprobs", [False, True])
+@pytest.mark.parametrize("sharded", [False, True])
+def test_engine_multi_step_dispatch_is_one_replay(cuda, sharded, logprobs):
+    """Engine(multi_step=4) and ShardedEngine(multi_step=4) on tp 2 virtual
+    ranks: tokens (and logprobs within 1e-5) equal to multi_step=1's; a
+    decode dispatch after the first is one graph launch and one
+    device-to-host copy (torch.profiler); the tp graph's collective nodes
+    are cooperative launches."""
+    from hpc_ops_tpu_torch.runtime.engine import Engine
+    from hpc_ops_tpu_torch.runtime.sharded_engine import ShardedEngine
+
+    cfg, w = multi_model("bf16", cuda)
+    prompts = [[1, 2, 3, 4, 5], [7, 8], [9, 10, 11], list(range(20, 61))]
+
+    def make(ms):
+        if sharded:
+            return ShardedEngine(cfg, w, make_mesh(tp=2, devices=[cuda] * 2), num_blocks=64, block_size=BS,
+                                 max_batch=4, multi_step=ms, logprobs=logprobs)
+        return Engine(cfg, w, num_blocks=64, block_size=BS, max_batch=4, multi_step=ms, logprobs=logprobs,
+                      device=cuda)
+
+    base = make(1)
+    want = base.run(prompts, max_new=12)
+    eng = make(4)
+    rids = [eng.add_request(p, max_new=12) for p in prompts]
+    seen = []
+    while True:
+        st = eng.stats
+        decode_next = st["pending"] == 0 and st["active"] > 0
+        if decode_next and st["decode_dispatches"] >= 1:
+            seen.append(profile_dispatch(eng.step))
+        elif not eng.step():
+            break
+    assert [eng.requests[r].out for r in rids] == want
+    if logprobs:
+        for r in rids:
+            assert_allclose(eng.requests[r].logprobs, base.requests[r].logprobs, atol=1e-5, rtol=0,
+                            name=f"logprobs {r}")
+    assert seen and all(s[:2] == (1, 1) for s in seen), seen
+    stats = (eng._multi.graph if sharded else eng._multi).stats
+    if sharded:
+        assert stats["collective_nodes"] == 2 * cfg.layers * 4
+        assert stats["collective_nodes_cooperative"] == stats["collective_nodes"], stats
+
+
+@pytest.mark.cuda
+def test_collective_epoch_is_kept_on_the_device(cuda):
+    """Row 20-21's epoch, held in the signal pad: 20 calls on one pad that mix
+    eager launches with replays of a captured one_shot and two_shot launch,
+    at skew, each on new partials: every rank's outputs bit-equal to the
+    plain version's, and the pad's epoch one higher after every call."""
+    gen = torch.Generator().manual_seed(96)
+    ws, n, h, skew = 4, 64, 1032, 2000
+    xs, res, w = allreduce_case(gen, ws, n, h, cuda)
+    pad = _SignalPad(cuda)
+    outs = {m: ([torch.empty_like(xs[0]) for _ in range(ws)], [torch.empty_like(xs[0]) for _ in range(ws)])
+            for m in MODES}
+
+    def call(mode):
+        allreduce_rmsnorm(xs, res, [w] * ws, *outs[mode], 1e-5, mode, False, skew, pad)
+
+    for mode in MODES:  # eager first: the launcher's attributes and occupancy
+        call(mode)
+    graphs, side = {}, torch.cuda.Stream()
+    for mode in MODES:
+        graphs[mode] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[mode], stream=side):
+            call(mode)
+    e0 = pad.epoch()
+    for i in range(20):
+        mode = MODES[i % 2]
+        kind = ("eager", "replay", "replay", "eager")[(i // 2) % 4]
+        for x in xs:
+            x.copy_((torch.randn((n, h), generator=gen) * 0.5).to(torch.bfloat16))
+        graphs[mode].replay() if kind == "replay" else call(mode)
+        torch.cuda.synchronize()
+        want = _allreduce_rmsnorm_ref(xs, res[0], w, 1e-5, mode, False)
+        for r in range(ws):
+            assert torch.equal(outs[mode][0][r], want[0]) and torch.equal(outs[mode][1][r], want[1]), \
+                f"call {i} ({kind} {mode}) rank {r}"
+        assert pad.epoch() == e0 + i + 1, f"call {i} ({kind} {mode})"

@@ -85,6 +85,9 @@ def test_schedulers_equal_jax(kv_lens):
     assert_same_map(S.assign_decode_tasks_np(kv, h, cap), list(want[:5]), want[5])
     assert_same_map(S.assign_decode_tasks_native(kv, h, cap), list(want[:5]), want[5])
     assert_same_map(S.assign_decode_tasks_torch(torch.from_numpy(kv), h, cap), list(want[:5]), want[5])
+    # JAX's name for the device scheduler
+    assert_same_map(S.assign_decode_tasks_jnp(torch.from_numpy(kv), h, cap), list(want[:5]), want[5])
+    assert "assign_decode_tasks_jnp" in S.__all__
 
 
 @pytest.mark.parametrize("impl", ["np", "native", "torch", "jnp"])

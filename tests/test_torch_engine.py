@@ -132,13 +132,15 @@ def test_engine_moe_matches_jax_engine(model_moe):
 
 def test_engine_int8_kv_serving(model_int8):
     """The port of tests/test_engine.py's int8 test: the engine drives the
-    int8 slabs unchanged, and a batch decodes exactly as each request alone."""
+    int8 slabs unchanged, and a batch decodes exactly as each request alone;
+    the fused multi-step decode rides the same int8 path token for token."""
     batch_out = engine(model_int8).run(PROMPTS, max_new=4)
     solo_out = [engine(model_int8, max_batch=1).run([p], max_new=4)[0] for p in PROMPTS]
     assert batch_out == solo_out
     for out in batch_out:
         assert len(out) == 4 and all(0 <= t < 512 for t in out)
     assert [set(c) for c in engine(model_int8).caches] == [{"kv"}] * 2
+    assert engine(model_int8, multi_step=3).run(PROMPTS, max_new=4) == batch_out
 
 
 def test_engine_batch_matches_solo(model):
@@ -189,15 +191,18 @@ def test_engine_chunked_prefill_interleaves(model):
 
 
 def test_engine_stop_tokens(model):
+    """A sampled stop token ends the request on the single-step and the fused
+    multi-step path (there the run's surplus tokens are dropped)."""
     prompts = [[1, 2, 3, 4], [9, 8, 7]]
     full = engine(model, max_batch=2).run([list(p) for p in prompts], max_new=8)
     stop = full[0][2]
-    eng = engine(model, max_batch=2, stop_tokens=[stop])
-    outs = eng.run([list(p) for p in prompts], max_new=8)
-    assert outs[0] == full[0][:3]
-    if stop not in full[1]:
-        assert outs[1] == full[1]
-    assert eng.requests[0].done
+    for kw in ({}, {"multi_step": 4}):
+        eng = engine(model, max_batch=2, stop_tokens=[stop], **kw)
+        outs = eng.run([list(p) for p in prompts], max_new=8)
+        assert outs[0] == full[0][:3], kw
+        if stop not in full[1]:
+            assert outs[1] == full[1], kw
+        assert eng.requests[0].done
 
 
 def test_engine_cancel(model):
@@ -230,12 +235,111 @@ def test_engine_stats_and_sampling(model):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"speculative_k": 2}, {"multi_step": 4}, {"prefix_cache": True},
-           {"topk": 5, "temperature": 1.0}, {"logprobs": True}],
+    "kw", [{"speculative_k": 2}, {"prefix_cache": True}, {"topk": 5, "temperature": 1.0}],
 )
 def test_engine_deferred_features_raise(model, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1"):
         engine(model, **kw)
+
+
+# ------------------------------------------- fused multi-step decode, logprobs
+def test_decode_multi_matches_single_steps(model):
+    """Model level (tests/test_engine.py's test): decode_multi's n steps give
+    the tokens and the caches of n single forward_step calls."""
+    _, _, tcfg, tw = model
+    n, b = 4, 2
+    t = lambda x: torch.tensor(x, dtype=torch.int32)  # noqa: E731
+    caches = T.init_cache(tcfg, num_blocks=16, block_size=16, device="cpu")
+    tables = t([[0, 1], [2, 3]])
+    last = []
+    for i, p in enumerate([[1, 2, 3], [5, 6, 7, 8]]):
+        logits, caches = T.forward_step(tw, caches, tcfg, t(p), t([len(p)]), t([0, len(p)]),
+                                        tables[i : i + 1], is_prefill=True, max_seqlens_q=len(p))
+        last.append(int(torch.argmax(logits.reshape(-1))))
+    lens0 = t([4, 5])
+    single = [{k: v.clone() for k, v in c.items()} for c in caches]
+    cur, lens, want = t(last), lens0, []
+    for _ in range(n):
+        logits, single = T.forward_step(tw, single, tcfg, cur, lens, torch.arange(b + 1, dtype=torch.int32),
+                                        tables, is_prefill=False, max_seqlens_q=1)
+        cur = torch.argmax(logits, dim=-1).to(torch.int32)
+        want.append(cur.tolist())
+        lens = lens + 1
+    got, fused = T.decode_multi(tw, caches, tcfg, t(last), lens0, tables, n)
+    assert got.tolist() == want
+    assert all(torch.equal(a[k], f[k]) for a, f in zip(single, fused) for k in a)
+
+
+def test_engine_multi_step_matches_single(model):
+    """Engine(multi_step=4) is token-identical to the single-step engine,
+    requests whose max_new is no multiple of the fused run included (surplus
+    tokens dropped), also interleaved with chunked prefill; the pool is freed
+    despite the slack."""
+    prompts = [[1, 2, 3, 4, 5], [7, 8], [9, 10, 11, 12, 13, 14], [15]]
+    want = engine(model).run(prompts, max_new=6)
+    fused = engine(model, multi_step=4)
+    assert fused.run(prompts, max_new=6) == want
+    assert engine(model, multi_step=3, prefill_chunk=2).run(prompts, max_new=6) == want
+    assert fused.alloc.num_free == engine(model).alloc.num_free
+
+
+def test_engine_stats(model):
+    eng = engine(model, max_batch=2, multi_step=4)
+    eng.run([[1, 2, 3], [4, 5]], max_new=8)
+    st = eng.stats
+    assert st["done"] == 2 and st["tokens_out"] == 16 and st["prefill_dispatches"] == 2
+    # 8 tokens = 1 from the prefill + 7 decoded: 2 fused runs
+    assert st["decode_dispatches"] == 2, st
+    assert st["blocks_free"] == st["blocks_total"] - 1  # the dummy page
+    # a fused run's 3 slack slots count against the 16 x 16 slots of a table
+    with pytest.raises(ValueError, match="needs 257 KV slots"):
+        eng.add_request(list(range(250)), max_new=4)
+    engine(model, max_batch=2).add_request(list(range(250)), max_new=4)
+
+
+def test_engine_logprobs(model):
+    """One logprob an output token, on every path; single-step and fused
+    multi-step greedy give the same tokens and logprobs (the same logits,
+    the log-softmax on the same device)."""
+    prompts = [[1, 2, 3, 4], [9, 8]]
+    runs = []
+    for ms in (1, 3):
+        eng = engine(model, max_batch=2, logprobs=True, multi_step=ms)
+        outs = eng.run(prompts, max_new=5)
+        lps = [eng.requests[r].logprobs for r in range(2)]
+        assert all(len(lp) == len(o) == 5 for lp, o in zip(lps, outs))
+        assert all(v <= 0.0 and np.isfinite(v) for lp in lps for v in lp)
+        runs.append((outs, lps))
+    assert runs[0][0] == runs[1][0]
+    np.testing.assert_allclose(runs[0][1], runs[1][1], rtol=0, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def jax_multi_logprobs(model):
+    """JAX's Engine(multi_step=4, logprobs=True) on PROMPTS: tokens and
+    logprobs (its logprobs equal its single-step engine's, tests/test_engine.py)."""
+    cfg, jw, _, _ = model
+    eng = JaxEngine(cfg, jw, num_blocks=64, block_size=16, max_batch=4, multi_step=4, logprobs=True)
+    outs = eng.run([list(p) for p in PROMPTS], max_new=6)
+    return outs, [eng.requests[r].logprobs for r in range(len(PROMPTS))]
+
+
+@pytest.mark.parametrize("multi_step", [1, 4])
+def test_engine_multi_step_and_logprobs_match_jax_engine(model, jax_multi_logprobs, multi_step):
+    """The port's Engine(logprobs=True), single-step and multi_step=4, against
+    JAX's Engine(multi_step=4, logprobs=True): tokens by assert_greedy_match,
+    and each logprob before any accepted flip within the logits tolerance of
+    tests/test_model.py (0.15 abs / 0.1 rel: a logprob is a logit less the
+    row's log-sum-exp, and both move by the logits' rounding)."""
+    cfg, jw, _, _ = model
+    want, want_lp = jax_multi_logprobs
+    eng = engine(model, logprobs=True, multi_step=multi_step)
+    got = eng.run(PROMPTS, max_new=6)
+    for i, (p, w, g) in enumerate(zip(PROMPTS, want, got)):
+        j = assert_greedy_match(w, g, lambda j, p=p, w=w: jax_margin(cfg, jw, p + w[:j]), 0.15)
+        lp = eng.requests[i].logprobs
+        assert len(lp) == len(g)
+        np.testing.assert_allclose(lp[:j], want_lp[i][:j], atol=0.15, rtol=0.1)
 
 
 def test_engine_defaults_to_the_card(model):

@@ -251,3 +251,28 @@ def test_transposed_layout_at_a_wide_n_keeps_its_m_tile():
     np.testing.assert_array_equal(outs["port", "natural"], outs["port", "transposed"])
     tight(outs["port", "natural"], outs["jax", "natural"], "port vs JAX natural")
     assert np.abs(outs["jax", "transposed"] - outs["jax", "natural"]).max() > 0.3 * big
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [("int8", 0.5, 1e-2), ("e4m3", 0.3, 3e-2)])
+def test_gg_blockwise_prescale_aligned_matches_jax(dtype, atol, rtol):
+    """JAX's public aligned entry under its own name and signature (``tn``
+    accepted, unused): the port equals its gg_bw_aligned bit for bit, and
+    JAX's prescale kernel (interpret mode) at that kernel's tolerance
+    (module docstring), on the aligned rows of the smallest blockwise case."""
+    c = bw_case(dtype, SEQLENS[1])
+    tm = 32
+    grp, row_idx, nvt = aligned_layout(c, tm)
+    x, w, sx, sw = (to_t(c[k]) for k in ("x", "w", "sx", "sw"))
+    x_al, sx_al = T._take_rows(x, row_idx), T._take_rows(sx, row_idx)
+    row_blk = torch.arange(grp.shape[0], dtype=torch.int32)
+    got = T.gg_blockwise_prescale_aligned(x_al, w, sx_al, sw, grp, row_blk, tm, 128,
+                                          num_valid_tiles=nvt)
+    assert torch.equal(got, T.gg_bw_aligned(x_al, w, sx_al, sw, grp, row_blk, tm, nvt))
+    jx = jnp.asarray(x_al.view(torch.uint8).numpy()).view(c["x"].dtype) if dtype == "e4m3" else \
+        jnp.asarray(x_al.numpy())
+    want = J.gg_blockwise_prescale_aligned(jx, c["w"], jnp.asarray(sx_al.numpy()), c["sw"],
+                                           jnp.asarray(grp.numpy()), jnp.asarray(row_blk.numpy()), tm, 128,
+                                           interpret=True, num_valid_tiles=jnp.asarray(nvt.numpy()))
+    real = (row_idx >= 0).numpy()
+    assert_allclose(got.float().numpy()[real], np.asarray(want, np.float32)[real], atol=atol, rtol=rtol,
+                    name=f"prescale aligned {dtype}")

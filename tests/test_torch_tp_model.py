@@ -19,6 +19,7 @@ over bit-exactly. Tolerances:
 """
 
 import functools
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -202,3 +203,61 @@ def test_int8_kv_and_w8a8_under_tp_match_the_single_device_port(kw):
         want, single = T.forward_step(tw, single, tcfg, tok, lens, qi, tbl, is_prefill, max_seqlens_q=mq)
         assert_allclose(got.float(), want.float(), atol=ATOL, rtol=RTOL,
                         name=f"{kw} {'prefill' if is_prefill else 'decode'}")
+
+
+def test_sharded_multi_step_matches_jax_and_the_single_device_loop():
+    """make_sharded_multi_step on a (dp 1, tp 2) mesh of CPU ranks, 3 greedy
+    steps with logprobs, against JAX's make_sharded_multi_step on 2 host
+    devices and the port's single-device decode_multi on the same inputs:
+    each row's tokens by assert_greedy_match (a flip only where JAX's top-2
+    margin, teacher-forced on JAX's tokens, is below 0.15), the logprobs
+    before any flip within this file's 0.3 / 0.1."""
+    from hpc_ops_tpu_torch.utils.testing import assert_greedy_match, top2_margin
+
+    cfg, jw, tcfg, tw = carried()
+    n, b, tp = 3, 4, 2
+    last = np.arange(1, b + 1, dtype=np.int32)
+    lens = np.ones((b,), np.int32)
+    tbl = np.arange(2 * b, dtype=np.int32).reshape(b, 2)
+    set_interpret_override(True)
+    try:
+        jmesh = jax_make_mesh(tp=tp, dp=1, devices=jax.devices("cpu")[:tp])
+        (jt, jl), _ = jax.jit(J.make_sharded_multi_step(jmesh, cfg, n, return_logprobs=True))(
+            J.shard_weights_for_tp(jw, cfg, tp), J.init_cache(cfg, num_blocks=2 * b, block_size=16),
+            jnp.asarray(last), jnp.asarray(lens), jnp.asarray(tbl), jnp.int32(0))
+    finally:
+        set_interpret_override(None)
+    want, want_lp = np.asarray(jt), np.asarray(jl)
+
+    def jax_margin(i, j):
+        """JAX's top-2 margin of row i at step j, its own tokens fed back."""
+        caches, toks, ln = J.init_cache(cfg, num_blocks=2 * b, block_size=16), jnp.asarray(last), lens
+        for s in range(j + 1):
+            logits, caches = J.forward_step(jw, caches, cfg, toks, jnp.asarray(ln + s),
+                                            jnp.arange(b + 1, dtype=jnp.int32), jnp.asarray(tbl),
+                                            is_prefill=False, max_seqlens_q=1)
+            toks = jnp.asarray(want[s])
+        return top2_margin(np.asarray(logits, np.float32)[i])
+
+    mesh = make_mesh(tp=tp, devices=["cpu"] * tp)
+    step = T.make_sharded_multi_step(mesh, tcfg, n, return_logprobs=True)
+    caches = [[T.init_cache(tcfg, 2 * b, 16, tp=tp, device="cpu") for _ in range(tp)]]
+    weights = T.shard_weights(tw, tcfg, mesh)
+    (got, got_lp), _ = step(weights, caches, torch.from_numpy(last), torch.from_numpy(lens),
+                            torch.from_numpy(tbl), 0)
+    (single, single_lp), _ = T.decode_multi(tw, T.init_cache(tcfg, 2 * b, 16, device="cpu"), tcfg,
+                                            torch.from_numpy(last), torch.from_numpy(lens),
+                                            torch.from_numpy(tbl), n, return_logprobs=True)
+    assert tuple(got.shape) == (n, b) and got.dtype == torch.int32
+    for ref, ref_lp in ((want, want_lp), (single.numpy(), single_lp.numpy())):
+        for i in range(b):
+            j = assert_greedy_match(list(ref[:, i]), got[:, i].tolist(), lambda j, i=i: jax_margin(i, j),
+                                    0.15)
+            assert_allclose(got_lp[:j, i], ref_lp[:j, i], atol=ATOL, rtol=RTOL, name=f"row {i} logprobs")
+    other = [[T.init_cache(tcfg, 2 * b, 16, tp=tp, device="cpu") for _ in range(tp)]]
+    with pytest.raises(ValueError, match="of its first call"):  # one graph: its caches' addresses
+        step(weights, other, last, lens, tbl, 0)
+    held = weakref.ref(caches[0][0][0]["k"])
+    del step, caches, other
+    alive = held() is not None
+    assert not alive, "the step outlives its last reference (a reference cycle)"

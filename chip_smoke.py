@@ -155,6 +155,26 @@ Phases, each printing one JSON line:
      the reduce once per layer and call), prefill logits within cosine 0.97
      of the fp8 run's, the share of the down GEMM's input codes at +-127, one
      device-to-host copy per decode step, and decode_profile_moe_bw;
+  7. before the MoE phases, over slice_full's weights: slice_full_spec,
+     speculative decode (an oracle drafter fed by slice_full's tokens at
+     k = 3, then ngram_draft at k = 3 and 7 on 8 prompts of a random
+     64-token segment, the model's continuation of it and the segment again): tokens held to slice_full's (to a plain engine's) by
+     the near-tie rule, oracle acceptance > 0.8, the decode kernel once a
+     layer and verification step at sq = k + 1, one device-to-host copy a
+     profiled verification step, and a summary beside slice_full's eager and
+     slice_full_multi's graph ms a step; slice_full_prefix, prefix caching
+     over a 1024-token system prompt (two waves of 8, 7 then 8 hits of 64
+     pages), tokens held to an uncached engine's, the prefill rows and ms of
+     both; slice_full_sampling, add_request(n=4) at topk=1 (slice_full's
+     tokens, the copied tail pages equal the parent's in every layer), then
+     topk=50 / topp=0.9 with a greedy per-request row and with
+     repetition_penalty=1.1, children that diverge, every block returned;
+     convert, from_hf_llama over slice_full's weights seen as a
+     transformers-named tree (every tensor equal; dense_int8 equal to
+     quantize_w8's codes); ring_attention on 4 virtual ranks at llama3_8b's
+     heads, 4 x 2048 tokens, float32, every schedule within 2e-4 of SDPA;
+     replay, a record of row 17's kernel at Mixtral width replayed
+     bit-identically from memory and from disk;
 then the kernels line, the nvidia-smi line and the result line. Each phase
 also prints its seconds (phase_seconds).
 """
@@ -3862,6 +3882,7 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
                  decode_tokens_per_s=decode_tokens / sum(decode_s),
                  max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
                  launches=counts, first_tokens=[o[:4] for o in outs])
+    DECODE_MS[phase] = stats["decode_ms_per_step"]
     if multi_step > 1:
         graph = eng._multi if mesh is None else eng._multi.graph
         stats.update(multi_step=multi_step, decode_dispatches=n_dec,
@@ -4061,6 +4082,520 @@ def slice_full_multi(dev, w, bf16_tokens, mesh=None, ref_phase="slice_full"):
          graph_pool_bytes=graph["pool_bytes"], peak_memory_bytes=stats["max_memory_allocated_bytes"],
          graph_kernel_nodes=graph["kernel_nodes"], collective_nodes=graph["collective_nodes"],
          collective_nodes_cooperative=graph["collective_nodes_cooperative"])
+    return counts
+
+
+# ------------------------------------------ the rest of the serving engine
+SERVE_CLASSES = {"rope_store": "rope_store", "paged_decode": "paged_decode", "paged_prefill": "paged_prefill"}
+SPEC_NEW = 32  # new tokens a request in slice_full_spec
+SEGMENT = 64  # slice_full_spec: the n-gram prompts' random segment and its continuation
+SYSTEM_PROMPT, PREFIX_NEW = 1024, 16  # slice_full_prefix: the shared prompt's tokens (64 pages)
+SAMPLING_N, SAMPLING_NEW = 4, 32  # slice_full_sampling: continuations of one prompt, new tokens
+DECODE_MS = {}  # serve_full's decode ms a step by phase (slice_full: eager; slice_full_multi: graph)
+
+
+def full_engine(dev, w, cfg, **kw):
+    from hpc_ops_tpu_torch.runtime.engine import Engine
+
+    return Engine(cfg, w, num_blocks=NUM_BLOCKS, block_size=BS, max_batch=8, device=dev, **kw)
+
+
+def bf16_margin(cfg, w, dev):
+    """``margin(tokens)``: the top-2 logit margin after a bf16 prefill of
+    ``tokens`` on the card (the reference side of the near-tie rule)."""
+    from hpc_ops_tpu_torch.models import llama
+
+    def prefill(toks, lens, qi, tbl, nb, n):
+        caches = llama.init_cache(cfg, nb, BS, device=dev)
+        return llama.forward_step(w, caches, cfg, toks, lens, qi, tbl, is_prefill=True, max_seqlens_q=n)[0]
+
+    return prompt_margin(cfg, prefill)
+
+
+def drive(eng, phase):
+    """Step ``eng`` until it has no work, synchronised around each step: the
+    seconds of its prefill and decode steps, the tokens the decode steps
+    added, the rows its prefill calls ran, torch.profiler over the second
+    prefill call of this call (device and wall ms) and over its second
+    decode dispatch, which must copy to the host once (both left out of the
+    step times)."""
+    import torch
+
+    from hpc_ops_tpu_torch.runtime import engine as engine_mod
+
+    base_forward, rows = engine_mod.forward_step, []
+
+    def counted(*a, **kw):
+        if kw.get("is_prefill"):
+            rows.append(int(kw["token_ids"].shape[0]))
+        return base_forward(*a, **kw)
+
+    prefill_s, decode_s, decode_tokens, decode_rows, n_dec, n_pre = [], [], 0, 0, 0, 0
+    profile = prefill_profile = None
+    engine_mod.forward_step = counted
+    try:
+        while True:
+            st = eng.stats
+            decode_next = st["pending"] == 0 and st["active"] > 0
+            n_dec += decode_next
+            n_pre += not decode_next
+            prof = (DecodeProfile(torch, SERVE_CLASSES)
+                    if (decode_next and n_dec == 2) or (not decode_next and n_pre == 2) else None)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            more = eng.step()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            if prof is not None:
+                prof.steps = 1
+                prof.stop()
+                if decode_next:
+                    profile = prof.summary()
+                else:
+                    prefill_profile = {k: prof.summary()[k] for k in (
+                        "device_busy_ms_per_step", "wall_ms_per_step", "device_ms_per_step")}
+            elif decode_next:
+                decode_s.append(dt)
+                decode_rows += min(st["active"], eng.max_batch)
+                decode_tokens += eng.stats["tokens_out"] - st["tokens_out"]
+            elif more:
+                prefill_s.append(dt)
+            if not more:
+                break
+    finally:
+        engine_mod.forward_step = base_forward
+    if profile is None or profile["device_to_host_copies_per_step"] != 1:
+        raise AssertionError(f"{phase}: a profiled decode step copies to the host "
+                             f"{None if profile is None else profile['device_to_host_copies_per_step']} "
+                             "times (expected 1)")
+    return dict(prefill_s=sum(prefill_s), prefill_calls_timed=len(prefill_s), prefill_rows=sum(rows),
+                second_prefill_call=prefill_profile, decode_s=sum(decode_s),
+                decode_steps_timed=len(decode_s), decode_tokens=decode_tokens, decode_rows=decode_rows,
+                profile=profile)
+
+
+def spec_run(dev, cfg, w, prompts, k, draft_fn, phase):
+    """Engine(speculative_k=k) serving ``prompts`` x SPEC_NEW tokens: its
+    tokens, counters, decode ms an output token, the decode kernel's launches
+    inside verification steps (one a layer and step, at sq = k + 1) and the
+    device-to-host copies of a profiled verification step."""
+    from hpc_ops_tpu_torch import kernels
+    from hpc_ops_tpu_torch.ops.attention.decode import paged_decode_attention
+
+    eng = full_engine(dev, w, cfg, speculative_k=k, draft_fn=draft_fn)
+    spec_steps, spec_launches = [], []
+    base_spec = eng._spec_batch
+
+    def counted_spec(drafts):
+        before = paged_decode_attention.launches
+        base_spec(drafts)
+        spec_steps.append(1)
+        spec_launches.append(paged_decode_attention.launches - before)
+
+    eng._spec_batch = counted_spec
+    rids = [eng.add_request(p, max_new=SPEC_NEW) for p in prompts]
+    kernels.reset_launch_counts()
+    run = drive(eng, phase)
+    counts = kernels.launch_counts()
+    del eng._spec_batch  # the closure holds the engine
+    st = eng.stats
+    if sum(spec_launches) != cfg.layers * len(spec_steps) or not spec_steps:
+        raise AssertionError(f"{phase}: {sum(spec_launches)} decode launches in {len(spec_steps)} "
+                             f"verification steps (want {cfg.layers} each)")
+    ms_step = 1e3 * run["decode_s"] / run["decode_steps_timed"]
+    per_request = run["decode_tokens"] / run["decode_rows"]
+    out = dict(speculative_k=k, decode_dispatches=st["decode_dispatches"],
+               verification_dispatches=len(spec_steps),
+               tokens_per_dispatch=run["decode_tokens"] / max(run["decode_steps_timed"], 1),
+               tokens_per_request_dispatch=per_request,
+               acceptance=st["speculative"]["acceptance"], proposed=st["speculative"]["proposed"],
+               accepted=st["speculative"]["accepted"], decode_ms_per_dispatch=ms_step,
+               # a plain step gives each request one token: its ms a step is this
+               decode_ms_per_output_token=ms_step / per_request,
+               decode_launches_at_sq=(k + 1, sum(spec_launches)),
+               device_to_host_copies_per_verification_step=run["profile"]["device_to_host_copies_per_step"],
+               profiled_step_device_busy_ms=run["profile"]["device_busy_ms_per_step"],
+               profiled_step_wall_ms=run["profile"]["wall_ms_per_step"], launches=counts)
+    tokens = [eng.requests[r].out for r in rids]
+    if any(len(o) != SPEC_NEW or not all(0 <= t < cfg.vocab for t in o) for o in tokens):
+        raise AssertionError(f"{phase}: missing tokens or tokens outside the vocab")
+    if eng.alloc.num_free != eng.alloc.num_blocks - 1:
+        raise AssertionError(f"{phase}: {eng.alloc.num_free} free blocks after serving")
+    del eng
+    return tokens, out
+
+
+def slice_full_spec(dev, w, bf16_tokens):
+    """Speculative decode at llama3_8b width and depth over slice_full's
+    weights: an oracle drafter fed by slice_full's tokens at k = 3 (tokens
+    held to slice_full's by the near-tie rule, acceptance > 0.8), then the
+    default ngram_draft at k = 3 and k = 7 on 8 prompts of a random 64-token
+    segment, the model's greedy continuation of it and the segment again,
+    held to a plain engine's tokens on them."""
+    import numpy as np
+    import torch
+
+    from hpc_ops_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(residual_alpha=1.0 / 8)
+    _, prompts = full_prompts(cfg.vocab)
+    fulls = [p + t for p, t in zip(prompts, bf16_tokens)]
+
+    def oracle(tokens, k):
+        for f in fulls:
+            if len(f) > len(tokens) and f[: len(tokens)] == tokens:
+                return f[len(tokens) : len(tokens) + k]
+        return []
+
+    margin = bf16_margin(cfg, w, dev)
+    tokens, oracle_run = spec_run(dev, cfg, w, prompts, 3, oracle, "slice_full_spec")
+    share, flips = hold_to_single_step("slice_full_spec", bf16_tokens, tokens, prompts, margin)
+    if oracle_run["acceptance"] <= 0.8:
+        raise AssertionError(f"slice_full_spec: oracle acceptance {oracle_run['acceptance']}")
+    emit("slice_full_spec", run="oracle_k3", **oracle_run, greedy_tokens_equal_to_slice_full=share,
+         near_tie_flips=flips)
+    # ngram prompts: a random segment, the model's own greedy continuation of
+    # it, the segment again; the drafter proposes the continuation's tokens
+    # where the model repeats it (seeded weights do not continue a repeated
+    # random segment, so a prompt of the segment alone gets no draft)
+    rng = np.random.RandomState(21)
+    segments = [[int(t) for t in rng.randint(0, cfg.vocab, SEGMENT)] for _ in range(8)]
+    plain = full_engine(dev, w, cfg)
+    conts = plain.run(segments, max_new=SEGMENT)
+    ngram_prompts = [seg + cont + seg for seg, cont in zip(segments, conts)]
+    want = plain.run(ngram_prompts, max_new=SPEC_NEW)
+    del plain
+    runs = {"oracle_k3": oracle_run}
+    for k in (3, 7):
+        got, run = spec_run(dev, cfg, w, ngram_prompts, k, None, f"slice_full_spec ngram k={k}")
+        share, flips = hold_to_single_step(f"slice_full_spec ngram k={k}", want, got, ngram_prompts, margin)
+        runs[f"ngram_k{k}"] = run
+        emit("slice_full_spec", run=f"ngram_k{k}", **run, greedy_tokens_equal_to_plain=share,
+             near_tie_flips=flips)
+    torch.cuda.empty_cache()
+    emit("slice_full_spec_summary", slice_full_eager_decode_ms_per_step=DECODE_MS.get("slice_full"),
+         slice_full_multi_graph_decode_ms_per_step=DECODE_MS.get("slice_full_multi"),
+         **{name: {key: run[key] for key in ("decode_dispatches", "tokens_per_dispatch",
+                                              "tokens_per_request_dispatch", "acceptance",
+                                              "decode_ms_per_dispatch", "decode_ms_per_output_token",
+                                              "decode_launches_at_sq",
+                                              "device_to_host_copies_per_verification_step")}
+            for name, run in runs.items()})
+    return {name: run["launches"] for name, run in runs.items()}
+
+
+def slice_full_prefix(dev, w):
+    """Prefix caching at llama3_8b width and depth: 8 prompts of one
+    1024-token system prompt (64 pages) plus distinct 16-64-token suffixes x
+    16 new tokens, then a second wave of 8 after the first finished, on an
+    uncached engine and on Engine(prefix_cache=True): tokens held to the
+    uncached engine's by the near-tie rule, 7 hits of 64 blocks in the first
+    wave and 8 on the kept pages in the second; prefill rows and ms of
+    both."""
+    import numpy as np
+    import torch
+
+    from hpc_ops_tpu_torch import kernels
+    from hpc_ops_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(residual_alpha=1.0 / 8)
+    rng = np.random.RandomState(23)
+    system = [int(t) for t in rng.randint(0, cfg.vocab, SYSTEM_PROMPT)]
+    waves = [[system + [int(t) for t in rng.randint(0, cfg.vocab, n)] for n in rng.randint(16, 65, 8)]
+             for _ in range(2)]
+    margin = bf16_margin(cfg, w, dev)
+    out, counts = {}, {}
+    for cached in (False, True):
+        eng = full_engine(dev, w, cfg, prefix_cache=cached)
+        free0 = eng.alloc.num_free
+        kernels.reset_launch_counts()
+        for i, prompts in enumerate(waves):
+            rids = [eng.add_request(p, max_new=PREFIX_NEW) for p in prompts]
+            run = drive(eng, f"slice_full_prefix cached={cached} wave {i}")
+            hits = eng.stats["prefix_hits"], eng.stats["prefix_shared_blocks"]
+            want_hits = (7 + 8 * i, (7 + 8 * i) * SYSTEM_PROMPT // BS) if cached else (0, 0)
+            if hits != want_hits:
+                raise AssertionError(f"slice_full_prefix wave {i}: hits, shared blocks {hits} != {want_hits}")
+            out[(cached, i)] = dict(tokens=[eng.requests[r].out for r in rids], prefix_hits=hits[0],
+                                    prefix_shared_blocks=hits[1], **run)
+        counts["cached" if cached else "uncached"] = kernels.launch_counts()
+        if not cached and eng.alloc.num_free != free0:
+            raise AssertionError(f"slice_full_prefix: {free0 - eng.alloc.num_free} blocks not returned")
+        del eng
+    torch.cuda.empty_cache()
+    for i, prompts in enumerate(waves):
+        share, flips = hold_to_single_step(f"slice_full_prefix wave {i}", out[(False, i)]["tokens"],
+                                           out[(True, i)]["tokens"], prompts, margin)
+        runs = {("cached" if c else "uncached"): {k: v for k, v in out[(c, i)].items() if k != "tokens"}
+                for c in (False, True)}
+        emit("slice_full_prefix", wave=i, prompt_lens=[len(p) for p in prompts],
+             greedy_tokens_equal_to_uncached=share, near_tie_flips=flips,
+             prefill_rows_saved=runs["uncached"]["prefill_rows"] - runs["cached"]["prefill_rows"], **runs)
+    return counts
+
+
+def tail_page_prompt(prompts):
+    """The first of slice_full's prompts (after the two fixed ones) whose last
+    page is partial, so that its children copy a page."""
+    return next(i for i, p in enumerate(prompts) if i >= 2 and len(p) % BS)
+
+
+def slice_full_sampling(dev, w, bf16_tokens):
+    """n > 1 and the full sampler at llama3_8b width and depth: add_request(n=4)
+    at temperature 0.8 with topk=1 (every continuation slice_full's greedy
+    tokens by the near-tie rule; the children's copied tail pages equal the
+    parent's in every layer); then topk=50, topp=0.9 with a greedy
+    per-request row (slice_full's tokens) beside an n=4 request, and with
+    repetition_penalty=1.1 an n=4 request beside a per-request temperature
+    row (JAX's engine refuses a greedy row under the penalty): tokens in the
+    vocab, children that diverge, every block returned, one device-to-host
+    copy a profiled step."""
+    import torch
+
+    from hpc_ops_tpu_torch import kernels
+    from hpc_ops_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(residual_alpha=1.0 / 8)
+    _, prompts = full_prompts(cfg.vocab)
+    margin = bf16_margin(cfg, w, dev)
+    i = tail_page_prompt(prompts)
+    j = next(x for x in range(2, len(prompts)) if x != i)
+    lines, counts = {}, {}
+    # 1. n = 4 at topk=1: greedy continuations; the copied tail pages
+    eng = full_engine(dev, w, cfg, temperature=0.8, seed=3)
+    free0 = eng.alloc.num_free
+    kernels.reset_launch_counts()
+    rids = eng.add_request(prompts[i], max_new=SAMPLING_NEW, n=SAMPLING_N, topk=1)
+    eng.step()  # the prefill, the forks and the page copies
+    pt = eng.alloc.table(rids[0])
+    last = len(prompts[i]) // BS
+    for c in rids[1:]:
+        ct = eng.alloc.table(c)
+        if not (ct[:last] == pt[:last]).all() or ct[last] == pt[last]:
+            raise AssertionError("slice_full_sampling: the children's pages are not the parent's "
+                                 "full pages and a tail page of their own")
+        for layer in eng.caches:
+            for t in layer.values():
+                if not torch.equal(t[:, int(ct[last])], t[:, int(pt[last])]):
+                    raise AssertionError("slice_full_sampling: a copied tail page differs from the parent's")
+    run = drive(eng, "slice_full_sampling topk1")
+    outs = [eng.requests[r].out for r in rids]
+    share, flips = hold_to_single_step("slice_full_sampling topk1", [bf16_tokens[i]] * SAMPLING_N, outs,
+                                       [prompts[i]] * SAMPLING_N, margin)
+    if eng.alloc.num_free != free0:
+        raise AssertionError("slice_full_sampling topk1: blocks not returned")
+    counts["topk1_n4"] = kernels.launch_counts()
+    lines["topk1_n4"] = dict(greedy_tokens_equal_to_slice_full=share, near_tie_flips=flips,
+                             copied_tail_page_equal_in_layers=cfg.layers, **run)
+    del eng
+    # 2. and 3. the full sampler, without and with the repetition penalty
+    for name, penalty in (("topk50_topp09", 0.0), ("topk50_topp09_penalty11", 1.1)):
+        eng = full_engine(dev, w, cfg, temperature=0.8, topk=50, topp=0.9, repetition_penalty=penalty,
+                          seed=4)
+        free0 = eng.alloc.num_free
+        kernels.reset_launch_counts()
+        row = eng.add_request(prompts[i], max_new=SAMPLING_NEW, temperature=1.0 if penalty else 0.0)
+        kids = eng.add_request(prompts[j], max_new=SAMPLING_NEW, n=SAMPLING_N)
+        run = drive(eng, f"slice_full_sampling {name}")
+        outs = [eng.requests[r].out for r in [row] + kids]
+        if not all(len(o) == SAMPLING_NEW and all(0 <= t < cfg.vocab for t in o) for o in outs):
+            raise AssertionError(f"slice_full_sampling {name}: missing tokens or tokens outside the vocab")
+        distinct = len({tuple(o) for o in outs[1:]})
+        if distinct < 2:
+            raise AssertionError(f"slice_full_sampling {name}: the children did not diverge")
+        if eng.alloc.num_free != free0:
+            raise AssertionError(f"slice_full_sampling {name}: blocks not returned")
+        extra = {}
+        if not penalty:
+            share, flips = hold_to_single_step(f"slice_full_sampling {name}", [bf16_tokens[i]], outs[:1],
+                                               [prompts[i]], margin)
+            extra = dict(greedy_row_equal_to_slice_full=share, near_tie_flips=flips)
+        counts[name] = kernels.launch_counts()
+        lines[name] = dict(distinct_children=distinct, **extra, **run)
+        del eng
+    torch.cuda.empty_cache()
+    for name, line in lines.items():
+        emit("slice_full_sampling", run=name, prompt_len=len(prompts[i]), **line)
+    return counts
+
+
+RING_WS, RING_S_LOC = 4, 2048  # ring_attention: virtual ranks, tokens a rank
+RING_TOL = 2e-4  # tests/test_ring_attention.py's bar
+
+
+def ring_attention_phase(dev):
+    """ring_attention on 4 virtual ranks of the card at llama3_8b's heads (Hq
+    32, Hkv 8, D 128), 4 x 2048 tokens, float32 with TF32 off: ring causal,
+    ring non-causal and zigzag against SDPA over the gathered sequence
+    (within 2e-4), each schedule's ms and SDPA's."""
+    import torch
+    import torch.nn.functional as F
+
+    from hpc_ops_tpu_torch.parallel import make_mesh, ring_attention
+    from hpc_ops_tpu_torch.parallel.mesh import run_ranks
+    from hpc_ops_tpu_torch.parallel.ring_attention import zigzag_layout, zigzag_unlayout
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    s = RING_WS * RING_S_LOC
+    q = torch.randn((1, s, HQ, D), generator=gen, device=dev)
+    k, v = (torch.randn((1, s, HKV, D), generator=gen, device=dev) for _ in range(2))
+    mesh = make_mesh(tp=RING_WS, devices=[dev] * RING_WS)
+    g = HQ // HKV
+    kx, vx = (x.repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
+    lines = {}
+    for causal in (True, False):
+        def sdpa(causal=causal):
+            return F.scaled_dot_product_attention(q.transpose(1, 2), kx, vx, is_causal=causal).transpose(1, 2)
+
+        want = sdpa()
+        sdpa_ms = time_ms(sdpa, 3, 1)
+        for schedule in ("ring", "zigzag") if causal else ("ring",):
+            xs = [zigzag_layout(x, RING_WS) if schedule == "zigzag" else x for x in (q, k, v)]
+            shards = [[t.contiguous() for t in torch.chunk(x, RING_WS, dim=1)] for x in xs]
+
+            def call(schedule=schedule, shards=shards, causal=causal):
+                return run_ranks(mesh, lambda grp, _: ring_attention(
+                    *(sh[grp.rank] for sh in shards), grp, causal=causal, schedule=schedule))[0]
+
+            got = torch.cat(call(), dim=1)
+            if schedule == "zigzag":
+                got = zigzag_unlayout(got, RING_WS)
+            err = float((got - want).abs().max())
+            if not err < RING_TOL:
+                raise AssertionError(f"ring_attention {schedule} causal={causal}: max abs err {err}")
+            lines[f"{schedule}_{'causal' if causal else 'full'}"] = dict(
+                max_abs_err=err, ms=time_ms(call, 3, 1), sdpa_ms=sdpa_ms)
+        del want
+    torch.cuda.empty_cache()
+    emit("ring_attention", ranks=RING_WS, tokens_per_rank=RING_S_LOC, hq=HQ, hkv=HKV, d=D,
+         dtype="float32", tf32=torch.backends.cuda.matmul.allow_tf32, tolerance=RING_TOL, **lines)
+
+
+def hf_view(w, cfg):
+    """slice_full's weights seen, without a copy, as a transformers-named
+    module tree: HF's [out, in] weights as ``.T`` views of the port's [in,
+    out] matrices, the q|k|v and gate|up column blocks as column slices."""
+    from types import SimpleNamespace as NS
+
+    qd, kd, inter = cfg.q_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim, cfg.intermediate
+
+    def lin(t):
+        return NS(weight=t, bias=None)
+
+    layers = []
+    for L in w["layers"]:
+        wqkv, gu = L["wqkv"], L["w_gate_up"]
+        layers.append(NS(
+            self_attn=NS(q_proj=lin(wqkv[:, :qd].T), k_proj=lin(wqkv[:, qd : qd + kd].T),
+                         v_proj=lin(wqkv[:, qd + kd :].T), o_proj=lin(L["wo"].T)),
+            mlp=NS(gate_proj=lin(gu[:, :inter].T), up_proj=lin(gu[:, inter:].T), down_proj=lin(L["w_down"].T)),
+            input_layernorm=lin(L["attn_norm"]), post_attention_layernorm=lin(L["mlp_norm"])))
+    config = NS(vocab_size=cfg.vocab, hidden_size=cfg.hidden, num_hidden_layers=cfg.layers,
+                num_attention_heads=cfg.q_heads, num_key_value_heads=cfg.kv_heads, head_dim=cfg.head_dim,
+                intermediate_size=cfg.intermediate, rope_theta=cfg.rope_base, rms_norm_eps=cfg.norm_eps,
+                max_position_embeddings=cfg.max_position, tie_word_embeddings=False, rope_scaling=None)
+    return NS(config=config, lm_head=lin(w["lm_head"].T),
+              model=NS(embed_tokens=lin(w["embed"]), norm=lin(w["final_norm"]), layers=layers))
+
+
+def tree_items(tree, prefix=""):
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from tree_items(tree[key], f"{prefix}/{key}")
+    elif isinstance(tree, list):
+        for n, x in enumerate(tree):
+            yield from tree_items(x, f"{prefix}/{n}")
+    else:
+        yield prefix, tree
+
+
+def convert_phase(dev, w):
+    """from_hf_llama on the card over slice_full's weights seen as a
+    transformers-named tree: every tensor equal to slice_full's (the norms,
+    float32 ones in slice_full, come back as bf16 ones: the converter casts to
+    its dtype), and with dense_int8=True the codes and scales of
+    slice_full_w8a8's quantize_w8, column-major; seconds and peak memory of
+    each."""
+    import torch
+
+    from hpc_ops_tpu_torch.models import llama
+    from hpc_ops_tpu_torch.models.convert import from_hf_llama
+
+    cfg = llama.llama3_8b()
+    hf = hf_view(w, cfg)
+    lines = {}
+    for int8 in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        ccfg, cw = from_hf_llama(hf, dense_int8=int8, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        if ccfg != cfg._replace(dense_int8=int8):
+            raise AssertionError(f"convert: config {ccfg} != llama3_8b")
+        want = w
+        if int8:
+            want = {**w, "layers": []}
+            for L in w["layers"]:
+                q = dict(L)
+                for name in ("wqkv", "wo", "w_gate_up", "w_down"):
+                    q[name], q[name + "_scale"] = llama.quantize_w8(L[name])
+                want["layers"].append(q)
+        got, ref = dict(tree_items(cw)), dict(tree_items(want))
+        if sorted(got) != sorted(ref):
+            raise AssertionError(f"convert: names {sorted(set(got) ^ set(ref))} differ")
+        recast = []
+        for name, g in got.items():
+            r = ref[name]
+            if g.shape != r.shape or (g.dtype == torch.int8 and g.stride() != r.stride()):
+                raise AssertionError(f"convert {name}: shape or layout differs")
+            if g.dtype != r.dtype:  # the norms: dtype (bf16) ones for float32 ones
+                recast.append(name)
+                ok = torch.equal(g.to(r.dtype), r) and torch.equal(r.to(g.dtype), g)
+            else:
+                ok = torch.equal(g, r)
+            if not ok:
+                raise AssertionError(f"convert {name}: differs from slice_full's")
+        lines["dense_int8" if int8 else "bf16"] = dict(seconds=secs, peak_extra_bytes=peak,
+                                                       tensors=len(got), cast_tensors=len(recast))
+        del cw, want, got, ref
+        torch.cuda.empty_cache()
+    emit("convert", config="llama3_8b", **lines)
+
+
+REPLAY_TOKENS = 512  # replay: the row-17 call's rows at Mixtral width (2 x 14336 columns)
+
+
+def replay_phase(dev):
+    """TraceHook around one act_mul_and_quant call at Mixtral-8x7B width on the
+    card (row 17's kernel), replayed from memory and from disk (under
+    build/replay), bit-identical; the kernel's launches (1 recorded + 2 x 2
+    replayed)."""
+    import torch
+
+    import hpc_ops_tpu_torch.ops.activation as act_mod
+    from hpc_ops_tpu_torch import kernels
+    from hpc_ops_tpu_torch.utils.replay import TraceHook, replay_record
+
+    out_dir = os.path.join(ROOT, "build", "replay")
+    os.makedirs(out_dir, exist_ok=True)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    x = torch.randn((REPLAY_TOKENS, 2 * 14336), generator=gen, device=dev).to(torch.bfloat16)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with TraceHook([act_mod.act_mul_and_quant], out_dir=out_dir) as hook:
+        act_mod.act_mul_and_quant(x, torch.tensor([1.7], device=dev))
+    rec = hook.records[0]
+    replay_record(rec)
+    replay_record(rec.path)
+    counts = kernels.launch_counts()
+    if counts["act_quant"] != 5:
+        raise AssertionError(f"replay: {counts['act_quant']} row-17 launches (want 5)")
+    emit("replay", op="act_mul_and_quant", shape=list(x.shape), record_bytes=os.path.getsize(rec.path),
+         seconds=time.perf_counter() - t0, bit_identical=True, act_quant_launches=counts["act_quant"])
+    os.remove(rec.path)
     return counts
 
 
@@ -4438,6 +4973,13 @@ def main() -> int:
     counts_multi = phase("slice_full_multi", slice_full_multi, dev, w, bf16_tokens)
     counts_tp_multi = phase("slice_full_tp_multi", slice_full_multi, dev, w, tp_tokens,
                             make_mesh(tp=TP_FULL, dp=1, devices=[dev] * TP_FULL), "slice_full_tp")
+    # the rest of the serving engine, ring attention, the converter and replay
+    launches_spec = phase("slice_full_spec", slice_full_spec, dev, w, bf16_tokens)
+    launches_prefix = phase("slice_full_prefix", slice_full_prefix, dev, w)
+    launches_sampling = phase("slice_full_sampling", slice_full_sampling, dev, w, bf16_tokens)
+    phase("convert", convert_phase, dev, w)
+    phase("ring_attention", ring_attention_phase, dev)
+    launches_replay = phase("replay", replay_phase, dev)
     # the fp8 experts of the MoE model (45 GB) need the room of the llama3_8b weights
     del w, bf16_prefill_logits
     torch.cuda.empty_cache()
@@ -4506,7 +5048,8 @@ def main() -> int:
          ops_moe=launches_moe_ops, ops_moe_bw=launches_moe_bw_ops, decode_fused=launches_fused,
          decode_sched=launches_sched, prefill_sparse=launches_sparse, rmsnorm_quant=launches_norm,
          route_gemm=launches_route, tp=counts_tp, multi=counts_multi, tp_multi=counts_tp_multi,
-         allreduce=launches_allreduce)
+         allreduce=launches_allreduce, spec=launches_spec, prefix=launches_prefix,
+         sampling=launches_sampling, replay=launches_replay)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -408,9 +408,7 @@ def attention_with_kvcache_prefill(
                 "aligned_seq_starts=False for arbitrary packing"
             )
     if cache_layout not in ("NHD", "HND", "NHD_FUSED"):
-        raise NotImplementedError(
-            f"cache_layout={cache_layout!r} is not a prefill cache layout"
-        )
+        raise ValueError(f"cache_layout={cache_layout!r} is not a prefill cache layout")
     total_q, hq, d = q.shape
     scale = (1.0 / d**0.5) if sm_scale is None else sm_scale
     quantised = kcache.dtype != torch.bfloat16

@@ -1,6 +1,6 @@
-"""Tensor-parallel serving over a (dp, tp) mesh (port of ``parallel/``):
-meshes and rank groups, the fused all-reduce + residual + RMSNorm. JAX's
-``__all__`` but ``ring_attention``, which is not ported (it raises)."""
+"""Tensor-parallel serving over a (dp, tp) mesh and sequence-parallel
+attention (port of ``parallel/``): meshes and rank groups, the fused
+all-reduce + residual + RMSNorm, and ring attention. JAX's ``__all__``."""
 
 from hpc_ops_tpu_torch.parallel.collective_kernels import fuse_allreduce_rmsnorm_pallas
 from hpc_ops_tpu_torch.parallel.collectives import (
@@ -9,12 +9,7 @@ from hpc_ops_tpu_torch.parallel.collectives import (
     fuse_allreduce_rmsnorm_sharded,
 )
 from hpc_ops_tpu_torch.parallel.mesh import make_mesh, tp_sharding
-
-
-def ring_attention(*args, **kwargs):
-    """Ring attention over a sequence-parallel axis is not ported."""
-    raise NotImplementedError("ring_attention is not ported yet: ROADMAP queue 1 item 8 (multi-GPU)")
-
+from hpc_ops_tpu_torch.parallel.ring_attention import ring_attention
 
 __all__ = [
     "fuse_allreduce_rmsnorm",
@@ -22,5 +17,6 @@ __all__ = [
     "fuse_allreduce_rmsnorm_sharded",
     "fuse_allreduce_rmsnorm_ref",
     "make_mesh",
+    "ring_attention",
     "tp_sharding",
 ]

@@ -3379,3 +3379,169 @@ def test_collective_epoch_is_kept_on_the_device(cuda):
             assert torch.equal(outs[mode][0][r], want[0]) and torch.equal(outs[mode][1][r], want[1]), \
                 f"call {i} ({kind} {mode}) rank {r}"
         assert pad.epoch() == e0 + i + 1, f"call {i} ({kind} {mode})"
+
+
+# ------------------------------------------- the rest of the serving engine
+# Speculative verification runs the decode kernel at sq = k + 1; rejected
+# drafts leave rows past a request's committed length, which the kernel must
+# never read (NaN there leaves the output equal to the plain version's).
+from hpc_ops_tpu_torch.parallel.ring_attention import ring_attention, zigzag_layout, zigzag_unlayout  # noqa: E402
+from hpc_ops_tpu_torch.utils.replay import TraceHook, replay_record  # noqa: E402
+from hpc_ops_tpu_torch.utils.testing import assert_greedy_match, top2_margin  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splitk", [True, False])
+@pytest.mark.parametrize("sq", [4, 8])
+def test_decode_at_draft_widths_keeps_nan_past_kv_len_out(cuda, sq, splitk):
+    """llama3_8b's heads (G 4) at mtp 3 and 7: G * sq of 16 and 32 rows (one
+    and two row blocks), rows past each request's kv_len NaN."""
+    gen = torch.Generator().manual_seed(97)
+    q, k, v, tbl, kv_lens = paged(gen, [sq, 20, 1000, 4001, 17, 64], 32, 8, 128, sq=sq)
+    want = _decode_ref(q, k, v, tbl, kv_lens, sq, 128**-0.5, "HND")
+    for i, n in enumerate(kv_lens.tolist()):
+        page = int(tbl[i, n // BS])
+        k[:, page, n % BS :] = float("nan")
+        v[:, page, n % BS :] = float("nan")
+    got = attention_decode(*on(cuda, q, k, v, tbl, kv_lens), mtp=sq - 1, new_kv_included=True,
+                           cache_layout="HND", splitk=splitk)
+    assert_allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2, name=f"sq {sq} splitk={splitk}")
+
+
+def _engine_pair(cuda, **cfg_kw):
+    """tiny_config at llama3_8b's GQA group of 4 (kv_heads 2), seeded weights
+    on the CPU and on the card."""
+    from hpc_ops_tpu_torch.models import llama as T
+
+    cfg = T.tiny_config(**cfg_kw)._replace(kv_heads=2)
+    w = T.init_weights(cfg, torch.Generator().manual_seed(3), device="cpu")
+    return cfg, w, {**{k: v.to(cuda) for k, v in w.items() if k != "layers"},
+                    "layers": [{k: v.to(cuda) for k, v in layer.items()} for layer in w["layers"]]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 7])
+def test_engine_speculative_on_the_card_matches_cpu(cuda, k):
+    """Engine(speculative_k=k) on the card (the decode kernel at sq = k + 1)
+    against the CPU engine: an oracle drafter fed by the CPU's plain greedy
+    tokens, then the default n-gram drafter; tokens equal but for a first
+    flip at a CPU top-2 margin below 0.15 (the logits tolerance), and the
+    card's verification steps each one device-to-host copy."""
+    from hpc_ops_tpu_torch.models import llama as T
+    from hpc_ops_tpu_torch.runtime.engine import Engine
+
+    cfg, w_cpu, w = _engine_pair(cuda)
+    prompts = [[1, 2, 3, 1, 2, 3, 1, 2], [5, 6, 5, 6, 5], list(range(30, 70)), [9] * 20]
+    kw = dict(num_blocks=64, block_size=BS, max_batch=4)
+    want = Engine(cfg, w_cpu, device="cpu", **kw).run(prompts, max_new=12)
+    fulls = [p + o for p, o in zip(prompts, want)]
+
+    def oracle(tokens, kk):
+        for f in fulls:
+            if f[: len(tokens)] == list(tokens):
+                return f[len(tokens) : len(tokens) + kk]
+        return []
+
+    def margin(tokens):
+        n = len(tokens)
+        t = lambda x: torch.tensor(x, dtype=torch.int32)  # noqa: E731
+        caches = T.init_cache(cfg, 8, BS, device="cpu")
+        logits, _ = T.forward_step(w_cpu, caches, cfg, t(tokens), t([n]), t([0, n]), t([list(range(8))]),
+                                   is_prefill=True, max_seqlens_q=n)
+        return top2_margin(logits.float().reshape(-1))
+
+    for drafter in (oracle, None):
+        eng = Engine(cfg, w, device=cuda, speculative_k=k, draft_fn=drafter, **kw)
+        rids = [eng.add_request(p, max_new=12) for p in prompts]
+        eng.step(), eng.step(), eng.step(), eng.step()  # the prefills
+        copies = profile_dispatch(eng.step)[1]
+        while eng.step():
+            pass
+        got = [eng.requests[r].out for r in rids]
+        for p, a, b in zip(prompts, want, got):
+            assert_greedy_match(a, b, lambda j, p=p, a=a: margin(p + a[:j]), 0.15)
+        assert copies == 1 and eng.spec_proposed > 0
+        if drafter is oracle:
+            assert eng.speculative_stats["acceptance"] > 0.8
+        assert eng.alloc.num_free == eng.alloc.num_blocks - 1
+
+
+@pytest.mark.cuda
+def test_engine_n_best_copies_pages_in_place_under_the_graph(cuda):
+    """Engine(multi_step=4, temperature): a first request captures the graph;
+    then an n = 3 request forks the parent's pages and copies its partial tail
+    page in place (the graph holds the caches' addresses). The copied pages
+    equal the parent's in every layer, the children decode through replays of
+    the same graph, tokens in the vocab, every page returned."""
+    from hpc_ops_tpu_torch.runtime.engine import Engine
+
+    cfg, _, w = _engine_pair(cuda)
+    eng = Engine(cfg, w, device=cuda, num_blocks=64, block_size=BS, max_batch=4, multi_step=4,
+                 temperature=0.8, seed=5)
+    free0 = eng.alloc.num_free
+    eng.run([[1, 2, 3]], max_new=9)
+    graph, addrs = eng._multi.graph, [t.data_ptr() for layer in eng.caches for t in layer.values()]
+    assert graph is not None
+    rids = eng.add_request(list(range(40, 61)), max_new=9, n=3)  # 21 tokens: a partial tail page
+    eng.step()  # the prefill, the forks and the copies
+    pt = eng.alloc.table(rids[0])
+    for crid in rids[1:]:
+        ct = eng.alloc.table(crid)
+        assert ct[0] == pt[0] and ct[1] != pt[1]
+        for layer in eng.caches:
+            for c in layer.values():
+                assert torch.equal(c[:, int(ct[1])], c[:, int(pt[1])])
+    while eng.step():
+        pass
+    assert eng._multi.graph is graph
+    assert [t.data_ptr() for layer in eng.caches for t in layer.values()] == addrs
+    for r in rids:
+        out = eng.requests[r].out
+        assert len(out) == 9 and all(0 <= t < cfg.vocab for t in out)
+    assert eng.alloc.num_free == free0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule,causal", [("ring", True), ("ring", False), ("zigzag", True)])
+def test_ring_attention_on_virtual_ranks_matches_sdpa(cuda, schedule, causal):
+    """4 virtual ranks of the card, GQA 4, float32 with TF32 off: within 2e-4
+    of SDPA over the gathered sequence (tests/test_ring_attention.py's bar)."""
+    gen = torch.Generator().manual_seed(98)
+    ws, b, s, hkv, g, d = 4, 2, 4 * 256, 2, 4, 128
+    q = torch.randn((b, s, hkv * g, d), generator=gen).to(cuda)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen).to(cuda) for _ in range(2))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        xs = [zigzag_layout(x, ws) if schedule == "zigzag" else x for x in (q, k, v)]
+        shards = [torch.chunk(x, ws, dim=1) for x in xs]
+        mesh = make_mesh(tp=ws, devices=[cuda] * ws)
+        outs = run_ranks(mesh, lambda grp, _: ring_attention(*(sh[grp.rank] for sh in shards), grp,
+                                                             causal=causal, schedule=schedule))[0]
+        got = torch.cat(outs, dim=1)
+        if schedule == "zigzag":
+            got = zigzag_unlayout(got, ws)
+        want = torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.repeat_interleave(g, dim=2).transpose(1, 2),
+            v.repeat_interleave(g, dim=2).transpose(1, 2), is_causal=causal).transpose(1, 2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert (got - want).abs().max().item() < 2e-4
+
+
+@pytest.mark.cuda
+def test_replay_of_a_kernel_record_is_bit_identical(cuda, tmp_path):
+    """TraceHook around act_mul_and_quant on the card (row 17's kernel): the
+    record replays on the card from memory and from disk, bit-identical."""
+    import hpc_ops_tpu_torch.ops.activation as act_mod
+
+    gen = torch.Generator().manual_seed(99)
+    x = randn(gen, 200, 2 * 1408).to(cuda)
+    before = act_quant.launches
+    with TraceHook([act_mod.act_mul_and_quant], out_dir=str(tmp_path)) as hook:
+        act_mod.act_mul_and_quant(x, torch.tensor([1.7], device=cuda))
+    rec = hook.records[0]
+    assert rec.outputs.device.startswith("cuda") and rec.args[0].device.startswith("cuda")
+    replay_record(rec)
+    replay_record(rec.path)
+    assert act_quant.launches - before == 5  # the record and two runs of each replay

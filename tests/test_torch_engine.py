@@ -235,11 +235,32 @@ def test_engine_stats_and_sampling(model):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"speculative_k": 2}, {"prefix_cache": True}, {"topk": 5, "temperature": 1.0}],
+    "kw, request_kw, match",
+    [
+        ({"speculative_k": 2, "temperature": 0.8}, None, "greedy"),
+        ({"speculative_k": 16}, None, "fit one page"),
+        ({"speculative_k": 2, "multi_step": 4}, None, "exclusive"),
+        ({"speculative_k": 2, "logprobs": True}, None, "exclusive"),
+        ({"topk": 5}, None, "temperature > 0"),
+        ({"topp": 0.9, "temperature": 0.8, "multi_step": 2}, None, "multi_step=1"),
+        ({"repetition_penalty": 1.1, "temperature": 0.8, "multi_step": 2}, None, "multi_step=1"),
+        ({"multi_step": 4}, {"temperature": 0.8}, "multi_step=1"),
+        ({}, {"n": 2}, "temperature > 0"),
+        ({"temperature": 0.8, "speculative_k": 0}, {"n": 0}, "at least one"),
+        ({"speculative_k": 2}, {"topk": 3}, "exclusive"),
+        ({"temperature": 0.8, "repetition_penalty": 1.1}, {"temperature": 0.0}, "temperature > 0"),
+    ],
 )
-def test_engine_deferred_features_raise(model, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1"):
-        engine(model, **kw)
+def test_engine_exclusions_raise_value_error(model, kw, request_kw, match):
+    """The JAX engine's asserts, as ValueErrors on the same conditions: at
+    construction, or (``request_kw``) at add_request."""
+    if request_kw is None:
+        with pytest.raises(ValueError, match=match):
+            engine(model, **kw)
+        return
+    eng = engine(model, **kw)
+    with pytest.raises(ValueError, match=match):
+        eng.add_request([1, 2, 3], max_new=2, **request_kw)
 
 
 # ------------------------------------------- fused multi-step decode, logprobs

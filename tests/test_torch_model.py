@@ -389,12 +389,10 @@ def test_later_slices_raise(field):
         return
     # qkv_bias serves now (forward_step adds a layer's "qkv_bias"), and so
     # does tensor parallelism over axis_name on virtual ranks of one device;
-    # a mesh over distinct CUDA devices and ring attention are a later slice
+    # a mesh over distinct CUDA devices is a later slice
     cfg = T.tiny_config(qkv_bias=True)
     T.init_cache(cfg, 4, 16, device="cpu")
-    from hpc_ops_tpu_torch.parallel import make_mesh, ring_attention
+    from hpc_ops_tpu_torch.parallel import make_mesh
 
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
         make_mesh(tp=2, devices=[torch.device("cuda", 0), torch.device("cuda", 1)])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        ring_attention(q, q, q)

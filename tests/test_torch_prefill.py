@@ -160,3 +160,14 @@ def test_prefill_nhd_fused_int8_matches_jax(impl):
     n = int(cu[-1])
     assert_allclose(got[:n].float(), want[:n], atol=8e-2, rtol=8e-2, name="nhd_fused_int8")
     assert not got[n:].float().any()
+
+
+def test_unknown_cache_layout_is_a_value_error():
+    """A layout the prefill does not read is a ValueError, as decode's is."""
+    from hpc_ops_tpu_torch.ops.attention import attention_with_kvcache_prefill
+
+    q = torch.zeros((2, 8, 128), dtype=torch.bfloat16)
+    kv = torch.zeros((2, 4, 16, 128), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not a prefill cache layout"):
+        attention_with_kvcache_prefill(q, kv, kv, torch.tensor([0, 2]), torch.tensor([[0]]),
+                                       torch.tensor([2]), 2, cache_layout="FUSED")

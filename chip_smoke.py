@@ -91,7 +91,14 @@ Phases, each printing one JSON line:
      RMSNorm (both schedules and both epilogues) on 2, 4 and 8 virtual ranks
      of the card, with and without skew, every rank's outputs bit-equal to
      the plain version's, then the JAX collective benchmark's grid at world 8
-     beside the plain version and the unfused chain. The QuantType-0 decode
+     beside the plain version and the unfused chain; its per-device form (a
+     launch a rank, forced over virtual ranks) bit-equal to the plain
+     version and the one-launch form at 2, 4 and 8 ranks, replayed from a
+     captured graph at the decode and prefill shapes, device time beside
+     the one-launch form's at the grid; sampler_approx: the binned
+     approximate top-k against the exact one at [64, 120832] (device ms,
+     recall); distinct_devices: a mesh over two cards where the machine has
+     them (with one card a line says it did not run). The QuantType-0 decode
      and the per-token prefill also run with K scales in 4 groups along D;
   4. slice_tiny, slice_tiny_int8, slice_tiny_moe, slice_tiny_fp8,
      slice_tiny_moe_int8 and slice_tiny_moe_bw: Engine on tiny_config (bf16
@@ -136,7 +143,11 @@ Phases, each printing one JSON line:
      summary line each (decode ms a step, device busy and idle share, the
      latter also from the union of kernel intervals, launches a step, copies
      a dispatch, capture and instantiate seconds, the graph's pool, peak
-     memory);
+     memory); slice_full_hybrid: ShardedEngine on make_hybrid_mesh(2, 4) of
+     virtual ranks over the same weights, eager (12 new tokens) and with
+     multi_step=8 (128), tokens held to slice_full's by the same rule,
+     prefill logits within cosine 0.98 of bf16's, one copy a step or
+     dispatch, a *_summary line each;
   6. slice_full_moe: the llama3_8b weights are freed, then Engine serves the
      published Mixtral-8x7B-v0.1 widths at full depth (32 layers, 8 fp8
      experts of 14336, top-2; 45 GB of seeded expert weights built layer by
@@ -2279,8 +2290,10 @@ def allreduce_case(dev, gen, mode, ws, n, h, eps=1e-5, bf16_norm=False, own_res=
     from seeded inputs: the kernel's call (one launch for the group; run once
     here and checked bit-equal to the plain version on every rank), the
     plain version's (one set of outputs and a copy per rank, as the CPU ranks
-    get them) and the unfused chain's (sum of the partials, residual add,
-    RMSNorm: one library call each), as closures. The ranks read one
+    get them), the unfused chain's (sum of the partials, residual add,
+    RMSNorm: one library call each) and the per-device form's (a launch a
+    rank, in rank order on one stream; also run and checked bit-equal), as
+    closures. The ranks read one
     residual tensor, as the bound counts it, or with ``own_res`` each its
     own copy, as the serving ranks do."""
     import torch
@@ -2288,6 +2301,7 @@ def allreduce_case(dev, gen, mode, ws, n, h, eps=1e-5, bf16_norm=False, own_res=
 
     from hpc_ops_tpu_torch.parallel.collective_kernels import (
         _allreduce_rmsnorm_ref,
+        _RankCall,
         _SignalPad,
         allreduce_rmsnorm,
     )
@@ -2313,12 +2327,22 @@ def allreduce_case(dev, gen, mode, ws, n, h, eps=1e-5, bf16_norm=False, own_res=
         r_ = torch.stack(xs).sum(0, dtype=torch.float32) + res[0]
         return F.rms_norm(r_, (h,), w, eps).to(torch.bfloat16), r_.to(torch.bfloat16)
 
-    kern()
+    rank_call = _RankCall(xs, res, ws_w, outs, oress, eps, mode, bf16_norm, 0)
+
+    def per_device():  # the per-device form: a launch a rank (checked once), in rank order on one stream
+        for r in range(ws):
+            rank_call.launch(r)
+
     want = _allreduce_rmsnorm_ref(xs, res[0], w, eps, mode, bf16_norm)
-    torch.cuda.synchronize()
-    if not all(torch.equal(o, want[0]) and torch.equal(r_, want[1]) for o, r_ in zip(outs, oress)):
-        raise AssertionError(f"allreduce {mode} {ws}x{n}x{h}: not bit-equal to the plain version")
-    return kern, plain, unfused
+    for form in (kern, per_device):
+        for o in (*outs, *oress):
+            o.zero_()
+        form()
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, want[0]) and torch.equal(r_, want[1]) for o, r_ in zip(outs, oress)):
+            raise AssertionError(f"allreduce {mode} {ws}x{n}x{h} ({form.__name__}): not bit-equal to the "
+                                 "plain version")
+    return kern, plain, unfused, per_device
 
 
 def check_allreduce(dev, _gen):
@@ -2399,14 +2423,19 @@ def check_allreduce(dev, _gen):
         del xs, res, x_parts, outs
     emit("check_allreduce", bit_equal_cases=checked, ranks=ALLREDUCE_WS, tokens=n, hidden=h,
          skew=ALLREDUCE_SKEW)
+    per_device_cases = check_allreduce_per_device(dev, gen, launches)
 
     def timed(mode, ws, n, h):
-        kern, plain, unfused = allreduce_case(dev, gen, mode, ws, n, h, eps)
+        kern, plain, unfused, per_device = allreduce_case(dev, gen, mode, ws, n, h, eps)
         big = n * h >= 2048 * 4096
         ms = time_ms(kern, 5 if big else 20)
         plain_ms = time_ms(plain, 3 if big else 10, 1)
         unfused_ms = time_ms(unfused, 3 if big else 10, 1)
-        return ms, plain_ms, unfused_ms, kern
+        # device time of both forms (torch.profiler): the per-device form's
+        # wall time at small shapes is its ws launches' host time
+        dev_ms = device_ms(kern, 5 if big else 20)
+        rank_ms = device_ms(per_device, 5 if big else 20)
+        return ms, plain_ms, unfused_ms, dev_ms, rank_ms, kern, per_device
 
     g = ALLREDUCE_GRID
     for h in g["hidden"]:
@@ -2414,23 +2443,136 @@ def check_allreduce(dev, _gen):
             for mode in ("one_shot", "two_shot"):
                 if mode == "two_shot" and n % (8 * g["world"]):
                     continue
-                ms, plain_ms, unfused_ms, _ = timed(mode, g["world"], n, h)
+                ms, plain_ms, unfused_ms, dev_ms, rank_ms, _, _ = timed(mode, g["world"], n, h)
                 bd, by = bound(allreduce_bytes(g["world"], n, h), 0)
                 emit("allreduce", mode=mode, world=g["world"], tokens=n, hidden=h, ms=ms, plain_ms=plain_ms,
-                     unfused_ms=unfused_ms, bound_ms=bd, bound_by=by, share_of_bound=bd / ms)
+                     unfused_ms=unfused_ms, device_ms=dev_ms, per_device_device_ms=rank_ms, bound_ms=bd,
+                     bound_by=by, share_of_bound=bd / ms, per_device_share_of_bound=bd / rank_ms)
                 torch.cuda.empty_cache()
     rows = []
     for name, (mode, ws, n, h) in ALLREDUCE_ROWS.items():
-        wall_ms, plain_ms, unfused_ms, kern = timed(mode, ws, n, h)
+        wall_ms, plain_ms, unfused_ms, dev_ms, rank_ms, kern, per_device = timed(mode, ws, n, h)
         # the decode collective's wall time is the host's (a launch a call);
         # its row takes the kernel's device time, as the decode rows do
         ms = device_ms(kern, 50) if n <= 64 else wall_ms
+        if n <= 64:
+            rank_ms = device_ms(per_device, 50)
+        rank_wall_ms = time_ms(per_device, 20)
         bd, _ = bound(allreduce_bytes(ws, n, h), n * h * (ws + 6))
         rows.append(kernel_row(name, "hpc_ops_tpu_torch/csrc/collective.cu", ALLREDUCE_REPLACES[mode], 0.0,
                                ms, plain_ms, None, allreduce_bytes(ws, n, h), n * h * (ws + 6),
                                ranks=ws, tokens=n, hidden=h, unfused_ms=unfused_ms, wrapper_ms=wall_ms,
                                share_of_bound=bd / ms))
+        # the per-device form (a launch a rank): all ranks' launches a call
+        rows.append(kernel_row(name.replace("rmsnorm", "rmsnorm_rank"), "hpc_ops_tpu_torch/csrc/collective.cu",
+                               ALLREDUCE_REPLACES[mode], 0.0, rank_ms, plain_ms, None,
+                               allreduce_bytes(ws, n, h), n * h * (ws + 6), ranks=ws, tokens=n, hidden=h,
+                               launches_per_call=ws, one_launch_ms=ms, one_launch_device_ms=dev_ms,
+                               wrapper_ms=rank_wall_ms,
+                               share_of_bound=bd / rank_ms, bit_equal_cases=per_device_cases))
     return rows, launches
+
+
+def check_allreduce_per_device(dev, gen, launches):
+    """The per-device form of rows 20 and 21 (a launch a rank on the rank's
+    stream, ordered by events) over virtual ranks, forced by the mesh's
+    private switch: 2, 4 and 8 ranks, both schedules and epilogues, each
+    rank's outputs bit-equal to the plain version's and to the one-launch
+    form's, ws launches a call; then at slice_full_tp's decode shape (4 x 8
+    x 4096) and a 2048-row two_shot, the same call captured into a CUDA
+    graph and replayed (one non-cooperative node a rank), bit-equal. The
+    public entry points are driven once each under the switch, their launch
+    counts read around them (``launches`` gains the per-device rows).
+    Returns the cases checked."""
+    import ctypes
+
+    import torch
+
+    from hpc_ops_tpu_torch import kernels
+    from hpc_ops_tpu_torch.parallel import fuse_allreduce_rmsnorm, fuse_allreduce_rmsnorm_pallas, make_mesh
+    from hpc_ops_tpu_torch.parallel.collective_kernels import (
+        _allreduce_rmsnorm_ref,
+        allreduce_rmsnorm_rank,
+        collective_rmsnorm,
+    )
+    from hpc_ops_tpu_torch.parallel.mesh import run_ranks
+
+    eps = 1e-5
+    n, h = ALLREDUCE_CHECK
+    checked = 0
+
+    def forced(ws):
+        mesh = make_mesh(tp=ws, devices=[dev] * ws)
+        mesh._per_device = True
+        return mesh
+
+    def run(mesh, xs, res, w, mode, bf16_norm):
+        return run_ranks(mesh, lambda g, _: collective_rmsnorm(g, xs[g.rank], res[g.rank], w, eps, mode,
+                                                               bf16_norm))[0]
+
+    def same(outs, want):
+        return all(torch.equal(o, want[0]) and torch.equal(r_, want[1]) for o, r_ in outs)
+
+    for ws in ALLREDUCE_WS:
+        mesh, one = forced(ws), make_mesh(tp=ws, devices=[dev] * ws)
+        xs, res, w = allreduce_inputs(dev, gen, ws, n, h)
+        for mode in ("one_shot", "two_shot"):
+            for bf16_norm in (False, True):
+                want = _allreduce_rmsnorm_ref(xs, res[0], w, eps, mode, bf16_norm)
+                r0 = allreduce_rmsnorm_rank.launches
+                outs = run(mesh, xs, res, w, mode, bf16_norm)
+                ref = run(one, xs, res, w, mode, bf16_norm)
+                torch.cuda.synchronize()
+                if allreduce_rmsnorm_rank.launches != r0 + ws:
+                    raise AssertionError(f"per-device allreduce {mode} ws={ws}: "
+                                         f"{allreduce_rmsnorm_rank.launches - r0} launches for one call")
+                if not same(outs, want) or not same(outs, (ref[0][0], ref[0][1])):
+                    raise AssertionError(f"per-device allreduce {mode} ws={ws} bf16_norm={bf16_norm}: not "
+                                         "bit-equal to the plain version and the one-launch form")
+                checked += 1
+        for row, mode, call in (
+                ("allreduce_rmsnorm_rank_one_shot", "one_shot", lambda g, _: fuse_allreduce_rmsnorm_pallas(
+                    xs[g.rank], res[g.rank], w, ws, g, "one_shot", eps)),
+                ("allreduce_rmsnorm_rank_two_shot", "two_shot", lambda g, _: fuse_allreduce_rmsnorm(
+                    xs[g.rank], res[g.rank], w, eps, g, "two_shot"))):
+            kernels.reset_launch_counts()
+            outs = run_ranks(mesh, call)[0]
+            torch.cuda.synchronize()
+            count_drive(launches, kernels.launch_counts(),
+                        {**{k: 0 for k in kernels.launch_counts()}, "allreduce_rmsnorm_rank": ws}, row,
+                        f"per-device allreduce entry {mode} ws={ws}")
+            launches[row] += ws - 1  # the row counts kernel launches: ws a call
+            if not same(outs, _allreduce_rmsnorm_ref(xs, res[0], w, eps, mode, row.endswith("two_shot"))):
+                raise AssertionError(f"per-device allreduce entry {mode} ws={ws}: not bit-equal to plain")
+        del xs, res, outs
+    for mode, ws, rows_, hid in (ALLREDUCE_ROWS["allreduce_rmsnorm_one_shot"],
+                                 ALLREDUCE_ROWS["allreduce_rmsnorm_two_shot"]):
+        mesh = forced(ws)
+        xs, res, w = allreduce_inputs(dev, gen, ws, rows_, hid)
+        want = _allreduce_rmsnorm_ref(xs, res[0], w, eps, mode, False)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            run(mesh, xs, res, w, mode, False)  # the eager run before the capture
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="global"):
+            outs = run(mesh, xs, res, w, mode, False)
+        counts = (ctypes.c_int * 7)()
+        kernels.check(kernels.lib().hpc_graph_node_counts(graph.raw_cuda_graph(), counts), "node counts")
+        graph.instantiate()
+        for o, r_ in outs:
+            o.zero_()
+            r_.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if counts[6] != ws or counts[1] or not same(outs, want):
+            raise AssertionError(f"per-device allreduce {mode} {ws}x{rows_}x{hid} replayed: node counts "
+                                 f"{list(counts)}, bit-equal {same(outs, want)}")
+        checked += 1
+        del graph, outs, xs, res
+    emit("check_allreduce_per_device", bit_equal_cases=checked, ranks=ALLREDUCE_WS, tokens=n, hidden=h,
+         captured=[ALLREDUCE_ROWS[k] for k in ALLREDUCE_ROWS])
+    return checked
 
 
 MOE_SHAPES = {"decode": 8, "prefill_200": 200, "prefill_512": 512, "prefill_2048": 2048}
@@ -3863,12 +4005,12 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
     # forward calls of the decode path: every dispatch runs multi_step steps,
     # and the first of a captured run also its eager run before the capture
     calls = n_dec * multi_step + (multi_step if multi_step > 1 else 0)
-    ranks = 1 if mesh is None else mesh.shape["dp"] * mesh.shape["tp"]
+    ranks = 1 if mesh is None else mesh.grid.size
     per_step = {k: n * ranks for k, n in zip(kernels_used, (calls, calls, n_pre)) if k}
     if cfg.moe is not None:  # every call, the scheme's MoE kernels in every layer
         per_step.update({k: v * (calls + n_pre) * ranks for k, v in MOE_PER_CALL[cfg.moe.scheme].items()})
     if mesh is not None:  # two fused collectives a layer, one launch per tp group
-        per_step["allreduce_rmsnorm"] = 2 * (calls + n_pre) * mesh.shape["dp"]
+        per_step["allreduce_rmsnorm"] = 2 * (calls + n_pre) * mesh.grid.shape[0]
     expect = {k: per_step.get(k, 0) * cfg.layers for k in counts}
     if counts != expect or min(counts[k] for k in per_step) == 0:
         raise AssertionError(f"{phase}: launch counts {counts} != expected {expect}")
@@ -4006,17 +4148,19 @@ def prompt_margin(cfg, prefill):
     return margin
 
 
-def hold_to_single_step(phase, want, got, prompts, margin):
-    """Each request's first MULTI_COMPARE tokens of ``got`` (the multi-step
-    run) against ``want`` (the single-step run) by ``assert_greedy_match``:
-    a first difference is accepted only where ``margin`` (the reference's
-    top-2 logit margin there) is below 0.15, and the comparison stops there.
-    Returns (share of equal tokens, accepted flips)."""
+def hold_to_single_step(phase, want, got, prompts, margin, compare=None):
+    """Each request's first ``compare`` (default MULTI_COMPARE) tokens of
+    ``got`` (the multi-step run) against ``want`` (the single-step run) by
+    ``assert_greedy_match``: a first difference is accepted only where
+    ``margin`` (the reference's top-2 logit margin there) is below 0.15,
+    and the comparison stops there. Returns (share of equal tokens,
+    accepted flips)."""
     from hpc_ops_tpu_torch.utils.testing import assert_greedy_match
 
+    compare = compare or MULTI_COMPARE
     flips, same = [], 0
     for i, (p, w, g) in enumerate(zip(prompts, want, got)):
-        w, g = w[:MULTI_COMPARE], g[:MULTI_COMPARE]
+        w, g = w[:compare], g[:compare]
         try:
             j = assert_greedy_match(w, g, lambda j, p=p, w=w: margin(p + w[:j]), ATOL_LOGITS)
         except AssertionError as e:
@@ -4024,7 +4168,7 @@ def hold_to_single_step(phase, want, got, prompts, margin):
         if j is not None:
             flips.append({"request": i, "step": j})
         same += sum(a == b for a, b in zip(w, g))
-    return same / sum(len(w[:MULTI_COMPARE]) for w in want), flips
+    return same / sum(len(w[:compare]) for w in want), flips
 
 
 def slice_full_multi(dev, w, bf16_tokens, mesh=None, ref_phase="slice_full"):
@@ -4083,6 +4227,177 @@ def slice_full_multi(dev, w, bf16_tokens, mesh=None, ref_phase="slice_full"):
          graph_kernel_nodes=graph["kernel_nodes"], collective_nodes=graph["collective_nodes"],
          collective_nodes_cooperative=graph["collective_nodes_cooperative"])
     return counts
+
+
+HYBRID = (2, 4)  # slice_full_hybrid: make_hybrid_mesh(2, 4), two row shards of 4 virtual tp ranks
+# its eager run's new tokens: a host-bound eager step of the 8 ranks costs
+# 0.37-0.60 s, so 12 tokens (8 timed steps after the 3 profiled ones) keep
+# the phase inside the run's budget (PERF.md section 4)
+HYBRID_EAGER_NEW = 12
+
+
+def slice_full_hybrid(dev, w, bf16_prefill_logits, bf16_tokens):
+    """ShardedEngine(llama3_8b) at full width and depth on
+    make_hybrid_mesh(2, 4) of virtual ranks (JAX's multi-host layout and
+    tests/test_multihost.py's mesh: request rows over ddp 2, each row shard
+    a tp group of 4) over slice_full's weights, eager (32 new tokens) and
+    with multi_step=8 (128 new tokens; one captured graph for both groups).
+    Prefill logits within cosine 0.98 of the single-device run's, request by
+    request; each request's first 12 (eager) and 32 (graph) tokens held to
+    slice_full's by the near-tie rule; launch counts exact in serve_full (the one-launch
+    collective twice a layer, call and group, the per-device form never);
+    one device-to-host copy a profiled decode step or dispatch; a summary
+    line for each run."""
+    import torch
+
+    from hpc_ops_tpu_torch.models import llama
+    from hpc_ops_tpu_torch.parallel.mesh import make_hybrid_mesh
+
+    cfg = llama.llama3_8b(residual_alpha=1.0 / 8)
+    dcn, tp = HYBRID
+    mesh = make_hybrid_mesh(dcn, tp, devices=[dev] * (dcn * tp))
+    _, prompts = full_prompts(cfg.vocab)
+
+    def prefill(toks, lens, qi, tbl, nb, n):  # slice_full's single-device model: the margins
+        caches = llama.init_cache(cfg, nb, BS, device=dev)
+        return llama.forward_step(w, caches, cfg, toks, lens, qi, tbl, is_prefill=True, max_seqlens_q=n)[0]
+
+    margin = prompt_margin(cfg, prefill)
+    counts = None
+    for ms, new in ((1, HYBRID_EAGER_NEW), (MULTI_STEP, MULTI_NEW)):
+        name = "slice_full_hybrid" if ms == 1 else "slice_full_hybrid_multi"
+        stats, counts, prefill_logits, eng, profiled = serve_full(
+            dev, cfg, w, name, BF16_KERNELS, mesh=mesh, multi_step=ms, new_tokens=new)
+        profile = profiled.summary()
+        copies = profile["device_to_host_copies_per_step" if ms == 1 else "device_to_host_copies_per_dispatch"]
+        if copies != 1:
+            raise AssertionError(f"{name}: {copies} device-to-host copies a decode step or dispatch (want 1)")
+        # a prefill call gives one row a shard: requests 2i and 2i + 1 (least-loaded placement)
+        rows = list(torch.cat(prefill_logits).view(-1, cfg.vocab))
+        if len(rows) != len(bf16_prefill_logits):
+            raise AssertionError(f"{name}: {len(rows)} prefill rows for {len(bf16_prefill_logits)} requests")
+        cos = prefill_cosines(name, rows, bf16_prefill_logits)
+        tokens = [r.out for r in eng.requests.values()]
+        compare = min(new, MULTI_COMPARE)
+        share, flips = hold_to_single_step(name, bf16_tokens, tokens, prompts, margin, compare)
+        extra = {}
+        if ms > 1:
+            graph = stats["graph"]
+            want_nodes = 2 * cfg.layers * ms * dcn
+            replayed = stats["graph_launches_per_replay"]["allreduce_rmsnorm"]
+            if graph["host_memcpy_nodes"] or not graph["collective_nodes"] == want_nodes == replayed:
+                raise AssertionError(f"{name}: graph {graph}, want {want_nodes} collective nodes and no host copy")
+            extra = dict(capture_s=graph["capture_s"], instantiate_s=graph["instantiate_s"],
+                         graph_pool_bytes=graph["pool_bytes"], collective_nodes=graph["collective_nodes"])
+        del eng
+        torch.cuda.empty_cache()
+        emit(name, ddp=dcn, dp=1, tp=tp, prefill_cosine_vs_bf16=cos, prefill_cosine_min=min(cos),
+             greedy_tokens_equal_to_slice_full=share, near_tie_flips=flips,
+             compared_tokens_per_request=compare, **stats)
+        emit(f"decode_profile_{name[len('slice_full_'):]}", **profile)
+        emit(f"{name}_summary", decode_ms_per_step=stats["decode_ms_per_step"],
+             device_busy_ms_per_step=profile["device_busy_ms_per_step"], idle_share=profile["idle_share"],
+             device_busy_union_ms_per_step=profile["device_busy_union_ms_per_step"],
+             idle_share_union=profile["idle_share_union"],
+             launches_per_step=profile["kernel_launches_per_step"], device_to_host_copies=copies,
+             peak_memory_bytes=stats["max_memory_allocated_bytes"], prefill_cosine_min=min(cos),
+             greedy_tokens_equal_to_slice_full=share, **extra)
+    return counts
+
+
+SAMPLER_SHAPE = (64, 120832)  # hpc_ops_tpu/ops/sampler.py:80-83: the approx top-k's measured shape
+
+
+def sampler_approx(dev):
+    """fused_sampler(topk_impl="approx") on the card at the JAX docstring's
+    [64, 120832], max_topk 64: the binned top-k (PartialReduce's algorithm,
+    ops/sampler.py:_approx_max_k) against the exact path's stable sort,
+    device ms of each (torch.profiler), the recall of the exact top-64,
+    every value the logit at its index, values sorted descending; and the
+    whole sampler (temperature 0.8, top-k 50) with each impl. The bound:
+    the logits read once."""
+    import torch
+
+    from hpc_ops_tpu_torch.ops import sampler as S
+
+    b, v = SAMPLER_SHAPE
+    k = 64
+    gen = torch.Generator(device=dev).manual_seed(77)
+    logits = torch.randn((b, v), generator=gen, device=dev) * 3
+    noise = S.gumbel_from_uniform(torch.rand((b, v), generator=gen, device=dev))
+    vals, idx = S._approx_max_k(logits, k)
+    exact = torch.sort(logits, dim=-1, descending=True, stable=True)[1][:, :k]
+    if not torch.equal(vals, torch.gather(logits, 1, idx)) or not bool((vals[:, :-1] >= vals[:, 1:]).all()):
+        raise AssertionError("sampler_approx: values not the logits at their indices, or not sorted")
+    found = sum(len(set(a) & set(c)) for a, c in zip(idx.tolist(), exact.tolist()))
+    recall = found / (b * k)
+    if recall < 0.95:
+        raise AssertionError(f"sampler_approx: recall {recall} < 0.95")
+    approx_ms = device_ms(lambda: S._approx_max_k(logits, k))
+    exact_ms = device_ms(lambda: torch.sort(logits, dim=-1, descending=True, stable=True))
+    sampler_ms = {impl: device_ms(lambda impl=impl: S.fused_sampler(
+        logits, temperature=0.8, topk=50, max_topk=k, gumbel_noise=noise, topk_impl=impl))
+        for impl in ("exact", "approx")}
+    bd, by = bound(b * v * 4, 0)
+    emit("sampler_approx", batch=b, vocab=v, k=k, bins=-(-v // S._bins(v, k, 0.95)), recall=recall,
+         topk_approx_ms=approx_ms, topk_exact_ms=exact_ms, sampler_exact_ms=sampler_ms["exact"],
+         sampler_approx_ms=sampler_ms["approx"], bound_ms=bd, bound_by=by)
+
+
+def distinct_devices(dev):
+    """A mesh over distinct cards, with 2 or more on the machine: the fused
+    collective on make_mesh(tp=2) over cards 0 and 1 (the per-device form,
+    each launch reading its peer's partial over peer memory) bit-equal to
+    the plain version in both schedules; ShardedEngine on tiny_config over
+    a rank a card (make_mesh(tp=2)) and a tp group a card
+    (make_hybrid_mesh(2, 2)), eager and multi_step=4, each equal to the
+    same mesh of virtual ranks on card 0. With one card it prints that it
+    did not run. Returns the per-device collective's launches."""
+    import torch
+
+    from hpc_ops_tpu_torch.models import llama
+    from hpc_ops_tpu_torch.parallel import make_mesh
+    from hpc_ops_tpu_torch.parallel.collective_kernels import _allreduce_rmsnorm_ref, allreduce_rmsnorm_rank
+    from hpc_ops_tpu_torch.parallel.collective_kernels import collective_rmsnorm
+    from hpc_ops_tpu_torch.parallel.mesh import make_hybrid_mesh, run_ranks
+    from hpc_ops_tpu_torch.runtime.sharded_engine import ShardedEngine
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit("distinct_devices", ran=False, cards=cards, reason="a mesh over distinct devices needs 2 cards")
+        return 0
+    devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    r0 = allreduce_rmsnorm_rank.launches
+    gen = torch.Generator().manual_seed(5)
+    mesh = make_mesh(tp=2, devices=devs)
+    xs = [(torch.randn((64, 4096), generator=gen) * 0.5).to(torch.bfloat16) for _ in range(2)]
+    res = torch.randn((64, 4096), generator=gen).to(torch.bfloat16)
+    w_ = torch.rand(4096, generator=gen) + 0.5
+    for mode in ("one_shot", "two_shot"):
+        want = _allreduce_rmsnorm_ref(xs, res, w_, 1e-5, mode, False)
+        outs = run_ranks(mesh, lambda g, _: collective_rmsnorm(g, xs[g.rank].to(g.device), res.to(g.device),
+                                                               w_.to(g.device), 1e-5, mode, False))[0]
+        for d in devs:
+            torch.cuda.synchronize(d)
+        if not all(torch.equal(o.cpu(), want[0]) and torch.equal(r_.cpu(), want[1]) for o, r_ in outs):
+            raise AssertionError(f"distinct_devices: the {mode} collective over two cards is not bit-equal")
+    cfg = llama.tiny_config()
+    w = llama.init_weights(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    prompts = [[1, 2, 3, 4, 5], [7, 8], [9, 10, 11], list(range(20, 61))]
+    served = {}
+    for layout, (over, virtual) in {
+            "rank_a_card": (lambda: make_mesh(tp=2, devices=devs), lambda: make_mesh(tp=2, devices=[dev] * 2)),
+            "group_a_card": (lambda: make_hybrid_mesh(2, 2, devices=[devs[0], devs[0], devs[1], devs[1]]),
+                             lambda: make_hybrid_mesh(2, 2, devices=[dev] * 4))}.items():
+        for ms in (1, 4):
+            got, want = (ShardedEngine(cfg, w, m(), num_blocks=64, block_size=BS, max_batch=4,
+                                       multi_step=ms).run(prompts, max_new=12) for m in (over, virtual))
+            if got != want:
+                raise AssertionError(f"distinct_devices {layout} multi_step={ms}: {got} != {want}")
+            served[f"{layout}_ms{ms}"] = True
+    emit("distinct_devices", ran=True, cards=cards, collective_bit_equal=True, served_equal=served,
+         per_device_launches=allreduce_rmsnorm_rank.launches - r0)
+    return allreduce_rmsnorm_rank.launches - r0
 
 
 # ------------------------------------------ the rest of the serving engine
@@ -4945,6 +5260,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     allreduce_rows, launches_allreduce = phase("check_allreduce", check_allreduce, dev, gen)
     torch.cuda.empty_cache()
+    phase("sampler_approx", sampler_approx, dev)
+    launches_distinct = phase("distinct_devices", distinct_devices, dev)
+    torch.cuda.empty_cache()
     phase("slice_tiny", slice_tiny, dev)
     phase("slice_tiny_int8", slice_tiny, dev, "slice_tiny_int8", int8_kv=True, kv_scale=0.02)
     phase("slice_tiny_moe", slice_tiny, dev, "slice_tiny_moe", moe=True)
@@ -4973,6 +5291,7 @@ def main() -> int:
     counts_multi = phase("slice_full_multi", slice_full_multi, dev, w, bf16_tokens)
     counts_tp_multi = phase("slice_full_tp_multi", slice_full_multi, dev, w, tp_tokens,
                             make_mesh(tp=TP_FULL, dp=1, devices=[dev] * TP_FULL), "slice_full_tp")
+    counts_hybrid = phase("slice_full_hybrid", slice_full_hybrid, dev, w, bf16_prefill_logits, bf16_tokens)
     # the rest of the serving engine, ring attention, the converter and replay
     launches_spec = phase("slice_full_spec", slice_full_spec, dev, w, bf16_tokens)
     launches_prefix = phase("slice_full_prefix", slice_full_prefix, dev, w)
@@ -5033,10 +5352,14 @@ def main() -> int:
     rows += sparse_rows_ + norm_rows + route_rows
     # the fused collective: slice_full_tp_multi's run launched the one_shot
     # form (the model's), its decode through graph replays; check_allreduce
-    # drove the two_shot form's entry points
+    # drove the two_shot form's entry points and the per-device form's
+    # (counted in kernel launches, with those of distinct_devices where the
+    # machine has two cards)
     for r in allreduce_rows:
         r["launches"] = (counts_tp_multi["allreduce_rmsnorm"] if r["name"] == "allreduce_rmsnorm_one_shot"
                          else launches_allreduce.get(r["name"], 0))
+        if r["name"] == "allreduce_rmsnorm_rank_one_shot":
+            r["launches"] += launches_distinct
     rows += allreduce_rows
     for r in rows:
         r["route"] = "cuda"
@@ -5048,6 +5371,7 @@ def main() -> int:
          ops_moe=launches_moe_ops, ops_moe_bw=launches_moe_bw_ops, decode_fused=launches_fused,
          decode_sched=launches_sched, prefill_sparse=launches_sparse, rmsnorm_quant=launches_norm,
          route_gemm=launches_route, tp=counts_tp, multi=counts_multi, tp_multi=counts_tp_multi,
+         hybrid_multi=counts_hybrid, distinct_devices=launches_distinct,
          allreduce=launches_allreduce, spec=launches_spec, prefix=launches_prefix,
          sampling=launches_sampling, replay=launches_replay)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -768,14 +768,20 @@ template <int DP, typename T, int kMode>
 int launch_dp(const Args& a, int grid_x, cudaStream_t stream) {
   using L = Layout<DP, T, kMode>;
   auto kernel = paged_decode_kernel<DP, T, kMode>;
-  // the attribute once an instance (not inside a CUDA graph's capture after
-  // the first launch); tensor-parallel ranks launch from threads
-  static std::atomic<bool> granted{false};
-  if (L::kBytes > 48 * 1024 && !granted.load()) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  // the attribute once an instance and device (an attribute of each device;
+  // not inside a CUDA graph's capture after the device's first launch);
+  // tensor-parallel ranks launch from threads
+  static std::atomic<unsigned long long> granted{0};  // a bit a device
+  if (L::kBytes > 48 * 1024) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return static_cast<int>(e);
-    granted.store(true);
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+    if ((granted.load() & bit) == 0 || bit == 0) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      granted.fetch_or(bit);
+    }
   }
   const int row_blocks = ((a.hq / a.hkv) * a.sq + kRowsBlk - 1) / kRowsBlk;
   const dim3 grid = kMode == kTasks ? dim3(grid_x, row_blocks)

@@ -143,6 +143,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <cstring>
 #include <type_traits>
 
@@ -685,12 +686,16 @@ __global__ void __launch_bounds__(128, 1) gg_pertensor_e4m3_mma_kernel(const Par
 template <int MODE>
 int launch_mma(Params p, cudaStream_t stream) {
   auto kernel = MODE == kAligned ? gg_pertensor_e4m3_mma_kernel : gg_scatter_e4m3_mma_kernel;
-  static bool configured = false;  // more than 48 KB of dynamic shared memory
-  if (!configured) {
-    const cudaError_t c =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM);
+  // more than 48 KB of dynamic shared memory: an attribute of each device
+  static std::atomic<unsigned long long> configured{0};  // a bit a device
+  int dev = 0;
+  cudaError_t c = cudaGetDevice(&dev);
+  if (c != cudaSuccess) return static_cast<int>(c);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if ((configured.load(std::memory_order_relaxed) & bit) == 0 || bit == 0) {
+    c = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM);
     if (c != cudaSuccess) return static_cast<int>(c);
-    configured = true;
+    configured.fetch_or(bit, std::memory_order_relaxed);
   }
   p.subtiles = (p.tm + MMA_BM - 1) / MMA_BM;
   const dim3 grid(static_cast<unsigned>(p.num_tiles) * p.subtiles, (p.n + BN - 1) / BN);
@@ -763,12 +768,16 @@ int launch(Params p, int groups, cudaStream_t stream) {
   std::memset(&map, 0, sizeof(map));
   const int e = weight_map(&map, p.w, groups, p.n, p.k);
   if (e != 0) return e;
-  static bool configured = false;  // more than 48 KB of dynamic shared memory
-  if (!configured) {
-    const cudaError_t c =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  // more than 48 KB of dynamic shared memory: an attribute of each device
+  static std::atomic<unsigned long long> configured{0};  // a bit a device
+  int dev = 0;
+  cudaError_t c = cudaGetDevice(&dev);
+  if (c != cudaSuccess) return static_cast<int>(c);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if ((configured.load(std::memory_order_relaxed) & bit) == 0 || bit == 0) {
+    c = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
     if (c != cudaSuccess) return static_cast<int>(c);
-    configured = true;
+    configured.fetch_or(bit, std::memory_order_relaxed);
   }
   p.subtiles = (p.tm + L::BM - 1) / L::BM;
   const int cols = MODE == kScatterAct ? p.n / 2 : p.n;

@@ -140,6 +140,7 @@ struct e4m3_t {
 constexpr int kRows = 128;     // query rows a block, 64 a warpgroup
 constexpr int kCols = 64;      // KV positions a tile
 constexpr int kThreads = 256;  // two warpgroups
+constexpr int kMaxDevices = 64;  // devices whose launch attributes are remembered
 constexpr int kMaxGroups = 8;  // K scales per (token, kv head)
 constexpr int kKsStages = 4;   // ring of per-token K scales, by tile ordinal
 
@@ -868,17 +869,21 @@ int launch_form(const void* q, const void* kc, const void* vc, const int64_t* st
                 int vscale_per_head, int kgroups, float scale, BlockMask bm, cudaStream_t stream) {
   const size_t cap = (static_cast<size_t>(max_blocks) * page_size + kCols - 1) / kCols;
   const int smem = static_cast<int>(1024 + Smem<D, DV, T>::kList + (bm.bits ? 4 * cap : 0));
-  // the largest dynamic shared memory granted so far: cudaFuncSetAttribute
-  // only when a launch needs more (and not inside a CUDA graph's capture
-  // after the first launch); ranks of a tensor-parallel mesh launch from
-  // threads
-  static std::atomic<int> granted{0};
-  if (smem > granted.load()) {
+  // the largest dynamic shared memory granted so far on each device (an
+  // attribute of each device): cudaFuncSetAttribute only when a launch
+  // needs more (and not inside a CUDA graph's capture after the device's
+  // first launch); ranks of a tensor-parallel mesh launch from threads
+  static std::atomic<int> granted[kMaxDevices];
+  int dev = 0;
+  const cudaError_t de = cudaGetDevice(&dev);
+  if (de != cudaSuccess) return static_cast<int>(de);
+  std::atomic<int>* g = dev < kMaxDevices ? &granted[dev] : nullptr;
+  if (g == nullptr || smem > g->load()) {
     const cudaError_t e = cudaFuncSetAttribute(paged_prefill_kernel<D, DA, DV, T, kGrouped>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    int seen = granted.load();
-    while (smem > seen && !granted.compare_exchange_weak(seen, smem)) {
+    int seen = g == nullptr ? smem : g->load();
+    while (smem > seen && !g->compare_exchange_weak(seen, smem)) {
     }
   }
   // the last column zero-fills the rows past cu[batch]; DA / DV blocks a

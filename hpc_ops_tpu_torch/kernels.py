@@ -63,6 +63,8 @@ _SIGNATURES = {
     "hpc_rmsnorm_quant": [_P, _P, _I] + [_P] * 4 + [_I] * 2 + [_F, _I, _P],
     "hpc_route_gemm": [_P] * 5 + [_I] * 4 + [_P] * 2 + [_I] * 3 + [_P],
     "hpc_allreduce_rmsnorm": [_P] * 6 + [_I] * 3 + [_F] + [_I] * 3 + [_P],
+    "hpc_allreduce_rmsnorm_rank": [_P] * 5 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+    "hpc_enable_peer_access": [_I, _I],
     "hpc_graph_node_counts": [_P, _P],
 }
 
@@ -208,7 +210,7 @@ def wrappers() -> dict:
     from hpc_ops_tpu_torch.ops.moe import moe_reduce
     from hpc_ops_tpu_torch.ops.normalization import rmsnorm_quant
     from hpc_ops_tpu_torch.ops.rope_kernel import rope_store_rows, rope_store_rows_int8
-    from hpc_ops_tpu_torch.parallel.collective_kernels import allreduce_rmsnorm
+    from hpc_ops_tpu_torch.parallel.collective_kernels import allreduce_rmsnorm, allreduce_rmsnorm_rank
 
     return {
         "rope_store": rope_store_rows,
@@ -232,6 +234,7 @@ def wrappers() -> dict:
         "rmsnorm_quant": rmsnorm_quant,
         "route_gemm": route_gemm,
         "allreduce_rmsnorm": allreduce_rmsnorm,
+        "allreduce_rmsnorm_rank": allreduce_rmsnorm_rank,
     }
 
 

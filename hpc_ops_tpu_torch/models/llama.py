@@ -48,7 +48,8 @@ down projection or the MoE) ends in the fused all-reduce + residual + RMSNorm
 :func:`shard_weights_for_tp`), :func:`init_cache` with ``tp`` makes one
 rank's caches, and :func:`make_sharded_step` runs :func:`forward_step` on
 every rank of the mesh with ``axis_name`` set to the rank's
-:class:`~hpc_ops_tpu_torch.parallel.mesh.RankGroup`; ``dp`` shards the batch.
+:class:`~hpc_ops_tpu_torch.parallel.mesh.RankGroup`; the row axes (``dp``,
+and ``ddp`` on a hybrid mesh) shard the batch.
 """
 
 from __future__ import annotations
@@ -660,67 +661,94 @@ def shard_weights_for_tp(weights: dict, cfg: ModelConfig, tp: int) -> dict:
 
 def shard_weights(weights: dict, cfg: ModelConfig, mesh) -> list:
     """Each tp rank's weights, placed once on its device: a list over the tp
-    ranks of weight dicts (every dp shard's rank r uses entry r). Layer by
-    layer: repack (:func:`shard_weights_for_tp`), then split each leaf along
-    its :func:`shard_weights_specs` dim; replicated leaves are moved, not
-    copied, where they already lie on the rank's device (virtual ranks on one
-    card share them), and int8 matrices keep the column-major layout
-    :func:`quantize_w8` gives them."""
+    ranks of weight dicts (every row shard's rank r uses entry r), or, where
+    the row shards put rank r on different devices (a tp group a device), a
+    list over the row shards of such lists (:func:`_rank_weights` reads
+    either). Layer by layer: repack (:func:`shard_weights_for_tp`), then
+    split each leaf along its :func:`shard_weights_specs` dim; replicated
+    leaves are moved, not copied, where they already lie on the rank's
+    device (virtual ranks on one card share them), and int8 matrices keep
+    the column-major layout :func:`quantize_w8` gives them."""
     tp = mesh.shape["tp"]
-    devs = list(mesh.devices[0])
+    grid = mesh.grid
+    per_shard = any(len(set(grid[:, r])) > 1 for r in range(tp))
+    placements = [list(row) for row in grid] if per_shard else [list(grid[0])]
     experts = cfg.moe.num_experts if cfg.moe is not None else tp
     if cfg.q_heads % tp or cfg.kv_heads % tp or cfg.intermediate % tp or experts % tp:
         raise ValueError(f"tp={tp} must divide the q and kv heads, the intermediate and the experts")
     specs = shard_weights_specs(cfg)
 
-    def split(t, dim, r):
+    def split(t, dim, r, dev):
         if dim is None:
-            return t.to(devs[r])
+            return t.to(dev)
         n = t.shape[dim] // tp
-        part = t.narrow(dim, r * n, n).to(devs[r])
+        part = t.narrow(dim, r * n, n).to(dev)
         return _column_major(part) if t.dtype == torch.int8 and t.dim() == 2 else part.contiguous()
 
-    ranks = [{k: split(weights[k], None, r) for k in ("embed", "final_norm", "lm_head", "cos_sin")}
-             for r in range(tp)]
-    for r in ranks:
-        r["layers"] = []
+    out = [[{k: split(weights[k], None, r, devs[r]) for k in ("embed", "final_norm", "lm_head", "cos_sin")}
+            for r in range(tp)] for devs in placements]
+    for ranks in out:
+        for r in ranks:
+            r["layers"] = []
     for layer, spec in zip(weights["layers"], specs["layers"]):
         repacked = _repack_layer(layer, cfg, tp)
-        for r in range(tp):
-            ranks[r]["layers"].append({k: split(v, spec[k], r) for k, v in repacked.items()})
-    return ranks
+        for devs, ranks in zip(placements, out):
+            for r in range(tp):
+                ranks[r]["layers"].append({k: split(v, spec[k], r, devs[r]) for k, v in repacked.items()})
+    return out if per_shard else out[0]
+
+
+def _rank_weights(weights: list, shard: int, rank: int) -> dict:
+    """Rank ``rank`` of row shard ``shard``'s weights in :func:`shard_weights`'s list."""
+    return weights[shard][rank] if isinstance(weights[0], list) else weights[rank]
+
+
+def _row_split(t, shards: int) -> list:
+    """A data argument's rows by row shard: a tensor is split evenly over the
+    shards, as JAX's ``P(rows)`` splits it; a list already holds each
+    shard's rows (the port's row-sharded array: each shard's tensor on the
+    device that reads it)."""
+    if isinstance(t, (list, tuple)):
+        if len(t) != shards:
+            raise ValueError(f"{len(t)} row shards given for a mesh of {shards}")
+        return list(t)
+    if t.shape[0] % shards:
+        raise ValueError(f"a data array of {t.shape[0]} rows does not split over {shards} row shards")
+    return list(t.reshape(shards, -1, *t.shape[1:]))
 
 
 def make_sharded_step(mesh, cfg: ModelConfig, is_prefill: bool = False, **fw_kw):
-    """A forward step over a (dp, tp) mesh: ``step(weights, caches, token_ids,
-    seq_lens, q_index, block_ids) -> (out, caches)`` with JAX's data
-    conventions. ``weights`` is :func:`shard_weights`'s list, ``caches`` a
-    ``[dp][tp]`` list of each rank's :func:`init_cache` (``tp=tp``, the row
-    shard's own page pool). The data rows are split evenly over the dp
-    shards: ``token_ids`` [rows], ``seq_lens`` [B] and ``block_ids`` [B,
+    """A forward step over a mesh of :func:`~hpc_ops_tpu_torch.parallel.mesh.make_mesh`
+    or ``make_hybrid_mesh``: ``step(weights, caches, token_ids, seq_lens,
+    q_index, block_ids) -> (out, caches)`` with JAX's data conventions.
+    ``weights`` is :func:`shard_weights`'s list, ``caches`` a ``[shard][tp]``
+    list of each rank's :func:`init_cache` (``tp=tp``, the row shard's own
+    page pool, on the rank's device). The data rows are split evenly over
+    the row shards, the product of every axis but "tp" (ddp-major):
+    ``token_ids`` [rows], ``seq_lens`` [B] and ``block_ids`` [B,
     max_blocks] concatenated over the shards (block ids index the shard's
-    pool), ``q_index`` each shard's prefix sums, concatenated ([0, 1, 2, 0, 1,
-    2] for two shards of two decode rows). Every rank of a dp shard runs
-    :func:`forward_step` on its shards of the weights and caches with
-    ``axis_name`` its rank group and ``rank_ep`` its tp rank. Returns the out
-    of each dp shard's tp rank 0 (every rank's is the same), concatenated,
-    and the ranks' caches."""
+    pool), ``q_index`` each shard's prefix sums, concatenated ([0, 1, 2, 0,
+    1, 2] for two shards of two decode rows); each may also be given as a
+    list of the shards' parts, each on the device of the shard that reads
+    it. Every rank runs :func:`forward_step` on its shards of the weights
+    and caches, its inputs moved to its device, with ``axis_name`` its rank
+    group and ``rank_ep`` its tp rank. Returns the out of each row shard's
+    tp rank 0 (every rank's is the same), moved to ``mesh.device`` and
+    concatenated, and the ranks' caches."""
     check_supported(cfg)
-    dp = mesh.shape["dp"]
+    shards = mesh.grid.shape[0]
 
     def step(weights, caches, token_ids, seq_lens, q_index, block_ids):
-        for t in (token_ids, seq_lens, q_index, block_ids):
-            if t.shape[0] % dp:
-                raise ValueError(f"a data array of {t.shape[0]} rows does not split over dp={dp}")
-        tok, lens, qi = (t.reshape(dp, -1) for t in (token_ids, seq_lens, q_index))
-        tbl = block_ids.reshape(dp, -1, block_ids.shape[-1])
+        tok, lens, qi, tbl = (_row_split(t, shards) for t in (token_ids, seq_lens, q_index, block_ids))
 
         def rank(group, d):
             dev = group.device
-            return forward_step(
-                weights[group.rank], caches[d][group.rank], cfg, tok[d].to(dev), lens[d].to(dev),
-                qi[d].to(dev), tbl[d].to(dev), is_prefill, axis_name=group, rank_ep=group.rank,
-                **fw_kw)
+            out, cache = forward_step(
+                _rank_weights(weights, d, group.rank), caches[d][group.rank], cfg, tok[d].to(dev),
+                lens[d].to(dev), qi[d].to(dev), tbl[d].to(dev), is_prefill, axis_name=group,
+                rank_ep=group.rank, **fw_kw)
+            # torch.cat across devices fails: rank 0 brings its shard home
+            return out.to(mesh.device) if group.rank == 0 else None, cache
 
         res = run_ranks(mesh, rank)
         out = torch.cat([row[0][0] for row in res])
@@ -733,23 +761,25 @@ def _sharded_multi_body(mesh, cfg: ModelConfig, num_steps: int, return_logprobs:
                         temperature: float, weights, caches):
     """The eager body of :func:`make_sharded_multi_step` over fixed weights
     and caches, as :class:`~hpc_ops_tpu_torch.runtime.decode_graph.DecodeMultiGraph`
-    takes it: rank r of dp shard d runs :func:`decode_multi` on the shard's
-    rows with ``generators[d * tp + r]``; returns each dp shard's tp rank 0
-    tokens (and logprobs), concatenated over the shards."""
-    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    takes it: rank r of row shard d runs :func:`decode_multi` on the shard's
+    rows with ``generators[d * tp + r]``; returns each row shard's tp rank
+    0 tokens (and logprobs), moved to ``mesh.device`` and concatenated over
+    the shards."""
+    shards, tp = mesh.grid.shape
 
     def body(last_tokens, seq_lens, block_ids, generators):
-        tok, lens = (t.reshape(dp, -1) for t in (last_tokens, seq_lens))
-        tbl = block_ids.reshape(dp, -1, block_ids.shape[-1])
+        tok, lens, tbl = (_row_split(t, shards) for t in (last_tokens, seq_lens, block_ids))
 
         def rank(group, d):
             dev = group.device
             out, _ = decode_multi(
-                weights[group.rank], caches[d][group.rank], cfg, tok[d].to(dev), lens[d].to(dev),
-                tbl[d].to(dev), num_steps, temperature=temperature, axis_name=group, rank_ep=group.rank,
-                return_logprobs=return_logprobs,
+                _rank_weights(weights, d, group.rank), caches[d][group.rank], cfg, tok[d].to(dev),
+                lens[d].to(dev), tbl[d].to(dev), num_steps, temperature=temperature, axis_name=group,
+                rank_ep=group.rank, return_logprobs=return_logprobs,
                 generator=None if generators is None else generators[d * tp + group.rank])
-            return out
+            if group.rank:
+                return None
+            return tuple(t.to(mesh.device) for t in out) if return_logprobs else out.to(mesh.device)
 
         firsts = [row[0] for row in run_ranks(mesh, rank)]
         if return_logprobs:
@@ -782,18 +812,19 @@ class _ShardedMultiStep:
     def __call__(self, weights, caches, last_tokens, seq_lens, block_ids, sample_seed=0, to_host=False):
         from hpc_ops_tpu_torch.runtime.decode_graph import DecodeMultiGraph
 
-        dp, tp = self.mesh.shape["dp"], self.mesh.shape["tp"]
+        shards = self.mesh.grid.shape[0]
         for t in (last_tokens, seq_lens, block_ids):
-            if t.shape[0] % dp:
-                raise ValueError(f"a data array of {t.shape[0]} rows does not split over dp={dp}")
+            if t.shape[0] % shards:
+                raise ValueError(f"a data array of {t.shape[0]} rows does not split over {shards} row shards")
         shape, addresses = tuple(block_ids.shape), _addresses(caches)
         if self.graph is None:
             self._served = shape, weights, addresses
             self.graph = DecodeMultiGraph(
                 _sharded_multi_body(self.mesh, self.cfg, self.num_steps, self.return_logprobs,
                                     self.temperature, weights, caches),
-                shape[0], shape[1], self.num_steps, self.mesh.device, ranks=dp * tp,
-                temperature=self.temperature, return_logprobs=self.return_logprobs)
+                shape[0], shape[1], self.num_steps, self.mesh.device, rank_devices=list(self.mesh.grid.flat),
+                temperature=self.temperature,
+                return_logprobs=self.return_logprobs)
         elif (shape, addresses) != (self._served[0], self._served[2]) or weights is not self._served[1]:
             raise ValueError("a multi-step step serves the weights, caches and batch shape of its first call")
         if to_host:
@@ -807,11 +838,11 @@ def make_sharded_multi_step(mesh, cfg: ModelConfig, num_steps: int, return_logpr
     :func:`make_sharded_step`'s data conventions: ``step(weights, caches,
     last_tokens, seq_lens, block_ids, sample_seed) -> (out, caches)``, the
     rows (``last_tokens`` [rows], ``seq_lens`` [rows], ``block_ids`` [rows,
-    max_blocks]) split evenly over the dp shards; every rank runs
+    max_blocks]) split evenly over the row shards; every rank runs
     :func:`decode_multi` with ``axis_name`` its rank group and ``rank_ep`` its
     tp rank; ``out`` is the tokens [num_steps, rows] int32, or with
     ``return_logprobs`` (tokens, logprobs [num_steps, rows] float32),
-    concatenated over the dp shards. Each rank draws its noise from a
+    concatenated over the row shards on ``mesh.device``. Each rank draws its noise from a
     generator seeded with ``sample_seed``, so every rank samples the same
     tokens.
 

@@ -10,14 +10,20 @@ Plain PyTorch, same semantics as the JAX package:
     equal to the JAX package's bit for bit.
 
 The top-k is a stable descending sort, so equal values keep the lower token
-id first, as ``lax.top_k`` does. ``topk_impl="approx"`` (the TPU's
-PartialReduce unit) has no counterpart and raises ``ValueError``. The
-penalty mask is updated IN PLACE and also returned.
+id first, as ``lax.top_k`` does. ``topk_impl="approx"`` is JAX's
+``lax.approx_max_k(work, max_topk, recall_target=0.95)``, on the TPU its
+PartialReduce unit: on a card :func:`_approx_max_k` runs PartialReduce's
+algorithm (each row split into bins, each bin's max, an exact top-k over
+the bins' maxima: Chern et al., "TPU-KNN", section 4); on the CPU it stays
+exact, as JAX's CPU computes it, so CPU results equal JAX's bit for bit.
+The penalty mask is updated IN PLACE and also returned.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
+
+import math
 
 import torch
 
@@ -52,6 +58,41 @@ def _gumbel(b, v, seed, device, generator=None) -> torch.Tensor:
     return gumbel_from_uniform(u)
 
 
+def _bins(v: int, k: int, recall_target: float) -> int:
+    """Columns a bin: PartialReduce keeps a bin's maximum only, so a top-k
+    element is lost when a larger one shares its bin. With top-k positions
+    spread over L bins the last of them survives with probability
+    (1 - 1/L)^(k-1); the smallest L for which that reaches
+    ``recall_target`` sets the width (at least 1), and every row has at
+    least L bins of that width."""
+    if k <= 1:
+        return 1
+    least = math.ceil(1.0 / (1.0 - recall_target ** (1.0 / (k - 1))))
+    return max(1, v // least)
+
+
+def _approx_max_k(work: torch.Tensor, k: int, recall_target: float = 0.95):
+    """PartialReduce's approximate top-k of each row of ``work`` [B, V]:
+    the row is cut into bins of :func:`_bins` columns (the last padded with
+    -inf), each bin gives its maximum and the lowest column holding it, and
+    an exact top-k over the bins' maxima, a stable descending sort, keeps
+    the lower column first among equal values. Returns (values, indices)
+    [B, k], values sorted descending and equal to ``work`` at their indices;
+    each true top-k element is found with an expected recall of at least
+    ``recall_target``. Plain torch: a max over [B, L, W] and a sort of
+    [B, L], two passes at the memory rate (JAX computes it as an XLA
+    operation, not a Pallas kernel)."""
+    b, v = work.shape
+    w = _bins(v, k, recall_target)
+    nbins = -(-v // w)
+    padded = torch.nn.functional.pad(work, (0, nbins * w - v), value=_NEG_INF)
+    top, arg = padded.view(b, nbins, w).max(dim=-1)
+    vals, pick = torch.sort(top, dim=-1, descending=True, stable=True)
+    pick = pick[:, :k]
+    idx = pick * w + torch.gather(arg, 1, pick)
+    return vals[:, :k], idx
+
+
 def fused_sampler(
     logits: torch.Tensor,
     *,
@@ -75,11 +116,8 @@ def fused_sampler(
     ``torch.Generator`` seeded with ``seed``); its numbers differ from JAX's.
     Returns ``(token_ids [B, 1] int32, penalty_mask or None)``.
     """
-    if topk_impl != "exact":
-        raise ValueError(
-            f"topk_impl={topk_impl!r}: only 'exact' is supported (the approximate "
-            "top-k is the TPU's PartialReduce unit)"
-        )
+    if topk_impl not in ("exact", "approx"):
+        raise ValueError(f"topk_impl={topk_impl!r}: 'exact' or 'approx'")
     softmax_policy = SoftmaxPolicy(int(softmax_policy))
     if max_topk not in (32, 64):
         raise ValueError(f"max_topk must be 32 or 64, got {max_topk}")
@@ -132,8 +170,11 @@ def fused_sampler(
     if softmax_policy == SoftmaxPolicy.BEFORE_TOPK:
         work = torch.softmax(work, dim=-1)
     # 4. top-max_topk candidates, sorted descending, ties by lower index
-    vals, idx = torch.sort(work, dim=-1, descending=True, stable=True)
-    vals, idx = vals[:, :max_topk], idx[:, :max_topk]
+    if topk_impl == "approx" and dev.type == "cuda":
+        vals, idx = _approx_max_k(work, max_topk)
+    else:
+        vals, idx = torch.sort(work, dim=-1, descending=True, stable=True)
+        vals, idx = vals[:, :max_topk], idx[:, :max_topk]
     tk = _per_batch(topk, b, torch.int32, dev)
     k_eff = torch.where((tk <= 0) | (tk > max_topk), max_topk, tk)
     pos = torch.arange(max_topk, dtype=torch.int32, device=dev)[None, :]

@@ -14,14 +14,27 @@ kernel's two schedules:
     order skipping r, normalises its chunk and writes both outputs of the
     chunk into every rank's outputs.
 
-On a card the kernel is ``csrc/collective.cu`` (:func:`allreduce_rmsnorm`):
-one cooperative launch serves all ranks of a group that share the device
-(see :mod:`hpc_ops_tpu_torch.parallel.mesh` for the rank threads), and the
-block that reduces a row writes it into every rank's outputs, so one_shot
-reads each partial once for the whole group, not once a rank. Its plain
-version, :func:`_allreduce_rmsnorm_ref`, repeats the kernel's order of every
-float32 sum, so on the same inputs the two agree bit for bit; CPU ranks run
-it. Two epilogues: the TPU kernel's ``bf16((out_res * rms) * w)``, and
+On a card the kernel is ``csrc/collective.cu`` in one of two forms:
+
+  * :func:`allreduce_rmsnorm`: one cooperative launch serves all ranks of a
+    group that share the device (see :mod:`hpc_ops_tpu_torch.parallel.mesh`
+    for the rank threads);
+  * :func:`allreduce_rmsnorm_rank`, the per-device form, for a group whose
+    ranks lie on more than one device (one launch cannot span devices): a
+    launch a rank on the rank's stream, each reducing its share of the rows
+    (one_shot rows r, r + ws, ...; two_shot its chunk) and reading its
+    peers' partials in place. The streams are ordered by events: each
+    launch after every rank's arrival, each rank's later work after every
+    launch. The mesh's private ``_per_device`` switch forces this form over
+    virtual ranks (tests and ``chip_smoke.py``).
+
+In both, the block that reduces a row writes it into every rank's outputs,
+so one_shot reads each partial once for the whole group, not once a rank,
+and each row is summed in the same order, so the two forms agree bit for
+bit. Their plain versions, :func:`_allreduce_rmsnorm_ref` and
+:func:`_allreduce_rmsnorm_ref_rank`, repeat the kernel's order of every
+float32 sum, so on the same inputs kernel and plain version agree bit for
+bit; CPU ranks run them. Two epilogues: the TPU kernel's ``bf16((out_res * rms) * w)``, and
 (``bf16_norm``) the one of ``parallel/collectives.py``, ``bf16(out_res *
 rms) * bf16(w)`` in bf16.
 """
@@ -94,6 +107,38 @@ def _allreduce_rmsnorm_ref(xs, residual, weight, eps, mode, bf16_norm):
     else:
         out = ((out_res * rms) * weight.reshape(-1).float()).to(torch.bfloat16)
     return out, out_res.to(torch.bfloat16)
+
+
+def _rank_rows(mode: str, rank: int, ws: int, n: int) -> slice:
+    """The rows that rank ``rank``'s launch of the per-device form reduces:
+    one_shot rows rank, rank + ws, ...; two_shot its chunk."""
+    if mode == "one_shot":
+        return slice(rank, n, ws)
+    c = n // ws
+    return slice(rank * c, (rank + 1) * c)
+
+
+def _allreduce_rmsnorm_ref_rank(xs, residual, weight, eps, mode, bf16_norm, rank, outs, out_ress):
+    """Plain PyTorch version of :func:`allreduce_rmsnorm_rank`: rank
+    ``rank``'s share of the rows, summed as :func:`_allreduce_rmsnorm_ref`
+    sums them (every step is row-wise, so a row's outputs do not depend on
+    which rank reduces it), written into every rank's ``outs`` and
+    ``out_ress``."""
+    ws = len(xs)
+    rows = _rank_rows(mode, rank, ws, xs[0].shape[0])
+    order = range(ws) if mode == "one_shot" else [rank, *(s for s in range(ws) if s != rank)]
+    acc = torch.zeros_like(xs[0][rows], dtype=torch.float32) if mode == "one_shot" else None
+    for s in order:
+        acc = xs[s][rows].float() if acc is None else acc + xs[s][rows].float()
+    out_res = acc + residual[rows].float()
+    rms = 1.0 / torch.sqrt((_row_mean_square(out_res) + eps).double()).float()
+    if bf16_norm:
+        out = (out_res * rms).to(torch.bfloat16) * weight.reshape(-1).to(torch.bfloat16)
+    else:
+        out = ((out_res * rms) * weight.reshape(-1).float()).to(torch.bfloat16)
+    for o, r in zip(outs, out_ress):
+        o[rows] = out
+        r[rows] = out_res.to(torch.bfloat16)
 
 
 PAD_WORDS = 2 * MAX_RANKS + 1  # csrc/collective.cu kPadWords
@@ -177,6 +222,80 @@ def allreduce_rmsnorm(xs, residuals, weights, outs, out_ress, eps: float, mode: 
 allreduce_rmsnorm.launches = 0
 
 
+class _RankCall:
+    """One call of the per-device form, checked once: its tensors' pointer
+    tables, from which :meth:`launch` launches any rank's share (the
+    action launches every rank's from one check: a check costs the host
+    tens of microseconds)."""
+
+    def __init__(self, xs, residuals, weights, outs, out_ress, eps, mode, bf16_norm, skew):
+        name = "allreduce_rmsnorm_rank"
+        self.ws = ws = len(xs)
+        self.n, self.h = n, h = xs[0].shape
+        _check_mode(mode, n, ws, 1)
+        if not 1 <= ws <= MAX_RANKS or h % 8 or h > 8 * 8 * _THREADS or skew < 0:
+            raise ValueError(f"{name}: the kernel takes 1 to {MAX_RANKS} ranks, H a multiple of 8 up "
+                             f"to {8 * 8 * _THREADS}, skew >= 0")
+        groups = (xs, residuals, outs, out_ress)
+        for g in groups:
+            for r, t in enumerate(g):
+                if (t.device != xs[r].device or t.device.type != "cuda" or t.dtype != torch.bfloat16
+                        or tuple(t.shape) != (n, h) or not t.is_contiguous() or t.data_ptr() % 16):
+                    raise ValueError(f"{name}: every partial, residual and output must be a contiguous, "
+                                     f"16-byte aligned bf16 [{n}, {h}] on its rank's CUDA device")
+        for r, w in enumerate(weights):
+            if (w.device != xs[r].device or w.dtype != torch.float32 or w.numel() != h
+                    or not w.is_contiguous() or w.data_ptr() % 16):
+                raise ValueError(f"{name}: weights must be contiguous, 16-byte aligned float32 [{h}]")
+        self.xs = xs
+        self.ptrs = [(ctypes.c_void_p * ws)(*(t.data_ptr() for t in g)) for g in (*groups, weights)]
+        self.args = (float(eps), int(mode == "two_shot"), int(bool(bf16_norm)), int(skew))
+        self.mode = mode
+
+    def launch(self, rank: int) -> None:
+        """Rank ``rank``'s launch, on the current stream of its device."""
+        if len(range(self.n)[_rank_rows(self.mode, rank, self.ws, self.n)]) == 0:
+            return  # one_shot with fewer rows than ranks: this rank has none
+        x_p, res_p, out_p, ores_p, w_p = (ctypes.cast(p, ctypes.c_void_p) for p in self.ptrs)
+        eps, two_shot, bf16_norm, skew = self.args
+        dev = self.xs[rank].device
+        with torch.cuda.device(dev):
+            rc = kernels.lib().hpc_allreduce_rmsnorm_rank(
+                x_p, res_p, w_p, out_p, ores_p, self.ws, rank, self.n, self.h, eps, two_shot, bf16_norm,
+                skew, kernels.stream_ptr(self.xs[rank]))
+        kernels.check(rc, "hpc_allreduce_rmsnorm_rank")
+        kernels.count(allreduce_rmsnorm_rank)
+
+
+def allreduce_rmsnorm_rank(xs, residuals, weights, outs, out_ress, eps: float, mode: str,
+                           bf16_norm: bool, rank: int, skew: int = 0):
+    """The per-device form's wrapper: launches rank ``rank``'s share of the
+    group's rows on the current stream of ``xs[rank]``'s device, reading
+    every rank's partial and writing into every rank's outputs (tensors as
+    for :func:`allreduce_rmsnorm`, each rank's on its own device; distinct
+    devices must map each other's memory, which the mesh sees to). The
+    caller orders the launches (see the module docstring). ``skew`` delays
+    rank r's first block by about r * skew spins of ~100 ns.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.
+    """
+    if not 0 <= rank < len(xs):
+        raise ValueError(f"allreduce_rmsnorm_rank: rank {rank} of a group of {len(xs)}")
+    dev = xs[rank].device
+    if dev.type == "cpu":
+        _check_mode(mode, xs[0].shape[0], len(xs), 1)
+        _allreduce_rmsnorm_ref_rank(xs, residuals[rank], weights[rank], eps, mode, bf16_norm, rank, outs,
+                                    out_ress)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"allreduce_rmsnorm_rank: unsupported device {dev}")
+    _RankCall(xs, residuals, weights, outs, out_ress, eps, mode, bf16_norm, skew).launch(rank)
+
+
+allreduce_rmsnorm_rank.launches = 0
+
+
 class _Call(NamedTuple):
     x: torch.Tensor
     residual: torch.Tensor
@@ -190,10 +309,14 @@ class _Call(NamedTuple):
 
 
 def _allreduce_action(rendezvous, slots):
-    """Runs in the last rank to arrive: checks that the ranks agree, then one
-    :func:`allreduce_rmsnorm` for all of them (on a card on this thread's
-    stream, after every rank's arrival event). Returns (the launch's event or
-    None, each rank's outputs)."""
+    """Runs in the last rank to arrive: checks that the ranks agree, then the
+    collective for all of them. A group on one device: one
+    :func:`allreduce_rmsnorm` on this thread's stream after every rank's
+    arrival event. The per-device form (:attr:`_Rendezvous.per_device`): one
+    :func:`allreduce_rmsnorm_rank` a rank, each on the rank's stream after
+    every rank's arrival event; CPU ranks run its plain version rank by
+    rank. Returns (the events every rank's stream waits on, each rank's
+    outputs)."""
     calls = [s.payload for s in slots]
     first = calls[0]
     if any((c.x.shape, c.eps, c.mode, c.bf16_norm, c.skew) != (first.x.shape, first.eps, first.mode,
@@ -202,20 +325,37 @@ def _allreduce_action(rendezvous, slots):
         raise ValueError("the ranks of a collective disagree on its shape, eps, mode or skew")
     fields = ([c.x for c in calls], [c.residual for c in calls], [c.weight for c in calls],
               [c.out for c in calls], [c.out_res for c in calls])
-    done = None
-    if first.x.device.type == "cuda":
-        stream = torch.cuda.current_stream(first.x.device)
-        for s in slots:
-            stream.wait_event(s.event)
-        if rendezvous.state is None:
-            rendezvous.state = _SignalPad(first.x.device)
-        allreduce_rmsnorm(*fields, first.eps, first.mode, first.bf16_norm, first.skew,
-                          rendezvous.state)
-        done = torch.cuda.Event()
-        done.record(stream)
-    else:
-        allreduce_rmsnorm(*fields, first.eps, first.mode, first.bf16_norm, first.skew)
-    return done, [(c.out, c.out_res) for c in calls]
+    args = (first.eps, first.mode, first.bf16_norm)
+    outs = [(c.out, c.out_res) for c in calls]
+    cuda = first.x.device.type == "cuda"
+    if rendezvous.per_device:
+        if not cuda:
+            for r in range(len(calls)):
+                allreduce_rmsnorm_rank(*fields, *args, r, first.skew)
+            return (), outs
+        call = _RankCall(*fields, *args, first.skew)
+        dones = []
+        for r, slot in enumerate(slots):
+            with torch.cuda.stream(slot.stream):
+                for s in slots:
+                    slot.stream.wait_event(s.event)
+                call.launch(r)
+                done = torch.cuda.Event()
+                done.record(slot.stream)
+                dones.append(done)
+        return tuple(dones), outs
+    if not cuda:
+        allreduce_rmsnorm(*fields, *args, first.skew)
+        return (), outs
+    stream = torch.cuda.current_stream(first.x.device)
+    for s in slots:
+        stream.wait_event(s.event)
+    if rendezvous.state is None:
+        rendezvous.state = _SignalPad(first.x.device)
+    allreduce_rmsnorm(*fields, *args, first.skew, rendezvous.state)
+    done = torch.cuda.Event()
+    done.record(stream)
+    return (done,), outs
 
 
 def collective_rmsnorm(group, x, residual, weight, eps: float, mode: str, bf16_norm: bool,

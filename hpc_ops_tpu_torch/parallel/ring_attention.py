@@ -10,9 +10,10 @@ K/V shard and the one block in flight. The JAX version is plain jnp under
 :class:`~hpc_ops_tpu_torch.parallel.mesh.RankGroup` (call it once per rank,
 under :func:`~hpc_ops_tpu_torch.parallel.mesh.run_ranks`), and a ``ppermute``
 is an exchange of the ranks' K/V tensors at the group's rendezvous. On a
-card the ranks are virtual ranks of one device: a rank receives its
-neighbour's tensors themselves, its stream ordered after the sender's, and
-nothing is copied.
+card a rank receives its neighbour's tensors themselves where both lie on
+one device (virtual ranks), its stream ordered after the sender's, and
+nothing is copied; from a neighbour on another device it receives a copy
+on its own device.
 
 Semantics: dense attention over the full sequence. With ``causal=True``
 query row g attends to key rows <= g in global positions (shard r's rows are
@@ -62,20 +63,32 @@ def zigzag_unlayout(x: torch.Tensor, p: int, axis: int = 1) -> torch.Tensor:
 def _ppermute_action(rendezvous, slots):
     """Runs in the last rank to arrive: rank r receives rank r-1's payload.
     On a card this thread's stream waits on every sender's arrival event and
-    records the event that every receiver's stream then waits on."""
+    records the event that every receiver's stream then waits on. A sender
+    on another device than its receiver has its tensors copied onto the
+    receiver's device, on the sender's stream with the receiver's waiting
+    on the copy (torch's two-way barrier of a copy between devices)."""
     p = len(slots)
-    done = None
-    if slots[0].event is not None:
-        stream = torch.cuda.current_stream()
-        for s in slots:
-            stream.wait_event(s.event)
-        done = torch.cuda.Event()
-        done.record(stream)
-    return done, [slots[(r - 1) % p].payload for r in range(p)]
+    got = [slots[(r - 1) % p].payload for r in range(p)]
+    if slots[0].event is None:
+        return (), got
+    stream = torch.cuda.current_stream()
+    for s in slots:
+        stream.wait_event(s.event)
+    done = torch.cuda.Event()
+    done.record(stream)
+    for r, dev in enumerate(rendezvous.devices):
+        src = slots[(r - 1) % p]
+        if any(t.device != dev for t in src.payload):
+            with torch.cuda.stream(slots[r].stream), torch.cuda.stream(src.stream):
+                got[r] = tuple(t.to(dev) for t in src.payload)
+            for t in got[r]:  # written on the sender's stream: its allocator must know
+                t.record_stream(src.stream)
+    return (done,), got
 
 
 def _rotate(group, kv: tuple) -> tuple:
-    """``ppermute`` of ``kv`` to rank (i + 1) % p: returns rank i - 1's."""
+    """``ppermute`` of ``kv`` to rank (i + 1) % p: returns rank i - 1's (a
+    copy on this rank's device where the sender's lies on another)."""
     got = group.exchange(tuple(kv), _ppermute_action)
     if group.stream is not None:
         for t in got:  # the sender's allocator must not reuse it while this stream reads

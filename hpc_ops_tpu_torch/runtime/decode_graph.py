@@ -39,7 +39,14 @@ What the capture relies on:
   capturing stream and leave it through their done events, and the fused
   collective's cross-stream waits are events recorded inside the capture. A
   replay runs no rank thread. The collective keeps its epoch in device
-  memory, so replays and eager calls share one count.
+  memory, so replays and eager calls share one count;
+* on a mesh over distinct devices the capture spans the ranks' devices the
+  same way (the entry and done events cross devices, as the per-device
+  collective's do), and while it runs every allocation on a device other
+  than the capturing one goes to a private pool of the graph's pool id on
+  that device, so no block the graph writes serves other work afterwards
+  (the pools are released with the object). The rank threads' copies to
+  and from the capturing device run on the capturing stream there.
 
 On a card a capture or replay that fails raises: nothing runs the eager loop
 in its place. On the CPU the object runs the loop itself at each dispatch.
@@ -49,6 +56,7 @@ from __future__ import annotations
 
 import ctypes
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -72,8 +80,9 @@ class DecodeMultiGraph:
     ``num_steps`` decode steps eagerly on device tensors ([B], [B], [B,
     max_blocks] int32) and returns the tokens [num_steps, B] int32, or with
     ``return_logprobs`` (tokens, logprobs [num_steps, B] float32);
-    ``generators`` is None at temperature 0, else one CUDA generator per rank
-    (``ranks``), each already seeded, for the rank's noise. The object makes
+    ``generators`` is None at temperature 0, else one generator per rank
+    (``rank_devices``: each rank's device, default ``device`` alone), each
+    already seeded, for the rank's noise. The object makes
     the generators, registers them with the graph and seeds them with each
     dispatch's seed.
 
@@ -83,16 +92,17 @@ class DecodeMultiGraph:
     (``host_memcpy_nodes`` of them from or to host memory), ``nodes``,
     ``collective_nodes`` and ``collective_nodes_cooperative``
     (the fused collective's nodes and those that the capture marked
-    cooperative: the capture raises unless they are all). ``launches``: the
+    cooperative: the capture raises unless they are all) and
+    ``collective_rank_nodes`` (the per-device form's). ``launches``: the
     kernel wrappers' launches of one replay.
     """
 
-    def __init__(self, body, batch: int, max_blocks: int, num_steps: int, device, *, ranks: int = 1,
+    def __init__(self, body, batch: int, max_blocks: int, num_steps: int, device, *, rank_devices=None,
                  temperature: float = 0.0, return_logprobs: bool = False):
         self.body = body
         self.batch, self.max_blocks, self.num_steps = batch, max_blocks, num_steps
         self.device = torch.device(device)
-        self.ranks = ranks
+        self.rank_devices = [torch.device(d) for d in rank_devices] if rank_devices else [self.device]
         self.temperature = float(temperature)
         self.return_logprobs = return_logprobs
         self.graph = None
@@ -105,7 +115,7 @@ class DecodeMultiGraph:
         self._inp = torch.zeros(n, dtype=torch.int32, device=self.device)
         self._host = torch.zeros(n, dtype=torch.int32, pin_memory=True)
         self._staged = torch.cuda.Event()
-        self._gens = ([torch.Generator(device=self.device) for _ in range(ranks)]
+        self._gens = ([torch.Generator(device=d) for d in self.rank_devices]
                       if self.temperature > 0 else None)
         self._packed = None
 
@@ -152,13 +162,23 @@ class DecodeMultiGraph:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()  # as the capture does first: what it reserves after is the pool
         reserved = torch.cuda.memory_reserved(self.device)
+        pool = torch.cuda.graph_pool_handle()
+        others = sorted({d.index for d in self.rank_devices if d != self.device})
+        for i in others:  # the ranks' allocations on their devices, into the graph's pool id
+            torch._C._cuda_beginAllocateToPool(i, pool)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=side, capture_error_mode=CAPTURE_MODE):
-            packed = self._pack(self.body(*inputs, self._gens))
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=side, capture_error_mode=CAPTURE_MODE):
+                packed = self._pack(self.body(*inputs, self._gens))
+        finally:
+            for i in others:
+                torch._C._cuda_endAllocateToPool(i, pool)
+        for i in others:
+            weakref.finalize(self, torch._C._cuda_releasePool, i, pool)
         t1 = time.perf_counter()
         self.launches = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
         kernels.add_launches({k: -n for k, n in self.launches.items()})  # the capture launched nothing
-        counts = (ctypes.c_int * 6)()
+        counts = (ctypes.c_int * 7)()
         kernels.check(kernels.lib().hpc_graph_node_counts(graph.raw_cuda_graph(), counts),
                       "hpc_graph_node_counts")
         if counts[2] != counts[1]:  # the collective's blocks wait on each other: all must be resident
@@ -172,7 +192,8 @@ class DecodeMultiGraph:
         self.stats = dict(capture_s=t1 - t0, instantiate_s=t3 - t2,
                           pool_bytes=torch.cuda.memory_reserved(self.device) - reserved,
                           kernel_nodes=counts[0], collective_nodes=counts[1],
-                          collective_nodes_cooperative=counts[2], memcpy_nodes=counts[3],
+                          collective_nodes_cooperative=counts[2], collective_rank_nodes=counts[6],
+                          memcpy_nodes=counts[3],
                           host_memcpy_nodes=counts[5], nodes=counts[4])
 
     def replay(self, last_tokens, seq_lens, block_ids, seed: int = 0):
@@ -181,7 +202,7 @@ class DecodeMultiGraph:
         device, in the static output buffer that the next dispatch
         overwrites. Inputs: host arrays or tensors of any device."""
         if not self._cuda:
-            gens = ([torch.Generator().manual_seed(int(seed)) for _ in range(self.ranks)]
+            gens = ([torch.Generator().manual_seed(int(seed)) for _ in self.rank_devices]
                     if self.temperature > 0 else None)
             toks, lens, tbl = (torch.as_tensor(x, dtype=torch.int32) for x in (last_tokens, seq_lens, block_ids))
             return self.body(toks, lens, tbl.reshape(self.batch, self.max_blocks), gens)

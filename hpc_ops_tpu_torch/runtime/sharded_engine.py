@@ -1,8 +1,12 @@
-"""Continuous batching over a tensor-parallel (dp, tp) mesh (port of
+"""Continuous batching over a tensor-parallel mesh (port of
 ``runtime/sharded_engine.py``).
 
 The model is tp-sharded within each row shard (``shard_weights``), and the
-request rows and their KV page pools are split over the ``dp`` row shards.
+request rows and their KV page pools are split over the row shards: the
+product of the mesh's row axes, every axis but "tp" (``dp``; ``ddp`` x
+``dp`` on a hybrid mesh of ``make_hybrid_mesh``), ddp-major as JAX's
+``P(("ddp", "dp"))``. Each rank's caches lie on the rank's device, and the
+rows a step reads are made on the device of the shard that reads them.
 Each row shard owns ``max_batch`` decode slots and a shard-local page pool (a
 :class:`PagedBlockAllocator` per shard; block ids are shard-local). Incoming
 requests go to the least-loaded shard. Every engine step runs ONE global
@@ -50,8 +54,9 @@ __all__ = ["ShardedEngine"]
 
 
 class ShardedEngine:
-    """Continuous batching over a (dp, tp) mesh of
-    :func:`~hpc_ops_tpu_torch.parallel.mesh.make_mesh`."""
+    """Continuous batching over a (..row axes.., "tp") mesh of
+    :func:`~hpc_ops_tpu_torch.parallel.mesh.make_mesh` or
+    :func:`~hpc_ops_tpu_torch.parallel.mesh.make_hybrid_mesh`."""
 
     def __init__(
         self,
@@ -79,7 +84,10 @@ class ShardedEngine:
         self.mesh = mesh
         self.device = mesh.device
         self.tp = mesh.shape["tp"]
-        self.num_shards = mesh.shape["dp"]
+        self.row_axes = tuple(a for a in mesh.axis_names if a != "tp")
+        self.num_shards = int(np.prod([mesh.shape[a] for a in self.row_axes]))
+        # where each shard's host-made rows go: its rank 0's device
+        self._shard_devices = [mesh.grid[d, 0] for d in range(self.num_shards)]
         self.block_size = block_size
         self.max_batch = max_batch
         self.prefill_chunk = prefill_chunk
@@ -98,7 +106,7 @@ class ShardedEngine:
         self.num_blocks = num_blocks
         self.max_blocks_per_seq = max_blocks_per_seq or max(num_blocks // 4, 4)
         self.weights = shard_weights(weights, cfg, mesh)
-        self.caches = [[init_cache(cfg, num_blocks, block_size, tp=self.tp, device=mesh.devices[d, r])
+        self.caches = [[init_cache(cfg, num_blocks, block_size, tp=self.tp, device=mesh.grid[d, r])
                         for r in range(self.tp)] for d in range(self.num_shards)]
         # one allocator per row shard; its reserved page parks dummy rows
         self.allocs = [PagedBlockAllocator(num_blocks, block_size) for _ in range(self.num_shards)]
@@ -131,8 +139,11 @@ class ShardedEngine:
         return rid
 
     # --------------------------------------------------------------- steps
-    def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32).to(self.device)
+    def _rows(self, a: np.ndarray) -> list:
+        """Host rows [num_shards, ...] as a row-sharded argument: each shard's
+        part on the device of the shard that reads it."""
+        return [torch.as_tensor(np.ascontiguousarray(part), dtype=torch.int32).to(dev)
+                for part, dev in zip(a, self._shard_devices)]
 
     def _table(self, shard: int, rid: int) -> np.ndarray:
         return self.allocs[shard].table(rid, pad_to=self.max_blocks_per_seq)
@@ -184,9 +195,8 @@ class ShardedEngine:
             q_index[s] = (0, n)
             tables[s, 0] = self._table(s, rid)
         step = make_sharded_step(self.mesh, self.cfg, is_prefill=True, max_seqlens_q=rows)
-        logits, self.caches = step(self.weights, self.caches, self._tensor(tokens.reshape(-1)),
-                                   self._tensor(seq_lens.reshape(-1)), self._tensor(q_index.reshape(-1)),
-                                   self._tensor(tables.reshape(self.num_shards, -1)))
+        logits, self.caches = step(self.weights, self.caches, self._rows(tokens), self._rows(seq_lens),
+                                   self._rows(q_index), self._rows(tables))
         toks, lps = self._sample(logits)  # one row per shard
         for s, rid in enumerate(take):
             if rid is None:
@@ -238,11 +248,10 @@ class ShardedEngine:
     def _decode_round(self) -> None:
         b = self.max_batch
         served, tokens, seq_lens, tables = self._round_inputs(0)
-        q_index = np.tile(np.arange(b + 1, dtype=np.int32), self.num_shards)
+        q_index = np.tile(np.arange(b + 1, dtype=np.int32), (self.num_shards, 1))
         logits, self.caches = self._decode_step(
-            self.weights, self.caches, self._tensor(tokens.reshape(-1)),
-            self._tensor(seq_lens.reshape(-1)), self._tensor(q_index),
-            self._tensor(tables.reshape(self.num_shards * b, -1)))
+            self.weights, self.caches, self._rows(tokens), self._rows(seq_lens), self._rows(q_index),
+            self._rows(tables))
         toks, lps = self._sample(logits)
         for s, rids in enumerate(served):
             for i, rid in enumerate(rids):

@@ -82,7 +82,7 @@ def allreduce(cs, torch, dev):
     gen = torch.Generator(device=dev).manual_seed(2024)
     out = []
     for mode, ws, n, h, serving in ALLREDUCE_CASES:
-        kern, _, unfused = cs.allreduce_case(dev, gen, mode, ws, n, h, bf16_norm=serving, own_res=serving)
+        kern, _, unfused = cs.allreduce_case(dev, gen, mode, ws, n, h, bf16_norm=serving, own_res=serving)[:3]
         big = n * h >= 2048 * 4096
         line = dict(mode=mode, ranks=ws, tokens=n, hidden=h, serving=serving,
                     ms=cs.time_ms(kern, 5 if big else 20), unfused_ms=cs.time_ms(unfused, 3 if big else 10, 1))

@@ -38,6 +38,7 @@ between the GEMMs, so a gate-up value one rounding apart can move a
 group's codes).
 """
 
+import ctypes
 import statistics
 
 import pytest
@@ -3545,3 +3546,200 @@ def test_replay_of_a_kernel_record_is_bit_identical(cuda, tmp_path):
     replay_record(rec)
     replay_record(rec.path)
     assert act_quant.launches - before == 5  # the record and two runs of each replay
+
+
+# ------------------- meshes past one device's virtual ranks, approx top-k
+from hpc_ops_tpu_torch.parallel.collective_kernels import allreduce_rmsnorm_rank  # noqa: E402
+from hpc_ops_tpu_torch.parallel.mesh import make_hybrid_mesh  # noqa: E402
+
+
+def two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs 2 CUDA devices, this machine has {torch.cuda.device_count()}")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def collective_run(mesh, xs, res, w, mode):
+    """Every rank's (out, out_res) of the fused collective over ``mesh``'s
+    one tp group, each rank's inputs on its device."""
+    return run_ranks(mesh, lambda g, _: collective_rmsnorm(
+        g, xs[g.rank].to(g.device), res[g.rank].to(g.device), w.to(g.device), 1e-5, mode, False))[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("captured", [False, True])
+@pytest.mark.parametrize("mode", ["one_shot", "two_shot"])
+@pytest.mark.parametrize("ws", [1, 2, 4, 8])
+def test_allreduce_per_device_form_is_bit_equal(cuda, ws, mode, captured):
+    """The per-device form (a launch a rank, forced over virtual ranks by
+    the mesh's private switch) against the plain version and the one-launch
+    form, eager and replayed from a captured CUDA graph (its cross-stream
+    waits graph edges, one non-cooperative node a rank); 8 x ws + 5 rows
+    leave one_shot's shares ragged."""
+    from hpc_ops_tpu_torch import kernels
+
+    gen = torch.Generator().manual_seed(110 + ws)
+    n = 8 * ws + (5 if mode == "one_shot" else 0)
+    xs, res, w = allreduce_case(gen, ws, n, 4096, cuda)
+    want = _allreduce_rmsnorm_ref(xs, res[0], w, 1e-5, mode, False)
+    one = collective_run(make_mesh(tp=ws, devices=[cuda] * ws), xs, res, w, mode)
+    mesh = make_mesh(tp=ws, devices=[cuda] * ws)
+    mesh._per_device = True
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    n0, r0 = allreduce_rmsnorm.launches, allreduce_rmsnorm_rank.launches
+    with torch.cuda.stream(side):
+        outs = collective_run(mesh, xs, res, w, mode)
+    torch.cuda.synchronize()
+    assert allreduce_rmsnorm.launches == n0 and allreduce_rmsnorm_rank.launches == r0 + ws
+    if captured:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="global"):
+            outs = collective_run(mesh, xs, res, w, mode)
+        counts = (ctypes.c_int * 7)()
+        kernels.check(kernels.lib().hpc_graph_node_counts(graph.raw_cuda_graph(), counts), "node counts")
+        assert counts[6] == ws and counts[1] == 0, list(counts)
+        graph.instantiate()
+        for o, o_res in outs:
+            o.zero_()
+            o_res.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+    for r, ((o, o_res), (a, a_res)) in enumerate(zip(outs, one)):
+        assert torch.equal(o, want[0]) and torch.equal(o_res, want[1]), f"rank {r}"
+        assert torch.equal(o, a) and torch.equal(o_res, a_res), f"rank {r}"
+
+
+@pytest.mark.cuda
+def test_allreduce_per_device_wrapper_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator().manual_seed(120)
+    xs, res, w = allreduce_case(gen, 2, 16, 256, cuda)
+    outs = [torch.empty_like(xs[0]) for _ in range(2)]
+    r0 = allreduce_rmsnorm_rank.launches
+    with pytest.raises(ValueError, match="rank"):
+        allreduce_rmsnorm_rank(xs, res, [w] * 2, outs, outs, 1e-5, "one_shot", False, 2)
+    with pytest.raises(ValueError, match="float32"):
+        allreduce_rmsnorm_rank(xs, res, [w.to(torch.bfloat16)] * 2, outs, outs, 1e-5, "one_shot", False, 0)
+    with pytest.raises(ValueError, match="bf16"):
+        allreduce_rmsnorm_rank([x.float() for x in xs], res, [w] * 2, outs, outs, 1e-5, "two_shot", False, 1)
+    assert allreduce_rmsnorm_rank.launches == r0
+
+
+def hybrid_engines(cuda, cfg, w, prompts, ms, mesh, **kw):
+    from hpc_ops_tpu_torch.runtime.sharded_engine import ShardedEngine
+
+    eng = ShardedEngine(cfg, w, mesh, num_blocks=64, block_size=BS, max_batch=4, multi_step=ms, **kw)
+    return eng, eng.run(prompts, max_new=12)
+
+
+def hold_to_engine(cuda, cfg, w, prompts, got):
+    """``got`` against the single-device Engine's greedy tokens on the card:
+    a flip only where the Engine's top-2 margin is below 0.15."""
+    from hpc_ops_tpu_torch.models import llama as T
+    from hpc_ops_tpu_torch.runtime.engine import Engine
+    from hpc_ops_tpu_torch.utils.testing import assert_greedy_match, top2_margin
+
+    want = Engine(cfg, w, num_blocks=64, block_size=BS, max_batch=8, device=cuda).run(prompts, max_new=12)
+
+    def margin(tokens):
+        n = len(tokens)
+        t = lambda x: torch.tensor(x, dtype=torch.int32, device=cuda)  # noqa: E731
+        logits, _ = T.forward_step(w, T.init_cache(cfg, 8, BS, device=cuda), cfg, t(tokens), t([n]),
+                                   t([0, n]), t([list(range(8))]), is_prefill=True, max_seqlens_q=n)
+        return top2_margin(logits.float().cpu())
+
+    for p, a, b in zip(prompts, want, got):
+        assert_greedy_match(a, b, lambda j, p=p, a=a: margin(p + a[:j]), 0.15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ms", [1, 8])
+def test_hybrid_sharded_engine_equals_engine(cuda, ms):
+    """ShardedEngine over make_hybrid_mesh(2, 4) of virtual ranks, eager and
+    with multi_step=8 (one captured graph for both tp groups): the same
+    tokens as a (dp 2, tp 4) mesh of the same row shards, and the
+    single-device Engine's by the greedy rule (a flip only where its top-2
+    margin is below 0.15); a dispatch after the first is one graph launch
+    and one device-to-host copy."""
+    cfg, w = multi_model("bf16", cuda)
+    prompts = [[1, 2, 3, 4, 5], [7, 8], [9, 10, 11], list(range(20, 61)), [31], [40, 41, 42]]
+    eng, got = hybrid_engines(cuda, cfg, w, prompts, ms, make_hybrid_mesh(2, 4, devices=[cuda] * 8))
+    _, flat = hybrid_engines(cuda, cfg, w, prompts, ms, make_mesh(tp=4, dp=2, devices=[cuda] * 8))
+    assert got == flat
+    hold_to_engine(cuda, cfg, w, prompts, got)
+    if ms > 1:
+        rid = eng.add_request([5, 6, 7], max_new=12)
+        eng.step()  # its prefill
+        assert profile_dispatch(eng.step)[:2] == (1, 1)
+        while eng.step():
+            pass
+        assert len(eng.requests[rid].out) == 12
+        assert eng._multi.graph.stats["collective_nodes"] == 2 * 2 * cfg.layers * ms
+
+
+@pytest.mark.cuda
+def test_binned_approx_top_k_on_the_card(cuda):
+    """fused_sampler(topk_impl="approx")'s top-k on the card (PartialReduce's
+    bins) at [8, 128256], k 64: the same values and indices as the same
+    algorithm on the CPU, every value the logit at its index, sorted
+    descending, recall of the exact top-64 at least 0.95; the sampler's
+    token is one of the candidates."""
+    from hpc_ops_tpu_torch.ops import sampler as S
+
+    gen = torch.Generator().manual_seed(130)
+    logits = torch.randn((8, 128256), generator=gen) * 3
+    vals, idx = S._approx_max_k(logits.to(cuda), 64)
+    cvals, cidx = S._approx_max_k(logits, 64)
+    assert torch.equal(vals.cpu(), cvals) and torch.equal(idx.cpu(), cidx)
+    assert torch.equal(vals, torch.gather(logits.to(cuda), 1, idx))
+    assert bool((vals[:, :-1] >= vals[:, 1:]).all())
+    exact = torch.topk(logits, 64).indices
+    found = sum(len(set(idx[b].tolist()) & set(exact[b].tolist())) for b in range(8))
+    assert found / exact.numel() >= 0.95
+    tok, _ = S.fused_sampler(logits.to(cuda), temperature=0.8, topk=50, max_topk=64, topk_impl="approx",
+                             generator=torch.Generator(device=cuda).manual_seed(1))
+    assert all(int(tok[b, 0]) in idx[b].tolist() for b in range(8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["one_shot", "two_shot"])
+def test_distinct_devices_collective_is_bit_equal(cuda, mode):
+    """make_mesh(tp=2) over two cards: the per-device form, each rank's
+    launch reading its peer's partial over peer memory, bit-equal to the
+    plain version on every rank."""
+    devs = two_cards()
+    mesh = make_mesh(tp=2, devices=devs)
+    gen = torch.Generator().manual_seed(140)
+    xs, res, w = allreduce_case(gen, 2, 64, 4096)
+    want = _allreduce_rmsnorm_ref(xs, res[0], w, 1e-5, mode, False)
+    r0 = allreduce_rmsnorm_rank.launches
+    outs = collective_run(mesh, xs, res, w, mode)
+    torch.cuda.synchronize(devs[0])
+    torch.cuda.synchronize(devs[1])
+    assert allreduce_rmsnorm_rank.launches == r0 + 2
+    for r, (o, o_res) in enumerate(outs):
+        assert o.device == devs[r]
+        assert torch.equal(o.cpu(), want[0]) and torch.equal(o_res.cpu(), want[1]), f"rank {r}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["rank_a_device", "group_a_device"])
+@pytest.mark.parametrize("ms", [1, 4])
+def test_distinct_devices_sharded_engine_equals_virtual_ranks(cuda, layout, ms):
+    """ShardedEngine over two cards, a tp rank a card (make_mesh(tp=2)) or a
+    tp group a card (make_hybrid_mesh(2, 2) with each group's two ranks on
+    one card), eager and multi_step=4: the tokens of the same mesh of
+    virtual ranks on one card (the per-device collective is bit-equal to the
+    one-launch form), and the single-device Engine's by the greedy rule."""
+    devs = two_cards()
+    cfg, w = multi_model("bf16", cuda)
+    prompts = [[1, 2, 3, 4, 5], [7, 8], [9, 10, 11], list(range(20, 61))]
+    if layout == "rank_a_device":
+        mesh, virtual = make_mesh(tp=2, devices=devs), make_mesh(tp=2, devices=[cuda] * 2)
+    else:
+        mesh = make_hybrid_mesh(2, 2, devices=[devs[0], devs[0], devs[1], devs[1]])
+        virtual = make_hybrid_mesh(2, 2, devices=[cuda] * 4)
+    _, got = hybrid_engines(cuda, cfg, w, prompts, ms, mesh)
+    _, want = hybrid_engines(cuda, cfg, w, prompts, ms, virtual)
+    assert got == want
+    hold_to_engine(cuda, cfg, w, prompts, got)

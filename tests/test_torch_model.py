@@ -388,11 +388,12 @@ def test_later_slices_raise(field):
                            attention_with_kvcache_prefill_ref(*args, block_mask=torch.ones((1, 8, 1, 1))))
         return
     # qkv_bias serves now (forward_step adds a layer's "qkv_bias"), and so
-    # does tensor parallelism over axis_name on virtual ranks of one device;
-    # a mesh over distinct CUDA devices is a later slice
+    # does tensor parallelism over axis_name, on virtual ranks of one device
+    # and over distinct CUDA devices; a device this process does not see is
+    # refused
     cfg = T.tiny_config(qkv_bias=True)
     T.init_cache(cfg, 4, 16, device="cpu")
     from hpc_ops_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    with pytest.raises(ValueError, match="not visible"):
         make_mesh(tp=2, devices=[torch.device("cuda", 0), torch.device("cuda", 1)])

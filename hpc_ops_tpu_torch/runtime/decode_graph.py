@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from hpc_ops_tpu_torch import kernels
+from hpc_ops_tpu_torch.runtime.tracing import span
 
 __all__ = ["DecodeMultiGraph", "CAPTURE_MODE"]
 
@@ -126,14 +127,15 @@ class DecodeMultiGraph:
     def _stage(self, last_tokens, seq_lens, block_ids) -> None:
         """Copy a dispatch's inputs into the static buffer, in one copy from
         pinned memory (tensors are brought to the host first)."""
-        self._staged.synchronize()  # the last dispatch's copy has left the pinned buffer
-        b = self.batch
-        host = self._host.numpy()
-        for lo, hi, part in ((0, b, last_tokens), (b, 2 * b, seq_lens), (2 * b, None, block_ids)):
-            part = part.cpu().numpy() if isinstance(part, torch.Tensor) else np.asarray(part)
-            host[lo:hi] = part.reshape(-1)
-        self._inp.copy_(self._host, non_blocking=True)
-        self._staged.record()
+        with span("decode_graph.stage"):
+            self._staged.synchronize()  # the last dispatch's copy has left the pinned buffer
+            b = self.batch
+            host = self._host.numpy()
+            for lo, hi, part in ((0, b, last_tokens), (b, 2 * b, seq_lens), (2 * b, None, block_ids)):
+                part = part.cpu().numpy() if isinstance(part, torch.Tensor) else np.asarray(part)
+                host[lo:hi] = part.reshape(-1)
+            self._inp.copy_(self._host, non_blocking=True)
+            self._staged.record()
 
     def _pack(self, out) -> torch.Tensor:
         """The static output: tokens [n, B] int32, or [2, n, B] int32 holding
@@ -200,18 +202,23 @@ class DecodeMultiGraph:
         """One dispatch; returns the tokens [num_steps, B] int32 (with
         ``return_logprobs`` also the logprobs [num_steps, B] float32) on the
         device, in the static output buffer that the next dispatch
-        overwrites. Inputs: host arrays or tensors of any device."""
+        overwrites. Inputs: host arrays or tensors of any device. On the CPU
+        the loop runs in place of the graph, under the same spans."""
         if not self._cuda:
             gens = ([torch.Generator().manual_seed(int(seed)) for _ in self.rank_devices]
                     if self.temperature > 0 else None)
-            toks, lens, tbl = (torch.as_tensor(x, dtype=torch.int32) for x in (last_tokens, seq_lens, block_ids))
-            return self.body(toks, lens, tbl.reshape(self.batch, self.max_blocks), gens)
+            with span("decode_graph.stage"):
+                toks, lens, tbl = (torch.as_tensor(x, dtype=torch.int32)
+                                   for x in (last_tokens, seq_lens, block_ids))
+            with span("decode_graph.replay"):
+                return self.body(toks, lens, tbl.reshape(self.batch, self.max_blocks), gens)
         self._stage(last_tokens, seq_lens, block_ids)
         if self.graph is None:
             self._capture()
         for g in self._gens or ():  # after the capture's eager run, which drew from them
             g.manual_seed(int(seed))
-        self.graph.replay()
+        with span("decode_graph.replay"):
+            self.graph.replay()
         kernels.add_launches(self.launches)
         return self._unpack(self._packed)
 
@@ -220,11 +227,8 @@ class DecodeMultiGraph:
         numpy, logprobs [num_steps, B] float32 numpy or None), from one
         device-to-host copy."""
         out = self.replay(last_tokens, seq_lens, block_ids, seed)
-        if self._cuda:
-            host = self._packed.cpu().numpy()
-            if not self.return_logprobs:
-                return host, None
-            return host[0], host[1].view(np.float32)
+        with span("decode_graph.fetch"):
+            host = (self._packed if self._cuda else self._pack(out)).cpu().numpy()
         if not self.return_logprobs:
-            return out.numpy(), None
-        return out[0].numpy(), out[1].numpy()
+            return host, None
+        return host[0], host[1].view(np.float32)

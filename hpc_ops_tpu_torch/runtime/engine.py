@@ -75,6 +75,7 @@ from hpc_ops_tpu_torch.models.llama import (
 from hpc_ops_tpu_torch.ops.sampler import fused_sampler
 from hpc_ops_tpu_torch.runtime import PagedBlockAllocator
 from hpc_ops_tpu_torch.runtime.decode_graph import DecodeMultiGraph
+from hpc_ops_tpu_torch.runtime.tracing import now, span
 
 __all__ = ["Engine", "Request", "ngram_draft"]
 
@@ -111,6 +112,15 @@ class Request:
     temperature: float | None = None
     topk: int | None = None
     topp: float | None = None
+    # tracing.now() (perf_counter_ns) when the request was added, when its
+    # first prefill step began, when its first token was appended and when
+    # it finished or was cancelled; and the ns its admission (the prefix
+    # match and the sharing of the matched pages) took
+    t_arrive: int | None = None
+    t_admit: int | None = None
+    t_first: int | None = None
+    t_done: int | None = None
+    admit_ns: int | None = None
 
     @property
     def tokens(self) -> list:
@@ -120,9 +130,11 @@ class Request:
 def _pack_host(toks: torch.Tensor, lp: torch.Tensor | None):
     """Tokens [rows] int32 (and their logprobs [rows] float32) as host lists,
     from one device-to-host copy."""
+    packed = toks if lp is None else torch.stack([toks, lp.view(torch.int32)])
+    with span("engine.fetch"):
+        host = packed.cpu().numpy()
     if lp is None:
-        return toks.tolist(), None
-    host = torch.stack([toks, lp.view(torch.int32)]).cpu().numpy()
+        return host.tolist(), None
     return host[0].tolist(), host[1].view(np.float32).tolist()
 
 
@@ -159,19 +171,23 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-def _append_runs(requests: dict, rids, toks: np.ndarray, lps, finish) -> None:
+def _append_runs(requests: dict, rids, toks: np.ndarray, lps, finish) -> int:
     """Append a fused run's tokens ``toks`` [steps, slots] (and logprobs) to
-    the requests of the slots, each up to its ``max_new`` or stop token."""
+    the requests of the slots, each up to its ``max_new`` or stop token.
+    Returns the number of tokens appended."""
+    appended = 0
     for i, rid in enumerate(rids):
         req = requests[rid]
         for j in range(toks.shape[0]):
             if req.done or len(req.out) >= req.max_new:
                 break
             req.out.append(int(toks[j, i]))
+            appended += 1
             if lps is not None:
                 req.logprobs.append(float(lps[j, i]))
             finish(req)
         finish(req)
+    return appended
 
 
 def _copy_page(caches, src: int, dst: int) -> None:
@@ -261,6 +277,8 @@ class Engine:
         self._bh_cache: dict[int, tuple[int, list]] = {}  # rid -> block hashes
         self.prefix_hits = 0
         self.prefix_shared_blocks = 0
+        self._n_done = 0  # running counts behind stats
+        self._tokens_out = 0
         self._children: dict[int, list[int]] = {}  # n-best parent -> children
         self._multi = None  # the fused multi-step decode, made at its first dispatch
         self._sample_calls = 0
@@ -329,6 +347,7 @@ class Engine:
             )
         stop_set = self.stop_tokens if stop is None else frozenset(map(int, stop))
         prompt = list(map(int, prompt_ids))
+        t_arrive = now()
         rids = []
         for i in range(n):
             rid = self._next_rid
@@ -337,7 +356,7 @@ class Engine:
             self.requests[rid] = Request(
                 rid, list(prompt), max_new=max_new, n_best=n if i == 0 else 1,
                 parent=rids[0] if i else None, stop=stop_set, temperature=temperature,
-                topk=topk, topp=topp)
+                topk=topk, topp=topp, t_arrive=t_arrive)
             rids.append(rid)
         self._pending.append(rids[0])
         if n == 1:
@@ -352,15 +371,21 @@ class Engine:
         req = self.requests.get(rid)
         if req is None or req.done:
             return
-        req.done = True
+        t = now()
+        self._mark_done(req, t)
         if rid in self._pending:
             self._pending.remove(rid)
         if rid in self._active:
             self._active.remove(rid)
         for kid in self._children.pop(rid, []):
-            self.requests[kid].done = True
+            if not self.requests[kid].done:  # a child may have been cancelled alone
+                self._mark_done(self.requests[kid], t)
         self._free(rid)
         self._release_slot(rid)
+
+    def _mark_done(self, req: Request, t: int) -> None:
+        req.done, req.t_done = True, t
+        self._n_done += 1
 
     def _free(self, rid: int) -> None:
         """Return rid's pages to the pool (a never-prefilled rid holds none)."""
@@ -404,54 +429,55 @@ class Engine:
         from one device-to-host copy. Row i samples with the parameters of
         ``rids[i]`` (the engine's for rows past ``rids``)."""
         b = logits.shape[0]
-        rows = list(rids or [])[:b]
-        rows += [None] * (b - len(rows))
+        with span("engine.sample"):
+            rows = list(rids or [])[:b]
+            rows += [None] * (b - len(rows))
 
-        def per_row(name, default):
-            vals = [None if r is None else getattr(self.requests[r], name) for r in rows]
-            return [default if v is None else v for v in vals]
+            def per_row(name, default):
+                vals = [None if r is None else getattr(self.requests[r], name) for r in rows]
+                return [default if v is None else v for v in vals]
 
-        temps = per_row("temperature", self.temperature)
-        greedy = [t <= 0.0 for t in temps]
-        if all(greedy):
-            toks = torch.argmax(logits, dim=-1).to(torch.int32)
-        else:
-            # a per-call counter folded into the seed: a fixed seed would
-            # replay the same noise every step
-            self._sample_calls += 1
-            seed = next_seed(self.seed, self._sample_calls)
-            topks = per_row("topk", self.topk)
-            topps = per_row("topp", self.topp)
-            use_topk, use_topp = any(topks), any(t > 0 for t in topps)
-            # greedy rows sample at temperature 1 and take the argmax below
-            sample_t = [1.0 if g else t for g, t in zip(greedy, temps)]
-            kw = {"temperature": (float(sample_t[0]) if len(set(sample_t)) == 1 else
-                                  torch.tensor(sample_t, dtype=torch.float32, device=self.device))}
-            if self._full_sampler or use_topk or use_topp:
-                policy = self.softmax_policy
-                if use_topp and policy == SoftmaxPolicy.NONE:
-                    policy = SoftmaxPolicy.BEFORE_TOPK
-                # a tensor parameter counts as enabled in the sampler even
-                # when all zero: scalars for the unused ones
-                kw.update(
-                    topk=(torch.tensor(topks, dtype=torch.int32, device=self.device)
-                          if use_topk else 0),
-                    topp=(torch.tensor(topps, dtype=torch.float32, device=self.device)
-                          if use_topp else 0.0),
-                    softmax_policy=policy,
-                )
-                if self.repetition_penalty > 0:
-                    scratch = self._mask_slots - 1
-                    slots = [scratch if r is None else self._assign_slot(r) for r in rows]
-                    kw.update(penalty_mask=self._penalty_mask,
-                              slot_id=torch.tensor(slots, dtype=torch.int32, device=self.device),
-                              repetition_penalty=self.repetition_penalty)
-            toks, _ = fused_sampler(logits, seed=seed, **kw)  # the mask is updated in place
-            toks = toks.reshape(-1).to(torch.int32)
-            if any(greedy):
-                toks = torch.where(torch.tensor(greedy, device=self.device),
-                                   torch.argmax(logits, dim=-1).to(torch.int32), toks)
-        return _pack_host(toks, _logprobs_of(logits, toks) if self.logprobs else None)
+            temps = per_row("temperature", self.temperature)
+            greedy = [t <= 0.0 for t in temps]
+            if all(greedy):
+                toks = torch.argmax(logits, dim=-1).to(torch.int32)
+            else:
+                # a per-call counter folded into the seed: a fixed seed would
+                # replay the same noise every step
+                self._sample_calls += 1
+                seed = next_seed(self.seed, self._sample_calls)
+                topks = per_row("topk", self.topk)
+                topps = per_row("topp", self.topp)
+                use_topk, use_topp = any(topks), any(t > 0 for t in topps)
+                # greedy rows sample at temperature 1 and take the argmax below
+                sample_t = [1.0 if g else t for g, t in zip(greedy, temps)]
+                kw = {"temperature": (float(sample_t[0]) if len(set(sample_t)) == 1 else
+                                      torch.tensor(sample_t, dtype=torch.float32, device=self.device))}
+                if self._full_sampler or use_topk or use_topp:
+                    policy = self.softmax_policy
+                    if use_topp and policy == SoftmaxPolicy.NONE:
+                        policy = SoftmaxPolicy.BEFORE_TOPK
+                    # a tensor parameter counts as enabled in the sampler even
+                    # when all zero: scalars for the unused ones
+                    kw.update(
+                        topk=(torch.tensor(topks, dtype=torch.int32, device=self.device)
+                              if use_topk else 0),
+                        topp=(torch.tensor(topps, dtype=torch.float32, device=self.device)
+                              if use_topp else 0.0),
+                        softmax_policy=policy,
+                    )
+                    if self.repetition_penalty > 0:
+                        scratch = self._mask_slots - 1
+                        slots = [scratch if r is None else self._assign_slot(r) for r in rows]
+                        kw.update(penalty_mask=self._penalty_mask,
+                                  slot_id=torch.tensor(slots, dtype=torch.int32, device=self.device),
+                                  repetition_penalty=self.repetition_penalty)
+                toks, _ = fused_sampler(logits, seed=seed, **kw)  # the mask is updated in place
+                toks = toks.reshape(-1).to(torch.int32)
+                if any(greedy):
+                    toks = torch.where(torch.tensor(greedy, device=self.device),
+                                       torch.argmax(logits, dim=-1).to(torch.int32), toks)
+            return _pack_host(toks, _logprobs_of(logits, toks) if self.logprobs else None)
 
     def _table(self, rid: int) -> np.ndarray:
         return self.alloc.table(rid, pad_to=self.max_blocks_per_seq)
@@ -547,28 +573,38 @@ class Engine:
         only then is the first token sampled and the request activated."""
         req = self.requests[rid]
         total = len(req.prompt)
-        if self.prefix_cache and req.prefilled == 0 and rid not in self._resident:
-            parent, k = self._match_prefix(req.prompt)
-            if k > 0:
-                self.alloc.share_prefix(parent, rid, k)
-                self._resident.add(rid)
-                req.prefilled = k * self.block_size
-                self.prefix_hits += 1
-                self.prefix_shared_blocks += k
+        if req.t_admit is None:  # its first chunk
+            req.t_admit = now()
+            with span("engine.admit", rid) as sp:
+                shared = 0
+                if self.prefix_cache and req.prefilled == 0 and rid not in self._resident:
+                    sp.set("candidates", len(self._resident))
+                    parent, k = self._match_prefix(req.prompt)
+                    if k > 0:
+                        self.alloc.share_prefix(parent, rid, k)
+                        self._resident.add(rid)
+                        req.prefilled = shared = k * self.block_size
+                        self.prefix_hits += 1
+                        self.prefix_shared_blocks += k
+                sp.set("shared_tokens", shared)
+            req.admit_ns = now() - req.t_admit
         start = req.prefilled
         n = total - start
         if self.prefill_chunk is not None:
             n = min(self.prefill_chunk, n)
         self._extend(rid, start + n)  # extend() takes TOTAL tokens
-        logits, self.caches = forward_step(
-            self.weights, self.caches, self.cfg,
-            token_ids=self._tensor(req.prompt[start : start + n]),
-            seq_lens=self._tensor([start + n]),
-            q_index=self._tensor([0, n]),
-            block_ids=self._tensor(self._table(rid)[None, :]),
-            is_prefill=True,
-            max_seqlens_q=n,
-        )
+        with span("engine.prefill", rid) as sp:
+            sp.set("rows", n)
+            sp.set("offset", start)
+            logits, self.caches = forward_step(
+                self.weights, self.caches, self.cfg,
+                token_ids=self._tensor(req.prompt[start : start + n]),
+                seq_lens=self._tensor([start + n]),
+                q_index=self._tensor([0, n]),
+                block_ids=self._tensor(self._table(rid)[None, :]),
+                is_prefill=True,
+                max_seqlens_q=n,
+            )
         req.prefilled = start + n
         if req.prefilled < total:
             return False
@@ -584,12 +620,17 @@ class Engine:
             self.requests[r].prefilled = total
             if total % self.block_size:
                 self._cow_last(r)
-        for j, r in enumerate([rid] + kids):
-            self.requests[r].out.append(int(toks[j]))
-            if lps is not None:
-                self.requests[r].logprobs.append(lps[j])
-            self._active.append(r)
-            self._finish_if_done(self.requests[r])
+        with span("engine.append"):
+            t = now()
+            for j, r in enumerate([rid] + kids):
+                one = self.requests[r]
+                one.t_admit, one.t_first = req.t_admit, t
+                one.out.append(int(toks[j]))
+                if lps is not None:
+                    one.logprobs.append(lps[j])
+                self._active.append(r)
+                self._finish_if_done(one)
+            self._tokens_out += 1 + len(kids)
         return True
 
     def _cow_last(self, rid: int) -> None:
@@ -610,7 +651,7 @@ class Engine:
         if req.done:
             return
         if len(req.out) >= req.max_new or (req.out and req.out[-1] in req.stop):
-            req.done = True
+            self._mark_done(req, now())
             if req.rid in self._active:
                 self._active.remove(req.rid)
             if self.prefix_cache:
@@ -625,16 +666,17 @@ class Engine:
         ``slack`` more slots; dummy slots sit on the reserved page."""
         rids = self._active[: self.max_batch]
         b = self.max_batch
-        tokens = np.zeros((b,), np.int32)
-        seq_lens = np.ones((b,), np.int32)
-        tables = np.full((b, self.max_blocks_per_seq), self._dummy_block, np.int32)
-        for i, rid in enumerate(rids):
-            req = self.requests[rid]
-            new_len = len(req.tokens)
-            self._extend(rid, new_len + slack)
-            tokens[i] = req.tokens[-1]
-            seq_lens[i] = new_len
-            tables[i] = self._table(rid)
+        with span("engine.inputs"):
+            tokens = np.zeros((b,), np.int32)
+            seq_lens = np.ones((b,), np.int32)
+            tables = np.full((b, self.max_blocks_per_seq), self._dummy_block, np.int32)
+            for i, rid in enumerate(rids):
+                req = self.requests[rid]
+                new_len = len(req.tokens)
+                self._extend(rid, new_len + slack)
+                tokens[i] = req.tokens[-1]
+                seq_lens[i] = new_len
+                tables[i] = self._table(rid)
         return rids, tokens, seq_lens, tables
 
     def _decode_batch(self) -> None:
@@ -650,12 +692,14 @@ class Engine:
             max_seqlens_q=1,
         )
         toks, lps = self._sample(logits, rids)
-        for i, rid in enumerate(rids):
-            req = self.requests[rid]
-            req.out.append(int(toks[i]))
-            if lps is not None:
-                req.logprobs.append(lps[i])
-            self._finish_if_done(req)
+        with span("engine.append"):
+            for i, rid in enumerate(rids):
+                req = self.requests[rid]
+                req.out.append(int(toks[i]))
+                if lps is not None:
+                    req.logprobs.append(lps[i])
+                self._finish_if_done(req)
+            self._tokens_out += len(rids)
 
     def _decode_multi_fn(self) -> DecodeMultiGraph:
         """The engine's fused multi-step decode over its weights and caches
@@ -688,7 +732,8 @@ class Engine:
         self._sample_calls += 1
         toks, lps = self._decode_multi_fn()(tokens, seq_lens, tables,
                                             next_seed(self.seed, self._sample_calls))
-        _append_runs(self.requests, rids, toks, lps, self._finish_if_done)
+        with span("engine.append"):
+            self._tokens_out += _append_runs(self.requests, rids, toks, lps, self._finish_if_done)
 
     # ------------------------------------------------- speculative decode
     def _spec_batch(self, drafts: dict) -> None:
@@ -701,17 +746,18 @@ class Engine:
         sq = k + 1
         rids = self._active[: self.max_batch]
         b = self.max_batch
-        tokens = np.zeros((b, sq), np.int32)
-        seq_lens = np.full((b,), sq, np.int32)
-        tables = np.full((b, self.max_blocks_per_seq), self._dummy_block, np.int32)
-        for i, rid in enumerate(rids):
-            req = self.requests[rid]
-            base = len(req.tokens)
-            tokens[i, 0] = req.tokens[-1]
-            tokens[i, 1:] = (drafts[rid] + [0] * k)[:k]
-            seq_lens[i] = base + k
-            self._extend(rid, base + k)
-            tables[i] = self._table(rid)
+        with span("engine.inputs"):
+            tokens = np.zeros((b, sq), np.int32)
+            seq_lens = np.full((b,), sq, np.int32)
+            tables = np.full((b, self.max_blocks_per_seq), self._dummy_block, np.int32)
+            for i, rid in enumerate(rids):
+                req = self.requests[rid]
+                base = len(req.tokens)
+                tokens[i, 0] = req.tokens[-1]
+                tokens[i, 1:] = (drafts[rid] + [0] * k)[:k]
+                seq_lens[i] = base + k
+                self._extend(rid, base + k)
+                tables[i] = self._table(rid)
         logits, self.caches = forward_step(
             self.weights, self.caches, self.cfg,
             token_ids=self._tensor(tokens.reshape(-1)),
@@ -723,21 +769,25 @@ class Engine:
             max_seqlens_q=1,
             return_all_logits=True,
         )
-        targets = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy().reshape(b, sq)
-        for i, rid in enumerate(rids):
-            req = self.requests[rid]
-            d = drafts[rid]
-            a = 0
-            while a < len(d) and d[a] == targets[i, a]:
-                a += 1
-            self.spec_proposed += len(d)
-            self.spec_accepted += a
-            for t in list(d[:a]) + [int(targets[i, a])]:
-                if req.done or len(req.out) >= req.max_new:
-                    break
-                req.out.append(int(t))
+        targets = torch.argmax(logits, dim=-1).to(torch.int32)
+        with span("engine.fetch"):
+            targets = targets.cpu().numpy().reshape(b, sq)
+        with span("engine.append"):
+            for i, rid in enumerate(rids):
+                req = self.requests[rid]
+                d = drafts[rid]
+                a = 0
+                while a < len(d) and d[a] == targets[i, a]:
+                    a += 1
+                self.spec_proposed += len(d)
+                self.spec_accepted += a
+                for t in list(d[:a]) + [int(targets[i, a])]:
+                    if req.done or len(req.out) >= req.max_new:
+                        break
+                    req.out.append(int(t))
+                    self._tokens_out += 1
+                    self._finish_if_done(req)
                 self._finish_if_done(req)
-            self._finish_if_done(req)
 
     @property
     def speculative_stats(self) -> dict:
@@ -749,13 +799,14 @@ class Engine:
 
     @property
     def stats(self) -> dict:
-        """Serving counters: dispatches, tokens, occupancy, cache state."""
+        """Serving counters: dispatches, tokens, occupancy, cache state (in
+        O(1): running counts, not sums over the requests)."""
         return {
             "requests": len(self.requests),
             "pending": len(self._pending),
             "active": len(self._active),
-            "done": sum(r.done for r in self.requests.values()),
-            "tokens_out": sum(len(r.out) for r in self.requests.values()),
+            "done": self._n_done,
+            "tokens_out": self._tokens_out,
             "prefill_dispatches": self._prefill_dispatches,
             "decode_dispatches": self._decode_dispatches,
             "blocks_free": self.alloc.num_free,
@@ -768,30 +819,35 @@ class Engine:
     def step(self) -> bool:
         """One engine step (a prefill [chunk] or a decode batch). Returns
         False when no work remains. With chunked prefill, decode batches
-        alternate with prefill chunks."""
-        if self._pending and not (
-            self.prefill_chunk is not None and self._active and self._prefer_decode
-        ):
-            self._prefill_dispatches += 1
-            if self._prefill_one(self._pending[0]):
-                self._pending.pop(0)
-            self._prefer_decode = True
-            return True
-        self._prefer_decode = False
-        if self._active:
-            self._decode_dispatches += 1
-            if self.speculative_k > 0:
-                drafts = {rid: self.draft_fn(self.requests[rid].tokens, self.speculative_k)
-                          for rid in self._active[: self.max_batch]}
-                if any(drafts.values()):
-                    self._spec_batch(drafts)
-                    return True
-            if self.multi_step > 1:
-                self._decode_batch_multi()
-            else:
-                self._decode_batch()
-            return True
-        return False
+        alternate with prefill chunks. Traced as one engine.step span."""
+        with span("engine.step") as sp:
+            if self._pending and not (
+                self.prefill_chunk is not None and self._active and self._prefer_decode
+            ):
+                self._prefill_dispatches += 1
+                sp.set("kind", "prefill")
+                if self._prefill_one(self._pending[0]):
+                    self._pending.pop(0)
+                self._prefer_decode = True
+                return True
+            self._prefer_decode = False
+            if self._active:
+                self._decode_dispatches += 1
+                sp.set("live", min(len(self._active), self.max_batch))
+                if self.speculative_k > 0:
+                    drafts = {rid: self.draft_fn(self.requests[rid].tokens, self.speculative_k)
+                              for rid in self._active[: self.max_batch]}
+                    if any(drafts.values()):
+                        sp.set("kind", "spec")
+                        self._spec_batch(drafts)
+                        return True
+                sp.set("kind", "decode")
+                if self.multi_step > 1:
+                    self._decode_batch_multi()
+                else:
+                    self._decode_batch()
+                return True
+            return False
 
     def run(self, prompts, max_new: int = 8) -> list:
         """Serve `prompts` to completion; return their token lists."""

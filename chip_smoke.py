@@ -1725,6 +1725,15 @@ def run_timed(fn):
     return out, time_ms(fn, 3 if time.perf_counter() - t0 > 0.1 else 20, 0)
 
 
+def split_bodies(counts):
+    """(launch counts without the e4m3 grouped GEMMs' bodies, the bodies' counts)."""
+    from hpc_ops_tpu_torch.ops.group_gemm import E4M3_BODIES
+
+    names = {body.__name__ for body in E4M3_BODIES.values()}
+    return ({k: n for k, n in counts.items() if k not in names},
+            {k: n for k, n in counts.items() if k in names})
+
+
 def count_drive(launches, counts, want, row, what):
     """Check one drive's launch counts (``want`` exactly) and add them to ``row``."""
     if counts != want:
@@ -2649,11 +2658,12 @@ def gg_rate(ms, bound_ms, ops, i8, tm, kind):
     ``tflops``), its share of the bound (bound / ms) and the body that ran:
     ``kind`` as :func:`gg_form` takes it ("int8", "e4m3": the e4m3
     per-tensor forms, "blockwise"), m-tiles of ``tm`` slots."""
-    from hpc_ops_tpu_torch.ops.group_gemm import gg_form
+    from hpc_ops_tpu_torch.ops.group_gemm import GG_MMA_SYNC, GG_RS, gg_form
 
     wg = gg_form(tm, kind)
-    ops_type = "fp16 copies of e4m3" if kind == "e4m3" else "8-bit operands"
-    body = f"wgmma over {ops_type}, {64 * wg}-row blocks" if wg else f"mma.sync over {ops_type}, 32-row blocks"
+    body = {GG_MMA_SYNC: "mma.sync over fp16 values of e4m3, 32-row blocks",
+            GG_RS: "wgmma, fp16 weights from registers by 256 slots of fp16 rows, 128 weight rows a block"
+            }.get(wg, f"wgmma over 8-bit operands, {64 * wg}-row blocks")
     return {"tops" if i8 else "tflops": 1e-9 * ops / ms, "share_of_bound": bound_ms / ms, "body": body}
 
 
@@ -3287,9 +3297,11 @@ def ops_moe(dev, inp):
         kernels.reset_launch_counts()
         got = call("auto").float()
         torch.cuda.synchronize()
-        counts = kernels.launch_counts()
-        if counts != {**{n: 0 for n in counts}, **expect}:
-            raise AssertionError(f"ops_moe {name}: launch counts {counts}, expected {expect}")
+        counts, bodies = split_bodies(kernels.launch_counts())
+        e4m3 = expect.get("gg_scatter", 0) + (expect.get("gg_pertensor", 0) if "fp8" in name else 0)
+        if counts != {**{n: 0 for n in counts}, **expect} or sum(bodies.values()) != e4m3:
+            raise AssertionError(f"ops_moe {name}: launch counts {counts} (e4m3 by body {bodies}), "
+                                 f"expected {expect}")
         tol = 2e-2 * float(want.abs().max())
         if not torch.isfinite(got).all() or not torch.allclose(got, want, atol=tol, rtol=2e-2):
             raise AssertionError(f"ops_moe {name}: the entry point disagrees with its impl='ref' "
@@ -3964,10 +3976,12 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
         kernels.reset_launch_counts()
         prefill_s, decode_s, decode_tokens, capture_dispatch_s = [], [], 0, None
         profiled = None
+        bodies = {"prefill": {}, "decode": {}}  # e4m3 grouped-GEMM launches by body, by step kind
         while True:
             st = eng.stats
             decode_next = st["pending"] == 0
             n_dec = st["decode_dispatches"]
+            body_before = split_bodies(kernels.launch_counts())[1]
             if decode_next and n_dec == PROFILE_FROM:
                 profiled = DecodeProfile(torch, {
                     **{sub: k for sub, k in zip(("rope_store", "paged_decode", "paged_prefill"),
@@ -3979,6 +3993,9 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
                 break
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
+            step_bodies = bodies["decode" if decode_next else "prefill"]
+            for name, n in split_bodies(kernels.launch_counts())[1].items():
+                step_bodies[name] = step_bodies.get(name, 0) + n - body_before[name]
             if not decode_next:
                 prefill_s.append(dt)
             elif profiled is not None and profiled.active:
@@ -3990,7 +4007,7 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
             else:  # profiled steps are left out of the step times
                 decode_s.append(dt)
                 decode_tokens += eng.stats["tokens_out"] - st["tokens_out"]
-        counts = kernels.launch_counts()
+        counts, body_counts = split_bodies(kernels.launch_counts())
         finite.append(flags.all())
     finally:
         engine_mod.forward_step, sharded_mod.make_sharded_step = base_forward, base_make_step
@@ -4014,6 +4031,9 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
     expect = {k: per_step.get(k, 0) * cfg.layers for k in counts}
     if counts != expect or min(counts[k] for k in per_step) == 0:
         raise AssertionError(f"{phase}: launch counts {counts} != expected {expect}")
+    if sum(body_counts.values()) != counts["gg_scatter"]:  # the serving path's e4m3 GEMMs
+        raise AssertionError(f"{phase}: e4m3 grouped-GEMM launches by body {body_counts}, "
+                             f"{counts['gg_scatter']} in all")
     stats = dict(config=config, int8_kv=cfg.int8_kv, fp8_kv=cfg.fp8_kv, dense_int8=cfg.dense_int8,
                  kv_scale=cfg.kv_scale,
                  residual_alpha=cfg.residual_alpha, layers=cfg.layers, prompt_lens=lens,
@@ -4023,7 +4043,7 @@ def serve_full(dev, cfg, w, phase, kernels_used, config="llama3_8b", longest=200
                  decode_ms_per_step=1e3 * sum(decode_s) / len(decode_s) / multi_step,
                  decode_tokens_per_s=decode_tokens / sum(decode_s),
                  max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-                 launches=counts, first_tokens=[o[:4] for o in outs])
+                 launches=counts, e4m3_launches_by_body=bodies, first_tokens=[o[:4] for o in outs])
     DECODE_MS[phase] = stats["decode_ms_per_step"]
     if multi_step > 1:
         graph = eng._multi if mesh is None else eng._multi.graph

@@ -1,6 +1,7 @@
 // Tensor Memory Accelerator (TMA) helpers of the Hopper kernels
-// (group_gemm.cu, gemm.cu): mbarriers in shared memory, 2D box loads that
-// complete on them, and the host's tensor-map encoder.
+// (group_gemm.cu, gemm.cu): mbarriers in shared memory (arrivals, expected
+// bytes, waits by phase), 2D box loads that complete on them, and the
+// host's tensor-map encoder.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
@@ -13,6 +14,9 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 // Waits for the completion of the barrier's phase of this parity.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {

@@ -184,7 +184,8 @@ def stream_ptr(t) -> int:
 
 
 def wrappers() -> dict:
-    """The kernel wrappers by name; each carries a plain-int ``launches``."""
+    """The kernel wrappers by name, and the e4m3 grouped GEMMs' bodies; each
+    carries a plain-int ``launches``."""
     from hpc_ops_tpu_torch.ops.attention.decode import (
         decode_combine,
         paged_decode_attention,
@@ -199,6 +200,7 @@ def wrappers() -> dict:
     )
     from hpc_ops_tpu_torch.ops.activation import act_quant
     from hpc_ops_tpu_torch.ops.group_gemm import (
+        E4M3_BODIES,
         gg_bw_aligned,
         gg_bw_scatter,
         gg_pertensor,
@@ -235,6 +237,8 @@ def wrappers() -> dict:
         "route_gemm": route_gemm,
         "allreduce_rmsnorm": allreduce_rmsnorm,
         "allreduce_rmsnorm_rank": allreduce_rmsnorm_rank,
+        # the e4m3 launches of gg_scatter and gg_pertensor again, by body
+        **{body.__name__: body for body in E4M3_BODIES.values()},
     }
 
 

@@ -23,13 +23,15 @@ float32; int8 products are summed exactly as integers and converted to
 float32 once (with blockwise scales: once per 128-group, then promoted into a
 float32 accumulator). The result is bf16.
 
-The kernels (``csrc/group_gemm.cu``) multiply with Hopper's ``wgmma`` in
-blocks of 64 rows for each of one or two warpgroups: the int8 forms and the
-blockwise e4m3 forms on the 8-bit tensor cores, the per-tensor e4m3 forms
-over fp16 copies of their operands (exact) with float32 sums, as the plain
-version sums; at decode m-tiles those take an ``mma.sync`` body over the
-same fp16 values. :func:`gg_form` picks body and block from host integers
-alone.
+The kernels (``csrc/group_gemm.cu``) multiply on Hopper's tensor cores.
+The int8 forms and the blockwise e4m3 forms run ``wgmma`` on 8-bit operands
+in blocks of 64 rows for each of one or two warpgroups. The per-tensor e4m3
+forms multiply exact fp16 values of their operands with float32 sums, as
+the plain version sums: from m-tiles of 64 slots on a register-operand
+``wgmma`` body (the weights converted in registers, the gathered rows in
+shared memory), at decode m-tiles on an ``mma.sync`` body. :func:`gg_form`
+picks body and block from host integers alone; the e4m3 launches are also
+counted by body (:data:`E4M3_BODIES`).
 """
 
 from __future__ import annotations
@@ -192,31 +194,46 @@ def gg_scatter_ref(x, weight, y_scale, row_idx, grp, tm, num_valid_tiles=None, *
 
 
 GG_KINDS = ("int8", "e4m3", "blockwise")
+GG_MMA_SYNC, GG_RS = 0, 3  # the two bodies of the e4m3 per-tensor forms
 
 
 def gg_form(tm: int, kind: str) -> int:
     """The body and block of a grouped-GEMM launch for m-tiles of ``tm``
-    slots, the launchers' last argument: consumer warpgroups of 64 rows a
-    block on the wgmma body (1 or 2), or 0 for the mma.sync body (32-row
-    blocks, the e4m3 per-tensor forms only). ``kind``: "int8" (the int8
+    slots, the launchers' last argument. ``kind``: "int8" (the int8
     per-tensor forms, ``act_fuse`` included), "e4m3" (the e4m3 per-tensor
     forms) or "blockwise" (both blockwise forms).
 
-    - e4m3 at decode m-tiles (32 slots) takes the mma.sync body: both of its
-      bodies sum fp16 products in float32, and there it streams the weights
-      faster than the wgmma body's fp16 copies allow (``csrc/group_gemm.cu``).
-    - The per-tensor forms take two warpgroups from 128 slots up: they hold
-      no float32 accumulator beside their sums, so a block of 128 rows fits
-      its registers, and it converts or streams each weight panel for twice
-      the rows.
-    - Everything else takes one.
+    - e4m3 at decode m-tiles (32 slots): 0 (``GG_MMA_SYNC``), the mma.sync
+      body, blocks of 32 rows by 128 weight rows. A decode step routes a
+      few rows to each expert, so the weights' stream bounds it.
+    - e4m3 from 64 slots up: 3 (``GG_RS``), the register-operand wgmma body,
+      blocks of 128 weight rows by up to 256 slots. Both bodies multiply the
+      same fp16 values into float32 sums (``csrc/group_gemm.cu``).
+    - int8 from 128 slots up: 2, the 8-bit wgmma body with two consumer
+      warpgroups (128 rows a block; no float32 accumulator beside its sums,
+      so the block fits its registers and streams each weight panel for
+      twice the rows).
+    - Everything else: 1, that body with one warpgroup (64 rows).
 
     Host integers only: it never reads the device."""
     if kind not in GG_KINDS:
         raise ValueError(f"gg_form: kind is one of {GG_KINDS}, not {kind!r}")
-    if kind == "e4m3" and tm <= 32:
-        return 0
-    return 2 if kind != "blockwise" and tm >= 128 else 1
+    if kind == "e4m3":
+        return GG_MMA_SYNC if tm <= 32 else GG_RS
+    return 2 if kind == "int8" and tm >= 128 else 1
+
+
+class _BodyLaunches:
+    """Launches of one body of the e4m3 per-tensor forms: :func:`gg_scatter`
+    and :func:`gg_pertensor` count each e4m3 launch on their own count and
+    on its body's (``kernels.launch_counts()`` lists both)."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+E4M3_BODIES = {GG_MMA_SYNC: _BodyLaunches("gg_e4m3_mma_sync"), GG_RS: _BodyLaunches("gg_e4m3_rs")}
 
 
 def _check_operands(name, x, weight, y_scale, index_tensors):
@@ -321,7 +338,8 @@ def _launch_scatter(fn, x, weight, y_scale, row_idx, grp, tm, num_valid_tiles, d
     # the converted index vectors stay referenced until the launch is queued
     rows, groups = _int32(row_idx), _int32(grp)
     common = (rows.data_ptr(), groups.data_ptr(), nvt.data_ptr())
-    tail = (kernels.stream_ptr(x), g, gg_form(tm, "int8" if dtype == torch.int8 else "e4m3"))
+    form = gg_form(tm, "int8" if dtype == torch.int8 else "e4m3")
+    tail = (kernels.stream_ptr(x), g, form)
     if act is None:
         out = torch.empty((num_tiles * tm, n), dtype=torch.bfloat16, device=dev)
         rc = getattr(kernels.lib(), fn)(x.data_ptr(), weight.data_ptr(), sc.data_ptr(), *common,
@@ -336,6 +354,8 @@ def _launch_scatter(fn, x, weight, y_scale, row_idx, grp, tm, num_valid_tiles, d
             x.data_ptr(), weight.data_ptr(), sc.data_ptr(), am.data_ptr(), *common, out.data_ptr(),
             num_tiles, tm, n, k, pair, int(bool(use_bf16_mul)), *tail)
     kernels.check(rc, fn)
+    if dtype == FP8_DTYPE:
+        kernels.count(E4M3_BODIES[form])
     return out
 
 
@@ -417,13 +437,16 @@ def gg_pertensor(
     nvt = _valid_tiles(num_valid_tiles, num_tiles, dev)
     groups, blocks = _int32(grp), _int32(row_blk)
     out = torch.empty((x_al.shape[0], n), dtype=torch.bfloat16, device=dev)
+    form = gg_form(tm, "int8" if elem == 0 else "e4m3")
     rc = kernels.lib().hpc_gg_pertensor(
         x_al.data_ptr(), weight.data_ptr(), sc.data_ptr(), groups.data_ptr(), blocks.data_ptr(),
         nvt.data_ptr(), out.data_ptr(), num_tiles, tm, n, k, elem, kernels.stream_ptr(x_al), g,
-        gg_form(tm, "int8" if elem == 0 else "e4m3"),
+        form,
     )
     kernels.check(rc, "hpc_gg_pertensor")
     kernels.count(gg_pertensor)
+    if elem == 1:
+        kernels.count(E4M3_BODIES[form])
     return out
 
 

@@ -3,15 +3,15 @@
 what that does to the fp8 MoE.
 
 Usage: ``python3 scripts/gg_precision.py [WG ...]`` from the root of a
-checkout, on a machine with one CUDA card. WG values (default ``0 1 2``) are
-forced as ``ops/group_gemm.py:gg_form``'s value, one at a time: 1 or 2
-warpgroups a block on the wgmma body, 0 the mma.sync body. Prints one JSON
-line:
+checkout, on a machine with one CUDA card. WG values (default ``0 3``) are
+forced as ``ops/group_gemm.py:gg_form``'s value, one at a time: 0 the
+mma.sync body, 3 the register-operand wgmma body. Prints one JSON line:
 
 - ``gemm_wg{W}_tm{T}_k{K}``: the scatter grouped GEMM (4 experts, N 512)
-  at m-tiles of T slots (32: a decode step's, 128: a prefill's): the share of
-  bf16 outputs that differ from the plain version's, and the median error
-  against a float64 product;
+  at m-tiles of T slots (32: a decode step's; 64-512: the prefills' of the
+  benchmark's cells, 288 chat's at ~1000 rows): the share of bf16 outputs
+  that differ from the plain version's, and the median error against a
+  float64 product;
 - ``moe_s{S}_{rank}_{ranks}``: ``fuse_moe_pertensor_fp8`` at the inputs of
   the fp8 MoE card test (``tests/test_torch_cuda.py::
   test_fuse_moe_on_the_card_syncs_nothing_and_matches_cpu``; S 32 tokens:
@@ -67,7 +67,7 @@ def main(wgs) -> dict:
     try:
         for wg in wgs:
             gg.gg_form = lambda tm, kind, wg=wg: wg
-            for tm in (32, 128):
+            for tm in (32, 64, 128, 256, 288, 512):
                 for k in (256, 4096, 14336):
                     gen = torch.Generator().manual_seed(5)
                     x, w = fp8(gen, 4 * tm, k, scale=8.0), fp8(gen, 4, 512, k, scale=8.0)
@@ -89,4 +89,4 @@ def main(wgs) -> dict:
 
 
 if __name__ == "__main__":
-    print(json.dumps(main([int(a) for a in sys.argv[1:]] or [0, 1, 2])), flush=True)
+    print(json.dumps(main([int(a) for a in sys.argv[1:]] or [0, 3])), flush=True)

@@ -7,15 +7,21 @@ toolkit (``nvcc``, ``cuobjdump``). Compiles the source for ``sm_90a`` with
 ``-Xptxas -v`` (the full log goes to ``OUT_DIR/ptxas_group_gemm.txt``, the
 SASS to ``OUT_DIR/sass_group_gemm.txt``; OUT_DIR defaults to the git-ignored
 ``build/sass``), then prints one JSON line per kernel instance: its
-registers, stack and spill bytes, whether ptxas gave it advisory C7520
-(its wgmmas serialised), and its counts of QGMMA (fp8 wgmma), IGMMA (int8
-wgmma), HGMMA, HMMA (mma.sync in 16 bits), IMMA (mma.sync in int8) and
-e4m3 unpacking conversions (``F2FP`` with ``E4M3``). Exits 1 if an 8-bit
-wgmma instance (int8, blockwise e4m3) lacks its QGMMA (e4m3) or IGMMA
-(int8), holds an e4m3 conversion or HMMA, or has C7520; if an e4m3
-per-tensor wgmma instance (products over fp16 copies) lacks HGMMA, holds
-QGMMA or HMMA, or has C7520; or if an instance of the mma.sync body
-(``*_mma_kernel``, the e4m3 per-tensor forms at decode m-tiles) lacks HMMA.
+registers, stack and spill bytes, whether ptxas serialised its wgmmas
+(advisory C7520: a wgmma on a divergent path; C7513: an instruction writes
+a wgmma's register operand while wgmmas are in flight, which the
+register-operand body does by design, converting the next stage's A
+fragments while a stage's products run; a form without it measured no
+faster on an H100), and its counts of QGMMA (fp8 wgmma), IGMMA (int8
+wgmma), HGMMA, HMMA (mma.sync in 16 bits), IMMA (mma.sync in int8) and e4m3
+unpacking conversions (``F2FP`` with ``E4M3``). Exits 1 if an 8-bit wgmma
+instance (int8, blockwise e4m3) lacks its QGMMA (e4m3) or IGMMA (int8),
+holds an e4m3 conversion or HMMA, or has C7520 or C7513; if an instance of
+the register-operand body (``*_e4m3_rs_kernel``, the e4m3 per-tensor forms
+from m-tiles of 64: fp16 products of e4m3 values converted in registers)
+lacks HGMMA or an e4m3 conversion, holds QGMMA or HMMA, spills, or has
+C7520; or if an instance of the mma.sync body (``*_mma_kernel``, the e4m3
+per-tensor forms at decode m-tiles) lacks HMMA or holds QGMMA.
 """
 
 import json
@@ -77,6 +83,7 @@ def main(out_dir: str) -> int:
         if m and cur:
             info[cur]["registers"] = int(m.group(1))
     c7520 = [line for line in log.splitlines() if "C7520" in line]
+    c7513 = [line for line in log.splitlines() if "C7513" in line]
 
     counts, cur = {}, None
     for line in sass.splitlines():
@@ -95,23 +102,26 @@ def main(out_dir: str) -> int:
     for name in names:
         row = {"kernel": pretty[name], **info.get(name, {}), **counts.get(name, {})}
         row["c7520"] = any(name in line for line in c7520)
+        row["c7513"] = any(name in line for line in c7513)
         fp8 = "e4m3" in name
         if "_mma_kernel" in name:  # the mma.sync body: fp16 products of e4m3
             row["body"] = "mma.sync"
             row["ok"] = row.get("HMMA", 0) > 0 and row.get("QGMMA", 0) == 0
-        elif fp8 and "_bw_" not in name:  # e4m3 per-tensor: wgmma over fp16 copies
-            row["body"] = "wgmma f16"
-            row["ok"] = (row.get("HGMMA", 0) > 0 and row.get("QGMMA", 0) == 0
-                         and row.get("HMMA", 0) == 0 and not row["c7520"])
+        elif "_rs_kernel" in name:  # e4m3 per-tensor: fp16 A from registers
+            row["body"] = "wgmma f16, A in registers"
+            row["ok"] = (row.get("HGMMA", 0) > 0 and row.get("e4m3_cvt", 0) > 0
+                         and row.get("QGMMA", 0) == 0 and row.get("HMMA", 0) == 0
+                         and row.get("spill_stores", 0) == 0 and not row["c7520"])
         else:
             row["body"] = "wgmma 8-bit"
             row["ok"] = (row.get("QGMMA" if fp8 else "IGMMA", 0) > 0 and row.get("e4m3_cvt", 0) == 0
-                         and row.get("HMMA", 0) == 0 and not row["c7520"])
+                         and row.get("HMMA", 0) == 0 and not row["c7520"] and not row["c7513"])
         bad += not row["ok"]
         print(json.dumps(row))
-    unattributed = [line for line in c7520 if not any(n in line for n in names)]
+    unattributed = [line for line in c7520 + c7513 if not any(n in line for n in names)]
     print(json.dumps({"summary": True, "instances": len(names), "failed": bad,
-                      "c7520_lines": len(c7520), "c7520_unattributed": unattributed[:4]}))
+                      "c7520_lines": len(c7520), "c7513_lines": len(c7513),
+                      "unattributed": unattributed[:4]}))
     return 1 if bad or unattributed else 0
 
 

@@ -6,14 +6,16 @@ one CUDA card. ROOT is the root of a checkout of this repository (its
 kernels are built there at first use). Prints one JSON line: CUDA-event
 times in ms of the gate-up and down GEMMs at the Mixtral-8x7B widths (hidden
 4096, expert intermediate 14336, 8 experts, top-2) for 8 tokens (a decode
-step), 200, 512 and 2048 tokens (prefills), on seeded e4m3 inputs and int8 codes,
-at the m-tile the MoE picks for each count, for every per-tensor form: the
+step), 200, 512, 1024 and 2048 tokens (prefills; 1024 gives chat's m-tile of
+288 slots), on seeded e4m3 inputs and int8 codes, at the m-tile the MoE
+picks for each count (``tm``, by token count), for every per-tensor form: the
 scatter GEMM over e4m3 (``scatter_e4m3``) and int8 (``scatter_i8``), the
 int8 gate-up GEMM with the fused activation (``act``), and the aligned GEMM
 (``gg_pertensor``) over e4m3 and int8 (``pertensor_*``). WG (a checkout
 with ``ops/group_gemm.py:gg_form``) forces that function's value, the
-warpgroups of a block, on every per-tensor form; a form that refuses it
-reads null. Without it each launch takes gg_form's choice. To compare two
+body and block, on every per-tensor form (the e4m3 forms take 0 and 3,
+the int8 forms 1 and 2); a form that refuses it reads null. Without it each
+launch takes gg_form's choice. To compare two
 commits, unpack both and run parent, change, change, parent in one call on
 one card.
 """
@@ -61,10 +63,10 @@ def main(root: str, wg: str | None = None) -> dict:
     gw8_il = interleave_gate_up(gw8)
     sc = torch.full((e,), 1e-6, device=dev)
     am = torch.full((1,), 16.0, device=dev)
-    out = {}
-    for s in (8, 200, 512, 2048):
+    out, tms = {}, {}
+    for s in (8, 200, 512, 1024, 2048):
         ids = torch.topk(torch.randn((s, e), generator=g, device=dev), k, -1)[1].int()
-        tm = _pick_tm(max(s * k // e, 1), h)
+        tm = tms[s] = _pick_tm(max(s * k // e, 1), h)
         row_idx, _, _, _, _, cu_tiles, grp = _route_aligned(ids, e, 0, tm)
         slots = row_idx.shape[0]
         ident = torch.arange(slots, dtype=torch.int32, device=dev)
@@ -90,7 +92,7 @@ def main(root: str, wg: str | None = None) -> dict:
                 out[f"{s}_{name}"] = time_ms(torch, fn, 100 if s == 8 else 20)
             except RuntimeError:  # the form has no such block
                 out[f"{s}_{name}"] = None
-    return {"root": root, "wg": wg, "ms": out}
+    return {"root": root, "wg": wg, "tm": tms, "ms": out}
 
 
 if __name__ == "__main__":

@@ -798,16 +798,26 @@ def test_moe_wrappers_take_the_plain_version_on_cpu():
      (64, [64, 33, 1], 512, 256),  # the 64-row block
      (160, [160, 129, 17], 256, 384),  # the 128-row block with a 32-row rest
      (512, [512, 300], 1024, 256),  # four 128-row blocks a tile
-     (32, [9, 32], 208, 200)],  # K and N that end inside a stage and a block
+     (32, [9, 32], 208, 200),  # K and N that end inside a stage and a block
+     # the m-tiles the MoE picks in serving, at Mixtral's K (gate-up 4096, down 14336)
+     (64, [64, 40, 0, 17], 4096, 200),  # an empty tile; N ends inside a block of weight rows
+     (128, [128, 1, 90], 14336, 256),  # a tile of one real row
+     (256, [256, 200, 0, 255], 4096, 384),
+     (288, [288, 257, 31, 0], 4096, 320),  # chat's: a whole 256-slot block, then 1 or 31 slots
+     (512, [512, 450, 70], 14336, 136)],  # long_prompt's; N ends 8 rows into a block
 )
 def test_gg_scatter_kernel_matches_plain(cuda, tm, fill, k, n):
+    """Against the plain version on the real slots, one launch, counted on
+    the body gg_form picks (the mma.sync body at m-tiles of 32, the
+    register-operand body from 64)."""
     gen = torch.Generator().manual_seed(21)
     x, w, y_scale, row_idx, grp = gg_case(gen, tm, fill, k, n)
     want = gg_scatter_ref(x, w, y_scale, row_idx, grp, tm)
-    n0 = gg_scatter.launches
+    n0, body = gg_scatter.launches, group_gemm.E4M3_BODIES[gg_form(tm, "e4m3")]
+    b0 = body.launches
     got = gg_scatter(*(t.to(cuda) for t in (x, w, y_scale, row_idx, grp)), tm)
     torch.cuda.synchronize()
-    assert gg_scatter.launches == n0 + 1
+    assert gg_scatter.launches == n0 + 1 and body.launches == b0 + 1
     valid = row_idx >= 0
     assert_gemm_close(got[valid.to(cuda)], want[valid], "gg_scatter")
 
@@ -1059,12 +1069,15 @@ def test_gg_scatter_i8_act_kernel_stops_at_num_valid_tiles(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tm,k,n", [(32, 4096, 1024), (64, 512, 256), (160, 256, 384),
-                                    (512, 1024, 256), (32, 208, 200)])
+                                    (512, 1024, 256), (32, 208, 200),
+                                    # the MoE's serving m-tiles at Mixtral's K
+                                    (64, 4096, 200), (128, 14336, 256), (256, 4096, 384),
+                                    (288, 4096, 320), (512, 14336, 136)])
 @pytest.mark.parametrize("dtype", ["int8", "e4m3"])
 def test_gg_pertensor_kernel_matches_plain(cuda, dtype, tm, k, n):
     """Tiles write row blocks in another order than theirs, the last valid
     one the trash block; tiles past num_valid_tiles point at a block they
-    must not write."""
+    must not write. e4m3 launches are counted on the body gg_form picks."""
     gen = torch.Generator().manual_seed(44)
     num_tiles, nvt = 4, 3
     rows = (num_tiles + 1) * tm
@@ -1078,10 +1091,13 @@ def test_gg_pertensor_kernel_matches_plain(cuda, dtype, tm, k, n):
     blk = torch.tensor([1, 0, 4, 2], dtype=torch.int32)
     nv = torch.tensor([nvt], dtype=torch.int32)
     want = gg_pertensor_ref(x, w, y_scale, grp, blk, tm, nv)
-    n0 = gg_pertensor.launches
+    n0, bodies = gg_pertensor.launches, {f: b.launches for f, b in group_gemm.E4M3_BODIES.items()}
     got = gg_pertensor(*(t.to(cuda) for t in (x, w, y_scale, grp, blk)), tm, nv.to(cuda))
     torch.cuda.synchronize()
     assert gg_pertensor.launches == n0 + 1
+    chosen = gg_form(tm, dtype) if dtype == "e4m3" else None
+    assert {f: b.launches - bodies[f] for f, b in group_gemm.E4M3_BODIES.items()} == {
+        f: int(f == chosen) for f in bodies}
     written = torch.zeros(rows, dtype=torch.bool)
     for t in range(nvt):
         written[int(blk[t]) * tm : (int(blk[t]) + 1) * tm] = True
@@ -1508,15 +1524,17 @@ def test_gg_wgmma_matches_plain(cuda, monkeypatch, form, case, pair):
 @pytest.mark.parametrize("form", ["scatter_e4m3", "pertensor_e4m3", "scatter_i8_act", "pertensor_i8",
                                   "bw_scatter_i8", "bw_aligned_e4m3"])
 def test_gg_block_heights_agree(cuda, monkeypatch, form):
-    """Every body and block a form has (one warpgroup; two for the per-tensor
-    forms; the mma.sync body's blocks of 32 rows for the e4m3 per-tensor
-    forms), forced through gg_form, gives the plain version's function on one
-    input (m-tiles of 256: two blocks of 128 rows, four of 64, eight of 32)."""
+    """Every body and block a form has (one warpgroup; two for the int8
+    per-tensor forms; the mma.sync body's blocks of 32 rows and the
+    register-operand body's of 256 slots for the e4m3 per-tensor forms),
+    forced through gg_form, gives the plain version's function on one input
+    (m-tiles of 256: one block of 256 slots, two of 128 rows, four of 64,
+    eight of 32)."""
     fn, launched, args, plain_args, kw, plain, rows = wg_case(form, "empty_half", None)
     want = plain(*plain_args, **kw)[: rows.shape[0]][rows]
     dev_args = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
     kw_dev = {k: v.to(cuda) if torch.is_tensor(v) else v for k, v in kw.items()}
-    wgs = {"blockwise": (1,), "int8": (1, 2), "e4m3": (0, 1, 2)}[form_kind(form)]
+    wgs = {"blockwise": (1,), "int8": (1, 2), "e4m3": (0, 3)}[form_kind(form)]
     for wg in wgs:
         seen = record_forms(monkeypatch, force=wg)
         got = fn(*dev_args, **kw_dev)
@@ -1527,6 +1545,19 @@ def test_gg_block_heights_agree(cuda, monkeypatch, form):
             assert torch.equal(got, want), f"{form} wg {wg}"
         else:
             assert_gemm_close(got, want, f"{form} wg {wg}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["scatter_e4m3", "pertensor_e4m3"])
+def test_gg_e4m3_pertensor_forms_have_no_8bit_wgmma_body(cuda, monkeypatch, form):
+    """The e4m3 per-tensor forms run on their two bodies only (0 and 3): the
+    8-bit wgmma body's forms (1 and 2) are refused at launch."""
+    fn, _, args, _, kw, _, _ = wg_case(form, "two_tiles_tm64", None)
+    dev_args = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+    for wg in (1, 2):
+        record_forms(monkeypatch, force=wg)
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            fn(*dev_args, **kw)
 
 
 # ------------------------------------------------------------- e4m3 KV caches

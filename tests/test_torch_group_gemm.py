@@ -78,14 +78,16 @@ def test_pick_tm_and_flat_tiles_match_jax():
 
 
 @pytest.mark.parametrize("tm,kind,want", [
-    (32, "e4m3", 0), (32, "int8", 1), (32, "blockwise", 1), (64, "e4m3", 1), (64, "int8", 1),
-    (128, "e4m3", 2), (128, "int8", 2), (160, "int8", 2), (256, "blockwise", 1), (512, "e4m3", 2),
-    (512, "int8", 2), (512, "blockwise", 1),
+    (32, "e4m3", 0), (32, "int8", 1), (32, "blockwise", 1), (64, "e4m3", 3), (64, "int8", 1),
+    (128, "e4m3", 3), (128, "int8", 2), (160, "int8", 2), (256, "blockwise", 1), (512, "e4m3", 3),
+    (512, "int8", 2), (512, "blockwise", 1), (96, "e4m3", 3), (160, "e4m3", 3), (256, "e4m3", 3),
+    (288, "e4m3", 3), (96, "int8", 1), (288, "int8", 2), (64, "blockwise", 1),
 ])
 def test_gg_form_picks_body_and_block_from_host_integers(tm, kind, want):
-    """The mma.sync body (0) for e4m3 per-tensor decode m-tiles; blocks of two
-    warpgroups (128 rows) for the per-tensor forms from m-tiles of 128 up;
-    else one warpgroup (64 rows)."""
+    """e4m3 per-tensor: the mma.sync body (0) at decode m-tiles, the
+    register-operand body (3) from 64 slots up; int8 per-tensor: blocks of
+    two warpgroups (2: 128 rows) from m-tiles of 128 up, else one (1: 64
+    rows); blockwise: one warpgroup."""
     assert T.gg_form(tm, kind) == want
 
 
@@ -95,10 +97,32 @@ def test_gg_form_covers_every_m_tile_the_moe_picks():
             tm = T._pick_tm(navg, k)
             for kind in T.GG_KINDS:
                 wg = T.gg_form(tm, kind)
-                assert (wg == 0) == (kind == "e4m3" and tm <= 32)
-                assert (wg == 2) == (kind != "blockwise" and tm >= 128)
+                assert (wg == T.GG_MMA_SYNC) == (kind == "e4m3" and tm <= 32)
+                assert (wg == T.GG_RS) == (kind == "e4m3" and tm > 32)
+                assert (wg == 2) == (kind == "int8" and tm >= 128)
+                assert wg in T.E4M3_BODIES if kind == "e4m3" else wg in (1, 2)
     with pytest.raises(ValueError, match="kind"):
         T.gg_form(64, "fp8")
+
+
+def test_e4m3_bodies_count_beside_the_wrappers():
+    """Each body of the e4m3 per-tensor forms keeps a launch count that
+    ``kernels.launch_counts()`` lists beside the wrappers', that a captured
+    graph's replays add to (``add_launches``) and that a reset zeroes; the
+    plain version on the CPU counts none."""
+    from hpc_ops_tpu_torch import kernels
+
+    names = {body.__name__ for body in T.E4M3_BODIES.values()}
+    assert names == {"gg_e4m3_mma_sync", "gg_e4m3_rs"} and names <= set(kernels.launch_counts())
+    kernels.reset_launch_counts()
+    x, w, y_scale, row_idx, grp, tm = scatter_case()
+    T.gg_scatter(to_t(x), to_t(w), to_t(y_scale), torch.from_numpy(row_idx), torch.from_numpy(grp), tm)
+    assert all(n == 0 for n in kernels.launch_counts().values())
+    kernels.add_launches({"gg_e4m3_rs": 3, "gg_scatter": 3})
+    counts = kernels.launch_counts()
+    assert counts["gg_e4m3_rs"] == 3 == T.E4M3_BODIES[T.GG_RS].launches and counts["gg_e4m3_mma_sync"] == 0
+    kernels.reset_launch_counts()
+    assert T.E4M3_BODIES[T.GG_RS].launches == 0
 
 
 @pytest.mark.parametrize("impl", ["auto", "ref"])

@@ -18,6 +18,7 @@ seed alone, not on timing.
 
 from __future__ import annotations
 
+import faulthandler
 import gc
 import importlib.util
 import json
@@ -102,7 +103,7 @@ class ClosedLoop:
 
     def step(self) -> None:
         before = [(r, len(r.req.out), r.req.prefilled, r.req.done) for r in self.live]
-        shared0 = self.eng.prefix_shared_blocks
+        shared0 = getattr(self.eng, "prefix_shared_blocks", 0)  # 0 where the engine has no prefix cache
         t0 = time.perf_counter()
         if self.profiler is not None:
             with self.profiler.range(STEP):
@@ -112,7 +113,7 @@ class ClosedLoop:
         t1 = time.perf_counter()
         if not progressed:
             raise RuntimeError("the engine found no work with every client waiting")
-        shared = (self.eng.prefix_shared_blocks - shared0) * self.eng.block_size
+        shared = (getattr(self.eng, "prefix_shared_blocks", 0) - shared0) * self.eng.block_size
         tokens = sum(len(r.req.out) - n for r, n, _, _ in before)
         grown = [(r, p) for r, _, p, _ in before if r.req.prefilled > p]
         if grown:
@@ -229,6 +230,138 @@ def size_pool(eng_cls, mc, weights, mix: dict, device, max_blocks: int) -> int:
     return max(int((free - reserve) // block_bytes), max_blocks + 2)
 
 
+# What a multi-card run may take after its kernel build before it exits
+# non-zero (:func:`watchdog_s`), from the tp-4 cell on four H100 80GB
+SETUP_ALLOWANCE_S = 180  # weights, pool, capture and warm-up: 103-126 s warm
+REFERENCE_ALLOWANCE_S = 90  # one pass of the reference over the sample: 17-26 s
+TRACE_ALLOWANCE_S = 60  # the slice's last step and reading the trace: about 12 s
+
+
+def watchdog_s(seconds: float, trace: bool, control: bool) -> float:
+    """Seconds a multi-card run may last after its kernel build: set-up,
+    the window of ``seconds``, the trace's reading with ``trace`` and the
+    reference's passes, two with ``control``."""
+    return (SETUP_ALLOWANCE_S + seconds + (TRACE_ALLOWANCE_S if trace else 0)
+            + REFERENCE_ALLOWANCE_S * (2 if control else 1))
+
+
+def make_cell_mesh(cfg: dict, cell: dict, dev):
+    """The mesh of a configuration's ``mesh`` block (``tp`` and ``dp``) over
+    the cell's ``chips``: a rank a card, cards 0 to chips - 1 (or as many
+    CPU ranks, in the tests)."""
+    from hpc_ops_tpu_torch.parallel.mesh import make_mesh
+
+    tp, dp = int(cfg["mesh"]["tp"]), int(cfg["mesh"].get("dp", 1))
+    if tp * dp != int(cell["chips"]):
+        raise ValueError(f"{cell['name']}: chips {cell['chips']} is not the mesh's tp x dp = {tp * dp}")
+    if dp != 1:
+        raise ValueError("the closed loop records one prefill a step: a mesh with dp > 1 is not measured yet")
+    devices = [torch.device("cuda", i) for i in range(tp)] if dev.type == "cuda" else [dev] * tp
+    return make_mesh(tp=tp, dp=dp, devices=devices)
+
+
+def mesh_cards(mesh) -> list:
+    """The distinct devices of ``mesh``'s ranks, in index order."""
+    return sorted(set(mesh.grid.flat), key=lambda d: d.index or 0)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def size_sharded_pool(mc, weights, mix: dict, mesh, max_blocks: int) -> int:
+    """KV blocks a row shard for :class:`ShardedEngine`, with no second copy
+    of the weights on any card. A probe engine of ONE layer at the
+    configuration's widths, over the same mesh, gives each card's bytes of
+    a layer's weight shares, of the leaves outside the layers (those the
+    harness does not hold already), of a KV block of one layer, and the
+    activation peak of the mix's largest prefill (which also warms the
+    prefill path). Each card's free memory, once the probe is gone, less
+    its share of the whole model's weights and the one-card reserve (2 GiB
+    and a quarter over that peak), over a block's bytes: the least over the
+    cards, so that the fullest card fills as a one-card cell does."""
+    from hpc_ops_tpu_torch.runtime.sharded_engine import ShardedEngine
+
+    e = mix["engine"]
+    rows = e.get("prefill_chunk") or generator.longest_request(mix) - mix["output"]["max"]
+    cards = mesh_cards(mesh)
+    held = {t.data_ptr() for t in weights.values() if isinstance(t, torch.Tensor)}
+    n = max_blocks + 2
+    probe = ShardedEngine(mc._replace(layers=1), {**weights, "layers": [weights["layers"][0]]}, mesh,
+                          num_blocks=n, block_size=e["block_size"], max_batch=1, max_blocks_per_seq=max_blocks,
+                          prefill_chunk=e.get("prefill_chunk"))
+    layer_b, rest_b, block_b = {}, {}, {}
+    for r, card in enumerate(mesh.grid[0]):  # dp 1: one row shard, a rank a card
+        rw = probe.weights[r]
+        layer_b[card] = _nbytes(rw["layers"][0].values())
+        rest_b[card] = _nbytes(t for k, t in rw.items() if k != "layers" and t.data_ptr() not in held)
+        block_b[card] = _nbytes(probe.caches[0][r][0].values()) // n
+    base = {}
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.reset_peak_memory_stats(c)
+        base[c] = torch.cuda.memory_allocated(c)
+    probe.run([[1] * rows], max_new=1)
+    act = {}
+    for c in cards:
+        torch.cuda.synchronize(c)
+        act[c] = torch.cuda.max_memory_allocated(c) - base[c]
+    del probe
+    gc.collect()
+    blocks = []
+    for c in cards:
+        with torch.cuda.device(c):
+            torch.cuda.empty_cache()
+        free, _ = torch.cuda.mem_get_info(c)
+        need = rest_b[c] + mc.layers * layer_b[c] + 2 * 2**30 + int(1.25 * act[c])
+        blocks.append((free - need) // (mc.layers * block_b[c]))
+        log(f"{c}: free {free / 2**30:.2f} GiB, weights {(rest_b[c] + mc.layers * layer_b[c]) / 2**30:.2f} GiB "
+            f"({layer_b[c] / 2**20:.1f} MiB a layer), prefill peak {act[c] / 2**30:.2f} GiB, "
+            f"{mc.layers * block_b[c]} bytes a KV block: {blocks[-1]} blocks")
+    return max(int(min(blocks)), max_blocks + 2)
+
+
+def build_sharded(cfg: dict, cell: dict, mc, ref, weights, mix: dict, dev, max_blocks: int,
+                  num_blocks: int | None) -> tuple:
+    """(engine, mesh, KV blocks) of a configuration with ``mesh``: the port's
+    ShardedEngine over the cell's cards, its pool sized by
+    :func:`size_sharded_pool`, the weights handed over as the reference's
+    ``for_sharding`` gives them. ShardedEngine keeps no prefix cache: a mix
+    that shares prefixes is refused."""
+    from hpc_ops_tpu_torch.runtime.sharded_engine import ShardedEngine
+
+    e = mix["engine"]
+    if mix.get("shared_prefix"):
+        raise ValueError(f"{cell['name']}: ShardedEngine has no prefix cache, so a mix with shared_prefix "
+                         "would measure none")
+    if e.get("prefix_cache"):
+        log("ShardedEngine has no prefix cache: built without one")
+    mesh = make_cell_mesh(cfg, cell, dev)
+    eng_w = ref.for_sharding(weights)
+    cuda = dev.type == "cuda"
+    if num_blocks is None:
+        num_blocks = size_sharded_pool(mc, eng_w, mix, mesh, max_blocks)
+    cards = mesh_cards(mesh)
+    if cuda:
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+    eng = ShardedEngine(mc, eng_w, mesh, num_blocks=num_blocks, block_size=e["block_size"],
+                        max_batch=int(mix["clients"]), max_blocks_per_seq=max_blocks,
+                        prefill_chunk=e.get("prefill_chunk"), multi_step=e["multi_step"])
+    if cuda:
+        for c in cards:
+            log(f"{c}: weights and pool placed: {torch.cuda.memory_allocated(c) / 2**30:.2f} GiB allocated, "
+                f"peak while placing {torch.cuda.max_memory_allocated(c) / 2**30:.2f} GiB")
+    return eng, mesh, num_blocks
+
+
+def cell_config(bench: dict, cell_name: str, root: str = HERE) -> tuple:
+    """(the cell's entry, its configuration's file as a dict)."""
+    cell = next(w for w in bench["workloads"] if w["name"] == cell_name)
+    cfg_entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
+    return cell, load_json(os.path.join(os.path.dirname(root), cfg_entry["file"]))
+
+
 def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool, t_process: float,
              root: str = HERE, device: str = "cuda", num_blocks: int | None = None,
              control: bool = False) -> tuple:
@@ -237,13 +370,33 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool
     card the pool is sized by :func:`size_pool`. ``control`` also reads the
     control's numbers on the same sample (under ``"control"``) and judges
     them under the configuration's limits (``"control_correct"``, which a
-    sound comparison reads false)."""
+    sound comparison reads false).
+
+    A configuration with ``mesh`` runs on the port's ShardedEngine over
+    the cell's ``chips`` (:func:`build_sharded`): the memory peak
+    is the fullest card's, the trace keeps each event's card, and on the
+    cards the run exits non-zero if it has not ended :func:`watchdog_s`
+    after the kernel build, so a rank that fails never leaves it hanging."""
     from hpc_ops_tpu_torch import kernels
+
+    args = (bench, cell_name, seed, seconds, trace, t_process, root, device, num_blocks, control)
+    if torch.device(device).type != "cuda":
+        return _run_cell(*args)
+    kernels.lib()  # the kernel build (cached in the checkout's build/)
+    if not cell_config(bench, cell_name, root)[1].get("mesh"):
+        return _run_cell(*args)
+    faulthandler.dump_traceback_later(watchdog_s(seconds, trace, control), exit=True)
+    try:
+        return _run_cell(*args)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool, t_process: float,
+              root: str, device: str, num_blocks: int | None, control: bool) -> tuple:
     from hpc_ops_tpu_torch.runtime.engine import Engine
 
-    cell = next(w for w in bench["workloads"] if w["name"] == cell_name)
-    cfg_entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
-    cfg = load_json(os.path.join(os.path.dirname(root), cfg_entry["file"]))
+    cell, cfg = cell_config(bench, cell_name, root)
     mix = generator.load_traffic(cell["traffic"], root)
     model = cfg["model"]
     ref = reference(cfg["reference"], root)
@@ -256,15 +409,19 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool
     bs, ms = e["block_size"], e["multi_step"]
     max_blocks = math.ceil((generator.longest_request(mix) + ms) / bs) + 1
 
-    if cuda:
-        kernels.lib()  # the kernel build (cached in the checkout's build/)
+    sharded = bool(cfg.get("mesh"))
     weights = ref.make_weights(model, seed, dev)
     mc = model_config(model)
-    if num_blocks is None:
-        num_blocks = size_pool(Engine, mc, weights, mix, dev, max_blocks)
-    eng = Engine(mc, weights, num_blocks=num_blocks, block_size=bs, max_batch=clients,
-                 max_blocks_per_seq=max_blocks, prefill_chunk=e.get("prefill_chunk"),
-                 multi_step=ms, prefix_cache=bool(e.get("prefix_cache")), device=dev)
+    if sharded:
+        eng, mesh, num_blocks = build_sharded(cfg, cell, mc, ref, weights, mix, dev, max_blocks, num_blocks)
+        cards = mesh_cards(mesh)
+    else:
+        if num_blocks is None:
+            num_blocks = size_pool(Engine, mc, weights, mix, dev, max_blocks)
+        eng = Engine(mc, weights, num_blocks=num_blocks, block_size=bs, max_batch=clients,
+                     max_blocks_per_seq=max_blocks, prefill_chunk=e.get("prefill_chunk"),
+                     multi_step=ms, prefix_cache=bool(e.get("prefix_cache")), device=dev)
+        cards = [dev]
     log(f"weights and a pool of {num_blocks} KV blocks ready at {time.perf_counter() - t_process:.1f} s")
     loop = ClosedLoop(eng, generator.Stream(mix, seed, model["vocab"]), clients)
     loop.start(time.perf_counter())
@@ -274,7 +431,7 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool
     log(f"warm-up: {len(loop.steps)} steps, {loop.completions} requests done, set-up "
         f"{time.perf_counter() - t_process:.1f} s")
     slice_s = float(mix["trace_slice_s"])
-    prof = Profiler(torch) if trace and cuda else None
+    prof = (Profiler(torch, cards) if sharded else Profiler(torch)) if trace and cuda else None
     if prof is not None:
         prof.warm()
     t_start = time.perf_counter()
@@ -301,12 +458,17 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool
     if found:
         raise ForbiddenModules(found)
 
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
-    kind = torch.cuda.get_device_name(dev) if cuda else "cpu"
+    if sharded:  # the fullest card's
+        peak = max(torch.cuda.max_memory_allocated(c) for c in cards) if cuda else 0
+    else:
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+    kind = torch.cuda.get_device_name(cards[0] if sharded else dev) if cuda else "cpu"
+    chips = int(cell["chips"])
     run = Run(seconds=seconds, setup_s=t_start - t_process, t_start=t_start, t_end=t_end,
               steps=loop.steps, requests=loop.requests, slice=tr, memory_peak_bytes=peak,
               model=model, mix=mix, block_size=bs, max_batch=clients, multi_step=ms,
-              device_name=kind, peaks=peaks_of(kind) if cuda else None)
+              device_name=kind, peaks=peaks_of(kind) if cuda else None, chips=chips,
+              tp=int(cfg["mesh"]["tp"]) if sharded else 1)
     metrics = {}
     for m in metrics_for(bench, cell_name, trace):
         v = reader(m["name"], root)(run)
@@ -322,7 +484,11 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool
     loop_steps = loop.steps
     del eng, loop, run, picked
     gc.collect()
-    if cuda:
+    if cuda and sharded:
+        for c in cards:  # every card of the mesh
+            with torch.cuda.device(c):
+                torch.cuda.empty_cache()
+    elif cuda:
         torch.cuda.empty_cache()
     t = time.perf_counter()
     ref_logits = ref.logits(weights, model, seqs, rows)
@@ -336,7 +502,7 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool
         "attempted": len(sent),
         "failed": failed,
         "metrics": metrics,
-        "device": {"platform": "gpu" if cuda else "cpu", "kind": kind, "count": 1,
+        "device": {"platform": "gpu" if cuda else "cpu", "kind": kind, "count": chips,
                    "memory_peak_bytes": int(peak)},
     }
     if tr is not None:

@@ -1,8 +1,11 @@
-"""device.idle_share (%): 1 - the union of the device's operation intervals
-over the profiled slice's wall time."""
+"""device.idle_share (%): 1 - the union of a card's operation intervals
+over the profiled slice's wall time; over several cards, the mean of that
+over the cards (each card's own idle time, not the union of all cards')."""
 
 
 def read(run):
-    if run.slice is None or run.slice.wall_s <= 0:
+    sl = run.slice
+    if sl is None or sl.wall_s <= 0:
         return None
-    return 100.0 * (1.0 - run.slice.busy_s() / run.slice.wall_s)
+    cards = sl.card_ids()
+    return 100.0 * sum(1.0 - sl.busy_s(c) / sl.wall_s for c in cards) / len(cards)

@@ -7,6 +7,10 @@ live request's length + j; dummy slots are not counted):
 ops 4 * ctx * Hq * D a request (QK^T and PV); bytes each request's K and V
 read once (2 * ctx * Hkv * D bf16) plus its q and output (2 * Hq * D bf16).
 Bound = max(bytes / HBM rate, ops / bf16 peak), summed over layers and steps.
+
+Over several cards (tensor parallel: each rank does its share of the heads
+or experts) the bound is the whole model's work at one card's peaks and the
+device time is summed over the cards: the mean share over the cards.
 """
 
 KERNELS = ("paged_decode", "decode_combine")

@@ -9,6 +9,10 @@ the gate-up GEMM does 2 * r * k * 2I * H operations and the down GEMM
 batch of these cells), the routed e4m3 inputs read once and the bf16
 outputs written once. Bound = max(bytes / HBM rate, ops / e4m3 peak) for
 each GEMM, summed over both, the layers and the calls.
+
+Over several cards (tensor parallel: each rank does its share of the heads
+or experts) the bound is the whole model's work at one card's peaks and the
+device time is summed over the cards: the mean share over the cards.
 """
 
 KERNELS = ("gg_scatter", "gg_pertensor", "gg_bw_")

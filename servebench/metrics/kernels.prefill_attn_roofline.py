@@ -6,6 +6,10 @@ ops 4 * D * Hq * (causal pairs n * o + n (n + 1) / 2); bytes q and output
 (2 * n * Hq * D bf16) plus the K and V the rows attend to, read once
 (2 * (o + n) * Hkv * D bf16). Bound = max(bytes / HBM rate, ops / bf16
 peak), summed over layers and calls.
+
+Over several cards (tensor parallel: each rank does its share of the heads
+or experts) the bound is the whole model's work at one card's peaks and the
+device time is summed over the cards: the mean share over the cards.
 """
 
 KERNELS = ("paged_prefill",)

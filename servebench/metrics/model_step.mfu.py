@@ -1,5 +1,6 @@
 """model_step.mfu (%): model FLOPs of the profiled slice's tokens over its
-wall time at the card's bf16 dense peak.
+wall time at the bf16 dense peak of the run's cards (``run.chips`` times a
+card's: the whole model's FLOPs over the whole mesh's peak).
 
 Tokens are the new prompt rows of its prefill calls and the live rows of
 its decode steps (dummy slots are not counted). A token costs 2 FLOPs per
@@ -39,4 +40,4 @@ def read(run):
     if sl is None or run.peaks is None or sl.wall_s <= 0:
         return None
     flops = sum(step_flops(s, run.model, run.multi_step) for s in sl.steps)
-    return 100.0 * flops / (sl.wall_s * run.peaks["bf16_flops"]) if flops else None
+    return 100.0 * flops / (sl.wall_s * run.chips * run.peaks["bf16_flops"]) if flops else None

@@ -62,11 +62,18 @@ class TinyCopy:
     def add_traffic(self, name: str, mix: dict) -> None:
         json.dump(mix, open(os.path.join(self.root, "traffic", name + ".json"), "w"))
 
-    def add_cell(self, config: str, traffic: str) -> str:
+    def add_cell(self, config: str, traffic: str, chips: int = 1) -> str:
         name = f"{config}.{traffic}"
         self.bench["workloads"].append({"name": name, "config": config, "traffic": traffic,
-                                        "chips": 1, "why": "test"})
+                                        "chips": chips, "why": "test"})
         return name
+
+    def list_like(self, cell: str, like: str) -> None:
+        """Add ``cell`` to every metric's ``workloads`` that lists ``like``,
+        as a PR that adds a cell of the same engine does."""
+        for m in self.bench["per_layer"] + self.bench["end_to_end"]:
+            if like in m.get("workloads", ()):
+                m["workloads"].append(cell)
 
     def run(self, cell: str, seed: int, seconds: float = 1.5, **kw):
         from servebench import harness

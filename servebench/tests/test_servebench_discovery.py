@@ -32,6 +32,7 @@ def test_per_layer_metrics_of_a_cpu_run(tiny):
     tiny.add_config(tiny_config(moe=False))
     tiny.add_traffic("tinyprefix", tiny_traffic(prefix=True))
     cell = tiny.add_cell("tiny-dense", "tinyprefix")
+    tiny.list_like(cell, "mistral-7b-bf16.shared_prefix")  # an Engine cell: its engine metrics read here
     from servebench import harness
     import time
 

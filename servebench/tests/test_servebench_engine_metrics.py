@@ -55,6 +55,7 @@ def test_engine_times_read_in_a_cpu_run(tiny):
     tiny.add_config(tiny_config(moe=False))
     tiny.add_traffic("tinyprefix", tiny_traffic(prefix=True))
     cell = tiny.add_cell("tiny-dense", "tinyprefix")
+    tiny.list_like(cell, "mistral-7b-bf16.shared_prefix")  # an Engine cell: its engine metrics read here
     result, _ = run_cell(tiny.bench, cell, 2**31 + 7, 1.5, True, time.perf_counter(), root=tiny.root,
                          device="cpu", num_blocks=256)
     m = result["metrics"]

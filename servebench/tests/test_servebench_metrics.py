@@ -17,7 +17,7 @@ PEAKS = {"bf16_flops": 1e3, "fp8_flops": 2e3, "hbm_bytes": 1e2}
 def make_run(steps=(), requests=(), sl=None, model=MODEL, seconds=10.0, multi_step=1):
     return Run(seconds=seconds, setup_s=3.0, t_start=0.0, t_end=seconds, steps=list(steps),
                requests=list(requests), slice=sl, memory_peak_bytes=3 * 2**30, model=model, mix={},
-               block_size=16, max_batch=4, multi_step=multi_step, device_name="test", peaks=PEAKS)
+               block_size=16, max_batch=4, multi_step=multi_step, device_name="test", peaks=PEAKS, chips=1, tp=1)
 
 
 def req(i, t_send, t_first=None, t_done=None, n_out=0, max_new=4):
